@@ -7,8 +7,9 @@ Phases (any failure exits non-zero before the result line):
 
 1. device — the card's name and power limit (nvidia-smi), TF32 off for
    matmul and cuDNN; no CUDA means exit 2 with no result.
-2. build — the paged-attention kernels from deeplearning4j_tpu_torch/csrc
-   with nvcc for sm_90a, timed.
+2. build — every kernel source in deeplearning4j_tpu_torch/csrc (the paged
+   and the flash attention kernels), one nvcc for sm_90a per source, all
+   started together; each build's seconds.
 3. kernels — K4 (paged decode) and K5 (chunked prefill) against their
    plain PyTorch version at the served shapes (H 12, Dh 64, page 16,
    MP 64), f32 and bf16: pool pages scattered by a permuted block table,
@@ -30,9 +31,39 @@ Phases (any failure exits non-zero before the result line):
    forward of the same parameters (no cache, no kernels); (b) paged
    generation at a fixed bucket bitwise equal to the port's dense serial
    trajectory.
+6. flash kernels — K1 (forward: o and lse), K2 (dq) and K3 (dk, dv)
+   against their plain PyTorch versions, f32 and bf16, at the training
+   shapes (B 8, H 12, T 512, D 64) non-causal and causal, at a padded T
+   (500) and at cross lengths (Tq 24, Tk 56, D 16); the backward twice,
+   bitwise equal. Tolerances: f32 within 1e-4 of each tensor's max-abs
+   (the kernels tile 64 x 64 where the plain version takes one 512-row
+   block, so every sum runs in another order); bf16 o within 2 ulp (the
+   ulp of values below 1/256 of o's max-abs taken at that floor: a
+   cancelling weighted mean turns a 1e-7 f32 difference into many ulps of
+   a tiny value) and the gradients within a relative L2 of 1e-2; lse
+   rtol/atol 1e-5. Times (CUDA events, L2 flushed before every launch) of
+   each kernel, its plain version and scaled_dot_product_attention
+   (forward; forward + torch.autograd.grad for the backward; a yardstick
+   the port never calls), beside the bound.
+7. train — a transformer encoder at BERT-base widths (Google Research's
+   bert uncased_L-12_H-768_A-12/bert_config.json: hidden 768, 12 heads,
+   intermediate 3072, 12 layers, sequence 512, gelu, weights from
+   N(0, 0.02^2) after initializer_range; whole depth) built
+   with the port's graphBuilder(): per block AttentionVertex(hasBias) ->
+   add -> Dense(3072, gelu) -> Dense(768) -> FeedForwardToRnn -> add; avg
+   pooling and a 2-class softmax/MCXENT head; Adam(1e-4), f32, seed 0,
+   batch 8 x 512, random features and a learnable label rule from seed 0.
+   (a) one computeGradientAndScore against an f32 reference forward and
+   backward written here (materialised-score softmax attention, autograd,
+   no kernel, no port module): loss rel 1e-5, each gradient rel L2 1e-3
+   (the key bias, whose gradient is 0 in exact arithmetic, to an absolute
+   L2 of 1e-4 of the whole gradient's); (b) 20 fit steps: K1, K2 and K3 at
+   12 launches a step each, their plain versions at 0, every loss finite,
+   the last below the first; (c) median step ms over steps 3-20,
+   sequences/s, tokens/s and peak device memory.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
-nvidia-smi line and one JSON line {"kernels": [...]}.
+nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5).
 """
 
 from __future__ import annotations
@@ -94,6 +125,22 @@ def close_enough(got, want):
     if got.dtype == torch.bfloat16:
         return int(ulps(got, want).max()) <= 1
     return bool(torch.allclose(got, want, rtol=1e-5, atol=1e-6))
+
+
+def bf16_close(got, want, n):
+    """Every bf16 value within `n` ulps of the reference, the ulp of
+    values below 1/256 of the reference's max-abs taken at that floor."""
+    import torch
+    w = want.float()
+    floor = w.abs().max().clamp_min(1e-30) / 256
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(w.abs(), floor)))
+                     - 7)
+    return bool(((got.float() - w).abs() <= n * ulp).all())
+
+
+def rel_l2(got, want):
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm().clamp_min(1e-300))
 
 
 def time_ms(fn, reps, flush):
@@ -433,6 +480,304 @@ def serve_and_check(dev, cfg):
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 6: the flash kernels against their plain versions
+# ----------------------------------------------------------------------
+
+PEAK_F32_OPS = 67e12                 # fp32 on the CUDA cores (no TF32)
+#: (name, B, H, Tq, Tk, D, causal); "train" is the main path's shape
+FLASH_CASES = [("train", 8, 12, 512, 512, 64, False),
+               ("train-causal", 8, 12, 512, 512, 64, True),
+               ("padded", 2, 12, 500, 500, 64, True),
+               ("cross", 2, 4, 24, 56, 16, False)]
+
+
+def flash_bounds(B, H, Tq, Tk, D, causal, item):
+    """(K1, K2, K3) bound_ms and what bounds each: the operations each
+    kernel does on the (row, key) pairs these shapes need over the peak
+    of their type, against the bytes it must move (each input read once,
+    each output written once) over 3.35 TB/s."""
+    pairs = (sum(min(r + 1, Tk) for r in range(Tq)) if causal
+             else Tq * Tk) * B * H
+    peak = PEAK_BF16_OPS if item == 2 else PEAK_F32_OPS
+    nq, nk, rows = B * H * Tq * D * item, B * H * Tk * D * item, B * H * Tq
+    work = {"K1": (4 * pairs * D, 2 * nq + 2 * nk + 4 * rows),
+            "K2": (6 * pairs * D, 3 * nq + 2 * nk + 8 * rows),
+            "K3": (8 * pairs * D, 2 * nq + 4 * nk + 8 * rows)}
+    out = {}
+    for k, (ops, nbytes) in work.items():
+        t_ops, t_mem = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out[k] = (max(t_ops, t_mem), "operations" if t_ops >= t_mem
+                  else "bytes")
+    return out
+
+
+def check_flash(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+    rng = np.random.default_rng(SEED)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        for case, B, Hh, Tq, Tk, D, causal in FLASH_CASES:
+            def randn(T):
+                return torch.from_numpy(rng.standard_normal(
+                    (B, Hh, T, D)).astype(np.float32)).to(dev, dtype)
+
+            q, k, v, do = randn(Tq), randn(Tk), randn(Tk), randn(Tq)
+            o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+            o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal,
+                                                 need_lse=True)
+            delta = tfa._delta(do, o_ref)
+            dq = tfa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+            dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+            dq_ref = tfa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta,
+                                            causal)
+            dk_ref, dv_ref = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_ref,
+                                                     delta, causal)
+            torch.cuda.synchronize()
+            errs = {}
+            for what, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
+                                    ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+                err = float((got.float() - want.float()).abs().max())
+                errs[what] = err
+                if dtype == torch.float32:
+                    ok = err <= 1e-4 * float(want.abs().max())
+                elif what == "o":
+                    ok = bf16_close(got, want, 2)
+                else:
+                    ok = rel_l2(got, want) <= 1e-2
+                need(ok, f"flash {what} {name} {case}: disagrees with the "
+                     f"plain version, max err {err:.3e}")
+            need(bool(torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5)),
+                 f"flash lse {name} {case}: disagrees with the plain version")
+            first = tfa.flash_bwd(q, k, v, o, lse, do, causal)
+            second = tfa.flash_bwd(q, k, v, o, lse, do, causal)
+            need(all(torch.equal(a, b) for a, b in zip(first, second)),
+                 f"flash backward {name} {case}: two runs differ")
+            log(f"flash {name} {case} (B {B} H {Hh} Tq {Tq} Tk {Tk} D {D} "
+                f"causal {causal}): max_abs_err "
+                + " ".join(f"{w} {e:.3e}" for w, e in errs.items())
+                + "; backward bitwise repeatable")
+            if case != "train":
+                continue
+            item = q.element_size()
+            bounds = flash_bounds(B, Hh, Tq, Tk, D, causal, item)
+            qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                          for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                           retain_graph=True)
+
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v), 20, flush)
+            lib_bwd = time_ms(sdpa_bwd, 20, flush)
+            timed = {
+                "K1": (lambda: tfa.flash_fwd(q, k, v, causal,
+                                             need_lse=True),
+                       lambda: tfa.flash_fwd_plain(q, k, v, causal,
+                                                   need_lse=True),
+                       lib_fwd, errs["o"]),
+                "K2": (lambda: tfa.flash_bwd_dq(q, k, v, do, lse_ref,
+                                                delta, causal),
+                       lambda: tfa.flash_bwd_dq_plain(q, k, v, do, lse_ref,
+                                                      delta, causal),
+                       lib_bwd, errs["dq"]),
+                "K3": (lambda: tfa.flash_bwd_dkv(q, k, v, do, lse_ref,
+                                                 delta, causal),
+                       lambda: tfa.flash_bwd_dkv_plain(q, k, v, do, lse_ref,
+                                                       delta, causal),
+                       lib_bwd, max(errs["dk"], errs["dv"])),
+            }
+            for kname, (kern, plain, lib, err) in timed.items():
+                rows[(kname, name)] = {
+                    "max_abs_err": err, "ms": time_ms(kern, 20, flush),
+                    "plain_ms": time_ms(plain, 5, flush),
+                    "library_ms": lib, "bound_ms": bounds[kname][0],
+                    "bound_by": bounds[kname][1]}
+            del qs, ks, vs, sdpa_out
+    del flush
+    for (kname, name), r in sorted(rows.items()):
+        log(f"{kname} {name} train-shape timing: kernel_ms {r['ms']:.5f} "
+            f"plain_ms {r['plain_ms']:.5f} library_ms {r['library_ms']:.5f}"
+            f" bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 7: train the encoder at BERT-base widths
+# ----------------------------------------------------------------------
+
+#: Google Research bert, uncased_L-12_H-768_A-12/bert_config.json, whole
+#: depth; batch 8 x max_position_embeddings
+BERT_BASE = dict(hidden=768, heads=12, intermediate=3072, layers=12,
+                 seq=512, initializer_range=0.02, batch=8)
+TRAIN_STEPS = 20
+
+
+def bert_encoder_conf(cfg):
+    from deeplearning4j_tpu_torch.nn import (
+        Adam, AttentionVertex, DataType, DenseLayer, ElementWiseVertex,
+        FeedForwardToRnnPreProcessor, GlobalPoolingLayer, InputType,
+        NeuralNetConfiguration, OutputLayer, PreprocessorVertex,
+    )
+    from deeplearning4j_tpu_torch.nn.weights import NormalDistribution
+
+    F = cfg["hidden"]
+    # weights from N(0, initializer_range^2), the published config's
+    # init: with the default Xavier and no LayerNorm the residual stream
+    # grows block by block until the last blocks' softmax saturates, and
+    # the f32 loss and gradients stop being reproducible (check (a) then
+    # fails against any f32 reference, this one included)
+    b = (NeuralNetConfiguration.Builder().seed(SEED).updater(Adam(1e-4))
+         .dist(NormalDistribution(0.0, cfg["initializer_range"]))
+         .dataType(DataType.FLOAT).graphBuilder().addInputs("in"))
+    prev = "in"
+    for i in range(cfg["layers"]):
+        b = (b.addVertex(f"attn{i}", AttentionVertex(
+                nOut=F, nHeads=cfg["heads"], hasBias=True), prev)
+             .addVertex(f"res1_{i}", ElementWiseVertex("add"), prev,
+                        f"attn{i}")
+             .addLayer(f"ffn1_{i}", DenseLayer(nOut=cfg["intermediate"],
+                                               activation="gelu"),
+                       f"res1_{i}")
+             .addLayer(f"ffn2_{i}", DenseLayer(nOut=F, activation="identity"),
+                       f"ffn1_{i}")
+             .addVertex(f"seq{i}", PreprocessorVertex(
+                 FeedForwardToRnnPreProcessor()), f"ffn2_{i}")
+             .addVertex(f"res2_{i}", ElementWiseVertex("add"), f"res1_{i}",
+                        f"seq{i}"))
+        prev = f"res2_{i}"
+    return (b.addLayer("gp", GlobalPoolingLayer(poolingType="avg"), prev)
+            .addLayer("out", OutputLayer(nOut=2, activation="softmax",
+                                         lossFunction="mcxent"), "gp")
+            .setOutputs("out")
+            .setInputTypes(InputType.recurrent(F, cfg["seq"])).build())
+
+
+def reference_loss(params, x, y, cfg):
+    """The encoder's f32 loss from its parameters in plain torch:
+    materialised-score softmax attention, no kernel, no port module."""
+    import torch
+    import torch.nn.functional as F
+
+    B, Fh, T = x.shape
+    nh = cfg["heads"]
+    dh = Fh // nh
+    h = x
+    for i in range(cfg["layers"]):
+        a = params[f"attn{i}"]
+        xt = h.transpose(1, 2)                            # [B, T, F]
+        q, k, v = ((xt @ a[f"W{n}"] + a[f"b{n}"]).view(B, T, nh, dh)
+                   .transpose(1, 2) for n in "qkv")
+        p = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(dh), dim=-1)
+        att = (p @ v).transpose(1, 2).reshape(B, T, Fh) @ a["Wo"] + a["bo"]
+        h = h + att.transpose(1, 2)
+        f1, f2 = params[f"ffn1_{i}"], params[f"ffn2_{i}"]
+        flat = h.transpose(1, 2).reshape(B * T, Fh)
+        z = F.gelu(flat @ f1["W"] + f1["b"], approximate="tanh")
+        z = z @ f2["W"] + f2["b"]
+        h = h + z.reshape(B, T, Fh).transpose(1, 2)
+    logits = h.mean(dim=2) @ params["out"]["W"] + params["out"]["b"]
+    return -(y * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
+
+
+def train_and_check(dev, cfg):
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+    t = time.perf_counter()
+    net = ComputationGraph(bert_encoder_conf(cfg)).init()
+    torch.cuda.synchronize()
+    log(f"encoder: {net.numParams()} params on {net.device}, built in "
+        f"{time.perf_counter() - t:.2f} s: {json.dumps(cfg)}")
+    rng = np.random.default_rng(SEED)
+    B, F, T = cfg["batch"], cfg["hidden"], cfg["seq"]
+    x_np = rng.standard_normal((B, F, T)).astype(np.float32)
+    cls = (x_np[:, :64].mean(axis=(1, 2)) > 0).astype(int)
+    y_np = np.eye(2, dtype=np.float32)[cls]
+    x = torch.from_numpy(x_np).to(dev)
+    y = torch.from_numpy(y_np).to(dev)
+
+    # 7a: one gradient against the smoke's own f32 reference
+    grads, score = net.computeGradientAndScore(x, y)
+    ref_params = {n: {k: t.detach().clone().requires_grad_(True)
+                      for k, t in p.items()} for n, p in net._params.items()}
+    ref = reference_loss(ref_params, x, y, cfg)
+    flat = [(n, k, t) for n, p in ref_params.items() for k, t in p.items()]
+    ref_grads = torch.autograd.grad(ref, [t for _, _, t in flat])
+    ref_loss = float(ref.detach())
+    loss_rel = abs(score - ref_loss) / abs(ref_loss)
+    whole = math.sqrt(sum(float(g.double().square().sum())
+                          for g in ref_grads))
+    worst, worst_bk = 0.0, 0.0
+    for (n, k, _), g in zip(flat, ref_grads):
+        if k == "bk":
+            err = float((grads[n][k].double() - g.double()).norm()) / whole
+            worst_bk = max(worst_bk, err)
+            need(err <= 1e-4, f"train (a): {n}.{k} gradient off the "
+                 f"reference by {err:.3e} of the whole gradient")
+        else:
+            err = rel_l2(grads[n][k], g)
+            worst = max(worst, err)
+            need(err <= 1e-3, f"train (a): {n}.{k} gradient rel L2 "
+                 f"{err:.3e} against the reference")
+    need(loss_rel <= 1e-5, f"train (a): loss {score} vs reference "
+         f"{ref_loss} (rel {loss_rel:.3e})")
+    log(f"train (a): loss {score:.7f} vs f32 reference {ref_loss:.7f} "
+        f"(rel {loss_rel:.3e}); worst gradient rel L2 {worst:.3e} over "
+        f"{len(flat)} tensors; key-bias gradients (0 in exact arithmetic) "
+        f"within {worst_bk:.3e} of the whole gradient's L2 {whole:.4e}")
+    del grads, ref_params, ref, ref_grads
+
+    # 7b: the main path, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tfa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net.score())    # the loss fetch syncs the device
+        step_s.append(time.perf_counter() - t)
+    launches = {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
+                "K3": tfa.flash_bwd_dkv.launches,
+                "plain": tfa.flash_fwd_plain.launches
+                + tfa.flash_bwd_dq_plain.launches
+                + tfa.flash_bwd_dkv_plain.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_att = cfg["layers"] * TRAIN_STEPS
+    need(launches["K1"] == n_att and launches["K2"] == n_att
+         and launches["K3"] == n_att,
+         f"train (b): kernel launches {launches}, expected {n_att} each")
+    need(launches["plain"] == 0,
+         f"train (b): a plain version ran on the card: {launches}")
+    need(all(math.isfinite(v) for v in losses),
+         f"train (b): non-finite loss: {losses}")
+    need(losses[-1] < losses[0],
+         f"train (b): loss did not fall: {losses[0]} -> {losses[-1]}")
+    steady = sorted(step_s[2:])
+    med = steady[len(steady) // 2] if len(steady) % 2 else \
+        0.5 * (steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+    result = {"steps": TRAIN_STEPS, "losses": losses,
+              "step_ms_median_3_to_20": med * 1e3,
+              "step_ms_all": [s * 1e3 for s in step_s],
+              "sequences_per_s": B / med, "tokens_per_s": B * T / med,
+              "max_memory_allocated_bytes": peak, "launches": launches,
+              "launches_per_step": {k: launches[k] / TRAIN_STEPS
+                                    for k in ("K1", "K2", "K3")}}
+    log("train (b, c): " + json.dumps(result))
+    return result
+
+
 def main():
     import torch
 
@@ -457,11 +802,14 @@ def main():
 
     t = time.perf_counter()
     _kernels.library()
-    log(f"build: {time.perf_counter() - t:.2f} s "
-        f"({_kernels.SOURCE.name} -> sm_90a)")
+    log(f"build: {time.perf_counter() - t:.2f} s in all, one nvcc per "
+        "source started together (sm_90a): " + ", ".join(
+            f"{n} {s:.2f} s" for n, s in sorted(_kernels.BUILD_SECONDS.items())))
 
     rows = check_kernels(dev)
     result = serve_and_check(dev, GPT2_SMALL)
+    flash_rows = check_flash(dev)
+    train = train_and_check(dev, BERT_BASE)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -475,6 +823,24 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    step_ms = train["step_ms_median_3_to_20"]
+    attention_ms = 0.0
+    for key, name, line in (("K1", "flash_fwd", 48),
+                            ("K2", "flash_bwd_dq", 107),
+                            ("K3", "flash_bwd_dkv", 151)):
+        r = flash_rows[(key, "float32")]   # the trainer runs f32
+        attention_ms += r["ms"] * train["launches_per_step"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:{line}",
+            "launches": train["launches"][key],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log(f"train step {step_ms:.2f} ms median; K1-K3 at their L2-cold "
+        f"times x launches per step = {attention_ms:.2f} ms "
+        f"({100 * attention_ms / step_ms:.1f} % of the step)")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -4,12 +4,20 @@ The JAX package ``deeplearning4j_tpu`` beside this one is the reference
 the port is held against; this package never imports it, nor ``jax``.
 Module paths mirror the reference so each counterpart is easy to find.
 
-What is ported so far is the paged-KV transformer serving path:
-``nn.transformer.CausalTransformerLM`` -> ``serving.kvcache.PagedKVCache``
--> ``serving.sequence.PagedSequenceScheduler`` -> ``serving.host.ModelHost``
--> ``serving.server.InferenceServer``, with the paged decode and prefill
-attention kernels written in CUDA C++ for ``sm_90a``
-(``csrc/paged_attention.cu``, bound in ``ops/_kernels.py``).
+What is ported so far:
+
+* the paged-KV transformer serving path:
+  ``nn.transformer.CausalTransformerLM`` -> ``serving.kvcache.PagedKVCache``
+  -> ``serving.sequence.PagedSequenceScheduler`` -> ``serving.host.ModelHost``
+  -> ``serving.server.InferenceServer``, with the paged decode and prefill
+  attention kernels (``csrc/paged_attention.cu``);
+* training through attention: the ``nn.conf`` builders, layers and
+  vertices the transformer encoder needs -> ``nn.graph.ComputationGraph``
+  ``fit``, with the flash forward and the two flash backward kernels
+  (``csrc/flash_attention.cu``) behind ``ops.flash_attention``.
+
+The kernels are CUDA C++ for ``sm_90a``, built and bound in
+``ops/_kernels.py``.
 
 Device policy (``device.resolve_device``): entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; with no card and no explicit

@@ -1,12 +1,15 @@
 """Build and bind the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled on first use with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface, under ``_build/`` inside the
-package (git-ignored), keyed by a hash of the source so an edited
-kernel is rebuilt and a built one is reused. The library is loaded with
-``ctypes``: every pointer and the stream are ``c_void_p``, ints are
-``c_int``. Each C entry point returns ``cudaGetLastError()`` after its
-launch; ``check`` raises when that is not 0.
+Every ``csrc/*.cu`` is compiled on first use with ``nvcc`` for
+``sm_90a`` into its own shared library with a plain C interface, under
+``_build/`` inside the package (git-ignored), keyed by a hash of the
+source so an edited kernel is rebuilt and a built one is reused. The
+``nvcc`` processes of all sources are started together and waited for
+together, so the build takes as long as the slowest file. The libraries
+are loaded with ``ctypes``: every pointer and the stream are
+``c_void_p``, ints are ``c_int``. Each C entry point returns
+``cudaGetLastError()`` after its launch; ``check`` raises when that is
+not 0.
 
 Nothing here runs at import: CPU-only test runs import every module
 and have no ``nvcc``.
@@ -19,12 +22,14 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["library", "check"]
+__all__ = ["library", "check", "SOURCES", "BUILD_SECONDS"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "paged_attention.cu"
+SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
 BUILD_DIR = _PKG / "_build"
 
 _P = ctypes.c_void_p
@@ -37,6 +42,14 @@ _SIGNATURES = {
     "dl4j_paged_prefill_f32": [_P] * 5 + [_I] * 7 + [_F, _P],
     "dl4j_paged_prefill_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
 }
+for _t in ("f32", "bf16"):
+    # pointers, the host stride array, B H Tq Tk D causal, scale, stream
+    _SIGNATURES[f"dl4j_flash_fwd_{_t}"] = [_P] * 6 + [_I] * 6 + [_F, _P]
+    _SIGNATURES[f"dl4j_flash_bwd_dq_{_t}"] = [_P] * 8 + [_I] * 6 + [_F, _P]
+    _SIGNATURES[f"dl4j_flash_bwd_dkv_{_t}"] = [_P] * 9 + [_I] * 6 + [_F, _P]
+
+#: seconds each source took to build in this process (0.0: reused)
+BUILD_SECONDS: dict[str, float] = {}
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -52,37 +65,69 @@ def _nvcc():
     return str(path)
 
 
-def _build(src: Path) -> Path:
+def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def _nvcc_one(nvcc, src: Path, out: Path):
+    """Build one source into `out`; (seconds, error text or None)."""
+    t0 = time.perf_counter()
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(src)]
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
+        return time.perf_counter() - t0, (
             f"nvcc failed ({res.returncode}) on {src.name}:\n"
             f"{res.stderr[-4000:]}")
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
-    return out
+    return time.perf_counter() - t0, None
+
+
+def _build_all(sources) -> list[Path]:
+    """One nvcc per source not built yet, all running at once."""
+    outs = [_target(s) for s in sources]
+    todo = [(s, o) for s, o in zip(sources, outs) if not o.exists()]
+    for s in sources:
+        BUILD_SECONDS[s.name] = 0.0
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        with ThreadPoolExecutor(max_workers=len(todo)) as pool:
+            done = list(pool.map(lambda so: _nvcc_one(nvcc, *so), todo))
+        failures = []
+        for (src, _), (secs, err) in zip(todo, done):
+            BUILD_SECONDS[src.name] = secs
+            if err is not None:
+                failures.append(err)
+        if failures:
+            raise RuntimeError("\n".join(failures))
+    return outs
+
+
+class _Library:
+    """The entry points of every built source, by name."""
+
+    def __init__(self, paths):
+        self._libs = [ctypes.CDLL(str(p)) for p in paths]
+        for name, argtypes in _SIGNATURES.items():
+            fn = next((getattr(lib, name) for lib in self._libs
+                       if hasattr(lib, name)), None)
+            if fn is None:
+                raise RuntimeError(f"no built kernel library exports {name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            setattr(self, name, fn)
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel libraries (built on first call)."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(_build(SOURCE)))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _LIB = lib
+            _LIB = _Library(_build_all(SOURCES))
         return _LIB
 
 
@@ -90,7 +135,7 @@ def check(err, what):
     """Raise if a launch reported a CUDA error (0 = cudaSuccess)."""
     if err != 0:
         hint = {1: " (no kernel instantiated for this head width)",
-                9: " (the block table and KV tile need more than 48 KB "
-                   "of shared memory)"}.get(err, "")
+                9: " (the tiles need more shared memory than the card "
+                   "allows)"}.get(err, "")
         raise RuntimeError(
             f"{what}: CUDA launch failed with cudaError {err}{hint}")

@@ -27,7 +27,9 @@ def _imported_roots(tree):
 def test_gate_covers_the_port():
     names = {p.name for p in _SOURCES}
     assert {"chip_smoke.py", "paged_attention.py", "transformer.py",
-            "sequence.py", "server.py"} <= names
+            "sequence.py", "server.py", "flash_attention.py", "attention.py",
+            "graph.py", "layers.py", "updaters.py", "losses.py",
+            "dtype.py"} <= names
     assert all(p.exists() for p in _SOURCES)
 
 

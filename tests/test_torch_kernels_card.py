@@ -1,7 +1,11 @@
 """The port's CUDA kernels on the card (``cuda`` marker): K4 decode and K5
 prefill (deeplearning4j_tpu_torch/csrc/paged_attention.cu) against their
 plain PyTorch version on the same CUDA tensors, and a tiny model's paged
-serving bitwise against its dense serial trajectory through the kernels.
+serving bitwise against its dense serial trajectory through the kernels;
+K1 (flash forward), K2 (dq) and K3 (dk, dv) of
+deeplearning4j_tpu_torch/csrc/flash_attention.cu against their plain
+versions, the backward's bitwise repeatability, strided operands, and
+autograd through FlashAttentionFn launching all three.
 
 This file imports neither jax nor the reference package, so it runs on a
 machine with PyTorch alone:
@@ -13,12 +17,20 @@ Without a card every test skips (the kernels have no CPU mode).
 Tolerances: f32 rtol 1e-5, atol 1e-6 (both accumulate in f32; only the
 order inside dot products and page sums differs); bf16 at most 1 bf16
 ulp (one rounding of nearly equal f32 values); lse rtol/atol 1e-5.
+Flash kernels: f32 within 1e-4 of each tensor's max-abs (the kernels tile
+64 x 64 where the plain version takes whole 512-row blocks, so every sum
+runs in another order); bf16 within 2 ulp on o (both round one f32 value
+that differs only by that order; the ulp of values below 1/256 of o's
+max-abs is taken at that floor, where a cancelling weighted mean turns
+an f32 difference of ~1e-7 into many ulps) and a relative L2 of 1e-2 on the
+gradients (the bf16-rounded o enters delta); lse rtol/atol 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 from deeplearning4j_tpu_torch.ops import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
@@ -121,3 +133,128 @@ def test_paged_serving_bitwise_vs_dense_on_card(card):
         assert np.array_equal(reqs[i].logits.view(np.uint8),
                               logits.view(np.uint8))
     s.close()
+
+
+def _flash_inputs(rng, dev, dtype, B, H, Tq, Tk, D):
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+    return randn(B, H, Tq, D), randn(B, H, Tk, D), randn(B, H, Tk, D), \
+        randn(B, H, Tq, D)
+
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (x > 0)."""
+    return torch.exp2(torch.floor(torch.log2(x)) - 7)
+
+
+def _flash_close(got, want, what):
+    if got.dtype == torch.bfloat16 and what == "o":
+        # 2 ulps of each value, with the ulp of values below 1/256 of the
+        # tensor's max-abs taken at that floor: o is a weighted mean, and
+        # where it cancels to near 0 an f32 difference of ~1e-7 is many
+        # ulps of the tiny result
+        w = want.float()
+        floor = w.abs().max().clamp_min(1e-30) / 256
+        tol = 2 * _bf16_ulp(torch.maximum(w.abs(), floor))
+        assert bool(((got.float() - w).abs() <= tol).all()), what
+    elif got.dtype == torch.bfloat16:
+        rel = float((got.float() - want.float()).norm()
+                    / want.float().norm().clamp_min(1e-30))
+        assert rel <= 1e-2, (what, rel)
+    else:
+        err = float((got - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()) + 1e-7, (what, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B,H,Tq,Tk,D", [
+    (2, 3, 128, 128, 64),   # aligned tiles
+    (1, 2, 70, 70, 32),     # T not a multiple of the 64-row tile
+    (2, 2, 24, 56, 16),     # cross lengths
+    (1, 2, 33, 17, 8),      # ragged both sides, the narrowest head
+    (1, 1, 130, 100, 128),  # the widest head
+    (1, 2, 40, 40, 24),     # a width padded up to the next tile width
+])
+def test_flash_kernels_match_plain(card, dtype, causal, B, H, Tq, Tk, D):
+    rng = np.random.default_rng(11)
+    q, k, v, do = _flash_inputs(rng, card, dtype, B, H, Tq, Tk, D)
+    tfa.reset_launches()
+    o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+    o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, need_lse=True)
+    delta = tfa._delta(do, o_ref)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    dq_ref = tfa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
+    dk_ref, dv_ref = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta,
+                                             causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == (1, 1, 1)
+    _flash_close(o, o_ref, "o")
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    for got, want, what in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
+                            (dv, dv_ref, "dv")):
+        _flash_close(got, want, what)
+
+
+def test_flash_backward_is_bitwise_repeatable(card):
+    """dq belongs to K2 and dk/dv to K3: no atomics, one sum order."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = _flash_inputs(rng, card, torch.float32, 2, 4, 200, 200, 64)
+    o, lse = tfa.flash_fwd(q, k, v, True, need_lse=True)
+    first = tfa.flash_bwd(q, k, v, o, lse, do, True)
+    second = tfa.flash_bwd(q, k, v, o, lse, do, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_strided_operands_need_no_copy(card):
+    """[B,T,H,D] -> [B,H,T,D] views (the layers' layout) give the same
+    bits as contiguous copies: the kernels read through the strides."""
+    rng = np.random.default_rng(13)
+    B, T, H, D = 2, 96, 4, 32
+    x = [torch.from_numpy(rng.standard_normal((B, T, H, D)).astype(
+        np.float32)).to(card) for _ in range(4)]
+    q, k, v, do = (t.transpose(1, 2) for t in x)
+    assert not q.is_contiguous()
+    o, lse = tfa.flash_fwd(q, k, v, need_lse=True)
+    o2, lse2 = tfa.flash_fwd(*(t.contiguous() for t in (q, k, v)),
+                             need_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    g = tfa.flash_bwd(q, k, v, o, lse, do)
+    g2 = tfa.flash_bwd(*(t.contiguous() for t in (q, k, v)), o, lse,
+                       do.contiguous())
+    for a, b in zip(g, g2):
+        assert torch.equal(a, b)
+
+
+def test_flash_autograd_runs_the_kernels(card):
+    rng = np.random.default_rng(14)
+    q, k, v, _ = _flash_inputs(rng, card, torch.float32, 2, 2, 80, 80, 16)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    tfa.reset_launches()
+    out = tfa.flash_attention(q, k, v, causal=True)
+    (out.square().sum()).backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == (1, 1, 1)
+    assert (tfa.flash_fwd_plain.launches + tfa.flash_bwd_dq_plain.launches
+            + tfa.flash_bwd_dkv_plain.launches) == 0
+    qr, kr, vr = (t.detach().cpu().requires_grad_(True) for t in (q, k, v))
+    tfa.flash_attention(qr, kr, vr, causal=True).square().sum().backward()
+    for a, b in ((q, qr), (k, kr), (v, vr)):
+        _flash_close(a.grad.cpu(), b.grad, "grad")
+
+
+def test_flash_rejects_what_the_kernels_do_not_take(card):
+    q = torch.zeros(1, 1, 8, 12, device=card)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.flash_fwd(q, q, q)
+    q = torch.zeros(1, 1, 8, 136, device=card)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.flash_fwd(q, q, q)
+    q = torch.zeros(1, 1, 8, 16, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        tfa.flash_fwd(q, q, q)

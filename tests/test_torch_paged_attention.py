@@ -238,18 +238,23 @@ class TestWrapperContract:
 
 
 def test_ctypes_signatures_match_the_c_interface():
-    """Every extern "C" entry point of csrc/paged_attention.cu is bound
-    with one ctypes type per C parameter, in order (a pointer or the
-    stream -> c_void_p, int -> c_int, float -> c_float): ctypes would
-    otherwise pass a wrong argument list without complaint at build."""
+    """Every extern "C" entry point of every csrc/*.cu (the paged pair
+    and the flash kernels) is bound with one ctypes type per C
+    parameter, in order (a pointer or the stream -> c_void_p, int ->
+    c_int, float -> c_float): ctypes would otherwise pass a wrong
+    argument list without complaint at build."""
     import ctypes
     import re
 
     from deeplearning4j_tpu_torch.ops import _kernels
 
-    src = _kernels.SOURCE.read_text()
-    c_api = src[src.index('extern "C" {'):]
-    decls = dict(re.findall(r"int (dl4j_\w+)\(([^)]*)\)", c_api))
+    assert {s.name for s in _kernels.SOURCES} >= {
+        "paged_attention.cu", "flash_attention.cu"}
+    decls = {}
+    for source in _kernels.SOURCES:
+        src = source.read_text()
+        c_api = src[src.index('extern "C" {'):]
+        decls.update(re.findall(r"int (dl4j_\w+)\(([^)]*)\)", c_api))
     assert set(decls) == set(_kernels._SIGNATURES)
     to_ctype = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
                 "float": ctypes.c_float}
