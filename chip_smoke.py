@@ -10,23 +10,40 @@ Phases (any failure exits non-zero before the result line):
 2. build — every kernel source in deeplearning4j_tpu_torch/csrc (the paged
    and the flash attention kernels), one nvcc for sm_90a per source, all
    started together; each build's seconds.
-3. kernels — K4 (paged decode) and K5 (chunked prefill) against their
-   plain PyTorch version at the served shapes (H 12, Dh 64, page 16,
-   MP 64), f32 and bf16: pool pages scattered by a permuted block table,
-   ragged lengths incl. 0, 1, 16, 17 and 1024, decode at S 1 and 8,
-   prefill at t0 0, 16 and 496 with tail chunks. Tolerances: f32 rtol
-   1e-5 / atol 1e-6, bf16 at most 1 bf16 ulp, lse rtol/atol 1e-5, exact
-   zeros and the 1e30 lse sentinel at length 0. Times (CUDA events, L2
-   flushed before every launch) for the kernel, the plain version and
-   gather + scaled_dot_product_attention (a yardstick the port never
-   calls), beside the bound: bytes the call must move over 3.35 TB/s.
+3. kernels — K4 (paged decode: split kernel + combine) and K5 (chunked
+   prefill: split kernel + combine) against their plain PyTorch version
+   at the served shapes (H 12, Dh 64, page 16, MP 64), f32 and bf16:
+   pool pages scattered by a permuted block table, ragged lengths incl.
+   0, 1, 16, 17 and 1024, the split plan's span boundaries (63, 64, 65
+   and 129 keys: a span is SPLIT_PAGES = 4 pages), decode at S 1 (777;
+   1024) and 8, prefill at t0 0, 16, 496 with tail chunks and 1008 (L
+   1024, the most spans). Tolerances: f32 rtol 1e-5 / atol 1e-6, bf16
+   at most 1 bf16 ulp, lse rtol/atol 1e-5, exact zeros and the 1e30 lse
+   sentinel at length 0. Then, over 24 input seeds, f32 and bf16, K4 at
+   the S 8 lengths and K5 at t0 496 and 1008 against an f64 answer: no
+   value may be more than one step further from it than the plain
+   version's (a bf16 ulp, with values below 1/256 of the max-abs taken
+   at that floor; in f32 1e-6 + 1e-5 |value|). The 1-ulp check holds
+   input by input for any kernel that sums in another order than the
+   plain version; this one separates such a kernel from a wrong one
+   whatever the seed. Times (CUDA events, L2 flushed and a spin
+   kernel queued before every launch, so the events see device work, not
+   the host's launch path; median of 50 for the kernel and the
+   yardstick, 5 for the plain version) for the kernel, the plain version
+   and gather + scaled_dot_product_attention (a yardstick the port never
+   calls), beside the bound: bytes the call must move over 3.35 TB/s;
+   K4 at S 1 length 1024 and K5 at t0 1008 are timed too.
 4. serve — GPT-2-small widths (vocab 50257, d 768, 12 heads, 12 layers,
    d_ff 3072, context 1024, page 16, bf16, random weights from seed 0)
    behind ModelHost + InferenceServer; 8 concurrent HTTP :generate
    requests with 64..512-token prompts and maxNewTokens 32. Every answer
    must be 200 with 32 tokens, both kernels must have launched and the
    plain version not at all. Reports time to first token and decode
-   tokens/s.
+   tokens/s. Then one bucket-8 decode_paged step at the burst's lengths,
+   timed two ways (median of 5): host wall time to a synchronize, and
+   device time: CUDA events around the step queued behind a spin
+   kernel, so its kernels run back to back with no host gap between
+   them; beside it K4 at that step's lengths x 12 layers.
 5. correct — (a) one served prompt's logits against an f32 full causal
    forward of the same parameters (no cache, no kernels); (b) paged
    generation at a fixed bucket bitwise equal to the port's dense serial
@@ -41,10 +58,10 @@ Phases (any failure exits non-zero before the result line):
    ulp of values below 1/256 of o's max-abs taken at that floor: a
    cancelling weighted mean turns a 1e-7 f32 difference into many ulps of
    a tiny value) and the gradients within a relative L2 of 1e-2; lse
-   rtol/atol 1e-5. Times (CUDA events, L2 flushed before every launch) of
-   each kernel, its plain version and scaled_dot_product_attention
-   (forward; forward + torch.autograd.grad for the backward; a yardstick
-   the port never calls), beside the bound.
+   rtol/atol 1e-5. Times (as in phase 3) of each kernel, its plain
+   version and scaled_dot_product_attention (forward; forward +
+   torch.autograd.grad for the backward; a yardstick the port never
+   calls), beside the bound.
 7. train — a transformer encoder at BERT-base widths (Google Research's
    bert uncased_L-12_H-768_A-12/bert_config.json: hidden 768, 12 heads,
    intermediate 3072, 12 layers, sequence 512, gelu, weights from
@@ -138,21 +155,126 @@ def bf16_close(got, want, n):
     return bool(((got.float() - w).abs() <= n * ulp).all())
 
 
+def exact_decode(q, kp, vp, bt, sl):
+    """f64 softmax attention of each slot's query over its first
+    seq_lens keys; a zero row at length 0."""
+    import torch
+    S, Hq, D = q.shape
+    T = bt.shape[1] * kp.shape[1]
+    k = kp[bt.long()].reshape(S, T, Hq, D).double()
+    v = vp[bt.long()].reshape(S, T, Hq, D).double()
+    s = torch.einsum("shd,sthd->sht", q.double(), k) / math.sqrt(D)
+    valid = (torch.arange(T, device=q.device)[None]
+             < sl.long()[:, None])[:, None]
+    p = torch.softmax(s.masked_fill(~valid, -math.inf), -1).nan_to_num(0.0)
+    return torch.einsum("sht,sthd->shd", p, v)
+
+
+def exact_prefill(qc, kp, vp, bt1, t0, n_valid):
+    """f64 causal softmax attention of a chunk at offset t0 over the
+    table's first t0 + n_valid keys."""
+    import torch
+    C, Hq, D = qc.shape
+    L = t0 + n_valid
+    k = kp[bt1.long()].reshape(-1, Hq, D)[:L].double()
+    v = vp[bt1.long()].reshape(-1, Hq, D)[:L].double()
+    s = torch.einsum("rhd,thd->rht", qc.double(), k) / math.sqrt(D)
+    valid = ((t0 + torch.arange(C, device=qc.device))[:, None]
+             >= torch.arange(L, device=qc.device)[None])[:, None]
+    return torch.einsum("rht,thd->rhd",
+                        torch.softmax(s.masked_fill(~valid, -math.inf), -1),
+                        v)
+
+
+def excess_over_plain(got, plain, exact):
+    """How much further each value of `got` is from the f64 answer than
+    the plain version's value, in steps of one bf16 ulp (the ulp of
+    values below 1/256 of the answer's max-abs taken at that floor) or,
+    in f32, of 1e-6 + 1e-5 |value| (phase 3's f32 tolerance); the worst
+    value. At most 1 separates a sum taken in another order from a wrong
+    kernel whatever the inputs, where "1 ulp of the plain version" holds
+    input by input."""
+    import torch
+    e = exact.double()
+    if got.dtype == torch.bfloat16:
+        floor = e.abs().max().clamp_min(1e-30) / 256
+        step = torch.exp2(torch.floor(torch.log2(torch.maximum(e.abs(),
+                                                               floor))) - 7)
+    else:
+        step = 1e-6 + 1e-5 * e.abs()
+    return float((((got.double() - e).abs() - (plain.double() - e).abs())
+                  / step).max())
+
+
+#: input seeds of phase 3's comparison with an f64 answer
+F64_SEEDS = 24
+
+
+def seed_sweep(tpa, dev, dtype, seeds=F64_SEEDS):
+    """K4 at the S 8 batch and K5 at t0 496 and 1008 over `seeds` input
+    seeds (phase 3's shapes): per case the worst excess_over_plain and,
+    in bf16, the largest ulp distance to the plain version and the seeds
+    where it exceeds 1."""
+    import torch
+    res = {}
+    for seed in range(seeds):
+        rng = np.random.default_rng(seed)
+
+        def randn(*shape):
+            return torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev, dtype)
+
+        kp, vp = randn(P, PAGE, H, DH), randn(P, PAGE, H, DH)
+        lens = [0, 1, 16, 17, 1024, 300, 511, 64]
+        bts = torch.from_numpy(tables(rng, lens)).to(dev)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = randn(len(lens), H, DH)
+        cases = {"K4 S8": (tpa.paged_flash_decode(q, kp, vp, bts, sl),
+                           tpa.paged_decode_plain(q, kp, vp, bts, sl),
+                           exact_decode(q, kp, vp, bts, sl))}
+        bt = torch.from_numpy(tables(rng, [MP * PAGE])[0]).to(dev)
+        for t0, n in ((496, 9), (1008, 16)):
+            qc = randn(PAGE, H, DH)
+            cases[f"K5 t0 {t0}"] = (
+                tpa.paged_flash_prefill(qc, kp, vp, bt, t0, n)[:n],
+                tpa.paged_prefill_plain(qc, kp, vp, bt, t0, n)[:n],
+                exact_prefill(qc, kp, vp, bt, t0, n)[:n])
+        for key, (got, plain, ex) in cases.items():
+            r = res.setdefault(key, {"excess_vs_f64": -math.inf})
+            r["excess_vs_f64"] = max(r["excess_vs_f64"],
+                                     excess_over_plain(got, plain, ex))
+            if dtype == torch.bfloat16:
+                d = int(ulps(got, plain).max())
+                r["ulps_vs_plain"] = max(r.get("ulps_vs_plain", 0), d)
+                r["seeds_over_1_ulp"] = r.get("seeds_over_1_ulp", 0) + (d > 1)
+    return res
+
+
 def rel_l2(got, want):
     return float((got.double() - want.double()).norm()
                  / want.double().norm().clamp_min(1e-300))
 
 
+#: cycles of the spin kernel queued before each timed launch (~0.5 ms)
+LAUNCH_SPIN_CYCLES = 1_000_000
+
+
 def time_ms(fn, reps, flush):
     """Median ms of `fn` over `reps` launches, each timed alone by CUDA
     events after zeroing a buffer larger than the 50 MB L2, so every
-    launch reads its inputs from device memory as a serving step does."""
+    launch reads its inputs from device memory as a serving step does.
+    A short spin kernel runs between the flush and the first event, so
+    the host has queued `fn`'s launches before the device reaches them:
+    the events time the device's work, not the host's launch path (a
+    call whose host path outlasts the spin, like the plain versions',
+    still includes it)."""
     import torch
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(LAUNCH_SPIN_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -180,25 +302,90 @@ def tables(rng, lens):
 # phase 3: kernels against their plain versions
 # ----------------------------------------------------------------------
 
-def check_kernels(dev):
+def decode_timing(tpa, q, kp, vp, bt, sl, lens, err, flush):
+    """Phase 3's timing row of K4 at these inputs."""
     import torch
     import torch.nn.functional as F
+    S, item = len(lens), q.element_size()
+    live = sum(lens)
+    need_bytes = (2 * S * H * DH * item + 4 * S
+                  + 4 * sum(-(-n // PAGE) for n in lens)
+                  + 2 * live * H * DH * item)
+    bmem = need_bytes / HBM_BYTES_PER_S * 1e3
+    peak = PEAK_BF16_OPS if item == 2 else PEAK_F32_OPS
+    bops = 4 * live * H * DH / peak * 1e3
+    T = MP * PAGE
+    mask = (torch.arange(T, device=q.device)[None, :]
+            < sl[:, None])[:, None, None, :]
+
+    def library():
+        kg = kp[bt.long()].reshape(S, T, H, DH).transpose(1, 2)
+        vg = vp[bt.long()].reshape(S, T, H, DH).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None, :], kg, vg,
+                                              attn_mask=mask)
+
+    return {"max_abs_err": err,
+            "ms": time_ms(lambda: tpa.paged_flash_decode(q, kp, vp, bt, sl),
+                          50, flush),
+            "plain_ms": time_ms(lambda: tpa.paged_decode_plain(
+                q, kp, vp, bt, sl), 5, flush),
+            "library_ms": time_ms(library, 50, flush),
+            "bound_ms": max(bmem, bops),
+            "bound_by": "bytes" if bmem >= bops else "operations"}
+
+
+def prefill_timing(tpa, qc, kp, vp, bt1, t0, n_valid, err, flush):
+    """Phase 3's timing row of K5 at these inputs."""
+    import torch
+    import torch.nn.functional as F
+    item = qc.element_size()
+    L = t0 + n_valid
+    need_bytes = (2 * PAGE * H * DH * item + 4 * -(-L // PAGE)
+                  + 2 * L * H * DH * item)
+    ops = 4 * H * DH * sum(t0 + r + 1 for r in range(n_valid))
+    bmem = need_bytes / HBM_BYTES_PER_S * 1e3
+    bops = ops / (PEAK_BF16_OPS if item == 2 else PEAK_F32_OPS) * 1e3
+    T = MP * PAGE
+    kpos = torch.arange(T, device=qc.device)
+    qpos = t0 + torch.arange(PAGE, device=qc.device)
+    mask = ((kpos[None, :] < L) & (qpos[:, None] >= kpos[None, :]))[None,
+                                                                    None]
+
+    def library():
+        kg = kp[bt1.long()].reshape(T, H, DH).transpose(0, 1)
+        vg = vp[bt1.long()].reshape(T, H, DH).transpose(0, 1)
+        return F.scaled_dot_product_attention(
+            qc.transpose(0, 1)[None], kg[None], vg[None], attn_mask=mask)
+
+    return {"max_abs_err": err,
+            "ms": time_ms(lambda: tpa.paged_flash_prefill(
+                qc, kp, vp, bt1, t0, n_valid), 50, flush),
+            "plain_ms": time_ms(lambda: tpa.paged_prefill_plain(
+                qc, kp, vp, bt1, t0, n_valid), 5, flush),
+            "library_ms": time_ms(library, 50, flush),
+            "bound_ms": max(bmem, bops),
+            "bound_by": "bytes" if bmem >= bops else "operations"}
+
+
+def check_kernels(dev):
+    import torch
 
     from deeplearning4j_tpu_torch.ops import paged_attention as tpa
 
     rng = np.random.default_rng(SEED)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MB
+    span = tpa.SPLIT_PAGES * PAGE
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = "bfloat16" if dtype == torch.bfloat16 else "float32"
-        item = torch.empty((), dtype=dtype).element_size()
 
         def randn(*shape):
             return torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev, dtype)
 
         kp, vp = randn(P, PAGE, H, DH), randn(P, PAGE, H, DH)
-        for lens in ([777], [0, 1, 16, 17, 1024, 300, 511, 64]):
+        for lens in ([777], [MP * PAGE], [0, 1, 16, 17, 1024, 300, 511, 64],
+                     [span - 1, span, span + 1, 2 * span + 1]):
             S = len(lens)
             bt = torch.from_numpy(tables(rng, lens)).to(dev)
             sl = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -210,9 +397,9 @@ def check_kernels(dev):
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             need(close_enough(out, ref),
-                 f"K4 {name} S={S} disagrees with plain: max err {err}")
+                 f"K4 {name} lens={lens} disagrees with plain: max err {err}")
             need(bool(torch.allclose(lse, ref_lse, rtol=1e-5, atol=1e-5)),
-                 f"K4 {name} S={S} lse disagrees with plain")
+                 f"K4 {name} lens={lens} lse disagrees with plain")
             for s, n in enumerate(lens):
                 if n == 0:
                     need(bool(torch.all(out[s] == 0))
@@ -220,36 +407,15 @@ def check_kernels(dev):
                          f"K4 {name}: length-0 slot not exact zeros + "
                          "sentinel")
             log(f"K4 {name} S={S} lens={lens}: max_abs_err {err:.3e} ok")
-            if S == 8 and name == "bfloat16":
-                live = sum(lens)
-                need_bytes = (2 * S * H * DH * item + 4 * S
-                              + 4 * sum(-(-n // PAGE) for n in lens)
-                              + 2 * live * H * DH * item)
-                ops = 4 * live * H * DH
-                bmem = need_bytes / HBM_BYTES_PER_S * 1e3
-                bops = ops / PEAK_BF16_OPS * 1e3
-                T = MP * PAGE
-                mask = (torch.arange(T, device=dev)[None, :]
-                        < sl[:, None])[:, None, None, :]
-
-                def library():
-                    kg = kp[bt.long()].reshape(S, T, H, DH).transpose(1, 2)
-                    vg = vp[bt.long()].reshape(S, T, H, DH).transpose(1, 2)
-                    return F.scaled_dot_product_attention(
-                        q[:, :, None, :], kg, vg, attn_mask=mask)
-
-                rows["decode"] = {
-                    "max_abs_err": err,
-                    "ms": time_ms(lambda: tpa.paged_flash_decode(
-                        q, kp, vp, bt, sl), 50, flush),
-                    "plain_ms": time_ms(lambda: tpa.paged_decode_plain(
-                        q, kp, vp, bt, sl), 5, flush),
-                    "library_ms": time_ms(library, 20, flush),
-                    "bound_ms": max(bmem, bops),
-                    "bound_by": "bytes" if bmem >= bops else "operations",
-                }
+            if name == "bfloat16" and S == 8:
+                rows["decode"] = decode_timing(tpa, q, kp, vp, bt, sl, lens,
+                                               err, flush)
+            elif name == "bfloat16" and lens == [MP * PAGE]:
+                rows["decode S1 L1024"] = decode_timing(
+                    tpa, q, kp, vp, bt, sl, lens, err, flush)
         bt1 = torch.from_numpy(tables(rng, [MP * PAGE])[0]).to(dev)
-        for t0, n_valid in ((0, 16), (16, 7), (496, 9)):
+        for t0, n_valid in ((0, 16), (16, 7), (496, 9), (MP * PAGE - PAGE,
+                                                         PAGE)):
             qc = randn(PAGE, H, DH)
             got = tpa.paged_flash_prefill(qc, kp, vp, bt1, t0, n_valid)
             want = tpa.paged_prefill_plain(qc, kp, vp, bt1, t0, n_valid)
@@ -260,36 +426,19 @@ def check_kernels(dev):
                  f"K5 {name} t0={t0} disagrees with plain: max err {err}")
             log(f"K5 {name} t0={t0} n_valid={n_valid}: max_abs_err "
                 f"{err:.3e} ok")
-            if t0 == 496 and name == "bfloat16":
-                L = t0 + n_valid
-                need_bytes = (2 * PAGE * H * DH * item + 4 * -(-L // PAGE)
-                              + 2 * L * H * DH * item)
-                ops = 4 * H * DH * sum(t0 + r + 1 for r in range(n_valid))
-                bmem = need_bytes / HBM_BYTES_PER_S * 1e3
-                bops = ops / PEAK_BF16_OPS * 1e3
-                T = MP * PAGE
-                kpos = torch.arange(T, device=dev)
-                qpos = t0 + torch.arange(PAGE, device=dev)
-                mask = ((kpos[None, :] < L)
-                        & (qpos[:, None] >= kpos[None, :]))[None, None]
-
-                def library():
-                    kg = kp[bt1.long()].reshape(T, H, DH).transpose(0, 1)
-                    vg = vp[bt1.long()].reshape(T, H, DH).transpose(0, 1)
-                    return F.scaled_dot_product_attention(
-                        qc.transpose(0, 1)[None], kg[None], vg[None],
-                        attn_mask=mask)
-
-                rows["prefill"] = {
-                    "max_abs_err": err,
-                    "ms": time_ms(lambda: tpa.paged_flash_prefill(
-                        qc, kp, vp, bt1, t0, n_valid), 50, flush),
-                    "plain_ms": time_ms(lambda: tpa.paged_prefill_plain(
-                        qc, kp, vp, bt1, t0, n_valid), 5, flush),
-                    "library_ms": time_ms(library, 20, flush),
-                    "bound_ms": max(bmem, bops),
-                    "bound_by": "bytes" if bmem >= bops else "operations",
-                }
+            if name == "bfloat16" and t0 == 496:
+                rows["prefill"] = prefill_timing(tpa, qc, kp, vp, bt1, t0,
+                                                 n_valid, err, flush)
+            elif name == "bfloat16" and t0 == MP * PAGE - PAGE:
+                rows["prefill t0 1008"] = prefill_timing(
+                    tpa, qc, kp, vp, bt1, t0, n_valid, err, flush)
+    for dtype in (torch.float32, torch.bfloat16):
+        sweep = seed_sweep(tpa, dev, dtype)
+        log(f"{F64_SEEDS} seeds, {dtype}: " + json.dumps(sweep))
+        for key, r in sweep.items():
+            need(r["excess_vs_f64"] <= 1,
+                 f"{key} {dtype}: further from the f64 answer than the "
+                 f"plain version by {r['excess_vs_f64']:.2f} steps")
     del flush
     for k, r in rows.items():
         log(f"{k} bf16 timing: kernel_ms {r['ms']:.5f} plain_ms "
@@ -457,6 +606,10 @@ def serve_and_check(dev, cfg):
         srv.stop()
         host.close(drain=False)
 
+    # 4, continued: where a bucket-8 decode step's time goes
+    result["decode_step"] = time_decode_step(
+        lm, dev, [int(n) + 16 for n in lens])
+
     # 5b: paged bitwise == dense serial trajectory at a fixed bucket
     s = PagedSequenceScheduler(lm, num_pages=129, slot_buckets=(4,),
                                clock=ManualClock(), start_thread=False,
@@ -478,6 +631,69 @@ def serve_and_check(dev, cfg):
     log("correct (b): paged generation bitwise == dense serial trajectory "
         "(3 prompts x 16 tokens, bucket 4)")
     return result
+
+
+#: cycles the spin kernel holds the card while a step is queued behind it
+#: (~50 ms at the H100's 1.98 GHz boost clock; a step queues in ~10 ms)
+SPIN_CYCLES = 100_000_000
+
+
+def time_decode_step(lm, dev, lens):
+    """One bucket-8 ``decode_paged`` step at these slot lengths (median of
+    5): host wall time to a synchronize; device time, CUDA events around
+    the step queued behind a spin kernel, so its kernels run back to back
+    with no host gap; and K4 alone at the step's shapes (L2 flushed), which
+    the step launches once per layer."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops import paged_attention as tpa
+
+    S = len(lens)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (lm.n_layers, P, lm.page_size, lm.n_heads, lm.head_dim)
+    kps, vps = (torch.randn(shape, generator=gen, device=dev,
+                            dtype=lm.emb.dtype) for _ in range(2))
+    bt = torch.from_numpy(tables(np.random.default_rng(SEED),
+                                 [n + 1 for n in lens])).to(dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tokens = torch.zeros(S, dtype=torch.int64, device=dev)
+
+    def step():
+        return lm.decode_paged(tokens, kps, vps, bt, sl)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        step()
+        b.record()
+        need(not a.query(), "decode step: the spin ended before the step "
+             "was queued, so its device time would hold host gaps")
+        b.synchronize()
+        device.append(a.elapsed_time(b))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    q = torch.randn((S, lm.n_heads, lm.head_dim), generator=gen, device=dev,
+                    dtype=lm.emb.dtype)
+    k4 = time_ms(lambda: tpa.paged_flash_decode(q, kps[0], vps[0], bt,
+                                                sl + 1), 50, flush)
+    del flush, kps, vps
+    res = {"slots": S, "lens": lens, "host_ms": float(np.median(host)),
+           "device_ms": float(np.median(device)), "host_ms_all": host,
+           "device_ms_all": device, "k4_ms": k4,
+           "k4_ms_x_layers": k4 * lm.n_layers}
+    res["device_share"] = res["device_ms"] / res["host_ms"]
+    log("decode step (bucket 8): " + json.dumps(res))
+    return res
 
 
 # ----------------------------------------------------------------------
@@ -823,6 +1039,13 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    split = result["decode_step"]
+    log(f"decode step: host {split['host_ms']:.3f} ms, device "
+        f"{split['device_ms']:.3f} ms ({100 * split['device_share']:.1f} % "
+        f"of the host time); K4 x {GPT2_SMALL['n_layers']} layers "
+        f"{split['k4_ms_x_layers']:.3f} ms at the step's lengths, "
+        f"{rows['decode']['ms'] * GPT2_SMALL['n_layers']:.3f} ms at "
+        "phase 3's")
     step_ms = train["step_ms_median_3_to_20"]
     attention_ms = 0.0
     for key, name, line in (("K1", "flash_fwd", 48),

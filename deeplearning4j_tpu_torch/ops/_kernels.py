@@ -37,10 +37,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 #: C signature of each entry point (restype c_int: a cudaError_t)
 _SIGNATURES = {
-    "dl4j_paged_decode_f32": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "dl4j_paged_decode_bf16": [_P] * 7 + [_I] * 5 + [_F, _P],
-    "dl4j_paged_prefill_f32": [_P] * 5 + [_I] * 7 + [_F, _P],
-    "dl4j_paged_prefill_bf16": [_P] * 5 + [_I] * 7 + [_F, _P],
+    # pointers (the fp32 workspace among them), S H Dh page MP, scale,
+    # stream
+    "dl4j_paged_decode_f32": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "dl4j_paged_decode_bf16": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # pointers, C H Dh page MP t0 n_valid, scale, stream
+    "dl4j_paged_prefill_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "dl4j_paged_prefill_bf16": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
 for _t in ("f32", "bf16"):
     # pointers, the host stride array, B H Tq Tk D causal, scale, stream

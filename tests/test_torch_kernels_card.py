@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card (``cuda`` marker): K4 decode and K5
 prefill (deeplearning4j_tpu_torch/csrc/paged_attention.cu) against their
-plain PyTorch version on the same CUDA tensors, and a tiny model's paged
+plain PyTorch version on the same CUDA tensors, at the split plan's span
+boundaries too; a K4 row bitwise the same alone and in a batch of 8; two
+launches bitwise equal; over 8 input seeds, both no further from an f64
+answer than the plain version plus one step; a tiny model's paged
 serving bitwise against its dense serial trajectory through the kernels;
 K1 (flash forward), K2 (dq) and K3 (dk, dv) of
 deeplearning4j_tpu_torch/csrc/flash_attention.cu against their plain
@@ -100,6 +103,111 @@ def test_kernels_match_plain(card, D, dtype):
         torch.cuda.synchronize()
         _assert_close(got[:n_valid], want[:n_valid])
     assert tpa.paged_flash_prefill.launches == 3
+
+
+def _paged_inputs(rng, dev, dtype, lens, page, H, D, P, MP):
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev, dtype)
+    kp, vp = randn(P, page, H, D), randn(P, page, H, D)
+    bt = torch.from_numpy(_tables(rng, lens, page, P, MP)).to(dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return randn(len(lens), H, D), kp, vp, bt, sl, randn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 32, 64, 128])
+def test_split_kernels_match_plain_at_span_boundaries(card, D, dtype):
+    """K4 at lengths one below, at and one above a span (SPLIT_PAGES
+    pages) and one past two spans, beside 0 and 1; K5 at chunks whose
+    t0 ends a span, starts one, and ends past two."""
+    rng = np.random.default_rng(6)
+    page, H, P, MP = 16, 3, 48, 16
+    span = tpa.SPLIT_PAGES * page
+    lens = [span - 1, span, span + 1, 2 * span + 1, 0, 1]
+    q, kp, vp, bt, sl, randn = _paged_inputs(rng, card, dtype, lens, page,
+                                             H, D, P, MP)
+    out, lse = tpa.paged_flash_decode(q, kp, vp, bt, sl, need_lse=True)
+    ref, ref_lse = tpa.paged_decode_plain(q, kp, vp, bt, sl, need_lse=True)
+    torch.cuda.synchronize()
+    _assert_close(out, ref)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    assert torch.all(out[4] == 0) and torch.all(lse[4] == tpa.LSE_EMPTY)
+    for t0, n_valid in ((span - page, page), (span, 1), (span, page),
+                        (2 * span, 1), (3 * span - page, 9)):
+        qc = randn(page, H, D)
+        got = tpa.paged_flash_prefill(qc, kp, vp, bt[3], t0, n_valid)
+        want = tpa.paged_prefill_plain(qc, kp, vp, bt[3], t0, n_valid)
+        torch.cuda.synchronize()
+        _assert_close(got[:n_valid], want[:n_valid])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_row_is_the_same_bits_alone_and_in_a_batch(card, dtype):
+    """The split plan depends on a slot's own length only: each slot's
+    output row and lse are bitwise equal decoded alone and among 8."""
+    rng = np.random.default_rng(7)
+    page, H, D, P, MP = 16, 4, 64, 160, 64
+    lens = [1024, 0, 17, 300, 64, 65, 511, 1]
+    q, kp, vp, bt, sl, _ = _paged_inputs(rng, card, dtype, lens, page, H,
+                                         D, P, MP)
+    out, lse = tpa.paged_flash_decode(q, kp, vp, bt, sl, need_lse=True)
+    for s in range(len(lens)):
+        one, one_lse = tpa.paged_flash_decode(q[s:s + 1], kp, vp,
+                                              bt[s:s + 1], sl[s:s + 1],
+                                              need_lse=True)
+        assert torch.equal(one[0], out[s]), s
+        assert torch.equal(one_lse[0], lse[s]), s
+
+
+def test_paged_kernels_are_bitwise_repeatable(card):
+    """No atomics and one sum order: two launches give the same bits."""
+    rng = np.random.default_rng(8)
+    page, H, D, P, MP = 16, 12, 64, 160, 64
+    lens = [1024, 300, 5, 64]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kp, vp, bt, sl, randn = _paged_inputs(rng, card, dtype, lens,
+                                                 page, H, D, P, MP)
+        a = tpa.paged_flash_decode(q, kp, vp, bt, sl, need_lse=True)
+        b = tpa.paged_flash_decode(q, kp, vp, bt, sl, need_lse=True)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        qc = randn(page, H, D)
+        a = tpa.paged_flash_prefill(qc, kp, vp, bt[0], 1008, 16)
+        b = tpa.paged_flash_prefill(qc, kp, vp, bt[0], 1008, 16)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 32, 64, 128])
+def test_split_kernels_no_further_from_f64_than_plain(card, D, dtype):
+    """Over 8 input seeds, K4 and K5 land at most one step (a bf16 ulp
+    with a floor at 1/256 of the max-abs, or 1e-6 + 1e-5 |value| in f32)
+    further from an f64 answer than the plain version: a sum taken in
+    another order passes on every input, a wrong kernel fails. The
+    1-ulp checks against the plain version above hold input by input.
+    The f64 answer and the step are chip_smoke.py's (phase 3)."""
+    import chip_smoke
+
+    page, H, P, MP = 16, 3, 48, 16
+    span = tpa.SPLIT_PAGES * page
+    lens = [span - 1, span, span + 1, 2 * span + 1, 0, 1, MP * page]
+    for seed in range(8):
+        rng = np.random.default_rng(100 + seed)
+        q, kp, vp, bt, sl, randn = _paged_inputs(rng, card, dtype, lens,
+                                                 page, H, D, P, MP)
+        got = tpa.paged_flash_decode(q, kp, vp, bt, sl)
+        plain = tpa.paged_decode_plain(q, kp, vp, bt, sl)
+        exact = chip_smoke.exact_decode(q, kp, vp, bt, sl)
+        assert chip_smoke.excess_over_plain(got, plain, exact) <= 1, seed
+        for t0, n_valid in ((span, 9), (MP * page - page, page)):
+            qc = randn(page, H, D)
+            got = tpa.paged_flash_prefill(qc, kp, vp, bt[-1], t0, n_valid)
+            plain = tpa.paged_prefill_plain(qc, kp, vp, bt[-1], t0, n_valid)
+            exact = chip_smoke.exact_prefill(qc, kp, vp, bt[-1], t0,
+                                             n_valid)
+            assert chip_smoke.excess_over_plain(
+                got[:n_valid], plain[:n_valid], exact[:n_valid]) <= 1, \
+                (seed, t0)
 
 
 def test_paged_serving_bitwise_vs_dense_on_card(card):
