@@ -61,7 +61,15 @@ Phases (any failure exits non-zero before the result line):
    rtol/atol 1e-5. Times (as in phase 3) of each kernel, its plain
    version and scaled_dot_product_attention (forward; forward +
    torch.autograd.grad for the backward; a yardstick the port never
-   calls), beside the bound.
+   calls), beside the bound (f32 work at the 3xTF32 rate, 495/3
+   TFLOP/s: PEAK_F32_OPS says why); flash_bwd whole (delta + K2 + K3)
+   beside SDPA's backward, and their ratio. Then a seed-independent
+   gate, f32 and bf16, non-causal and causal: over 8 input seeds at B 2,
+   H 12, T 512, D 64, no value of K1's o or K2/K3's dq, dk, dv more than
+   one step (excess_over_plain, phase 3's) further from an f64 answer
+   (the plain version on f64 copies of the same inputs) than the plain
+   version's. It separates K2/K3's 3xTF32 products, which pass, from a
+   single TF32 pass, which fails (tests/test_torch_flash_tf32.py).
 7. train — a transformer encoder at BERT-base widths (Google Research's
    bert uncased_L-12_H-768_A-12/bert_config.json: hidden 768, 12 heads,
    intermediate 3072, 12 layers, sequence 512, gelu, weights from
@@ -700,26 +708,38 @@ def time_decode_step(lm, dev, lens):
 # phase 6: the flash kernels against their plain versions
 # ----------------------------------------------------------------------
 
-PEAK_F32_OPS = 67e12                 # fp32 on the CUDA cores (no TF32)
+#: the least time for f32 work is at the card's fastest fp32-accurate
+#: rate: 3xTF32 on the tensor cores, three TF32 products (495 TFLOP/s) per
+#: fp32 product. It is PyTorch's own route for f32 attention: its
+#: memory-efficient kernels take OpMultiplyAddFastF32, CUTLASS's 3xTF32
+#: operator, for f32 on sm80 and later (torch/include/ATen/native/
+#: transformers/cuda/mem_eff_attention/gemm_kernel_utils.h, whatever
+#: allow_tf32 says), not the 67 TFLOP/s of the CUDA cores
+PEAK_F32_OPS = 495e12 / 3
 #: (name, B, H, Tq, Tk, D, causal); "train" is the main path's shape
 FLASH_CASES = [("train", 8, 12, 512, 512, 64, False),
                ("train-causal", 8, 12, 512, 512, 64, True),
                ("padded", 2, 12, 500, 500, 64, True),
                ("cross", 2, 4, 24, 56, 16, False)]
+#: input seeds and (B, H, T, D) of phase 6's comparison with an f64 answer
+FLASH_F64_SEEDS = 8
+FLASH_F64_SHAPE = (2, 12, 512, 64)
 
 
 def flash_bounds(B, H, Tq, Tk, D, causal, item):
-    """(K1, K2, K3) bound_ms and what bounds each: the operations each
-    kernel does on the (row, key) pairs these shapes need over the peak
-    of their type, against the bytes it must move (each input read once,
-    each output written once) over 3.35 TB/s."""
+    """(K1, K2, K3, bwd) bound_ms and what bounds each: the operations
+    each does on the (row, key) pairs these shapes need over the peak of
+    their type, against the bytes it must move (each input read once,
+    each output written once) over 3.35 TB/s. "bwd" is flash_bwd whole:
+    delta = rowsum(do*o), then K2 and K3."""
     pairs = (sum(min(r + 1, Tk) for r in range(Tq)) if causal
              else Tq * Tk) * B * H
     peak = PEAK_BF16_OPS if item == 2 else PEAK_F32_OPS
     nq, nk, rows = B * H * Tq * D * item, B * H * Tk * D * item, B * H * Tq
     work = {"K1": (4 * pairs * D, 2 * nq + 2 * nk + 4 * rows),
             "K2": (6 * pairs * D, 3 * nq + 2 * nk + 8 * rows),
-            "K3": (8 * pairs * D, 2 * nq + 4 * nk + 8 * rows)}
+            "K3": (8 * pairs * D, 2 * nq + 4 * nk + 8 * rows),
+            "bwd": (14 * pairs * D + 2 * rows * D, 4 * nq + 4 * nk + 4 * rows)}
     out = {}
     for k, (ops, nbytes) in work.items():
         t_ops, t_mem = ops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
@@ -728,9 +748,137 @@ def flash_bounds(B, H, Tq, Tk, D, causal, item):
     return out
 
 
-def check_flash(dev):
+def flash_inputs(rng, dev, dtype, B, H, Tq, Tk, D):
+    """q, k, v, do [B, H, T, D] from N(0, 1) in `dtype`."""
+    import torch
+
+    def randn(T):
+        return torch.from_numpy(rng.standard_normal((B, H, T, D)).astype(
+            np.float32)).to(dev, dtype)
+    return randn(Tq), randn(Tk), randn(Tk), randn(Tq)
+
+
+def flash_plain(tfa, q, k, v, do, lse, delta, causal):
+    """K1-K3's plain versions on these inputs: {"o", "dq", "dk", "dv"},
+    the backward from this lse and delta."""
+    dk, dv = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    return {"o": tfa.flash_fwd_plain(q, k, v, causal)[0],
+            "dq": tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),
+            "dk": dk, "dv": dv}
+
+
+def flash_excess(tfa, q, k, v, do, lse, delta, causal, got):
+    """excess_over_plain of each tensor of `got` (some of "o", "dq", "dk",
+    "dv": K1's output and K2/K3's gradients at these inputs, the backward
+    fed this lse and delta): the f64 answer is the plain version on f64
+    copies of the same inputs, lse and delta included."""
+    plain = flash_plain(tfa, q, k, v, do, lse, delta, causal)
+    exact = flash_plain(tfa, *(t.double() for t in (q, k, v, do, lse,
+                                                     delta)), causal)
+    return {w: excess_over_plain(x, plain[w], exact[w])
+            for w, x in got.items()}
+
+
+def flash_seed_sweep(tfa, dev, dtype, causal, seeds=FLASH_F64_SEEDS,
+                     shape=FLASH_F64_SHAPE):
+    """Phase 6's f64 gate: over `seeds` input seeds at `shape` (B, H, T,
+    D), K1's o and K2/K3's dq, dk and dv (fed the plain forward's lse and
+    delta, as the checks against the plain version are) against the f64
+    answer; the worst flash_excess of each tensor."""
+    B, Hh, T, D = shape
+    worst = {}
+    for seed in range(seeds):
+        rng = np.random.default_rng(1000 + seed)
+        q, k, v, do = flash_inputs(rng, dev, dtype, B, Hh, T, T, D)
+        o_ref, lse = tfa.flash_fwd_plain(q, k, v, causal, need_lse=True)
+        delta = tfa._delta(do, o_ref)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+        got = {"o": tfa.flash_fwd(q, k, v, causal)[0],
+               "dq": tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+               "dk": dk, "dv": dv}
+        for w, x in flash_excess(tfa, q, k, v, do, lse, delta, causal,
+                                 got).items():
+            worst[w] = max(worst.get(w, -math.inf), x)
+    return worst
+
+
+def flash_errors(tfa, q, k, v, do, causal):
+    """K1-K3 against their plain versions at these inputs (the backward
+    fed the plain forward's lse and delta): ({tensor: max abs error},
+    {tensor: within phase 6's tolerance}, lse within rtol/atol 1e-5)."""
+    import torch
+    o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+    o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, need_lse=True)
+    delta = tfa._delta(do, o_ref)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    want = flash_plain(tfa, q, k, v, do, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    errs, oks = {}, {}
+    for what, got in (("o", o), ("dq", dq), ("dk", dk), ("dv", dv)):
+        ref = want[what]
+        errs[what] = float((got.float() - ref.float()).abs().max())
+        if got.dtype == torch.float32:
+            oks[what] = errs[what] <= 1e-4 * float(ref.abs().max())
+        elif what == "o":
+            oks[what] = bf16_close(got, ref, 2)
+        else:
+            oks[what] = rel_l2(got, ref) <= 1e-2
+    return errs, oks, bool(torch.allclose(lse, lse_ref, rtol=1e-5,
+                                          atol=1e-5))
+
+
+def flash_timing(tfa, q, k, v, do, causal, errs, flush):
+    """Phase 6's timing rows at these inputs: K1, K2, K3 and flash_bwd
+    whole ("bwd": delta + K2 + K3), each beside its plain version,
+    scaled_dot_product_attention's forward (K1) or whole backward (the
+    others; a yardstick the port never calls) and its bound."""
     import torch
     import torch.nn.functional as F
+
+    B, Hh, Tq, D = q.shape
+    o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+    delta = tfa._delta(do, o)
+    bounds = flash_bounds(B, Hh, Tq, k.shape[2], D, causal,
+                          q.element_size())
+    qs, ks, vs = (t.detach().clone().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
+                                   retain_graph=True)
+
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), 20, flush)
+    lib_bwd = time_ms(sdpa_bwd, 20, flush)
+    timed = {
+        "K1": (lambda: tfa.flash_fwd(q, k, v, causal, need_lse=True),
+               lambda: tfa.flash_fwd_plain(q, k, v, causal, need_lse=True),
+               lib_fwd, errs["o"]),
+        "K2": (lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+               lambda: tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                              causal),
+               lib_bwd, errs["dq"]),
+        "K3": (lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+               lambda: tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                               causal),
+               lib_bwd, max(errs["dk"], errs["dv"])),
+        "bwd": (lambda: tfa.flash_bwd(q, k, v, o, lse, do, causal),
+                lambda: tfa.flash_bwd_plain(q, k, v, o, lse, do, causal),
+                lib_bwd, max(errs["dq"], errs["dk"], errs["dv"])),
+    }
+    rows = {}
+    for kname, (kern, plain, lib, err) in timed.items():
+        rows[kname] = {
+            "max_abs_err": err, "ms": time_ms(kern, 20, flush),
+            "plain_ms": time_ms(plain, 5, flush), "library_ms": lib,
+            "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    return rows
+
+
+def check_flash(dev):
+    import torch
 
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 
@@ -740,37 +888,14 @@ def check_flash(dev):
     for dtype in (torch.float32, torch.bfloat16):
         name = "bfloat16" if dtype == torch.bfloat16 else "float32"
         for case, B, Hh, Tq, Tk, D, causal in FLASH_CASES:
-            def randn(T):
-                return torch.from_numpy(rng.standard_normal(
-                    (B, Hh, T, D)).astype(np.float32)).to(dev, dtype)
-
-            q, k, v, do = randn(Tq), randn(Tk), randn(Tk), randn(Tq)
-            o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
-            o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal,
-                                                 need_lse=True)
-            delta = tfa._delta(do, o_ref)
-            dq = tfa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
-            dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
-            dq_ref = tfa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta,
-                                            causal)
-            dk_ref, dv_ref = tfa.flash_bwd_dkv_plain(q, k, v, do, lse_ref,
-                                                     delta, causal)
-            torch.cuda.synchronize()
-            errs = {}
-            for what, got, want in (("o", o, o_ref), ("dq", dq, dq_ref),
-                                    ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
-                err = float((got.float() - want.float()).abs().max())
-                errs[what] = err
-                if dtype == torch.float32:
-                    ok = err <= 1e-4 * float(want.abs().max())
-                elif what == "o":
-                    ok = bf16_close(got, want, 2)
-                else:
-                    ok = rel_l2(got, want) <= 1e-2
+            q, k, v, do = flash_inputs(rng, dev, dtype, B, Hh, Tq, Tk, D)
+            errs, oks, lse_ok = flash_errors(tfa, q, k, v, do, causal)
+            for what, ok in oks.items():
                 need(ok, f"flash {what} {name} {case}: disagrees with the "
-                     f"plain version, max err {err:.3e}")
-            need(bool(torch.allclose(lse, lse_ref, rtol=1e-5, atol=1e-5)),
-                 f"flash lse {name} {case}: disagrees with the plain version")
+                     f"plain version, max err {errs[what]:.3e}")
+            need(lse_ok, f"flash lse {name} {case}: disagrees with the "
+                 "plain version")
+            o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
             first = tfa.flash_bwd(q, k, v, o, lse, do, causal)
             second = tfa.flash_bwd(q, k, v, o, lse, do, causal)
             need(all(torch.equal(a, b) for a, b in zip(first, second)),
@@ -779,50 +904,29 @@ def check_flash(dev):
                 f"causal {causal}): max_abs_err "
                 + " ".join(f"{w} {e:.3e}" for w, e in errs.items())
                 + "; backward bitwise repeatable")
-            if case != "train":
-                continue
-            item = q.element_size()
-            bounds = flash_bounds(B, Hh, Tq, Tk, D, causal, item)
-            qs, ks, vs = (t.detach().clone().requires_grad_(True)
-                          for t in (q, k, v))
-            sdpa_out = F.scaled_dot_product_attention(qs, ks, vs)
-
-            def sdpa_bwd():
-                return torch.autograd.grad(sdpa_out, (qs, ks, vs), do,
-                                           retain_graph=True)
-
-            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v), 20, flush)
-            lib_bwd = time_ms(sdpa_bwd, 20, flush)
-            timed = {
-                "K1": (lambda: tfa.flash_fwd(q, k, v, causal,
-                                             need_lse=True),
-                       lambda: tfa.flash_fwd_plain(q, k, v, causal,
-                                                   need_lse=True),
-                       lib_fwd, errs["o"]),
-                "K2": (lambda: tfa.flash_bwd_dq(q, k, v, do, lse_ref,
-                                                delta, causal),
-                       lambda: tfa.flash_bwd_dq_plain(q, k, v, do, lse_ref,
-                                                      delta, causal),
-                       lib_bwd, errs["dq"]),
-                "K3": (lambda: tfa.flash_bwd_dkv(q, k, v, do, lse_ref,
-                                                 delta, causal),
-                       lambda: tfa.flash_bwd_dkv_plain(q, k, v, do, lse_ref,
-                                                       delta, causal),
-                       lib_bwd, max(errs["dk"], errs["dv"])),
-            }
-            for kname, (kern, plain, lib, err) in timed.items():
-                rows[(kname, name)] = {
-                    "max_abs_err": err, "ms": time_ms(kern, 20, flush),
-                    "plain_ms": time_ms(plain, 5, flush),
-                    "library_ms": lib, "bound_ms": bounds[kname][0],
-                    "bound_by": bounds[kname][1]}
-            del qs, ks, vs, sdpa_out
+            if case == "train":
+                for kname, r in flash_timing(tfa, q, k, v, do, causal, errs,
+                                             flush).items():
+                    rows[(kname, name)] = r
+        for causal in (False, True):
+            worst = flash_seed_sweep(tfa, dev, dtype, causal)
+            log(f"flash f64 gate {name} causal {causal} ({FLASH_F64_SEEDS} "
+                f"seeds, B H T D {FLASH_F64_SHAPE}): worst excess over the "
+                "plain version, in steps: " + json.dumps(worst))
+            for what, x in worst.items():
+                need(x <= 1, f"flash {what} {name} causal {causal}: further "
+                     f"from the f64 answer than the plain version by "
+                     f"{x:.2f} steps")
     del flush
     for (kname, name), r in sorted(rows.items()):
         log(f"{kname} {name} train-shape timing: kernel_ms {r['ms']:.5f} "
             f"plain_ms {r['plain_ms']:.5f} library_ms {r['library_ms']:.5f}"
             f" bound_ms {r['bound_ms']:.6f} ({r['bound_by']})")
+    for name in ("float32", "bfloat16"):
+        r = rows[("bwd", name)]
+        log(f"flash_bwd {name} (delta + K2 + K3) {r['ms']:.5f} ms against "
+            f"SDPA's backward {r['library_ms']:.5f} ms: ratio "
+            f"{r['ms'] / r['library_ms']:.3f}")
     return rows
 
 
@@ -904,6 +1008,31 @@ def reference_loss(params, x, y, cfg):
     return -(y * torch.log_softmax(logits, dim=-1)).sum(-1).mean()
 
 
+def encoder_batch(cfg, dev):
+    """Phase 7's batch: random features [batch, hidden, seq] from seed 0
+    and one-hot labels from a learnable rule (the sign of the first 64
+    features' mean)."""
+    import torch
+    rng = np.random.default_rng(SEED)
+    x = rng.standard_normal((cfg["batch"], cfg["hidden"], cfg["seq"])
+                            ).astype(np.float32)
+    cls = (x[:, :64].mean(axis=(1, 2)) > 0).astype(int)
+    y = np.eye(2, dtype=np.float32)[cls]
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def fit_timed(net, x, y, steps):
+    """`steps` fit steps: (losses, host seconds of each step); each step
+    ends in the loss fetch, which syncs the device."""
+    losses, step_s = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        net.fit(x, y)
+        losses.append(net.score())
+        step_s.append(time.perf_counter() - t)
+    return losses, step_s
+
+
 def train_and_check(dev, cfg):
     import torch
 
@@ -915,13 +1044,8 @@ def train_and_check(dev, cfg):
     torch.cuda.synchronize()
     log(f"encoder: {net.numParams()} params on {net.device}, built in "
         f"{time.perf_counter() - t:.2f} s: {json.dumps(cfg)}")
-    rng = np.random.default_rng(SEED)
-    B, F, T = cfg["batch"], cfg["hidden"], cfg["seq"]
-    x_np = rng.standard_normal((B, F, T)).astype(np.float32)
-    cls = (x_np[:, :64].mean(axis=(1, 2)) > 0).astype(int)
-    y_np = np.eye(2, dtype=np.float32)[cls]
-    x = torch.from_numpy(x_np).to(dev)
-    y = torch.from_numpy(y_np).to(dev)
+    B, T = cfg["batch"], cfg["seq"]
+    x, y = encoder_batch(cfg, dev)
 
     # 7a: one gradient against the smoke's own f32 reference
     grads, score = net.computeGradientAndScore(x, y)
@@ -958,12 +1082,7 @@ def train_and_check(dev, cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     tfa.reset_launches()
-    losses, step_s = [], []
-    for _ in range(TRAIN_STEPS):
-        t = time.perf_counter()
-        net.fit(x, y)
-        losses.append(net.score())    # the loss fetch syncs the device
-        step_s.append(time.perf_counter() - t)
+    losses, step_s = fit_timed(net, x, y, TRAIN_STEPS)
     launches = {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
                 "K3": tfa.flash_bwd_dkv.launches,
                 "plain": tfa.flash_fwd_plain.launches
@@ -980,9 +1099,7 @@ def train_and_check(dev, cfg):
          f"train (b): non-finite loss: {losses}")
     need(losses[-1] < losses[0],
          f"train (b): loss did not fall: {losses[0]} -> {losses[-1]}")
-    steady = sorted(step_s[2:])
-    med = steady[len(steady) // 2] if len(steady) % 2 else \
-        0.5 * (steady[len(steady) // 2 - 1] + steady[len(steady) // 2])
+    med = float(np.median(step_s[2:]))
     result = {"steps": TRAIN_STEPS, "losses": losses,
               "step_ms_median_3_to_20": med * 1e3,
               "step_ms_all": [s * 1e3 for s in step_s],

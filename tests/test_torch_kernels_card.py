@@ -7,8 +7,10 @@ answer than the plain version plus one step; a tiny model's paged
 serving bitwise against its dense serial trajectory through the kernels;
 K1 (flash forward), K2 (dq) and K3 (dk, dv) of
 deeplearning4j_tpu_torch/csrc/flash_attention.cu against their plain
-versions, the backward's bitwise repeatability, strided operands, and
-autograd through FlashAttentionFn launching all three.
+versions, over 4 input seeds against an f64 answer at every padded head
+width (chip_smoke.py's flash gate), the backward's bitwise
+repeatability, strided operands, and autograd through FlashAttentionFn
+launching all three.
 
 This file imports neither jax nor the reference package, so it runs on a
 machine with PyTorch alone:
@@ -305,6 +307,25 @@ def test_flash_kernels_match_plain(card, dtype, causal, B, H, Tq, Tk, D):
     for got, want, what in ((dq, dq_ref, "dq"), (dk, dk_ref, "dk"),
                             (dv, dv_ref, "dv")):
         _flash_close(got, want, what)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [8, 32, 64, 128])
+def test_flash_backward_no_further_from_f64_than_plain(card, D, causal,
+                                                       dtype):
+    """chip_smoke.py's flash gate (phase 6) at every padded head width:
+    over 4 input seeds, K2's dq and K3's dk and dv (3xTF32 products on
+    the tensor cores) land at most one step (a bf16 ulp with a floor at
+    1/256 of the max-abs, or 1e-6 + 1e-5 |value| in f32) further from an
+    f64 answer than the plain version. A single TF32 pass fails it
+    (tests/test_torch_flash_tf32.py). T 200 leaves a ragged last tile."""
+    import chip_smoke
+
+    worst = chip_smoke.flash_seed_sweep(tfa, card, dtype, causal, seeds=4,
+                                        shape=(1, 3, 200, D))
+    assert set(worst) == {"o", "dq", "dk", "dv"}
+    assert max(worst.values()) <= 1, worst
 
 
 def test_flash_backward_is_bitwise_repeatable(card):
