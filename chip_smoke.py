@@ -51,10 +51,11 @@ Phases (any failure exits non-zero before the result line):
 6. flash kernels — K1 (forward: o and lse), K2 (dq) and K3 (dk, dv)
    against their plain PyTorch versions, f32 and bf16, at the training
    shapes (B 8, H 12, T 512, D 64) non-causal and causal, at a padded T
-   (500) and at cross lengths (Tq 24, Tk 56, D 16); the backward twice,
-   bitwise equal. Tolerances: f32 within 1e-4 of each tensor's max-abs
-   (the kernels tile 64 x 64 where the plain version takes one 512-row
-   block, so every sum runs in another order); bf16 o within 2 ulp (the
+   (500) and at cross lengths (Tq 24, Tk 56, D 16); the forward and the
+   backward twice each, bitwise equal. Tolerances: f32 within 1e-4 of
+   each tensor's max-abs (the kernels take 32-row tiles where the plain
+   version takes one 512-row block, so every sum runs in another order,
+   and their products in 3xTF32); bf16 o within 2 ulp (the
    ulp of values below 1/256 of o's max-abs taken at that floor: a
    cancelling weighted mean turns a 1e-7 f32 difference into many ulps of
    a tiny value) and the gradients within a relative L2 of 1e-2; lse
@@ -65,11 +66,12 @@ Phases (any failure exits non-zero before the result line):
    TFLOP/s: PEAK_F32_OPS says why); flash_bwd whole (delta + K2 + K3)
    beside SDPA's backward, and their ratio. Then a seed-independent
    gate, f32 and bf16, non-causal and causal: over 8 input seeds at B 2,
-   H 12, T 512, D 64, no value of K1's o or K2/K3's dq, dk, dv more than
-   one step (excess_over_plain, phase 3's) further from an f64 answer
-   (the plain version on f64 copies of the same inputs) than the plain
-   version's. It separates K2/K3's 3xTF32 products, which pass, from a
-   single TF32 pass, which fails (tests/test_torch_flash_tf32.py).
+   H 12, T 512, D 64, no value of K1's o and lse or K2/K3's dq, dk, dv
+   more than one step (excess_over_plain, phase 3's; the f32 step for
+   the lse, which is f32 in both) further from an f64 answer (the plain
+   version on f64 copies of the same inputs) than the plain version's.
+   It separates the kernels' 3xTF32 products, which pass, from a single
+   TF32 pass, which fails (tests/test_torch_flash_tf32.py).
 7. train — a transformer encoder at BERT-base widths (Google Research's
    bert uncased_L-12_H-768_A-12/bert_config.json: hidden 768, 12 heads,
    intermediate 3072, 12 layers, sequence 512, gelu, weights from
@@ -759,19 +761,20 @@ def flash_inputs(rng, dev, dtype, B, H, Tq, Tk, D):
 
 
 def flash_plain(tfa, q, k, v, do, lse, delta, causal):
-    """K1-K3's plain versions on these inputs: {"o", "dq", "dk", "dv"},
-    the backward from this lse and delta."""
+    """K1-K3's plain versions on these inputs: {"o", "lse", "dq", "dk",
+    "dv"}, the backward from this lse and delta."""
+    o, lse_out = tfa.flash_fwd_plain(q, k, v, causal, need_lse=True)
     dk, dv = tfa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
-    return {"o": tfa.flash_fwd_plain(q, k, v, causal)[0],
+    return {"o": o, "lse": lse_out,
             "dq": tfa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal),
             "dk": dk, "dv": dv}
 
 
 def flash_excess(tfa, q, k, v, do, lse, delta, causal, got):
-    """excess_over_plain of each tensor of `got` (some of "o", "dq", "dk",
-    "dv": K1's output and K2/K3's gradients at these inputs, the backward
-    fed this lse and delta): the f64 answer is the plain version on f64
-    copies of the same inputs, lse and delta included."""
+    """excess_over_plain of each tensor of `got` (some of "o", "lse",
+    "dq", "dk", "dv": K1's outputs and K2/K3's gradients at these inputs,
+    the backward fed this lse and delta): the f64 answer is the plain
+    version on f64 copies of the same inputs, lse and delta included."""
     plain = flash_plain(tfa, q, k, v, do, lse, delta, causal)
     exact = flash_plain(tfa, *(t.double() for t in (q, k, v, do, lse,
                                                      delta)), causal)
@@ -782,9 +785,9 @@ def flash_excess(tfa, q, k, v, do, lse, delta, causal, got):
 def flash_seed_sweep(tfa, dev, dtype, causal, seeds=FLASH_F64_SEEDS,
                      shape=FLASH_F64_SHAPE):
     """Phase 6's f64 gate: over `seeds` input seeds at `shape` (B, H, T,
-    D), K1's o and K2/K3's dq, dk and dv (fed the plain forward's lse and
-    delta, as the checks against the plain version are) against the f64
-    answer; the worst flash_excess of each tensor."""
+    D), K1's o and lse and K2/K3's dq, dk and dv (fed the plain forward's
+    lse and delta, as the checks against the plain version are) against
+    the f64 answer; the worst flash_excess of each tensor."""
     B, Hh, T, D = shape
     worst = {}
     for seed in range(seeds):
@@ -793,7 +796,8 @@ def flash_seed_sweep(tfa, dev, dtype, causal, seeds=FLASH_F64_SEEDS,
         o_ref, lse = tfa.flash_fwd_plain(q, k, v, causal, need_lse=True)
         delta = tfa._delta(do, o_ref)
         dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
-        got = {"o": tfa.flash_fwd(q, k, v, causal)[0],
+        o, lse_k = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+        got = {"o": o, "lse": lse_k,
                "dq": tfa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
                "dk": dk, "dv": dv}
         for w, x in flash_excess(tfa, q, k, v, do, lse, delta, causal,
@@ -896,6 +900,9 @@ def check_flash(dev):
             need(lse_ok, f"flash lse {name} {case}: disagrees with the "
                  "plain version")
             o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+            o2, lse2 = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+            need(torch.equal(o, o2) and torch.equal(lse, lse2),
+                 f"flash forward {name} {case}: two runs differ")
             first = tfa.flash_bwd(q, k, v, o, lse, do, causal)
             second = tfa.flash_bwd(q, k, v, o, lse, do, causal)
             need(all(torch.equal(a, b) for a, b in zip(first, second)),
@@ -903,7 +910,7 @@ def check_flash(dev):
             log(f"flash {name} {case} (B {B} H {Hh} Tq {Tq} Tk {Tk} D {D} "
                 f"causal {causal}): max_abs_err "
                 + " ".join(f"{w} {e:.3e}" for w, e in errs.items())
-                + "; backward bitwise repeatable")
+                + "; forward and backward bitwise repeatable")
             if case == "train":
                 for kname, r in flash_timing(tfa, q, k, v, do, causal, errs,
                                              flush).items():

@@ -18,10 +18,10 @@
 // callers' [B, T, H, D] -> [B, H, T, D] transposes therefore cost no copy.
 // Outputs are contiguous: o and dq [B, H, Tq, D], dk and dv [B, H, Tk, D],
 // lse and delta [B*H, Tq] fp32. Inputs and outputs are fp32 or bf16; every
-// product and sum is taken in fp32 (K2 and K3: products in 3xTF32, as
-// accurate) and each output is rounded once to the input type. D is any
-// multiple of 8 up to 128: the tiles are padded with zeros to DP in {16,
-// 32, 64, 128}, which adds exact zeros to every dot product.
+// product is taken in 3xTF32 on the tensor cores (as accurate as fp32),
+// every sum in fp32, and each output is rounded once to the input type. D
+// is any multiple of 8 up to 128: the tiles are padded with zeros to DP in
+// {16, 32, 64, 128}, which adds exact zeros to every dot product.
 //
 // What bounds them on the H100: operations. At the training shapes (B 8,
 // H 12, T 512, D 64) K1 does 4*B*H*T^2*D = 6.4 GFLOP on 50 MB of q/k/v/o
@@ -30,34 +30,33 @@
 // route is 3xTF32 on the tensor cores: 495/3 = 165 TFLOP/s, against 67 on
 // the CUDA cores.
 //
-// K1 (forward) runs on the CUDA cores: every (row, key) score is computed
-// once from tiles staged in shared memory (64 query rows x 64 keys,
-// 16-byte global loads converted to fp32 on the way in), and each of 256
-// threads computes a 4x4 block of the score tile and a 4 x DP/16 block of
-// the output tile from registers, so each shared-memory read feeds four
-// FMAs. The padded row stride (DP + 1) keeps the 16 threads that read 16
-// different rows in 16 different banks.
-//
-// K2 (dq) and K3 (dk/dv) run every product on the tensor cores in 3xTF32
-// (mma.sync m16n8k8, fp32 accumulators; the comment that opens their
-// section says how), a warp per 16 rows of the block's own 64 or 128. The
-// scores, probabilities and dS never leave registers: a C fragment is the
-// A operand of the next product. K/V (K2) or q/do (K3) tiles of 32 rows
-// stream through a two-stage ring of 16-byte cp.async copies into
-// XOR-swizzled tiles, the next tile loading while this one is multiplied,
-// and each is split into its TF32 parts once per block. What bounds them
-// is the instruction rate and latency: a product takes three MMAs, the
-// splits and the per-k-step adds, and a warp has few independent ones in
-// flight.
+// All three run every product on the tensor cores in 3xTF32 (mma.sync
+// m16n8k8, fp32 accumulators; the comment that opens the tensor-core
+// section says how), a warp per 16 rows of the block's own 64 or 128: q
+// rows in K1 and K2, keys in K3. The scores, probabilities and dS never
+// leave registers: a C fragment is the A operand of the next product (K1:
+// P of P.V; K2: dS of dS.K; K3: P^T and dS^T). The streamed operand, K/V
+// (K1, K2) or q/do (K3), comes in tiles of 32 rows through a two-stage
+// ring of 16-byte cp.async copies into XOR-swizzled tiles, the next tile
+// loading while this one is multiplied, and each tile is split into its
+// TF32 parts once per block. K1's online softmax runs on the C fragments:
+// a row's max and sum are taken over the four lanes that hold it, and acc
+// is rescaled once per tile. What bounds the kernels is the instruction
+// rate and latency, not the tensor cores: a product takes three MMAs, the
+// splits and the per-k-step fp32 adds, and a warp has few independent ones
+// in flight. bf16 values are TF32 values, so in bf16 K1 leaves out the
+// products with a small part that is zero by construction.
 //
 // Causal tiles wholly above the diagonal are skipped (K1, K2: the KV loop
-// ends at the last tile the q tile can see; K3: the q loop starts at the
-// diagonal), as the reference skips its blocks. The TPU kernels hold the
-// whole K/V (or q/do) of a head in VMEM and loop with fori_loop; here a
-// block stages one tile at a time, and blocks run in no order, so a
-// block owns its output tile outright: dq belongs to K2, dk/dv to K3, no
-// kernel uses atomics, and every sum has one fixed order, so two runs on
-// the same inputs are bitwise equal.
+// ends at the last tile the q tile can see, and in K1 a warp whose 16 rows
+// see none of a tile's keys skips its math; K3: the q loop starts at the
+// diagonal), as the reference skips its blocks; K1's causal grid starts
+// the q tiles with the most keys first. The TPU kernels hold the whole K/V
+// (or q/do) of a head in VMEM and loop with fori_loop; here a block stages
+// one tile at a time, and blocks run in no order, so a block owns its
+// output tile outright: o belongs to K1, dq to K2, dk/dv to K3, no kernel
+// uses atomics, and every sum has one fixed order, so two runs on the same
+// inputs are bitwise equal.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,10 +66,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;   // the reference's finite mask value
 constexpr float kLseEmpty = 1e30f;  // lse of a row with no valid key
-constexpr int kThreads = 256;       // 16 x 16 threads
-constexpr int kBQ = 64;             // query rows per tile
-constexpr int kBK = 64;             // keys per tile
-constexpr int kPS = kBK + 16;       // row stride of a [kBQ][kBK] prob tile
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {  // element strides of one [B, H, T, D] operand (D stride 1)
   long long b, h, t;
@@ -79,195 +75,8 @@ struct Layout {   // q, k, v, and do (backward) or unused (forward)
   Strides q, k, v, g;
 };
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-// Unpack one 16-byte chunk into fp32 values.
-__device__ __forceinline__ void unpack(const uint4& u, float* out,
-                                       const float*) {
-  out[0] = __uint_as_float(u.x);
-  out[1] = __uint_as_float(u.y);
-  out[2] = __uint_as_float(u.z);
-  out[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* out,
-                                       const __nv_bfloat16*) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(w[i] << 16);
-    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
-// Stage rows row0 .. row0+63 of one head (base `src`, row stride `rs`) into
-// dst [64][DP + 1] fp32, times `mul`. Rows at or past `n` and columns at or
-// past D are zeros, so padded rows and columns add nothing.
-template <typename T, int DP>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long rs,
-                                      int row0, int n, int D, float mul) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = DP / kVec;
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int d0 = (i - r * kChunks) * kVec;
-    float vals[kVec];
-    if (row0 + r < n && d0 < D) {
-      const uint4 u = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * rs + d0);
-      unpack(u, vals, src);
-    } else {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) vals[e] = 0.f;
-    }
-    float* row = dst + r * (DP + 1) + d0;
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) row[e] = vals[e] * mul;
-  }
-}
-
-// Max and sum over the 16 lanes that share a row (lanes differ in their low
-// four bits). Butterflies: every lane ends with the same value.
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// s[i][j] = a[row ty+16i] . b[row tx+16j] over DP, from [64][DP+1] tiles
-template <int DP>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* a,
-                                         const float* b, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DP; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * (DP + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[(tx + 16 * j) * (DP + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += x[i] * y[j];
-  }
-}
-
-// K1. One block per (b*h, tile of 64 query rows); thread (ty, tx) owns query
-// rows ty + 16i, score columns tx + 16j and output columns tx + 16jd. Per
-// KV tile: stage K and V, score, fold into the online softmax (m, l, acc in
-// registers, fp32), write p to shared memory, accumulate p.V.
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, Layout L, int H, int Tq, int Tk,
-                 int D, int causal, float scale) {
-  constexpr int DC = DP / 16;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                   // [64][DP+1], times scale
-  float* ks = qs + kBQ * (DP + 1);    // [64][DP+1]
-  float* vs = ks + kBK * (DP + 1);    // [64][DP+1]
-  float* ps = vs + kBK * (DP + 1);    // [64][kPS]
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.y * kBQ;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const T* qh = q + b * L.q.b + h * L.q.h;
-  const T* kh = k + b * L.k.b + h * L.k.h;
-  const T* vh = v + b * L.v.b + h * L.v.h;
-  stage<T, DP>(qs, qh, L.q.t, q0, Tq, D, scale);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < DC; ++jd) acc[i][jd] = 0.f;
-  }
-  const int nk = (Tk + kBK - 1) / kBK;
-  const int n_used = causal ? min((q0 + kBQ - 1) / kBK + 1, nk) : nk;
-  for (int kt = 0; kt < n_used; ++kt) {
-    const int k0 = kt * kBK;
-    stage<T, DP>(ks, kh, L.k.t, k0, Tk, D, 1.f);
-    stage<T, DP>(vs, vh, L.v.t, k0, Tk, D, 1.f);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<DP>(s, qs, ks, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty + 16 * i;
-      bool valid[4];
-      float mt = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        valid[j] = kp < Tk && (!causal || qp >= kp);
-        if (!valid[j]) s[i][j] = kNegInf;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mt));
-      const float corr = expf(m[i] - m_new);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        psum += p;
-        ps[(ty + 16 * i) * kPS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + row_sum(psum);
-      m[i] = m_new;
-#pragma unroll
-      for (int jd = 0; jd < DC; ++jd) acc[i][jd] *= corr;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pr[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = ps[(ty + 16 * i) * kPS + c];
-#pragma unroll
-      for (int jd = 0; jd < DC; ++jd) vv[jd] = vs[c * (DP + 1) + tx + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jd = 0; jd < DC; ++jd) acc[i][jd] += pr[i] * vv[jd];
-    }
-    __syncthreads();  // the next tile rewrites ks, vs and ps
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty + 16 * i;
-    if (r >= Tq) continue;
-    const float den = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + ((long long)bh * Tq + r) * D;
-#pragma unroll
-    for (int jd = 0; jd < DC; ++jd) {
-      const int d = tx + 16 * jd;
-      if (d < D) orow[d] = from_f32<T>(acc[i][jd] / den);
-    }
-    if (lse != nullptr && tx == 0)
-      lse[(long long)bh * Tq + r] = l[i] > 0.f ? m[i] + logf(l[i]) : kLseEmpty;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K2 and K3: the backward's products on the tensor cores, fp32-accurate.
+// The products of K1-K3 on the tensor cores, fp32-accurate.
 //
 // mma.sync.m16n8k8 with tf32 operands and fp32 accumulators. Each fp32
 // operand x is split into big = tf32(x) and small = tf32(x - big) (both
@@ -325,12 +134,15 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // as they accumulate: chained into d itself (24 MMAs for a D-64 dot), the
 // truncations drift by many ulps of d, enough to fail the smoke's f64
 // gate where dP - delta cancels; one fragment per k-step truncates only at
-// the size of its 8 products, and d's sum rounds to nearest.
+// the size of its 8 products, and d's sum rounds to nearest. kSmallA
+// (kSmallB) false: a's (b's) small parts are zero by construction (a bf16
+// value is a TF32 value), and the product that takes them is left out.
+template <bool kSmallA = true, bool kSmallB = true>
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
                                      const FragB& b) {
   float t[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(t, a.small, b.big);
-  mma_tf32(t, a.big, b.small);
+  if (kSmallA) mma_tf32(t, a.small, b.big);
+  if (kSmallB) mma_tf32(t, a.big, b.small);
   mma_tf32(t, a.big, b.big);
 #pragma unroll
   for (int e = 0; e < 4; ++e) d[e] += t[e];
@@ -426,16 +238,21 @@ struct Lanes {
   }
 };
 
-// Start the copies of `rows` rows from row0 of one head (base `src`, row
+// Start the copies of ROWS rows from row0 of one head (base `src`, row
 // stride `rs` elements) into the swizzled tile `dst`; rows at or past `n`
 // and columns at or past D are zero-filled (D is a multiple of 8, so a
-// chunk is wholly in or out).
-template <typename T, int DP, int THREADS>
+// chunk is wholly in or out). The trip count is known at compile time, so
+// the loop unrolls and a thread's offsets are the same on every call.
+template <typename T, int DP, int THREADS, int ROWS>
 __device__ __forceinline__ void stage_async(T* dst, const T* src,
-                                            long long rs, int row0, int rows,
-                                            int n, int D) {
+                                            long long rs, int row0, int n,
+                                            int D) {
   constexpr int kCh = Swz<T, DP>::kCh, kNc = Swz<T, DP>::kNc;
-  for (int i = threadIdx.x; i < rows * kNc; i += THREADS) {
+  constexpr int kChunks = ROWS * kNc;
+#pragma unroll
+  for (int i0 = 0; i0 < kChunks; i0 += THREADS) {
+    const int i = i0 + (int)threadIdx.x;
+    if (kChunks % THREADS != 0 && i >= kChunks) break;
     const int r = i / kNc, d = (i - r * kNc) * kCh;
     const bool in = row0 + r < n && d < D;
     cp_async16(dst + Swz<T, DP>::at(r, d),
@@ -448,24 +265,24 @@ __device__ __forceinline__ void stage_async(T* dst, const T* src,
 // are column 2t, A column t+4 and B row t+4 column 2t+1), so a lane's two
 // values of a row are neighbours and arrive in one load.
 
-// Rows of a streamed tile: K/V (K2) or q/do (K3), 4 blocks of 8 (16 rows
+// Rows of a streamed tile: K/V (K1, K2) or q/do (K3), 4 blocks of 8 (16 rows
 // measured slower on the H100: more barriers and A-operand splits for the
 // same work)
 constexpr int kStream = 32;
 constexpr int kNB = kStream / 8;
 
 // A operand: rows r0 .. r0+15, columns c0 .. c0+7 of a tile in the input
-// type, split as it is loaded
+// type, times mul, split as it is loaded
 template <typename T, int DP>
 __device__ __forceinline__ void load_a(FragA& f, const T* tile,
                                        const Lanes<T, DP>& ln, int r0,
-                                       int c0) {
+                                       int c0, float mul = 1.f) {
   const T* p = tile + r0 * DP + ln.row + (c0 ^ ln.xrow);
   const float2 x = ld2(p), y = ld2(p + 8 * DP);
-  split(x.x, f.big[0], f.small[0]);
-  split(y.x, f.big[1], f.small[1]);
-  split(x.y, f.big[2], f.small[2]);
-  split(y.y, f.big[3], f.small[3]);
+  split(x.x * mul, f.big[0], f.small[0]);
+  split(y.x * mul, f.big[1], f.small[1]);
+  split(x.y * mul, f.big[2], f.small[2]);
+  split(y.y * mul, f.big[3], f.small[3]);
 }
 
 // A streamed tile split once per block: the big and small TF32 parts of
@@ -482,7 +299,11 @@ struct SplitTile {
 // four values a thread and step
 template <typename T, int DP, int THREADS>
 __device__ __forceinline__ void split_tile(SplitTile dst, const T* raw) {
-  for (int i = threadIdx.x; i < kStream * DP / 4; i += THREADS) {
+  constexpr int kQuads = kStream * DP / 4;
+#pragma unroll
+  for (int i0 = 0; i0 < kQuads; i0 += THREADS) {
+    const int i = i0 + (int)threadIdx.x;
+    if (kQuads % THREADS != 0 && i >= kQuads) break;
     const int r = i / (DP / 4), d = (i - r * (DP / 4)) * 4;
     float v[4];
     if constexpr (sizeof(T) == 4) {
@@ -561,6 +382,204 @@ __device__ __forceinline__ void store_c<__nv_bfloat16>(
         __floats2bfloat162_rn(c[2] * mul, c[3] * mul);
 }
 
+// Max and sum over the four lanes of a quad, which hold the same two rows
+// of a C fragment. Butterflies: every lane ends with the same bits.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The block shape of K1 for input type T at padded width DP: kRows query
+// rows, a warp per 16 of them. Up to DP 64, 128 rows, one block of 8
+// warps an SM, in f32 and bf16 alike (measured faster than 64-row blocks
+// two to an SM, which give the train shape the same 2.9 waves); DP 128: 64
+// rows. Shared memory: q [kRows][DP] and the two-stage K/V ring
+// [2][2][32][DP] in the input type, the split K and V [4][32][DP] 32-bit.
+template <typename T, int DP>
+struct Fwd {
+  static constexpr int kRows = DP <= 64 ? 128 : 64;
+  static constexpr int kThreads = 2 * kRows;
+  static constexpr size_t kSmem =
+      ((size_t)kRows + 4 * kStream) * DP * sizeof(T)
+      + 4 * (size_t)kStream * DP * 4;
+  static constexpr int kFit = (int)(228 * 1024 / (kSmem + 1024));
+  static constexpr int kBlocks =
+      kRows == 128 || kFit < 1 ? 1 : kFit > 3 ? 3 : kFit;
+};
+
+// K1. One block per (b*h, tile of kRows query rows); warp w owns rows
+// 16w .. 16w+15, a lane rows g and g+8 of them. q is staged once, and a
+// warp loads and splits its q fragments, times scale, at each k-step
+// (measured on the H100: held in registers for the whole KV loop, they
+// cost 64 registers at DP 64, spilled and gained nothing; split once into
+// shared memory, they were 3 % slower). K and V tiles of 32 keys stream through the two-stage cp.async ring,
+// the next tile loading during this one's math, and are split once into
+// big/small tiles. Per tile: S = (q*scale).K^T into C fragments; the mask
+// and the online softmax on the fragments (m, l and acc in fp32, the row
+// max and sum over the quad, acc rescaled once); P, still in registers,
+// is the A operand of acc += P.V. At the end o = acc / l and lse = m +
+// log(l). In bf16, q, K and V are TF32 values: S takes one MMA a k-step
+// and P.V two, and q is not scaled before the product (that would make
+// it inexact): S is.
+template <typename T, int DP>
+__global__ void __launch_bounds__(Fwd<T, DP>::kThreads, Fwd<T, DP>::kBlocks)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Layout L, int H, int Tq, int Tk,
+                 int D, int causal, float scale) {
+  constexpr int kRows = Fwd<T, DP>::kRows;
+  constexpr int kThreads = Fwd<T, DP>::kThreads;
+  constexpr int kOwn = kRows * DP, kTile = kStream * DP;
+  constexpr bool kExact = sizeof(T) == 2;  // small parts of q, K, V are 0
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);  // q [kRows][DP]
+  T* ring = qs + kOwn;                     // [2][K, V][32][DP]
+  uint32_t* sp = reinterpret_cast<uint32_t*>(ring + 4 * kTile);
+  const SplitTile kt_s{sp, sp + kTile}, vt_s{sp + 2 * kTile, sp + 3 * kTile};
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  // causal: the q tiles with the most KV tiles to walk start first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * kRows;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, tg = lane & 3;
+  const int w0 = q0 + (threadIdx.x >> 5) * 16;  // the warp's first row
+  const int r0 = w0 - q0;
+  const Lanes<T, DP> ln;
+  const Lanes<float, DP> lf;
+  const T* kh = k + b * L.k.b + h * L.k.h;
+  const T* vh = v + b * L.v.b + h * L.v.h;
+  stage_async<T, DP, kThreads, kRows>(qs, q + b * L.q.b + h * L.q.h, L.q.t,
+                                      q0, Tq, D);
+  cp_async_commit();
+  const int nk = (Tk + kStream - 1) / kStream;
+  const int n_used =
+      causal ? min((q0 + kRows - 1) / kStream + 1, nk) : nk;
+  auto fetch = [&](int i) {  // K and V of tile i: one commit group
+    if (i < n_used) {
+      T* dst = ring + (i & 1) * 2 * kTile;
+      stage_async<T, DP, kThreads, kStream>(dst, kh, L.k.t, i * kStream, Tk, D);
+      stage_async<T, DP, kThreads, kStream>(dst + kTile, vh, L.v.t,
+                                            i * kStream, Tk, D);
+    }
+    cp_async_commit();
+  };
+  fetch(0);
+  // f32: q times scale before its split, as the plain version scales q
+  const float qmul = kExact ? 1.f : scale;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt < n_used; ++kt) {
+    fetch(kt + 1);
+    cp_async_wait<1>();  // q and tile kt have landed
+    // every warp is past tile kt-1's math, which read the split tiles
+    __syncthreads();
+    split_tile<T, DP, kThreads>(kt_s, ring + (kt & 1) * 2 * kTile);
+    split_tile<T, DP, kThreads>(vt_s, ring + (kt & 1) * 2 * kTile + kTile);
+    // the split tiles are whole; stage kt & 1 is free for tile kt + 2
+    __syncthreads();
+    const int k0 = kt * kStream;
+    // a warp whose 16 rows see none of the tile's keys (all past Tq, or
+    // all above the tile when causal) skips its math: m, l and acc would
+    // not change
+    if (w0 >= Tq || (causal && w0 + 15 < k0)) continue;
+    float s[kNB][4];
+#pragma unroll
+    for (int j = 0; j < kNB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < DP; c += 8) {
+      FragA fq;
+      load_a<T, DP>(fq, qs, ln, r0, c, qmul);
+#pragma unroll
+      for (int j = 0; j < kNB; ++j) {
+        FragB fk;
+        load_b_rows<DP>(fk, kt_s, lf, 8 * j, c);
+        mma3<!kExact, !kExact>(s[j], fq, fk);
+      }
+    }
+    // element e of s[j]: row w0 + gr + 8 (e >> 1), key k0 + 8j + 2tg +
+    // (e & 1)
+    bool valid[kNB][4];
+    float mt[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kNB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qp = w0 + gr + 8 * (e >> 1);
+        const int kp = k0 + 8 * j + 2 * tg + (e & 1);
+        valid[j][e] = kp < Tk && (!causal || qp >= kp);
+        s[j][e] = valid[j][e] ? (kExact ? s[j][e] * scale : s[j][e])
+                              : kNegInf;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      }
+    float corr[2], ps[2] = {0.f, 0.f}, ml[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mt[i]));
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      ml[i] = m_new * kLog2e;
+    }
+    // p = exp(s - m) is taken as 2^(s log2(e) - m log2(e)), an FFMA and an
+    // ex2 where expf takes about ten instructions, for every score, and
+    // then selected: a branch around each exp serialises the 16 of them
+#pragma unroll
+    for (int j = 0; j < kNB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[j][e], kLog2e, -ml[e >> 1]));
+        s[j][e] = valid[j][e] ? p : 0.f;
+        ps[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * corr[i] + quad_sum(ps[i]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) {
+      FragA fp;
+      a_from_c(fp, s[j]);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        FragB fv;
+        load_b_cols<DP>(fv, vt_s, lf, 8 * j, 8 * n);
+        mma3<true, !kExact>(acc[n], fp, fv);
+      }
+    }
+  }
+  cp_async_wait<0>();  // with Tk == 0 the loop never waited for q's copies
+  // o = acc / l: a division, as the plain version; a row with no valid
+  // key has acc == 0 and l == 0, and gets exact zeros
+  const float den[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
+  T* out = o + (long long)bh * Tq * D;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+    if (n * 8 < D) {
+      const float c[4] = {acc[n][0] / den[0], acc[n][1] / den[0],
+                          acc[n][2] / den[1], acc[n][3] / den[1]};
+      store_c<T>(out, c, w0 + gr, Tq, D, n * 8 + 2 * tg, 1.f);
+    }
+  if (lse != nullptr && tg == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = w0 + gr + 8 * i;
+      if (r < Tq)
+        lse[(long long)bh * Tq + r] = l[i] > 0.f ? m[i] + logf(l[i])
+                                                 : kLseEmpty;
+    }
+}
+
 // The block shape of K2 and K3 for input type T at padded width DP. A
 // block owns kRows rows (q rows in K2, keys in K3), a warp per 16 of them.
 // f32 up to DP 64: 128 rows, one block of 8 warps an SM (128 KB of
@@ -618,10 +637,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const Lanes<float, DP> lf;
   const T* kh = k + b * L.k.b + h * L.k.h;
   const T* vh = v + b * L.v.b + h * L.v.h;
-  stage_async<T, DP, kThreads>(qs, q + b * L.q.b + h * L.q.h, L.q.t, q0,
-                               kRows, Tq, D);
-  stage_async<T, DP, kThreads>(gs, g + b * L.g.b + h * L.g.h, L.g.t, q0,
-                               kRows, Tq, D);
+  stage_async<T, DP, kThreads, kRows>(qs, q + b * L.q.b + h * L.q.h, L.q.t,
+                                      q0, Tq, D);
+  stage_async<T, DP, kThreads, kRows>(gs, g + b * L.g.b + h * L.g.h, L.g.t,
+                                      q0, Tq, D);
   cp_async_commit();
   const int nk = (Tk + kStream - 1) / kStream;
   const int n_used =
@@ -629,10 +648,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto fetch = [&](int i) {  // K and V of tile i: one commit group
     if (i < n_used) {
       T* dst = ring + (i & 1) * 2 * kTile;
-      stage_async<T, DP, kThreads>(dst, kh, L.k.t, i * kStream, kStream,
-                                   Tk, D);
-      stage_async<T, DP, kThreads>(dst + kTile, vh, L.v.t, i * kStream,
-                                   kStream, Tk, D);
+      stage_async<T, DP, kThreads, kStream>(dst, kh, L.k.t, i * kStream, Tk, D);
+      stage_async<T, DP, kThreads, kStream>(dst + kTile, vh, L.v.t,
+                                            i * kStream, Tk, D);
     }
     cp_async_commit();
   };
@@ -748,20 +766,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* gh = g + b * L.g.b + h * L.g.h;
   const float* lh = lse + (long long)bh * Tq;
   const float* dh = delta + (long long)bh * Tq;
-  stage_async<T, DP, kThreads>(ks, k + b * L.k.b + h * L.k.h, L.k.t, k0,
-                               kRows, Tk, D);
-  stage_async<T, DP, kThreads>(vs, v + b * L.v.b + h * L.v.h, L.v.t, k0,
-                               kRows, Tk, D);
+  stage_async<T, DP, kThreads, kRows>(ks, k + b * L.k.b + h * L.k.h, L.k.t,
+                                      k0, Tk, D);
+  stage_async<T, DP, kThreads, kRows>(vs, v + b * L.v.b + h * L.v.h, L.v.t,
+                                      k0, Tk, D);
   cp_async_commit();
   const int nq = (Tq + kStream - 1) / kStream;
   const int i0 = causal ? k0 / kStream : 0;
   auto fetch = [&](int it) {  // q, do, lse and delta of tile it
     if (it < nq) {
       T* dst = ring + (it & 1) * 2 * kTile;
-      stage_async<T, DP, kThreads>(dst, qh, L.q.t, it * kStream, kStream,
-                                   Tq, D);
-      stage_async<T, DP, kThreads>(dst + kTile, gh, L.g.t, it * kStream,
-                                   kStream, Tq, D);
+      stage_async<T, DP, kThreads, kStream>(dst, qh, L.q.t, it * kStream, Tq,
+                                            D);
+      stage_async<T, DP, kThreads, kStream>(dst + kTile, gh, L.g.t,
+                                            it * kStream, Tq, D);
       if (tid < kStream) {
         // rows past Tq are zero-filled and never read: their p is
         // masked to 0 below
@@ -849,8 +867,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-constexpr size_t tile_bytes(int dp) { return (size_t)64 * (dp + 1) * 4; }
-constexpr size_t fwd_smem(int dp) { return 3 * tile_bytes(dp) + kBQ * kPS * 4; }
 // Shared memory above 48 KB needs the opt-in, once per instantiation.
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes, bool* done) {
@@ -874,11 +890,12 @@ int run_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
             const Layout& L, int B, int H, int Tq, int Tk, int D, int causal,
             float scale, cudaStream_t st) {
   static bool done = false;
-  const size_t shm = fwd_smem(DP);
+  using C = Fwd<T, DP>;
+  const size_t shm = C::kSmem;
   cudaError_t e = allow_smem(flash_fwd_kernel<T, DP>, shm, &done);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, shm, st>>>(
+  const dim3 grid(B * H, (Tq + C::kRows - 1) / C::kRows);
+  flash_fwd_kernel<T, DP><<<grid, C::kThreads, shm, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
       L, H, Tq, Tk, D, causal, scale);

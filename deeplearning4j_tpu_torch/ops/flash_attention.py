@@ -19,9 +19,10 @@ shorter than k/v.
   or raise. The kernels take q/k/v/do with any batch, head and row
   strides and a unit stride along D, so the callers' head transposes
   cost no copy (an operand whose strides or address do not allow
-  16-byte loads is copied to a contiguous one first). The kernels tile
-  64 x 64 on their own; ``block_q``/``block_k`` set the plain versions'
-  block order and are accepted by the wrappers for signature parity.
+  16-byte loads is copied to a contiguous one first). The kernels
+  choose their own tiles (64 or 128 rows a block, 32 keys or rows a
+  streamed tile); ``block_q``/``block_k`` set the plain versions' block
+  order and are accepted by the wrappers for signature parity.
 * ``FlashAttentionFn`` is the reference's ``_flash`` custom VJP: K1
   forward (writing the lse only when a gradient will be needed), and a
   backward that computes ``delta = rowsum(do*o)`` in fp32 as one torch

@@ -4,6 +4,7 @@ the way chip_smoke.py beside this script times them (phase 6), and its
 training step (phase 7).
 
     cd <checkout> && python3 <this checkout>/scripts/flash_ab.py [steps]
+    cd <checkout> && python3 <this checkout>/scripts/flash_ab.py --k1
 
 ``deeplearning4j_tpu_torch`` is imported from the working directory, so
 an older checkout's kernels can be timed by this checkout's method; run
@@ -18,6 +19,11 @@ against the plain version; phase 6's f64 gate (8 seeds, B 2, H 12, T
 tensor); then the BERT-base-width encoder of phase 7 (batch 8 x 512,
 f32, Adam, seed 0) fit for `steps` steps (default 8), with the median
 host ms of steps 3 onward and the flash kernels' launches per step.
+``--k1`` times K1 alone, for comparing its design variants: at the
+training shape, f32 and bf16, non-causal and causal, K1 (median of 50)
+beside scaled_dot_product_attention's forward (median of 50), its
+bound, its max abs error against the plain version and whether its lse
+is within rtol/atol 1e-5 of the plain one; then the f64 gate as above.
 Prints the card's name and power limit, then one JSON line.
 """
 
@@ -35,13 +41,43 @@ import numpy as np
 sys.path.insert(0, os.getcwd())
 
 
+def k1_rows(smoke, tfa, dev, dtype, flush):
+    """K1 at the training shape, non-causal and causal: its ms beside
+    SDPA's forward, the bound and its agreement with the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    _, B, H, Tq, Tk, D, _ = smoke.FLASH_CASES[0]
+    rng = np.random.default_rng(smoke.SEED)
+    q, k, v, _ = smoke.flash_inputs(rng, dev, dtype, B, H, Tq, Tk, D)
+    rows = {}
+    for causal in (False, True):
+        o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+        o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, need_lse=True)
+        rows[f"causal {causal}"] = {
+            "ms": smoke.time_ms(
+                lambda: tfa.flash_fwd(q, k, v, causal, need_lse=True), 50,
+                flush),
+            "library_ms": smoke.time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal),
+                50, flush),
+            "bound_ms": smoke.flash_bounds(B, H, Tq, Tk, D, causal,
+                                           q.element_size())["K1"][0],
+            "max_abs_err": float((o.float() - o_ref.float()).abs().max()),
+            "lse_ok": bool(torch.allclose(lse, lse_ref, rtol=1e-5,
+                                          atol=1e-5))}
+    return rows
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("flash_ab: no CUDA device visible", file=sys.stderr)
         return 2
-    steps = int(sys.argv[1]) if len(sys.argv) > 1 else 8
+    only_k1 = sys.argv[1:2] == ["--k1"]
+    steps = int(sys.argv[1]) if len(sys.argv) > 1 and not only_k1 else 8
     spec = importlib.util.spec_from_file_location(
         "smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -60,6 +96,13 @@ def main():
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
     rows, gate = {}, {}
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        if only_k1:
+            for case, r in k1_rows(smoke, tfa, dev, dtype, flush).items():
+                rows[f"{name} K1 {case}"] = r
+            for c in (False, True):
+                gate[f"{name} causal {c}"] = smoke.flash_seed_sweep(
+                    tfa, dev, dtype, c)
+            continue
         rng = np.random.default_rng(smoke.SEED)
         q, k, v, do = smoke.flash_inputs(rng, dev, dtype, B, H, Tq, Tk, D)
         errs, _, _ = smoke.flash_errors(tfa, q, k, v, do, causal)
@@ -71,6 +114,11 @@ def main():
                                                                 dtype, c)
         del q, k, v, do
     del flush
+    if only_k1:
+        print(card)
+        print(json.dumps({"tree": os.getcwd(), "rows": rows,
+                          "f64_gate": gate}))
+        return 0
     cfg = smoke.BERT_BASE
     net = ComputationGraph(smoke.bert_encoder_conf(cfg)).init()
     x, y = smoke.encoder_batch(cfg, dev)

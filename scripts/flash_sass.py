@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """What nvcc makes of the flash attention kernels (K1-K3).
 
-    python3 scripts/flash_sass.py          # from the root of a checkout
+    python3 scripts/flash_sass.py [--sass DIR]   # from a checkout's root
 
 Compiles deeplearning4j_tpu_torch/csrc/flash_attention.cu for sm_90a with
 the flags ops/_kernels.py uses, into a cubin in a temporary directory,
@@ -13,7 +13,14 @@ m16n8k8 with TF32 operands), FFMA (fp32 FMAs on the CUDA cores), LDGSTS
 (cp.async copies) and LDS (shared-memory loads), and the 12 commonest
 base opcodes; then one JSON line of the same. Counts are of the
 compiled code, not of executed instructions: a loop body counts once.
-Needs the CUDA toolkit (CUDA_HOME or /usr/local/cuda).
+``--sass DIR`` also writes each kernel's SASS to DIR/<kernel>.sass.
+
+It then checks what the kernels' design promises and exits 1 if it
+does not hold: every instantiation of K1, K2 and K3 takes its products
+on the tensor cores (``HMMA.1688.F32.TF32`` present), and K1 spills
+nothing at DP 64 (its KV loop) in f32 or bf16. FFMA is left in the
+exp, the rescale and the scale only; that is read from the SASS, not
+checked here. Needs the CUDA toolkit (CUDA_HOME or /usr/local/cuda).
 """
 
 from __future__ import annotations
@@ -42,7 +49,25 @@ def kernel_name(mangled):
     return f"{m.group(1)}<{dtype}, {m.group(3)}>"
 
 
+def expectations(kernels):
+    """The design's promises that do not hold in `kernels`, as text."""
+    bad = []
+    for name, k in sorted(kernels.items()):
+        if name.startswith("flash_") and not k.get(CLASSES[0]):
+            bad.append(f"{name}: no {CLASSES[0]}: products off the tensor "
+                       "cores")
+    for dtype in ("float", "bf16"):
+        k = kernels.get(f"flash_fwd_kernel<{dtype}, 64>", {})
+        if k.get("spill_store_bytes", 0) or k.get("spill_load_bytes", 0):
+            bad.append(f"flash_fwd_kernel<{dtype}, 64> spills")
+    return bad
+
+
 def main():
+    sass_dir = None
+    if sys.argv[1:2] == ["--sass"] and len(sys.argv) > 2:
+        sass_dir = Path(sys.argv[2])
+        sass_dir.mkdir(parents=True, exist_ok=True)
     cuda = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
     nvcc, cuobjdump = cuda / "bin" / "nvcc", cuda / "bin" / "cuobjdump"
     if not nvcc.exists():
@@ -76,6 +101,7 @@ def main():
             kernels[name]["spill_store_bytes"] = int(m.group(1))
             kernels[name]["spill_load_bytes"] = int(m.group(2))
     name = None
+    text = {}
     for line in sass.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
@@ -85,6 +111,7 @@ def main():
             continue
         if name is None:
             continue
+        text.setdefault(name, []).append(line)
         m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
                       line)
         if not m:
@@ -99,11 +126,18 @@ def main():
     for k in kernels.values():   # the 12 commonest base opcodes
         ops = k.get("opcodes", {})
         k["opcodes"] = dict(sorted(ops.items(), key=lambda kv: -kv[1])[:12])
+    if sass_dir is not None:
+        for k, lines in text.items():
+            fname = re.sub(r"[^\w]+", "_", k).strip("_") + ".sass"
+            (sass_dir / fname).write_text("\n".join(lines) + "\n")
     for k in sorted(kernels):
         print(k, json.dumps(kernels[k]))
+    bad = expectations(kernels)
+    for b in bad:
+        print(f"flash_sass: {b}", file=sys.stderr)
     print(json.dumps({"source": str(SRC.relative_to(ROOT)),
-                      "kernels": kernels}))
-    return 0
+                      "kernels": kernels, "expectations_met": not bad}))
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

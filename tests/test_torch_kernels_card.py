@@ -8,7 +8,8 @@ serving bitwise against its dense serial trajectory through the kernels;
 K1 (flash forward), K2 (dq) and K3 (dk, dv) of
 deeplearning4j_tpu_torch/csrc/flash_attention.cu against their plain
 versions, over 4 input seeds against an f64 answer at every padded head
-width (chip_smoke.py's flash gate), the backward's bitwise
+width (chip_smoke.py's flash gate: the forward's o and lse, the
+backward's dq, dk and dv), the forward's and the backward's bitwise
 repeatability, strided operands, and autograd through FlashAttentionFn
 launching all three.
 
@@ -22,9 +23,9 @@ Without a card every test skips (the kernels have no CPU mode).
 Tolerances: f32 rtol 1e-5, atol 1e-6 (both accumulate in f32; only the
 order inside dot products and page sums differs); bf16 at most 1 bf16
 ulp (one rounding of nearly equal f32 values); lse rtol/atol 1e-5.
-Flash kernels: f32 within 1e-4 of each tensor's max-abs (the kernels tile
-64 x 64 where the plain version takes whole 512-row blocks, so every sum
-runs in another order); bf16 within 2 ulp on o (both round one f32 value
+Flash kernels: f32 within 1e-4 of each tensor's max-abs (the kernels take
+32-row tiles where the plain version takes whole 512-row blocks, so every
+sum runs in another order, and their products in 3xTF32); bf16 within 2 ulp on o (both round one f32 value
 that differs only by that order; the ulp of values below 1/256 of o's
 max-abs is taken at that floor, where a cancelling weighted mean turns
 an f32 difference of ~1e-7 into many ulps) and a relative L2 of 1e-2 on the
@@ -324,8 +325,49 @@ def test_flash_backward_no_further_from_f64_than_plain(card, D, causal,
 
     worst = chip_smoke.flash_seed_sweep(tfa, card, dtype, causal, seeds=4,
                                         shape=(1, 3, 200, D))
-    assert set(worst) == {"o", "dq", "dk", "dv"}
+    assert set(worst) == {"o", "lse", "dq", "dk", "dv"}
     assert max(worst.values()) <= 1, worst
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [8, 32, 64, 128])
+def test_flash_forward_no_further_from_f64_than_plain(card, D, causal,
+                                                      dtype):
+    """chip_smoke.py's flash gate on K1 alone at every padded head width
+    and at cross lengths: over 4 input seeds, o (3xTF32 S and P.V on the
+    tensor cores) and the lse land at most one step (o: as for the
+    backward; the lse, fp32 in both dtypes: 1e-6 + 1e-5 |value|) further
+    from an f64 answer than the plain version. Tq 200 and Tk 72 leave
+    ragged last tiles; causal, rows past the keys see them all."""
+    import chip_smoke
+
+    worst = {}
+    for seed in range(4):
+        rng = np.random.default_rng(2000 + seed)
+        q, k, v, do = chip_smoke.flash_inputs(rng, card, dtype, 1, 3, 200,
+                                              72, D)
+        o, lse = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+        o_ref, lse_ref = tfa.flash_fwd_plain(q, k, v, causal, need_lse=True)
+        delta = tfa._delta(do, o_ref)
+        got = chip_smoke.flash_excess(tfa, q, k, v, do, lse_ref, delta,
+                                      causal, {"o": o, "lse": lse})
+        for w, x in got.items():
+            worst[w] = max(worst.get(w, -np.inf), x)
+    assert set(worst) == {"o", "lse"}
+    assert max(worst.values()) <= 1, worst
+
+
+def test_flash_forward_is_bitwise_repeatable(card):
+    """o and lse belong to K1 alone: no atomics, one sum order."""
+    rng = np.random.default_rng(15)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, _ = _flash_inputs(rng, card, dtype, 2, 4, 200, 200, 64)
+        for causal in (False, True):
+            first = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+            second = tfa.flash_fwd(q, k, v, causal, need_lse=True)
+            assert torch.equal(first[0], second[0])
+            assert torch.equal(first[1], second[1])
 
 
 def test_flash_backward_is_bitwise_repeatable(card):
