@@ -89,8 +89,48 @@ Phases (any failure exits non-zero before the result line):
    the last below the first; (c) median step ms over steps 3-20,
    sequences/s, tokens/s and peak device memory.
 
+8. lenet — zoo LeNet (1x28x28, 10 classes, Adam(1e-3), f32, TF32 off,
+   seed 0) through MultiLayerNetwork, batch 64 of seeded uniform pixels
+   labelled by a seeded linear rule: (a) the first step's loss and
+   gradients on the card
+   against the port on the CPU from the same weights (carried with
+   params_to_reference / load_reference_params): loss rel 1e-5, each
+   gradient rel L2 1e-4; (b) fit(DataSetIterator(256 examples, shuffle))
+   for 5 epochs, 20 steps: every loss finite, the last epoch's mean loss
+   below the first's; median step ms of steps 3-20 and images/s.
+9. resnet — zoo ResNet50 through ComputationGraph. (a) parity at
+   tests/test_torch_zoo_resnet.py's shape (8 classes, 3x64x64, batch 4)
+   and bars, from the same weights: f64 on the card against f64 on the
+   CPU (loss rel 1e-10, each gradient rel L2 1e-9; after one fit step BN
+   running statistics rel 1e-6 and the Nesterovs-updated params within
+   1e-10), f32 with TF32 and cudnn.benchmark off against the f64 answer
+   (loss rel 1e-5; each gradient no further from it than 1.25x the
+   CPU f32's worst distance, or the reference's own 2.6e-2 where larger,
+   + 1e-3: this network's f32 gradient is not reproducible beyond ~1e-2,
+   see the test) and the eval output within 1e-4 of the CPU's. (b) the reference's headline configuration (bench.py
+   _measure_resnet50): 224x224, 1000 classes, DataType.BFLOAT16,
+   dataFormat NHWC, Nesterovs(0.1, 0.9), batch 128, one fixed seeded
+   batch (RandomState(0) uniform pixels, random labels) resident on the
+   card, cudnn.benchmark on; 20 fit steps: losses finite and the 20th
+   below the 1st; median step ms of steps 3-20, images/s, peak device
+   memory and the share of the 989 TFLOP/s bf16 dense peak at 3x the
+   forward FLOPs counted from the conv and dense shapes. (c) a
+   torch.profiler trace of 3 more steps (tracing off for (b)): device
+   time per step split into convolutions (forward, dgrad, wgrad), BN
+   forward and backward, other elementwise work (relu, add), pooling,
+   max pooling, global pooling, the dense layer and the loss, the
+   Nesterovs update, the bf16 casts of the fp32 master weights (and of
+   their gradients back) and the rest, by a profiler scope the smoke
+   opens around each layer kind's forward, the loss and the update, and
+   by the autograd node of each backward kernel; the device's busy time
+   (the union of its kernels and copies) and its idle share of the
+   untraced step of (b) and of the traced wall, which the profiler's own
+   host work stretches.
+
 The last stdout line is {"ok": true, "device": {...}}; before it come the
-nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5).
+nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; phases 8-9
+run no hand-written kernel: conv and dense are cuDNN/cuBLAS calls, as the
+reference leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -1118,6 +1158,428 @@ def train_and_check(dev, cfg):
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 8: zoo LeNet through MultiLayerNetwork
+# ----------------------------------------------------------------------
+
+#: zoo LeNet at its defaults (1x28x28, 10 classes, Adam(1e-3)), f32
+LENET = dict(batch=64, examples=256, epochs=5, classes=10)
+
+
+class TimedIterator:
+    """Wraps a DataSetIterator: at each ``next`` it records the host time
+    and the network's score (the loss of the step before it; the score
+    fetch synchronises the device)."""
+
+    def __init__(self, it, net):
+        self.it, self.net = it, net
+        self.times, self.scores = [], []
+
+    def reset(self):
+        self.it.reset()
+
+    def hasNext(self):
+        return self.it.hasNext()
+
+    def next(self):
+        self.scores.append(self.net.score())
+        self.times.append(time.perf_counter())
+        return self.it.next()
+
+
+def grads_against(got, want):
+    """The worst gradient rel L2 of `got` against `want` (same-structured
+    dicts or lists of dicts of tensors)."""
+    pairs = (zip(got, want) if isinstance(got, list)
+             else ((got[n], want[n]) for n in want))
+    worst = 0.0
+    for g, w in pairs:
+        for k in w:
+            worst = max(worst, rel_l2(g[k].cpu(), w[k].cpu()))
+    return worst
+
+
+def lenet_and_check(dev, cfg):
+    """Phase 8: the first step's loss and gradients on the card against
+    the port on the CPU from the same weights; then fit(DataSetIterator)
+    for epochs x examples/batch steps on the same data."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSetIterator
+    from deeplearning4j_tpu_torch.nn.multilayer import params_to_reference
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    rng = np.random.default_rng(SEED)
+    x = rng.random((cfg["examples"], 784), dtype=np.float32)
+    rule = rng.standard_normal((784, cfg["classes"]))   # a learnable label
+    y = np.eye(cfg["classes"], dtype=np.float32)[(x @ rule).argmax(1)]
+    net = LeNet(numClasses=cfg["classes"], seed=SEED, device=dev).init()
+    cpu = LeNet(numClasses=cfg["classes"], seed=SEED, device="cpu").init()
+    cpu.load_reference_params(params_to_reference(net.layers, net._params),
+                              params_to_reference(net.layers, net._states))
+    B = cfg["batch"]
+    g_card, l_card = net.computeGradientAndScore(x[:B], y[:B])
+    g_cpu, l_cpu = cpu.computeGradientAndScore(x[:B], y[:B])
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = grads_against(g_card, g_cpu)
+    need(loss_rel <= 1e-5, f"lenet: loss {l_card} on the card vs {l_cpu} "
+         f"on the CPU (rel {loss_rel:.3e})")
+    need(worst <= 1e-4, f"lenet: a gradient rel L2 {worst:.3e} against "
+         "the CPU's")
+    log(f"lenet (a): {net.numParams()} params; first-step loss {l_card:.7f} "
+        f"vs the CPU's {l_cpu:.7f} (rel {loss_rel:.3e}); worst gradient "
+        f"rel L2 {worst:.3e}")
+    it = TimedIterator(DataSetIterator(x, y, B, shuffle=True, seed=SEED),
+                       net)
+    torch.cuda.synchronize()
+    net.fit(it, epochs=cfg["epochs"])
+    t_end = time.perf_counter()
+    losses = it.scores[1:] + [net.score()]
+    step_s = np.diff(it.times + [t_end])
+    steps = cfg["epochs"] * cfg["examples"] // B
+    need(len(losses) == steps and net.getIterationCount() == steps,
+         f"lenet (b): {len(losses)} steps, expected {steps}")
+    need(all(math.isfinite(v) for v in losses),
+         f"lenet (b): non-finite loss: {losses}")
+    per_epoch = steps // cfg["epochs"]
+    first, last = np.mean(losses[:per_epoch]), np.mean(losses[-per_epoch:])
+    need(last < first, f"lenet (b): the mean loss of an epoch did not fall: "
+         f"{first} -> {last}")
+    med = float(np.median(step_s[2:]))
+    result = {"steps": steps, "losses": losses,
+              "epoch_mean_loss_first": first, "epoch_mean_loss_last": last,
+              "step_ms_median_3_on": med * 1e3,
+              "images_per_s": B / med}
+    log("lenet (b): " + json.dumps(result))
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 9: zoo ResNet50 through ComputationGraph
+# ----------------------------------------------------------------------
+
+#: 9(a): the parity shape of tests/test_torch_zoo_resnet.py
+RESNET_PARITY = dict(batch=4, image=64, classes=8)
+#: how far the reference's own f32 gradient lies from its f64 gradient at
+#: that shape (tests/test_torch_zoo_resnet.py: up to 2.6e-2 rel L2, from
+#: relu outputs that change sign between summation orders)
+REF_F32_GRAD_TO_F64 = 2.6e-2
+#: 9(b): the reference's headline settings (bench.py _measure_resnet50)
+RESNET_TIMED = dict(batch=128, image=224, classes=1000, steps=20,
+                    traced_steps=3)
+
+
+def resnet_net(dev, cfg, dtype="FLOAT", **kw):
+    from deeplearning4j_tpu_torch.nn import DataType
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    return ResNet50(numClasses=cfg["classes"], seed=SEED,
+                    inputShape=(3, cfg["image"], cfg["image"]),
+                    dataType=getattr(DataType, dtype), device=dev,
+                    **kw).init()
+
+
+def resnet_parity(dev, cfg):
+    """Phase 9(a): f32 with TF32 off and cudnn.benchmark off, and f64,
+    on the card against the port on the CPU from the same weights, with
+    tests/test_torch_zoo_resnet.py's bars: f64 loss rel 1e-10, each
+    gradient rel L2 1e-9, BN running statistics after one fit step rel
+    1e-6, params after that Nesterovs step within 1e-10 of each tensor's
+    max-abs; f32 loss within 1e-5 of the f64 loss, each f32 gradient no
+    further from the f64 gradient than 1.25x the worst of the CPU's f32
+    gradients (or the reference's own worst f32 distance,
+    REF_F32_GRAD_TO_F64, where larger: which relu outputs change sign
+    differs between summation orders) plus 1e-3, eval output max abs
+    1e-4."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.graph import params_to_reference
+
+    torch.backends.cudnn.benchmark = False
+    card32 = resnet_net(dev, cfg)
+    params = params_to_reference(card32.conf, card32._params)
+    states = params_to_reference(card32.conf, card32._states)
+
+    def carried(d, dtype):
+        return resnet_net(d, cfg, dtype).load_reference_params(params,
+                                                               states)
+
+    cpu32, cpu64, card64 = (carried("cpu", "FLOAT"), carried("cpu", "DOUBLE"),
+                            carried(dev, "DOUBLE"))
+    rng = np.random.default_rng(SEED)
+    B, n = cfg["batch"], cfg["image"]
+    x = rng.standard_normal((B, 3, n, n)).astype(np.float32)
+    y = np.eye(cfg["classes"], dtype=np.float32)[
+        rng.integers(0, cfg["classes"], B)]
+    res = {}
+    for name, net in (("card32", card32), ("cpu32", cpu32),
+                      ("cpu64", cpu64), ("card64", card64)):
+        res[name] = net.computeGradientAndScore(x, y)
+    g64, l64 = res["cpu64"]
+    rel64 = abs(res["card64"][1] - l64) / abs(l64)
+    worst64 = grads_against(res["card64"][0], g64)
+    need(rel64 <= 1e-10 and worst64 <= 1e-9,
+         f"resnet (a): f64 loss rel {rel64:.3e}, worst gradient "
+         f"{worst64:.3e} on the card against the CPU")
+    rel32 = abs(res["card32"][1] - l64) / abs(l64)
+    need(rel32 <= 1e-5, f"resnet (a): f32 loss {res['card32'][1]} vs the "
+         f"f64 loss {l64} (rel {rel32:.3e})")
+    worst32 = grads_against(res["card32"][0], g64)
+    bar = 1.25 * max(grads_against(res["cpu32"][0], g64),
+                     REF_F32_GRAD_TO_F64) + 1e-3
+    need(worst32 <= bar, f"resnet (a): an f32 gradient on the card is "
+         f"{worst32:.3e} from f64, past {bar:.3e}")
+    out_err = float((card32.output(x).cpu() - cpu32.output(x)).abs().max())
+    need(out_err <= 1e-4, f"resnet (a): eval output max abs {out_err:.3e}")
+    for net in (cpu64, card64):
+        net.fit(x, y)
+    worst_state = max(rel_l2(card64._states[n][k].cpu(), w)
+                      for n, st in cpu64._states.items()
+                      for k, w in st.items())
+    with torch.no_grad():
+        worst_step = max(float((card64._params[n][k].cpu() - w).abs().max()
+                               / w.abs().max().clamp_min(1e-300))
+                         for n, p in cpu64._params.items()
+                         for k, w in p.items())
+    need(worst_state <= 1e-6 and worst_step <= 1e-10,
+         f"resnet (a): after one f64 fit step, BN statistics rel "
+         f"{worst_state:.3e}, params {worst_step:.3e}")
+    result = {"f64_loss_rel": rel64, "f64_worst_grad_rel_l2": worst64,
+              "f32_loss_rel_to_f64": rel32,
+              "f32_worst_grad_rel_l2_to_f64": worst32,
+              "eval_output_max_abs": out_err,
+              "bn_stats_rel_after_step": worst_state,
+              "params_rel_after_nesterovs_step": worst_step}
+    log("resnet (a): " + json.dumps(result))
+    return result
+
+
+def resnet_forward_flops(conf, batch):
+    """Multiply-adds x 2 of the forward's convolutions and dense layers,
+    from the conf's shapes."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    total = 0
+    for name in conf.topoOrder:
+        node = conf.nodes[name]
+        layer = node.payload
+        if node.kind != "layer":
+            continue
+        if isinstance(layer, L.ConvolutionLayer):
+            out = layer.getOutputType(node.layerInputType)
+            kh, kw = layer.kernelSize
+            total += 2 * batch * out.height * out.width * out.channels \
+                * layer.nIn * kh * kw
+        elif isinstance(layer, L.FeedForwardLayer):
+            total += 2 * batch * layer.nIn * layer.nOut
+    return total
+
+
+def resnet_timed(dev, cfg):
+    """Phase 9(b): the reference's headline configuration, one fixed
+    seeded batch resident on the card, cfg["steps"] fit steps."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+
+    torch.backends.cudnn.benchmark = True
+    t = time.perf_counter()
+    net = resnet_net(dev, cfg, "BFLOAT16", dataFormat="NHWC",
+                     updater=Nesterovs(0.1, 0.9))
+    torch.cuda.synchronize()
+    B, n = cfg["batch"], cfg["image"]
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.rand(B, n, n, 3).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    y = torch.from_numpy(np.eye(cfg["classes"], dtype=np.float32)[
+        rng.randint(0, cfg["classes"], B)]).to(dev)
+    log(f"resnet (b): {net.numParams()} params on {net.device}, built in "
+        f"{time.perf_counter() - t:.2f} s; NHWC bf16 batch {tuple(x.shape)} "
+        "resident on the card; cudnn.benchmark on, TF32 off (bf16 convs "
+        "and matmuls run on the tensor cores)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = fit_timed(net, x, y, cfg["steps"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(all(math.isfinite(v) for v in losses),
+         f"resnet (b): non-finite loss: {losses}")
+    need(losses[-1] < losses[0],
+         f"resnet (b): loss did not fall: {losses[0]} -> {losses[-1]}")
+    med = float(np.median(step_s[2:]))
+    flops = 3 * resnet_forward_flops(net.conf, B)
+    result = {"steps": cfg["steps"], "loss_step1": losses[0],
+              f"loss_step{cfg['steps']}": losses[-1], "losses": losses,
+              "step_ms_median_3_on": med * 1e3,
+              "step_ms_all": [s * 1e3 for s in step_s],
+              "images_per_s": B / med, "max_memory_allocated_bytes": peak,
+              "train_flops_per_step": flops,
+              "share_of_bf16_dense_peak": flops / med / PEAK_BF16_OPS,
+              "cudnn_benchmark": True}
+    log("resnet (b): " + json.dumps(result))
+    return net, x, y, result
+
+
+#: phase 9(c)'s categories: forward scopes the smoke opens around each
+#: layer kind, and the autograd nodes of the backward
+TRACE_FORWARD = {"ConvolutionLayer": "conv", "BatchNormalization": "bn",
+                 "SubsamplingLayer": "max_pool",
+                 "GlobalPoolingLayer": "global_pool",
+                 "ActivationLayer": "elementwise",
+                 "ElementWiseVertex": "elementwise",
+                 "dense": "dense_and_loss", "loss": "dense_and_loss",
+                 "update": "update"}
+TRACE_BACKWARD = (("Convolution", "conv"), ("BNTrainFn", "bn"),
+                  ("BNActTrainFn", "bn"), ("BNActAddTrainFn", "bn"),
+                  ("MaxPool", "max_pool"), ("MeanBackward1", "global_pool"),
+                  ("Relu", "elementwise"), ("Threshold", "elementwise"),
+                  ("AddBackward", "elementwise"), ("Mm", "dense_and_loss"),
+                  ("Addmm", "dense_and_loss"),
+                  ("LogSoftmax", "dense_and_loss"),
+                  ("MulBackward", "dense_and_loss"),
+                  ("NegBackward", "dense_and_loss"),
+                  ("SumBackward", "dense_and_loss"),
+                  ("MeanBackward0", "dense_and_loss"),
+                  ("DivBackward", "dense_and_loss"),
+                  ("SubBackward", "dense_and_loss"),
+                  ("AmaxBackward", "dense_and_loss"),
+                  ("ExpBackward", "dense_and_loss"),
+                  ("LogBackward", "dense_and_loss"),
+                  ("ToCopyBackward", "casts"))
+
+
+def _scoped(fn, name):
+    import torch
+
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function("smoke:" + name):
+            return fn(*a, **kw)
+    return wrapped
+
+
+def trace_scopes():
+    """[(owner, attribute, original)] after wrapping each layer kind's
+    forward, the vertex add, the loss and the updater step in a named
+    profiler scope (the trace's forward attribution)."""
+    from deeplearning4j_tpu_torch.nn import graph
+    from deeplearning4j_tpu_torch.nn.conf import graph as G
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    targets = [(getattr(L, n), "forward", n) for n in (
+        "ConvolutionLayer", "BatchNormalization", "SubsamplingLayer",
+        "GlobalPoolingLayer", "ActivationLayer")]
+    targets += [(G.ElementWiseVertex, "apply", "ElementWiseVertex"),
+                (L.BaseOutputLayer, "preoutput", "dense"),
+                (graph.ComputationGraph, "_loss", "loss"),
+                (graph, "default_param_update", "update")]
+    saved = []
+    for owner, attr, name in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, _scoped(fn, name))
+    return saved
+
+
+def classify(evt):
+    """The category of the kernels a CPU event launched, from its own
+    name and its ancestors': a smoke scope, else an autograd node."""
+    e = evt
+    while e is not None:
+        if e.name.startswith("smoke:"):
+            return TRACE_FORWARD[e.name[6:]]
+        e = e.cpu_parent
+    e = evt
+    while e is not None:
+        if e.name.startswith("autograd::engine::evaluate_function: "):
+            node = e.name.split(": ", 1)[1]
+            for key, cat in TRACE_BACKWARD:
+                if key in node:
+                    return cat
+            return "other:" + node
+        e = e.cpu_parent
+    e = evt
+    while e is not None:
+        if e.name == "aten::_to_copy":   # the bf16 casts of the params
+            return "casts"
+        e = e.cpu_parent
+    return "other:" + evt.name
+
+
+def resnet_trace(net, x, y, steps, untraced_step_ms):
+    """Phase 9(c): a torch.profiler trace of `steps` fit steps: device
+    time by category, and the device's idle share: of the traced wall
+    time (which the profiler itself stretches) and of the untraced step,
+    `untraced_step_ms` (9(b)'s median) less the traced busy time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = trace_scopes()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                with record_function("smoke.step"):
+                    net.fit(x, y)
+                    net.score()
+            torch.cuda.synchronize()
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    events = prof.events()
+    by_cat, other, bn_ops, launches = {}, {}, {}, 0
+    for evt in events:
+        for k in evt.kernels:
+            launches += 1
+            cat = classify(evt)
+            if cat.startswith("other:"):
+                other[cat[6:]] = other.get(cat[6:], 0.0) + k.duration
+                cat = "other"
+            elif cat == "bn":
+                bn_ops[evt.name] = bn_ops.get(evt.name, 0.0) + k.duration
+            by_cat[cat] = by_cat.get(cat, 0.0) + k.duration
+    step_evts = [e for e in events if e.name == "smoke.step"
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+    need(len(step_evts) == steps, f"resnet (c): {len(step_evts)} step "
+         f"scopes in the trace, expected {steps}")
+    t0 = min(e.time_range.start for e in step_evts)
+    t1 = max(e.time_range.end for e in step_evts)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.time_range.end > t0 and e.time_range.start < t1)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        s, e = max(s, t0), min(e, t1)
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    device_us = sum(by_cat.values())
+    need(device_us > 0, "resnet (c): the profiler saw no device time")
+    wall_us = t1 - t0
+    result = {"steps": steps,
+              "wall_ms_per_step": wall_us / 1e3 / steps,
+              "device_ms_per_step": {c: v / 1e3 / steps
+                                     for c, v in sorted(by_cat.items())},
+              "device_share": {c: v / device_us
+                               for c, v in sorted(by_cat.items())},
+              "device_busy_ms_per_step": busy / 1e3 / steps,
+              "device_idle_share_of_traced_wall": 1 - busy / wall_us,
+              "device_idle_share_of_untraced_step":
+                  1 - busy / 1e3 / steps / untraced_step_ms,
+              "kernel_launches_per_step": launches / steps,
+              "bn_ms_per_step_by_op": sorted(((v / 1e3 / steps, n)
+                                              for n, v in bn_ops.items()),
+                                             reverse=True)[:10],
+              "other_top": sorted(((v / 1e3 / steps, n)
+                                   for n, v in other.items()),
+                                  reverse=True)[:8]}
+    log("resnet (c): " + json.dumps(result))
+    return result
+
+
 def main():
     import torch
 
@@ -1150,6 +1612,13 @@ def main():
     result = serve_and_check(dev, GPT2_SMALL)
     flash_rows = check_flash(dev)
     train = train_and_check(dev, BERT_BASE)
+    torch.cuda.empty_cache()
+    lenet = lenet_and_check(dev, LENET)
+    parity = resnet_parity(dev, RESNET_PARITY)
+    net, x, y, timed = resnet_timed(dev, RESNET_TIMED)
+    trace = resnet_trace(net, x, y, RESNET_TIMED["traced_steps"],
+                         timed["step_ms_median_3_on"])
+    del net, x, y
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -1188,6 +1657,20 @@ def main():
     log(f"train step {step_ms:.2f} ms median; K1-K3 at their L2-cold "
         f"times x launches per step = {attention_ms:.2f} ms "
         f"({100 * attention_ms / step_ms:.1f} % of the step)")
+    split = ", ".join(f"{c} {100 * v:.1f} %"
+                      for c, v in trace["device_share"].items())
+    log(f"CNNs on {card}: LeNet b{LENET['batch']} f32 "
+        f"{lenet['images_per_s']:.0f} images/s; ResNet-50 f32 parity "
+        f"worst gradient {parity['f32_worst_grad_rel_l2_to_f64']:.2e} from "
+        f"f64; ResNet-50 bf16 NHWC b{RESNET_TIMED['batch']} "
+        f"{timed['step_ms_median_3_on']:.2f} ms a step, "
+        f"{timed['images_per_s']:.1f} images/s, "
+        f"{timed['max_memory_allocated_bytes'] / 2**30:.2f} GiB peak, "
+        f"{100 * timed['share_of_bf16_dense_peak']:.2f} % of the bf16 "
+        f"dense peak; traced device time: {split}; device idle "
+        f"{100 * trace['device_idle_share_of_untraced_step']:.1f} % of "
+        f"an untraced step ({100 * trace['device_idle_share_of_traced_wall']:.1f}"
+        " % of the traced wall)")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

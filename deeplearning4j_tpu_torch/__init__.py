@@ -14,7 +14,14 @@ What is ported so far:
 * training through attention: the ``nn.conf`` builders, layers and
   vertices the transformer encoder needs -> ``nn.graph.ComputationGraph``
   ``fit``, with the flash forward and the two flash backward kernels
-  (``csrc/flash_attention.cu``) behind ``ops.flash_attention``.
+  (``csrc/flash_attention.cu``) behind ``ops.flash_attention``;
+* training the headline CNNs: ``zoo.LeNet`` through
+  ``nn.multilayer.MultiLayerNetwork`` and ``zoo.ResNet50`` through
+  ``ComputationGraph``, over ``ops.conv``, ``ops.pooling`` and
+  ``ops.norm`` (the BN -> activation epilogue as autograd Functions),
+  ``Nesterovs`` and ``data.DataSet``/``DataSetIterator``. No Pallas
+  kernel lies on this path: conv and dense are cuDNN/cuBLAS calls, as
+  the reference leaves them to XLA.
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

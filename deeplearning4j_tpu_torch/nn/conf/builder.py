@@ -1,12 +1,17 @@
 """Network configuration builders.
 
-The counterpart of ``deeplearning4j_tpu/nn/conf/builder.py`` for graphs:
-``NeuralNetConfiguration.Builder`` with the global defaults the encoder
-slice reads (seed, updater, dataType, weightInit, activation, l1/l2,
-weight decay, gradient normalization) and ``graphBuilder()``; the
-automatic format preprocessor; ``GradientNormalization``. ``list()`` and
-``MultiLayerConfiguration`` wait for the LeNet slice (ROADMAP.md Queue 1
-item 4).
+The counterpart of ``deeplearning4j_tpu/nn/conf/builder.py``:
+``NeuralNetConfiguration.Builder`` with the global defaults the ported
+slices read (seed, updater, dataType, weightInit, activation, l1/l2,
+weight decay, gradient normalization, checkpointPolicy), ``list()`` ->
+``ListBuilder`` -> ``MultiLayerConfiguration`` (the sequential network's
+shape-inference walk, which infers each layer's nIn and inserts the
+format preprocessors) and ``graphBuilder()``; the automatic format
+preprocessor; ``GradientNormalization``.
+
+``checkpointPolicy`` is validated and stored as the reference does; a
+network built from a configuration that sets one raises (the
+rematerialisation policy waits for ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -18,12 +23,26 @@ from deeplearning4j_tpu_torch.nn.conf import preprocessors as PP
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
 __all__ = ["BackpropType", "GradientNormalization", "NeuralNetConfiguration",
-           "auto_preprocessor"]
+           "MultiLayerConfiguration", "ListBuilder", "auto_preprocessor",
+           "refuse_checkpoint_policy"]
 
 
 class BackpropType:
     Standard = "standard"
     TruncatedBPTT = "tbptt"
+
+
+#: the reference's named rematerialisation policies
+CHECKPOINT_POLICIES = (None, "save_conv_outputs")
+
+
+def refuse_checkpoint_policy(policy):
+    """Raise for a set checkpointPolicy: the port has no remat policy."""
+    if policy is not None:
+        raise NotImplementedError(
+            f"checkpointPolicy={policy!r} (torch.utils.checkpoint around "
+            "the loss) waits for the ResNet slice's remat item (ROADMAP.md "
+            "Queue 1 item 5)")
 
 
 class GradientNormalization:
@@ -35,10 +54,66 @@ class GradientNormalization:
     ClipL2PerParamType = "clip_l2_per_param_type"
 
 
+class MultiLayerConfiguration:
+    """Reference: MultiLayerConfiguration (built by ListBuilder)."""
+
+    def __init__(self, layers, defaults, seed, dataType, inputType,
+                 preprocessors, backpropType, tbpttFwdLength,
+                 tbpttBackLength, gradientNormalization=None,
+                 gradientNormalizationThreshold=1.0):
+        self.layers = layers
+        self.defaults = defaults
+        self.seed = seed
+        self.dataType = dataType
+        self.inputType = inputType
+        self.preprocessors = preprocessors  # {layer_index: preprocessor}
+        self.backpropType = backpropType
+        self.tbpttFwdLength = tbpttFwdLength
+        self.tbpttBackLength = tbpttBackLength
+        self.gradientNormalization = gradientNormalization
+        self.gradientNormalizationThreshold = gradientNormalizationThreshold
+        self.checkpointPolicy = defaults.get("checkpointPolicy")
+        self.layerInputTypes = []   # resolved per layer by inferShapes
+
+    def inferShapes(self):
+        """Propagate the InputType through the layers, inferring nIn and
+        inserting preprocessors (reference: ``inferShapes``)."""
+        cur = self.inputType
+        if cur.kind == InputType.CNN_FLAT:
+            if isinstance(self.layers[0], (L.ConvolutionLayer,
+                                           L.SubsamplingLayer,
+                                           L.BatchNormalization)):
+                self.preprocessors.setdefault(
+                    0, PP.FeedForwardToCnnPreProcessor(
+                        cur.height, cur.width, cur.channels))
+                cur = InputType.convolutional(cur.height, cur.width,
+                                              cur.channels)
+            else:
+                cur = InputType.feedForward(cur.arrayElementsPerExample())
+        self.layerInputTypes = []
+        for i, layer in enumerate(self.layers):
+            layer.mergeGlobals(self.defaults)
+            if i in self.preprocessors:
+                cur = self.preprocessors[i].getOutputType(cur)
+            else:
+                pp, cur2 = auto_preprocessor(layer, cur)
+                if pp is not None:
+                    self.preprocessors[i] = pp
+                    cur = cur2
+            if hasattr(layer, "inferNIn"):
+                layer.inferNIn(cur)
+            self.layerInputTypes.append(cur)
+            cur = layer.getOutputType(cur)
+        self.outputType = cur
+        return self
+
+
 def _wants(layer):
     """The input format a layer needs (None: any)."""
     if isinstance(layer, L.RnnOutputLayer):
         return InputType.RNN
+    if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer)):
+        return InputType.CNN
     if isinstance(layer, (L.DenseLayer, L.BaseOutputLayer)):
         return InputType.FF
     return None
@@ -50,16 +125,94 @@ def auto_preprocessor(layer, cur):
     wants = _wants(layer)
     if wants is None or cur.kind == wants:
         return None, cur
+    if cur.kind == InputType.CNN and wants == InputType.FF:
+        pp = PP.CnnToFeedForwardPreProcessor(cur.height, cur.width,
+                                             cur.channels)
+        return pp, pp.getOutputType(cur)
     if cur.kind == InputType.RNN and wants == InputType.FF:
         pp = PP.RnnToFeedForwardPreProcessor()
         return pp, pp.getOutputType(cur)
     if cur.kind == InputType.FF and wants == InputType.RNN:
         pp = PP.FeedForwardToRnnPreProcessor()
         return pp, pp.getOutputType(cur)
-    raise NotImplementedError(
-        f"No preprocessor for {cur.kind} -> {wants} (layer "
-        f"{type(layer).__name__}): the CNN preprocessors wait for the CNN "
-        "slice (ROADMAP.md Queue 1 item 4)")
+    if cur.kind == InputType.CNN and wants == InputType.RNN:
+        raise NotImplementedError(
+            "CnnToRnnPreProcessor waits for the recurrent slice "
+            "(ROADMAP.md Queue 1 item 8)")
+    raise ValueError(f"No preprocessor for {cur.kind} -> {wants} (layer "
+                     f"{type(layer).__name__})")
+
+
+class ListBuilder:
+    """Reference: NeuralNetConfiguration.ListBuilder."""
+
+    def __init__(self, defaults):
+        self._defaults = defaults
+        self._layers = []
+        self._preprocessors = {}
+        self._inputType = None
+        self._backpropType = BackpropType.Standard
+        self._tbpttFwd = self._tbpttBack = 20
+
+    def layer(self, *args):
+        """layer(l) or layer(index, l), as the reference."""
+        if len(args) == 2:
+            idx, layer = args
+            while len(self._layers) <= idx:
+                self._layers.append(None)
+            self._layers[idx] = layer
+        else:
+            self._layers.append(args[0])
+        return self
+
+    def setInputType(self, it):
+        self._inputType = it
+        return self
+
+    def inputPreProcessor(self, idx, pp):
+        self._preprocessors[idx] = pp
+        return self
+
+    def backpropType(self, bp):
+        self._backpropType = bp
+        return self
+
+    def tBPTTForwardLength(self, n):
+        self._tbpttFwd = n
+        return self
+
+    def tBPTTBackwardLength(self, n):
+        self._tbpttBack = n
+        return self
+
+    def tBPTTLength(self, n):
+        self._tbpttFwd = self._tbpttBack = n
+        return self
+
+    def build(self) -> MultiLayerConfiguration:
+        if any(layer is None for layer in self._layers):
+            raise ValueError("Gap in layer indices")
+        d = self._defaults
+        conf = MultiLayerConfiguration(
+            layers=self._layers, defaults=d, seed=d.get("seed", 12345),
+            dataType=d.get("dataType", DataType.FLOAT),
+            inputType=self._inputType,
+            preprocessors=dict(self._preprocessors),
+            backpropType=self._backpropType,
+            tbpttFwdLength=self._tbpttFwd, tbpttBackLength=self._tbpttBack,
+            gradientNormalization=d.get("gradientNormalization"),
+            gradientNormalizationThreshold=d.get(
+                "gradientNormalizationThreshold", 1.0))
+        if conf.inputType is None:
+            # every nIn set explicitly: the input type of the first layer
+            first = self._layers[0]
+            if getattr(first, "nIn", None) is None:
+                raise ValueError(
+                    "Either setInputType(...) or nIn on the first layer")
+            conf.inputType = (InputType.recurrent(first.nIn)
+                              if isinstance(first, L.RnnOutputLayer)
+                              else InputType.feedForward(first.nIn))
+        return conf.inferShapes()
 
 
 class NeuralNetConfiguration:
@@ -120,10 +273,25 @@ class NeuralNetConfiguration:
             self._d["gradientNormalizationThreshold"] = float(t)
             return self
 
+        def optimizationAlgo(self, algo):
+            """Stochastic gradient descent only: the line-search solvers
+            (LBFGS, CG, ...) wait for their slice."""
+            if str(algo).upper() != "STOCHASTIC_GRADIENT_DESCENT":
+                raise NotImplementedError(
+                    f"optimizationAlgo {algo!r}: the solvers wait for the "
+                    "training-runtime slice (ROADMAP.md Queue 1 item 10)")
+            return self
+
+        def checkpointPolicy(self, policy):
+            """The reference's named remat policy ("save_conv_outputs"
+            or None), validated and stored; see the module docstring."""
+            if policy not in CHECKPOINT_POLICIES:
+                raise ValueError(f"unknown checkpointPolicy {policy!r}")
+            self._d["checkpointPolicy"] = policy
+            return self
+
         def list(self):
-            raise NotImplementedError(
-                "list() / MultiLayerConfiguration wait for the LeNet slice "
-                "(ROADMAP.md Queue 1 item 4); use graphBuilder()")
+            return ListBuilder(dict(self._d))
 
         def graphBuilder(self):
             from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder

@@ -107,6 +107,7 @@ class ComputationGraphConfiguration:
         self.gradientNormalization = defaults.get("gradientNormalization")
         self.gradientNormalizationThreshold = defaults.get(
             "gradientNormalizationThreshold", 1.0)
+        self.checkpointPolicy = defaults.get("checkpointPolicy")
         self.topoOrder = self._topo_sort()
         self._infer_shapes()
 

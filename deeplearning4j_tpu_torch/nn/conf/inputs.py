@@ -3,7 +3,9 @@
 A copy of ``deeplearning4j_tpu/nn/conf/inputs.py`` (it holds no array
 code): declare the network's input shape once and each layer's nIn is
 inferred by propagating shapes through getOutputType. Recurrent data
-is NCW ``[batch, features, time]``.
+is NCW ``[batch, features, time]``; convolutional data is NCHW, or NHWC
+where ``InputType.convolutional(.., format="NHWC")`` declares the feed.
+``format`` does not take part in the dims or in equality.
 """
 
 from __future__ import annotations

@@ -1,18 +1,25 @@
 """Layer configurations with their init and forward.
 
 The counterpart of ``deeplearning4j_tpu/nn/conf/layers.py`` for what the
-attention/encoder slice needs: ``Layer``, ``BaseLayer``,
-``FeedForwardLayer``, ``DenseLayer``, ``BaseOutputLayer``,
-``OutputLayer``, ``RnnOutputLayer``, ``ActivationLayer`` and
-``GlobalPoolingLayer``. As in the reference a layer config IS its
-implementation: ``initialize(gen, inputType, dtype, device)`` returns
-``(params, state)`` dicts of tensors with the reference's names and
-``[in, out]`` layout (``W``, ``b``), and ``forward(params, state, x,
-train, gen, mask)`` is a plain function of them that autograd
-differentiates. Recurrent activations between layers are NCW
-``[B, F, T]``. The CNN, recurrent and other layers wait for their slices
-(ROADMAP.md Queue 1 items 4, 5 and 8); dropout waits for the nn-conf
-slice and raises when asked for.
+ported slices need: ``Layer``, ``BaseLayer``, ``FeedForwardLayer``,
+``DenseLayer``, ``BaseOutputLayer``, ``OutputLayer``, ``RnnOutputLayer``,
+``ActivationLayer``, ``ConvolutionLayer``, ``SubsamplingLayer``,
+``GlobalPoolingLayer`` and ``BatchNormalization``. As in the reference a
+layer config IS its implementation: ``initialize(gen, inputType, dtype,
+device)`` returns ``(params, state)`` dicts of tensors with the
+reference's names, and ``forward(params, state, x, train, gen, mask)``
+is a plain function of them that autograd differentiates (BN through the
+``ops.norm`` autograd Functions).
+
+Layouts: recurrent activations between layers are NCW ``[B, F, T]``;
+convolutional ones NCHW-logical in ``channels_last`` memory, where the
+reference keeps NHWC. Each layer owns the map between the reference's
+parameter layout and its own (``param_from_reference`` and its inverse
+``param_to_reference``): dense ``W`` is ``[in, out]`` on both sides,
+a conv ``W`` is the reference's HWIO ``[kh, kw, in, out]`` and the port's
+OIHW ``[out, in, kh, kw]`` (channels_last memory). The recurrent and
+other layers wait for their slices (ROADMAP.md Queue 1 items 5 and 8);
+dropout waits for the nn-conf slice and raises when asked for.
 """
 
 from __future__ import annotations
@@ -22,10 +29,15 @@ import torch
 from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import weights as _winit
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.ops import conv as _conv
+from deeplearning4j_tpu_torch.ops import norm as _norm
+from deeplearning4j_tpu_torch.ops import pooling as _pool
+from deeplearning4j_tpu_torch.ops.conv import _pair
 
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer",
            "BaseOutputLayer", "OutputLayer", "RnnOutputLayer",
-           "ActivationLayer", "GlobalPoolingLayer"]
+           "ActivationLayer", "ConvolutionLayer", "SubsamplingLayer",
+           "GlobalPoolingLayer", "BatchNormalization"]
 
 
 class Layer:
@@ -73,6 +85,15 @@ class Layer:
 
     def hasParams(self) -> bool:
         return True
+
+    def param_from_reference(self, name, t):
+        """Parameter or state `name` in the reference's layout -> this
+        layer's (the same, unless the layer says otherwise)."""
+        return t
+
+    def param_to_reference(self, name, t):
+        """The inverse of ``param_from_reference``."""
+        return t
 
     def _dropout_input(self, x, train, gen):
         if train and self.dropOut is not None:
@@ -196,31 +217,109 @@ class ActivationLayer(Layer):
         return _act.get(self.activation)(x), state
 
 
-def global_pool(x, pooling_type, dims, mask=None, pnorm=2):
-    """Global pooling over `dims`, with an optional mask broadcastable to
-    x (reference: ops/pooling.global_pool)."""
-    t = str(pooling_type).lower()
-    denom = None
-    if mask is not None:
-        m = mask.expand_as(x)
-        x = torch.where(m > 0, x, -torch.inf) if t == "max" else x * m
-        denom = torch.clamp(m.sum(dim=dims), min=1.0)
-    if t == "max":
-        return x.amax(dim=dims)
-    if t == "sum":
-        return x.sum(dim=dims)
-    if t == "avg":
-        return x.sum(dim=dims) / denom if denom is not None \
-            else x.mean(dim=dims)
-    if t == "pnorm":
-        return x.abs().pow(pnorm).sum(dim=dims).pow(1.0 / pnorm)
-    raise ValueError(f"Unknown pooling type '{pooling_type}'")
+class ConvolutionLayer(FeedForwardLayer):
+    """2D convolution (reference: conf.layers.ConvolutionLayer): W OIHW
+    ``[nOut, nIn, kh, kw]`` in channels_last memory, bias ``[nOut]``."""
+
+    def __init__(self, nOut=None, kernelSize=(3, 3), stride=(1, 1),
+                 padding=(0, 0), dilation=(1, 1), convolutionMode="truncate",
+                 nIn=None, hasBias=True, **kw):
+        super().__init__(nIn=nIn, nOut=nOut, hasBias=hasBias, **kw)
+        self.kernelSize = _pair(kernelSize)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.convolutionMode = convolutionMode
+
+    def inferNIn(self, inputType):
+        if self.nIn is None and inputType.kind == InputType.CNN:
+            self.nIn = inputType.channels
+
+    def getOutputType(self, inputType):
+        h, w = (_conv.conv_output_size(
+            n, self.kernelSize[i], self.stride[i], self.padding[i],
+            self.dilation[i], self.convolutionMode)
+            for i, n in enumerate((inputType.height, inputType.width)))
+        return InputType.convolutional(h, w, self.nOut)
+
+    def initialize(self, gen, inputType, dtype, device):
+        if self.nIn is None:
+            self.nIn = inputType.channels
+        kh, kw = self.kernelSize
+        W = _winit.init(gen, self.weightInit, (self.nOut, self.nIn, kh, kw),
+                        kh * kw * self.nIn, kh * kw * self.nOut, dtype,
+                        device, self.distribution)
+        params = {"W": W.contiguous(memory_format=torch.channels_last)}
+        if self.hasBias:
+            params["b"] = torch.full((self.nOut,), float(self.biasInit),
+                                     dtype=dtype, device=device)
+        return params, {}
+
+    def param_from_reference(self, name, t):
+        if name == "W":   # HWIO -> OIHW
+            return t.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        return t
+
+    def param_to_reference(self, name, t):
+        if name == "W":   # OIHW -> HWIO
+            return t.permute(2, 3, 1, 0).contiguous()
+        return t
+
+    def forward(self, params, state, x, train, gen, mask=None):
+        x = self._dropout_input(x, train, gen)
+        pad = _conv.explicit_padding(self.convolutionMode, self.padding,
+                                     self.kernelSize, self.stride,
+                                     self.dilation)
+        y = _conv.conv2d(x, params["W"], params.get("b"), self.stride, pad,
+                         self.dilation)
+        return _act.get(self.activation)(y), state
+
+
+class SubsamplingLayer(Layer):
+    """Max/avg/pnorm pooling (reference: conf.layers.SubsamplingLayer)."""
+
+    def __init__(self, poolingType="max", kernelSize=(2, 2), stride=(2, 2),
+                 padding=(0, 0), convolutionMode="truncate", pnorm=2, **kw):
+        super().__init__(**kw)
+        self.poolingType = poolingType
+        self.kernelSize = _pair(kernelSize)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.convolutionMode = convolutionMode
+        self.pnorm = pnorm
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        h, w = (_conv.conv_output_size(
+            n, self.kernelSize[i], self.stride[i], self.padding[i], 1,
+            self.convolutionMode)
+            for i, n in enumerate((inputType.height, inputType.width)))
+        return InputType.convolutional(h, w, inputType.channels)
+
+    def forward(self, params, state, x, train, gen, mask=None):
+        pad = _conv.explicit_padding(self.convolutionMode, self.padding,
+                                     self.kernelSize, self.stride, (1, 1))
+        t = str(self.poolingType).lower()
+        if t == "max":
+            y = _pool.max_pool2d(x, self.kernelSize, self.stride, pad)
+        elif t == "avg":
+            y = _pool.avg_pool2d(x, self.kernelSize, self.stride, pad)
+        elif t == "pnorm":
+            y = _pool.pnorm_pool2d(x, self.kernelSize, self.stride, pad,
+                                   self.pnorm)
+        else:
+            raise ValueError(f"Unknown poolingType {self.poolingType}")
+        return y, state
 
 
 class GlobalPoolingLayer(Layer):
-    """Global pooling over time (RNN input [B,F,T] -> [B,F]); FF input
-    passes through (reference: conf.layers.GlobalPoolingLayer). The CNN
-    modes wait for the CNN slice."""
+    """Global pooling over the spatial dims (CNN input [B,C,H,W] ->
+    [B,C]) or time (RNN input [B,F,T] -> [B,F]); FF input passes through
+    (reference: conf.layers.GlobalPoolingLayer). 3D CNN input waits for
+    its slice."""
 
     def __init__(self, poolingType="max", pnorm=2, collapseDimensions=True,
                  **kw):
@@ -233,6 +332,10 @@ class GlobalPoolingLayer(Layer):
         return False
 
     def getOutputType(self, inputType):
+        if inputType.kind == InputType.CNN:
+            if not self.collapseDimensions:
+                return InputType.convolutional(1, 1, inputType.channels)
+            return InputType.feedForward(inputType.channels)
         if inputType.kind == InputType.RNN:
             if not self.collapseDimensions:
                 return InputType.recurrent(inputType.size, 1)
@@ -240,14 +343,69 @@ class GlobalPoolingLayer(Layer):
         if inputType.kind == InputType.FF:
             return inputType
         raise NotImplementedError(
-            "GlobalPoolingLayer over CNN input waits for the CNN slice "
-            "(ROADMAP.md Queue 1 item 4)")
+            f"GlobalPoolingLayer over {inputType.kind} input waits for the "
+            "3D CNN layers (ROADMAP.md Queue 1 item 12)")
 
     def forward(self, params, state, x, train, gen, mask=None):
-        if x.dim() != 3:
-            return x, state
-        m = None if mask is None else mask[:, None, :].to(x.dtype)
-        y = global_pool(x, self.poolingType, (2,), m, self.pnorm)
-        if not self.collapseDimensions:
-            y = y[:, :, None]
+        if x.dim() == 4:      # [B,C,H,W]
+            y = _pool.global_pool(x, self.poolingType, (2, 3), None,
+                                  self.pnorm)
+            if not self.collapseDimensions:
+                y = y[:, :, None, None]
+        elif x.dim() == 3:    # [B,F,T]
+            m = None if mask is None else mask[:, None, :].to(x.dtype)
+            y = _pool.global_pool(x, self.poolingType, (2,), m, self.pnorm)
+            if not self.collapseDimensions:
+                y = y[:, :, None]
+        else:
+            y = x
         return y, state
+
+
+class BatchNormalization(Layer):
+    """Batch norm over the channel axis (axis 1 of [B,C,H,W], [B,C] or
+    [B,F,T]; reference: conf.layers.BatchNormalization). Params
+    ``gamma``/``beta`` unless locked; state ``mean``/``var`` (fp32), the
+    running statistics, which the network replaces after each training
+    step with the ones the layer returns. An activation that
+    ``ops.norm.bn_act_supported`` takes runs in the fused epilogue
+    (``batch_norm_act``), as in the reference."""
+
+    def __init__(self, decay=0.9, eps=1e-5, gamma=1.0, beta=0.0,
+                 lockGammaBeta=False, lockGamma=False, lockBeta=False,
+                 nOut=None, nIn=None, **kw):
+        super().__init__(**kw)
+        self.decay, self.eps = decay, eps
+        self.gammaInit, self.betaInit = gamma, beta
+        self.lockGammaBeta = lockGammaBeta
+        self.lockGamma = lockGamma
+        self.lockBeta = lockBeta
+        self.nIn, self.nOut = nIn, nOut
+
+    def initialize(self, gen, inputType, dtype, device):
+        n = self.nOut or (inputType.channels
+                          if inputType.kind == InputType.CNN
+                          else inputType.size)
+        self.nOut = self.nIn = n
+        params = {}
+        if not (self.lockGammaBeta or self.lockGamma):
+            params["gamma"] = torch.full((n,), float(self.gammaInit),
+                                         dtype=dtype, device=device)
+        if not (self.lockGammaBeta or self.lockBeta):
+            params["beta"] = torch.full((n,), float(self.betaInit),
+                                        dtype=dtype, device=device)
+        state = {"mean": torch.zeros(n, dtype=torch.float32, device=device),
+                 "var": torch.ones(n, dtype=torch.float32, device=device)}
+        return params, state
+
+    def forward(self, params, state, x, train, gen, mask=None):
+        kw = dict(train=train, decay=self.decay, eps=self.eps)
+        if _norm.bn_act_supported(self.activation):
+            y, rm, rv = _norm.batch_norm_act(
+                x, params.get("gamma"), params.get("beta"), state["mean"],
+                state["var"], activation=self.activation, **kw)
+            return y, {"mean": rm, "var": rv}
+        y, rm, rv = _norm.batch_norm(x, params.get("gamma"),
+                                     params.get("beta"), state["mean"],
+                                     state["var"], **kw)
+        return _act.get(self.activation)(y), {"mean": rm, "var": rv}

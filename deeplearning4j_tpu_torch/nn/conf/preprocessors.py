@@ -1,16 +1,22 @@
 """Input preprocessors: format adapters between layer families.
 
 The counterpart of ``deeplearning4j_tpu/nn/conf/preprocessors.py`` for
-the recurrent <-> feed-forward pair the encoder uses. Formats: FF
-``[B, N]``, RNN NCW ``[B, F, T]``. The CNN preprocessors wait for the
-CNN slice (ROADMAP.md Queue 1 item 4).
+the recurrent <-> feed-forward pair the encoder uses and the CNN <->
+feed-forward pair of the CNN path. Formats: FF ``[B, N]``, RNN NCW
+``[B, F, T]``, CNN NCHW-logical ``[B, C, H, W]`` in ``channels_last``
+memory (the reference's internal NHWC). The flatten order is the
+reference's [C, H, W], so a dense layer's weights after a conv carry
+across unchanged.
 """
 
 from __future__ import annotations
 
+import torch
+
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
-__all__ = ["InputPreProcessor", "RnnToFeedForwardPreProcessor",
+__all__ = ["InputPreProcessor", "CnnToFeedForwardPreProcessor",
+           "FeedForwardToCnnPreProcessor", "RnnToFeedForwardPreProcessor",
            "FeedForwardToRnnPreProcessor"]
 
 
@@ -20,6 +26,38 @@ class InputPreProcessor:
 
     def getOutputType(self, inputType: InputType) -> InputType:
         raise NotImplementedError
+
+
+class CnnToFeedForwardPreProcessor(InputPreProcessor):
+    """[B,C,H,W] -> [B, C*H*W] in [C, H, W] order."""
+
+    def __init__(self, inputHeight=None, inputWidth=None, numChannels=None):
+        self.inputHeight, self.inputWidth, self.numChannels = \
+            inputHeight, inputWidth, numChannels
+
+    def preProcess(self, x, mask=None):
+        return x.reshape(x.shape[0], -1)
+
+    def getOutputType(self, inputType):
+        return InputType.feedForward(
+            inputType.height * inputType.width * inputType.channels)
+
+
+class FeedForwardToCnnPreProcessor(InputPreProcessor):
+    """[B, C*H*W] ([C, H, W] order) -> [B,C,H,W] in channels_last."""
+
+    def __init__(self, inputHeight, inputWidth, numChannels):
+        self.inputHeight, self.inputWidth, self.numChannels = \
+            inputHeight, inputWidth, numChannels
+
+    def preProcess(self, x, mask=None):
+        x = x.reshape(x.shape[0], self.numChannels, self.inputHeight,
+                      self.inputWidth)
+        return x.contiguous(memory_format=torch.channels_last)
+
+    def getOutputType(self, inputType):
+        return InputType.convolutional(self.inputHeight, self.inputWidth,
+                                       self.numChannels)
 
 
 class RnnToFeedForwardPreProcessor(InputPreProcessor):

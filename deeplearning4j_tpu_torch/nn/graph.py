@@ -5,8 +5,14 @@ training path. Where the reference jits one donated-buffer train step,
 the port runs it eagerly: the forward over the DAG (every vertex, the
 loss on every output layer, the regularization), ``loss.backward()``,
 gradient normalization, then each layer's updater applied to its
-parameters in place under ``torch.no_grad()``. Attention layers reach
-the hand-written flash kernels through ``ops.flash_attention``.
+parameters in place under ``torch.no_grad()``; the layers' new states
+(BN's running statistics) replace the old. Attention layers reach the
+hand-written flash kernels through ``ops.flash_attention``.
+
+CNN inputs are NCHW, or NHWC where the input type says
+``format="NHWC"``; inside, activations are NCHW-logical in
+``channels_last`` memory (an NHWC feed is a permute of it, no copy), and
+``feedForward`` returns 4-d activations in the API's layout.
 
 Parameters are fp32 master tensors (fp64 under ``DataType.DOUBLE``) in a
 ``{layer_name: {param_name: tensor}}`` dict with the reference's names
@@ -21,45 +27,49 @@ their slices and raise ``NotImplementedError`` naming them.
 
 from __future__ import annotations
 
-import time
-
-import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.conf.builder import refuse_checkpoint_policy
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _grad_normalize, _out_act, _tm, _unwrap, cast_params,
-    default_param_update, strip_carries,
+    _grad_normalize, _later, _out_act, _unwrap, carry_layer, cast_params,
+    check_carried, cnn_entry, default_param_update, fit_batches,
+    layer_seed, strip_carries, to_api_layout, uncarry_layer,
 )
 
-__all__ = ["ComputationGraph", "params_from_reference"]
+__all__ = ["ComputationGraph", "params_from_reference",
+           "params_to_reference"]
 
 
-def _later(what, slice_):
-    return NotImplementedError(
-        f"{what} waits for the {slice_} (ROADMAP.md Queue 1)")
+def params_from_reference(conf, params, states=None):
+    """The reference ComputationGraph's ``_params`` (and ``_states``),
+    ``{layer_name: {name: array}}`` after ``jax.tree.map(np.asarray,
+    ...)``, as the port's CPU tensors in its layouts (each layer's
+    ``param_from_reference``; bf16 bit for bit). Returns (params, states
+    or None)."""
+    def layer(n):
+        return conf.nodes[n].payload
+
+    ps = {n: carry_layer(layer(n), p) for n, p in params.items()}
+    ss = None if states is None else {
+        n: carry_layer(layer(n), s) for n, s in states.items()}
+    return ps, ss
 
 
-def params_from_reference(tree):
-    """The reference network's ``_params`` (after ``jax.tree.map(
-    np.asarray, ...)``: ``{layer_name: {param_name: array}}``) as CPU
-    tensors: a plain copy, both keep the ``[in, out]`` layout. bf16
-    leaves (numpy's ml_dtypes type) come across bit for bit."""
-    def tensor(a):
-        a = np.array(a, copy=True)
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-        return torch.from_numpy(a)
-
-    return {name: {k: tensor(v) for k, v in p.items()}
-            for name, p in tree.items()}
+def params_to_reference(conf, params):
+    """The inverse of ``params_from_reference`` for params or gradients:
+    ``{layer_name: {name: numpy array}}`` in the reference's layouts."""
+    return {n: uncarry_layer(conf.nodes[n].payload, p)
+            for n, p in params.items()}
 
 
 class ComputationGraph:
     def __init__(self, conf, device=None):
+        refuse_checkpoint_policy(conf.checkpointPolicy)
         self.conf = conf
         self.device = resolve_device(device)
         self._layer_names = [n for n in conf.topoOrder
@@ -69,6 +79,7 @@ class ComputationGraph:
         self._upd_states = None
         self._updaters = None
         self._iteration = 0
+        self._epoch = 0
         self._score = float("nan")
         self._compute_dtype = conf.dataType.torch_dtype
         self._param_dtype = (torch.float64
@@ -76,17 +87,12 @@ class ComputationGraph:
                              else torch.float32)
 
     # ------------------------------------------------------------------
-    def _layer_seed(self, i):
-        """The init stream of layer i: a function of (seed, i) only."""
-        ss = np.random.SeedSequence([int(self.conf.seed) & 0xFFFFFFFF, i])
-        return int(ss.generate_state(1, np.uint64)[0] >> 1)
-
     def init(self):
         """Initialize parameters, layer state and updater state."""
         params, states = {}, {}
         for i, name in enumerate(self._layer_names):
             node = self.conf.nodes[name]
-            gen = torch.Generator().manual_seed(self._layer_seed(i))
+            gen = torch.Generator().manual_seed(layer_seed(self.conf.seed, i))
             p, s = node.payload.initialize(gen, node.layerInputType,
                                            self._param_dtype, self.device)
             params[name] = p
@@ -99,7 +105,8 @@ class ComputationGraph:
                             .requires_grad_(True) for k, v in p.items()}
                         for n, p in params.items()}
         if states is not None:
-            self._states = states
+            self._states = {n: {k: v.to(self.device) for k, v in s.items()}
+                            for n, s in states.items()}
         self._updaters, self._upd_states = {}, {}
         for name in self._layer_names:
             payload = self.conf.nodes[name].payload
@@ -110,22 +117,25 @@ class ComputationGraph:
                 self._upd_states[name] = (u.init(self._params[name])
                                           if self._params[name] else ())
 
-    def load_reference_params(self, tree):
-        """Set the parameters from the reference network's ``_params``
-        (``params_from_reference``) and reset the updater state."""
+    def load_reference_params(self, params, states=None):
+        """Set the parameters (and, when given, the layer states: BN's
+        running mean and var) from the reference network's ``_params``
+        and ``_states`` (``params_from_reference``), and reset the
+        updater state."""
         self._require_init()
-        src = params_from_reference(tree)
-        if set(src) != set(self._params) or any(
-                set(src[n]) != set(self._params[n]) for n in src):
+        ps, ss = params_from_reference(self.conf, params, states)
+        if set(ps) != set(self._params):
             raise ValueError("reference params do not match this graph's "
-                             "layers and parameter names")
-        for n, p in src.items():
-            for k, v in p.items():
-                if tuple(v.shape) != tuple(self._params[n][k].shape):
-                    raise ValueError(
-                        f"{n}.{k}: reference shape {tuple(v.shape)} vs "
-                        f"{tuple(self._params[n][k].shape)}")
-        self._set_params(src)
+                             "layers")
+        for n, p in ps.items():
+            check_carried(p, self._params[n], n)
+        if ss is not None:
+            if set(ss) != set(self._states):
+                raise ValueError("reference states do not match this "
+                                 "graph's layers")
+            for n, st in ss.items():
+                check_carried(st, self._states[n], f"{n} state")
+        self._set_params(ps, ss)
         return self
 
     def _require_init(self):
@@ -133,8 +143,19 @@ class ComputationGraph:
             raise RuntimeError("Call net.init() before fit/output/score")
 
     # ------------------------------------------------------------------
-    def _entry(self, x):
-        return _unwrap(x, self.device).to(self._compute_dtype)
+    @property
+    def _api_nhwc(self):
+        """True when every declared CNN input is NHWC-format: then 4-d
+        arrays at the API boundary are NHWC (reference: ``_api_nhwc``)."""
+        its = [it for it in self.conf.inputTypes.values()
+               if it is not None and it.kind == InputType.CNN]
+        return bool(its) and all(
+            getattr(it, "format", "NCHW") == "NHWC" for it in its)
+
+    def _entry(self, name, x):
+        # cast before the relayout, so it moves compute-dtype bytes
+        x = _unwrap(x, self.device).to(self._compute_dtype)
+        return cnn_entry(x, self.conf.inputTypes.get(name))
 
     def _run_graph(self, params, states, inputs, train, gen, fmasks):
         """inputs: {name: tensor}. Returns (activations, preacts of the
@@ -143,7 +164,7 @@ class ComputationGraph:
         acts, masks, new_states, preacts = {}, {}, {}, {}
         B = None
         for name in self.conf.networkInputs:
-            x = self._entry(inputs[name])
+            x = self._entry(name, inputs[name])
             B = x.shape[0] if B is None else B
             acts[name] = x
             masks[name] = None if fmasks is None else fmasks.get(name)
@@ -243,7 +264,8 @@ class ComputationGraph:
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
-        self._states = new_states
+        self._states = {n: {k: v.detach() for k, v in st.items()}
+                        for n, st in new_states.items()}
         return loss.detach()
 
     # ------------------------------------------------------------------
@@ -259,30 +281,28 @@ class ComputationGraph:
         return [_unwrap(y, self.device) for y in labs]
 
     def fit(self, data, labels=None, epochs=None):
-        """One optimizer step on (features, labels): arrays or tensors,
-        or lists of them for multi-input/-output graphs. DataSets and
-        iterators wait for the data slice."""
-        self._require_init()
-        if labels is None:
-            raise _later("fit(DataSet / iterator)", "data slice, item 10")
-        if self.conf.backpropType == "tbptt":
-            raise _later("truncated BPTT", "recurrent slice, item 8")
-        inputs = self._coerce_inputs(data)
-        labs = self._coerce_labels(labels)
-        tm = _tm()
-        t0 = time.perf_counter()
-        loss = self._train_step(inputs, labs, None, None)
-        self._score = float(loss)
-        dt = time.perf_counter() - t0
-        tm["step_s"].observe(dt)
-        tm["steps"].inc()
-        tm["reg"].add_span("train.step", "train", t0, dt,
-                           iteration=self._iteration)
-        self._iteration += 1
-        return self
+        """One optimizer step on (features, labels) — arrays or tensors,
+        or lists of them for multi-input/-output graphs — or on a
+        DataSet; a DataSetIterator runs ``epochs`` (default 1) passes,
+        one step a batch."""
+        return fit_batches(
+            self, data, labels, epochs,
+            lambda x, y: self._train_step(self._coerce_inputs(x),
+                                          self._coerce_labels(y), None,
+                                          None),
+            lambda ds: self._train_step(*self._extract_ds(ds)))
+
+    def _extract_ds(self, ds):
+        """(inputs, labels, feature masks, label masks) of a DataSet."""
+        name = self.conf.networkInputs[0]
+        fm = ds.getFeaturesMaskArray()
+        lm = ds.getLabelsMaskArray()
+        return ({name: ds.getFeatures()}, self._coerce_labels(ds.getLabels()),
+                None if fm is None else {name: _unwrap(fm, self.device)},
+                None if lm is None else [_unwrap(lm, self.device)])
 
     def fitDataSet(self, iterator, stepsPerSync=1, epochs=None):
-        raise _later("fitDataSet", "data slice, item 10")
+        raise _later("fitDataSet", "nn-conf slice, item 4")
 
     def precompile(self, *args, **kwargs):
         raise _later("precompile (the AOT cache)", "runtime slice, item 13")
@@ -309,8 +329,9 @@ class ComputationGraph:
         return out if isinstance(out, torch.Tensor) else out[0]
 
     def feedForward(self, *features, train=False):
-        """Every vertex/layer activation by name, as ``torch.Tensor``s
-        (reference: ComputationGraph.feedForward)."""
+        """Every vertex/layer activation by name, as ``torch.Tensor``s,
+        4-d ones in the API's layout (reference:
+        ComputationGraph.feedForward)."""
         self._require_init()
         inputs = self._coerce_inputs(
             features if len(features) > 1 else features[0])
@@ -318,14 +339,25 @@ class ComputationGraph:
             acts, _, _ = self._run_graph(self._params,
                                          strip_carries(self._states),
                                          inputs, train, None, None)
-        return acts
+        return {n: to_api_layout(a, self._api_nhwc) for n, a in acts.items()}
 
     def score(self, ds=None) -> float:
-        """The loss of the last fit step (reference: Model.score()).
-        Scoring a DataSet waits for the data slice."""
-        if ds is not None:
-            raise _later("score(DataSet)", "data slice, item 10")
-        return self._score
+        """The loss of the last fit step (reference: Model.score()), or
+        of a DataSet in inference mode (BN from its running statistics,
+        as the reference's ``_loss_only``)."""
+        if ds is None:
+            return self._score
+        self._require_init()
+        if not hasattr(ds, "getFeatures"):
+            raise TypeError(f"score takes a DataSet, got {type(ds).__name__}")
+        inputs, labels, fmasks, lmasks = self._extract_ds(ds)
+        with torch.no_grad():
+            _, preacts, _ = self._run_graph(
+                self._params, strip_carries(self._states), inputs, False,
+                None, fmasks)
+            loss = self._loss(preacts, labels, lmasks) \
+                + self._regularization(self._params)
+        return float(loss)
 
     def computeGradientAndScore(self, inputs, labels):
         """(grads, score) for gradient checks (reference:
@@ -351,3 +383,6 @@ class ComputationGraph:
 
     def getIterationCount(self):
         return self._iteration
+
+    def getEpochCount(self):
+        return self._epoch

@@ -1,7 +1,8 @@
 """Gradient updaters.
 
 The counterpart of ``deeplearning4j_tpu/nn/updaters.py`` for the SGD
-family the port trains with so far: ``NoOp``, ``Sgd`` and ``Adam``. An
+family the port trains with so far: ``NoOp``, ``Sgd``, ``Nesterovs``
+(ResNet50's default) and ``Adam``. An
 updater works on one layer's dict of gradients: ``init(params)`` makes
 its state, ``apply(grads, state, iteration)`` returns the updates to
 SUBTRACT and the state, which it updates in place (the caller holds
@@ -12,8 +13,11 @@ Adam is the reference's update as written:
 bias corrections folded into the step size, so ε sits beside the
 uncorrected ``sqrt(v)``. ``torch.optim.Adam`` adds ε to the corrected
 ``sqrt(v_hat)`` instead, which is another update: it is not used here.
-The other updaters wait for the nn-conf slice (ROADMAP.md Queue 1
-item 4).
+Nesterovs is the reference's as written: ``v = mu*v - lr*g`` and the
+update to subtract ``lr*g - mu*v`` (the new v); ``torch.optim.SGD``'s
+nesterov form keeps its buffer with the other sign and dampening. The
+other updaters wait for the nn-primitives slice (ROADMAP.md Queue 1
+item 3).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from deeplearning4j_tpu_torch.nn import schedules as _sched
 
-__all__ = ["IUpdater", "NoOp", "Sgd", "Adam", "resolve"]
+__all__ = ["IUpdater", "NoOp", "Sgd", "Nesterovs", "Adam", "resolve"]
 
 
 class IUpdater:
@@ -64,6 +68,24 @@ class Sgd(IUpdater):
         return {k: lr * g for k, g in grads.items()}, state
 
 
+class Nesterovs(IUpdater):
+    def __init__(self, learningRate=0.1, momentum=0.9):
+        self.learningRate, self.momentum = learningRate, momentum
+
+    def init(self, params):
+        return {k: torch.zeros_like(p) for k, p in params.items()}
+
+    def apply(self, grads, state, iteration, epoch=0, params=None):
+        lr = self._lr(iteration, epoch)
+        mu = _sched.resolve(self.momentum).valueAt(iteration, epoch)
+        updates = {}
+        for k, g in grads.items():
+            v = state[k]
+            v.mul_(mu).sub_(lr * g)
+            updates[k] = lr * g - mu * v
+        return updates, state
+
+
 class Adam(IUpdater):
     def __init__(self, learningRate=1e-3, beta1=0.9, beta2=0.999,
                  epsilon=1e-8):
@@ -92,10 +114,11 @@ def resolve(u) -> IUpdater:
     if isinstance(u, IUpdater):
         return u
     if isinstance(u, str):
-        table = {"sgd": Sgd, "adam": Adam, "noop": NoOp}
+        table = {"sgd": Sgd, "adam": Adam, "noop": NoOp,
+                 "nesterovs": Nesterovs}
         if u.lower() in table:
             return table[u.lower()]()
         raise NotImplementedError(
-            f"updater {u!r} waits for the nn-conf slice (ROADMAP.md "
-            "Queue 1 item 4); the port has sgd, adam and noop")
+            f"updater {u!r} waits for the nn-primitives slice (ROADMAP.md "
+            "Queue 1 item 3); the port has sgd, nesterovs, adam and noop")
     raise ValueError(f"Cannot resolve updater from {u!r}")

@@ -5,7 +5,8 @@ blockwise (online-softmax) form over KV blocks, the fused form that
 materialises the scores, and full multi-head attention, whose core goes
 through ``ops.flash_attention.flash_attention``. Layout
 ``[B, H, T, D]``. Masks follow the reference: masked keys get the finite
-score -1e30 and no weight, and a row with no valid key emits 0.
+score -1e30 (the dtype's lowest finite value where -1e30 does not fit,
+as in fp16) and no weight, and a row with no valid key emits 0.
 """
 
 from __future__ import annotations
@@ -18,11 +19,17 @@ __all__ = ["blockwise_attention", "dot_product_attention",
            "multi_head_attention"]
 
 
-def _block_attn(q, k, v, carry, mask_value=-1e30, mask=None):
+def _mask_value(dtype):
+    """-1e30, or the dtype's lowest finite value where -1e30 overflows."""
+    return max(-1e30, torch.finfo(dtype).min)
+
+
+def _block_attn(q, k, v, carry, mask=None):
     """One block: q [B,H,Tq,D] against k/v [B,H,Tk,D]; carry = (acc
     [B,H,Tq,D], row max m [B,H,Tq], row sum l [B,H,Tq]) -> new carry."""
     acc, m, l = carry
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    mask_value = _mask_value(scores.dtype)
     if mask is not None:
         scores = torch.where(mask, scores, mask_value)
     m_new = torch.maximum(m, scores.amax(-1))
@@ -42,6 +49,7 @@ def blockwise_attention(q, k, v, block_size=512, causal=False,
                         key_mask=None):
     """Flash-style attention over KV blocks, O(T) memory. q, k, v
     [B,H,T,D]; key_mask: optional [B, Tk] bool validity of keys."""
+    blockwise_attention.launches += 1
     B, H, T, D = q.shape
     Tk = k.shape[2]
     bs = min(block_size, Tk)
@@ -82,20 +90,22 @@ def dot_product_attention(q, k, v, mask=None, causal=False, key_mask=None):
     [B, Tk] bool key validity, with blockwise_attention's semantics
     exactly: masked keys get no weight and a row whose keys are ALL
     masked under the combined causal, key and explicit masks emits 0."""
+    dot_product_attention.launches += 1
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    neg = _mask_value(scores.dtype)
     valid = None
     if causal:
         T, Tk = q.shape[2], k.shape[2]
         cm = (torch.arange(T, device=q.device)[:, None]
               >= torch.arange(Tk, device=q.device)[None, :])
-        scores = torch.where(cm[None, None], scores, -1e30)
+        scores = torch.where(cm[None, None], scores, neg)
         valid = cm[None, None]
     if key_mask is not None:
         kmb = key_mask[:, None, None, :]
-        scores = torch.where(kmb, scores, -1e30)
+        scores = torch.where(kmb, scores, neg)
         valid = kmb if valid is None else valid & kmb
     if mask is not None:
-        scores = torch.where(mask, scores, -1e30)
+        scores = torch.where(mask, scores, neg)
         if valid is not None and key_mask is not None:
             valid = valid & mask
     p = torch.softmax(scores, dim=-1)
@@ -103,6 +113,10 @@ def dot_product_attention(q, k, v, mask=None, causal=False, key_mask=None):
     if key_mask is not None:
         o = torch.where(valid.any(-1)[..., None], o, 0.0)
     return o
+
+
+blockwise_attention.launches = 0
+dot_product_attention.launches = 0
 
 
 def multi_head_attention(x, Wq, Wk, Wv, Wo, nHeads, causal=False,

@@ -28,16 +28,23 @@ shorter than k/v.
   backward that computes ``delta = rowsum(do*o)`` in fp32 as one torch
   op and launches K2 and K3. ``set_flash_bwd("recompute")`` makes the
   backward autograd through the plain blockwise form instead.
-* ``flash_attention`` dispatches: without a key mask it always takes
-  ``FlashAttentionFn`` (the kernels on the card at every T, the plain
-  versions on the CPU); with a key mask, which K1 does not carry, it
-  takes ``dot_product_attention`` below ``_MASKED_FUSED_MAX_T`` and
-  ``blockwise_attention`` from there, as the reference does. The
-  reference's TPU dispatch window is not inherited: an H100 table is a
-  later measurement.
+* ``flash_attention`` dispatches by ``_choose_impl``, a pure decision
+  in the shape of the reference's (``pallas_attention._choose_impl``):
+  an unmasked call inside the kernels' domain (f32 or bf16, a head width
+  that is a multiple of 8 in 8..128) takes ``FlashAttentionFn`` at every
+  T (the kernels on the card, their plain versions on the CPU); a CPU
+  call takes it at every dtype and width, since the plain versions take
+  them all. A card call outside the domain, or with a key mask, which K1
+  does not carry, takes ``dot_product_attention`` below
+  ``_MASKED_FUSED_MAX_T`` (unless ``force_streaming``) and
+  ``blockwise_attention`` from there, on the same device: outside the
+  domain the kernels are never tried. The reference's TPU dispatch
+  window is not inherited: an H100 table is a later measurement.
 
 Each kernel wrapper and each plain version carries a ``launches``
-count, added to where the kernel launches or the plain version runs.
+count, added to where the kernel launches or the plain version runs;
+``dot_product_attention`` and ``blockwise_attention`` carry one too, so
+a run shows which route it took.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops import _kernels
+from deeplearning4j_tpu_torch.ops import attention as _attn
 
 __all__ = ["flash_attention", "FlashAttentionFn", "set_flash_bwd",
            "flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -450,37 +458,46 @@ class FlashAttentionFn(torch.autograd.Function):
             dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal,
                                    ctx.block_q, ctx.block_k)
         else:
-            from deeplearning4j_tpu_torch.ops.attention import \
-                blockwise_attention
-
             with torch.enable_grad():
                 qq, kk, vv = (t.detach().requires_grad_(True)
                               for t in (q, k, v))
-                out = blockwise_attention(qq, kk, vv,
+                out = _attn.blockwise_attention(qq, kk, vv,
                                           block_size=ctx.block_k,
                                           causal=ctx.causal)
                 dq, dk, dv = torch.autograd.grad(out, (qq, kk, vv), do)
         return dq, dk, dv, None, None, None, None
 
 
+def _choose_impl(T, D, dtype, *, on_cuda, has_mask=False,
+                 force_streaming=False):
+    """Pure dispatch decision -> 'flash' | 'fused' | 'blockwise' for a
+    call of length T (the longer of q and k), head width D and dtype."""
+    in_domain = dtype in _KERNEL_DTYPES and D % 8 == 0 and 8 <= D <= 128
+    if not has_mask and (not on_cuda or in_domain):
+        return "flash"
+    if T < _MASKED_FUSED_MAX_T and not force_streaming:
+        return "fused"
+    return "blockwise"
+
+
 def flash_attention(q, k, v, causal=False, key_mask=None, block_q=512,
                     block_k=512, force_streaming=False):
-    """Attention ``[B,H,T,D]``. Without ``key_mask`` ([B, Tk] bool key
-    validity): ``FlashAttentionFn`` — on a CUDA tensor K1 and, under
-    autograd, K2/K3, at every T; on a CPU tensor their plain versions.
-    With a key mask: the fused form below ``_MASKED_FUSED_MAX_T`` unless
-    ``force_streaming`` (a caller that bounded attention memory), else
-    the blockwise scan. Returns the output in q's dtype."""
-    if key_mask is not None:
-        from deeplearning4j_tpu_torch.ops.attention import (
-            blockwise_attention, dot_product_attention)
-
-        if max(q.shape[2], k.shape[2]) < _MASKED_FUSED_MAX_T \
-                and not force_streaming:
-            return dot_product_attention(q, k, v, causal=causal,
-                                         key_mask=key_mask)
-        return blockwise_attention(q, k, v, block_size=block_k,
-                                   causal=causal, key_mask=key_mask)
+    """Attention ``[B,H,T,D]`` by ``_choose_impl``: ``FlashAttentionFn``
+    (K1 and, under autograd, K2/K3 on a CUDA tensor; their plain versions
+    on a CPU tensor), or the fused or blockwise form on q's device.
+    ``key_mask``: [B, Tk] bool key validity; ``force_streaming`` (a
+    caller that bounded attention memory) never takes the fused form.
+    Returns the output in q's dtype."""
+    impl = _choose_impl(max(q.shape[2], k.shape[2]), q.shape[3], q.dtype,
+                        on_cuda=q.device.type == "cuda",
+                        has_mask=key_mask is not None,
+                        force_streaming=force_streaming)
+    if impl == "fused":
+        return _attn.dot_product_attention(q, k, v, causal=causal,
+                                           key_mask=key_mask)
+    if impl == "blockwise":
+        return _attn.blockwise_attention(q, k, v, block_size=block_k,
+                                         causal=causal, key_mask=key_mask)
     need_lse = (_BWD_IMPL == "kernel" and torch.is_grad_enabled()
                 and any(t.requires_grad for t in (q, k, v)))
     return FlashAttentionFn.apply(q, k, v, bool(causal), int(block_q),
@@ -488,9 +505,11 @@ def flash_attention(q, k, v, causal=False, key_mask=None, block_q=512,
 
 
 def reset_launches():
-    """Zero the six launch counts (set before a run that reads them)."""
+    """Zero the launch counts of the kernels, their plain versions and
+    the fused and blockwise forms (set before a run that reads them)."""
     for fn in (flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_fwd_plain,
-               flash_bwd_dq_plain, flash_bwd_dkv_plain):
+               flash_bwd_dq_plain, flash_bwd_dkv_plain,
+               _attn.dot_product_attention, _attn.blockwise_attention):
         fn.launches = 0
 
 

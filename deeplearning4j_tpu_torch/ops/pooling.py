@@ -1,0 +1,112 @@
+"""Pooling: 2D max/avg/pnorm pooling and global pooling.
+
+The counterpart of ``deeplearning4j_tpu/ops/pooling.py``'s default path:
+``_pool_pads``, the stock ``max_pool2d`` (the reference's
+``max_pool2d_reference`` oracle, ``lax.reduce_window`` with ``-inf``
+padding, whose gradient is select-and-scatter), ``avg_pool2d``
+(``count_include_pad``), ``pnorm_pool2d`` and ``global_pool``. Tensors
+are NCHW-logical (``channels_last`` memory on the CNN path); the
+reference's NHWC axes (1, 2) are the port's (2, 3).
+
+Gradient semantics, as the reference's stock path:
+
+* ``max_pool2d``: every window's cotangent goes to the FIRST maximum of
+  the window in row-major order, on ties too (select-and-scatter's
+  ``ge`` select; ``F.max_pool2d``'s saved indices keep the first).
+  Padding is ``-inf``, so a pad never wins. ``F.max_pool2d`` takes a
+  symmetric pad of at most half the kernel; any other pad is applied
+  with ``F.pad(-inf)`` first.
+* ``global_pool(.., "max")``: ``amax``, which splits the cotangent
+  evenly among tied maxima, as ``jnp.max``'s autodiff does.
+
+The reference's ``argmax`` and ``indices`` backward variants and their
+knobs (``DL4J_TPU_MAXPOOL_BWD``, ``DL4J_TPU_GLOBAL_MAXPOOL_BWD``) are
+not on its default path and are not ported (ROADMAP.md Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from deeplearning4j_tpu_torch.ops.conv import _pair, same_pads
+
+__all__ = ["max_pool2d", "avg_pool2d", "pnorm_pool2d", "global_pool"]
+
+
+def _pool_pads(H, W, k, s, padding):
+    """``padding`` ("SAME" or ((lo, hi), (lo, hi))) -> (explicit pads,
+    Ho, Wo) for an H x W input (reference: ``_pool_pads``)."""
+    if padding == "SAME":
+        pads = (same_pads(H, k[0], s[0]), same_pads(W, k[1], s[1]))
+    else:
+        pads = (tuple(padding[0]), tuple(padding[1]))
+    Ho = (H + pads[0][0] + pads[0][1] - k[0]) // s[0] + 1
+    Wo = (W + pads[1][0] + pads[1][1] - k[1]) // s[1] + 1
+    return pads, Ho, Wo
+
+
+def _padded(x, pads, k, value):
+    """(x, the pad ``F.*_pool2d`` takes itself): a symmetric pad of at
+    most half the kernel stays with the pool op, any other is applied
+    here with `value`."""
+    (t, b), (l, r) = pads
+    if t == b and l == r and t <= k[0] // 2 and l <= k[1] // 2:
+        return x, (t, l)
+    return F.pad(x, (l, r, t, b), value=value), (0, 0)
+
+
+def max_pool2d(x, kernel, stride, padding):
+    """Max pooling over [B,C,H,W]; first-match gradient on ties."""
+    k, s = _pair(kernel), _pair(stride)
+    pads, _, _ = _pool_pads(x.shape[2], x.shape[3], k, s, padding)
+    x, pad = _padded(x, pads, k, -math.inf)
+    return F.max_pool2d(x, k, s, pad)
+
+
+def avg_pool2d(x, kernel, stride, padding, count_include_pad=True):
+    """Average pooling. Explicit pads with ``count_include_pad`` divide
+    by k*k; "SAME" or ``count_include_pad=False`` divide by the number
+    of real (unpadded) inputs in each window, as the reference does."""
+    k, s = _pair(kernel), _pair(stride)
+    pads, _, _ = _pool_pads(x.shape[2], x.shape[3], k, s, padding)
+    xp, pad = _padded(x, pads, k, 0.0)
+    if count_include_pad and padding != "SAME":
+        return F.avg_pool2d(xp, k, s, pad, count_include_pad=True)
+    summed = F.avg_pool2d(xp, k, s, pad, divisor_override=1)
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    op, pad = _padded(ones, pads, k, 0.0)
+    counts = F.avg_pool2d(op, k, s, pad, divisor_override=1)
+    return summed / counts
+
+
+def pnorm_pool2d(x, kernel, stride, padding, p=2):
+    """(sum over the window of |x|^p)^(1/p), zero padding."""
+    k, s = _pair(kernel), _pair(stride)
+    pads, _, _ = _pool_pads(x.shape[2], x.shape[3], k, s, padding)
+    xp, pad = _padded(x.abs().pow(p), pads, k, 0.0)
+    return F.avg_pool2d(xp, k, s, pad, divisor_override=1).pow(1.0 / p)
+
+
+def global_pool(x, pooling_type, dims, mask=None, pnorm=2):
+    """Global pooling over `dims`, with an optional mask broadcastable to
+    x (reference: ``global_pool``, stock path)."""
+    t = str(pooling_type).lower()
+    denom = None
+    if mask is not None:
+        m = mask.expand_as(x)
+        x = torch.where(m > 0, x, -torch.inf) if t == "max" else x * m
+        denom = torch.clamp(m.sum(dim=dims), min=1.0)
+    if t == "max":
+        return x.amax(dim=dims)
+    if t == "sum":
+        return x.sum(dim=dims)
+    if t == "avg":
+        return x.sum(dim=dims) / denom if denom is not None \
+            else x.mean(dim=dims)
+    if t == "pnorm":
+        return x.abs().pow(pnorm).sum(dim=dims).pow(1.0 / pnorm)
+    raise ValueError(f"Unknown pooling type '{pooling_type}'")

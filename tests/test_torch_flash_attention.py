@@ -305,6 +305,57 @@ def test_mha_routes_through_flash():
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("T,D,dtype,on_cuda,has_mask,streaming,want", [
+    (512, 64, torch.float32, True, False, False, "flash"),
+    (40, 128, torch.bfloat16, True, False, False, "flash"),
+    (40, 64, torch.float64, True, False, False, "fused"),
+    (40, 64, torch.float16, True, False, False, "fused"),
+    (600, 64, torch.float16, True, False, False, "blockwise"),
+    (40, 100, torch.float32, True, False, False, "fused"),
+    (40, 256, torch.float32, True, False, True, "blockwise"),
+    (40, 12, torch.bfloat16, True, False, False, "fused"),
+    (40, 64, torch.float64, False, False, False, "flash"),
+    (40, 256, torch.float32, False, False, False, "flash"),
+    (40, 64, torch.float32, True, True, False, "fused"),
+    (40, 64, torch.float32, False, True, False, "fused"),
+    (512, 64, torch.float32, False, True, False, "blockwise"),
+])
+def test_dispatch_is_a_domain_decision(T, D, dtype, on_cuda, has_mask,
+                                       streaming, want):
+    """On the card the kernels take f32/bf16 at a head width that is a
+    multiple of 8 in 8..128 and no key mask; anything else takes the
+    fused (T < 512, not streaming) or blockwise form on the same device.
+    On the CPU the plain versions take every dtype and width."""
+    assert tfa._choose_impl(T, D, dtype, on_cuda=on_cuda, has_mask=has_mask,
+                            force_streaming=streaming) == want
+
+
+def test_masked_call_counts_its_route():
+    """The launch counts show the route a call took."""
+    q = torch.randn(1, 2, 40, 8)
+    tfa.reset_launches()
+    tfa.flash_attention(q, q, q, key_mask=torch.ones(1, 40, dtype=torch.bool))
+    assert (ta.dot_product_attention.launches,
+            ta.blockwise_attention.launches, tfa.flash_fwd_plain.launches) \
+        == (1, 0, 0)
+    tfa.flash_attention(q.double(), q.double(), q.double())
+    assert tfa.flash_fwd_plain.launches == 1
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp16_masked_forms_stay_finite(causal):
+    """-1e30 does not fit in fp16: the masked scores take fp16's lowest
+    finite value there, and the fused and blockwise forms still agree
+    with the f64 answer (a padded last block at T 600)."""
+    q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(
+        1, 2, 600, 16)) for i in range(3))
+    want = ta.dot_product_attention(q, k, v, causal=causal)
+    for fn in (ta.dot_product_attention, ta.blockwise_attention):
+        got = fn(q.half(), k.half(), v.half(), causal=causal)
+        assert bool(got.isfinite().all())
+        assert float((got.double() - want).norm() / want.norm()) <= 2e-3
+
+
 def test_wrapper_rejects_bad_operands():
     q = torch.zeros(1, 2, 4, 8)
     with pytest.raises(ValueError, match="k, v"):

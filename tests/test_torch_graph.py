@@ -235,12 +235,23 @@ def test_entry_points_need_a_device_or_the_card():
             P.ComputationGraph(conf)
 
 
-def test_later_slices_raise_and_name_themselves():
+@pytest.mark.parametrize("call", [
+    lambda net: net.fitDataSet(None), lambda net: net.precompile(),
+    lambda net: net.evaluate(None)], ids=["fitDataSet", "precompile",
+                                          "evaluate"])
+def test_later_slices_raise_and_name_themselves(call):
     conf = encoder(P, P.FeedForwardToRnnPreProcessor, P.DataType.FLOAT)
     net = P.ComputationGraph(conf, device="cpu").init()
-    for call in (lambda: net.fit(object()), lambda: net.score(object()),
-                 lambda: net.fitDataSet(None), lambda: net.precompile(),
-                 lambda: net.evaluate(None),
-                 lambda: P.NeuralNetConfiguration.Builder().list()):
-        with pytest.raises(NotImplementedError, match="slice"):
-            call()
+    with pytest.raises(NotImplementedError, match="slice"):
+        call(net)
+
+
+def test_fit_and_score_name_what_they_take():
+    """fit and score take arrays, a DataSet or (fit) an iterator; any
+    other object is a TypeError naming them."""
+    conf = encoder(P, P.FeedForwardToRnnPreProcessor, P.DataType.FLOAT)
+    net = P.ComputationGraph(conf, device="cpu").init()
+    with pytest.raises(TypeError, match="DataSet, or a DataSetIterator"):
+        net.fit(object())
+    with pytest.raises(TypeError, match="DataSet"):
+        net.score(object())

@@ -29,7 +29,10 @@ def test_gate_covers_the_port():
     assert {"chip_smoke.py", "paged_attention.py", "transformer.py",
             "sequence.py", "server.py", "flash_attention.py", "attention.py",
             "graph.py", "layers.py", "updaters.py", "losses.py",
-            "dtype.py"} <= names
+            "dtype.py", "conv.py", "pooling.py", "norm.py", "multilayer.py",
+            "dataset.py", "models.py"} <= names
+    dirs = {p.parent.name for p in _SOURCES}
+    assert {"ops", "nn", "conf", "data", "zoo", "serving"} <= dirs
     assert all(p.exists() for p in _SOURCES)
 
 

@@ -11,7 +11,13 @@ versions, over 4 input seeds against an f64 answer at every padded head
 width (chip_smoke.py's flash gate: the forward's o and lse, the
 backward's dq, dk and dv), the forward's and the backward's bitwise
 repeatability, strided operands, and autograd through FlashAttentionFn
-launching all three.
+launching all three. Then the attention dispatch outside the kernels'
+domain (a SelfAttentionLayer at fp64, at fp16 and at head widths 100 and
+256 answers through the fused or blockwise form on the card, held to
+blockwise_attention in f64; f32 and bf16 at D 64 still launch K1-K3),
+and the CNN path's ops on the card: max pooling's first-match gradient
+on tied maxima in channels_last f32 and bf16, and the BN autograd
+Functions against the same functions on the CPU.
 
 This file imports neither jax nor the reference package, so it runs on a
 machine with PyTorch alone:
@@ -36,8 +42,13 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu_torch.nn.conf.attention import SelfAttentionLayer
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.ops import attention as tatt
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+from deeplearning4j_tpu_torch.ops import norm as tnorm
 from deeplearning4j_tpu_torch.ops import paged_attention as tpa
+from deeplearning4j_tpu_torch.ops import pooling as tpool
 
 pytestmark = pytest.mark.cuda
 
@@ -429,3 +440,155 @@ def test_flash_rejects_what_the_kernels_do_not_take(card):
     q = torch.zeros(1, 1, 8, 16, device=card, dtype=torch.float16)
     with pytest.raises(TypeError):
         tfa.flash_fwd(q, q, q)
+
+
+# ----------------------------------------------------------------------
+# attention outside the kernels' domain
+# ----------------------------------------------------------------------
+
+def _attention_layer(rng, dev, dtype, F_, H, T, B=2):
+    layer = SelfAttentionLayer(nIn=F_, nOut=F_, nHeads=H)
+    layer.mergeGlobals({})
+    params, _ = layer.initialize(torch.Generator().manual_seed(3),
+                                 InputType.recurrent(F_, T), torch.float64,
+                                 "cpu")
+    x = torch.from_numpy(rng.standard_normal((B, F_, T)))
+    return layer, params, x
+
+
+def _layer_through_blockwise(layer, params, x, monkeypatch):
+    """The layer's f64 forward on the CPU with its attention core taken
+    by ``blockwise_attention``."""
+    with monkeypatch.context() as m:
+        m.setattr(tfa, "flash_attention",
+                  lambda q, k, v, **kw: tatt.blockwise_attention(q, k, v))
+        return layer.forward(params, {}, x, False, None)[0]
+
+
+@pytest.mark.parametrize("dtype,F_,H,T,route,band", [
+    (torch.float64, 64, 4, 40, "fused", 1e-12),
+    (torch.float16, 64, 4, 40, "fused", 1e-2),
+    (torch.float16, 64, 4, 600, "blockwise", 1e-2),
+    (torch.float32, 200, 2, 40, "fused", 1e-5),
+    (torch.float32, 256, 1, 40, "fused", 1e-5),
+], ids=["fp64", "fp16", "fp16_T600", "D100", "D256"])
+def test_attention_outside_the_kernels_domain_answers(card, monkeypatch,
+                                                      dtype, F_, H, T, route,
+                                                      band):
+    """A SelfAttentionLayer whose dtype or head width the kernels do not
+    take answers on the card through the fused (T < 512) or blockwise
+    form, never the kernels, within its dtype's band of the f64 answer
+    (fp16: rel L2 1e-2, an 11-bit mantissa through three projections,
+    the softmax and P.V; f32 with TF32 off: 1e-5; fp64: 1e-12)."""
+    rng = np.random.default_rng(21)
+    layer, params, x = _attention_layer(rng, card, dtype, F_, H, T)
+    want = _layer_through_blockwise(layer, params, x, monkeypatch)
+    tfa.reset_launches()
+    got = layer.forward({k: v.to(card, dtype) for k, v in params.items()},
+                        {}, x.to(card, dtype), False, None)[0]
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert tfa.flash_fwd.launches == 0
+    counts = {"fused": tatt.dot_product_attention.launches,
+              "blockwise": tatt.blockwise_attention.launches}
+    assert counts[route] == 1 and sum(counts.values()) == 1, counts
+    rel = float((got.double().cpu() - want).norm() / want.norm())
+    assert rel <= band, rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_inside_the_domain_launches_the_kernels(card, dtype):
+    rng = np.random.default_rng(22)
+    layer, params, x = _attention_layer(rng, card, dtype, 128, 2, 96)
+    p = {k: v.to(card, dtype).requires_grad_(True) for k, v in params.items()}
+    tfa.reset_launches()
+    y = layer.forward(p, {}, x.to(card, dtype), True, None)[0]
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == (1, 1, 1)
+    assert tatt.dot_product_attention.launches == 0
+    assert tatt.blockwise_attention.launches == 0
+
+
+# ----------------------------------------------------------------------
+# the CNN path's ops on the card
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,s,pad", [(3, 2, ((1, 1), (1, 1))),
+                                     (2, 2, ((0, 0), (0, 0))),
+                                     (3, 2, "SAME")])
+def test_max_pool_first_match_on_the_card(card, dtype, k, s, pad):
+    """channels_last max pooling over ReLU outputs on a 1/8 grid (most
+    windows hold tied maxima): the card's output and gradient equal the
+    CPU's exactly, which tests/test_torch_cnn_ops.py holds to the
+    reference's first-match rule. The cotangent is small integers, so an
+    input that wins overlapping windows sums them exactly in bf16 too,
+    in any order: only the routing can differ."""
+    rng = np.random.default_rng(23)
+    x = np.maximum(np.round(rng.standard_normal((4, 16, 33, 31)) * 8) / 8, 0)
+    xc = torch.from_numpy(x.astype(np.float32)).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    outs = []
+    for dev in ("cpu", card):
+        xd = xc.to(dev).requires_grad_(True)
+        y = tpool.max_pool2d(xd, k, s, pad)
+        dy = torch.from_numpy(rng.integers(1, 9, y.shape).astype(
+            np.float32)).to(dev, dtype) if dev == "cpu" else outs[0][2].to(
+                dev)
+        (g,) = torch.autograd.grad(y, [xd], dy)
+        outs.append((y.detach().cpu(), g.cpu(), dy.cpu()))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("act,residual", [("relu", False), ("identity", True),
+                                          ("tanh", False), (None, False)])
+def test_bn_functions_on_the_card_match_the_cpu(card, dtype, act, residual):
+    """BNTrainFn / BNActTrainFn / BNActAddTrainFn on channels_last CUDA
+    tensors against the same functions on the CPU: outputs, statistics
+    and the gradients of x, gamma, beta (and the residual). Bands: f64
+    1e-12; f32 1e-5 of each tensor's max-abs (reductions in another
+    order); bf16 outputs within 2 ulps, gradients rel L2 2e-2."""
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((8, 32, 14, 14)) * 2 + 0.5
+    g = 1 + 0.3 * rng.standard_normal(32)
+    b = 0.2 * rng.standard_normal(32)
+    dy = rng.standard_normal(x.shape)
+    r = rng.standard_normal(x.shape)
+    res = {}
+    for dev in ("cpu", card):
+        def t(a, cl=False):
+            v = torch.from_numpy(a).to(dev, dtype)
+            if cl:
+                v = v.contiguous(memory_format=torch.channels_last)
+            return v.requires_grad_(True)
+        ins = [t(x, True), t(g), t(b)] + ([t(r, True)] if residual else [])
+        if act is None:
+            out, m, v = tnorm.BNTrainFn.apply(ins[0], ins[1], ins[2], 1e-5)
+        elif residual:
+            out, m, v = tnorm.BNActAddTrainFn.apply(ins[0], ins[1], ins[2],
+                                                    ins[3], 1e-5, act)
+        else:
+            out, m, v = tnorm.BNActTrainFn.apply(ins[0], ins[1], ins[2],
+                                                 1e-5, act)
+        grads = torch.autograd.grad(out, ins, t(dy).detach())
+        res[dev if dev == "cpu" else "cuda"] = [
+            a.detach().cpu().double() for a in (out, m, v) + tuple(grads)]
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(res["cuda"], res["cpu"])):
+        scale = float(want.abs().max().clamp_min(1e-30))
+        if dtype == torch.float64:
+            assert float((got - want).abs().max()) <= 1e-12 * scale, i
+        elif dtype == torch.float32 or i in (1, 2):
+            assert float((got - want).abs().max()) <= 1e-5 * scale, i
+        elif i == 0:
+            floor = scale / 256
+            ulp = _bf16_ulp(torch.maximum(want.abs(), torch.tensor(floor)))
+            assert bool(((got - want).abs() <= 2 * ulp).all()), i
+        else:
+            assert float((got - want).norm() / want.norm()) <= 2e-2, i
