@@ -127,10 +127,51 @@ Phases (any failure exits non-zero before the result line):
    untraced step of (b) and of the traced wall, which the profiler's own
    host work stretches.
 
+10. nd4j — the ND4J array layer on the card (Nd4j factories with no
+   device land there): (a) value semantics, as the CPU tests check them:
+   in-place ops on views (getRow, getColumn, get with NDArrayIndex,
+   __getitem__, INDArray(a), transpose, slice) leave the parent as it
+   was, and the parent's leave the views; (b) out-of-range getDouble,
+   get (point and index array), putScalar and an index-array
+   __getitem__ raise IndexError before any launch, and the context stays
+   usable (a synchronize and a later read); (c) Nd4j.rand/randn with a
+   seed repeat on the card, and from setSeed; at 2^24 draws their mean
+   and std within 5 sigma of the distribution's; (d) Nd4j.gemm(alpha
+   0.5, beta 2, transposeA and transposeB) at 4096^2 f32, TF32 off,
+   within a relative L2 of 1e-5 of float64 numpy, and its time (CUDA
+   events, median of 5 after one); (e) on a 25,557,032-element f32
+   vector (ResNet-50's parameter count) from Nd4j.randn(seed 0): the
+   THRESHOLD codec (tau 2.5) and its decode, the INT8 codec, and
+   threshold_encode_fixed (tau 1, capacity 1 %, a stable sort on the
+   card, ties in index order) each exactly numpy's answer: indices,
+   signs, scale, values, dense message and residual.
+11. samediff — (a) BASELINE config 2 (bench.py bench_samediff_mlp: B
+   256, 784 -> 256 relu -> 10, softmaxCrossEntropy, Adam(1e-3), f32,
+   RandomState(7) data) on the card against the same graph on the CPU:
+   first-step loss and gradients rel 1e-5, the 20-step fit trajectory
+   within the CPU test's band (rel 1e-5), fitSteps(20) ending where 20
+   fit calls do; steps/s of fit (a loss fetch a step) and fitSteps(20)
+   (one), and a torch.profiler trace of 20 fit steps: the device's busy
+   share of the traced wall (phase 9(c)'s method); save, load onto the
+   card, outputs bitwise equal. (b) a SameDiff encoder at phase 7's
+   widths, whole depth: per block multiHeadDotProductAttention (768, 12
+   heads, no bias: the op's form) -> add -> linear 3072 + gelu ->
+   linear 768 -> add; mean over T -> linear 2 -> softmaxCrossEntropy; B
+   8 x 512, f32, weights N(0, 0.02^2) from Nd4j.randn seeds, Adam(1e-4),
+   phase 7's batch (transposed to [B, T, E]). The first step's loss and
+   every gradient against the same graph with flash_attention routed to
+   the plain versions on the card (phase 7's bars: loss rel 1e-5, each
+   gradient rel L2 1e-3); 20 fit steps with K1, K2 and K3 at exactly 12
+   launches a step each and the plain versions at 0; the losses finite
+   and falling; the median step of steps 3-20, tokens/s and peak
+   memory, printed beside phase 7's ComputationGraph step. (c) save, load
+   onto the card, outputs bitwise equal.
+
 The last stdout line is {"ok": true, "device": {...}}; before it come the
-nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; phases 8-9
-run no hand-written kernel: conv and dense are cuDNN/cuBLAS calls, as the
-reference leaves them to XLA).
+nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
+launches are phase 7's plus phase 11's; phases 8-10 run no hand-written
+kernel: conv and dense are cuDNN/cuBLAS calls, as the reference leaves
+them to XLA).
 """
 
 from __future__ import annotations
@@ -1329,7 +1370,8 @@ def resnet_parity(dev, cfg):
                      REF_F32_GRAD_TO_F64) + 1e-3
     need(worst32 <= bar, f"resnet (a): an f32 gradient on the card is "
          f"{worst32:.3e} from f64, past {bar:.3e}")
-    out_err = float((card32.output(x).cpu() - cpu32.output(x)).abs().max())
+    out_err = float(np.abs(card32.output(x).toNumpy()
+                           - cpu32.output(x).toNumpy()).max())
     need(out_err <= 1e-4, f"resnet (a): eval output max abs {out_err:.3e}")
     for net in (cpu64, card64):
         net.fit(x, y)
@@ -1503,6 +1545,30 @@ def classify(evt):
     return "other:" + evt.name
 
 
+def device_busy_us(events, t0, t1):
+    """The device's busy time within [t0, t1] (us): the union of its
+    kernels' and copies' spans in a profiler trace, the profiler's own
+    GPU annotations left out."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation
+                   and e.time_range.end > t0 and e.time_range.start < t1)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        s, e = max(s, t0), min(e, t1)
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
 def resnet_trace(net, x, y, steps, untraced_step_ms):
     """Phase 9(c): a torch.profiler trace of `steps` fit steps: device
     time by category, and the device's idle share: of the traced wall
@@ -1541,21 +1607,7 @@ def resnet_trace(net, x, y, steps, untraced_step_ms):
          f"scopes in the trace, expected {steps}")
     t0 = min(e.time_range.start for e in step_evts)
     t1 = max(e.time_range.end for e in step_evts)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.is_user_annotation
-                   and e.time_range.end > t0 and e.time_range.start < t1)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        s, e = max(s, t0), min(e, t1)
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
+    busy = device_busy_us(events, t0, t1)
     device_us = sum(by_cat.values())
     need(device_us > 0, "resnet (c): the profiler saw no device time")
     wall_us = t1 - t0
@@ -1577,6 +1629,524 @@ def resnet_trace(net, x, y, steps, untraced_step_ms):
                                    for n, v in other.items()),
                                   reverse=True)[:8]}
     log("resnet (c): " + json.dumps(result))
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 10: the ND4J array layer on the card
+# ----------------------------------------------------------------------
+
+#: ResNet-50's parameter count: the length of phase 10's gradient-sized
+#: vector for the codecs
+COMPRESS_N = 25_557_032
+RNG_DRAWS = 1 << 24
+GEMM_N = 4096
+
+
+def _moments_ok(t, mean, sd, kurtosis, what):
+    """The sample mean and std of `t` within 5 sigma of their expected
+    values (the std's sigma from the distribution's kurtosis)."""
+    n = t.numel()
+    td = t.double()
+    m, s = float(td.mean()), float(td.std())
+    se_m, se_s = sd / math.sqrt(n), sd * math.sqrt((kurtosis - 1) / (4 * n))
+    need(abs(m - mean) <= 5 * se_m and abs(s - sd) <= 5 * se_s,
+         f"nd4j (c): {what} mean {m} (want {mean} +- {5 * se_m:.2e}), std "
+         f"{s} (want {sd} +- {5 * se_s:.2e})")
+    return {"mean": m, "std": s, "mean_sigmas": (m - mean) / se_m,
+            "std_sigmas": (s - sd) / se_s}
+
+
+def nd4j_and_check(dev):
+    """Phase 10: value semantics, host-side bounds, the seeded RNG,
+    gemm and the codecs, on arrays the factories put on the card."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ndarray import INDArray, Nd4j
+    from deeplearning4j_tpu_torch.ndarray import NDArrayIndex as I
+    from deeplearning4j_tpu_torch.ndarray import compression as C
+
+    # (a) value semantics: nothing aliases
+    base = np.arange(12, dtype=np.float32).reshape(3, 4)
+    a = Nd4j.create(base)                 # no device asked for: the card
+    need(a.tensor().is_cuda, f"nd4j (a): Nd4j.create landed on {a.device}")
+    views = (lambda t: t.getRow(0), lambda t: t.getColumn(1),
+             lambda t: t.get(I.interval(0, 2), I.all()), lambda t: t[0],
+             lambda t: INDArray(t), lambda t: t.transpose(),
+             lambda t: t.slice(1))
+    mutations = (lambda v: v.addi(1.0), lambda v: v.assign(7.0),
+                 lambda v: v.putScalar(0, 99.0),
+                 lambda v: v.__setitem__(0, -5.0), lambda v: v.negi())
+    for view in views:
+        for mutate in mutations:
+            mutate(view(a))
+    need(np.array_equal(a.toNumpy(), base),
+         "nd4j (a): a view's in-place op changed its parent")
+    row, shared = a.getRow(0), INDArray(a)
+    a.addi(1.0).putScalar(0, 0, 50.0)
+    a[1] = 0.0
+    need(np.array_equal(row.toNumpy(), base[0])
+         and np.array_equal(shared.toNumpy(), base),
+         "nd4j (a): a parent's in-place op changed a view")
+
+    # (b) bounds on the host: IndexError, no device assert
+    a = Nd4j.create(base)
+    calls = (("getDouble", lambda: a.getDouble(3, 0)),
+             ("getDouble linear", lambda: a.getDouble(12)),
+             ("get indices", lambda: a.get(I.indices(0, 3))),
+             ("get point", lambda: a.get(I.point(3))),
+             ("putScalar", lambda: a.putScalar(0, 4, 1.0)),
+             ("getitem array", lambda: a[[0, 5]]))
+    raised = []
+    for name, call in calls:
+        try:
+            call()
+        except IndexError:
+            raised.append(name)
+    need(len(raised) == len(calls), f"nd4j (b): only {raised} raised "
+         "IndexError")
+    torch.cuda.synchronize()    # a device-side assert would surface here
+    need(np.array_equal(a.toNumpy(), base) and float(a.sum()) == 66.0,
+         "nd4j (b): the array or the context changed")
+
+    # (c) seeded draws repeat on the card; moments at 2^24 draws
+    n = RNG_DRAWS
+    rng_stats = {}
+    for name, draw, mean, sd, kurt in (
+            ("rand", Nd4j.rand, 0.5, 1 / math.sqrt(12), 1.8),
+            ("randn", Nd4j.randn, 0.0, 1.0, 3.0)):
+        x1, x2 = draw(n, seed=1234), draw(n, seed=1234)
+        need(x1.tensor().is_cuda and torch.equal(x1.tensor(), x2.tensor()),
+             f"nd4j (c): {name}(seed=1234) did not repeat on the card")
+        Nd4j.getRandom().setSeed(99)
+        g1 = draw(n)
+        Nd4j.getRandom().setSeed(99)
+        g2 = draw(n)
+        need(torch.equal(g1.tensor(), g2.tensor())
+             and not torch.equal(g1.tensor(), x1.tensor()),
+             f"nd4j (c): {name}'s global stream did not repeat from setSeed")
+        rng_stats[name] = _moments_ok(x1.tensor(), mean, sd, kurt, name)
+        del x1, x2, g1, g2
+
+    # (d) gemm at 4096^2 f32 (TF32 off) against float64 numpy
+    A, Bm, Cm = (Nd4j.randn(GEMM_N, GEMM_N, seed=s) for s in (1, 2, 3))
+    got = Nd4j.gemm(A, Bm, transposeA=True, transposeB=True, alpha=0.5,
+                    beta=2.0, c=Cm)
+    An, Bn, Cn = (t.toNumpy().astype(np.float64) for t in (A, Bm, Cm))
+    want = 0.5 * (An.T @ Bn.T) + 2.0 * Cn
+    gemm_err = float(np.linalg.norm(got.toNumpy() - want)
+                     / np.linalg.norm(want))
+    need(gemm_err <= 1e-5, f"nd4j (d): gemm rel L2 {gemm_err:.3e} against "
+         "float64")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    times = []
+    for _ in range(6):
+        ev[0].record()
+        Nd4j.gemm(A, Bm, transposeA=True, transposeB=True, alpha=0.5,
+                  beta=2.0, c=Cm)
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    gemm_ms = float(np.median(times[1:]))
+    del A, Bm, Cm, got, An, Bn, Cn, want
+
+    # (e) the codecs on a gradient-sized vector, exactly numpy's answer
+    v = Nd4j.randn(COMPRESS_N, seed=SEED)
+    vn = v.toNumpy()
+    comp = Nd4j.getCompressor()
+    tau = 2.5
+    ca = comp.compress(v, "THRESHOLD", threshold=tau)
+    idx = np.flatnonzero(np.abs(vn) >= tau).astype(np.int32)
+    need(np.array_equal(ca.extra["indices"], idx)
+         and np.array_equal(ca.payload, np.sign(vn[idx]).astype(np.int8))
+         and ca.extra["threshold"] == np.float32(tau),
+         "nd4j (e): THRESHOLD payload differs from numpy's")
+    dense = np.zeros_like(vn)
+    dense[idx] = np.sign(vn[idx]) * np.float32(tau)
+    back = comp.decompress(ca)
+    need(back.tensor().is_cuda and np.array_equal(back.toNumpy(), dense),
+         "nd4j (e): THRESHOLD decode differs from numpy's")
+    ci = comp.compress(v, "INT8")
+    scale = float(np.max(np.abs(vn))) / 127.0
+    q = np.clip(np.round(vn / scale), -127, 127).astype(np.int8)
+    need(np.array_equal(ci.payload, q) and ci.extra == np.float32(scale),
+         "nd4j (e): INT8 payload differs from numpy's")
+    cap = C.threshold_cap(COMPRESS_N, 0.01)
+    ti, tv, td, tr = C.threshold_encode_fixed(v.tensor(), 1.0, cap)
+    order = np.argsort(-np.abs(vn), kind="stable")[:cap]
+    cand = vn[order]
+    val = np.where(np.abs(cand) >= np.float32(1.0),
+                   np.sign(cand) * np.float32(1.0), np.float32(0.0))
+    ndense = np.zeros_like(vn)
+    ndense[order] = val
+    n_ties = int(np.sum(np.diff(np.abs(vn[order])) == 0))
+    need(ti.is_cuda and np.array_equal(ti.cpu().numpy(),
+                                       order.astype(np.int32))
+         and np.array_equal(tv.cpu().numpy(), val)
+         and np.array_equal(td.cpu().numpy(), ndense)
+         and np.array_equal(tr.cpu().numpy(), vn - ndense),
+         "nd4j (e): threshold_encode_fixed differs from numpy's")
+    result = {"value_semantics": "ok", "index_errors": raised,
+              "rng": rng_stats, "gemm_rel_l2_to_f64": gemm_err,
+              "gemm_4096_ms": gemm_ms,
+              "gemm_tflops": 2 * GEMM_N ** 3 / gemm_ms / 1e9,
+              "threshold_indices": int(idx.size), "int8_scale": scale,
+              "encode_fixed_cap": cap, "encode_fixed_tied_pairs": n_ties}
+    log("nd4j: " + json.dumps(result))
+    return result
+
+
+# ----------------------------------------------------------------------
+# phase 11: SameDiff on the card
+# ----------------------------------------------------------------------
+
+#: BASELINE config 2 (bench.py bench_samediff_mlp): 784 -> 256 relu ->
+#: 10, softmaxCrossEntropy, Adam(1e-3), f32, RandomState(7) data
+SD_MLP = dict(batch=256, inputs=784, hidden=256, classes=10, seed=7,
+              lr=1e-3, steps=20)
+#: the CPU test's trajectory band (tests/test_torch_samediff.py)
+SD_TRAJ_RTOL = 1e-5
+#: the f32 band where the first step's relu took the other side on the
+#: card for a pre-activation within f32 rounding of 0: that unit's column
+#: of w1 and b1 then moves by ~3e-3 of its norm, and Adam carries it to
+#: ~7e-4 of the loss over 20 steps (H100, port PR 7); the f64 trajectory
+#: holds the port to the CPU at 1e-10 all the same
+SD_TRAJ_FLIP_RTOL = 1e-3
+
+
+def sd_mlp(device, cfg, dtype="float32"):
+    """bench.py's graph and data (drawn in float32, then cast to
+    `dtype`) on `device` (None: the card)."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.nn import Adam
+
+    rs = np.random.RandomState(cfg["seed"])
+    B, F, H, O = cfg["batch"], cfg["inputs"], cfg["hidden"], cfg["classes"]
+    X = rs.rand(B, F).astype("float32").astype(dtype)
+    Y = np.eye(O, dtype=dtype)[rs.randint(0, O, B)]
+    sd = SameDiff.create(device=device)
+    x = sd.placeHolder("x", dtype, B, F)
+    y = sd.placeHolder("y", dtype, B, O)
+    w1 = sd.var("w1", (rs.randn(F, H) * 0.05).astype("float32").astype(dtype))
+    b1 = sd.var("b1", np.zeros(H, dtype=dtype))
+    w2 = sd.var("w2", (rs.randn(H, O) * 0.05).astype("float32").astype(dtype))
+    b2 = sd.var("b2", np.zeros(O, dtype=dtype))
+    h = sd.nn.relu(sd.nn.linear(x, w1, b1), name="h")
+    logits = sd.nn.linear(h, w2, b2, name="logits")
+    sd.loss.softmaxCrossEntropy(y, logits, name="loss")
+    sd.setTrainingConfig(TrainingConfig.Builder()
+                         .updater(Adam(learningRate=cfg["lr"]))
+                         .dataSetFeatureMapping("x")
+                         .dataSetLabelMapping("y").build())
+    return sd, X, Y
+
+
+def grads_rel(got, want, cols=None):
+    """The worst rel L2 over {name: INDArray} gradients; `cols`, a bool
+    mask over the hidden units, keeps only those columns of w1 and b1."""
+    worst = 0.0
+    for n in want:
+        a, b = got[n].toNumpy().astype(np.float64), want[n].toNumpy()
+        if cols is not None and n in ("w1", "b1"):
+            a, b = a[..., cols], b[..., cols]
+        worst = max(worst, float(np.linalg.norm(a - b)
+                                 / max(np.linalg.norm(b), 1e-30)))
+    return worst
+
+
+def samediff_mlp(dev, cfg):
+    """Phase 11(a): the first step against the CPU port, the fit
+    trajectory, steps/s of fit and fitSteps, the device's busy share."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    wrt = ("w1", "b1", "w2", "b2")
+    # f64: the same graph on the card and on the CPU
+    c64, X64, Y64 = sd_mlp(None, cfg, "float64")
+    p64, _, _ = sd_mlp("cpu", cfg, "float64")
+    f64 = {"x": X64, "y": Y64}
+    l64 = [float(g.output(f64, ["loss"])["loss"].toNumpy())
+           for g in (c64, p64)]
+    rel64 = abs(l64[0] - l64[1]) / abs(l64[1])
+    g64 = grads_rel(c64.calculateGradients(f64, *wrt),
+                    p64.calculateGradients(f64, *wrt))
+    need(rel64 <= 1e-10 and g64 <= 1e-10, f"sd mlp: f64 on the card vs "
+         f"the CPU: loss rel {rel64:.3e}, gradient rel {g64:.3e}")
+    steps = cfg["steps"]
+    h64 = c64.fit(features=X64, labels=Y64, epochs=steps)
+    hp64 = p64.fit(features=X64, labels=Y64, epochs=steps)
+    traj64 = max(abs(a - b) / abs(b) for a, b in zip(h64, hp64))
+    need(traj64 <= 1e-10, f"sd mlp: the f64 {steps}-step trajectory on the "
+         f"card is off the CPU's by rel {traj64:.3e}")
+    del c64, p64
+    # f32: the loss, and the gradients of every hidden unit whose relu
+    # took the same side on both devices (a pre-activation within f32
+    # rounding of 0 may flip, and moves its column of w1 and b1 by
+    # ~1e-3 of their norm: the problem's conditioning, not the port's)
+    card, X, Y = sd_mlp(None, cfg)          # None: the card
+    cpu, _, _ = sd_mlp("cpu", cfg)
+    need(card.device.type == "cuda", f"sd mlp: graph on {card.device}")
+    feed = {"x": X, "y": Y}
+    lc = float(card.output(feed, ["loss"])["loss"].toNumpy())
+    lp = float(cpu.output(feed, ["loss"])["loss"].toNumpy())
+    hc = card.output(feed, ["h"])["h"].toNumpy() > 0
+    hp = cpu.output(feed, ["h"])["h"].toNumpy() > 0
+    flips = int((hc != hp).sum())
+    same_side = ~(hc != hp).any(0)
+    gc = card.calculateGradients(feed, *wrt)
+    gp = cpu.calculateGradients(feed, *wrt)
+    gworst = grads_rel(gc, gp, same_side)
+    gall = grads_rel(gc, gp)
+    loss_rel = abs(lc - lp) / abs(lp)
+    need(loss_rel <= 1e-5 and gworst <= 1e-5 and flips <= 2,
+         f"sd mlp: first step on the card vs the CPU: loss rel "
+         f"{loss_rel:.3e}, gradient rel {gworst:.3e} over the units "
+         f"whose relu agrees ({flips} relu flips)")
+    hc = card.fit(features=X, labels=Y, epochs=steps)
+    hp = cpu.fit(features=X, labels=Y, epochs=steps)
+    traj = max(abs(a - b) / abs(b) for a, b in zip(hc, hp))
+    traj_c64 = max(abs(a - b) / abs(b) for a, b in zip(hc, h64))
+    traj_p64 = max(abs(a - b) / abs(b) for a, b in zip(hp, h64))
+    band = SD_TRAJ_RTOL if flips == 0 else SD_TRAJ_FLIP_RTOL
+    need(max(traj, traj_c64) <= band and hc[-1] < hc[0], f"sd mlp: the f32 "
+         f"{steps}-step trajectory on the card is off the CPU's by rel "
+         f"{traj:.3e} and off the f64 one by {traj_c64:.3e} (band {band}, "
+         f"{flips} relu flips at step 1): {hc} vs {hp}")
+    again, _, _ = sd_mlp(None, cfg)
+    fs = again.fitSteps(X, Y, numSteps=steps)
+    need(abs(fs - hc[-1]) <= 1e-6 * abs(hc[-1]), f"sd mlp: fitSteps({steps})"
+         f" ended at {fs}, {steps} fit calls at {hc[-1]}")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card.fit(features=X, labels=Y, epochs=steps)
+    fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    card.fitSteps(X, Y, numSteps=steps)
+    fs_s = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            with record_function("smoke.sd_step"):
+                card.fit(features=X, labels=Y)
+        torch.cuda.synchronize()
+    events = prof.events()
+    step_evts = [e for e in events if e.name == "smoke.sd_step"
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+    t0 = min(e.time_range.start for e in step_evts)
+    t1 = max(e.time_range.end for e in step_evts)
+    busy = device_busy_us(events, t0, t1)
+    n_kernels = sum(len(e.kernels) for e in events)
+    need(busy > 0, "sd mlp: the profiler saw no device time")
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/mlp.zip"
+        card.save(path)
+        back = SameDiff.load(path)
+        a = card.output(feed, ["logits"])["logits"].tensor()
+        b = back.output(feed, ["logits"])["logits"].tensor()
+        need(back.device.type == "cuda" and torch.equal(a, b),
+             "sd mlp (c): the loaded graph's output differs")
+    result = {"f64_loss_rel": rel64, "f64_worst_grad_rel_l2": g64,
+              "first_step_loss_rel": loss_rel,
+              "first_step_worst_grad_rel_l2_same_relu_side": gworst,
+              "first_step_worst_grad_rel_l2_all": gall,
+              "relu_flips": flips,
+              "f64_trajectory_worst_rel": traj64,
+              "f32_trajectory_worst_rel_to_cpu": traj,
+              "f32_trajectory_worst_rel_to_f64": traj_c64,
+              "cpu_f32_trajectory_worst_rel_to_f64": traj_p64,
+              "losses": hc,
+              "fit_steps_per_s": steps / fit_s,
+              "fitSteps_steps_per_s": steps / fs_s,
+              "traced_wall_ms_per_step": (t1 - t0) / 1e3 / steps,
+              "device_busy_ms_per_step": busy / 1e3 / steps,
+              "device_busy_share_of_traced_wall": busy / (t1 - t0),
+              "kernels_per_step": n_kernels / steps,
+              "save_load": "bitwise"}
+    log("sd mlp: " + json.dumps(result))
+    return result
+
+
+class _PlainFlash:
+    """Routes ``flash_attention`` to the kernels' plain versions on the
+    card for the length of a ``with`` (phase 11(b)'s comparison): K1's
+    plain forward with its lse, then the plain backward."""
+
+    def __enter__(self):
+        import torch
+
+        from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+        class Plain(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal):
+                o, lse = tfa.flash_fwd_plain(q, k, v, causal=causal,
+                                             need_lse=True)
+                ctx.causal = causal
+                ctx.save_for_backward(q, k, v, o, lse)
+                return o
+
+            @staticmethod
+            def backward(ctx, do):
+                q, k, v, o, lse = ctx.saved_tensors
+                return (*tfa.flash_bwd_plain(q, k, v, o, lse, do,
+                                             causal=ctx.causal), None)
+
+        self.tfa, self.saved = tfa, tfa.flash_attention
+        tfa.flash_attention = lambda q, k, v, causal=False, **_: \
+            Plain.apply(q, k, v, bool(causal))
+        return self
+
+    def __exit__(self, *exc):
+        self.tfa.flash_attention = self.saved
+        return False
+
+
+def sd_encoder(cfg, seed=SEED):
+    """Phase 11(b)'s graph on the card: per block
+    multiHeadDotProductAttention (no bias) -> add -> linear 3072 + gelu
+    -> linear 768 -> add; mean over T -> linear 2 ->
+    softmaxCrossEntropy; weights N(0, 0.02^2) from Nd4j.randn seeds,
+    biases 0, Adam(1e-4)."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+    from deeplearning4j_tpu_torch.nn import Adam
+
+    E, nh, F3 = cfg["hidden"], cfg["heads"], cfg["intermediate"]
+    B, T = cfg["batch"], cfg["seq"]
+    sd = SameDiff.create()
+    x = sd.placeHolder("x", "float32", B, T, E)
+    y = sd.placeHolder("y", "float32", B, 2)
+    count = [0]
+
+    def w(name, *shape):
+        count[0] += 1
+        return sd.var(name, Nd4j.randn(*shape, seed=seed * 1000 + count[0])
+                      .mul(cfg["initializer_range"]))
+
+    def zero(name, n):
+        return sd.var(name, Nd4j.zeros(n))
+
+    h = x
+    for i in range(cfg["layers"]):
+        a = sd.nn.multiHeadDotProductAttention(
+            h, w(f"wq{i}", E, E), w(f"wk{i}", E, E), w(f"wv{i}", E, E),
+            w(f"wo{i}", E, E), nh, name=f"attn{i}")
+        h = sd.math.add(h, a, name=f"res1_{i}")
+        f = sd.nn.gelu(sd.nn.linear(h, w(f"w1_{i}", E, F3),
+                                    zero(f"b1_{i}", F3)), name=f"ffn1_{i}")
+        f = sd.nn.linear(f, w(f"w2_{i}", F3, E), zero(f"b2_{i}", E),
+                         name=f"ffn2_{i}")
+        h = sd.math.add(h, f, name=f"res2_{i}")
+    logits = sd.nn.linear(h.mean(1), w("wout", E, 2), zero("bout", 2),
+                          name="logits")
+    sd.loss.softmaxCrossEntropy(y, logits, name="loss")
+    sd.setTrainingConfig(TrainingConfig.Builder().updater(Adam(1e-4))
+                         .dataSetFeatureMapping("x")
+                         .dataSetLabelMapping("y").build())
+    return sd
+
+
+def samediff_encoder(dev, cfg, phase7):
+    """Phase 11(b)-(c): the first step against the plain-route graph,
+    20 counted and timed fit steps, then save/load."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+    t = time.perf_counter()
+    sd = sd_encoder(cfg)
+    n_params = sum(int(np.prod(sd._arrays[v.name].shape))
+                   for v in sd.variables())
+    torch.cuda.synchronize()
+    log(f"sd encoder: {n_params} params, {len(sd._ops)} ops on "
+        f"{sd.device}, built in {time.perf_counter() - t:.2f} s")
+    xb, y = encoder_batch(cfg, dev)
+    x = xb.transpose(1, 2).contiguous()          # [B, T, E]
+    feed = {"x": x, "y": y}
+    wrt = [v.name for v in sd.variables()]
+    loss = float(sd.output(feed, ["loss"])["loss"].toNumpy())
+    grads = sd.calculateGradients(feed, *wrt)
+    with _PlainFlash():
+        tfa.reset_launches()
+        ploss = float(sd.output(feed, ["loss"])["loss"].toNumpy())
+        pgrads = sd.calculateGradients(feed, *wrt)
+        need(tfa.flash_fwd.launches == 0 and tfa.flash_fwd_plain.launches
+             == 2 * cfg["layers"], "sd encoder (b): the plain route ran "
+             f"K1 {tfa.flash_fwd.launches} times")
+    loss_rel = abs(loss - ploss) / abs(ploss)
+    worst = 0.0
+    for n in wrt:
+        err = rel_l2(grads[n].tensor(), pgrads[n].tensor())
+        worst = max(worst, err)
+        need(err <= 1e-3, f"sd encoder (b): {n} gradient rel L2 {err:.3e} "
+             "against the plain route")
+    need(loss_rel <= 1e-5, f"sd encoder (b): loss {loss} vs the plain "
+         f"route's {ploss} (rel {loss_rel:.3e})")
+    log(f"sd encoder (b): first-step loss {loss:.7f} vs the plain route "
+        f"{ploss:.7f} (rel {loss_rel:.3e}); worst gradient rel L2 "
+        f"{worst:.3e} over {len(wrt)} tensors")
+    del grads, pgrads
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tfa.reset_launches()
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses += sd.fit(features=x, labels=y)       # fetches the loss
+        step_s.append(time.perf_counter() - t)
+    launches = {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
+                "K3": tfa.flash_bwd_dkv.launches,
+                "plain": tfa.flash_fwd_plain.launches
+                + tfa.flash_bwd_dq_plain.launches
+                + tfa.flash_bwd_dkv_plain.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_att = cfg["layers"] * TRAIN_STEPS
+    need(all(launches[k] == n_att for k in ("K1", "K2", "K3")),
+         f"sd encoder (b): kernel launches {launches}, expected {n_att} "
+         "each")
+    need(launches["plain"] == 0,
+         f"sd encoder (b): a plain version ran on the card: {launches}")
+    need(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+         f"sd encoder (b): losses {losses}")
+    med = float(np.median(step_s[2:]))
+    B, T = cfg["batch"], cfg["seq"]
+
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/encoder.zip"
+        t = time.perf_counter()
+        sd.save(path)
+        back = SameDiff.load(path)
+        io_s = time.perf_counter() - t
+        a = sd.output({"x": x}, ["logits"])["logits"].tensor()
+        b = back.output({"x": x}, ["logits"])["logits"].tensor()
+        need(back.device.type == "cuda" and torch.equal(a, b),
+             "sd encoder (c): the loaded graph's output differs")
+        del back
+    result = {"params": n_params, "steps": TRAIN_STEPS, "losses": losses,
+              "first_step_loss_rel_to_plain": loss_rel,
+              "first_step_worst_grad_rel_l2_to_plain": worst,
+              "step_ms_median_3_to_20": med * 1e3,
+              "step_ms_all": [s * 1e3 for s in step_s],
+              "tokens_per_s": B * T / med,
+              "max_memory_allocated_bytes": peak,
+              "launches": launches,
+              "launches_per_step": {k: launches[k] / TRAIN_STEPS
+                                    for k in ("K1", "K2", "K3")},
+              "phase7_step_ms_median_3_to_20":
+                  phase7["step_ms_median_3_to_20"],
+              "phase7_tokens_per_s": phase7["tokens_per_s"],
+              "phase7_max_memory_allocated_bytes":
+                  phase7["max_memory_allocated_bytes"],
+              "save_load_seconds": io_s, "save_load": "bitwise"}
+    log("sd encoder (b, c): " + json.dumps(result))
     return result
 
 
@@ -1619,6 +2189,11 @@ def main():
     trace = resnet_trace(net, x, y, RESNET_TIMED["traced_steps"],
                          timed["step_ms_median_3_on"])
     del net, x, y
+    torch.cuda.empty_cache()
+    nd4j = nd4j_and_check(dev)
+    torch.cuda.empty_cache()
+    sd_mlp_res = samediff_mlp(dev, SD_MLP)
+    sd_enc = samediff_encoder(dev, BERT_BASE, train)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -1650,7 +2225,7 @@ def main():
             "name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:{line}",
-            "launches": train["launches"][key],
+            "launches": train["launches"][key] + sd_enc["launches"][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -1671,6 +2246,20 @@ def main():
         f"{100 * trace['device_idle_share_of_untraced_step']:.1f} % of "
         f"an untraced step ({100 * trace['device_idle_share_of_traced_wall']:.1f}"
         " % of the traced wall)")
+    log(f"ND4J and SameDiff on {card}: gemm {GEMM_N}^2 f32 "
+        f"{nd4j['gemm_4096_ms']:.3f} ms ({nd4j['gemm_tflops']:.1f} TFLOP/s); "
+        f"SameDiff MLP b{SD_MLP['batch']} fit "
+        f"{sd_mlp_res['fit_steps_per_s']:.0f} steps/s, fitSteps("
+        f"{SD_MLP['steps']}) {sd_mlp_res['fitSteps_steps_per_s']:.0f} "
+        f"steps/s, device busy "
+        f"{100 * sd_mlp_res['device_busy_share_of_traced_wall']:.1f} % of a "
+        f"traced step; SameDiff encoder "
+        f"{sd_enc['step_ms_median_3_to_20']:.2f} ms a step, "
+        f"{sd_enc['tokens_per_s']:.0f} tokens/s, "
+        f"{sd_enc['max_memory_allocated_bytes'] / 2**30:.2f} GiB peak, "
+        f"beside phase 7's ComputationGraph {step_ms:.2f} ms, "
+        f"{train['tokens_per_s']:.0f} tokens/s, "
+        f"{train['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,13 @@ What is ported so far:
   ``ops.norm`` (the BN -> activation epilogue as autograd Functions),
   ``Nesterovs`` and ``data.DataSet``/``DataSetIterator``. No Pallas
   kernel lies on this path: conv and dense are cuDNN/cuBLAS calls, as
-  the reference leaves them to XLA.
+  the reference leaves them to XLA;
+* the array layer and SameDiff: ``ndarray`` (``INDArray`` over a tensor
+  with the reference's value semantics, ``Nd4j``, ``NDArrayIndex``,
+  ``Transforms``, im2col/col2im, the seeded RNG, the executioner, the
+  compression codecs) and ``autodiff`` (``SameDiff`` graphs, autodiff by
+  autograd, ``TrainingConfig`` training, the reference's file format),
+  whose ``multiHeadDotProductAttention`` reaches the flash kernels.
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

@@ -1,0 +1,1261 @@
+"""SameDiff graph: define-then-run symbolic autodiff over torch.
+
+The counterpart of ``deeplearning4j_tpu/autodiff/samediff.py``
+(reference: org.nd4j.autodiff.samediff.SameDiff / SDVariable /
+TrainingConfig). Ops are appended in definition order, which is a
+topological order, so the backward slice of any output set is a valid
+program. Where the reference jits that slice into one XLA computation,
+the port interprets it eagerly, one torch op per graph op on the graph's
+device; gradients are ``torch.autograd`` over the same interpretation.
+
+* ``output``/``exec``/``batchOutput`` run the slice under
+  ``torch.no_grad``; ``calculateGradients``/``grad`` differentiate the
+  sum of the loss variables' sums with respect to variables or
+  placeholders.
+* ``fit`` takes one step per batch: the loss is the sum of every marked
+  loss variable's full sum, accumulated in at least fp32, plus ``l2``
+  and ``l1`` over the trainable variables; ``weightDecay`` is added to
+  the gradients; the update goes through
+  ``nn.multilayer.default_param_update`` with the iteration counter.
+  ``fitSteps(k)`` is k such steps with one loss fetch at the end.
+* Stochastic ops (dropout in training, the random ops) draw from a
+  ``torch.Generator`` seeded from (stream, op index): a fixed stream in
+  ``output`` and one stream per iteration in ``fit``. The draws are
+  reproducible per device; they never match the reference's threefry.
+* ``save``/``load`` write and read the reference's format: a zip of
+  ``graph.json`` (variables with ``phShape``/``phDtype``, ops with their
+  kwargs, ``lossVariables``, ``iteration``) and ``arrays.npz``, so a
+  reference file loads here and a port file loads there (bf16 arrays are
+  written widened to float32).
+
+A graph owns its arrays: ``var``/``constant``/``setArray`` take a copy,
+and ``getArr``/``output`` hand out copies of stored arrays, so ``fit``
+may update its variables in place without any INDArray seeing it.
+
+What waits raises ``NotImplementedError`` naming its ROADMAP.md Queue 1
+item: control flow, the cnn/rnn/image/fft/bitwise namespaces, the linalg
+decompositions and segment ops (item 9, ``ops_impl.DEFERRED``);
+``shardWeightUpdate`` (item 7); ``precompile`` (item 13);
+``fitDataSet``, ``evaluate`` and listeners (item 10); saving or loading
+updater state (item 9).
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import zipfile
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.autodiff.ops_impl import (
+    DEFERRED, DEVICE_OPS, OPS, STOCHASTIC_OPS, abs_select, deferred,
+)
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.ndarray import random as _random
+from deeplearning4j_tpu_torch.ndarray.dtype import numpy_name, resolve
+from deeplearning4j_tpu_torch.ndarray.ndarray import (
+    INDArray, _from_numpy, to_numpy,
+)
+from deeplearning4j_tpu_torch.nn import updaters as _upd
+from deeplearning4j_tpu_torch.nn import weights as _weights
+
+__all__ = ["SameDiff", "SDVariable", "TrainingConfig", "VariableType"]
+
+
+def _later(what, item):
+    return NotImplementedError(
+        f"{what} waits for a later slice (ROADMAP.md Queue 1 item {item})")
+
+
+def _stream_seed(stream, i):
+    """The seed of op `i`'s generator in `stream` (0: output; it + 1: the
+    fit step at iteration `it`)."""
+    return (stream * 0x9E3779B97F4A7C15 + i * 0xD1B54A32D192ED03
+            + 0x632BE59BD9B4E019) % (2 ** 63)
+
+
+class VariableType:
+    """Reference: org.nd4j.autodiff.samediff.VariableType."""
+
+    PLACEHOLDER = "PLACEHOLDER"
+    VARIABLE = "VARIABLE"   # trainable
+    CONSTANT = "CONSTANT"
+    ARRAY = "ARRAY"         # op output
+
+
+class SDVariable:
+    """Symbolic handle into a SameDiff graph (reference: SDVariable).
+    Operator overloads route through the op table, so ``a * b + c``
+    builds graph nodes exactly like explicit namespace calls."""
+
+    def __init__(self, sd, name, vtype):
+        self.sd = sd
+        self.name = name
+        self.variableType = vtype
+
+    # -- graph-building sugar --
+    def _bin(self, opname, other, reverse=False):
+        other = self.sd._lift(other)
+        a, b = (other, self) if reverse else (self, other)
+        return self.sd._op(opname, [a, b])
+
+    def __add__(self, o): return self._bin("add", o)
+    def __radd__(self, o): return self._bin("add", o, True)
+    def __sub__(self, o): return self._bin("sub", o)
+    def __rsub__(self, o): return self._bin("sub", o, True)
+    def __mul__(self, o): return self._bin("mul", o)
+    def __rmul__(self, o): return self._bin("mul", o, True)
+    def __truediv__(self, o): return self._bin("div", o)
+    def __rtruediv__(self, o): return self._bin("div", o, True)
+    def __pow__(self, o): return self._bin("pow", o)
+    def __neg__(self): return self.sd._op("neg", [self])
+    def __matmul__(self, o): return self._bin("mmul", o)
+
+    def add(self, o): return self._bin("add", o)
+    def sub(self, o): return self._bin("sub", o)
+    def mul(self, o): return self._bin("mul", o)
+    def div(self, o): return self._bin("div", o)
+    def rsub(self, o): return self._bin("sub", o, True)
+    def rdiv(self, o): return self._bin("div", o, True)
+    def mmul(self, o): return self._bin("mmul", o)
+
+    def dot(self, o):
+        return self.sd._op("sum", [self._bin("mul", o)])
+
+    def neg(self): return self.sd._op("neg", [self])
+
+    def sum(self, *dimensions, keepDims=False):
+        return self.sd._op("sum", [self],
+                           {"dimensions": list(dimensions) or None,
+                            "keepDims": keepDims})
+
+    def mean(self, *dimensions, keepDims=False):
+        return self.sd._op("mean", [self],
+                           {"dimensions": list(dimensions) or None,
+                            "keepDims": keepDims})
+
+    def std(self, *dimensions):
+        return self.sd._op("std", [self],
+                           {"dimensions": list(dimensions) or None})
+
+    def norm2(self, *dimensions):
+        return self.sd._op("norm2", [self],
+                           {"dimensions": list(dimensions) or None})
+
+    def argmax(self, dimension=None):
+        return self.sd._op(
+            "argmax", [self],
+            {"dimensions": None if dimension is None else [dimension]})
+
+    def reshape(self, *shape):
+        if len(shape) == 1 and isinstance(shape[0], (list, tuple)):
+            shape = tuple(shape[0])
+        return self.sd._op("reshape", [self], {"shape": list(shape)})
+
+    def permute(self, *dims):
+        return self.sd._op("permute", [self], {"dimensions": list(dims)})
+
+    def transpose(self):
+        return self.sd._op("transpose", [self])
+
+    def get(self, *idx):
+        """Static strided view (reference: SDVariable.get(SDIndex...))."""
+        begin, end, strides = [], [], []
+        shp = self.shape
+
+        def norm(v, i):
+            return v + shp[i] if v < 0 else v
+
+        for i, ix in enumerate(idx):
+            if isinstance(ix, slice):
+                begin.append(norm(ix.start or 0, i))
+                end.append(shp[i] if ix.stop is None else norm(ix.stop, i))
+                strides.append(ix.step or 1)
+            else:
+                p = norm(int(ix), i)
+                begin.append(p)
+                end.append(p + 1)
+                strides.append(1)
+        for i in range(len(idx), len(shp)):
+            begin.append(0)
+            end.append(shp[i])
+            strides.append(1)
+        out = self.sd._op("stridedSlice", [self],
+                          {"begin": begin, "end": end, "strides": strides})
+        drop = [i for i, ix in enumerate(idx) if not isinstance(ix, slice)]
+        return out if not drop else self.sd._op("squeeze", [out],
+                                                {"axis": tuple(drop)})
+
+    def castTo(self, dtype):
+        return self.sd._op("cast", [self], {"dtype": numpy_name(dtype)})
+
+    # -- state --
+    def rename(self, new):
+        self.sd._rename(self.name, new)
+        return self
+
+    @property
+    def shape(self):
+        return self.sd._shape_of(self.name)
+
+    def getArr(self):
+        """Current value (a copy, for VARIABLE/CONSTANT) or the eval with
+        no placeholders."""
+        if self.name in self.sd._arrays:
+            return INDArray(self.sd._arrays[self.name].clone())
+        return self.eval()
+
+    def setArray(self, arr):
+        self.sd._arrays[self.name] = self.sd._own(arr)
+
+    def eval(self, placeholders=None):
+        return self.sd.output(placeholders or {}, [self.name])[self.name]
+
+    def markAsLoss(self):
+        self.sd.setLossVariables(self.name)
+        return self
+
+    def __repr__(self):
+        return f"SDVariable(name='{self.name}', type={self.variableType})"
+
+
+class _Op:
+    __slots__ = ("opName", "inputs", "outputs", "kwargs")
+
+    def __init__(self, opName, inputs, outputs, kwargs):
+        self.opName = opName
+        self.inputs = inputs      # list[str]
+        self.outputs = outputs    # list[str]
+        self.kwargs = kwargs      # JSON-able dict
+
+
+class TrainingConfig:
+    """Reference: org.nd4j.autodiff.samediff.TrainingConfig (Builder)."""
+
+    def __init__(self, updater=None, dataSetFeatureMapping=None,
+                 dataSetLabelMapping=None, l1=0.0, l2=0.0, weightDecay=0.0,
+                 lossVariables=None):
+        self.updater = updater or _upd.Adam()
+        self.dataSetFeatureMapping = dataSetFeatureMapping or []
+        self.dataSetLabelMapping = dataSetLabelMapping or []
+        self.l1 = l1
+        self.l2 = l2
+        self.weightDecay = weightDecay
+        self.lossVariables = lossVariables
+
+    class Builder:
+        def __init__(self):
+            self._kw = {}
+
+        def updater(self, u):
+            self._kw["updater"] = u
+            return self
+
+        def dataSetFeatureMapping(self, *names):
+            self._kw["dataSetFeatureMapping"] = list(names)
+            return self
+
+        def dataSetLabelMapping(self, *names):
+            self._kw["dataSetLabelMapping"] = list(names)
+            return self
+
+        def l1(self, v):
+            self._kw["l1"] = v
+            return self
+
+        def l2(self, v):
+            self._kw["l2"] = v
+            return self
+
+        def weightDecay(self, v):
+            self._kw["weightDecay"] = v
+            return self
+
+        def build(self):
+            return TrainingConfig(**self._kw)
+
+
+class SameDiff:
+    """The graph container and its executor (reference:
+    SameDiff.create()), on one device: the card unless the caller asks
+    for the CPU."""
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        self._vars = {}        # name -> SDVariable
+        self._arrays = {}      # name -> tensor (VARIABLE/CONSTANT)
+        self._ops = []         # list[_Op]
+        self._producer = {}    # out name -> op index
+        self._counter = 0
+        self._scopes = []      # the active withNameScope stack
+        self._loss_vars = []
+        self._tc = None
+        self._train_state = None
+        self._iteration = 0
+        # namespaces (reference: sd.math(), sd.nn(), ...)
+        self.math = _MathOps(self)
+        self.nn = _NNOps(self)
+        self.loss = _LossOps(self)
+        self.linalg = _LinalgOps(self)
+        self.random = _RandomOps(self)
+        self.cnn = _Deferred("cnn")
+        self.rnn = _Deferred("rnn")
+        self.image = _Deferred("image")
+        self.bitwise = _Deferred("bitwise")
+        self.fft = _Deferred("fft")
+
+    @staticmethod
+    def create(device=None):
+        return SameDiff(device)
+
+    # ---------- variable creation ----------
+    def _own(self, x) -> torch.Tensor:
+        """A private copy of `x` on the graph's device."""
+        if isinstance(x, INDArray):
+            x = x.tensor()
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(self.device).clone()
+        return _from_numpy(x, self.device)
+
+    def _in(self, x) -> torch.Tensor:
+        """A fed value (placeholder) as a tensor on the graph's device."""
+        if isinstance(x, INDArray):
+            x = x.tensor()
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return _from_numpy(x, self.device)
+
+    def _scoped(self, name):
+        """Apply the active name-scope prefix ("scope/name")."""
+        return "/".join(self._scopes + [name]) if self._scopes else name
+
+    def withNameScope(self, scope):
+        """Context manager: variables created inside get "scope/"-prefixed
+        names; scopes nest ("outer/inner/x")."""
+        sd = self
+
+        class _Scope:
+            def __enter__(self_s):
+                sd._scopes.append(str(scope))
+                return sd
+
+            def __exit__(self_s, *exc):
+                sd._scopes.pop()
+                return False
+
+        return _Scope()
+
+    def _name(self, base):
+        self._counter += 1
+        n = f"{base}_{self._counter}"
+        while self._scoped(n) in self._vars:
+            self._counter += 1
+            n = f"{base}_{self._counter}"
+        return n
+
+    def _new_var(self, name, vtype):
+        name = self._scoped(name)
+        if name in self._vars:
+            raise ValueError(f"variable '{name}' already exists")
+        v = SDVariable(self, name, vtype)
+        self._vars[name] = v
+        return v
+
+    def placeHolder(self, name, dtype=torch.float32, *shape):
+        v = self._new_var(name, VariableType.PLACEHOLDER)
+        v._ph_shape = tuple(shape)
+        v._ph_dtype = resolve(dtype)
+        return v
+
+    def var(self, name, *args, weightInit=None, shape=None,
+            dtype=torch.float32):
+        """sd.var("w", 4, 5) / sd.var("w", init_array) — trainable."""
+        v = self._new_var(name, VariableType.VARIABLE)
+        if len(args) == 1 and not isinstance(args[0], (int, np.integer)):
+            self._arrays[v.name] = self._own(args[0])
+        else:
+            shp = tuple(shape) if shape else tuple(int(a) for a in args)
+            scheme = weightInit or _weights.WeightInit.XAVIER
+            fan_in = shp[0] if shp else 1
+            fan_out = shp[-1] if shp else 1
+            self._arrays[v.name] = _weights.init(
+                _random.getRandom().generator("cpu"), scheme, shp, fan_in,
+                fan_out, resolve(dtype), self.device)
+        return v
+
+    def constant(self, value, name=None):
+        name = name or self._name("const")
+        v = self._new_var(name, VariableType.CONSTANT)
+        self._arrays[v.name] = self._own(value)
+        return v
+
+    def _lift(self, x):
+        if isinstance(x, SDVariable):
+            return x
+        return self.constant(x)
+
+    def _rename(self, old, new):
+        if new in self._vars:
+            raise ValueError(f"'{new}' already exists")
+        v = self._vars.pop(old)
+        v.name = new
+        self._vars[new] = v
+        if old in self._arrays:
+            self._arrays[new] = self._arrays.pop(old)
+        if old in self._producer:
+            self._producer[new] = self._producer.pop(old)
+        for op in self._ops:
+            op.inputs = [new if n == old else n for n in op.inputs]
+            op.outputs = [new if n == old else n for n in op.outputs]
+        self._loss_vars = [new if n == old else n for n in self._loss_vars]
+
+    # ---------- op registration ----------
+    def _op(self, opName, inputs, kwargs=None, nOut=1, name=None):
+        if opName in DEFERRED:
+            raise deferred(opName)
+        if opName not in OPS:
+            raise ValueError(f"unknown op '{opName}'")
+        in_names = [v.name for v in inputs]
+        outs = []
+        for _ in range(nOut):
+            base = name if name else opName
+            n = base if (name and nOut == 1
+                         and self._scoped(name) not in self._vars) \
+                else self._name(base)
+            # the op table stores the SCOPED name _new_var registers
+            outs.append(self._new_var(n, VariableType.ARRAY).name)
+        self._ops.append(_Op(opName, in_names, outs, kwargs or {}))
+        idx = len(self._ops) - 1
+        for n in outs:
+            self._producer[n] = idx
+        out_vars = [self._vars[n] for n in outs]
+        return out_vars[0] if nOut == 1 else tuple(out_vars)
+
+    def getVariable(self, name):
+        return self._vars[name]
+
+    def variables(self):
+        return [v for v in self._vars.values()
+                if v.variableType == VariableType.VARIABLE]
+
+    def setLossVariables(self, *names):
+        self._loss_vars = [n.name if isinstance(n, SDVariable) else n
+                           for n in names]
+
+    # ---------- control flow: waits ----------
+    def ifCond(self, *args, **kwargs):
+        raise deferred("if_cond")
+
+    def whileLoop(self, *args, **kwargs):
+        raise deferred("while_loop")
+
+    cond = ifCond
+    while_loop = whileLoop
+
+    # ---------- execution ----------
+    def _slice_for(self, out_names):
+        """Backward slice: op indices needed to compute out_names, in
+        order."""
+        needed = set()
+        stack = list(out_names)
+        seen = set()
+        while stack:
+            n = stack.pop()
+            if n in seen:
+                continue
+            seen.add(n)
+            if n in self._producer:
+                i = self._producer[n]
+                needed.add(i)
+                stack.extend(self._ops[i].inputs)
+        return sorted(needed)
+
+    def _gen(self, stream, i):
+        g = torch.Generator(device=self.device)
+        g.manual_seed(_stream_seed(stream, i))
+        return g
+
+    def _run_graph(self, env, out_names, train=False, stream=None):
+        """Interpret the slice for `out_names` over the tensors in `env`.
+        `train`/`stream` thread training mode and the step's random
+        stream into the stochastic ops (None: output()'s fixed stream,
+        and dropout is the identity)."""
+        for i in self._slice_for(out_names):
+            op = self._ops[i]
+            args = [env[n] for n in op.inputs]
+            kwargs = op.kwargs
+            if op.opName == "dropout":
+                on = train and stream is not None
+                kwargs = dict(kwargs, train=on,
+                              gen=self._gen(stream, i) if on else None)
+            elif op.opName in STOCHASTIC_OPS:
+                kwargs = dict(kwargs, gen=self._gen(
+                    0 if stream is None else stream, i))
+            elif op.opName in DEVICE_OPS:
+                kwargs = dict(kwargs, device=self.device)
+            res = OPS[op.opName](*args, **kwargs)
+            if len(op.outputs) == 1:
+                env[op.outputs[0]] = res
+            else:
+                for n, r in zip(op.outputs, res):
+                    env[n] = r
+        return {n: env[n] for n in out_names}
+
+    def _base_env(self):
+        return dict(self._arrays)
+
+    def precompile(self, *args, **kwargs):
+        raise _later("precompile (the AOT executable cache)", 13)
+
+    def output(self, placeholders, outputs):
+        """Run the slice for `outputs` (reference: SameDiff.output/exec)
+        -> {name: INDArray}."""
+        out_names = [o.name if isinstance(o, SDVariable) else o
+                     for o in outputs]
+        env = self._base_env()
+        env.update({k: self._in(v) for k, v in (placeholders or {}).items()})
+        stored = {id(t) for t in self._arrays.values()}
+        with torch.no_grad():
+            res = self._run_graph(env, out_names)
+        return {k: INDArray(v.clone() if id(v) in stored else v)
+                for k, v in res.items()}
+
+    def exec(self, placeholders, *outputs):
+        return self.output(placeholders, list(outputs))
+
+    def batchOutput(self):
+        sd = self
+
+        class _B:
+            def __init__(b):
+                b._ph, b._out = {}, []
+
+            def input(b, name, arr):
+                b._ph[name] = arr
+                return b
+
+            def output(b, *names):
+                b._out.extend(n.name if isinstance(n, SDVariable) else n
+                              for n in names)
+                return b
+
+            def out(b, *names):
+                return b.output(*names)
+
+            def exec(b):
+                return sd.output(b._ph, b._out)
+
+        return _B()
+
+    def _shape_of(self, name):
+        if name in self._arrays:
+            return tuple(self._arrays[name].shape)
+        v = self._vars[name]
+        if v.variableType == VariableType.PLACEHOLDER:
+            return v._ph_shape
+        return self._eval_shapes([name])[name]
+
+    def _eval_shapes(self, names):
+        """Shapes of `names` from a run over meta tensors (no data)."""
+        env = {n: torch.empty(a.shape, dtype=a.dtype, device="meta")
+               for n, a in self._arrays.items()}
+        env.update({n: torch.empty(v._ph_shape, dtype=v._ph_dtype,
+                                   device="meta")
+                    for n, v in self._vars.items()
+                    if v.variableType == VariableType.PLACEHOLDER})
+        with torch.no_grad():
+            out = self._run_graph(env, names)
+        return {n: tuple(t.shape) for n, t in out.items()}
+
+    # ---------- autodiff ----------
+    def _loss_names(self):
+        if self._loss_vars:
+            return self._loss_vars
+        if self._tc and self._tc.lossVariables:
+            return self._tc.lossVariables
+        raise ValueError("no loss variables set; call setLossVariables()")
+
+    def calculateGradients(self, placeholders, *wrt):
+        """d(sum of the loss variables' sums)/d(wrt) (reference:
+        SameDiff.calculateGradients) -> {name: INDArray}. `wrt` may name
+        variables, constants or fed placeholders."""
+        wrt_names = [w.name if isinstance(w, SDVariable) else w for w in wrt]
+        loss_names = self._loss_names()
+        ph = {k: self._in(v) for k, v in (placeholders or {}).items()}
+        w_names = [n for n in wrt_names if n in self._arrays]
+        p_names = [n for n in wrt_names if n not in self._arrays]
+        missing = [n for n in p_names if n not in ph]
+        if missing:
+            raise ValueError(f"wrt {missing} are placeholders but no value "
+                             f"was provided in `placeholders`")
+        env = self._base_env()
+        env.update(ph)
+        leaves = {n: env[n].detach().requires_grad_(True)
+                  for n in w_names + p_names}
+        env.update(leaves)
+        with torch.enable_grad():
+            outs = self._run_graph(env, loss_names)
+            loss = sum(torch.sum(o) for o in outs.values())
+            gs = torch.autograd.grad(loss, list(leaves.values()),
+                                     allow_unused=True)
+        return {n: INDArray(torch.zeros_like(t) if g is None else g)
+                for (n, t), g in zip(leaves.items(), gs)}
+
+    def grad(self, name):
+        """Gradient accessor: evaluates through calculateGradients."""
+        return _GradAccessor(self, name)
+
+    # ---------- training ----------
+    def setTrainingConfig(self, tc):
+        self._tc = tc
+        self._train_state = None
+
+    def _trainables(self):
+        return sorted(n for n, v in self._vars.items()
+                      if v.variableType == VariableType.VARIABLE)
+
+    def _train_state_for(self, params, updater):
+        if self._train_state is None:
+            with torch.no_grad():
+                self._train_state = updater.init(params)
+        return self._train_state
+
+    def _step(self, tc, loss_names, params, state, phs, it):
+        """One training step at iteration `it`: forward, loss, gradients,
+        weight decay and the update, which writes the graph's variable
+        tensors in place. Returns the loss tensor (not fetched)."""
+        from deeplearning4j_tpu_torch.nn.multilayer import \
+            default_param_update
+
+        env = self._base_env()
+        leaves = {n: p.detach().requires_grad_(True)
+                  for n, p in params.items()}
+        env.update(leaves)
+        env.update(phs)
+        with torch.enable_grad():
+            outs = self._run_graph(env, loss_names, train=True,
+                                   stream=it + 1)
+            # a marked loss may be per-example in a sub-fp32 graph: its
+            # sum accumulates in fp32 so the training loss is fp32
+            loss = sum(torch.sum(o, dtype=torch.promote_types(
+                o.dtype, torch.float32)) for o in outs.values())
+            if tc.l2:
+                loss = loss + tc.l2 * sum(torch.sum(torch.square(a))
+                                          for a in leaves.values())
+            if tc.l1:
+                # |a| with the reference's gradient at 0 (+1): a bias
+                # that starts at zero takes its l1 pull on step one
+                loss = loss + tc.l1 * sum(torch.sum(abs_select(a))
+                                          for a in leaves.values())
+            gs = torch.autograd.grad(loss, list(leaves.values()),
+                                     allow_unused=True) if leaves else ()
+        with torch.no_grad():
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(params.items(), gs)}
+            if tc.weightDecay:
+                grads = {n: g + tc.weightDecay * params[n]
+                         for n, g in grads.items()}
+            _, state = default_param_update(tc.updater, grads, state, it,
+                                            params)
+        return loss.detach(), state
+
+    def _fit_setup(self):
+        if self._tc is None:
+            raise ValueError("setTrainingConfig first")
+        tc = self._tc
+        params = {n: self._arrays[n] for n in self._trainables()}
+        return tc, self._loss_names(), params, \
+            self._train_state_for(params, tc.updater)
+
+    def fit(self, data=None, epochs=1, features=None, labels=None,
+            listeners=None):
+        """Train with the TrainingConfig (reference: SameDiff.fit): one
+        step per batch; ``data`` is a DataSet, a (features, labels) pair
+        or a list of them. Returns the loss of every step."""
+        if listeners:
+            raise _later("training listeners", 10)
+        tc, loss_names, params, state = self._fit_setup()
+        if data is not None and features is None:
+            batches = data if isinstance(data, (list, tuple)) else [data]
+        else:
+            batches = [(features, labels)]
+        history = []
+        for _ in range(epochs):
+            for b in batches:
+                phs = self._batch_to_placeholders(b, tc)
+                loss, state = self._step(tc, loss_names, params, state,
+                                         phs, self._iteration)
+                self._train_state = state
+                self._iteration += 1
+                history.append(float(loss))
+        return history
+
+    def fitSteps(self, features=None, labels=None, numSteps=1, data=None):
+        """numSteps optimizer steps on one batch, with one loss fetch at
+        the end; the same steps, streams and iteration counter as
+        numSteps fit() calls. Returns the last loss."""
+        tc, loss_names, params, state = self._fit_setup()
+        phs = self._batch_to_placeholders(
+            data if data is not None else (features, labels), tc)
+        loss = None
+        for _ in range(int(numSteps)):
+            loss, state = self._step(tc, loss_names, params, state, phs,
+                                     self._iteration)
+            self._train_state = state
+            self._iteration += 1
+        return float(loss)
+
+    def fitDataSet(self, iterator, stepsPerSync=1, epochs=1,
+                   listeners=None):
+        raise _later("fitDataSet", 10)
+
+    def evaluate(self, iterator, outputVariable, *evaluations):
+        raise _later("evaluate (the evaluation package)", 10)
+
+    def shardWeightUpdate(self, mesh=None, batch_axis=None,
+                          min_shard_size=2 ** 16):
+        raise _later("shardWeightUpdate (the sharded weight update)", 7)
+
+    def _batch_to_placeholders(self, b, tc):
+        if isinstance(b, (tuple, list)):
+            feats = [b[0]] if not isinstance(b[0], (tuple, list)) \
+                else list(b[0])
+            labs = [b[1]] if not isinstance(b[1], (tuple, list)) \
+                else list(b[1])
+        elif hasattr(b, "getFeatures"):
+            feats = b.getFeatures()
+            feats = list(feats) if isinstance(feats, (list, tuple)) \
+                else [feats]
+            labs = b.getLabels()
+            labs = list(labs) if isinstance(labs, (list, tuple)) else [labs]
+        else:
+            raise TypeError(f"cannot map batch of type {type(b)}")
+        # loud on count mismatches: zip would silently truncate
+        if len(feats) != len(tc.dataSetFeatureMapping):
+            raise ValueError(
+                f"batch has {len(feats)} feature array(s) but "
+                f"dataSetFeatureMapping names "
+                f"{len(tc.dataSetFeatureMapping)}; for a single feature "
+                "array the mapping must have exactly one name")
+        if labs[0] is not None and tc.dataSetLabelMapping and \
+                len(labs) != len(tc.dataSetLabelMapping):
+            raise ValueError(
+                f"batch has {len(labs)} label array(s) but "
+                f"dataSetLabelMapping names {len(tc.dataSetLabelMapping)}")
+        phs = {name: self._in(arr)
+               for name, arr in zip(tc.dataSetFeatureMapping, feats)}
+        for name, arr in zip(tc.dataSetLabelMapping, labs):
+            if arr is not None:
+                phs[name] = self._in(arr)
+        return phs
+
+    # ---------- serialization ----------
+    def save(self, path, saveUpdaterState=False):
+        """graph.json + arrays.npz in one zip: the reference's format."""
+        if saveUpdaterState:
+            raise _later("saving updater state", 9)
+        graph = {
+            "variables": [
+                {"name": n, "type": v.variableType,
+                 "phShape": list(getattr(v, "_ph_shape", ()) or ()),
+                 "phDtype": (numpy_name(v._ph_dtype)
+                             if hasattr(v, "_ph_dtype") else "")}
+                for n, v in self._vars.items()],
+            "ops": [{"op": o.opName, "inputs": o.inputs,
+                     "outputs": o.outputs, "kwargs": o.kwargs}
+                    for o in self._ops],
+            "lossVariables": self._loss_vars,
+            "iteration": self._iteration,
+        }
+        buf = io.BytesIO()
+        np.savez(buf, **{n: to_numpy(a) for n, a in self._arrays.items()})
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("graph.json", json.dumps(graph))
+            z.writestr("arrays.npz", buf.getvalue())
+
+    @staticmethod
+    def load(path, loadUpdaterState=False, device=None):
+        """A graph from a ``save`` zip of either package, on `device`."""
+        if loadUpdaterState:
+            raise _later("loading updater state", 9)
+        sd = SameDiff(device)
+        with zipfile.ZipFile(path) as z:
+            graph = json.loads(z.read("graph.json"))
+            npz = np.load(io.BytesIO(z.read("arrays.npz")))
+            arrays = {n: _from_numpy(npz[n], sd.device) for n in npz.files
+                      if not n.startswith("__body__/")}
+        for od in graph["ops"]:
+            if od["op"] in DEFERRED:
+                raise deferred(od["op"])
+            if od["op"] not in OPS:
+                raise ValueError(f"unknown op '{od['op']}'")
+        for vd in graph["variables"]:
+            v = SDVariable(sd, vd["name"], vd["type"])
+            if vd["type"] == VariableType.PLACEHOLDER:
+                v._ph_shape = tuple(vd["phShape"])
+                v._ph_dtype = resolve(vd["phDtype"])
+            sd._vars[vd["name"]] = v
+        for i, od in enumerate(graph["ops"]):
+            sd._ops.append(_Op(od["op"], od["inputs"], od["outputs"],
+                               od["kwargs"]))
+            for n in od["outputs"]:
+                sd._producer[n] = i
+        sd._arrays = arrays
+        sd._loss_vars = graph.get("lossVariables", [])
+        sd._iteration = graph.get("iteration", 0)
+        return sd
+
+    def summary(self):
+        lines = [f"--- SameDiff: {len(self._vars)} variables, "
+                 f"{len(self._ops)} ops ---"]
+        for n, v in self._vars.items():
+            if v.variableType != VariableType.ARRAY:
+                shp = tuple(self._arrays[n].shape) if n in self._arrays \
+                    else getattr(v, "_ph_shape", "?")
+                lines.append(f"  {v.variableType:<12} {n:<24} {shp}")
+        for o in self._ops:
+            lines.append(f"  {o.opName}({', '.join(o.inputs)}) -> "
+                         f"{', '.join(o.outputs)}")
+        return "\n".join(lines)
+
+
+class _GradAccessor:
+    def __init__(self, sd, name):
+        self.sd = sd
+        self.name = name.name if isinstance(name, SDVariable) else name
+
+    def eval(self, placeholders=None):
+        return self.sd.calculateGradients(placeholders or {},
+                                          self.name)[self.name]
+
+
+# ---------------- op namespaces ----------------
+class _NS:
+    def __init__(self, sd):
+        self.sd = sd
+
+    def _mk(self, opName, inputs, kwargs=None, nOut=1, name=None):
+        ins = [self.sd._lift(i) for i in inputs]
+        return self.sd._op(opName, ins, kwargs, nOut=nOut, name=name)
+
+
+class _Deferred:
+    """A namespace whose ops all wait (``sd.cnn``, ``sd.rnn``,
+    ``sd.image``, ``sd.bitwise``, ``sd.fft``)."""
+
+    def __init__(self, ns):
+        self._ns = ns
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        raise NotImplementedError(
+            f"sd.{self._ns}.{name}: the SameDiff {self._ns} namespace waits "
+            "for the rest of SameDiff (ROADMAP.md Queue 1 item 9)")
+
+
+def _unary(opName):
+    def m(self, x, name=None):
+        return self._mk(opName, [x], name=name)
+    m.__name__ = opName
+    return m
+
+
+def _binary(opName):
+    def m(self, a, b, name=None):
+        return self._mk(opName, [a, b], name=name)
+    m.__name__ = opName
+    return m
+
+
+def _reduction(opName):
+    def m(self, x, *dimensions, keepDims=False, name=None):
+        return self._mk(opName, [x],
+                        {"dimensions": list(dimensions) or None,
+                         "keepDims": keepDims}, name=name)
+    m.__name__ = opName
+    return m
+
+
+def _waits(opName):
+    def m(self, *args, **kwargs):
+        raise deferred(opName)
+    m.__name__ = opName
+    return m
+
+
+class _MathOps(_NS):
+    """Reference: org.nd4j.autodiff.samediff.ops.SDMath."""
+
+    for _n in ("neg abs sign exp expm1 log log1p log2 sqrt square floor ceil "
+               "round sin cos tan asin acos atan sinh cosh tanh asinh acosh "
+               "atanh erf erfc reciprocal rsqrt isnan isinf isfinite "
+               "lgamma digamma").split():
+        locals()[_n] = _unary(_n)
+    for _n in ("add sub mul div pow atan2 squaredDifference maximum minimum "
+               "floordiv mod eq neq gt gte lt lte and or xor "
+               "igamma igammac polygamma zeta").split():
+        locals()[_n] = _binary(_n)
+    for _n in "sum mean prod max min std variance norm1 norm2 normmax".split():
+        locals()[_n] = _reduction(_n)
+    for _n in "segmentSum segmentMax segmentMin segmentMean segmentProd " \
+              "betainc".split():
+        locals()[_n] = _waits(_n)
+    del _n
+    unsortedSegmentSum = segmentSum      # noqa: F821 (made in the loop)
+    unsortedSegmentMax = segmentMax      # noqa: F821
+    unsortedSegmentMin = segmentMin      # noqa: F821
+    unsortedSegmentMean = segmentMean    # noqa: F821
+    unsortedSegmentProd = segmentProd    # noqa: F821
+
+    def logicalNot(self, x, name=None):
+        return self._mk("not", [x], name=name)
+
+    # -- reduce3-style distance ops --
+    def _dist(self, opName, x, y, dimensions, name):
+        return self._mk(opName, [x, y],
+                        {"dimensions": list(dimensions) or None}, name=name)
+
+    def cosineSimilarity(self, x, y, *dimensions, name=None):
+        return self._dist("cosineSimilarity", x, y, dimensions, name)
+
+    def cosineDistance(self, x, y, *dimensions, name=None):
+        return self._dist("cosineDistance", x, y, dimensions, name)
+
+    def euclideanDistance(self, x, y, *dimensions, name=None):
+        return self._dist("euclideanDistance", x, y, dimensions, name)
+
+    def manhattanDistance(self, x, y, *dimensions, name=None):
+        return self._dist("manhattanDistance", x, y, dimensions, name)
+
+    def hammingDistance(self, x, y, *dimensions, name=None):
+        return self._dist("hammingDistance", x, y, dimensions, name)
+
+    def jaccardDistance(self, x, y, *dimensions, name=None):
+        return self._dist("jaccardDistance", x, y, dimensions, name)
+
+    def confusionMatrix(self, labels, pred, numClasses=None, weights=None,
+                        name=None):
+        ins = [labels, pred] + ([weights] if weights is not None else [])
+        kw = {"numClasses": numClasses}
+        if weights is None:
+            return self._mk("confusionMatrix", ins, kw, name=name)
+        return self._mk("confusionMatrixWeighted", ins, kw, name=name)
+
+    def zeroFraction(self, x, name=None):
+        return self._mk("zeroFraction", [x], name=name)
+
+    def countNonZero(self, x, *dimensions, keepDims=False, name=None):
+        return self._mk("countNonZero", [x],
+                        {"dimensions": list(dimensions) or None,
+                         "keepDims": keepDims}, name=name)
+
+    def countZero(self, x, *dimensions, keepDims=False, name=None):
+        return self._mk("countZero", [x],
+                        {"dimensions": list(dimensions) or None,
+                         "keepDims": keepDims}, name=name)
+
+    def entropy(self, x, *dimensions, name=None):
+        return self._mk("entropy", [x],
+                        {"dimensions": list(dimensions) or None}, name=name)
+
+    def shannonEntropy(self, x, *dimensions, name=None):
+        return self._mk("shannonEntropy", [x],
+                        {"dimensions": list(dimensions) or None}, name=name)
+
+    def matchConditionCount(self, x, condition, value, *dimensions,
+                            keepDims=False, name=None):
+        return self._mk("matchConditionCount", [x],
+                        {"condition": condition, "value": float(value),
+                         "dimensions": list(dimensions) or None,
+                         "keepDims": keepDims}, name=name)
+
+    def iamax(self, x, dimension=None, name=None):
+        return self._mk("iamax", [x],
+                        {"dimensions": None if dimension is None
+                         else [dimension]}, name=name)
+
+    def linspace(self, start, stop, num, dtype="float32", name=None):
+        return self._mk("linspace", [],
+                        {"start": float(start), "stop": float(stop),
+                         "num": int(num), "dtype": numpy_name(dtype)},
+                        name=name)
+
+    def range(self, start, limit, delta=1, dtype="float32", name=None):
+        return self._mk("range", [],
+                        {"start": start, "limit": limit, "delta": delta,
+                         "dtype": numpy_name(dtype)}, name=name)
+
+    def meshgrid(self, *xs, indexing="xy", name=None):
+        return self._mk("meshgrid", list(xs), {"indexing": indexing},
+                        nOut=len(xs), name=name)
+
+    def clipByValue(self, x, clipValueMin, clipValueMax, name=None):
+        return self._mk("clipByValue", [x],
+                        {"clipValueMin": clipValueMin,
+                         "clipValueMax": clipValueMax}, name=name)
+
+    def clipByNorm(self, x, clipValue, *dimensions, name=None):
+        return self._mk("clipByNorm", [x],
+                        {"clipValue": float(clipValue),
+                         "dimensions": list(dimensions) or None}, name=name)
+
+    def sort(self, x, axis=-1, descending=False, name=None):
+        return self._mk("sort", [x], {"axis": axis,
+                                      "descending": descending}, name=name)
+
+    def topK(self, x, k, sorted=True, name=None):
+        """(values, indices) of the k largest along the last axis."""
+        return self._mk("topK", [x], {"k": int(k), "sorted": sorted},
+                        nOut=2, name=name)
+
+    def split(self, x, numSplit, axis=0, name=None):
+        return self._mk("split", [x], {"numSplit": int(numSplit),
+                                       "axis": axis}, nOut=int(numSplit),
+                        name=name)
+
+    def where(self, cond, x, y, name=None):
+        return self._mk("where", [cond, x, y], name=name)
+
+    def argmax(self, x, dimension=None, name=None):
+        return self._mk("argmax", [x],
+                        {"dimensions": None if dimension is None
+                         else [dimension]}, name=name)
+
+    def argmin(self, x, dimension=None, name=None):
+        return self._mk("argmin", [x],
+                        {"dimensions": None if dimension is None
+                         else [dimension]}, name=name)
+
+    def cumsum(self, x, axis=0, exclusive=False, reverse=False, name=None):
+        return self._mk("cumsum", [x], {"axis": axis, "exclusive": exclusive,
+                                        "reverse": reverse}, name=name)
+
+    def cumprod(self, x, axis=0, name=None):
+        return self._mk("cumprod", [x], {"axis": axis}, name=name)
+
+    def concat(self, dimension, *xs, name=None):
+        return self._mk("concat", list(xs), {"dimension": dimension},
+                        name=name)
+
+    def stack(self, axis, *xs, name=None):
+        return self._mk("stack", list(xs), {"axis": axis}, name=name)
+
+    def unstack(self, x, axis, num, name=None):
+        return self._mk("unstack", [x], {"axis": axis, "num": num},
+                        nOut=num, name=name)
+
+    def reshape(self, x, shape, name=None):
+        return self._mk("reshape", [x], {"shape": list(shape)}, name=name)
+
+    def permute(self, x, *dims, name=None):
+        return self._mk("permute", [x], {"dimensions": list(dims)}, name=name)
+
+    def expandDims(self, x, axis, name=None):
+        return self._mk("expandDims", [x], {"axis": axis}, name=name)
+
+    def squeeze(self, x, axis, name=None):
+        return self._mk("squeeze", [x], {"axis": axis}, name=name)
+
+    def tile(self, x, reps, name=None):
+        return self._mk("tile", [x], {"reps": list(reps)}, name=name)
+
+    def reverse(self, x, *dimensions, name=None):
+        return self._mk("reverse", [x], {"dimensions": list(dimensions)},
+                        name=name)
+
+    def gather(self, x, indices, axis=0, name=None):
+        return self._mk("gather", [x, indices], {"axis": axis}, name=name)
+
+    def oneHot(self, x, depth, axis=-1, on=1.0, off=0.0, name=None):
+        return self._mk("onehot", [x], {"depth": depth, "axis": axis,
+                                        "on": on, "off": off}, name=name)
+
+    def scatterUpdate(self, ref, indices, updates, name=None):
+        return self._mk("scatterUpdate", [ref, indices, updates], name=name)
+
+    def scatterAdd(self, ref, indices, updates, name=None):
+        return self._mk("scatterAdd", [ref, indices, updates], name=name)
+
+    def pad(self, x, padding, constant=0.0, name=None):
+        return self._mk("pad", [x], {"padding": [list(p) for p in padding],
+                                     "constant": constant}, name=name)
+
+    def identity(self, x, name=None):
+        return self._mk("identity", [x], name=name)
+
+    def cast(self, x, dtype, name=None):
+        return self._mk("cast", [x], {"dtype": numpy_name(dtype)},
+                        name=name)
+
+
+class _NNOps(_NS):
+    """Reference: ops.SDNN."""
+
+    for _n in ("relu relu6 sigmoid softplus softsign elu selu gelu swish "
+               "mish hardSigmoid hardTanh").split():
+        locals()[_n] = _unary(_n)
+    del _n
+
+    def leakyRelu(self, x, alpha=0.01, name=None):
+        return self._mk("leakyRelu", [x], {"alpha": alpha}, name=name)
+
+    def softmax(self, x, dimension=-1, name=None):
+        return self._mk("softmax", [x], {"dimension": dimension}, name=name)
+
+    def logSoftmax(self, x, dimension=-1, name=None):
+        return self._mk("logSoftmax", [x], {"dimension": dimension},
+                        name=name)
+
+    def linear(self, x, w, b=None, name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._mk("linear", ins, name=name)
+
+    def reluLayer(self, x, w, b, name=None):
+        return self.relu(self.linear(x, w, b), name=name)
+
+    def layerNorm(self, x, gain, bias=None, dimensions=(-1,), name=None):
+        ins = [x, gain] + ([bias] if bias is not None else [])
+        return self._mk("layerNorm", ins,
+                        {"dimensions": list(dimensions)}, name=name)
+
+    def batchNorm(self, x, mean, var, gamma=None, beta=None, epsilon=1e-5,
+                  axis=-1, name=None):
+        ins = [x, mean, var] + ([gamma] if gamma is not None else []) \
+            + ([beta] if beta is not None else [])
+        return self._mk("batchNorm", ins, {"epsilon": epsilon, "axis": axis},
+                        name=name)
+
+    def dropout(self, x, rate, name=None):
+        """Active during fit() (train mode and the step's stream);
+        identity in output()/eval()."""
+        return self._mk("dropout", [x], {"rate": rate}, name=name)
+
+    def embeddingLookup(self, table, ids, name=None):
+        return self._mk("embeddingLookup", [table, ids], name=name)
+
+    def dotProductAttention(self, q, k, v, causal=False, name=None):
+        return self._mk("dotProductAttention", [q, k, v],
+                        {"causal": causal}, name=name)
+
+    def multiHeadDotProductAttention(self, x, wq, wk, wv, wo, nHeads,
+                                     causal=False, name=None):
+        """x [B, T, E]; wq/wk/wv [E, H*D]; wo [H*D, E]; no bias. The core
+        is ``flash_attention``: on the card the kernels K1 (forward) and
+        K2/K3 (backward)."""
+        return self._mk("multiHeadDotProductAttention",
+                        [x, wq, wk, wv, wo],
+                        {"nHeads": nHeads, "causal": causal}, name=name)
+
+    def pad(self, x, padding, constant=0.0, name=None):
+        return self.sd.math.pad(x, padding, constant, name=name)
+
+
+class _LossOps(_NS):
+    """Reference: ops.SDLoss. Outputs are marked as loss variables."""
+
+    def _loss(self, opName, inputs, kwargs=None, name=None):
+        v = self._mk(opName, inputs, kwargs, name=name)
+        self.sd._loss_vars.append(v.name)
+        return v
+
+    def meanSquaredError(self, labels, predictions, name=None):
+        return self._loss("lossMSE", [labels, predictions], name=name)
+
+    def absoluteDifference(self, labels, predictions, name=None):
+        return self._loss("lossMAE", [labels, predictions], name=name)
+
+    def logLoss(self, labels, predictions, name=None):
+        return self._loss("lossLog", [labels, predictions], name=name)
+
+    def softmaxCrossEntropy(self, labels, logits, name=None):
+        return self._loss("softmaxCrossEntropy", [labels, logits], name=name)
+
+    def sparseSoftmaxCrossEntropy(self, labels, logits, name=None):
+        return self._loss("sparseSoftmaxCrossEntropy", [labels, logits],
+                          name=name)
+
+    def hingeLoss(self, labels, predictions, name=None):
+        return self._loss("lossHinge", [labels, predictions], name=name)
+
+    def huberLoss(self, labels, predictions, delta=1.0, name=None):
+        return self._loss("lossHuber", [labels, predictions],
+                          {"delta": delta}, name=name)
+
+    def klDivergence(self, labels, predictions, name=None):
+        return self._loss("lossKLD", [labels, predictions], name=name)
+
+    def poissonLoss(self, labels, predictions, name=None):
+        return self._loss("lossPoisson", [labels, predictions], name=name)
+
+    def sigmoidCrossEntropy(self, labels, logits, labelSmoothing=0.0,
+                            name=None):
+        return self._loss("sigmoidCrossEntropy", [labels, logits],
+                          {"labelSmoothing": float(labelSmoothing)},
+                          name=name)
+
+    def weightedCrossEntropyWithLogits(self, labels, logits, weights,
+                                       name=None):
+        return self._loss("weightedCrossEntropyWithLogits",
+                          [labels, logits, weights], name=name)
+
+    def l2Loss(self, x, name=None):
+        return self._loss("l2Loss", [x], name=name)
+
+    def meanPairwiseSquaredError(self, labels, predictions, name=None):
+        return self._loss("meanPairwiseSquaredError",
+                          [labels, predictions], name=name)
+
+    def cosineDistance(self, labels, predictions, dimension=-1, name=None):
+        return self._loss("lossCosine", [labels, predictions],
+                          {"dimension": dimension}, name=name)
+
+
+class _LinalgOps(_NS):
+    """Reference: ops.SDLinalg (products; the decompositions wait)."""
+
+    def mmul(self, a, b, transposeA=False, transposeB=False, name=None):
+        return self._mk("mmul", [a, b], {"transposeA": transposeA,
+                                         "transposeB": transposeB}, name=name)
+
+    def tensorMmul(self, a, b, dimensionsA, dimensionsB, name=None):
+        return self._mk("tensorMmul", [a, b],
+                        {"dimensionsA": list(dimensionsA),
+                         "dimensionsB": list(dimensionsB)}, name=name)
+
+    def matmul(self, a, b, name=None):
+        return self._mk("batchMmul", [a, b], name=name)
+
+    trace = _unary("trace")
+    cross = _binary("cross")
+    for _n in "cholesky inv det solve lstsq lu eigh svd qr".split():
+        locals()[_n] = _waits(_n)
+    del _n
+
+
+class _RandomOps(_NS):
+    """Reference: ops.SDRandom. Draws are refreshed per fit() step and
+    fixed for output(); not differentiable."""
+
+    def normal(self, mean, stddev, *shape, name=None):
+        return self._mk("randomNormal", [],
+                        {"shape": tuple(int(s) for s in shape),
+                         "mean": float(mean), "stddev": float(stddev)},
+                        name=name)
+
+    def uniform(self, min, max, *shape, name=None):
+        return self._mk("randomUniform", [],
+                        {"shape": tuple(int(s) for s in shape),
+                         "min": float(min), "max": float(max)}, name=name)
+
+    def bernoulli(self, p, *shape, name=None):
+        return self._mk("randomBernoulli", [],
+                        {"shape": tuple(int(s) for s in shape),
+                         "p": float(p)}, name=name)
+
+    def exponential(self, lambda_, *shape, name=None):
+        return self._mk("randomExponential", [],
+                        {"shape": tuple(int(s) for s in shape),
+                         "lambda_": float(lambda_)}, name=name)

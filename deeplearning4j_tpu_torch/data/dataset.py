@@ -46,7 +46,7 @@ class DataSet:
         self._labels = labels
 
     def numExamples(self) -> int:
-        return 0 if self._features is None else int(self._features.shape[0])
+        return 0 if self._features is None else len(self._features)
 
 
 def _pad_batch(f, l, fm, lm, n):

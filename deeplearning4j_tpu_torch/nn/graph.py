@@ -17,12 +17,13 @@ CNN inputs are NCHW, or NHWC where the input type says
 Parameters are fp32 master tensors (fp64 under ``DataType.DOUBLE``) in a
 ``{layer_name: {param_name: tensor}}`` dict with the reference's names
 and layouts; a bf16/fp16 ``dataType`` casts them for the forward and
-autograd carries the gradient back to the fp32 master. Public methods
-return ``torch.Tensor`` where the reference returns ``INDArray``; the
-``INDArray`` wrapper waits for the ndarray slice (ROADMAP.md Queue 1
-item 2). Solvers, truncated BPTT, ``fitDataSet``, ``DataSet`` and
-``MultiDataSet``, the AOT cache, remat policies and evaluation wait for
-their slices and raise ``NotImplementedError`` naming them.
+autograd carries the gradient back to the fp32 master. ``output`` and
+``feedForward`` return ``INDArray``s, as the reference does
+(``nn/graph.py:877-888`` there); ``fit``, ``score`` and ``output`` take
+INDArrays, tensors or numpy arrays. Solvers, truncated BPTT,
+``fitDataSet``, ``DataSet`` and ``MultiDataSet``, the AOT cache, remat
+policies and evaluation wait for their slices and raise
+``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.ndarray.ndarray import INDArray
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import layers as L
@@ -311,8 +313,8 @@ class ComputationGraph:
         raise _later("evaluation", "training-runtime slice, item 10")
 
     def output(self, *features):
-        """The output activations, one ``torch.Tensor`` per network
-        output (a single tensor for one output)."""
+        """The output activations, one ``INDArray`` per network output
+        (a single INDArray for one output)."""
         self._require_init()
         inputs = self._coerce_inputs(
             features if len(features) > 1 else features[0])
@@ -320,17 +322,17 @@ class ComputationGraph:
             acts, _, _ = self._run_graph(self._params,
                                          strip_carries(self._states),
                                          inputs, False, None, None)
-        outs = [acts[n] for n in self.conf.networkOutputs]
+        outs = [INDArray(acts[n]) for n in self.conf.networkOutputs]
         return outs[0] if len(outs) == 1 else outs
 
-    def outputSingle(self, *features) -> torch.Tensor:
-        """The first output's activations as a ``torch.Tensor``."""
+    def outputSingle(self, *features) -> INDArray:
+        """The first output's activations as an ``INDArray``."""
         out = self.output(*features)
-        return out if isinstance(out, torch.Tensor) else out[0]
+        return out if isinstance(out, INDArray) else out[0]
 
     def feedForward(self, *features, train=False):
-        """Every vertex/layer activation by name, as ``torch.Tensor``s,
-        4-d ones in the API's layout (reference:
+        """Every vertex/layer activation by name, as ``INDArray``s, 4-d
+        ones in the API's layout (reference:
         ComputationGraph.feedForward)."""
         self._require_init()
         inputs = self._coerce_inputs(
@@ -339,7 +341,8 @@ class ComputationGraph:
             acts, _, _ = self._run_graph(self._params,
                                          strip_carries(self._states),
                                          inputs, train, None, None)
-        return {n: to_api_layout(a, self._api_nhwc) for n, a in acts.items()}
+        return {n: INDArray(to_api_layout(a, self._api_nhwc))
+                for n, a in acts.items()}
 
     def score(self, ds=None) -> float:
         """The loss of the last fit step (reference: Model.score()), or

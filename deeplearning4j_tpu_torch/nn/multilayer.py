@@ -16,9 +16,9 @@ are a list of per-layer ``{name: tensor}`` dicts with the reference's
 names, fp32 masters (fp64 under ``DataType.DOUBLE``) cast to the compute
 dtype for the forward. Convolutional activations are NCHW-logical in
 ``channels_last`` memory; an ``InputType.convolutional(.., format=
-"NHWC")`` network takes NHWC features. Public methods return
-``torch.Tensor`` where the reference returns ``INDArray`` (ROADMAP.md
-Queue 1 item 2).
+"NHWC")`` network takes NHWC features. ``output`` and ``feedForward``
+return ``INDArray``s, as the reference does; ``fit``, ``score`` and
+``output`` take INDArrays, tensors or numpy arrays.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.ndarray.ndarray import INDArray
 from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn import updaters as _upd
@@ -49,9 +50,12 @@ def _later(what, slice_):
 
 
 def _unwrap(x, device=None):
-    """A tensor, numpy array or nested list as a tensor on `device`."""
+    """An INDArray, tensor, numpy array or nested list as a tensor on
+    `device`."""
     if x is None:
         return None
+    if isinstance(x, INDArray):
+        x = x.tensor()
     if isinstance(x, torch.Tensor):
         return x if device is None else x.to(device)
     arr = np.asarray(x)
@@ -469,20 +473,20 @@ class MultiLayerNetwork:
         raise _later("rnnTimeStep", "recurrent slice, item 8")
 
     def output(self, x, train=False):
-        """The output layer's activations as a ``torch.Tensor``
-        (inference mode: BN uses its running statistics)."""
+        """The output layer's activations as an ``INDArray`` (inference
+        mode: BN uses its running statistics)."""
         self._require_init()
         with torch.no_grad():
             h, _ = self._run_layers(self._params, self._states, x, False,
                                     None)
         last = self.layers[-1]
-        return _out_act(last, h) if isinstance(last, L.BaseOutputLayer) \
-            else h
+        return INDArray(_out_act(last, h)
+                        if isinstance(last, L.BaseOutputLayer) else h)
 
     def feedForward(self, x):
         """The input and every layer's activation, in inference mode, as
-        ``torch.Tensor``s; 4-d ones in the API's layout (the reference
-        returns its internal NHWC)."""
+        ``INDArray``s; 4-d ones in the API's layout (the reference returns
+        its internal NHWC)."""
         self._require_init()
         with torch.no_grad():
             h = self._entry(x)
@@ -499,7 +503,7 @@ class MultiLayerNetwork:
                 h, _ = layer.forward(p, self._states[i], h, False, None,
                                      None)
                 acts.append(h)
-        return [to_api_layout(a, self._api_nhwc) for a in acts]
+        return [INDArray(to_api_layout(a, self._api_nhwc)) for a in acts]
 
     def score(self, dataset=None) -> float:
         """The loss of the last fit step, or of a DataSet in inference

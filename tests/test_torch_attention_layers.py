@@ -59,15 +59,15 @@ class TestShapes:
         net = port_net(P.SelfAttentionLayer(nOut=8, nHeads=2),
                        [P.InputType.recurrent(4, 6)])
         x = _x(5, 4, 6)
-        assert tuple(net.output(x).shape) == (5, 3)
-        assert tuple(net.feedForward(x)["attn"].shape) == (5, 8, 6)
+        assert net.output(x).shape() == (5, 3)
+        assert net.feedForward(x)["attn"].shape() == (5, 8, 6)
 
     def test_self_attention_no_projection(self):
         net = port_net(P.SelfAttentionLayer(projectInput=False),
                        [P.InputType.recurrent(4, 6)],
                        out=P.OutputLayer(nOut=2, activation="softmax"))
         assert net._params["attn"] == {}
-        assert tuple(net.feedForward(_x(5, 4, 6))["attn"].shape) == (5, 4, 6)
+        assert net.feedForward(_x(5, 4, 6))["attn"].shape() == (5, 4, 6)
 
     def test_no_projection_multi_head_rejected(self):
         conf = graph(P, P.SelfAttentionLayer(projectInput=False, nHeads=2),
@@ -80,20 +80,20 @@ class TestShapes:
                                                    nQueries=3),
                        [P.InputType.recurrent(4, 10)])
         acts = net.feedForward(_x(5, 4, 10))
-        assert tuple(acts["attn"].shape) == (5, 8, 3)
+        assert acts["attn"].shape() == (5, 8, 3)
 
     def test_recurrent_attention_shape_and_carry(self):
         net = port_net(P.RecurrentAttentionLayer(nOut=8, nHeads=2),
                        [P.InputType.recurrent(4, 6)], head=False,
                        out=P.RnnOutputLayer(nOut=2, activation="softmax"))
-        assert tuple(net.output(_x(5, 4, 6)).shape) == (5, 2, 6)
+        assert net.output(_x(5, 4, 6)).shape() == (5, 2, 6)
 
     def test_attention_vertex_cross_attention_shapes(self):
         net = port_net(P.AttentionVertex(nOut=8, nHeads=2),
                        [P.InputType.recurrent(4, 5),
                         P.InputType.recurrent(6, 9)])
         out = net.output([_x(2, 4, 5), _x(2, 6, 9, seed=1)])
-        assert tuple(out.shape) == (2, 3)
+        assert out.shape() == (2, 3)
 
 
 class TestMasking:
@@ -180,7 +180,7 @@ def test_layer_matches_reference(kind):
             assert rel <= 1e-4, (kind, n, k, rel)
     out = pn.output(*xs)
     ref = np.asarray(jn.output(*xs).toNumpy())
-    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(out.toNumpy(), ref, rtol=0, atol=1e-6)
 
 
 GN_MODES = ["clip_elementwise", "clip_l2_per_layer", "clip_l2_per_param_type",

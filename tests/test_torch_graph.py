@@ -41,6 +41,7 @@ from deeplearning4j_tpu.nn.conf.preprocessors import \
     FeedForwardToRnnPreProcessor as JFFToRnn
 from deeplearning4j_tpu.ops import pallas_attention as pa
 import deeplearning4j_tpu_torch.nn as P
+from deeplearning4j_tpu_torch.ndarray import INDArray
 from deeplearning4j_tpu_torch.nn import activations as tact
 from deeplearning4j_tpu_torch.nn import updaters as tupd
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -135,8 +136,8 @@ def test_encoder_output_loss_and_gradients_match(f32_pair):
     assert abs(ps - d["js"]) <= 1e-5 * abs(d["js"])
     check_grads(d["jg"], pg, 1e-4, 1e-6)
     out = d["pn"].output(d["x"])
-    assert isinstance(out, torch.Tensor) and out.shape == (B, 2)
-    np.testing.assert_allclose(out.numpy(), d["jo"], rtol=0, atol=1e-6)
+    assert isinstance(out, INDArray) and out.shape() == (B, 2)
+    np.testing.assert_allclose(out.toNumpy(), d["jo"], rtol=0, atol=1e-6)
 
 
 def test_encoder_adam_trajectory_matches(f32_pair):
@@ -159,7 +160,7 @@ def test_encoder_adam_trajectory_matches(f32_pair):
             got = pn._params[n][k].detach().double().numpy()
             assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max(), \
                 (n, k)
-    np.testing.assert_allclose(pn.output(d["x"]).numpy(),
+    np.testing.assert_allclose(pn.output(d["x"]).toNumpy(),
                                np.asarray(jn.output(d["x"]).toNumpy()),
                                rtol=0, atol=1e-5)
 
@@ -177,7 +178,7 @@ def test_encoder_bf16_matches():
     assert pn._params["out"]["W"].dtype == torch.float32  # fp32 master
     assert abs(ps - js) <= 3e-2 * abs(js)
     check_grads(jg, pg, 5e-2, 1e-2)
-    assert pn.output(x).dtype == torch.bfloat16
+    assert pn.output(x).tensor().dtype == torch.bfloat16
 
 
 def test_gelu_is_the_tanh_form():

@@ -15,9 +15,15 @@ launching all three. Then the attention dispatch outside the kernels'
 domain (a SelfAttentionLayer at fp64, at fp16 and at head widths 100 and
 256 answers through the fused or blockwise form on the card, held to
 blockwise_attention in f64; f32 and bf16 at D 64 still launch K1-K3),
-and the CNN path's ops on the card: max pooling's first-match gradient
-on tied maxima in channels_last f32 and bf16, and the BN autograd
-Functions against the same functions on the CPU.
+the CNN path's ops on the card: max pooling's first-match gradient on
+tied maxima in channels_last f32 and bf16, and the BN autograd
+Functions against the same functions on the CPU; then the ND4J array
+layer and SameDiff: an out-of-range INDArray read or write raises
+IndexError with the context still usable, seeded draws repeat on the
+card, a SameDiff attention graph launches K1-K3 and not their plain
+versions, and a SameDiff fit step through them equals the same step
+with attention routed to the plain versions (loss rel 1e-5, each
+updated variable within 1e-4 of its max-abs).
 
 This file imports neither jax nor the reference package, so it runs on a
 machine with PyTorch alone:
@@ -592,3 +598,128 @@ def test_bn_functions_on_the_card_match_the_cpu(card, dtype, act, residual):
             assert bool(((got - want).abs() <= 2 * ulp).all()), i
         else:
             assert float((got - want).norm() / want.norm()) <= 2e-2, i
+
+
+# ----------------------------------------------------------------------
+# the ND4J array layer and SameDiff on the card
+# ----------------------------------------------------------------------
+
+def test_indarray_out_of_range_raises_and_the_context_survives(card):
+    """Bounds are checked on the host: IndexError, never a device-side
+    assert (which would poison the context for the rest of the
+    process)."""
+    from deeplearning4j_tpu_torch.ndarray import NDArrayIndex as I
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+
+    base = np.arange(12, dtype=np.float32).reshape(3, 4)
+    a = Nd4j.create(base)
+    assert a.tensor().is_cuda
+    for call in (lambda: a.getDouble(3, 0), lambda: a.getDouble(12),
+                 lambda: a.get(I.indices(0, 3)), lambda: a.get(I.point(3)),
+                 lambda: a.putScalar(0, 4, 1.0), lambda: a[[0, 5]],
+                 lambda: a.getRows(1, 3), lambda: a.__setitem__(9, 0.0)):
+        with pytest.raises(IndexError):
+            call()
+    torch.cuda.synchronize()
+    assert float((a.tensor() * 2).sum()) == 132.0
+    np.testing.assert_array_equal(a.toNumpy(), base)
+
+
+def test_seeded_rng_repeats_on_the_card(card):
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+
+    for draw in (Nd4j.rand, Nd4j.randn):
+        x = draw(1 << 20, seed=5)
+        assert x.tensor().is_cuda
+        assert torch.equal(x.tensor(), draw(1 << 20, seed=5).tensor())
+        Nd4j.getRandom().setSeed(17)
+        g1 = draw(4096)
+        Nd4j.getRandom().setSeed(17)
+        assert torch.equal(g1.tensor(), draw(4096).tensor())
+        # the CUDA and CPU Philox streams differ: reproducible per device
+        assert not torch.equal(draw(4096, seed=5).tensor().cpu(),
+                               draw(4096, seed=5, device="cpu").tensor())
+
+
+class _PlainFlash(torch.autograd.Function):
+    """flash_attention through the kernels' plain versions, for the
+    comparison below."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = tfa.flash_fwd_plain(q, k, v, need_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return tfa.flash_bwd_plain(q, k, v, o, lse, do)
+
+
+def _sd_attention_graph(B=2, T=64, E=64, heads=4, blocks=2, seed=3):
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+    from deeplearning4j_tpu_torch.nn import Sgd
+
+    sd = SameDiff.create()
+    h = sd.placeHolder("x", "float32", B, T, E)
+    y = sd.placeHolder("y", "float32", B, 3)
+    n = [seed * 100]
+
+    def w(name, *shape):
+        n[0] += 1
+        return sd.var(name, Nd4j.randn(*shape, seed=n[0]).mul(0.2))
+
+    for i in range(blocks):
+        a = sd.nn.multiHeadDotProductAttention(
+            sd.nn.layerNorm(h, sd.var(f"g{i}", Nd4j.ones(E))),
+            w(f"wq{i}", E, E), w(f"wk{i}", E, E), w(f"wv{i}", E, E),
+            w(f"wo{i}", E, E), heads)
+        h = h + a
+        h = h + sd.nn.linear(sd.nn.gelu(sd.nn.linear(h, w(f"w1{i}", E, E))),
+                             w(f"w2{i}", E, E))
+    sd.loss.softmaxCrossEntropy(y, sd.nn.linear(h.mean(1), w("wo", E, 3)),
+                                name="loss")
+    sd.setTrainingConfig(TrainingConfig.Builder().updater(Sgd(0.1))
+                         .dataSetFeatureMapping("x")
+                         .dataSetLabelMapping("y").build())
+    rs = np.random.RandomState(seed)
+    x = rs.randn(B, T, E).astype(np.float32)
+    lab = np.eye(3, dtype=np.float32)[rs.randint(0, 3, B)]
+    return sd, x, lab
+
+
+def test_samediff_attention_graph_launches_the_kernels(card):
+    sd, x, y = _sd_attention_graph()
+    assert sd.device.type == "cuda"
+    tfa.reset_launches()
+    losses = sd.fit(features=x, labels=y, epochs=2)
+    assert (tfa.flash_fwd.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == (4, 4, 4)
+    assert tfa.flash_fwd_plain.launches == tfa.flash_bwd_dq_plain.launches \
+        == tfa.flash_bwd_dkv_plain.launches == 0
+    assert all(np.isfinite(losses))
+
+
+def test_samediff_fit_step_equals_the_plain_attention_step(card,
+                                                          monkeypatch):
+    """One SGD step through K1-K3 against the same step with attention
+    routed to the plain versions: loss rel 1e-5, every updated variable
+    within 1e-4 of its max-abs (the flash kernels' f32 tolerance)."""
+    sd, x, y = _sd_attention_graph()
+    ref, _, _ = _sd_attention_graph()
+    tfa.reset_launches()
+    (got,) = sd.fit(features=x, labels=y)
+    assert tfa.flash_fwd.launches == 2
+    monkeypatch.setattr(tfa, "flash_attention",
+                        lambda q, k, v, causal=False, **_:
+                        _PlainFlash.apply(q, k, v))
+    (want,) = ref.fit(features=x, labels=y)
+    assert tfa.flash_fwd.launches == 2 and tfa.flash_fwd_plain.launches == 2
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for v in sd.variables():
+        a = sd.getVariable(v.name).getArr().tensor()
+        b = ref.getVariable(v.name).getArr().tensor()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), \
+            v.name

@@ -28,6 +28,7 @@ from deeplearning4j_tpu.data.dataset import DataSetIterator as JIterator
 from deeplearning4j_tpu.ndarray import DataType as JDataType
 import deeplearning4j_tpu_torch.nn as P
 import deeplearning4j_tpu_torch.zoo as PZ
+from deeplearning4j_tpu_torch.ndarray import INDArray
 from deeplearning4j_tpu_torch.data import DataSet, DataSetIterator
 from deeplearning4j_tpu_torch.nn.multilayer import params_to_reference
 
@@ -79,8 +80,8 @@ def test_lenet_output_loss_and_gradients_match(f32_pair):
             assert rel_l2(g[k], want[k]) <= 1e-4, (i, k, rel_l2(g[k],
                                                                 want[k]))
     out = pn.output(x)
-    assert isinstance(out, torch.Tensor) and out.shape == (B, CLASSES)
-    np.testing.assert_allclose(out.numpy(), np.asarray(jn.output(x).toNumpy()),
+    assert isinstance(out, INDArray) and out.shape() == (B, CLASSES)
+    np.testing.assert_allclose(out.toNumpy(), np.asarray(jn.output(x).toNumpy()),
                                rtol=0, atol=1e-6)
     assert pn.numParams() == jn.numParams()
 
@@ -160,7 +161,7 @@ def test_lenet_bf16_matches():
     for want, g in zip(jg, params_to_reference(pn.layers, pg)):
         for k in want:
             assert rel_l2(g[k], np.asarray(want[k], np.float32)) <= 5e-2, k
-    assert pn.output(x).dtype == torch.bfloat16
+    assert pn.output(x).tensor().dtype == torch.bfloat16
 
 
 def test_multilayer_entry_points():

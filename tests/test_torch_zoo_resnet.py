@@ -53,6 +53,7 @@ from deeplearning4j_tpu.nn.graph import ComputationGraph as JGraph
 from deeplearning4j_tpu.nn.multilayer import default_param_update
 import deeplearning4j_tpu_torch.nn as P
 import deeplearning4j_tpu_torch.zoo as PZ
+from deeplearning4j_tpu_torch.ndarray import INDArray
 from deeplearning4j_tpu_torch.nn.graph import params_to_reference
 
 torch.set_num_threads(2)
@@ -137,8 +138,8 @@ def test_resnet_eval_output_matches(setup):
     pn = port_net("FLOAT", s["params"], s["states"])
     want = np.asarray(jn.output(s["x"]).toNumpy())
     got = pn.output(s["x"])
-    assert isinstance(got, torch.Tensor) and got.shape == (B, CLASSES)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    assert isinstance(got, INDArray) and got.shape() == (B, CLASSES)
+    np.testing.assert_allclose(got.toNumpy(), want, rtol=0, atol=1e-4)
 
 
 def test_resnet_f64_loss_and_gradients_match(setup):
@@ -216,7 +217,7 @@ def test_resnet_nhwc_feed_gives_the_nchw_loss(setup):
         np.ascontiguousarray(s["x"].transpose(0, 2, 3, 1)), s["y"])
     assert a == b
     acts = nhwc.feedForward(s["x"].transpose(0, 2, 3, 1))
-    assert acts["conv1"].shape == (B, 32, 32, 64)   # the API's NHWC
+    assert acts["conv1"].shape() == (B, 32, 32, 64)   # the API's NHWC
 
 
 def test_resnet_bf16_drifts_from_f64_as_the_reference_does(setup):
@@ -232,15 +233,15 @@ def test_resnet_bf16_drifts_from_f64_as_the_reference_does(setup):
     first = ["conv1", "bn1", "pool1", "s0b0_relu"]
     for n in first + ["s0b2_relu", "s1b3_relu", "s2b5_relu", "s3b2_relu",
                       "gap"]:
-        exact = d_acts[n].numpy()
+        exact = d_acts[n].toNumpy()
         ref = np.asarray(j_acts[n], np.float32)
         if ref.ndim == 4:   # the reference's NHWC -> NCHW
             ref = ref.transpose(0, 3, 1, 2)
-        mine = p_acts[n].float().numpy()
+        mine = p_acts[n].toNumpy()
         assert rel_l2(mine, exact) <= 1.25 * rel_l2(ref, exact) + 1e-3, n
         if n in first:
             assert rel_l2(mine, ref) <= 2e-2, n
-    assert p_acts["fc"].dtype == torch.bfloat16
+    assert p_acts["fc"].tensor().dtype == torch.bfloat16
 
 
 def test_resnet_num_params_at_1000_classes():
