@@ -111,8 +111,11 @@ Phases (any failure exits non-zero before the result line):
    _measure_resnet50): 224x224, 1000 classes, DataType.BFLOAT16,
    dataFormat NHWC, Nesterovs(0.1, 0.9), batch 128, one fixed seeded
    batch (RandomState(0) uniform pixels, random labels) resident on the
-   card, cudnn.benchmark on; 20 fit steps: losses finite and the 20th
-   below the 1st; median step ms of steps 3-20, images/s, peak device
+   card, cuDNN's heuristic algorithm choice with deterministic algorithms
+   (cudnn.benchmark off: at lr 0.1 the trajectory is chaotic, and
+   benchmark's timed choice made its 20th loss differ run to run, above
+   the 1st in 2 of 13 runs; PERF.md §5); 20 fit steps: losses finite and
+   the 20th below the 1st; median step ms of steps 3-20, images/s, peak device
    memory and the share of the 989 TFLOP/s bf16 dense peak at 3x the
    forward FLOPs counted from the conv and dense shapes. (c) a
    torch.profiler trace of 3 more steps (tracing off for (b)): device
@@ -167,11 +170,39 @@ Phases (any failure exits non-zero before the result line):
    memory, printed beside phase 7's ComputationGraph step. (c) save, load
    onto the card, outputs bitwise equal.
 
+12. char-rnn — BASELINE config 3 (bench.py bench_lstm_tbptt outside
+   SMOKE: GravesLSTM(256) -> GravesLSTM(256) -> RnnOutputLayer(77,
+   softmax, MCXENT), InputType.recurrent(77, 80), tBPTT 20, Adam(2e-3),
+   seed 12, batch 32 x 80 RandomState(0) one-hot ids, labels rolled by
+   -1). (a) The first tBPTT window in f32, TF32 and reduced-precision bf16
+   reductions off, on the card against the same network on the CPU from
+   the same weights: loss rel 1e-5, each gradient rel L2 1e-4, the carries
+   handed to window 2 rel L2 1e-5; then bf16 on the card may be at most
+   1.5x as far (rel L2 over all gradients, and over the carries) from an
+   f64 CPU run of those weights as bf16 on the CPU is. (b) 20 fit calls in
+   bf16 (fp32 masters), 80 windows: losses finite and the last below the
+   first, no carry left after fit; the median fit of calls 3-20 and
+   chars/s = 32 x 80 / median, peak memory; one torch.profiler-traced fit:
+   kernels a window and the device's busy share of the traced wall (phase
+   11(a)'s method). (c) The trained net behind ModelHost.register_sequence
+   (the carry-slot SequenceScheduler, buckets 1, 2, 4, 8, greedy one-hot
+   feedback) and InferenceServer: 8 concurrent :generate requests with
+   "steps" prompts of 5-40 one-hot rows and extraSteps 32; every answer
+   200 with T + 32 rows, each within 1 bf16 ulp of the same prompt stepped
+   one row at a time through rnnTimeStep on the card (the serving
+   contract, serving/sequence.py); the live slot-steps exactly the rows
+   served. TTFT p50 and max, rows/s (live slot-steps over the steps'
+   time), one bucket-8 rnnStepBatched step's host and device ms (phase 4's
+   method), and "step" vs "gang" admission on the mix [24, 2, 2, 2, 2, 2]
+   x 8 (bench.py:1590): gang at least 2x the dispatches, refills only
+   under step, outputs within 1 ulp of each other. K1-K5 launch no time in
+   this phase: no TPU kernel lies on the recurrent path.
+
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
-launches are phase 7's plus phase 11's; phases 8-10 run no hand-written
-kernel: conv and dense are cuDNN/cuBLAS calls, as the reference leaves
-them to XLA).
+launches are phase 7's plus phase 11's; phases 8-10 and 12 run no
+hand-written kernel: conv, dense and the recurrent products are
+cuDNN/cuBLAS calls, as the reference leaves them to XLA).
 """
 
 from __future__ import annotations
@@ -1424,7 +1455,10 @@ def resnet_timed(dev, cfg):
 
     from deeplearning4j_tpu_torch.nn import Nesterovs
 
-    torch.backends.cudnn.benchmark = True
+    # a repeatable trajectory: the heuristic's algorithms, deterministic
+    # ones (module docstring, phase 9(b))
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
     t = time.perf_counter()
     net = resnet_net(dev, cfg, "BFLOAT16", dataFormat="NHWC",
                      updater=Nesterovs(0.1, 0.9))
@@ -1437,7 +1471,8 @@ def resnet_timed(dev, cfg):
         rng.randint(0, cfg["classes"], B)]).to(dev)
     log(f"resnet (b): {net.numParams()} params on {net.device}, built in "
         f"{time.perf_counter() - t:.2f} s; NHWC bf16 batch {tuple(x.shape)} "
-        "resident on the card; cudnn.benchmark on, TF32 off (bf16 convs "
+        "resident on the card; cudnn.benchmark off, deterministic "
+        "algorithms, TF32 off (bf16 convs "
         "and matmuls run on the tensor cores)")
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_s = fit_timed(net, x, y, cfg["steps"])
@@ -1455,7 +1490,7 @@ def resnet_timed(dev, cfg):
               "images_per_s": B / med, "max_memory_allocated_bytes": peak,
               "train_flops_per_step": flops,
               "share_of_bf16_dense_peak": flops / med / PEAK_BF16_OPS,
-              "cudnn_benchmark": True}
+              "cudnn_benchmark": False, "cudnn_deterministic": True}
     log("resnet (b): " + json.dumps(result))
     return net, x, y, result
 
@@ -2150,6 +2185,396 @@ def samediff_encoder(dev, cfg, phase7):
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 12: the recurrent family: config 3 trains by truncated BPTT, the
+# carry-slot scheduler serves it over :generate
+# ----------------------------------------------------------------------
+
+#: BASELINE config 3 as bench.py bench_lstm_tbptt builds it outside SMOKE
+CHAR_RNN = dict(vocab=77, batch=32, seq=80, tbptt=20, hidden=256, seed=12,
+                lr=2e-3, fits=20)
+#: 12(c): the HTTP burst, and the admission A/B's mix (bench.py:1590)
+CHAR_SERVE = dict(requests=8, prompt_min=5, prompt_max=40, extra=32,
+                  buckets=(1, 2, 4, 8), mix=[24, 2, 2, 2, 2, 2] * 8)
+
+
+def char_rnn(device, cfg, dtype):
+    """Config 3: GravesLSTM(256) -> GravesLSTM(256) -> RnnOutputLayer(77,
+    softmax, MCXENT), tBPTT 20, Adam(2e-3), seed 12, on `device` in the
+    DataType named `dtype`."""
+    import deeplearning4j_tpu_torch.nn as P
+
+    conf = (P.NeuralNetConfiguration.Builder()
+            .seed(cfg["seed"]).updater(P.Adam(cfg["lr"]))
+            .dataType(getattr(P.DataType, dtype)).list()
+            .layer(P.GravesLSTM(nOut=cfg["hidden"]))
+            .layer(P.GravesLSTM(nOut=cfg["hidden"]))
+            .layer(P.RnnOutputLayer(nOut=cfg["vocab"], activation="softmax",
+                                    lossFunction="mcxent"))
+            .setInputType(P.InputType.recurrent(cfg["vocab"], cfg["seq"]))
+            .backpropType(P.BackpropType.TruncatedBPTT)
+            .tBPTTLength(cfg["tbptt"]).build())
+    return P.MultiLayerNetwork(conf, device=device).init()
+
+
+def char_rnn_data(cfg):
+    """bench.py's batch: RandomState(0) ids [B, T], one-hot [B, V, T],
+    labels the ids rolled by -1."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg["vocab"], (cfg["batch"], cfg["seq"]))
+    eye = np.eye(cfg["vocab"], dtype=np.float32)
+    return (eye[ids].transpose(0, 2, 1),
+            eye[np.roll(ids, -1, 1)].transpose(0, 2, 1))
+
+
+def first_window(net, x, y, L):
+    """The first tBPTT window's loss, gradients (per layer, CPU) and the
+    carries it hands to window 2 ([h, c] of each LSTM, CPU)."""
+    import torch
+
+    loss, states = net._loss_fn(net._params, net._states, x[:, :, :L],
+                                y[:, :, :L], None, None)
+    flat = [t for p in net._params for t in p.values()]
+    gs = iter(torch.autograd.grad(loss, flat))
+    grads = [{k: next(gs).cpu() for k in p} for p in net._params]
+    carries = [states[i][k].detach().cpu() for i in (0, 1)
+               for k in ("h", "c")]
+    return float(loss.detach()), grads, carries
+
+
+def _vec(tensors):
+    import torch
+    return torch.cat([t.double().reshape(-1) for t in tensors])
+
+
+def _grad_vec(grads):
+    return _vec([g[k] for g in grads for k in sorted(g)])
+
+
+def char_rnn_parity(dev, cfg):
+    """Phase 12(a): the first window on the card against the port on the
+    CPU from the same weights, f32 with TF32 and reduced-precision bf16
+    reductions off; then bf16 held to an f64 CPU run."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.multilayer import params_to_reference
+
+    x, y = char_rnn_data(cfg)
+    L = cfg["tbptt"]
+    card = char_rnn(dev, cfg, "FLOAT")
+    weights = params_to_reference(card.layers, card._params)
+
+    def carried(device, dtype):
+        return char_rnn(device, cfg, dtype).load_reference_params(weights)
+
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        l_c, g_c, c_c = first_window(card, x, y, L)
+        l_p, g_p, c_p = first_window(carried("cpu", "FLOAT"), x, y, L)
+        loss_rel = abs(l_c - l_p) / abs(l_p)
+        g_worst = grads_against(g_c, g_p)
+        c_worst = max(rel_l2(a, b) for a, b in zip(c_c, c_p))
+        need(loss_rel <= 1e-5 and g_worst <= 1e-4 and c_worst <= 1e-5,
+             f"char-rnn (a): first window on the card vs the CPU: loss rel "
+             f"{loss_rel:.3e} (1e-5), worst gradient rel L2 {g_worst:.3e} "
+             f"(1e-4), worst carry rel L2 {c_worst:.3e} (1e-5)")
+        l64, g64, c64 = first_window(carried("cpu", "DOUBLE"), x, y, L)
+        lb_p, gb_p, cb_p = first_window(carried("cpu", "BFLOAT16"), x, y, L)
+        lb_c, gb_c, cb_c = first_window(carried(dev, "BFLOAT16"), x, y, L)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = saved
+    g64v, c64v = _grad_vec(g64), _vec(c64)
+    dist = {"card_grad": rel_l2(_grad_vec(gb_c), g64v),
+            "cpu_grad": rel_l2(_grad_vec(gb_p), g64v),
+            "card_carry": rel_l2(_vec(cb_c), c64v),
+            "cpu_carry": rel_l2(_vec(cb_p), c64v),
+            "card_loss": abs(lb_c - l64) / abs(l64),
+            "cpu_loss": abs(lb_p - l64) / abs(l64)}
+    need(dist["card_grad"] <= 1.5 * dist["cpu_grad"]
+         and dist["card_carry"] <= 1.5 * dist["cpu_carry"],
+         f"char-rnn (a): bf16 on the card further from f64 than 1.5x the "
+         f"CPU's bf16: {dist}")
+    result = {"params": card.numParams(), "f32_loss": l_c,
+              "f32_loss_rel_to_cpu": loss_rel,
+              "f32_worst_grad_rel_l2_to_cpu": g_worst,
+              "f32_worst_carry_rel_l2_to_cpu": c_worst,
+              "bf16_distance_to_f64": dist}
+    log("char-rnn (a): " + json.dumps(result))
+    return result
+
+
+def char_rnn_train(dev, cfg):
+    """Phase 12(b): 20 fit calls of config 3 in bf16 (fp32 masters), the
+    batch resident on the card; then one traced fit."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    net = char_rnn(dev, cfg, "BFLOAT16")
+    x, y = (torch.from_numpy(a).to(dev) for a in char_rnn_data(cfg))
+    windows = math.ceil(cfg["seq"] / cfg["tbptt"])
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()    # the net, its batch, and
+    torch.cuda.reset_peak_memory_stats()    # what earlier phases keep
+    losses, fit_s = fit_timed(net, x, y, cfg["fits"])
+    peak = torch.cuda.max_memory_allocated()
+    need(net.getIterationCount() == cfg["fits"] * windows,
+         f"char-rnn (b): {net.getIterationCount()} windows, expected "
+         f"{cfg['fits'] * windows}")
+    need(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+         f"char-rnn (b): losses not finite and falling: {losses}")
+    need(all("h" not in s and "c" not in s for s in net._states),
+         "char-rnn (b): a carry outlived fit")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.fit"):
+            net.fit(x, y)
+        torch.cuda.synchronize()
+    events = prof.events()
+    fit_evt = [e for e in events if e.name == "smoke.fit"
+               and e.device_type == torch.autograd.DeviceType.CPU]
+    need(len(fit_evt) == 1, "char-rnn (b): no fit scope in the trace")
+    t0, t1 = fit_evt[0].time_range.start, fit_evt[0].time_range.end
+    busy = device_busy_us(events, t0, t1)
+    kernels = sum(len(e.kernels) for e in events)
+    need(busy > 0 and kernels > 0, "char-rnn (b): the profiler saw no "
+         "device work")
+    med = float(np.median(fit_s[2:]))
+    result = {"fits": cfg["fits"], "windows": cfg["fits"] * windows,
+              "losses": losses, "fit_ms_median_3_to_20": med * 1e3,
+              "chars_per_s": cfg["batch"] * cfg["seq"] / med,
+              "max_memory_allocated_bytes": peak,
+              "allocated_before_fit_bytes": held,
+              "peak_over_before_fit_bytes": peak - held,
+              "traced_fit_wall_ms": (t1 - t0) / 1e3,
+              "traced_device_busy_ms": busy / 1e3,
+              "device_busy_share_of_traced_wall": busy / (t1 - t0),
+              "kernels_per_window": kernels / windows}
+    log("char-rnn (b): " + json.dumps(result))
+    return net, result
+
+
+def serial_generation(net, prompt, extra):
+    """The serial oracle: `prompt` [T, V] stepped one row at a time
+    through rnnTimeStep on the card, then `extra` greedy one-hot steps.
+    Returns the [T + extra, V] output rows (compute dtype, on the card)."""
+    import torch
+
+    net.rnnClearPreviousState()
+    eye = torch.eye(prompt.shape[1], device=net.device)
+    rows, x = [], torch.from_numpy(prompt[:1]).to(net.device)
+    for t in range(prompt.shape[0] + extra):
+        y = net.rnnTimeStep(x).tensor()
+        rows.append(y[0])
+        nxt = t + 1
+        x = (torch.from_numpy(prompt[nxt:nxt + 1]).to(net.device)
+             if nxt < prompt.shape[0] else eye[int(y[0].argmax())][None])
+    net.rnnClearPreviousState()
+    return torch.stack(rows)
+
+
+def time_rnn_step(net, dev, S):
+    """One bucket-S rnnStepBatched step (median of 5): host wall time to
+    a synchronize, and device time by CUDA events around the step queued
+    behind a spin kernel (phase 4's method)."""
+    import torch
+
+    x = torch.zeros((S, net.conf.inputType.size), device=dev)
+    x[:, 0] = 1.0
+    carries = net.rnnCarryZeros(S)
+
+    def step():
+        return net.rnnStepBatched(x, carries)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    host, device = [], []
+    for _ in range(5):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        step()
+        b.record()
+        need(not a.query(), "rnn step: the spin ended before the step was "
+             "queued, so its device time would hold host gaps")
+        b.synchronize()
+        device.append(a.elapsed_time(b))
+    res = {"slots": S, "host_ms": float(np.median(host)),
+           "device_ms": float(np.median(device)), "host_ms_all": host,
+           "device_ms_all": device}
+    res["device_share"] = res["device_ms"] / res["host_ms"]
+    return res
+
+
+def admission_ab(net, cfg, scfg):
+    """Dispatches, refills and host-timed slot-steps/s of "step" vs "gang"
+    admission on the mixed lengths, one-hot rows from a seed."""
+    from deeplearning4j_tpu_torch.serving import (
+        ManualClock, SequenceScheduler,
+    )
+
+    rng = np.random.RandomState(SEED)
+    eye = np.eye(cfg["vocab"], dtype=np.float32)
+    seqs = [eye[rng.randint(0, cfg["vocab"], t)] for t in scfg["mix"]]
+    res, outs = {}, {}
+    for mode in ("step", "gang"):
+        s = SequenceScheduler(net, slot_buckets=(8,), queue_limit=64,
+                              admission=mode, clock=ManualClock(),
+                              start_thread=False, name=f"ab-{mode}")
+        s.warm()
+        t = time.perf_counter()
+        reqs = [s.submit(q, wait=False) for q in seqs]
+        s.drain()
+        wall = time.perf_counter() - t
+        st = s.stats
+        s.close()
+        need(all(r.error is None for r in reqs), f"admission {mode}: a "
+             "sequence failed")
+        outs[mode] = [r.result for r in reqs]
+        res[mode] = {"dispatches": st["dispatches"],
+                     "refills": st["refills"],
+                     "slot_steps": st["slot_steps"],
+                     "slot_steps_per_s": st["slot_steps"] / wall}
+    need(res["step"]["slot_steps"] == res["gang"]["slot_steps"]
+         == sum(scfg["mix"]), f"admission A/B: slot steps {res}")
+    need(res["gang"]["dispatches"] >= 2 * res["step"]["dispatches"]
+         and res["step"]["refills"] > 0 and res["gang"]["refills"] == 0,
+         f"admission A/B: gang needs >= 2x step's dispatches: {res}")
+    worst = 0
+    for a, b in zip(outs["step"], outs["gang"]):
+        worst = max(worst, int(ulps(_bf16(a), _bf16(b)).max()))
+    need(worst <= 1, f"admission A/B: step vs gang outputs {worst} bf16 "
+         "ulps apart")
+    res["step_vs_gang_max_ulps"] = worst
+    res["throughput_ratio"] = (res["step"]["slot_steps_per_s"]
+                               / res["gang"]["slot_steps_per_s"])
+    return res
+
+
+def _bf16(a):
+    """Float32 numpy holding bf16 values as a bf16 tensor (exact)."""
+    import torch
+    return torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+
+
+def char_rnn_serve(dev, net, cfg, scfg):
+    """Phase 12(c): the trained bf16 net behind ModelHost + InferenceServer;
+    8 concurrent :generate requests with ragged one-hot prompts and
+    extraSteps 32, each held to the serial rnnTimeStep oracle on the card;
+    one bucket-8 step's host vs device ms; the admission A/B."""
+    from deeplearning4j_tpu_torch.runtime import telemetry
+    from deeplearning4j_tpu_torch.serving import (
+        InferenceServer, ModelHost, greedy_onehot_feedback,
+    )
+
+    V, n, extra = cfg["vocab"], scfg["requests"], scfg["extra"]
+    reg = telemetry.get_registry()
+    host = ModelHost()
+    t = time.perf_counter()
+    rep = host.register_sequence("char-rnn", net,
+                                 slotBuckets=scfg["buckets"],
+                                 feedback=greedy_onehot_feedback(V))
+    log(f"char-rnn (c): register_sequence (warm) "
+        f"{time.perf_counter() - t:.2f} s: "
+        + json.dumps({str(k): round(v, 4) for k, v in rep["warm"].items()}))
+    sched = host.sequence_model("char-rnn").scheduler
+    srv = InferenceServer(host).start(port=0)
+    try:
+        deadline = time.monotonic() + 120
+        while http(srv.port, "/healthz", timeout=10)[0] != 200:
+            need(time.monotonic() < deadline, "/healthz never turned 200")
+            time.sleep(0.1)
+        rng = np.random.RandomState(SEED)
+        lens = rng.randint(scfg["prompt_min"], scfg["prompt_max"] + 1, n)
+        lens[0], lens[1] = scfg["prompt_min"], scfg["prompt_max"]
+        eye = np.eye(V, dtype=np.float32)
+        prompts = [eye[rng.randint(0, V, int(t))] for t in lens]
+        answers = [None] * n
+
+        def fire(i):
+            answers[i] = http(srv.port, "/v1/models/char-rnn:generate",
+                              {"steps": prompts[i].tolist(),
+                               "extraSteps": extra})
+
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(n)]
+        reg.trace.clear()
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t
+        ttft = reg.get("dl4j_seq_ttft_seconds").labels(model="char-rnn:v1")
+        ttft = (ttft.percentile(50), ttft.percentile(100))
+        steps = [s for s in reg.trace.spans()
+                 if s["name"] == "sequence.step"
+                 and s["args"]["model"] == "char-rnn:v1"]
+    finally:
+        srv.stop()
+        host.close(drain=False)
+    worst = 0
+    for i, ans in enumerate(answers):
+        need(ans is not None, f"char-rnn (c): request {i} never answered")
+        need(ans[0] == 200, f"char-rnn (c): request {i}: HTTP {ans[0]} "
+             f"{ans[1][:300]}")
+        out = np.asarray(json.loads(ans[1])["outputs"], np.float32)
+        need(out.shape == (lens[i] + extra, V), f"char-rnn (c): request "
+             f"{i} answered {out.shape}, expected {(lens[i] + extra, V)}")
+        need(bool(np.isfinite(out).all()), f"char-rnn (c): request {i} "
+             "has non-finite rows")
+        want = serial_generation(net, prompts[i], extra).cpu()
+        d = int(ulps(_bf16(out), want).max())
+        worst = max(worst, d)
+        need(d <= 1, f"char-rnn (c): request {i} is {d} bf16 ulps from "
+             "the serial rnnTimeStep oracle (contract: 1)")
+    live = sum(s["args"]["slots"] for s in steps)
+    need(live == int(lens.sum()) + n * extra
+         and live == sum(k for k, _ in sched.occupancy),
+         f"char-rnn (c): {live} live slot-steps, expected "
+         f"{int(lens.sum()) + n * extra}")
+    result = {"requests": n, "prompt_rows": int(lens.sum()),
+              "generated_rows": n * extra, "wall_s": wall,
+              "ttft_p50_s": ttft[0], "ttft_max_s": ttft[1],
+              "steps": len(steps),
+              "rows_per_s": live / sum(s["dur"] for s in steps),
+              "max_ulps_to_serial_oracle": worst}
+    result["step_bucket8"] = time_rnn_step(net, dev, 8)
+    result["admission"] = admission_ab(net, cfg, scfg)
+    log("char-rnn (c): " + json.dumps(result))
+    return result
+
+
+def kernel_launches():
+    """The launch counts of K1-K5 (phase 12 must add none)."""
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+    from deeplearning4j_tpu_torch.ops import paged_attention as tpa
+
+    return {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
+            "K3": tfa.flash_bwd_dkv.launches,
+            "K4": tpa.paged_flash_decode.launches,
+            "K5": tpa.paged_flash_prefill.launches}
+
+
+def char_rnn_phase(dev):
+    """Phase 12: (a) parity, (b) train, (c) serve; K1-K5 launch no time."""
+    before = kernel_launches()
+    parity = char_rnn_parity(dev, CHAR_RNN)
+    net, train = char_rnn_train(dev, CHAR_RNN)
+    serve = char_rnn_serve(dev, net, CHAR_RNN, CHAR_SERVE)
+    need(kernel_launches() == before, "char-rnn: a hand-written kernel "
+         f"launched: {before} -> {kernel_launches()}")
+    return {"parity": parity, "train": train, "serve": serve}
+
+
 def main():
     import torch
 
@@ -2194,6 +2619,8 @@ def main():
     torch.cuda.empty_cache()
     sd_mlp_res = samediff_mlp(dev, SD_MLP)
     sd_enc = samediff_encoder(dev, BERT_BASE, train)
+    torch.cuda.empty_cache()
+    rnn = char_rnn_phase(dev)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -2260,6 +2687,24 @@ def main():
         f"beside phase 7's ComputationGraph {step_ms:.2f} ms, "
         f"{train['tokens_per_s']:.0f} tokens/s, "
         f"{train['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+    rt, rs = rnn["train"], rnn["serve"]
+    ab = rs["admission"]
+    log(f"char-RNN (config 3) on {card}: bf16 b{CHAR_RNN['batch']} x "
+        f"{CHAR_RNN['seq']} chars, tBPTT {CHAR_RNN['tbptt']}: fit "
+        f"{rt['fit_ms_median_3_to_20']:.2f} ms median, "
+        f"{rt['chars_per_s']:.0f} chars/s, "
+        f"{rt['max_memory_allocated_bytes'] / 2**20:.1f} MiB peak "
+        f"({rt['peak_over_before_fit_bytes'] / 2**20:.1f} MiB over what "
+        "was allocated before the fits), "
+        f"{rt['kernels_per_window']:.0f} kernels a window, device busy "
+        f"{100 * rt['device_busy_share_of_traced_wall']:.1f} % of a traced "
+        f"fit; served over :generate: TTFT p50 "
+        f"{1e3 * rs['ttft_p50_s']:.2f} ms, max {1e3 * rs['ttft_max_s']:.2f} "
+        f"ms, {rs['rows_per_s']:.0f} rows/s, bucket-8 step host "
+        f"{rs['step_bucket8']['host_ms']:.3f} ms / device "
+        f"{rs['step_bucket8']['device_ms']:.3f} ms; dispatches step "
+        f"{ab['step']['dispatches']} vs gang {ab['gang']['dispatches']} "
+        f"(refills {ab['step']['refills']} vs {ab['gang']['refills']})")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,10 @@
 
 So far: the paged-KV serving model (``nn.transformer``), the
 ``ComputationGraph`` training path with the attention layers
-(``nn.graph``, ``nn.conf.*``) and the CNN path: ``MultiLayerNetwork``
+(``nn.graph``, ``nn.conf.*``), the CNN path: ``MultiLayerNetwork``
 (``nn.multilayer``) and the convolution, subsampling, global pooling and
-batch-norm layers.
+batch-norm layers, and the recurrent layers (``nn.conf.recurrent``) with
+truncated BPTT and stateful stepping.
 """
 
 from deeplearning4j_tpu_torch.ndarray.dtype import DataType
@@ -14,7 +15,8 @@ from deeplearning4j_tpu_torch.nn.conf.attention import (
     SelfAttentionLayer,
 )
 from deeplearning4j_tpu_torch.nn.conf.builder import (
-    GradientNormalization, MultiLayerConfiguration, NeuralNetConfiguration,
+    BackpropType, GradientNormalization, MultiLayerConfiguration,
+    NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.conf.graph import (
     ElementWiseVertex, PreprocessorVertex,
@@ -23,6 +25,10 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
     GlobalPoolingLayer, OutputLayer, RnnOutputLayer, SubsamplingLayer,
+)
+from deeplearning4j_tpu_torch.nn.conf.recurrent import (
+    GRU, LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
+    LastTimeStep, SimpleRnn,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
@@ -36,7 +42,8 @@ from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
 __all__ = [
     "DataType", "Activation", "AttentionVertex", "LearnedSelfAttentionLayer",
-    "RecurrentAttentionLayer", "SelfAttentionLayer", "GradientNormalization",
+    "RecurrentAttentionLayer", "SelfAttentionLayer", "BackpropType",
+    "GradientNormalization",
     "MultiLayerConfiguration", "NeuralNetConfiguration", "ElementWiseVertex",
     "PreprocessorVertex", "InputType", "ActivationLayer",
     "BatchNormalization", "ConvolutionLayer", "DenseLayer",
@@ -45,4 +52,6 @@ __all__ = [
     "FeedForwardToCnnPreProcessor", "FeedForwardToRnnPreProcessor",
     "RnnToFeedForwardPreProcessor", "ComputationGraph", "LossFunctions",
     "MultiLayerNetwork", "Adam", "Nesterovs", "NoOp", "Sgd", "WeightInit",
+    "LSTM", "GravesLSTM", "SimpleRnn", "GRU", "Bidirectional",
+    "GravesBidirectionalLSTM", "LastTimeStep",
 ]

@@ -20,6 +20,7 @@ from deeplearning4j_tpu_torch.ndarray.dtype import DataType
 from deeplearning4j_tpu_torch.nn import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf import preprocessors as PP
+from deeplearning4j_tpu_torch.nn.conf import recurrent as R
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
 __all__ = ["BackpropType", "GradientNormalization", "NeuralNetConfiguration",
@@ -110,7 +111,8 @@ class MultiLayerConfiguration:
 
 def _wants(layer):
     """The input format a layer needs (None: any)."""
-    if isinstance(layer, L.RnnOutputLayer):
+    if isinstance(layer, (R.BaseRecurrentLayer, R.Bidirectional,
+                          R.LastTimeStep, L.RnnOutputLayer)):
         return InputType.RNN
     if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer)):
         return InputType.CNN
@@ -137,8 +139,8 @@ def auto_preprocessor(layer, cur):
         return pp, pp.getOutputType(cur)
     if cur.kind == InputType.CNN and wants == InputType.RNN:
         raise NotImplementedError(
-            "CnnToRnnPreProcessor waits for the recurrent slice "
-            "(ROADMAP.md Queue 1 item 8)")
+            "CnnToRnnPreProcessor waits for the rest of the recurrent "
+            "slice (ROADMAP.md Queue 1 item 8)")
     raise ValueError(f"No preprocessor for {cur.kind} -> {wants} (layer "
                      f"{type(layer).__name__})")
 
@@ -210,7 +212,9 @@ class ListBuilder:
                 raise ValueError(
                     "Either setInputType(...) or nIn on the first layer")
             conf.inputType = (InputType.recurrent(first.nIn)
-                              if isinstance(first, L.RnnOutputLayer)
+                              if isinstance(first, (R.BaseRecurrentLayer,
+                                                    R.Bidirectional,
+                                                    L.RnnOutputLayer))
                               else InputType.feedForward(first.nIn))
         return conf.inferShapes()
 

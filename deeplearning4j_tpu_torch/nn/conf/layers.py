@@ -17,9 +17,10 @@ reference keeps NHWC. Each layer owns the map between the reference's
 parameter layout and its own (``param_from_reference`` and its inverse
 ``param_to_reference``): dense ``W`` is ``[in, out]`` on both sides,
 a conv ``W`` is the reference's HWIO ``[kh, kw, in, out]`` and the port's
-OIHW ``[out, in, kh, kw]`` (channels_last memory). The recurrent and
-other layers wait for their slices (ROADMAP.md Queue 1 items 5 and 8);
-dropout waits for the nn-conf slice and raises when asked for.
+OIHW ``[out, in, kh, kw]`` (channels_last memory). The recurrent layers
+are in ``nn/conf/recurrent.py``; the other layers wait for their slices
+(ROADMAP.md Queue 1 items 5 and 8); dropout waits for the nn-conf slice
+(item 4) and raises when asked for.
 """
 
 from __future__ import annotations

@@ -20,10 +20,12 @@ and layouts; a bf16/fp16 ``dataType`` casts them for the forward and
 autograd carries the gradient back to the fp32 master. ``output`` and
 ``feedForward`` return ``INDArray``s, as the reference does
 (``nn/graph.py:877-888`` there); ``fit``, ``score`` and ``output`` take
-INDArrays, tensors or numpy arrays. Solvers, truncated BPTT,
-``fitDataSet``, ``DataSet`` and ``MultiDataSet``, the AOT cache, remat
-policies and evaluation wait for their slices and raise
-``NotImplementedError`` naming them.
+INDArrays, tensors or numpy arrays. Truncated BPTT slices the [B, C, T]
+inputs, labels and masks into windows through the window loop
+``MultiLayerNetwork`` uses (``multilayer.run_tbptt``); feed-forward
+inputs of a mixed graph pass whole. Solvers, ``fitDataSet``,
+``MultiDataSet``, the AOT cache, remat policies and evaluation wait for
+their slices and raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -38,9 +40,10 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.builder import refuse_checkpoint_policy
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _grad_normalize, _later, _out_act, _unwrap, carry_layer, cast_params,
-    check_carried, cnn_entry, default_param_update, fit_batches,
-    layer_seed, strip_carries, to_api_layout, uncarry_layer,
+    _grad_normalize, _later, _out_act, _timed_step, _unwrap, carry_layer,
+    cast_params, check_carried, cnn_entry, default_param_update,
+    fit_batches, layer_seed, map_tree, mask_slice, run_tbptt,
+    strip_carries, time_slice, to_api_layout, uncarry_layer,
 )
 
 __all__ = ["ComputationGraph", "params_from_reference",
@@ -107,8 +110,7 @@ class ComputationGraph:
                             .requires_grad_(True) for k, v in p.items()}
                         for n, p in params.items()}
         if states is not None:
-            self._states = {n: {k: v.to(self.device) for k, v in s.items()}
-                            for n, s in states.items()}
+            self._states = map_tree(lambda t: t.to(self.device), states)
         self._updaters, self._upd_states = {}, {}
         for name in self._layer_names:
             payload = self.conf.nodes[name].payload
@@ -235,21 +237,25 @@ class ComputationGraph:
                     params[name])
         return reg
 
-    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks):
+    def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks,
+                 use_carries=False):
         _, preacts, new_states = self._run_graph(
-            params, strip_carries(states), inputs, True, None, fmasks)
+            params, states if use_carries else strip_carries(states),
+            inputs, True, None, fmasks)
         loss = self._loss(preacts, labels, lmasks) \
             + self._regularization(params)
         return loss, new_states
 
-    def _train_step(self, inputs, labels, fmasks, lmasks):
+    def _train_step(self, inputs, labels, fmasks, lmasks, window=None):
         """One eager step: forward, backward, normalize, update in place.
-        Returns the loss tensor."""
+        `window` is a truncated-BPTT window's index, as in
+        ``MultiLayerNetwork._train_step``. Returns the loss tensor."""
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
         loss, new_states = self._loss_fn(self._params, self._states, inputs,
-                                         labels, fmasks, lmasks)
+                                         labels, fmasks, lmasks,
+                                         use_carries=bool(window))
         loss.backward()
         grads = [{k: t.grad if t.grad is not None else torch.zeros_like(t)
                   for k, t in self._params[n].items()}
@@ -266,9 +272,31 @@ class ComputationGraph:
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
-        self._states = {n: {k: v.detach() for k, v in st.items()}
-                        for n, st in new_states.items()}
+        new_states = map_tree(torch.Tensor.detach, new_states)
+        self._states = new_states if window is not None \
+            else strip_carries(new_states)
         return loss.detach()
+
+    def _fit_batch(self, inputs, labels, fmasks, lmasks):
+        """One batch: a timed optimizer step, or under truncated BPTT
+        (any [B, C, T] input) the windows of ``run_tbptt``."""
+        inputs = {n: _unwrap(v, self.device) for n, v in inputs.items()}
+        seqs = [v for v in inputs.values() if v.dim() == 3]
+        if self.conf.backpropType == "tbptt" and seqs:
+            def window(sl, c):
+                return self._train_step(
+                    {n: time_slice(v, sl) for n, v in inputs.items()},
+                    [time_slice(y, sl) for y in labels],
+                    None if fmasks is None else
+                    {n: mask_slice(m, sl) for n, m in fmasks.items()},
+                    None if lmasks is None else
+                    [mask_slice(m, sl) for m in lmasks], window=c)
+
+            run_tbptt(self, max(v.shape[2] for v in seqs),
+                      self.conf.tbpttFwdLength, window)
+        else:
+            _timed_step(self, lambda: self._train_step(inputs, labels,
+                                                       fmasks, lmasks))
 
     # ------------------------------------------------------------------
     # public API
@@ -289,10 +317,10 @@ class ComputationGraph:
         one step a batch."""
         return fit_batches(
             self, data, labels, epochs,
-            lambda x, y: self._train_step(self._coerce_inputs(x),
-                                          self._coerce_labels(y), None,
-                                          None),
-            lambda ds: self._train_step(*self._extract_ds(ds)))
+            lambda x, y: self._fit_batch(self._coerce_inputs(x),
+                                         self._coerce_labels(y), None,
+                                         None),
+            lambda ds: self._fit_batch(*self._extract_ds(ds)))
 
     def _extract_ds(self, ds):
         """(inputs, labels, feature masks, label masks) of a DataSet."""

@@ -3,9 +3,11 @@
 The counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: the
 module-level helpers (``_unwrap``, ``_tm`` training telemetry,
 ``strip_carries``, ``cast_params``, ``default_param_update``,
-``_grad_normalize``, ``_out_act``), the carry of the reference's weights
+``_grad_normalize``, ``_out_act``, the truncated-BPTT window loop
+``run_tbptt``), the carry of the reference's weights
 (``params_from_reference`` / ``params_to_reference``, layer by layer
-through each layer's layout map) and the ``MultiLayerNetwork`` class.
+through each layer's layout map, nested wrapper trees included) and the
+``MultiLayerNetwork`` class.
 
 Where the reference jits one donated-buffer train step, the port runs it
 eagerly: the forward over the layers (BN's running statistics come back
@@ -19,10 +21,22 @@ dtype for the forward. Convolutional activations are NCHW-logical in
 "NHWC")`` network takes NHWC features. ``output`` and ``feedForward``
 return ``INDArray``s, as the reference does; ``fit``, ``score`` and
 ``output`` take INDArrays, tensors or numpy arrays.
+
+Recurrent layers hand their final carries (``"h"``/``"c"``) back in
+their state. Standard backprop strips them before the forward and after
+the step, so no carry outlives a ``fit``. Truncated BPTT runs
+``ceil(T / tbpttFwdLength)`` windows, each one optimizer step that starts
+from the previous window's carries, detached (the truncation). Stateful
+inference is ``rnnTimeStep``; ``rnnStepBatched`` is its pure twin over
+caller-held carries, the step the carry-slot sequence scheduler batches.
+Both run their rows padded to a multiple of ``STEP_ROWS``, so every
+batch of up to 8 rows, a single one included, takes the same product
+shapes and each row is computed by the same kernels.
 """
 
 from __future__ import annotations
 
+import math
 import time
 
 import numpy as np
@@ -34,14 +48,19 @@ from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import layers as L
+from deeplearning4j_tpu_torch.nn.conf import recurrent as R
 from deeplearning4j_tpu_torch.nn.conf.builder import (
-    GradientNormalization, refuse_checkpoint_policy,
+    BackpropType, GradientNormalization, refuse_checkpoint_policy,
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
 __all__ = ["MultiLayerNetwork", "strip_carries", "cast_params",
            "default_param_update", "params_from_reference",
-           "params_to_reference"]
+           "params_to_reference", "run_tbptt", "STEP_ROWS"]
+
+#: the single-step inference path pads its rows to a multiple of this,
+#: so batches of 1..8 rows share one product shape (module docstring)
+STEP_ROWS = 8
 
 
 def _later(what, slice_):
@@ -86,15 +105,58 @@ def _tm():
 
 
 def strip_carries(states):
-    """Drop transient rnn carries (h/c) from a {layer: state} dict; keep
-    persistent state."""
+    """Drop transient rnn carries (h/c) from a container of per-layer
+    states (a list, or a {layer: state} dict); keep persistent state."""
 
     def strip(s):
         if isinstance(s, dict):
             return {k: strip(v) for k, v in s.items() if k not in ("h", "c")}
         return s
 
-    return {n: strip(s) for n, s in states.items()}
+    if isinstance(states, dict):
+        return {n: strip(s) for n, s in states.items()}
+    return [strip(s) for s in states]
+
+
+def map_tree(fn, tree):
+    """`fn` over every tensor of a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def map_carries(fn, state):
+    """`fn` over the rnn carries (h/c) of one layer's state, wrappers'
+    nested states included; everything else as it is."""
+    return {k: (map_carries(fn, v) if isinstance(v, dict)
+                else fn(v) if k in ("h", "c") else v)
+            for k, v in state.items()}
+
+
+def run_tbptt(net, T, L, window_step):
+    """The truncated-BPTT window loop MultiLayerNetwork and
+    ComputationGraph share (reference: ``run_tbptt``): ceil(T / L)
+    windows, the last one possibly short; ``window_step(sl, c)`` runs
+    window c (time slice `sl`) as one timed optimizer step that starts
+    from the carries window c - 1 left (none for c = 0) and returns its
+    loss. The carries are stripped after the last window."""
+    for c in range(math.ceil(T / L)):
+        sl = slice(c * L, min((c + 1) * L, T))
+        _timed_step(net, lambda: window_step(sl, c))
+    net._states = strip_carries(net._states)
+
+
+def time_slice(a, sl):
+    """A sequence array's [B, C, T] time slice; feed-forward arrays and
+    None pass whole."""
+    return a[:, :, sl] if a is not None and a.dim() == 3 else a
+
+
+def mask_slice(m, sl):
+    """A [B, T] mask's time slice (None passes)."""
+    return None if m is None else m[:, sl]
 
 
 def cast_params(p, compute_dtype, param_dtype):
@@ -188,24 +250,21 @@ def fit_batches(net, data, labels, epochs, step_arrays, step_ds):
     """The ``fit`` contract both networks share: (features, labels) ->
     ``step_arrays(data, labels)``; a DataSet -> ``step_ds(ds)``; an
     iterator (reset/hasNext/next) -> ``step_ds`` on each batch, for
-    ``epochs`` (default 1) passes. Each step returns its loss tensor,
-    recorded as the score with the ``train.step`` span and histogram."""
+    ``epochs`` (default 1) passes. Each callback runs its batch's
+    optimizer step (or truncated-BPTT windows) through ``_timed_step``."""
     from deeplearning4j_tpu_torch.data.dataset import DataSet
 
     net._require_init()
-    if net.conf.backpropType == "tbptt":
-        raise _later("truncated BPTT", "recurrent slice, item 8")
     if labels is not None:
-        _timed_step(net, lambda: step_arrays(data, labels))
+        step_arrays(data, labels)
     elif isinstance(data, DataSet):
-        _timed_step(net, lambda: step_ds(data))
+        step_ds(data)
     elif all(callable(getattr(data, a, None))
              for a in ("reset", "hasNext", "next")):
         for _ in range(epochs or 1):
             data.reset()
             while data.hasNext():
-                ds = data.next()
-                _timed_step(net, lambda: step_ds(ds))
+                step_ds(data.next())
             net._epoch += 1
     else:
         raise TypeError(
@@ -216,6 +275,8 @@ def fit_batches(net, data, labels, epochs, step_arrays, step_ds):
 
 
 def _timed_step(net, step):
+    """Run one optimizer step; its loss becomes the score, with the
+    ``train.step`` span and histogram, and the iteration count moves."""
     tm = _tm()
     t0 = time.perf_counter()
     net._score = float(step())
@@ -246,18 +307,43 @@ def _array(t):
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def flatten_tree(tree, prefix=""):
+    """A nested {name: {...}} tree as one flat {"outer.inner": leaf}
+    dict (a wrapper's ``{"fwd": {"W": ...}}`` -> ``{"fwd.W": ...}``);
+    empty subtrees vanish."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, f"{prefix}{k}."))
+        else:
+            flat[f"{prefix}{k}"] = v
+    return flat
+
+
+def nest_tree(flat):
+    """The inverse of ``flatten_tree``."""
+    tree = {}
+    for k, v in flat.items():
+        *outer, leaf = k.split(".")
+        node = tree
+        for o in outer:
+            node = node.setdefault(o, {})
+        node[leaf] = v
+    return tree
+
+
 def carry_layer(layer, tree):
-    """One layer's reference {name: array} -> the port's {name: tensor},
-    through the layer's layout map."""
+    """One layer's reference {name: array} tree (nested for a wrapper)
+    -> the port's flat {name: tensor}, through the layer's layout map."""
     return {k: layer.param_from_reference(k, _tensor(v))
-            for k, v in tree.items()}
+            for k, v in flatten_tree(tree).items()}
 
 
 def uncarry_layer(layer, tree):
-    """One layer's port {name: tensor} -> the reference's layout as
-    numpy (bf16 as float32)."""
-    return {k: _array(layer.param_to_reference(k, v))
-            for k, v in tree.items()}
+    """One layer's port {name: tensor} -> the reference's layout and
+    nesting as numpy (bf16 as float32)."""
+    return nest_tree({k: _array(layer.param_to_reference(k, v))
+                      for k, v in tree.items()})
 
 
 def params_from_reference(layers, params, states=None):
@@ -278,7 +364,9 @@ def params_to_reference(layers, params):
 
 
 def check_carried(src, dst, where):
-    """Raise unless `src` has exactly `dst`'s names and shapes."""
+    """Raise unless `src` has exactly `dst`'s names and shapes (`dst`
+    flattened as the carry flattens)."""
+    dst = flatten_tree(dst)
     if set(src) != set(dst):
         raise ValueError(f"{where}: reference names {sorted(src)} vs "
                          f"{sorted(dst)}")
@@ -308,6 +396,7 @@ class MultiLayerNetwork:
         self._iteration = 0
         self._epoch = 0
         self._score = float("nan")
+        self._rnn_state = None    # rnnTimeStep's carried states
         self._compute_dtype = conf.dataType.torch_dtype
         self._param_dtype = (torch.float64
                              if self._compute_dtype == torch.float64
@@ -331,8 +420,8 @@ class MultiLayerNetwork:
                          .requires_grad_(True) for k, v in p.items()}
                         for p in params]
         if states is not None:
-            self._states = [{k: v.to(self.device) for k, v in s.items()}
-                            for s in states]
+            self._states = map_tree(lambda t: t.to(self.device), states)
+        self._rnn_state = None
         self._updaters = [_upd.resolve(l.updater) if l.updater is not None
                           else _upd.Sgd() for l in self.layers]
         with torch.no_grad():
@@ -412,19 +501,25 @@ class MultiLayerNetwork:
                 reg = reg + layer.regularization(p)
         return reg
 
-    def _loss_fn(self, params, states, x, y, fmask, lmask, train=True):
-        preact, new_states = self._run_layers(params, states, x, train,
+    def _loss_fn(self, params, states, x, y, fmask, lmask, train=True,
+                 use_carries=False):
+        run_states = states if use_carries else strip_carries(states)
+        preact, new_states = self._run_layers(params, run_states, x, train,
                                               fmask)
         loss = self._loss_from_preact(preact, _unwrap(y, self.device),
                                       lmask) + self._regularization(params)
         return loss, new_states
 
-    def _train_step(self, x, y, fmask, lmask):
+    def _train_step(self, x, y, fmask, lmask, window=None):
         """One eager step: forward, backward, normalize, update in place;
         the layers' new states (BN running statistics) replace the old.
-        Returns the loss tensor."""
+        `window` is the truncated-BPTT window's index: window c > 0
+        starts from the carries the last window left, and every window
+        keeps its new carries, detached, for the next; a standard step
+        (None) strips them. Returns the loss tensor."""
         loss, new_states = self._loss_fn(self._params, self._states, x, y,
-                                         fmask, lmask)
+                                         fmask, lmask,
+                                         use_carries=bool(window))
         loss.backward()
         grads = [{k: t.grad if t.grad is not None else torch.zeros_like(t)
                   for k, t in p.items()} for p in self._params]
@@ -439,9 +534,24 @@ class MultiLayerNetwork:
         for p in self._params:
             for t in p.values():
                 t.grad = None
-        self._states = [{k: v.detach() for k, v in s.items()}
-                        for s in new_states]
+        new_states = map_tree(torch.Tensor.detach, new_states)
+        self._states = new_states if window is not None \
+            else strip_carries(new_states)
         return loss.detach()
+
+    def _fit_batch(self, x, y, fmask, lmask):
+        """One batch: a timed optimizer step, or under truncated BPTT on
+        [B, F, T] features the windows of ``run_tbptt``."""
+        x, y = _unwrap(x, self.device), _unwrap(y, self.device)
+        if (self.conf.backpropType == BackpropType.TruncatedBPTT
+                and x.dim() == 3):
+            run_tbptt(self, x.shape[2], self.conf.tbpttFwdLength,
+                      lambda sl, c: self._train_step(
+                          time_slice(x, sl), time_slice(y, sl),
+                          mask_slice(fmask, sl), mask_slice(lmask, sl),
+                          window=c))
+        else:
+            _timed_step(self, lambda: self._train_step(x, y, fmask, lmask))
 
     # ------------------------------------------------------------------
     # public API
@@ -451,8 +561,8 @@ class MultiLayerNetwork:
         one optimizer step per batch."""
         return fit_batches(
             self, data, labels, epochs,
-            lambda x, y: self._train_step(x, y, None, None),
-            lambda ds: self._train_step(
+            lambda x, y: self._fit_batch(x, y, None, None),
+            lambda ds: self._fit_batch(
                 ds.getFeatures(), ds.getLabels(),
                 _unwrap(ds.getFeaturesMaskArray(), self.device),
                 _unwrap(ds.getLabelsMaskArray(), self.device)))
@@ -469,15 +579,13 @@ class MultiLayerNetwork:
     def pretrainLayer(self, layerIdx, data, epochs=1):
         raise _later("layerwise pretraining", "nn-conf slice, item 4")
 
-    def rnnTimeStep(self, x):
-        raise _later("rnnTimeStep", "recurrent slice, item 8")
-
     def output(self, x, train=False):
         """The output layer's activations as an ``INDArray`` (inference
         mode: BN uses its running statistics)."""
         self._require_init()
         with torch.no_grad():
-            h, _ = self._run_layers(self._params, self._states, x, False,
+            h, _ = self._run_layers(self._params,
+                                    strip_carries(self._states), x, False,
                                     None)
         last = self.layers[-1]
         return INDArray(_out_act(last, h)
@@ -492,6 +600,7 @@ class MultiLayerNetwork:
             h = self._entry(x)
             B = h.shape[0]
             acts = [h]
+            states = strip_carries(self._states)
             for i, layer in enumerate(self.layers):
                 pp = self.conf.preprocessors.get(i)
                 if pp is not None:
@@ -500,8 +609,7 @@ class MultiLayerNetwork:
                     h = pp.preProcess(h, None)
                 p = cast_params(self._params[i], self._compute_dtype,
                                 self._param_dtype)
-                h, _ = layer.forward(p, self._states[i], h, False, None,
-                                     None)
+                h, _ = layer.forward(p, states[i], h, False, None, None)
                 acts.append(h)
         return [INDArray(to_api_layout(a, self._api_nhwc)) for a in acts]
 
@@ -539,6 +647,103 @@ class MultiLayerNetwork:
         for (i, k, t), g in zip(flat, gs):
             grads[i][k] = torch.zeros_like(t) if g is None else g
         return grads, float(loss.detach())
+
+    # ------------------------------------------------------------------
+    # stateful and slot-batched stepping (serving/sequence.py)
+    # ------------------------------------------------------------------
+    def _step(self, params, states, x):
+        """The inference forward from carried states, rows padded with
+        zeros to a multiple of STEP_ROWS and cut back after: (the output
+        layer's activations, or the last layer's output, for the real
+        rows; the new states, carries cut to those rows)."""
+        B = x.shape[0]
+        pad = (-B) % STEP_ROWS
+
+        def grow(t):
+            return torch.cat([t, t.new_zeros((pad,) + t.shape[1:])]) \
+                if pad else t
+
+        x = grow(_unwrap(x, self.device))
+        states = [map_carries(grow, s) for s in states]
+        h, new_states = self._run_layers(params, states, x, False, None)
+        last = self.layers[-1]
+        if isinstance(last, L.BaseOutputLayer):
+            h = _out_act(last, h)
+        return h[:B], [map_carries(lambda t: t[:B], s) for s in new_states]
+
+    def rnnTimeStep(self, x):
+        """Stateful inference for generation (reference:
+        MultiLayerNetwork.rnnTimeStep): x is [B, F, T] or one step [B, F]
+        (answered in 2-d); each call starts from the carries the last one
+        left (the layers' stripped states after rnnClearPreviousState)."""
+        self._require_init()
+        x = _unwrap(x, self.device)
+        squeeze = x.dim() == 2
+        if squeeze:
+            x = x[:, :, None]
+        states = self._rnn_state if self._rnn_state is not None \
+            else strip_carries(self._states)
+        with torch.no_grad():
+            h, self._rnn_state = self._step(self._params, states, x)
+        if squeeze and h.dim() == 3:
+            h = h[:, :, 0]
+        return INDArray(h)
+
+    def rnnClearPreviousState(self):
+        self._rnn_state = None
+
+    def rnnCarrySpec(self):
+        """Per-layer carry keys for the stepwise path: ("h", "c") for the
+        LSTMs, ("h",) for SimpleRnn/GRU, () for the rest. Raises for a
+        layer that wraps its recurrent state (Bidirectional needs the
+        whole sequence) and for a net with no recurrent layer."""
+        spec = []
+        for i, layer in enumerate(self.layers):
+            if isinstance(layer, (R.Bidirectional, R.LastTimeStep)):
+                raise ValueError(
+                    f"layer {i} ({type(layer).__name__}) wraps its "
+                    "recurrent state: stepwise decode needs causal flat "
+                    "h/c carries (LSTM/GravesLSTM/SimpleRnn/GRU)")
+            if isinstance(layer, R.LSTM):
+                spec.append(("h", "c"))
+            elif isinstance(layer, R.BaseRecurrentLayer):
+                spec.append(("h",))
+            else:
+                spec.append(())
+        if not any(spec):
+            raise ValueError(
+                "no recurrent layers: nothing carries state between "
+                "steps, so there is nothing to serve stepwise")
+        return tuple(spec)
+
+    def rnnCarryZeros(self, batch):
+        """Zero carries, [batch, nOut] per carry key in the compute dtype
+        on the network's device: the state a fresh sequence starts
+        from."""
+        return [{k: torch.zeros((int(batch), int(layer.nOut)),
+                                dtype=self._compute_dtype,
+                                device=self.device) for k in keys}
+                for keys, layer in zip(self.rnnCarrySpec(), self.layers)]
+
+    def _rnn_step(self, params, states, carries, x):
+        """A pure single-timestep forward: x [S, F], carries shaped as
+        rnnCarrySpec, [S, H] each. Returns (out [S, O], new carries); no
+        ``_rnn_state`` is touched, and rows are independent."""
+        spec = self.rnnCarrySpec()
+        run = [{**st, **c} for st, c in zip(states, carries)]
+        h, new_states = self._step(params, run, x[:, :, None])
+        return h[:, :, 0] if h.dim() == 3 else h, \
+            [{k: s[k] for k in keys} for keys, s in zip(spec, new_states)]
+
+    def rnnStepBatched(self, x, carries):
+        """One decode step for a slot batch: x [S, F] (tensor or numpy),
+        carries from rnnCarryZeros or the last step. Returns (out [S, O]
+        tensor in the compute dtype, new carries)."""
+        self._require_init()
+        with torch.no_grad():
+            return self._rnn_step(self._params,
+                                  strip_carries(self._states), carries,
+                                  _unwrap(x, self.device))
 
     def numParams(self) -> int:
         return sum(t.numel() for p in self._params for t in p.values())

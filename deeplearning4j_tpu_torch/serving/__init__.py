@@ -1,5 +1,5 @@
-"""The port's serving tier: paged-KV token generation behind a model
-host and an HTTP server."""
+"""The port's serving tier: paged-KV token generation and carry-slot
+recurrent sequences behind a model host and an HTTP server."""
 
 from deeplearning4j_tpu_torch.serving.host import ModelHost, ServedSequenceModel
 from deeplearning4j_tpu_torch.serving.kvcache import (
@@ -13,7 +13,8 @@ from deeplearning4j_tpu_torch.serving.sampling import (
     greedy_sampler, stream_rng, temperature_sampler,
 )
 from deeplearning4j_tpu_torch.serving.sequence import (
-    GenerationRequest, PagedSequenceScheduler,
+    GenerationRequest, PagedSequenceScheduler, SequenceRequest,
+    SequenceScheduler, greedy_onehot_feedback,
 )
 from deeplearning4j_tpu_torch.serving.server import InferenceServer
 
@@ -21,4 +22,5 @@ __all__ = ["ModelHost", "ServedSequenceModel", "KVCacheFullError",
            "PagedKVCache", "DeadlineExceededError", "ManualClock",
            "QueueFullError", "RequestCancelledError", "ServingClosedError",
            "greedy_sampler", "stream_rng", "temperature_sampler",
-           "GenerationRequest", "PagedSequenceScheduler", "InferenceServer"]
+           "GenerationRequest", "PagedSequenceScheduler", "SequenceRequest",
+           "SequenceScheduler", "greedy_onehot_feedback", "InferenceServer"]

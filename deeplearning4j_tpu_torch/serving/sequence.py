@@ -1,30 +1,66 @@
-"""Iteration-level KV-slot scheduling for a paged-attention LM.
+"""Iteration-level slot scheduling for stateful models.
 
-The counterpart of the paged half of ``deeplearning4j_tpu/serving/
-sequence.py``: ``PagedSequenceScheduler`` keeps a slot table of live
-generations whose per-slot state is KV in a bounded ``PagedKVCache``.
-Every iteration it expires deadlines, refills free slots from a bounded
-FIFO (adopting registered prompt prefixes copy-on-write), runs at most
-ONE page-sized prefill chunk (a long prompt never stalls the running
-batch) and one slot-batched decode step over every fully-prefilled
-slot, padded to a slot bucket.
+The counterpart of ``deeplearning4j_tpu/serving/sequence.py``. Both
+schedulers keep a slot table of live sequences, refill free slots from a
+bounded FIFO at every iteration boundary and step every live slot once
+per iteration, padded to a slot bucket (``DEFAULT_SLOT_BUCKETS``). What
+they share (the FIFO and its ``QueueFullError``, per-step deadlines,
+``poll``/``drain`` under an injectable clock, the background loop,
+``stats``/``occupancy`` and ``close``) lives in ``_SlotScheduler``.
 
-Host/device traffic per step: the decode's token ids, sequence lengths
-and block tables are staged in one per-bucket (pinned, on the card)
-host buffer and copied to the device once; the logits come back with
-one device-to-host copy, which also orders the next step's staging
-writes after this step's copy. Sampling is host-side per request with a
-``stream_rng(sampler_seed, stream_id)`` stream, stream ids in submit
-order, so generation is deterministic per (seed, stream) and the paged
-path is bitwise the serial dense trajectory within one bucket.
+``SequenceScheduler`` serves a recurrent ``MultiLayerNetwork`` (LSTM,
+GravesLSTM, SimpleRnn, GRU): per-step feature rows in, per-step output
+rows out. Each layer's carries live on the network's device as
+``[max_slots + 1, H]`` tensors in the compute dtype, one row per slot and
+a last row that stays zero. Every iteration copies the step's input rows
+and slot indices over in one staging copy each, gathers the live rows'
+carries by slot index (the zero row pads the bucket), runs ONE
+``MultiLayerNetwork.rnnStepBatched``, scatters the new carries back by
+slot index on the device and copies the ``[S, O]`` output to the host
+once, for the results and the feedback. ``admission="step"`` refills
+free slots every iteration; ``"gang"`` admits only into an empty table,
+the run-to-completion baseline. A request may ask for ``extra_steps``
+past its prompt; each then consumes ``feedback(last_output_row)``
+(``greedy_onehot_feedback`` for a char-RNN).
 
-``warm()`` builds the kernels and runs one decode per slot bucket plus
-one prefill chunk, so the first request never waits on ``nvcc``. The
-clock is injectable (``queue.ManualClock``) and ``poll()``/``drain()``
-drive the scheduler without its thread (``start_thread=False``).
+The serving contract. The reference claims per-slot outputs bitwise
+equal to serial batch-1 ``rnnTimeStep``; that does not hold, not even in
+the reference: its own test fails by 1.49e-8 (8.2e-8 relative) on 2 of
+25 elements, because a product's rounding depends on how many rows it
+has, and cuBLAS, like XLA, picks its algorithm by the row count. What
+the port holds:
 
-The carry-slot ``SequenceScheduler`` of the reference (recurrent
-models) is not ported yet.
+* per-slot output within rtol 1e-6 / atol 1e-7 of serial batch-1
+  ``rnnTimeStep`` in f32, within 1 bf16 ulp in bf16;
+* bitwise where it is structural: the same submissions at the same
+  buckets give bitwise-equal results run after run, and ``"step"`` and
+  ``"gang"`` admission give the same per-request outputs within the
+  tolerance above;
+* exact counts: Σ live slots over all dispatches = Σ steps served, and
+  gang needs at least 2x the dispatches of step on a straggler-skewed
+  mix.
+
+The stepping path pads its rows to a multiple of 8
+(``multilayer.STEP_ROWS``), so buckets up to 8 and a batch-1
+``rnnTimeStep`` run the same product shapes.
+
+``PagedSequenceScheduler`` serves a paged-attention LM: its per-slot
+state is KV in a bounded ``PagedKVCache``. Every iteration it also runs
+at most ONE page-sized prefill chunk (a long prompt never stalls the
+running batch), adopting registered prompt prefixes copy-on-write. The
+decode's token ids, sequence lengths and block tables are staged in one
+per-bucket host buffer (pinned on the card) and copied over once; the
+logits come back with one device-to-host copy, which also orders the
+next step's staging writes after this step's copy. Sampling is
+host-side per request with a ``stream_rng(sampler_seed, stream_id)``
+stream, stream ids in submit order, so generation is deterministic per
+(seed, stream) and bitwise the serial dense trajectory within one
+bucket.
+
+``warm()`` runs one step per slot bucket (the paged one builds its
+kernels first and runs a prefill chunk), so the first request never
+waits. With ``start_thread=False`` and a ``queue.ManualClock``,
+``poll()``/``drain()`` drive a scheduler deterministically.
 """
 
 from __future__ import annotations
@@ -50,13 +86,14 @@ from deeplearning4j_tpu_torch.serving.sampling import (
     greedy_sampler, stream_rng,
 )
 
-__all__ = ["GenerationRequest", "PagedSequenceScheduler",
+__all__ = ["SequenceRequest", "SequenceScheduler", "GenerationRequest",
+           "PagedSequenceScheduler", "greedy_onehot_feedback",
            "DEFAULT_SLOT_BUCKETS"]
 
 #: unique default metric label for anonymous schedulers
 _SCHED_SEQ = itertools.count(1)
 
-#: default slot-count buckets: one padded decode shape per bucket
+#: default slot-count buckets: one padded step shape per bucket
 DEFAULT_SLOT_BUCKETS = (1, 2, 4, 8)
 
 #: the stats keys the dict view carries
@@ -125,43 +162,289 @@ def _seq_metrics(reg, name):
             buckets=(0.25, 0.5, 0.75, 1.0)).labels(**lab),
         "ttft": reg.histogram(
             "dl4j_seq_ttft_seconds",
-            "enqueue to first sampled token, per sequence",
+            "enqueue to first output (row or sampled token), per "
+            "sequence",
             labels=("model",)).labels(**lab),
     }
 
 
-class GenerationRequest:
-    """One token-prompt generation request on the KV-slot path.
+def greedy_onehot_feedback(vocab):
+    """The feedback of a one-hot token model: argmax the output row and
+    feed the matching one-hot row back as the next input (greedy
+    char-RNN sampling; deterministic)."""
+    eye = np.eye(int(vocab), dtype=np.float32)
 
-    The prompt is consumed in page-sized prefill chunks; generation then
-    appends one token per decode iteration until ``max_new`` tokens have
-    been sampled. ``pages``/``block_row``/``seq_len`` are the slot's KV
-    state (owned page ids, logical-block -> physical-page row, live KV
-    rows). ``wait`` blocks for the result, raises the request's error,
-    or raises DeadlineExceededError when `timeout` passes first."""
+    def feedback(out_row):
+        return eye[int(np.argmax(out_row))]
 
-    __slots__ = ("tokens", "max_new", "sampler", "rng", "stream_id",
-                 "enqueued_at", "deadline", "started_at", "prefilled",
-                 "seq_len", "pages", "block_row", "out_tokens",
-                 "logits_rows", "logits", "result", "error", "_event")
+    return feedback
 
-    def __init__(self, tokens, enqueued_at, deadline=None, max_new=1,
-                 sampler=None, rng=None, stream_id=0):
-        self.tokens = tokens                # [T] int32 prompt
-        self.max_new = int(max_new)
-        self.sampler = sampler
-        self.rng = rng
-        self.stream_id = int(stream_id)
+
+class _SlotScheduler:
+    """What both slot schedulers share: the bounded FIFO, the slot table
+    and its per-step deadlines, the ways to run it (``poll``, ``drain``, the
+    background loop), the counters and ``close``. A subclass builds its
+    state, then calls ``_start``; it implements ``_iterate_locked`` (one
+    iteration, under the step lock) and ``_warm`` (one step per bucket),
+    and may release a request's resources in ``_release_req`` and its
+    own in ``_teardown``."""
+
+    #: what a mid-flight expiry or close interrupted
+    _MID = "mid-sequence"
+
+    def __init__(self, model, slot_buckets, queue_limit, clock, name):
+        if int(queue_limit) < 1:
+            raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
+        self.model = model
+        buckets = slot_buckets or DEFAULT_SLOT_BUCKETS
+        self.slot_buckets = tuple(sorted(int(b) for b in buckets))
+        if self.slot_buckets[0] < 1:
+            raise ValueError(f"slot buckets must be >= 1, got {buckets}")
+        self.max_slots = self.slot_buckets[-1]
+        self.queue_limit = int(queue_limit)
+        self.clock = clock if clock is not None else time.monotonic
+        self.name = str(name) if name else f"seq{next(_SCHED_SEQ)}"
+        self.device = model.device
+        self._cond = threading.Condition()
+        # one iteration at a time: the background loop and a draining
+        # close() must never both step the same slot table
+        self._step_lock = threading.Lock()
+        self._pending = deque()
+        self._active = []                   # the slot table
+        self._staging = {}                  # S -> reused staging buffers
+        #: host bytes served from the staging pool instead of fresh
+        #: buffers (the alloc-reduction record)
+        self.staging_reuse_bytes = 0
+        self._closed = False
+        #: (live_slots, bucket) per step dispatch
+        self.occupancy = []
+        self._registry = telemetry.get_registry()
+        self._m = _seq_metrics(self._registry, self.name)
+        self._thread = None
+        self._warm_asks = []                # warm() calls for the thread
+
+    def _start(self, start_thread):
+        if start_thread:
+            self._thread = threading.Thread(target=self._loop, daemon=True)
+            self._thread.start()
+
+    def _enqueue(self, make_req):
+        """Queue the request `make_req()` builds (called under the lock,
+        once the closed and queue-full checks pass)."""
+        with self._cond:
+            if self._closed:
+                raise ServingClosedError("sequence scheduler is closed")
+            if len(self._pending) >= self.queue_limit:
+                self._m["rejected"].inc()
+                raise QueueFullError(
+                    f"sequence queue full ({len(self._pending)} waiting, "
+                    f"queueLimit={self.queue_limit})")
+            req = make_req()
+            self._pending.append(req)
+            self._m["sequences"].inc()
+            self._m["depth"].set(len(self._pending))
+            self._cond.notify()
+        return req
+
+    # -- the slot table (lock held) -------------------------------------
+    def _release_req(self, req):
+        """Free what a request holds when it leaves the table."""
+
+    def _drop_locked(self, reqs):
+        """Take `reqs` out of the table, releasing what they hold."""
+        for req in reqs:
+            self._release_req(req)
+        gone = set(map(id, reqs))
+        self._active = [r for r in self._active if id(r) not in gone]
+        self._m["active"].set(len(self._active))
+
+    def _expire_locked(self, now):
+        """Fail every sequence, queued or mid-flight, whose deadline has
+        passed; a mid-flight expiry frees its slot this iteration."""
+        keep = deque()
+        for req in self._pending:
+            if req.deadline is not None and now >= req.deadline:
+                self._m["expired"].inc()
+                req.fail(DeadlineExceededError(
+                    f"deadline passed {now - req.deadline:.3f}s before "
+                    "a slot was granted"))
+            else:
+                keep.append(req)
+        self._pending = keep
+        late = [r for r in self._active
+                if r.deadline is not None and now >= r.deadline]
+        for req in late:
+            self._m["expired"].inc()
+            req.fail(DeadlineExceededError(
+                f"deadline passed at {req.progress()} — slot released "
+                f"{self._MID}"))
+        self._drop_locked(late)
+        self._m["depth"].set(len(self._pending))
+
+    def bucket_for(self, n):
+        """Smallest slot bucket >= n live slots."""
+        for b in self.slot_buckets:
+            if n <= b:
+                return b
+        return self.slot_buckets[-1]
+
+    def _fail_batch(self, batch, exc):
+        """A step failed: fail every request it carried."""
+        with self._cond:
+            self._m["errors"].inc(len(batch))
+            for req in batch:
+                req.fail(exc)
+            self._drop_locked(batch)
+
+    # -- running the iterations ---------------------------------------
+    def _step_once(self):
+        with self._step_lock:
+            return self._iterate_locked()
+
+    def poll(self):
+        """One synchronous scheduler iteration (the thread-less test
+        seam). Returns the progress count — 0 means idle."""
+        return self._step_once()
+
+    def drain(self):
+        """Run iterations until the table AND queue are empty (deadlines
+        still expire per step on the clock)."""
+        while self._step_once():
+            pass
+        return self
+
+    def warm(self):
+        """Run one step per slot bucket (``_warm``) so the first request
+        is served hot, and return its report. A threaded scheduler warms
+        on its own thread: the first steps a thread runs on the card
+        carry a one-time set-up, which would otherwise land on the first
+        requests' time to first output."""
+        if self._thread is None or self._thread is threading.current_thread():
+            return self._warm()
+        ask = {"done": threading.Event()}
+        with self._cond:
+            if self._closed:            # the loop may have returned
+                ask = None
+            else:
+                self._warm_asks.append(ask)
+                self._cond.notify()
+        if ask is None:
+            return self._warm()
+        ask["done"].wait()
+        if "error" in ask:
+            raise ask["error"]
+        return ask["report"]
+
+    def _answer_warm_asks(self, asks):
+        for ask in asks:
+            try:
+                ask["report"] = self._warm()
+            except Exception as e:
+                ask["error"] = e
+            finally:
+                ask["done"].set()
+
+    def _loop(self):
+        while True:
+            with self._cond:
+                asks, self._warm_asks = self._warm_asks, []
+                if not asks:
+                    if self._closed and not self._pending \
+                            and not self._active:
+                        return
+                    if not self._pending and not self._active:
+                        self._cond.wait(0.05)
+                        continue
+            if asks:
+                self._answer_warm_asks(asks)
+                continue
+            try:
+                self._step_once()
+            except Exception as e:
+                # a scheduler bug must release every waiter, never
+                # leave them blocked on a dead thread
+                self._fail_all(e)
+
+    def _fail_all(self, exc):
+        with self._cond:
+            n = len(self._pending) + len(self._active)
+            if n:
+                self._m["errors"].inc(n)
+            while self._pending:
+                self._pending.popleft().fail(exc)
+            for req in self._active:
+                req.fail(exc)
+            self._drop_locked(list(self._active))
+            self._m["depth"].set(0)
+
+    # -- introspection / lifecycle --------------------------------------
+    @property
+    def depth(self):
+        """Sequences waiting for a slot."""
+        with self._cond:
+            return len(self._pending)
+
+    @property
+    def active_slots(self):
+        with self._cond:
+            return len(self._active)
+
+    @property
+    def stats(self):
+        """Dict view over the registry counters (dl4j_seq_*)."""
+        return {k: int(self._m[k].value) for k in _STAT_KEYS}
+
+    def occupancy_summary(self):
+        """Mean live slots per bucket and its quartile histogram over
+        every step so far."""
+        return occupancy_summary_from(self.occupancy, "mean_live_slots")
+
+    def _teardown(self):
+        """Release the scheduler's own resources at close."""
+
+    def close(self, drain=True):
+        """Stop accepting. drain=True serves everything queued or
+        mid-flight to completion; drain=False fails them with
+        ServingClosedError."""
+        with self._cond:
+            self._closed = True
+            if not drain:
+                while self._pending:
+                    self._pending.popleft().fail(
+                        ServingClosedError("scheduler closed before "
+                                           "a slot was granted"))
+                for req in self._active:
+                    req.fail(ServingClosedError(
+                        f"scheduler closed {self._MID}"))
+                self._drop_locked(list(self._active))
+                self._m["depth"].set(0)
+            self._cond.notify_all()
+        if drain:
+            self.drain()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+        self._teardown()
+        reg = self._registry
+        for metric in _SEQ_METRIC_FAMILIES:
+            fam = reg.get(metric)
+            if fam is not None:
+                fam.remove(model=self.name)
+        return self
+
+
+class _Request:
+    """A queued request's outcome: ``finish``/``fail`` release ``wait``,
+    which returns the result, raises the request's error, or raises
+    DeadlineExceededError when `timeout` passes first."""
+
+    __slots__ = ("enqueued_at", "deadline", "started_at", "result",
+                 "error", "_event")
+
+    def __init__(self, enqueued_at, deadline):
         self.enqueued_at = float(enqueued_at)
         self.deadline = None if deadline is None else float(deadline)
-        self.started_at = None
-        self.prefilled = 0                  # prompt tokens with KV live
-        self.seq_len = 0                    # total KV rows live
-        self.pages = []                     # owned page ids (in order)
-        self.block_row = None               # [MP] int32
-        self.out_tokens = []                # sampled tokens, in order
-        self.logits_rows = []               # fp32 [V] per sampled token
-        self.logits = None                  # stacked at finish
+        self.started_at = None              # admission time
         self.result = None
         self.error = None
         self._event = threading.Event()
@@ -171,8 +454,6 @@ class GenerationRequest:
         return self._event.is_set()
 
     def finish(self, result):
-        self.logits = (np.stack(self.logits_rows, axis=0)
-                       if self.logits_rows else None)
         self.result = result
         self._event.set()
 
@@ -181,7 +462,6 @@ class GenerationRequest:
         self._event.set()
 
     def wait(self, timeout=None):
-        """Block for the sampled token ids [max_new] (int64)."""
         if not self._event.wait(timeout):
             raise DeadlineExceededError(f"no result within {timeout:.3f}s")
         if self.error is not None:
@@ -189,12 +469,314 @@ class GenerationRequest:
         return self.result
 
 
-class PagedSequenceScheduler:
+class SequenceRequest(_Request):
+    """One sequence: prompt features [T, F] consumed one timestep per
+    iteration, then ``extra_steps`` generation steps, each consuming
+    ``feedback(last output row)``. The result is the stacked per-step
+    output [T + extra_steps, O] (float32; a bf16 model's values widened
+    exactly)."""
+
+    __slots__ = ("features", "steps", "extra_steps", "feedback",
+                 "steps_done", "outputs", "slot")
+
+    def __init__(self, features, enqueued_at, deadline=None,
+                 extra_steps=0, feedback=None):
+        super().__init__(enqueued_at, deadline)
+        self.features = features            # [T, F] float32
+        self.steps = int(features.shape[0]) + int(extra_steps)
+        self.extra_steps = int(extra_steps)
+        self.feedback = feedback
+        self.steps_done = 0
+        self.outputs = []                   # per-step [O] rows
+        self.slot = None                    # carry row while admitted
+
+    def progress(self):
+        return f"step {self.steps_done}/{self.steps}"
+
+    def next_input(self):
+        """The feature row this sequence consumes at its next step."""
+        t = self.steps_done
+        if t < self.features.shape[0]:
+            return self.features[t]
+        if self.feedback is None:
+            raise RuntimeError(
+                "generation step with no feedback fn (extra_steps > 0 "
+                "needs a request- or scheduler-level feedback)")
+        return self.feedback(self.outputs[-1])
+
+
+class SequenceScheduler(_SlotScheduler):
+    """Iteration-level carry-slot scheduler over one recurrent
+    ``MultiLayerNetwork`` (module docstring).
+
+    model:        an initialized network with at least one recurrent
+                  layer (validated eagerly by ``rnnCarrySpec``).
+    slot_buckets: the step's padded slot counts; the largest is the
+                  table's capacity.
+    queue_limit:  bound on WAITING sequences (QueueFullError past it).
+    admission:    "step" (refill free slots every iteration) or "gang"
+                  (refill only an empty table, the run-to-completion
+                  baseline).
+    feedback:     scheduler-level generation feedback, out_row [O] ->
+                  next input row [F]; a request's own overrides it.
+    clock/start_thread/name: inject a ManualClock and drive ``poll()``/
+                  ``drain()`` with no thread for deterministic tests.
+    """
+
+    def __init__(self, model, *, slot_buckets=None, queue_limit=64,
+                 admission="step", feedback=None, clock=None,
+                 start_thread=True, name=None):
+        if admission not in ("step", "gang"):
+            raise ValueError(
+                f"admission must be 'step' (iteration-level) or 'gang' "
+                f"(run-to-completion baseline), got {admission!r}")
+        spec = model.rnnCarrySpec()          # validates the net, eagerly
+        super().__init__(model, slot_buckets, queue_limit, clock, name)
+        self._spec = spec
+        self.admission = admission
+        self.feedback = feedback
+        self.feature_size = int(model.conf.inputType.size)
+        #: the carries' dtype: the model's compute dtype
+        self._carry_dtype = model._compute_dtype
+        # per layer and key, one row per slot plus the zero pad row
+        self._carries = [
+            {k: torch.zeros((self.max_slots + 1, int(layer.nOut)),
+                            dtype=self._carry_dtype, device=self.device)
+             for k in keys}
+            for keys, layer in zip(spec, model.layers)]
+        self._free = list(range(self.max_slots))
+        self._start(start_thread)
+
+    def submit(self, features, deadline=None, extra_steps=0,
+               feedback=None, wait=True, timeout=None):
+        """Enqueue one sequence of per-step features [T, F] (T >= 1).
+
+        deadline: absolute time on this scheduler's clock, checked at
+        every step boundary, queued or mid-flight. extra_steps: closed-
+        loop generation steps past the prompt (needs a feedback fn).
+        wait=True blocks for the stacked [T + extra_steps, O] result;
+        False returns the SequenceRequest."""
+        features = np.asarray(features, np.float32)
+        if features.ndim != 2 or features.shape[0] < 1:
+            raise ValueError(
+                f"features must be [steps, {self.feature_size}] with "
+                f"steps >= 1, got shape {features.shape}")
+        if features.shape[1] != self.feature_size:
+            raise ValueError(
+                f"per-step feature width {features.shape[1]} does not "
+                f"match the model's {self.feature_size}")
+        fb = feedback if feedback is not None else self.feedback
+        if int(extra_steps) > 0 and fb is None:
+            raise ValueError(
+                "extra_steps > 0 needs a feedback fn (request- or "
+                "scheduler-level) to close the generation loop")
+        req = self._enqueue(lambda: SequenceRequest(
+            features, self.clock(), deadline, extra_steps=extra_steps,
+            feedback=fb))
+        return req.wait(timeout) if wait else req
+
+    # -- the slot table (lock held) -------------------------------------
+    def _release_req(self, req):
+        if req.slot is not None:
+            self._free.append(req.slot)
+            req.slot = None
+
+    def _refill_locked(self, now):
+        """Admit queued sequences into free slots, each slot's carry rows
+        zeroed: every iteration under "step", only into an empty table
+        under "gang"."""
+        if self.admission == "gang" and self._active:
+            return
+        midrun = any(r.steps_done > 0 for r in self._active)
+        while self._pending and len(self._active) < self.max_slots:
+            req = self._pending.popleft()
+            req.started_at = now
+            self._free.sort()
+            req.slot = self._free.pop(0)
+            for d in self._carries:
+                for c in d.values():
+                    c[req.slot].zero_()
+            self._active.append(req)
+            self._m["wait"].observe(now - req.enqueued_at)
+            if midrun:
+                self._m["refills"].inc()
+        self._m["depth"].set(len(self._pending))
+        self._m["active"].set(len(self._active))
+
+    # -- one iteration ----------------------------------------------------
+    def _staging_for(self, S):
+        """Per-bucket staging, allocated once and reused: the input rows
+        [S, F] and slot indices [S] on the host (pinned on the card) and
+        their device twins (the same tensors on the CPU)."""
+        st = self._staging.get(S)
+        if st is None:
+            pin = self.device.type == "cuda"
+            xh = torch.zeros((S, self.feature_size), dtype=torch.float32,
+                             pin_memory=pin)
+            ih = torch.zeros((S,), dtype=torch.int64, pin_memory=pin)
+            st = (xh, ih, xh.to(self.device), ih.to(self.device))
+            self._staging[S] = st
+        else:
+            self.staging_reuse_bytes += st[0].numel() * 4 \
+                + st[1].numel() * 8
+        return st
+
+    def _step_on_device(self, staging, n):
+        """Step a staged bucket: copy the rows and slot indices over,
+        gather the carries (pad rows read the zero row), ONE
+        ``rnnStepBatched``, scatter the live rows' new carries back.
+        Returns the live rows' output [n, O] as host float32."""
+        xh, ih, xd, idx = staging
+        if xd is not xh:
+            xd.copy_(xh, non_blocking=True)
+            idx.copy_(ih, non_blocking=True)
+        carries = [{k: c.index_select(0, idx) for k, c in d.items()}
+                   for d in self._carries]
+        out, new = self.model.rnnStepBatched(xd, carries)
+        live = idx[:n]
+        for d, nd in zip(self._carries, new):
+            for k, c in d.items():
+                c.index_copy_(0, live, nd[k][:n])
+        # the one device-to-host copy; it also orders the next step's
+        # staging writes after this step's host-to-device copies
+        return out[:n].float().cpu().numpy()
+
+    def _iterate_locked(self):
+        """One iteration: expire -> refill -> gather -> ONE step ->
+        scatter. Returns the live slots stepped (0 = idle)."""
+        with self._cond:
+            now = self.clock()
+            self._expire_locked(now)
+            self._refill_locked(now)
+            batch = list(self._active)
+        if not batch:
+            return 0
+        # next-input rows before the step: a raising or wrong-width
+        # feedback fails ITS request and frees the slot, never the loop
+        rows, bad = [], []
+        for req in batch:
+            try:
+                row = np.asarray(req.next_input(),
+                                 dtype=np.float32).reshape(-1)
+                if row.shape[0] != self.feature_size:
+                    raise ValueError(
+                        f"feedback row has width {row.shape[0]}, "
+                        f"model feature size is {self.feature_size}")
+                rows.append(row)
+            except Exception as e:
+                bad.append((req, e))
+        if bad:
+            with self._cond:
+                self._m["errors"].inc(len(bad))
+                for req, e in bad:
+                    req.fail(e)
+                self._drop_locked([r for r, _ in bad])
+            failed = {id(r) for r, _ in bad}
+            batch = [r for r in batch if id(r) not in failed]
+            if not batch:
+                return len(bad)     # progress: drain must not stall
+        n = len(batch)
+        S = self.bucket_for(n)
+        xh, ih, _, _ = self._staging_for(S)
+        x = xh.numpy()
+        x[:n] = np.stack(rows)
+        x[n:] = 0.0
+        ih.numpy()[:] = [r.slot for r in batch] + [self.max_slots] * (S - n)
+        t0 = self.clock()
+        self._m["dispatches"].inc()
+        self._m["slot_steps"].inc(n)
+        self._m["occupancy"].observe(n / S)
+        self.occupancy.append((n, S))
+        try:
+            fault_point("sequence.step", x)
+            out = self._step_on_device(self._staging[S], n)
+        except Exception as e:
+            self._fail_batch(batch, e)
+            return 0
+        finally:
+            self._registry.add_span(
+                "sequence.step", "serving", t0, self.clock() - t0,
+                model=self.name, slots=n, bucket=S)
+        now = self.clock()
+        finished = []
+        with self._cond:
+            for i, req in enumerate(batch):
+                if req.done:        # expired/failed between gather + now
+                    continue
+                req.outputs.append(out[i])
+                req.steps_done += 1
+                if req.steps_done == 1:
+                    self._m["ttft"].observe(now - req.enqueued_at)
+                if req.steps_done >= req.steps:
+                    finished.append(req)
+            if finished:
+                self._drop_locked(finished)
+                self._m["completed"].inc(len(finished))
+        for req in finished:        # release waiters outside the lock
+            req.finish(np.stack(req.outputs, axis=0))
+        return n
+
+    def _warm(self):
+        """One step per slot bucket on the zero row. Returns {bucket:
+        wall seconds}, each ending in the step's device-to-host copy."""
+        report = {}
+        with self._step_lock:
+            for S in self.slot_buckets:
+                t = time.perf_counter()
+                st = self._staging_for(S)
+                st[0].zero_()
+                st[1].fill_(self.max_slots)
+                self._step_on_device(st, 0)
+                report[int(S)] = time.perf_counter() - t
+        return report
+
+
+class GenerationRequest(_Request):
+    """One token-prompt generation request on the KV-slot path.
+
+    The prompt is consumed in page-sized prefill chunks; generation then
+    appends one token per decode iteration until ``max_new`` tokens have
+    been sampled; the result is the sampled token ids [max_new] (int64).
+    ``pages``/``block_row``/``seq_len`` are the slot's KV state (owned
+    page ids, logical-block -> physical-page row, live KV rows)."""
+
+    __slots__ = ("tokens", "max_new", "sampler", "rng", "stream_id",
+                 "prefilled", "seq_len", "pages", "block_row",
+                 "out_tokens", "logits_rows", "logits")
+
+    def __init__(self, tokens, enqueued_at, deadline=None, max_new=1,
+                 sampler=None, rng=None, stream_id=0):
+        super().__init__(enqueued_at, deadline)
+        self.tokens = tokens                # [T] int32 prompt
+        self.max_new = int(max_new)
+        self.sampler = sampler
+        self.rng = rng
+        self.stream_id = int(stream_id)
+        self.prefilled = 0                  # prompt tokens with KV live
+        self.seq_len = 0                    # total KV rows live
+        self.pages = []                     # owned page ids (in order)
+        self.block_row = None               # [MP] int32
+        self.out_tokens = []                # sampled tokens, in order
+        self.logits_rows = []               # fp32 [V] per sampled token
+        self.logits = None                  # stacked at finish
+
+    def progress(self):
+        return f"{len(self.out_tokens)}/{self.max_new} tokens"
+
+    def finish(self, result):
+        self.logits = (np.stack(self.logits_rows, axis=0)
+                       if self.logits_rows else None)
+        super().finish(result)
+
+
+class PagedSequenceScheduler(_SlotScheduler):
     """Iteration-level KV-slot scheduler over one paged-attention LM
     (``nn.transformer.CausalTransformerLM`` or any ``kind ==
     "paged_lm"`` model with the same step functions); see the module
     docstring. Pool exhaustion surfaces as the typed
     ``KVCacheFullError`` (429), never a hang."""
+
+    _MID = "mid-generation"
 
     def __init__(self, model, *, num_pages, slot_buckets=None,
                  queue_limit=64, sampler=None, sampler_seed=0,
@@ -204,49 +786,21 @@ class PagedSequenceScheduler:
             raise ValueError(
                 "PagedSequenceScheduler needs a paged LM "
                 f"(kind == 'paged_lm'), got {type(model).__name__}")
-        if int(queue_limit) < 1:
-            raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
-        self.model = model
+        super().__init__(model, slot_buckets, queue_limit, clock, name)
         self.vocab = int(model.vocab)
-        buckets = slot_buckets or DEFAULT_SLOT_BUCKETS
-        self.slot_buckets = tuple(sorted(int(b) for b in buckets))
-        if self.slot_buckets[0] < 1:
-            raise ValueError(f"slot buckets must be >= 1, got {buckets}")
-        self.max_slots = self.slot_buckets[-1]
-        self.queue_limit = int(queue_limit)
         self.sampler = sampler if sampler is not None else greedy_sampler()
         self.sampler_seed = int(sampler_seed)
         self.prefix_sharing = bool(prefix_sharing)
-        self.clock = clock if clock is not None else time.monotonic
-        self.name = str(name) if name else f"seq{next(_SCHED_SEQ)}"
-        self.device = model.device
         self.cache = PagedKVCache(
             n_layers=model.n_layers, n_heads=model.n_heads,
             head_dim=model.head_dim, page_size=model.page_size,
             num_pages=num_pages, dtype=model._compute_dtype,
             model=self.name, device=self.device)
         self._mp = int(model.max_pages_per_slot)
-        self._cond = threading.Condition()
-        self._step_lock = threading.Lock()
-        self._pending = deque()
-        self._active = []                   # the KV-slot table
-        self._staging = {}                  # S -> reused decode buffers
-        #: host bytes served from the staging pool instead of fresh
-        #: buffers (the alloc-reduction record)
-        self.staging_reuse_bytes = 0
         self._stream_ids = itertools.count(0)
-        self._closed = False
-        #: (live_decode_slots, bucket) per decode dispatch
-        self.occupancy = []
         #: prompt chunks prefilled (the interleave record)
         self.prefill_chunks = 0
-        reg = telemetry.get_registry()
-        self._registry = reg
-        self._m = _seq_metrics(reg, self.name)
-        self._thread = None
-        if start_thread:
-            self._thread = threading.Thread(target=self._loop, daemon=True)
-            self._thread.start()
+        self._start(start_thread)
 
     # -- submit ---------------------------------------------------------
     def submit(self, tokens, deadline=None, max_new_tokens=1,
@@ -281,26 +835,16 @@ class PagedSequenceScheduler:
                 f"sequence needs {self.cache.pages_for(total)} pages, "
                 f"pool capacity is {self.cache.capacity} — unservable "
                 f"at any load")
-        with self._cond:
-            if self._closed:
-                raise ServingClosedError("sequence scheduler is closed")
-            if len(self._pending) >= self.queue_limit:
-                self._m["rejected"].inc()
-                raise QueueFullError(
-                    f"sequence queue full ({len(self._pending)} waiting, "
-                    f"queueLimit={self.queue_limit})")
-            sid = next(self._stream_ids)
-            req = GenerationRequest(
+
+        def make_req():
+            sid = next(self._stream_ids)    # stream ids in submit order
+            return GenerationRequest(
                 tokens, self.clock(), deadline, max_new=max_new,
                 sampler=sampler if sampler is not None else self.sampler,
                 rng=stream_rng(self.sampler_seed, sid), stream_id=sid)
-            self._pending.append(req)
-            self._m["sequences"].inc()
-            self._m["depth"].set(len(self._pending))
-            self._cond.notify()
-        if wait:
-            return req.wait(timeout)
-        return req
+
+        req = self._enqueue(make_req)
+        return req.wait(timeout) if wait else req
 
     # -- scheduling core ------------------------------------------------
     def _release_req(self, req):
@@ -308,32 +852,6 @@ class PagedSequenceScheduler:
         if req.pages:
             self.cache.release(req.pages)
             req.pages = []
-
-    def _expire_locked(self, now):
-        keep = deque()
-        for req in self._pending:
-            if req.deadline is not None and now >= req.deadline:
-                self._m["expired"].inc()
-                req.fail(DeadlineExceededError(
-                    f"deadline passed {now - req.deadline:.3f}s before "
-                    "a slot was granted"))
-            else:
-                keep.append(req)
-        self._pending = keep
-        live = []
-        for req in self._active:
-            if req.deadline is not None and now >= req.deadline:
-                self._m["expired"].inc()
-                self._release_req(req)
-                req.fail(DeadlineExceededError(
-                    f"deadline passed at {len(req.out_tokens)}/"
-                    f"{req.max_new} tokens — slot released "
-                    "mid-generation"))
-            else:
-                live.append(req)
-        self._active = live
-        self._m["depth"].set(len(self._pending))
-        self._m["active"].set(len(self._active))
 
     def _refill_locked(self, now):
         """Admit queued prompts into free KV slots, adopting registered
@@ -364,21 +882,9 @@ class PagedSequenceScheduler:
         self._m["active"].set(len(self._active))
         return adopted_done
 
-    def bucket_for(self, n):
-        """Smallest slot bucket >= n live slots."""
-        for b in self.slot_buckets:
-            if n <= b:
-                return b
-        return self.slot_buckets[-1]
-
     def _fail_req(self, req, exc):
         """Fail one mid-flight request and free its slot + pages."""
-        self._release_req(req)
-        with self._cond:
-            self._m["errors"].inc()
-            req.fail(exc)
-            self._active = [r for r in self._active if r is not req]
-            self._m["active"].set(len(self._active))
+        self._fail_batch([req], exc)
 
     def _complete_prompt(self, req, last_logits):
         """The prompt is fully in KV: sample the first generated token
@@ -394,11 +900,9 @@ class PagedSequenceScheduler:
         return False
 
     def _finish_req(self, req):
-        self._release_req(req)
         with self._cond:
-            self._active = [r for r in self._active if r is not req]
+            self._drop_locked([req])
             self._m["completed"].inc()
-            self._m["active"].set(len(self._active))
         req.finish(np.asarray(req.out_tokens, np.int64))
 
     def _prefill_one(self, req):
@@ -517,14 +1021,7 @@ class PagedSequenceScheduler:
             fault_point("sequence.step", tok)
             out = self._decode_on_device(S, host, dev)
         except Exception as e:
-            with self._cond:
-                self._m["errors"].inc(len(ready))
-                for req in ready:
-                    self._release_req(req)
-                    req.fail(e)
-                self._active = [r for r in self._active
-                                if r not in ready]
-                self._m["active"].set(len(self._active))
+            self._fail_batch(ready, e)
             return 0
         finally:
             self._registry.add_span(
@@ -543,10 +1040,6 @@ class PagedSequenceScheduler:
         for req in finished:
             self._finish_req(req)
         return n
-
-    def _step_once(self):
-        with self._step_lock:
-            return self._iterate_locked()
 
     def _iterate_locked(self):
         """One iteration: expire -> refill (prefix adoption) -> at most
@@ -576,69 +1069,10 @@ class PagedSequenceScheduler:
             progress += self._decode_batch(decode)
         return progress
 
-    # -- running the iterations ---------------------------------------
-    def poll(self):
-        """One synchronous scheduler iteration (the thread-less test
-        seam). Returns the progress count — 0 means idle."""
-        return self._step_once()
-
-    def drain(self):
-        """Run iterations until the table AND queue are empty."""
-        while self._step_once():
-            pass
-        return self
-
-    def _loop(self):
-        while True:
-            with self._cond:
-                if self._closed and not self._pending \
-                        and not self._active:
-                    return
-                if not self._pending and not self._active:
-                    self._cond.wait(0.05)
-                    continue
-            try:
-                self._step_once()
-            except Exception as e:
-                self._fail_all(e)
-
-    def _fail_all(self, exc):
-        with self._cond:
-            n = len(self._pending) + len(self._active)
-            if n:
-                self._m["errors"].inc(n)
-            while self._pending:
-                self._pending.popleft().fail(exc)
-            for req in self._active:
-                self._release_req(req)
-                req.fail(exc)
-            self._active = []
-            self._m["depth"].set(0)
-            self._m["active"].set(0)
-
-    # -- introspection / lifecycle --------------------------------------
-    @property
-    def depth(self):
-        with self._cond:
-            return len(self._pending)
-
-    @property
-    def active_slots(self):
-        with self._cond:
-            return len(self._active)
-
-    @property
-    def stats(self):
-        """Dict view over the registry counters (dl4j_seq_*)."""
-        return {k: int(self._m[k].value) for k in _STAT_KEYS}
-
-    def occupancy_summary(self):
-        return occupancy_summary_from(self.occupancy, "mean_live_slots")
-
-    def warm(self):
+    def _warm(self):
         """Build the kernels (on the card) and run one decode per slot
-        bucket plus one prefill chunk against the null page, so the
-        first request is served hot. Returns {"build": s, bucket: s,
+        bucket plus one prefill chunk against the null page. Returns
+        {"build": s, bucket: s,
         "prefill": s} wall seconds, each ending in a device sync."""
         from deeplearning4j_tpu_torch.ops import _kernels
 
@@ -670,34 +1104,5 @@ class PagedSequenceScheduler:
             report["prefill"] = time.perf_counter() - t
         return report
 
-    def close(self, drain=True):
-        """Stop accepting. drain=True serves everything queued or
-        mid-flight to completion; drain=False fails them with
-        ServingClosedError and frees their pages."""
-        with self._cond:
-            self._closed = True
-            if not drain:
-                while self._pending:
-                    self._pending.popleft().fail(
-                        ServingClosedError("scheduler closed before "
-                                           "a slot was granted"))
-                for req in self._active:
-                    self._release_req(req)
-                    req.fail(ServingClosedError(
-                        "scheduler closed mid-generation"))
-                self._active = []
-                self._m["depth"].set(0)
-                self._m["active"].set(0)
-            self._cond.notify_all()
-        if drain:
-            self.drain()
-        if self._thread is not None:
-            self._thread.join(timeout=5.0)
-            self._thread = None
+    def _teardown(self):
         self.cache.close()
-        reg = self._registry
-        for metric in _SEQ_METRIC_FAMILIES:
-            fam = reg.get(metric)
-            if fam is not None:
-                fam.remove(model=self.name)
-        return self

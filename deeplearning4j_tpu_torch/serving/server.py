@@ -13,15 +13,17 @@ Routes:
 * ``GET /metrics`` — Prometheus text exposition of the registry.
 * ``GET /v1/models`` — the model policy table.
 * ``GET /v1/models/<name>`` — one model's policy row (404).
-* ``POST /v1/models/<name>:generate`` — body ``{"tokens": [...],
-  "maxNewTokens": optional, "deadlineMs": optional}`` ->
-  ``{"tokens": [...], "model": ..., "version": ..., "steps": n}``.
+* ``POST /v1/models/<name>:generate`` — a token prompt for a paged LM,
+  ``{"tokens": [...], "maxNewTokens": optional, "deadlineMs":
+  optional}`` -> ``{"tokens": [...], "model": ..., "version": ...,
+  "steps": n}``; or per-step features for a recurrent network,
+  ``{"steps": [[...], ...], "extraSteps": optional, "deadlineMs":
+  optional}`` -> ``{"outputs": [[...], ...], "model": ..., "version":
+  ..., "steps": n}`` through the carry-slot scheduler.
 
 Status contract: queue full or KV pool full -> 429, deadline exceeded
 -> 504, draining/closed -> 503, unknown model -> 404, malformed request
--> 400. A ``"steps"`` body (per-step features for a recurrent model)
-answers 400 until the recurrent slice, and ``:predict`` 404 until the
-one-shot slice.
+-> 400. ``:predict`` answers 404 until the one-shot slice.
 """
 
 from __future__ import annotations
@@ -88,31 +90,41 @@ class _InferenceHandler(JsonHandler):
         raise HttpError(404, f"no route {path}")
 
     def _handle_generate(self, host, name):
-        """POST :generate with a token prompt through the paged
-        scheduler; the deadline is honored per decode step."""
+        """POST :generate: a "tokens" prompt through the paged scheduler
+        or "steps" features through the carry-slot one; the deadline is
+        honored per step."""
         try:
             body = self._read_json_object()
         except ValueError as e:
             raise HttpError(400, str(e))
-        if "steps" in body:
-            raise HttpError(
-                400, 'a "steps" body (per-step features for a recurrent '
-                'model) is not served by this port yet; send "tokens"')
+        steps = body.get("steps")
         tokens = body.get("tokens")
-        if tokens is None:
-            raise HttpError(400, 'body must carry "tokens": [...]')
+        if steps is None and tokens is None:
+            raise HttpError(
+                400, 'body must carry "steps": [[...], ...] (feature '
+                'sequence) or "tokens": [...] (paged token prompt)')
         try:
             deadline_ms = body.get("deadlineMs")
             deadline_s = None if deadline_ms is None \
                 else float(deadline_ms) / 1000.0
             max_new = int(body.get("maxNewTokens", 1))
-            toks = np.asarray(tokens, dtype=np.int64)
+            extra = int(body.get("extraSteps", 0))
+            if tokens is not None:
+                toks = np.asarray(tokens, dtype=np.int64)
+            else:
+                feats = np.asarray(steps, dtype=np.float32)
         except (TypeError, ValueError, OverflowError) as e:
             raise HttpError(
-                400, f"tokens/deadlineMs/maxNewTokens malformed: {e}")
+                400, "tokens/steps/deadlineMs/maxNewTokens/extraSteps "
+                f"malformed: {e}")
         try:
-            out = host.generate(name, toks, deadline_s=deadline_s,
-                                max_new_tokens=max_new)
+            if tokens is not None:
+                out = host.generate(name, toks, deadline_s=deadline_s,
+                                    max_new_tokens=max_new)
+            else:
+                out = host.submit_sequence(name, feats,
+                                           deadline_s=deadline_s,
+                                           extra_steps=extra)
             sm = host.sequence_model(name)  # post-submit: live version
         except KeyError as e:
             raise HttpError(404, str(e))
@@ -125,6 +137,10 @@ class _InferenceHandler(JsonHandler):
         except ServingClosedError as e:
             raise HttpError(503, str(e))
         out = np.asarray(out)
+        if tokens is None:
+            return self._json({"outputs": out.tolist(), "model": sm.name,
+                               "version": sm.version,
+                               "steps": int(out.shape[0])})
         return self._json({"tokens": [int(t) for t in out],
                            "model": sm.name, "version": sm.version,
                            "steps": int(out.shape[0])})

@@ -1,6 +1,8 @@
-"""Zoo models: ``LeNet`` (a ``MultiLayerNetwork``) and ``ResNet50`` (a
-``ComputationGraph``)."""
+"""Zoo models: ``LeNet`` and ``TextGenerationLSTM`` (``MultiLayerNetwork``s)
+and ``ResNet50`` (a ``ComputationGraph``)."""
 
-from deeplearning4j_tpu_torch.zoo.models import LeNet, ResNet50, ZooModel
+from deeplearning4j_tpu_torch.zoo.models import (
+    LeNet, ResNet50, TextGenerationLSTM, ZooModel,
+)
 
-__all__ = ["ZooModel", "LeNet", "ResNet50"]
+__all__ = ["ZooModel", "LeNet", "ResNet50", "TextGenerationLSTM"]

@@ -1,8 +1,9 @@
 """Zoo model definitions.
 
 The counterpart of ``deeplearning4j_tpu/zoo/models.py`` for the headline
-CNNs: ``ZooModel``, ``LeNet`` (through ``MultiLayerNetwork``) and
-``ResNet50`` with the standard stem (through ``ComputationGraph``), with
+networks: ``ZooModel``, ``LeNet`` (through ``MultiLayerNetwork``),
+``ResNet50`` with the standard stem (through ``ComputationGraph``) and
+the char-RNN ``TextGenerationLSTM`` (through ``MultiLayerNetwork``), with
 the reference's architectures, defaults and layer names, so the
 reference's parameters carry across by name. ``dataType=BFLOAT16``
 computes in bf16 over fp32 master weights; ``dataFormat="NHWC"`` makes
@@ -24,14 +25,15 @@ from deeplearning4j_tpu_torch.nn.conf.graph import (
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
     ActivationLayer, BatchNormalization, ConvolutionLayer, DenseLayer,
-    GlobalPoolingLayer, OutputLayer, SubsamplingLayer,
+    GlobalPoolingLayer, OutputLayer, RnnOutputLayer, SubsamplingLayer,
 )
+from deeplearning4j_tpu_torch.nn.conf.recurrent import LSTM
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.nn.updaters import Adam, Nesterovs
 from deeplearning4j_tpu_torch.nn.weights import WeightInit
 
-__all__ = ["ZooModel", "LeNet", "ResNet50"]
+__all__ = ["ZooModel", "LeNet", "ResNet50", "TextGenerationLSTM"]
 
 
 class ZooModel:
@@ -191,3 +193,33 @@ class ResNet50(ZooModel):
         g.addLayer(f"{name}_relu", ActivationLayer(activation="relu"),
                    f"{name}_add")
         return f"{name}_relu"
+
+
+class TextGenerationLSTM(ZooModel):
+    """Reference: zoo.model.TextGenerationLSTM (a char-RNN): LSTM(256) ->
+    LSTM(256) -> RnnOutputLayer(softmax, MCXENT) over a one-hot vocab."""
+
+    def __init__(self, totalUniqueCharacters=77, maxLength=40, **kw):
+        kw.setdefault("numClasses", totalUniqueCharacters)
+        super().__init__(**kw)
+        self.vocab = totalUniqueCharacters
+        self.maxLength = maxLength
+
+    @staticmethod
+    def defaultInputShape():
+        return None
+
+    def conf(self):
+        return (NeuralNetConfiguration.Builder()
+                .seed(self.seed)
+                .updater(self.updater or Adam(2e-3))
+                .weightInit(WeightInit.XAVIER)
+                .dataType(self.dataType)
+                .list()
+                .layer(LSTM(nOut=256))
+                .layer(LSTM(nOut=256))
+                .layer(RnnOutputLayer(nOut=self.vocab, activation="softmax",
+                                      lossFunction="mcxent"))
+                .setInputType(InputType.recurrent(self.vocab,
+                                                  self.maxLength))
+                .build())

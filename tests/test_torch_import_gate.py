@@ -30,7 +30,7 @@ def test_gate_covers_the_port():
             "sequence.py", "server.py", "flash_attention.py", "attention.py",
             "graph.py", "layers.py", "updaters.py", "losses.py",
             "dtype.py", "conv.py", "pooling.py", "norm.py", "multilayer.py",
-            "dataset.py", "models.py"} <= names
+            "dataset.py", "models.py", "rnn.py", "recurrent.py"} <= names
     dirs = {p.parent.name for p in _SOURCES}
     assert {"ops", "nn", "conf", "data", "zoo", "serving"} <= dirs
     assert all(p.exists() for p in _SOURCES)

@@ -176,7 +176,7 @@ def test_multilayer_entry_points():
     with pytest.raises(TypeError, match="DataSetIterator"):
         net.fit(object())
     for call in (lambda: net.fitSteps(None), lambda: net.fitDataSet(None),
-                 lambda: net.pretrain(None), lambda: net.rnnTimeStep(None),
+                 lambda: net.pretrain(None),
                  lambda: P.NeuralNetConfiguration.Builder().optimizationAlgo(
                      "LBFGS")):
         with pytest.raises(NotImplementedError, match="slice"):
