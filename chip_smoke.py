@@ -197,16 +197,48 @@ Phases (any failure exits non-zero before the result line):
    x 8 (bench.py:1590): gang at least 2x the dispatches, refills only
    under step, outputs within 1 ulp of each other. K1-K5 launch no time in
    this phase: no TPU kernel lies on the recurrent path.
+13. data-parallel — BASELINE config 5 (the reference's "Spark
+   SharedTrainingMaster gradient-sharing ResNet-50"): zoo ResNet50 at
+   phase 9(b)'s settings (224^2, 1000 classes, bf16 over fp32 masters,
+   NHWC, Nesterovs(0.1, 0.9), deterministic cuDNN), batch 128 a rank,
+   through deeplearning4j_tpu_torch.parallel. (a) A real NCCL process
+   group (FileStore rendezvous) over the cards this process sees as one
+   rank: world 1 on a one-card machine, so every collective is NCCL's
+   world-1 kernel. SharedTrainingMaster in each mode, "int8" (its
+   default), None (dense), "block_int8" and "threshold" (tau 1e-3,
+   encodingCapacity 0.125), 20 steps on phase 9(b)'s batch: median step
+   ms of steps 3-20, images/s, peak memory, collectives and bytes a step
+   (payload and ring wire bytes) beside compressed_wire_bytes' bill, the
+   step against phase 9(b)'s. Checks: dense's 20 losses bitwise equal to
+   phase 9(b)'s ComputationGraph.fit trajectory (one rank's all-reduce is
+   a copy); each compressed mode's first exchange held to the port's
+   exchange functions run on the CPU on the card's own first gradient
+   (int8 lanes bitwise, the dequantized mean within 1 f32 ulp; threshold
+   mean and residual bitwise); every loss finite. (b) two ranks on the
+   one card over gloo (NCCL refuses two ranks on one device; gloo stages
+   CUDA tensors through the host, the backend's own staging, asked for
+   here): first an all-reduce of a CUDA tensor, which must succeed; then
+   parallel.dryrun.sync_bn_leg (a small BN CNN, f32): dense dp 2 with BN
+   synchronised over the ranks within SYNC_BN_F32_ATOL of fit on the
+   combined batch, and an int8 step's exchange within its grid (|mean -
+   exact mean| <= scale/254) of the exact mean of the ranks' gradients.
+   Threshold is not in this leg: gloo has no all-gather of CUDA tensors.
+   (c) with two or more cards only: (a)'s four modes at dp =
+   min(cards, 4) on NCCL ranks, images/s a rank and the scaling against
+   (a); on one card the line says it did not run. K1-K5 launch no time
+   in this phase.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
-launches are phase 7's plus phase 11's; phases 8-10 and 12 run no
+launches are phase 7's plus phase 11's; phases 8-10, 12 and 13 run no
 hand-written kernel: conv, dense and the recurrent products are
-cuDNN/cuBLAS calls, as the reference leaves them to XLA).
+cuDNN/cuBLAS calls, as the reference leaves them to XLA, and the
+data-parallel exchange is NCCL's or gloo's collectives).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -1140,13 +1172,14 @@ def encoder_batch(cfg, dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
 
 
-def fit_timed(net, x, y, steps):
-    """`steps` fit steps: (losses, host seconds of each step); each step
-    ends in the loss fetch, which syncs the device."""
+def fit_timed(net, x, y, steps, trainer=None):
+    """`steps` fit steps of `trainer` (default `net`): (losses, host
+    seconds of each step); each step ends in the loss fetch, which syncs
+    the device."""
     losses, step_s = [], []
     for _ in range(steps):
         t = time.perf_counter()
-        net.fit(x, y)
+        (trainer or net).fit(x, y)
         losses.append(net.score())
         step_s.append(time.perf_counter() - t)
     return losses, step_s
@@ -1448,6 +1481,20 @@ def resnet_forward_flops(conf, batch):
     return total
 
 
+def resnet_batch(dev, cfg, rows):
+    """Phase 9(b)'s seeded NHWC bf16 batch (`rows` rows) and one-hot
+    labels, on `dev`."""
+    import torch
+
+    n = cfg["image"]
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.rand(rows, n, n, 3).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    y = torch.from_numpy(np.eye(cfg["classes"], dtype=np.float32)[
+        rng.randint(0, cfg["classes"], rows)]).to(dev)
+    return x, y
+
+
 def resnet_timed(dev, cfg):
     """Phase 9(b): the reference's headline configuration, one fixed
     seeded batch resident on the card, cfg["steps"] fit steps."""
@@ -1463,12 +1510,8 @@ def resnet_timed(dev, cfg):
     net = resnet_net(dev, cfg, "BFLOAT16", dataFormat="NHWC",
                      updater=Nesterovs(0.1, 0.9))
     torch.cuda.synchronize()
-    B, n = cfg["batch"], cfg["image"]
-    rng = np.random.RandomState(SEED)
-    x = torch.from_numpy(rng.rand(B, n, n, 3).astype(np.float32)).to(
-        dev, torch.bfloat16)
-    y = torch.from_numpy(np.eye(cfg["classes"], dtype=np.float32)[
-        rng.randint(0, cfg["classes"], B)]).to(dev)
+    B = cfg["batch"]
+    x, y = resnet_batch(dev, cfg, B)
     log(f"resnet (b): {net.numParams()} params on {net.device}, built in "
         f"{time.perf_counter() - t:.2f} s; NHWC bf16 batch {tuple(x.shape)} "
         "resident on the card; cudnn.benchmark off, deterministic "
@@ -2553,6 +2596,268 @@ def char_rnn_serve(dev, net, cfg, scfg):
     return result
 
 
+# ----------------------------------------------------------------------
+# phase 13: BASELINE config 5, data-parallel ResNet-50 through NCCL
+# ----------------------------------------------------------------------
+
+#: SharedTrainingMaster's modes in the order phase 13 runs them ("int8"
+#: first: the master's default)
+DP_MODES = ("int8", None, "block_int8", "threshold")
+#: config 5's encoder knobs (bench.py's gradient-sharing defaults)
+DP_TAU, DP_CAPACITY = 1e-3, 0.125
+
+
+def dp_master(net, group, mode):
+    """SharedTrainingMaster over `group` in `mode`, as a user builds it."""
+    from deeplearning4j_tpu_torch.parallel import (
+        FixedThresholdAlgorithm, SharedTrainingMaster,
+    )
+
+    if mode == "int8":
+        return SharedTrainingMaster(net, mesh=group)
+    if mode == "threshold":
+        return SharedTrainingMaster(
+            net, mesh=group, encodingCapacity=DP_CAPACITY,
+            thresholdAlgorithm=FixedThresholdAlgorithm(DP_TAU))
+    return SharedTrainingMaster(net, mesh=group, gradient_compression=mode)
+
+
+def first_exchange(master):
+    """Wrap `master`'s gradient exchange so its first call keeps a copy
+    of its input and output leaves; returns the dict they land in."""
+    from deeplearning4j_tpu_torch.parallel.trainer import _leaves
+
+    seen = {}
+    exchange = master._exchange_grads
+
+    def spy(grads):
+        out = exchange(grads)
+        seen["in"] = [t.detach().clone() for t in _leaves(grads)]
+        seen["out"] = [t.detach().clone() for t in _leaves(out)]
+        if master._ef is not None:
+            seen["res"] = master._ef.clone()
+        del master._exchange_grads     # the class's method from step 2 on
+        return out
+
+    master._exchange_grads = spy
+    return seen
+
+
+def f32_ulps(got, want):
+    """The largest distance of f32 `got` from `want` in units of want's
+    f32 ulp (the spacing at each |want|)."""
+    import torch
+
+    gap = torch.nextafter(want.abs(), torch.tensor(float("inf")))
+    return float(((got - want).abs() / (gap - want.abs())).max())
+
+
+def plain_exchange(master, mode, seen):
+    """The mode's exchange functions on the CPU, on the card's first
+    gradient, against what the card's exchange gave (world 1 here: the
+    exchange is the plain arithmetic of one rank). Returns the checked
+    numbers; raises on a mismatch."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import DataGroup
+    from deeplearning4j_tpu_torch.parallel import sharding as sh
+
+    local = DataGroup()
+    cpu_in = [t.cpu() for t in seen["in"]]
+    card_out = [t.cpu() for t in seen["out"]]
+    if mode == "threshold":
+        zeros = torch.zeros(sum(t.numel() for t in cpu_in))
+        tau = torch.tensor(DP_TAU, dtype=torch.float32)
+        means, res, sent = sh.threshold_psum_mean(cpu_in, zeros, tau,
+                                                  DP_CAPACITY, local)
+        need(all(torch.equal(a, b) for a, b in zip(means, card_out))
+             and torch.equal(res, seen["res"].cpu()),
+             "dp threshold: the card's first exchange (mean or residual) "
+             "differs from the CPU's")
+        return {"mean_bitwise": True, "residual_bitwise": True,
+                "sent": int(sent),
+                "sent_share": int(sent) / sum(t.numel() for t in cpu_in)}
+    block = sh.DEFAULT_COMPRESSION_BLOCK
+    q_cpu, _, _ = sh._quantize(cpu_in, local, mode, block)
+    q_card, _, _ = sh._quantize(seen["in"], local, mode, block)
+    lanes_off = int((q_cpu != q_card.cpu()).sum())
+    need(lanes_off == 0, f"dp {mode}: {lanes_off} int8 lanes differ "
+         "between the card and the CPU")
+    means = sh.quantized_psum_mean(cpu_in, local, mode, block)
+    worst = max(f32_ulps(b.float(), a.float())
+                for a, b in zip(means, card_out))
+    need(worst <= 1.0, f"dp {mode}: the dequantized mean is {worst} ulps "
+         "from the CPU's")
+    return {"lanes": q_cpu.numel(), "lanes_off": 0, "mean_max_ulps": worst}
+
+
+def dp_train(dev, cfg, group, x, y, mode, plain_ms=None, check=True):
+    """One mode of phase 13 on this rank: a fresh config-5 net, 20 steps
+    through SharedTrainingMaster on the global batch (x, y); the first
+    exchange held to its plain version when `check`. Returns the
+    measurements (images/s of the global batch, and a rank's share)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.parallel import compressed_wire_bytes
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    net = resnet_net(dev, cfg, "BFLOAT16", dataFormat="NHWC",
+                     updater=Nesterovs(0.1, 0.9))
+    master = dp_master(net, group, mode)
+    seen = first_exchange(master) if check and mode is not None else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = fit_timed(net, x, y, cfg["steps"], trainer=master)
+    peak = torch.cuda.max_memory_allocated(dev)
+    name = mode or "dense"
+    need(all(math.isfinite(v) for v in losses),
+         f"dp {name}: non-finite loss: {losses}")
+    med = float(np.median(step_s[2:]))
+    grad_bytes = 4 * net.numParams()
+    bill = compressed_wire_bytes(grad_bytes, group.size, mode,
+                                 capacity=DP_CAPACITY)
+    out = {"mode": name, "world": group.size, "losses": losses,
+           "step_ms_median_3_on": med * 1e3,
+           "images_per_s": x.shape[0] / med,
+           "images_per_s_per_rank": x.shape[0] / group.size / med,
+           "max_memory_allocated_bytes": peak,
+           "collectives_per_step": master.last_step["collectives"],
+           "payload_bytes_per_step": master.last_step["payload_bytes"],
+           "wire_bytes_per_step": master.last_step["wire_bytes"],
+           "bill_wire_bytes": bill["wire_bytes"],
+           "bill_dense_wire_bytes": bill["dense_wire_bytes"]}
+    if plain_ms is not None:
+        out["step_over_phase9b"] = med * 1e3 / plain_ms
+    if seen is not None:
+        out["first_exchange"] = plain_exchange(master, mode, seen)
+    del net, master, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_nccl_rank(rank, world, device, cfg):
+    """Phase 13(c)'s rank body (launched): every mode at dp `world`."""
+    from deeplearning4j_tpu_torch.parallel import data_parallel_mesh
+
+    group = data_parallel_mesh()
+    x, y = resnet_batch(device, cfg, cfg["batch"] * world)
+    return [dp_train(device, cfg, group, x, y, mode, check=False)
+            for mode in DP_MODES]
+
+
+def gloo_card_rank(rank, world, device):
+    """Phase 13(b)'s rank body: gloo must take a CUDA tensor, then the
+    sync-BN leg on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel.dryrun import sync_bn_leg
+
+    t = torch.full((4,), float(rank + 1), device=device)
+    try:
+        dist.all_reduce(t)
+    except RuntimeError as e:
+        raise SmokeFailure(f"gloo rejected an all-reduce of a CUDA tensor "
+                           f"({torch.__version__}): {e}") from e
+    need(float(t[0]) == world * (world + 1) / 2,
+         f"gloo's CUDA all-reduce gave {t.tolist()}")
+    out = sync_bn_leg(rank, world, device, "FLOAT", steps=3)
+    return {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in out.items()}
+
+
+def data_parallel_phase(dev, cfg, phase9b):
+    """Phase 13: (a) config 5 through NCCL at the world this process
+    sees, (b) two gloo ranks on one card, (c) dp over several cards."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import initializeMultiHost, launch
+    from deeplearning4j_tpu_torch.parallel.dryrun import SYNC_BN_F32_ATOL
+
+    before = kernel_launches()
+    tmp = tempfile.mkdtemp(prefix="dl4j_smoke_")
+    group = initializeMultiHost(init_method=f"file://{tmp}/store",
+                                num_processes=1, process_id=0,
+                                device=dev, timeout=600)
+    need(group.backend == "nccl" and group.pg is not None,
+         f"phase 13 (a) needs a NCCL process group, got {group}")
+    log(f"dp (a): NCCL process group, world {group.size} (this process is "
+        f"one rank on {group.device}; {torch.cuda.device_count()} card(s) "
+        "visible)")
+    x, y = resnet_batch(dev, cfg, cfg["batch"])
+    modes = {}
+    try:
+        for mode in DP_MODES:
+            r = dp_train(dev, cfg, group, x, y, mode,
+                         plain_ms=phase9b["step_ms_median_3_on"])
+            modes[r["mode"]] = r
+            log(f"dp (a) {r['mode']}: " + json.dumps(
+                {k: v for k, v in r.items() if k != "losses"}))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    dense = modes["dense"]["losses"]
+    need(dense == phase9b["losses"],
+         "dp (a): dense at world 1 is not bitwise ComputationGraph.fit: "
+         f"{dense} vs {phase9b['losses']}")
+    del x, y
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    one_card = torch.device("cuda", torch.cuda.current_device())
+    ranks = launch(gloo_card_rank, 2, device=one_card, backend="gloo",
+                   timeout=600)
+    r0 = ranks[0]
+    gap = float(np.abs(np.asarray(r0["dense"])
+                       - np.asarray(r0["single"])).max())
+    excess = max(r["int8_grid_excess"] for r in ranks)
+    need(gap <= SYNC_BN_F32_ATOL and all(r["replicated"] for r in ranks),
+         f"dp (b): dense dp 2 on one card {gap:.3e} from fit (bar "
+         f"{SYNC_BN_F32_ATOL}), replicated {[r['replicated'] for r in ranks]}")
+    need(excess <= 1e-5, f"dp (b): int8 exchange {excess:.3e} past its grid")
+    need(all(math.isfinite(v) for r in ranks
+             for v in r["dense_losses"] + [r["int8_loss"]]),
+         "dp (b): non-finite loss")
+    gloo = {"seconds": time.perf_counter() - t,
+            "dense_max_abs_vs_fit": gap, "bar": SYNC_BN_F32_ATOL,
+            "int8_grid_excess": excess, "dense_losses": r0["dense_losses"],
+            "single_losses": r0["single_losses"],
+            "collectives_per_dense_step": r0["comm"]["collectives"]}
+    log("dp (b): two ranks on one card over gloo (gloo stages CUDA tensors "
+        "through the host: the backend's own staging, asked for here; "
+        "threshold mode left out: gloo has no CUDA all-gather): "
+        + json.dumps(gloo))
+
+    cards = torch.cuda.device_count()
+    multi = None
+    if cards >= 2:
+        dp = min(cards, 4)
+        res = launch(dp_nccl_rank, dp, device=dev, timeout=900,
+                     args=(cfg,))
+        multi = {}
+        for i, mode in enumerate(DP_MODES):
+            r = res[0][i]
+            need(all(math.isfinite(v) for rr in res for v in rr[i]["losses"]),
+                 f"dp (c) {r['mode']}: non-finite loss")
+            r["scaling_vs_world1"] = (r["images_per_s"]
+                                      / modes[r["mode"]]["images_per_s"])
+            multi[r["mode"]] = {k: v for k, v in r.items() if k != "losses"}
+        log(f"dp (c): dp {dp} over {cards} cards: " + json.dumps(multi))
+    else:
+        log(f"dp (c): not run: {cards} card visible (needs two or more)")
+    need(kernel_launches() == before, "dp: a hand-written kernel launched: "
+         f"{before} -> {kernel_launches()}")
+    return {"modes": modes, "gloo": gloo, "multi": multi}
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -2621,6 +2926,8 @@ def main():
     sd_enc = samediff_encoder(dev, BERT_BASE, train)
     torch.cuda.empty_cache()
     rnn = char_rnn_phase(dev)
+    torch.cuda.empty_cache()
+    dp = data_parallel_phase(dev, RESNET_TIMED, timed)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -2705,6 +3012,19 @@ def main():
         f"{rs['step_bucket8']['device_ms']:.3f} ms; dispatches step "
         f"{ab['step']['dispatches']} vs gang {ab['gang']['dispatches']} "
         f"(refills {ab['step']['refills']} vs {ab['gang']['refills']})")
+    log(f"data-parallel (config 5) on {card}: ResNet-50 bf16 NHWC b"
+        f"{RESNET_TIMED['batch']} a rank through SharedTrainingMaster, "
+        f"NCCL world {dp['modes']['dense']['world']}: " + "; ".join(
+            f"{m} {r['step_ms_median_3_on']:.2f} ms a step "
+            f"({r['step_over_phase9b']:.3f}x phase 9(b)), "
+            f"{r['images_per_s']:.1f} images/s, "
+            f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB, "
+            f"{r['collectives_per_step']} collectives and "
+            f"{r['payload_bytes_per_step']} payload / "
+            f"{r['wire_bytes_per_step']} wire bytes a step (bill "
+            f"{r['bill_wire_bytes']})" for m, r in dp["modes"].items())
+        + f"; two gloo ranks on the card: dense {dp['gloo']['dense_max_abs_vs_fit']:.2e}"
+        f" from fit, int8 grid excess {dp['gloo']['int8_grid_excess']:.3f}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

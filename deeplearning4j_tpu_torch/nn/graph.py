@@ -45,6 +45,7 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     fit_batches, layer_seed, map_tree, mask_slice, run_tbptt,
     strip_carries, time_slice, to_api_layout, uncarry_layer,
 )
+from deeplearning4j_tpu_torch.ops import norm as _norm
 
 __all__ = ["ComputationGraph", "params_from_reference",
            "params_to_reference"]
@@ -246,20 +247,30 @@ class ComputationGraph:
             + self._regularization(params)
         return loss, new_states
 
-    def _train_step(self, inputs, labels, fmasks, lmasks, window=None):
+    def _train_step(self, inputs, labels, fmasks, lmasks, window=None,
+                    grad_transform=None, loss_transform=None,
+                    state_transform=None, bn_group=None):
         """One eager step: forward, backward, normalize, update in place.
-        `window` is a truncated-BPTT window's index, as in
-        ``MultiLayerNetwork._train_step``. Returns the loss tensor."""
+        `window` is a truncated-BPTT window's index, and the hooks and
+        `bn_group` are the data-parallel trainers', as in
+        ``MultiLayerNetwork._train_step`` (gradients as a list in
+        ``_layer_names`` order). Returns the loss tensor."""
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
-        loss, new_states = self._loss_fn(self._params, self._states, inputs,
-                                         labels, fmasks, lmasks,
-                                         use_carries=bool(window))
+        with _norm.sync_batch_norm(bn_group):
+            loss, new_states = self._loss_fn(self._params, self._states,
+                                             inputs, labels, fmasks, lmasks,
+                                             use_carries=bool(window))
         loss.backward()
         grads = [{k: t.grad if t.grad is not None else torch.zeros_like(t)
                   for k, t in self._params[n].items()}
                  for n in self._layer_names]
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        loss = loss.detach()
+        if loss_transform is not None:
+            loss = loss_transform(loss)
         glist = _grad_normalize(grads, self.conf.gradientNormalization,
                                 self.conf.gradientNormalizationThreshold)
         with torch.no_grad():
@@ -273,9 +284,12 @@ class ComputationGraph:
             for t in p.values():
                 t.grad = None
         new_states = map_tree(torch.Tensor.detach, new_states)
-        self._states = new_states if window is not None \
-            else strip_carries(new_states)
-        return loss.detach()
+        if window is None:
+            new_states = strip_carries(new_states)
+        if state_transform is not None:
+            new_states = state_transform(new_states)
+        self._states = new_states
+        return loss
 
     def _fit_batch(self, inputs, labels, fmasks, lmasks):
         """One batch: a timed optimizer step, or under truncated BPTT

@@ -53,6 +53,7 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
     BackpropType, GradientNormalization, refuse_checkpoint_policy,
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.ops import norm as _norm
 
 __all__ = ["MultiLayerNetwork", "strip_carries", "cast_params",
            "default_param_update", "params_from_reference",
@@ -510,19 +511,35 @@ class MultiLayerNetwork:
                                       lmask) + self._regularization(params)
         return loss, new_states
 
-    def _train_step(self, x, y, fmask, lmask, window=None):
+    def _train_step(self, x, y, fmask, lmask, window=None,
+                    grad_transform=None, loss_transform=None,
+                    state_transform=None, bn_group=None):
         """One eager step: forward, backward, normalize, update in place;
         the layers' new states (BN running statistics) replace the old.
         `window` is the truncated-BPTT window's index: window c > 0
         starts from the carries the last window left, and every window
         keeps its new carries, detached, for the next; a standard step
-        (None) strips them. Returns the loss tensor."""
-        loss, new_states = self._loss_fn(self._params, self._states, x, y,
-                                         fmask, lmask,
-                                         use_carries=bool(window))
+        (None) strips them. Returns the loss tensor.
+
+        The hooks let the data-parallel trainers (``parallel.trainer``)
+        splice in their collectives, in the reference's order
+        (``nn/multilayer.py:974-992`` there): ``grad_transform`` maps the
+        per-layer gradients right after the backward pass and before
+        gradient normalization, ``loss_transform`` the detached loss (the
+        score), ``state_transform`` the new layer states; BN takes its
+        batch statistics over ``bn_group`` (``ops.norm.sync_batch_norm``)."""
+        with _norm.sync_batch_norm(bn_group):
+            loss, new_states = self._loss_fn(self._params, self._states, x,
+                                             y, fmask, lmask,
+                                             use_carries=bool(window))
         loss.backward()
         grads = [{k: t.grad if t.grad is not None else torch.zeros_like(t)
                   for k, t in p.items()} for p in self._params]
+        if grad_transform is not None:
+            grads = grad_transform(grads)
+        loss = loss.detach()
+        if loss_transform is not None:
+            loss = loss_transform(loss)
         glist = _grad_normalize(grads, self.conf.gradientNormalization,
                                 self.conf.gradientNormalizationThreshold)
         with torch.no_grad():
@@ -535,9 +552,12 @@ class MultiLayerNetwork:
             for t in p.values():
                 t.grad = None
         new_states = map_tree(torch.Tensor.detach, new_states)
-        self._states = new_states if window is not None \
-            else strip_carries(new_states)
-        return loss.detach()
+        if window is None:
+            new_states = strip_carries(new_states)
+        if state_transform is not None:
+            new_states = state_transform(new_states)
+        self._states = new_states
+        return loss
 
     def _fit_batch(self, x, y, fmask, lmask):
         """One batch: a timed optimizer step, or under truncated BPTT on

@@ -27,9 +27,26 @@ statistics accumulated in fp32 inside the reduces and
 that width (the reference's "wide" tail). The reference's knobs
 (``DL4J_TPU_BN_TAIL``, ``DL4J_TPU_BN_EPILOGUE``, ``set_bn_epilogue``)
 are not ported: the port has the default behaviour only.
+
+Synchronised BN for data-parallel training: inside ``sync_batch_norm(group)``
+the three Functions take their batch statistics over every rank of
+``group`` (an object with ``size`` and an in-place ``all_reduce_sum``;
+``parallel.mesh.DataGroup``), where the reference's dense data-parallel
+step gets them from GSPMD reducing over the sharded batch. The forward
+all-reduces the fp32 per-channel sum, divides by the global count, then
+all-reduces the centred sum of squares; the backward all-reduces
+(dbeta, dgamma) as one buffer before forming dx with the global count,
+and returns the LOCAL sums as gamma's and beta's gradients (the data-
+parallel wrapper's gradient mean makes them global). Each Function
+captures the group when its forward runs, so its backward, which the
+autograd engine may run on another thread, uses the same one. A group
+of one rank is no group: the local code runs unchanged.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -37,7 +54,7 @@ from deeplearning4j_tpu_torch.nn import activations as _act
 
 __all__ = ["EPILOGUE_ACTIVATIONS", "bn_act_supported", "BNTrainFn",
            "BNActTrainFn", "BNActAddTrainFn", "batch_norm",
-           "batch_norm_act"]
+           "batch_norm_act", "sync_batch_norm"]
 
 #: activations whose gradient is an exact function of the output
 EPILOGUE_ACTIVATIONS = ("identity", "relu", "leakyrelu", "tanh", "sigmoid")
@@ -48,6 +65,23 @@ _LEAKY_ALPHA = float(-_act.get("leakyrelu")(torch.tensor(-1.0)))
 def bn_act_supported(activation):
     """True when the fused epilogue takes this activation name."""
     return str(activation).lower() in EPILOGUE_ACTIVATIONS
+
+
+#: the group training-mode BN takes its statistics over (None: local)
+_SYNC_GROUP = contextvars.ContextVar("bn_sync_group", default=None)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group):
+    """Training-mode BN forwards inside the ``with`` take their batch
+    statistics over every rank of `group` (module docstring); None or a
+    group of one rank leaves BN local."""
+    token = _SYNC_GROUP.set(
+        group if group is not None and group.size > 1 else None)
+    try:
+        yield
+    finally:
+        _SYNC_GROUP.reset(token)
 
 
 def _ft(x):
@@ -67,43 +101,61 @@ def _vec(v, x):
     return v.reshape((1, -1) + (1,) * (x.dim() - 2))
 
 
-def _bn_train_fwd_math(x, gamma, beta, eps):
+def _bn_train_fwd_math(x, gamma, beta, eps, group=None):
     """(y, mean, var, inv) of training-mode BN (reference:
-    ``_bn_train_fwd_math``)."""
-    axes, ft = _axes(x), _ft(x)
-    if _wide(x):
+    ``_bn_train_fwd_math``), the statistics over `group`'s ranks when one
+    is given."""
+    axes, ft, wide = _axes(x), _ft(x), _wide(x)
+    if group is not None:
+        n = x.numel() // x.shape[1] * group.size
+        mean = group.all_reduce_sum(x.sum(axes, dtype=ft)) / n
+        xc = x - _vec(mean.to(x.dtype), x)
+        var = group.all_reduce_sum(xc.square().sum(axes, dtype=ft)) / n
+    elif wide:
         mean = x.mean(axes)
         var = x.var(axes, unbiased=False)
-        inv = torch.rsqrt(var + eps)
-        y = (x - _vec(mean, x)) * _vec(inv, x) * _vec(gamma.to(ft), x) \
-            + _vec(beta.to(ft), x)
-        return y, mean, var, inv
-    mean = x.mean(axes, dtype=ft)
-    xc = x - _vec(mean.to(x.dtype), x)
-    var = xc.square().mean(axes, dtype=ft)
+        xc = x - _vec(mean, x)
+    else:
+        mean = x.mean(axes, dtype=ft)
+        xc = x - _vec(mean.to(x.dtype), x)
+        var = xc.square().mean(axes, dtype=ft)
     inv = torch.rsqrt(var + eps)
+    if wide:
+        y = xc * _vec(inv, x) * _vec(gamma.to(ft), x) + _vec(beta.to(ft), x)
+        return y, mean, var, inv
     scale = (inv * gamma.to(ft)).to(x.dtype)
     y = xc * _vec(scale, x) + _vec(beta.to(x.dtype), x)
     return y, mean, var, inv
 
 
-def _bn_train_bwd(x, mean, inv, gamma, dy):
-    """(dx, dgamma, dbeta) (reference: ``_bn_train_bwd``)."""
+def _global_sums(dbeta, dgamma, group):
+    """(dbeta, dgamma) summed over `group`'s ranks in one all-reduce."""
+    if group is None:
+        return dbeta, dgamma
+    both = group.all_reduce_sum(torch.cat([dbeta, dgamma]))
+    return both[:dbeta.numel()], both[dbeta.numel():]
+
+
+def _bn_train_bwd(x, mean, inv, gamma, dy, group=None):
+    """(dx, dgamma, dbeta) (reference: ``_bn_train_bwd``); over `group`,
+    dx takes the global sums and count, dgamma/dbeta stay local."""
     axes, ft = _axes(x), _ft(x)
-    n = x.numel() // x.shape[1]
+    n = x.numel() // x.shape[1] * (1 if group is None else group.size)
     if _wide(x):
         xhat = (x - _vec(mean, x)) * _vec(inv, x)
         dbeta = dy.sum(axes)
         dgamma = (dy * xhat).sum(axes)
+        sb, sg = _global_sums(dbeta, dgamma, group)
         dx = _vec(gamma.to(ft) * inv / n, x) * (
-            n * dy - _vec(dbeta, x) - xhat * _vec(dgamma, x))
+            n * dy - _vec(sb, x) - xhat * _vec(sg, x))
         return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
     xhat = (x - _vec(mean.to(x.dtype), x)) * _vec(inv.to(x.dtype), x)
     dbeta = dy.sum(axes, dtype=ft)
     dgamma = (dy * xhat).sum(axes, dtype=ft)
+    sb, sg = _global_sums(dbeta, dgamma, group)
     k = (gamma.to(ft) * inv / n).to(x.dtype)
-    dx = _vec(k, x) * (n * dy - _vec(dbeta.to(x.dtype), x)
-                       - xhat * _vec(dgamma.to(x.dtype), x))
+    dx = _vec(k, x) * (n * dy - _vec(sb.to(x.dtype), x)
+                       - xhat * _vec(sg.to(x.dtype), x))
     return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype)
 
 
@@ -132,7 +184,9 @@ class BNTrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps)
+        ctx.group = _SYNC_GROUP.get()
+        y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps,
+                                               ctx.group)
         ctx.save_for_backward(x, mean, inv, gamma)
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
@@ -140,7 +194,8 @@ class BNTrainFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, inv, gamma = ctx.saved_tensors
-        dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy)
+        dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy,
+                                          ctx.group)
         return dx, dgamma, dbeta, None
 
 
@@ -150,7 +205,9 @@ class BNActTrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, act):
-        y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps)
+        ctx.group = _SYNC_GROUP.get()
+        y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps,
+                                               ctx.group)
         out = _epilogue_apply(y, act)
         ctx.act = act
         ctx.save_for_backward(x, mean, inv, gamma, out)
@@ -162,7 +219,8 @@ class BNActTrainFn(torch.autograd.Function):
         x, mean, inv, gamma, out = ctx.saved_tensors
         g = _epilogue_grad_from_out(out, ctx.act)
         dy = dout if g is None else dout * g
-        dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy)
+        dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy,
+                                          ctx.group)
         return dx, dgamma, dbeta, None, None
 
 
@@ -172,7 +230,9 @@ class BNActAddTrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, residual, eps, act):
-        y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps)
+        ctx.group = _SYNC_GROUP.get()
+        y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps,
+                                               ctx.group)
         out = _epilogue_apply(y + residual, act)
         ctx.act = act
         ctx.save_for_backward(x, mean, inv, gamma, out)
@@ -184,7 +244,8 @@ class BNActAddTrainFn(torch.autograd.Function):
         x, mean, inv, gamma, out = ctx.saved_tensors
         g = _epilogue_grad_from_out(out, ctx.act)
         dy = dout if g is None else dout * g
-        dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy)
+        dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy,
+                                          ctx.group)
         return dx, dgamma, dbeta, dy, None, None
 
 

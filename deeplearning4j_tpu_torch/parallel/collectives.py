@@ -1,0 +1,131 @@
+"""The collectives the data-parallel trainers run, over ``torch.distributed``.
+
+Port-only: the reference's are ``lax.psum``/``pmax``/``all_gather``
+inside ``shard_map`` programs, which XLA lowers to ICI collectives. Here
+each is one call on the group's process group (NCCL on the card, gloo
+on the CPU or where the caller asked for it), and a group with no
+process group (world size 1, ``torch.distributed`` not initialised) is
+the identity: nothing is launched and nothing is counted.
+
+Every launched collective adds to three counters of the port's metrics
+registry, labelled by op: ``dl4j_collectives_total``,
+``dl4j_collective_payload_bytes_total`` (what this rank hands to the
+collective) and ``dl4j_collective_wire_bytes_total`` (what it sends
+under the ring convention ``sharding.compressed_wire_bytes`` bills:
+2(dp-1)/dp of the payload for an all-reduce, (dp-1) payloads for an
+all-gather, (dp-1)/dp for a broadcast). ``totals()`` reads them, so a
+trainer can report collectives and bytes a step.
+
+``int8_lane_sum`` is the int8 exchange's wire format. The reference sums
+int8 lanes in int16 (``sharding._acc_dtype``); gloo rejects int16 and
+NCCL has no 16-bit integer type. Each lane is biased to [0, 254] and
+``k = 31 // bits`` lanes are packed into one int32 word, ``bits`` wide
+enough for 254·dp, so the int32 all-reduce adds every lane exactly with
+no carry between lanes: 4/k bytes an element (k = 3 up to dp 4, 2 up to
+dp 129) where an int32 sum would send 4, one all-reduce, and it runs on
+every backend that all-reduces int32 (gloo on the card included).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["all_reduce", "all_gather", "broadcast", "int8_lane_sum",
+           "lane_bits", "totals", "wire_bytes"]
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+_COUNTERS = None
+
+
+def _counters():
+    global _COUNTERS
+    if _COUNTERS is None:
+        from deeplearning4j_tpu_torch.runtime import telemetry
+
+        reg = telemetry.get_registry()
+        _COUNTERS = (
+            reg.counter("dl4j_collectives_total",
+                        "collectives launched by the data-parallel path",
+                        labels=("op",)),
+            reg.counter("dl4j_collective_payload_bytes_total",
+                        "bytes this rank handed to collectives",
+                        labels=("op",)),
+            reg.counter("dl4j_collective_wire_bytes_total",
+                        "bytes this rank sent, ring convention",
+                        labels=("op",)))
+    return _COUNTERS
+
+
+def wire_bytes(op, payload, size):
+    """Bytes one rank sends for `op` on `payload` bytes over `size`
+    ranks, under the ring convention (module docstring)."""
+    if op == "all_reduce":
+        return 2 * (size - 1) * payload // size
+    if op == "all_gather":
+        return (size - 1) * payload
+    return (size - 1) * payload // size
+
+
+def _count(op, t, size):
+    n = t.numel() * t.element_size()
+    calls, payload, wire = _counters()
+    calls.labels(op=op).inc()
+    payload.labels(op=op).inc(n)
+    wire.labels(op=op).inc(wire_bytes(op, n, size))
+
+
+def totals():
+    """(collectives, payload bytes, wire bytes) launched so far in this
+    process, over every op."""
+    return tuple(int(sum(c.value for c in inst.children()))
+                 for inst in _counters())
+
+
+def all_reduce(t, group, op="sum"):
+    """`t` reduced in place over the group's ranks (op "sum" or "max");
+    returns `t`."""
+    if group.pg is not None:
+        _count("all_reduce", t, group.size)
+        dist.all_reduce(t, op=_OPS[op], group=group.pg)
+    return t
+
+
+def all_gather(t, group):
+    """Every rank's `t`, stacked in rank order: [size, *t.shape]."""
+    if group.pg is None:
+        return t.unsqueeze(0)
+    _count("all_gather", t, group.size)
+    out = [torch.empty_like(t) for _ in range(group.size)]
+    dist.all_gather(out, t.contiguous(), group=group.pg)
+    return torch.stack(out)
+
+
+def broadcast(t, group, src=0):
+    """`t` overwritten in place by rank `src`'s; returns `t`."""
+    if group.pg is not None:
+        _count("broadcast", t, group.size)
+        dist.broadcast(t, src, group=group.pg)
+    return t
+
+
+def lane_bits(size):
+    """Bits a packed lane needs to hold the sum of `size` biased int8
+    lanes (254 each at most)."""
+    return (254 * int(size)).bit_length()
+
+
+def int8_lane_sum(q, group):
+    """The exact sum over the group's ranks of `q`, an integer tensor of
+    lanes in [-127, 127] of the same length on every rank, as int32:
+    packed into int32 words (module docstring) and all-reduced once."""
+    bits = lane_bits(group.size)
+    k = 31 // bits
+    n = q.numel()
+    u = q.reshape(-1).to(torch.int32) + 127
+    u = torch.nn.functional.pad(u, (0, (-n) % k)).view(-1, k)
+    shifts = torch.arange(k, dtype=torch.int32, device=q.device) * bits
+    words = (u << shifts).sum(1, dtype=torch.int32)
+    all_reduce(words, group)
+    lanes = (words.unsqueeze(1) >> shifts) & ((1 << bits) - 1)
+    return lanes.reshape(-1)[:n] - 127 * group.size

@@ -1,0 +1,274 @@
+"""The data-parallel legs of the multi-chip dry run.
+
+The counterpart of ``__graft_entry__.dryrun_multichip`` (:40), which
+runs one sharded training step of each parallel mode on an n-device
+mesh. The port runs the data-parallel legs on n ranks
+(``multihost.launch``), each a real step through the ranks'
+collectives:
+
+* "resnet50_dp": zoo ResNet50 (8 classes, 32x32, Adam) through a dense
+  ParallelWrapper at global batch 2n, BN synchronised over the ranks;
+* "int8": a small MLP through SharedTrainingMaster's default int8
+  all-reduce;
+* "averaging": parameter averaging at averagingFrequency 2, two steps;
+* "threshold": the Strom threshold exchange;
+* "sync_bn": ``bn_cnn`` (conv -> BN -> relu -> conv -> BN -> softplus ->
+  residual add -> global pool -> softmax, so the fused and the plain BN
+  Functions are both crossed) trained dense at dp n beside the same net
+  trained on the combined batch on rank 0 alone, and one int8 step held
+  to the exact mean of the ranks' own gradients (``sync_bn_leg``).
+
+Each leg checks its losses are finite and the params bitwise equal on
+every rank. The tensor-parallel, sequence-parallel (ring attention) and
+pipeline legs wait for ROADMAP Queue 1 item 7 and raise naming it.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.parallel import collectives as _coll
+from deeplearning4j_tpu_torch.parallel import mesh as _mesh
+
+__all__ = ["DP_LEGS", "SYNC_BN_F32_ATOL", "dryrun_multichip", "bn_cnn",
+           "bn_cnn_batch", "sync_bn_leg", "params_vector"]
+
+#: how far sync_bn_leg's dense f32 params may lie from single-device
+#: training on the combined batch (sums in another order: the batch
+#: statistics over ranks, the gradient all-reduce; measured 1.5e-8 on
+#: two CPU ranks after 3 steps)
+SYNC_BN_F32_ATOL = 1e-6
+#: the legs dryrun_multichip runs by default
+DP_LEGS = ("resnet50_dp", "int8", "averaging", "threshold", "sync_bn")
+_LATER = ("tp", "sequence", "pipeline")
+
+
+def params_vector(net):
+    """Every parameter of `net`, flattened and concatenated, as f64 numpy
+    (layers in order, names in order)."""
+    from deeplearning4j_tpu_torch.parallel.trainer import _leaves
+
+    return torch.cat([t.detach().reshape(-1).double().cpu()
+                      for t in _leaves(net._params)]).numpy()
+
+
+def _mlp(device, seed=7):
+    from deeplearning4j_tpu_torch.nn import (
+        DenseLayer, InputType, MultiLayerNetwork, NeuralNetConfiguration,
+        OutputLayer, Sgd,
+    )
+
+    conf = (NeuralNetConfiguration.Builder().seed(seed).updater(Sgd(0.05))
+            .activation("tanh").list()
+            .layer(DenseLayer(nOut=16))
+            .layer(OutputLayer(nOut=4, activation="softmax"))
+            .setInputType(InputType.feedForward(8)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def bn_cnn(device, dtype="FLOAT", seed=3, lr=0.05):
+    """The small BN CNN of the sync-BN leg and the tests: 3x8x8 NCHW in,
+    3 classes, Sgd(lr)."""
+    from deeplearning4j_tpu_torch.nn import (
+        BatchNormalization, ComputationGraph, ConvolutionLayer, DataType,
+        ElementWiseVertex, GlobalPoolingLayer, InputType,
+        NeuralNetConfiguration, OutputLayer, Sgd,
+    )
+
+    def conv():
+        return ConvolutionLayer(nOut=4, kernelSize=(3, 3),
+                                convolutionMode="same",
+                                activation="identity", hasBias=False)
+
+    g = (NeuralNetConfiguration.Builder().seed(seed).updater(Sgd(lr))
+         .dataType(getattr(DataType, dtype)).graphBuilder()
+         .addInputs("in"))
+    g.addLayer("c1", conv(), "in")
+    g.addLayer("b1", BatchNormalization(activation="relu"), "c1")
+    g.addLayer("c2", conv(), "b1")
+    g.addLayer("b2", BatchNormalization(activation="softplus"), "c2")
+    g.addVertex("add", ElementWiseVertex("add"), "b2", "b1")
+    g.addLayer("gap", GlobalPoolingLayer(poolingType="avg"), "add")
+    g.addLayer("out", OutputLayer(nOut=3, activation="softmax",
+                                  lossFunction="mcxent"), "gap")
+    conf = (g.setOutputs("out")
+            .setInputTypes(InputType.convolutional(8, 8, 3)).build())
+    return ComputationGraph(conf, device=device).init()
+
+
+def bn_cnn_batch(batch, seed=0):
+    """A seeded (x [batch, 3, 8, 8] f32, one-hot y [batch, 3]) batch."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(batch, 3, 8, 8).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, batch)]
+    return x, y
+
+
+def _equal_on_all_ranks(vec, group):
+    """True when `vec` (f64 numpy) is bitwise the same on every rank."""
+    t = torch.from_numpy(vec)
+    if group.pg is None:
+        return True
+    dev = group.device or torch.device("cpu")
+    allv = _coll.all_gather(t.to(dev), group).cpu()
+    return bool(all(torch.equal(allv[0], v) for v in allv))
+
+
+def sync_bn_leg(rank, world, device, dtype="FLOAT", steps=3, batch=None):
+    """The "sync_bn" leg on one rank: `steps` dense ParallelWrapper steps
+    of ``bn_cnn`` on one seeded global batch (8 rows a rank unless
+    `batch`), then one SharedTrainingMaster int8 step from a fresh net.
+    Returns {"dense": params after the dense steps, "single": (rank 0)
+    params after the same steps of ``fit`` on the combined batch alone,
+    "dense_losses", "single_losses", "replicated": dense params bitwise
+    equal on every rank, "int8_grid_excess": the worst |int8 mean -
+    exact mean| of the first step's gradients over scale/254, minus 1
+    (<= 0 inside the grid, up to f32 rounding of the two means),
+    "int8_loss"}."""
+    from deeplearning4j_tpu_torch.parallel.trainer import (
+        ParallelWrapper, SharedTrainingMaster, _leaves, _rebuild,
+    )
+
+    group = _mesh.data_parallel_mesh()
+    lr = 0.05
+    x, y = bn_cnn_batch(batch or 8 * world)
+    net = bn_cnn(device, dtype, lr=lr)
+    pw = ParallelWrapper(net, mesh=group)
+    dense_losses = []
+    for _ in range(steps):
+        pw.fit(x, y)
+        dense_losses.append(net.score())
+    out = {"dense": params_vector(net), "dense_losses": dense_losses,
+           "comm": pw.last_step}
+    out["replicated"] = _equal_on_all_ranks(out["dense"], group)
+
+    net = bn_cnn(device, dtype, lr=lr)
+    master = SharedTrainingMaster(net, mesh=group)
+    seen = []
+    exchange = master._exchange_grads
+
+    def spy(grads):
+        seen.append((_leaves(grads), _leaves(exchange(grads))))
+        return _rebuild(grads, iter(seen[-1][1]))
+
+    master._exchange_grads = spy
+    master.fit(x, y)
+    worst = -math.inf
+    for g, got in zip(*seen[0]):
+        exact = _coll.all_reduce(g.detach().double().clone(), group) / world
+        sc = _coll.all_reduce(g.detach().float().abs().max()
+                              .clamp_min(1e-12).reshape(1), group, "max")
+        grid = float(sc[0]) / 254.0
+        worst = max(worst, float((got.double() - exact).abs().max()) / grid
+                    - 1.0)
+    out["int8_grid_excess"] = worst
+    out["int8_loss"] = net.score()
+    if rank == 0:
+        single = bn_cnn(device, dtype, lr=lr)
+        single_losses = []
+        for _ in range(steps):
+            single.fit(x, y)
+            single_losses.append(single.score())
+        out["single"] = params_vector(single)
+        out["single_losses"] = single_losses
+    return out
+
+
+def _leg_resnet50_dp(rank, world, device):
+    from deeplearning4j_tpu_torch.nn import Adam
+    from deeplearning4j_tpu_torch.parallel.trainer import ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    net = ResNet50(numClasses=8, inputShape=(3, 32, 32), updater=Adam(1e-3),
+                   device=device).init()
+    rng = np.random.RandomState(0)
+    B = 2 * world
+    x = rng.rand(B, 3, 32, 32).astype(np.float32)
+    y = np.eye(8, dtype=np.float32)[rng.randint(0, 8, B)]
+    pw = ParallelWrapper(net)
+    pw.fit(x, y)
+    return net, pw
+
+
+def _leg_small(mode):
+    def leg(rank, world, device):
+        from deeplearning4j_tpu_torch.parallel.trainer import (
+            ParallelWrapper, ParameterAveragingTrainingMaster,
+            SharedTrainingMaster,
+        )
+
+        net = _mlp(device)
+        rng = np.random.RandomState(1)
+        x = rng.randn(8 * world, 8).astype(np.float32)
+        y = np.eye(4, dtype=np.float32)[rng.randint(0, 4, 8 * world)]
+        if mode == "averaging":
+            m = ParameterAveragingTrainingMaster(net, averagingFrequency=2)
+            for _ in range(2):
+                m.fit(x, y)
+        elif mode == "threshold":
+            m = ParallelWrapper(net, gradient_compression="threshold")
+            m.fit(x, y)
+        else:
+            m = SharedTrainingMaster(net)
+            assert m.gradient_compression == "int8"
+            m.fit(x, y)
+        return net, m
+    return leg
+
+
+_LEGS = {"resnet50_dp": _leg_resnet50_dp, "int8": _leg_small("int8"),
+         "averaging": _leg_small("averaging"),
+         "threshold": _leg_small("threshold")}
+
+
+def _dryrun_rank(rank, world, device, legs):
+    group = _mesh.data_parallel_mesh()
+    out = {}
+    for name in legs:
+        if name == "sync_bn":
+            r = sync_bn_leg(rank, world, device, steps=2)
+            out[name] = {"loss": r["dense_losses"][-1],
+                         "replicated": r["replicated"],
+                         "int8_grid_excess": r["int8_grid_excess"]}
+            if rank == 0:
+                out[name]["max_abs_vs_single"] = float(
+                    np.abs(r["dense"] - r["single"]).max())
+            continue
+        net, master = _LEGS[name](rank, world, device)
+        vec = params_vector(net)
+        out[name] = {"loss": net.score(),
+                     "replicated": _equal_on_all_ranks(vec, group),
+                     "comm": master.last_step}
+    return out
+
+
+def dryrun_multichip(n_devices, device=None, legs=DP_LEGS, timeout=600.0):
+    """Run `legs` on `n_devices` ranks (``multihost.launch``; `device`
+    None means the cards, NCCL). Raises unless every leg's loss is finite
+    and its params are equal on every rank; returns rank 0's results.
+    The "tp", "sequence" and "pipeline" legs raise NotImplementedError
+    (item 7)."""
+    from deeplearning4j_tpu_torch.parallel.multihost import launch
+
+    legs = tuple(legs)
+    later = [leg for leg in legs if leg in _LATER]
+    if later:
+        raise _mesh.later(f"the {', '.join(later)} dry-run legs")
+    unknown = [leg for leg in legs if leg not in DP_LEGS]
+    if unknown:
+        raise ValueError(f"unknown dry-run legs {unknown}; pick from "
+                         f"{DP_LEGS + _LATER}")
+    results = launch(_dryrun_rank, int(n_devices), device=device,
+                     timeout=timeout, args=(legs,))
+    for rank, res in enumerate(results):
+        for name, r in res.items():
+            if not math.isfinite(r["loss"]):
+                raise RuntimeError(f"dry run {name}: rank {rank} loss "
+                                   f"{r['loss']}")
+            if not r["replicated"]:
+                raise RuntimeError(f"dry run {name}: params differ "
+                                   "between ranks")
+    return results[0]

@@ -1,0 +1,424 @@
+"""Rank bodies and port-side nets for the data-parallel tests.
+
+Imports neither jax nor the reference package: ``parallel.launch``
+spawns ranks that import this module, and the card tests run it with
+``--noconftest``. The nets mirror the reference's test nets
+(``tests/test_parallel.py``: ``_mlp``, ``TestParameterAveraging._sgd_mlp``,
+``TestThresholdGradientSharing._mlp``,
+``TestComputationGraphDataParallel._graph``) and ``parallel.dryrun.
+bn_cnn``; a rank loads the reference's initial weights where the caller
+passes them (``init`` below: {name: (params, states)}).
+"""
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.data import DataSet, DataSetIterator
+from deeplearning4j_tpu_torch.nn import (
+    Adam, ComputationGraph, DenseLayer, ElementWiseVertex, InputType,
+    MultiLayerNetwork, NeuralNetConfiguration, OutputLayer, Sgd,
+)
+from deeplearning4j_tpu_torch.nn import graph as _graph
+from deeplearning4j_tpu_torch.nn import multilayer as _ml
+from deeplearning4j_tpu_torch.parallel import (
+    ParallelWrapper, ParameterAveragingTrainingMaster,
+    ParameterAveragingTrainingMasterBuilder, SharedTrainingMaster,
+    SharedTrainingMasterBuilder, SparkComputationGraph, SparkDl4jMultiLayer,
+    data_parallel_mesh,
+)
+from deeplearning4j_tpu_torch.parallel import collectives as coll
+from deeplearning4j_tpu_torch.parallel import sharding as sh
+from deeplearning4j_tpu_torch.parallel.dryrun import bn_cnn, bn_cnn_batch
+
+
+# ----------------------------------------------------------------------
+# nets and data (the reference's, tests/test_parallel.py)
+# ----------------------------------------------------------------------
+
+def mlp_conf(seed=42):
+    return (NeuralNetConfiguration.Builder()
+            .seed(seed).updater(Adam(1e-2)).activation("relu").list()
+            .layer(DenseLayer(nOut=32))
+            .layer(OutputLayer(nOut=3, activation="softmax"))
+            .setInputType(InputType.feedForward(4)).build())
+
+
+def sgd_mlp_conf(seed=42):
+    return (NeuralNetConfiguration.Builder()
+            .seed(seed).updater(Sgd(0.1)).activation("relu").list()
+            .layer(DenseLayer(nOut=32))
+            .layer(OutputLayer(nOut=3, activation="softmax"))
+            .setInputType(InputType.feedForward(4)).build())
+
+
+def thr_conf(seed=5):
+    return (NeuralNetConfiguration.Builder().seed(seed)
+            .updater(Sgd(0.5)).activation("tanh").list()
+            .layer(DenseLayer(nOut=16))
+            .layer(OutputLayer(nOut=3, activation="softmax"))
+            .setInputType(InputType.feedForward(8)).build())
+
+
+def graph_conf(seed=11):
+    return (NeuralNetConfiguration.Builder().seed(seed).updater(Sgd(0.1))
+            .activation("tanh").graphBuilder().addInputs("in")
+            .addLayer("h", DenseLayer(nOut=16), "in")
+            .addLayer("out", OutputLayer(nOut=3, activation="softmax"), "h")
+            .setOutputs("out")
+            .setInputTypes(InputType.feedForward(4)).build())
+
+
+def cg_facade_conf():
+    return (NeuralNetConfiguration.Builder()
+            .seed(1).updater(Adam(1e-2)).graphBuilder()
+            .addInputs("in")
+            .addLayer("h", DenseLayer(nOut=32, activation="relu"), "in")
+            .addLayer("out", OutputLayer(nOut=3, activation="softmax"), "h")
+            .setOutputs("out")
+            .setInputTypes(InputType.feedForward(4)).build())
+
+
+def multi_io_conf():
+    return (NeuralNetConfiguration.Builder().seed(1).updater(Sgd(0.1))
+            .graphBuilder().addInputs("a", "b")
+            .addVertex("m", ElementWiseVertex("add"), "a", "b")
+            .addLayer("out", OutputLayer(nOut=2, activation="softmax"), "m")
+            .setOutputs("out")
+            .setInputTypes(InputType.feedForward(2), InputType.feedForward(2))
+            .build())
+
+
+def data(n=64, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 4).astype("float32")
+    w = rng.randn(4, 3)
+    yi = np.argmax(x @ w, axis=1)
+    return x, np.eye(3, dtype="float32")[yi], yi
+
+
+def thr_data(n=32, seed=0):
+    rng = np.random.RandomState(seed)
+    yi = rng.randint(0, 3, n)
+    x = (np.eye(3)[yi] @ np.array([[2.0] * 8, [-2.0] * 8, [0.0] * 8])
+         + 0.1 * rng.randn(n, 8)).astype("float32")
+    return x, np.eye(3, dtype="float32")[yi]
+
+
+NETS = {"mlp": (MultiLayerNetwork, mlp_conf),
+        "sgd_mlp": (MultiLayerNetwork, sgd_mlp_conf),
+        "thr": (MultiLayerNetwork, thr_conf),
+        "graph": (ComputationGraph, graph_conf)}
+
+
+def build(name, init=None, device="cpu", **kw):
+    """The port's net `name` (NETS, or "bn_cnn"/"bn_cnn64"), with the
+    reference's weights when `init` carries them."""
+    if name.startswith("bn_cnn"):
+        net = bn_cnn(device, "DOUBLE" if name == "bn_cnn64" else "FLOAT")
+    else:
+        cls, conf = NETS[name]
+        net = cls(conf(**kw), device=device).init()
+    if init is not None and name in init:
+        net.load_reference_params(*init[name])
+    return net
+
+
+def ref_params(net):
+    """The params of a port net in the reference's layout and names, as
+    one flat {"layer.name": f64 numpy} dict."""
+    if isinstance(net, ComputationGraph):
+        tree = _graph.params_to_reference(net.conf, net._params)
+        items = tree.items()
+    else:
+        items = enumerate(_ml.params_to_reference(net.layers, net._params))
+    return {f"{k}.{n}": np.asarray(v, np.float64)
+            for k, p in items for n, v in p.items()}
+
+
+def accuracy(net, x, yi):
+    return float((net.output(x).toNumpy().argmax(1) == yi).mean())
+
+
+# ----------------------------------------------------------------------
+# the rank body of tests/test_torch_parallel.py
+# ----------------------------------------------------------------------
+
+def _fits(master, net, x, y, n):
+    scores = []
+    for _ in range(n):
+        master.fit(x, y)
+        scores.append(net.score())
+    return scores
+
+
+def parity_rank(rank, world, device, init):
+    """Every data-parallel scenario of the parity tests on this rank;
+    returns {scenario: result}, params in ref_params form."""
+    out = {}
+    x, y, yi = data(64)
+
+    net = build("mlp", init)
+    pw = ParallelWrapper(net)
+    out["dense"] = {"scores": _fits(pw, net, x, y, 5),
+                    "params": ref_params(net), "comm": pw.last_step}
+    for mode in ("int8", "block_int8"):
+        net = build("mlp", init)
+        m = SharedTrainingMaster(net, gradient_compression=mode) \
+            if mode != "int8" else SharedTrainingMaster(net)
+        out[mode] = {"mode": m.gradient_compression,
+                     "scores": _fits(m, net, x, y, 3),
+                     "params": ref_params(net)}
+
+    net = build("graph", init)
+    out["graph_dense"] = {"scores": _fits(ParallelWrapper(net), net, x, y, 4),
+                          "params": ref_params(net)}
+    net = build("graph")
+    pw = ParallelWrapper(net, gradient_compression="threshold",
+                         threshold=1e-2)
+    out["graph_threshold"] = {"scores": _fits(pw, net, x, y, 30)}
+
+    net = build("sgd_mlp", init)
+    pm = ParameterAveragingTrainingMaster(net, averagingFrequency=1)
+    out["pa_freq1"] = {"scores": _fits(pm, net, x, y, 4),
+                       "params": ref_params(net)}
+    x3, y3, _ = data(64, seed=3)
+    net = build("mlp")
+    pm = ParameterAveragingTrainingMaster(net, averagingFrequency=5)
+    replicas = []
+    for n in (3, 2):
+        _fits(pm, net, x3, y3, n)
+        replicas.append(np.concatenate(
+            [t.detach().reshape(-1).numpy()
+             for p in pm._replica[0] for t in p.values()]))
+    out["pa_replicas"] = {"after3": replicas[0], "after5": replicas[1],
+                          "net": ref_params(net)}
+
+    xt, yt = thr_data()
+    net = build("thr", init)
+    pw = ParallelWrapper(net, gradient_compression="threshold",
+                         threshold=1e9)
+    pw.fit(xt, yt)
+    res, tau = pw._residual
+    out["thr_huge"] = {"params": ref_params(net),
+                       "residual": _ml.params_to_reference(
+                           net.layers, res),
+                       "tau": float(tau)}
+    net = build("thr", init)
+    pw = ParallelWrapper(net, gradient_compression="threshold",
+                         threshold=1e-2, encodingCapacity=1.0)
+    out["thr_step1"] = {"scores": _fits(pw, net, xt, yt, 1),
+                        "params": ref_params(net)}
+    return out
+
+
+def property_rank(rank, world, device):
+    """The reference's convergence and property tests, port-side only
+    (they hold each trainer to an outcome, not to the reference's
+    numbers); returns {scenario: result}."""
+    out = {}
+    xt, yt = thr_data()
+    net = build("thr")
+    pw = ParallelWrapper(net, gradient_compression="threshold",
+                         threshold=0.05)
+    out["thr_feedback"] = _fits(pw, net, xt, yt, 40)
+    net = build("thr")
+    pw = ParallelWrapper(net, gradient_compression="threshold",
+                         threshold=1e-2, encodingCapacity=1.0)
+    out["thr_converges"] = _fits(pw, net, xt, yt, 100)
+    net = build("thr")
+    pw = ParallelWrapper(net, gradient_compression="threshold",
+                         threshold=1e-2)
+    out["thr_capacity"] = {"capacity": pw.encoding_capacity,
+                           "scores": _fits(pw, net, xt, yt, 150)}
+    taus = []
+    for t0 in (100.0, 1e-8):
+        net = build("thr")
+        pw = ParallelWrapper(net, gradient_compression="threshold",
+                             threshold=t0, targetSparsity=0.2)
+        _fits(pw, net, xt, yt, 30)
+        taus.append((float(pw._residual[1]), net.score()))
+    out["thr_adaptive"] = taus
+    net = build("thr")
+    pw = ParallelWrapper(net, gradient_compression="threshold",
+                         threshold=1e-2, residualClip=1.0)
+    _fits(pw, net, xt, yt, 3)
+    res = torch.cat([a.reshape(-1) for p in pw._residual[0]
+                     for a in p.values()])
+    out["thr_clip"] = float(res.abs().max())
+
+    x, y, yi = data(256)
+    net = build("mlp")
+    pw = ParallelWrapper(net)
+    it = DataSetIterator(x, y, 64, shuffle=True)
+    for _ in range(20):
+        pw.fit(it)
+    out["dp_iterator_acc"] = accuracy(net, x, yi)
+    net = build("mlp")
+    pm = ParameterAveragingTrainingMaster(net, averagingFrequency=4)
+    it = DataSetIterator(x, y, 64, shuffle=True)
+    for _ in range(20):
+        pm.fit(it)
+    out["pa_converges_acc"] = accuracy(net, x, yi)
+
+    # a padded last batch: 40 rows at batch 32, the pad masked
+    x40, y40, _ = data(40, seed=4)
+    net = build("mlp")
+    ParallelWrapper(net).fit(DataSetIterator(x40, y40, 32), epochs=2)
+    out["masked_last_batch"] = ref_params(net)
+
+    # the Spark facades, fit only
+    x96, y96, yi96 = data(96)
+    tm = (ParameterAveragingTrainingMasterBuilder()
+          .averagingFrequency(1).build())
+    spark = SparkDl4jMultiLayer(None, mlp_conf(), tm, device=device)
+    it = DataSetIterator(x96, y96, 32)
+    for _ in range(30):
+        spark.fit(it)
+    out["spark_pa_acc"] = accuracy(spark.getNetwork(), x96, yi96)
+    out["spark_pa_master"] = type(spark.getTrainingMaster()).__name__
+    x96, y96, yi96 = data(96, seed=3)
+    tm = SharedTrainingMasterBuilder().gradientCompression(None).build()
+    spark = SparkDl4jMultiLayer(None, mlp_conf(7), tm, device=device)
+    it = DataSetIterator(x96, y96, 32)
+    for _ in range(30):
+        spark.fit(it)
+    out["spark_shared_acc"] = accuracy(spark.getNetwork(), x96, yi96)
+    x64, y64, yi64 = data(64, seed=5)
+    rdd = [DataSet(x64[i:i + 32], y64[i:i + 32]) for i in (0, 32)]
+    spark = SparkDl4jMultiLayer(None, mlp_conf(9), device=device)
+    for _ in range(25):
+        spark.fit(rdd)
+    out["spark_rdd_acc"] = accuracy(spark.getNetwork(), x64, yi64)
+    x64, y64, yi64 = data(64, seed=8)
+    spark_g = SparkComputationGraph(None, cg_facade_conf(), device=device)
+    it = DataSetIterator(x64, y64, 32)
+    for _ in range(25):
+        spark_g.fit(it)
+    out["spark_graph_acc"] = float(
+        (spark_g.getNetwork().output(x64).toNumpy().argmax(1)
+         == yi64).mean())
+    return out
+
+
+def bn_cnn_rank(rank, world, device, init, steps=3):
+    """bn_cnn in f64 from the reference's weights: `steps` dense steps
+    and 1 int8 step, on the global batch of bn_cnn_batch(8 * world)."""
+    x, y = bn_cnn_batch(8 * world)
+    out = {}
+    net = build("bn_cnn64", init)
+    pw = ParallelWrapper(net)
+    out["dense"] = {"scores": _fits(pw, net, x, y, steps),
+                    "params": ref_params(net), "comm": pw.last_step,
+                    "states": {f"{k}.{n}": v.numpy() for k, s in
+                               net._states.items() for n, v in s.items()}}
+    net = build("bn_cnn64", init)
+    m = SharedTrainingMaster(net)
+    out["int8"] = {"scores": _fits(m, net, x, y, 1),
+                   "params": ref_params(net), "comm": m.last_step,
+                   "states": {f"{k}.{n}": v.numpy() for k, s in
+                              net._states.items() for n, v in s.items()}}
+    return out
+
+
+# ----------------------------------------------------------------------
+# the rank body of tests/test_torch_parallel_exchange.py
+# ----------------------------------------------------------------------
+
+EXCHANGE_SIZES = (1000, 256, 37, 3)
+
+
+def exchange_grads(rank, seed=0, sizes=EXCHANGE_SIZES):
+    """Rank `rank`'s seeded gradient leaves (f32 numpy), one per size,
+    magnitudes spread over three decades."""
+    rng = np.random.RandomState(seed * 1000 + rank)
+    return [(rng.randn(n) * 10.0 ** rng.uniform(-3, 0, n))
+            .astype(np.float32) for n in sizes]
+
+
+def exchange_rank(rank, world, device, seed=0):
+    """The exchanges on this rank's exchange_grads: int8 and block_int8
+    lanes and means, the dense all-reduce, the threshold exchange, and
+    each one's collectives and bytes."""
+    group = data_parallel_mesh()
+    leaves = [torch.from_numpy(g).to(device)
+              for g in exchange_grads(rank, seed)]
+    out = {}
+    for mode in ("int8", "block_int8"):
+        q, scale, spans = sh._quantize(leaves, group, mode, 256)
+        before = coll.totals()
+        means = sh.quantized_psum_mean(leaves, group, mode)
+        after = coll.totals()
+        out[mode] = {
+            "lanes": [v[:g.numel()].cpu().numpy()
+                      for v, g in zip(q.split(spans), leaves)],
+            "scales": [v[:g.numel()].cpu().numpy()
+                       for v, g in zip(scale.split(spans), leaves)],
+            "wire_lanes": q.numel(),
+            "sum": [v[:g.numel()].cpu().numpy() for v, g in zip(
+                coll.int8_lane_sum(q, group).split(spans), leaves)],
+            "means": [m.cpu().numpy() for m in means],
+            "comm": [a - b for a, b in zip(after, before)]}
+    before = coll.totals()
+    coll.all_reduce(torch.cat(leaves), group)
+    out["dense"] = {"comm": [a - b for a, b in zip(coll.totals(), before)]}
+    tau = torch.tensor(1e-2, dtype=torch.float32, device=device)
+    res = torch.zeros(sum(g.numel() for g in leaves), device=device)
+    wire = []
+    gather = coll.all_gather
+
+    def keep(t, g):    # the codes this rank puts on the wire
+        wire.append(t.cpu().numpy())
+        return gather(t, g)
+
+    sh._coll.all_gather = keep
+    before = coll.totals()
+    try:
+        means, new_res, sent = sh.threshold_psum_mean(leaves, res, tau,
+                                                      0.125, group)
+    finally:
+        sh._coll.all_gather = gather
+    after = coll.totals()
+    out["threshold"] = {"means": [m.cpu().numpy() for m in means],
+                        "residuals": [r.cpu().numpy() for r in new_res.split(
+                            [g.numel() for g in leaves])],
+                        "sent": int(sent), "codes": wire[0],
+                        "comm": [a - b for a, b in zip(after, before)]}
+    return out
+
+
+def sync_bn_rank(rank, world, device, x, w_dy, residual):
+    """The three BN Functions over this rank's rows of `x` (f64) in a
+    synchronised group: y, the batch mean/var, dx, dgamma, dbeta (and the
+    residual's gradient) for each, with the upstream gradient w_dy."""
+    from deeplearning4j_tpu_torch.ops import norm
+
+    group = data_parallel_mesh()
+    b = x.shape[0] // world
+    rows = slice(rank * b, (rank + 1) * b)
+    out = {}
+    for kind in ("plain", "act", "act_add"):
+        xt = torch.from_numpy(x[rows]).requires_grad_(True)
+        gamma = torch.linspace(0.5, 1.5, x.shape[1],
+                               dtype=torch.float64).requires_grad_(True)
+        beta = torch.linspace(-0.2, 0.3, x.shape[1],
+                              dtype=torch.float64).requires_grad_(True)
+        res = torch.from_numpy(residual[rows]).requires_grad_(True)
+        with norm.sync_batch_norm(group):
+            if kind == "plain":
+                y, mean, var = norm.BNTrainFn.apply(xt, gamma, beta, 1e-5)
+            elif kind == "act":
+                y, mean, var = norm.BNActTrainFn.apply(xt, gamma, beta,
+                                                       1e-5, "relu")
+            else:
+                y, mean, var = norm.BNActAddTrainFn.apply(
+                    xt, gamma, beta, res, 1e-5, "relu")
+        before = coll.totals()
+        (y * torch.from_numpy(w_dy[rows])).sum().backward()
+        after = coll.totals()
+        out[kind] = {"y": y.detach().numpy(), "mean": mean.numpy(),
+                     "var": var.numpy(), "dx": xt.grad.numpy(),
+                     "dgamma": gamma.grad.numpy(),
+                     "dbeta": beta.grad.numpy(),
+                     "dres": None if res.grad is None else res.grad.numpy(),
+                     "bwd_collectives": after[0] - before[0]}
+    return out

@@ -30,9 +30,12 @@ def test_gate_covers_the_port():
             "sequence.py", "server.py", "flash_attention.py", "attention.py",
             "graph.py", "layers.py", "updaters.py", "losses.py",
             "dtype.py", "conv.py", "pooling.py", "norm.py", "multilayer.py",
-            "dataset.py", "models.py", "rnn.py", "recurrent.py"} <= names
+            "dataset.py", "models.py", "rnn.py", "recurrent.py",
+            "trainer.py", "collectives.py", "multihost.py", "sharding.py",
+            "spark.py", "dryrun.py", "mesh.py"} <= names
     dirs = {p.parent.name for p in _SOURCES}
-    assert {"ops", "nn", "conf", "data", "zoo", "serving"} <= dirs
+    assert {"ops", "nn", "conf", "data", "zoo", "serving",
+            "parallel"} <= dirs
     assert all(p.exists() for p in _SOURCES)
 
 
