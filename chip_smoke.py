@@ -228,9 +228,40 @@ Phases (any failure exits non-zero before the result line):
    (a); on one card the line says it did not run. K1-K5 launch no time
    in this phase.
 
+14. training runtime — (a) BASELINE config 4 (phase 9(b)'s ResNet-50,
+   bf16 NHWC, Nesterovs(0.1, 0.9), batch 128, deterministic cuDNN) over
+   an ExistingDataSetIterator of 9 pre-built batches (0.7 GB on the
+   host): ComputationGraph.fitDataSet(stepsPerSync=4) (two blocks and a
+   one-batch tail, 3 syncs) with every block issued under
+   torch.cuda.set_sync_debug_mode("error"), its 9 losses and its params,
+   BN statistics and momentum bitwise equal to fit over the same
+   iterator from the same start; the block driver's spans (data wait,
+   staging, dispatch, sync wait), ms a step against fit(iterator) and
+   phase 9(b); the device's idle share of one traced block beside phase
+   9(c)'s; TrainingCheckpoint.save after step 4, load into a fresh net,
+   5 more steps: the losses and the state bitwise the uninterrupted
+   run's (file bytes, save and load seconds); evaluate on 2 held-out
+   batches (the confusion total must be 256). (b) BASELINE config 1:
+   zoo LeNet (f32, Adam(1e-3), batch 64) on MnistDataSetIterator's
+   60,000 / 10,000 examples (synthetic and flagged where no idx files
+   are on the machine) through NormalizerStandardize:
+   EarlyStoppingTrainer (3 epochs, DataSetLossCalculator on the test
+   split, LocalFileModelSaver) whose best model restores onto the card
+   and scores >= 0.9 accuracy on the test split; ResilientFit
+   (saveEveryNIterations 200) with a NaN-poisoned step 100 that is
+   skipped (the params across it equal) and a preemption after step 500,
+   then a new ResilientFit on the same directory resumes at the step-400
+   checkpoint and its losses and final state equal the uninterrupted
+   run's bitwise; images/s of fit against fitDataSet(stepsPerSync=16)
+   over one epoch (bitwise equal results). (c) phase 7's encoder through
+   ComputationGraph.fitDataSet(stepsPerSync=4) over 8 batches under the
+   sync check: losses and state bitwise fit's, K1-K3 12 launches a step
+   each, counted over this run alone.
+
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
-launches are phase 7's plus phase 11's; phases 8-10, 12 and 13 run no
+launches are phase 7's plus phase 11's plus phase 14(c)'s; phases 8-10,
+12, 13, 14(a) and 14(b) run no
 hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, and the
 data-parallel exchange is NCCL's or gloo's collectives).
@@ -2858,6 +2889,403 @@ def data_parallel_phase(dev, cfg, phase9b):
     return {"modes": modes, "gloo": gloo, "multi": multi}
 
 
+# ----------------------------------------------------------------------
+# phase 14: the training runtime (fitDataSet blocks, iterators,
+# normalizers, evaluation, listeners, early stopping, files, ResilientFit)
+# ----------------------------------------------------------------------
+
+#: 14(a): BASELINE config 4 (phase 9(b)'s net) over 9 pre-built batches
+RUNTIME_RESNET = dict(batches=9, k=4, ckpt_after=4, held_out=2)
+#: 14(b): BASELINE config 1, zoo LeNet on (synthetic) MNIST at full size
+RUNTIME_LENET = dict(batch=64, train=60000, test=10000, epochs=3,
+                     save_every=200, poison=100, kill_after=500, k=16,
+                     min_accuracy=0.9)
+#: 14(c): phase 7's encoder over 8 batches
+RUNTIME_ENCODER = dict(batches=8, k=4)
+
+
+def block_spans(reg):
+    """The fitDataSet spans in the registry's trace: {name: [ms, ...]}."""
+    out = {}
+    for s in reg.trace.spans():
+        if s["name"].startswith("fit_dataset."):
+            out.setdefault(s["name"][len("fit_dataset."):], []).append(
+                s["dur"] * 1e3)
+    return out
+
+
+def state_equal(a, b):
+    """Params, layer states and updater state of two nets bit for bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.multilayer import tree_leaves
+
+    la = tree_leaves([a._params, a._states, a._upd_states])
+    lb = tree_leaves([b._params, b._states, b._upd_states])
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def traced_busy_share(fn):
+    """Run `fn` under torch.profiler: (the device's busy share of the
+    call's wall time, the wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.block"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    scope = [e for e in events if e.name == "smoke.block"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    need(len(scope) == 1, f"runtime: {len(scope)} traced scopes")
+    t0, t1 = scope[0].time_range.start, scope[0].time_range.end
+    busy = device_busy_us(events, t0, t1)
+    need(busy > 0, "runtime: the profiler saw no device time")
+    return busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def runtime_resnet(dev, cfg, phase9b, phase9c):
+    """Phase 14(a): fitDataSet(stepsPerSync=k) on config 4 against fit,
+    bitwise, with every block issued under the sync check; a traced
+    block's idle share; a mid-run TrainingCheckpoint; evaluate."""
+    import os
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        DataSet, ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.nn.multilayer import sync_free_blocks
+    from deeplearning4j_tpu_torch.optimize import CollectScoresListener
+    from deeplearning4j_tpu_torch.runtime import telemetry
+    from deeplearning4j_tpu_torch.util.serializer import TrainingCheckpoint
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    B, n, C = RESNET_TIMED["batch"], RESNET_TIMED["image"], \
+        RESNET_TIMED["classes"]
+    nb, k = cfg["batches"], cfg["k"]
+    rng = np.random.RandomState(SEED + 14)
+
+    def images(rows):
+        x = np.empty((rows, n, n, 3), np.float32)
+        for i in range(0, rows, B):
+            x[i:i + B] = rng.rand(min(B, rows - i), n, n, 3)
+        return x, np.eye(C, dtype=np.float32)[rng.randint(0, C, rows)]
+
+    t = time.perf_counter()
+    x, y = images(nb * B)
+    xe, ye = images(cfg["held_out"] * B)
+    data_s = time.perf_counter() - t
+
+    def batches(lo=0, hi=nb):
+        return ExistingDataSetIterator(DataSet(x[lo * B:hi * B],
+                                               y[lo * B:hi * B]), B)
+
+    fit_net = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                         updater=Nesterovs(0.1, 0.9))
+    blk, ck_net = fit_net.clone(), fit_net.clone()
+    log(f"runtime (a): {nb} batches of {B} NHWC images ({x.nbytes / 2**30:.2f}"
+        f" GiB on the host, made in {data_s:.2f} s), held-out "
+        f"{cfg['held_out']}; three nets from one start")
+
+    # the uninterrupted trajectory: fit over the iterator (it also warms
+    # cuDNN and cuBLAS up before the sync check)
+    sf, sb = CollectScoresListener(), CollectScoresListener()
+    fit_net.setListeners(sf)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit_net.fit(batches())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+
+    reg = telemetry.get_registry()
+    reg.trace.clear()
+    blk.setListeners(sb)
+    t = time.perf_counter()
+    with sync_free_blocks():
+        blk.fitDataSet(batches(), stepsPerSync=k)
+    torch.cuda.synchronize()
+    fd_s = time.perf_counter() - t
+    spans = block_spans(reg)
+    need(sb.scores == sf.scores, f"runtime (a): fitDataSet losses "
+         f"{sb.scores} vs fit's {sf.scores}")
+    need(state_equal(blk, fit_net), "runtime (a): fitDataSet's params, BN "
+         "statistics or momentum differ from fit's")
+    syncs = blk._fit_dataset_syncs
+    need(syncs == nb // k + nb % k, f"runtime (a): {syncs} syncs")
+    need(all(math.isfinite(v) for v in sf.scores),
+         f"runtime (a): non-finite loss {sf.scores}")
+
+    # one traced block: the device's idle share
+    busy, traced_ms = traced_busy_share(
+        lambda: blk.fitDataSet(batches(0, k), stepsPerSync=k))
+
+    # a checkpoint after step `ckpt_after`, loaded into a fresh net
+    m = cfg["ckpt_after"]
+    s1 = CollectScoresListener()
+    ck_net.setListeners(s1)
+    ck_net.fit(batches(0, m))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "resnet50.npz")
+        t = time.perf_counter()
+        TrainingCheckpoint.save(ck_net, path, extra={"batch": m})
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        resumed, _, extra = TrainingCheckpoint.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    need(extra == {"batch": m} and resumed.getIterationCount() == m,
+         f"runtime (a): checkpoint extra {extra}, iteration "
+         f"{resumed.getIterationCount()}")
+    s2 = CollectScoresListener()
+    resumed.setListeners(s2)
+    resumed.fit(batches(m, nb))
+    need(s1.scores + s2.scores == sf.scores, "runtime (a): the resumed "
+         f"losses {s1.scores + s2.scores} differ from the uninterrupted "
+         f"run's {sf.scores}")
+    need(state_equal(resumed, fit_net), "runtime (a): the resumed state "
+         "differs from the uninterrupted run's")
+    del ck_net, resumed
+
+    ev = blk.evaluate(ExistingDataSetIterator(DataSet(xe, ye), B))
+    total = int(ev.getConfusionMatrix().sum())
+    need(total == cfg["held_out"] * B, f"runtime (a): evaluate counted "
+         f"{total} examples")
+    result = {
+        "losses": sf.scores, "syncs": syncs,
+        "fit_ms_per_step": fit_s * 1e3 / nb,
+        "fit_dataset_ms_per_step": fd_s * 1e3 / nb,
+        "phase9b_ms_per_step": phase9b["step_ms_median_3_on"],
+        "spans_ms": spans,
+        "traced_block_ms": traced_ms,
+        "traced_block_device_idle_share": 1 - busy,
+        "phase9c_device_idle_share_of_traced_wall":
+            phase9c["device_idle_share_of_traced_wall"],
+        "checkpoint_bytes": size, "checkpoint_save_s": save_s,
+        "checkpoint_load_s": load_s,
+        "eval_accuracy": ev.accuracy(), "eval_confusion_total": total}
+    log("runtime (a): " + json.dumps(result))
+    del x, y, xe, ye, fit_net, blk
+    return result
+
+
+def runtime_lenet(dev, cfg):
+    """Phase 14(b): BASELINE config 1 through the runtime: MNIST
+    iterators and NormalizerStandardize, EarlyStoppingTrainer with a
+    LocalFileModelSaver, ResilientFit with a poisoned step and a
+    preemption, fit against fitDataSet(stepsPerSync=k)."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        DataSetIterator, MnistDataSetIterator, NormalizerStandardize,
+    )
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresListener, DataSetLossCalculator,
+        EarlyStoppingConfiguration, EarlyStoppingTrainer,
+        LocalFileModelSaver, MaxEpochsTerminationCondition,
+    )
+    from deeplearning4j_tpu_torch.runtime.resilience import (
+        FaultInjector, Preemption, ResilientFit,
+    )
+    from deeplearning4j_tpu_torch.util import sharded_checkpoint as ck
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    B = cfg["batch"]
+    t = time.perf_counter()
+    train = MnistDataSetIterator(B, train=True, numExamples=cfg["train"],
+                                 reshapeToCnn=True)
+    test = MnistDataSetIterator(B, train=False, numExamples=cfg["test"],
+                                reshapeToCnn=True)
+    norm = NormalizerStandardize().fit(train)
+    data_s = time.perf_counter() - t
+
+    def fresh():
+        it = DataSetIterator(train._f, train._l, B, shuffle=True,
+                             seed=123)
+        it.setPreProcessor(norm)
+        return it
+
+    test.setPreProcessor(norm)
+    steps = -(-cfg["train"] // B)
+    start = LeNet(numClasses=10, seed=SEED, device=dev).init()
+    log(f"runtime (b): MNIST train {train.totalExamples()} / test "
+        f"{test.totalExamples()} examples, synthetic {train.isSynthetic} "
+        f"/ {test.isSynthetic}, normalized (made in {data_s:.2f} s); "
+        f"{steps} steps an epoch")
+
+    with tempfile.TemporaryDirectory() as d:
+        # early stopping over up to `epochs` epochs
+        net = start.clone()
+        es = (EarlyStoppingConfiguration.Builder()
+              .epochTerminationConditions(
+                  MaxEpochsTerminationCondition(cfg["epochs"]))
+              .scoreCalculator(DataSetLossCalculator(test))
+              .modelSaver(LocalFileModelSaver(f"{d}/es")).build())
+        t = time.perf_counter()
+        res = EarlyStoppingTrainer(es, net, fresh()).fit()
+        es_s = time.perf_counter() - t
+        best = res.getBestModel()
+        need(best is not None and best.device == start.device,
+             "runtime (b): the best model did not restore onto the card")
+        acc = best.evaluate(test).accuracy()
+        need(acc >= cfg["min_accuracy"], f"runtime (b): best model's test "
+             f"accuracy {acc} < {cfg['min_accuracy']}")
+
+        # ResilientFit: the uninterrupted run, a poisoned step in it
+        snaps = {}
+        p = cfg["poison"]
+
+        class Grab:
+            def iterationDone(self, model, iteration, epoch):
+                if iteration in (p, p + 1):
+                    snaps[iteration] = model.params().tensor().clone()
+
+        u = start.clone()
+        cu = CollectScoresListener()
+        u.setListeners(cu, Grab())
+        rf = ResilientFit(u, f"{d}/u", saveEveryNIterations=cfg["save_every"],
+                          injector=FaultInjector().poisonStep(p))
+        t = time.perf_counter()
+        rf.fit(fresh(), epochs=1)
+        rf_s = time.perf_counter() - t
+        need(rf.skippedSteps == 1 and not math.isfinite(cu.scores[p]),
+             f"runtime (b): {rf.skippedSteps} skipped steps, loss at the "
+             f"poisoned step {cu.scores[p]}")
+        need(torch.equal(snaps[p], snaps[p + 1]), "runtime (b): the "
+             "skipped step changed the params")
+        # killed after `kill_after` steps, then resumed from the directory
+        v = start.clone()
+        inj = FaultInjector().poisonStep(p).killAfterStep(cfg["kill_after"])
+        try:
+            ResilientFit(v, f"{d}/v", saveEveryNIterations=cfg["save_every"],
+                         injector=inj).fit(fresh(), epochs=1)
+            need(False, "runtime (b): the preemption did not fire")
+        except Preemption:
+            pass
+        latest = ck.latest_step(f"{d}/v")
+        w = start.clone()
+        cw = CollectScoresListener()
+        w.setListeners(cw)
+        ResilientFit(w, f"{d}/v", saveEveryNIterations=cfg["save_every"],
+                     injector=FaultInjector().poisonStep(p)).fit(fresh(),
+                                                                 epochs=1)
+        need(cw.iterations[0] == latest + 1
+             and cw.scores == cu.scores[latest:],
+             f"runtime (b): resumed at {cw.iterations[:1]} (latest "
+             f"checkpoint {latest}); its losses {cw.scores[:4]} differ "
+             f"from the uninterrupted run's {cu.scores[latest:latest + 4]}")
+        need(state_equal(w, u), "runtime (b): the resumed state differs")
+
+    # fit against fitDataSet(stepsPerSync=k), one epoch each
+    a, b = start.clone(), start.clone()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a.fit(fresh())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    t = time.perf_counter()
+    b.fitDataSet(fresh(), stepsPerSync=cfg["k"])
+    torch.cuda.synchronize()
+    fd_s = time.perf_counter() - t
+    need(state_equal(a, b) and a.score() == b.score(),
+         "runtime (b): fitDataSet's epoch differs from fit's")
+    result = {"steps_per_epoch": steps, "synthetic": train.isSynthetic,
+              "early_stopping_epochs": res.totalEpochs,
+              "early_stopping_best_epoch": res.bestModelEpoch,
+              "early_stopping_s": es_s, "test_accuracy": acc,
+              "resilient_epoch_s": rf_s, "resumed_from": latest,
+              "fit_images_per_s": cfg["train"] / fit_s,
+              "fit_dataset_images_per_s": cfg["train"] / fd_s,
+              "fit_dataset_syncs": b._fit_dataset_syncs}
+    log("runtime (b): " + json.dumps(result))
+    return result
+
+
+def runtime_encoder(dev, cfg, phase7):
+    """Phase 14(c): phase 7's encoder through ComputationGraph.fitDataSet
+    (stepsPerSync=k) against fit, bitwise, blocks under the sync check;
+    K1-K3 counted over the fitDataSet run alone."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        DataSet, ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import sync_free_blocks
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+    from deeplearning4j_tpu_torch.optimize import CollectScoresListener
+
+    bc = BERT_BASE
+    nb, k, B = cfg["batches"], cfg["k"], bc["batch"]
+    rng = np.random.default_rng(SEED + 14)
+    x = rng.standard_normal((nb * B, bc["hidden"], bc["seq"])).astype(
+        np.float32)
+    y = np.eye(2, dtype=np.float32)[(x[:, :64].mean(axis=(1, 2)) > 0)
+                                    .astype(int)]
+
+    def it():
+        return ExistingDataSetIterator(DataSet(x, y), B)
+
+    ref = ComputationGraph(bert_encoder_conf(bc)).init()
+    net = ref.clone()
+    sr, sn = CollectScoresListener(), CollectScoresListener()
+    ref.setListeners(sr)
+    net.setListeners(sn)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref.fit(it())
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    tfa.reset_launches()
+    t = time.perf_counter()
+    with sync_free_blocks():
+        net.fitDataSet(it(), stepsPerSync=k)
+    torch.cuda.synchronize()
+    fd_s = time.perf_counter() - t
+    launches = {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
+                "K3": tfa.flash_bwd_dkv.launches,
+                "plain": tfa.flash_fwd_plain.launches
+                + tfa.flash_bwd_dq_plain.launches
+                + tfa.flash_bwd_dkv_plain.launches}
+    want = bc["layers"] * nb
+    need(all(launches[n] == want for n in ("K1", "K2", "K3"))
+         and launches["plain"] == 0,
+         f"runtime (c): launches {launches}, expected {want} each")
+    need(sn.scores == sr.scores, f"runtime (c): fitDataSet losses "
+         f"{sn.scores} vs fit's {sr.scores}")
+    need(state_equal(net, ref), "runtime (c): fitDataSet's state differs "
+         "from fit's")
+    result = {"losses": sr.scores, "launches": launches,
+              "syncs": net._fit_dataset_syncs,
+              "fit_ms_per_step": fit_s * 1e3 / nb,
+              "fit_dataset_ms_per_step": fd_s * 1e3 / nb,
+              "phase7_ms_per_step": phase7["step_ms_median_3_to_20"]}
+    log("runtime (c): " + json.dumps(result))
+    return result
+
+
+def runtime_phase(dev, phase7, phase9b, phase9c):
+    """Phase 14: (a) config 4, (b) config 1, (c) the encoder."""
+    import torch
+
+    a = runtime_resnet(dev, RUNTIME_RESNET, phase9b, phase9c)
+    torch.cuda.empty_cache()
+    b = runtime_lenet(dev, RUNTIME_LENET)
+    torch.cuda.empty_cache()
+    c = runtime_encoder(dev, RUNTIME_ENCODER, phase7)
+    torch.cuda.empty_cache()
+    return {"resnet": a, "lenet": b, "encoder": c}
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -2928,6 +3356,8 @@ def main():
     rnn = char_rnn_phase(dev)
     torch.cuda.empty_cache()
     dp = data_parallel_phase(dev, RESNET_TIMED, timed)
+    torch.cuda.empty_cache()
+    runtime = runtime_phase(dev, train, timed, trace)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -2959,7 +3389,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:{line}",
-            "launches": train["launches"][key] + sd_enc["launches"][key],
+            "launches": train["launches"][key] + sd_enc["launches"][key]
+            + runtime["encoder"]["launches"][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -3025,6 +3456,28 @@ def main():
             f"{r['bill_wire_bytes']})" for m, r in dp["modes"].items())
         + f"; two gloo ranks on the card: dense {dp['gloo']['dense_max_abs_vs_fit']:.2e}"
         f" from fit, int8 grid excess {dp['gloo']['int8_grid_excess']:.3f}")
+    ra, rb, rc = (runtime["resnet"], runtime["lenet"],
+                  runtime["encoder"])
+    sp = {n: float(np.median(v)) for n, v in ra["spans_ms"].items()}
+    log(f"training runtime on {card}: config 4 fitDataSet(k="
+        f"{RUNTIME_RESNET['k']}) {ra['fit_dataset_ms_per_step']:.2f} ms a "
+        f"step vs fit(iterator) {ra['fit_ms_per_step']:.2f} ms and phase "
+        f"9(b)'s resident batch {ra['phase9b_ms_per_step']:.2f} ms; spans "
+        "(median ms) " + ", ".join(f"{n} {v:.2f}" for n, v in sorted(
+            sp.items())) + f"; traced block idle "
+        f"{100 * ra['traced_block_device_idle_share']:.1f} % (phase 9(c) "
+        f"{100 * ra['phase9c_device_idle_share_of_traced_wall']:.1f} %); "
+        f"checkpoint {ra['checkpoint_bytes'] / 2**20:.1f} MiB, save "
+        f"{ra['checkpoint_save_s']:.2f} s, load "
+        f"{ra['checkpoint_load_s']:.2f} s; config 1 LeNet early stopping "
+        f"{rb['early_stopping_epochs']} epochs, test accuracy "
+        f"{rb['test_accuracy']:.4f}, fit {rb['fit_images_per_s']:.0f} vs "
+        f"fitDataSet(k={RUNTIME_LENET['k']}) "
+        f"{rb['fit_dataset_images_per_s']:.0f} images/s; encoder "
+        f"fitDataSet(k={RUNTIME_ENCODER['k']}) "
+        f"{rc['fit_dataset_ms_per_step']:.2f} ms a step vs fit "
+        f"{rc['fit_ms_per_step']:.2f} ms (phase 7 "
+        f"{rc['phase7_ms_per_step']:.2f} ms)")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -27,7 +27,15 @@ What is ported so far:
   ``Transforms``, im2col/col2im, the seeded RNG, the executioner, the
   compression codecs) and ``autodiff`` (``SameDiff`` graphs, autodiff by
   autograd, ``TrainingConfig`` training, the reference's file format),
-  whose ``multiHeadDotProductAttention`` reaches the flash kernels.
+  whose ``multiHeadDotProductAttention`` reaches the flash kernels;
+* the recurrent family and the carry-slot sequence scheduler, and the
+  data-parallel trainers over ``torch.distributed`` (``parallel``);
+* the training runtime around the networks: ``data`` (iterators,
+  ``MultiDataSet``, normalizers), ``evaluation``, ``optimize``
+  (listeners, early stopping), ``fitSteps`` and ``fitDataSet`` (k-step
+  blocks, one host sync a block), ``util.serializer``/``serde`` (model
+  files and JSON in the reference's format), ``util.sharded_checkpoint``
+  and ``runtime.resilience`` (``ResilientFit``).
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

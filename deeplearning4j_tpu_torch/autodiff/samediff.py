@@ -35,9 +35,10 @@ may update its variables in place without any INDArray seeing it.
 What waits raises ``NotImplementedError`` naming its ROADMAP.md Queue 1
 item: control flow, the cnn/rnn/image/fft/bitwise namespaces, the linalg
 decompositions and segment ops (item 9, ``ops_impl.DEFERRED``);
-``shardWeightUpdate`` (item 7); ``precompile`` (item 13);
-``fitDataSet``, ``evaluate`` and listeners (item 10); saving or loading
-updater state (item 9).
+``shardWeightUpdate`` (item 7); ``precompile`` (item 13); saving or
+loading updater state (item 9). ``fitDataSet(stepsPerSync=k)`` runs the
+networks' block driver (one host sync a block of k batches), and
+``evaluate`` and ``fit``'s listeners are the training runtime's.
 """
 
 from __future__ import annotations
@@ -673,9 +674,8 @@ class SameDiff:
             listeners=None):
         """Train with the TrainingConfig (reference: SameDiff.fit): one
         step per batch; ``data`` is a DataSet, a (features, labels) pair
-        or a list of them. Returns the loss of every step."""
-        if listeners:
-            raise _later("training listeners", 10)
+        or a list of them. Each listener's ``iterationDone(sd, iteration,
+        loss)`` fires after every step. Returns the loss of every step."""
         tc, loss_names, params, state = self._fit_setup()
         if data is not None and features is None:
             batches = data if isinstance(data, (list, tuple)) else [data]
@@ -690,6 +690,8 @@ class SameDiff:
                 self._train_state = state
                 self._iteration += 1
                 history.append(float(loss))
+                for lst in (listeners or []):
+                    lst.iterationDone(self, self._iteration, history[-1])
         return history
 
     def fitSteps(self, features=None, labels=None, numSteps=1, data=None):
@@ -709,16 +711,146 @@ class SameDiff:
 
     def fitDataSet(self, iterator, stepsPerSync=1, epochs=1,
                    listeners=None):
-        raise _later("fitDataSet", 10)
+        """Epoch training with one host sync a block of ``stepsPerSync``
+        fresh batches (reference: SameDiff.fitDataSet), through the
+        networks' block driver (``nn.multilayer.run_staged_blocks``): k
+        batches are staged on the device as one copy, their k steps are
+        issued back to back with the iteration and streams ``fit`` gives
+        them, and the k losses are read one block behind. The ragged
+        final stack runs through ``fit``. Returns the loss history (one
+        float a step); the host syncs are left in
+        ``_fit_dataset_syncs``."""
+        from deeplearning4j_tpu_torch.data.iterators import iter_stacks
+        from deeplearning4j_tpu_torch.nn.multilayer import (
+            BlockStager, check_steps_per_sync, launch_block,
+            run_staged_blocks, wait_block,
+        )
+
+        if self._tc is None:
+            raise ValueError("setTrainingConfig first")
+        k = check_steps_per_sync(stepsPerSync)
+        if epochs > 1 and not hasattr(iterator, "reset"):
+            raise ValueError(
+                f"fitDataSet(epochs={epochs}) needs a resettable "
+                "iterator (with reset()/hasNext()/next()); a plain "
+                "iterable can only run one epoch")
+        if k == 1:
+            history = []
+            for _ in range(epochs):
+                if hasattr(iterator, "reset"):
+                    iterator.reset()
+                for stack in iter_stacks(iterator, 1):
+                    history.extend(self.fit(data=stack[0],
+                                            listeners=listeners))
+            self._fit_dataset_syncs = len(history)  # one per batch
+            return history
+        tc, loss_names, params, _ = self._fit_setup()
+        stager = BlockStager(self.device)
+        history = []
+        self._fit_dataset_syncs = 0
+        it_next = 0   # the dispatch-side iteration cursor
+
+        def step(tensors, it):
+            loss, self._train_state = self._step(
+                tc, loss_names, params, self._train_state,
+                self._batch_args(tensors), it)
+            return loss
+
+        def dispatch(batches):
+            nonlocal it_next
+            staged, ready = stager(self, batches)
+            host, event = launch_block(self, staged, ready, it_next, step)
+            it_next += k
+            return host, event
+
+        def consume(pending):
+            host, event = pending
+            self._fit_dataset_syncs += 1
+            wait_block(event)   # THE host sync of this block
+            vals = host.numpy()
+            for v in vals:
+                self._iteration += 1
+                history.append(float(v))
+                for lst in (listeners or []):
+                    lst.iterationDone(self, self._iteration, float(v))
+            for lst in (listeners or []):
+                fn = getattr(lst, "onSyncBoundary", None)
+                if fn is not None:
+                    fn(self, self._iteration, vals)
+
+        for _ in range(epochs):
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            it_next = self._iteration
+            tail = run_staged_blocks(iterator, k, dispatch, consume)
+            for b in tail:
+                history.extend(self.fit(data=b, listeners=listeners))
+                self._fit_dataset_syncs += 1
+        return history
+
+    def _batch_arrays(self, b):
+        """A batch as numpy arrays: the features, then the labels, in the
+        TrainingConfig's mapping order (None for an absent label)."""
+        from deeplearning4j_tpu_torch.data.dataset import _np
+
+        feats, labs = self._batch_lists(b, self._tc)
+        labs = list(labs) + [None] * (len(self._tc.dataSetLabelMapping)
+                                      - len(labs))
+        return [_np(a) for a in feats + labs]
+
+    def _batch_array_names(self, n):
+        tc = self._tc
+        return list(tc.dataSetFeatureMapping) + list(tc.dataSetLabelMapping)
+
+    def _batch_args(self, tensors):
+        tc = self._tc
+        names = list(tc.dataSetFeatureMapping) + list(tc.dataSetLabelMapping)
+        return {n: t for n, t in zip(names, tensors) if t is not None}
 
     def evaluate(self, iterator, outputVariable, *evaluations):
-        raise _later("evaluate (the evaluation package)", 10)
+        """Stream a DataSetIterator through the graph into any number of
+        IEvaluation instances (reference: SameDiff.evaluate): features
+        bind through the TrainingConfig's dataSetFeatureMapping, labels go
+        to the evaluations. Returns the evaluation, or a tuple of them."""
+        if self._tc is None:
+            raise ValueError("setTrainingConfig first (evaluate needs the "
+                             "dataSetFeatureMapping to bind features)")
+        if not evaluations:
+            from deeplearning4j_tpu_torch.evaluation.evaluation import \
+                Evaluation
+
+            evaluations = (Evaluation(),)
+        out_name = getattr(outputVariable, "name", outputVariable)
+        iterator.reset()
+        while iterator.hasNext():
+            ds = iterator.next()
+            feats, _ = self._batch_lists(ds, self._tc, bind_labels=False)
+            phs = {n: self._in(a)
+                   for n, a in zip(self._tc.dataSetFeatureMapping, feats)}
+            pred = self.output(phs, [out_name])[out_name]
+            mask = ds.getLabelsMaskArray() \
+                if hasattr(ds, "getLabelsMaskArray") else None
+            for e in evaluations:
+                e.eval(ds.getLabels(), pred, mask=mask)
+        return evaluations[0] if len(evaluations) == 1 else evaluations
 
     def shardWeightUpdate(self, mesh=None, batch_axis=None,
                           min_shard_size=2 ** 16):
         raise _later("shardWeightUpdate (the sharded weight update)", 7)
 
     def _batch_to_placeholders(self, b, tc):
+        feats, labs = self._batch_lists(b, tc)
+        phs = {name: self._in(arr)
+               for name, arr in zip(tc.dataSetFeatureMapping, feats)}
+        for name, arr in zip(tc.dataSetLabelMapping, labs):
+            if arr is not None:
+                phs[name] = self._in(arr)
+        return phs
+
+    @staticmethod
+    def _batch_lists(b, tc, bind_labels=True):
+        """(feature arrays, label arrays) of a batch, checked against the
+        TrainingConfig's mappings."""
         if isinstance(b, (tuple, list)):
             feats = [b[0]] if not isinstance(b[0], (tuple, list)) \
                 else list(b[0])
@@ -739,17 +871,13 @@ class SameDiff:
                 f"dataSetFeatureMapping names "
                 f"{len(tc.dataSetFeatureMapping)}; for a single feature "
                 "array the mapping must have exactly one name")
-        if labs[0] is not None and tc.dataSetLabelMapping and \
+        if bind_labels and labs[0] is not None and \
+                tc.dataSetLabelMapping and \
                 len(labs) != len(tc.dataSetLabelMapping):
             raise ValueError(
                 f"batch has {len(labs)} label array(s) but "
                 f"dataSetLabelMapping names {len(tc.dataSetLabelMapping)}")
-        phs = {name: self._in(arr)
-               for name, arr in zip(tc.dataSetFeatureMapping, feats)}
-        for name, arr in zip(tc.dataSetLabelMapping, labs):
-            if arr is not None:
-                phs[name] = self._in(arr)
-        return phs
+        return feats, labs
 
     # ---------- serialization ----------
     def save(self, path, saveUpdaterState=False):

@@ -76,6 +76,19 @@ class MultiLayerConfiguration:
         self.checkpointPolicy = defaults.get("checkpointPolicy")
         self.layerInputTypes = []   # resolved per layer by inferShapes
 
+    def toJson(self) -> str:
+        """Config-only JSON in the reference's format (reference:
+        MultiLayerConfiguration.toJson; ``util.serde``)."""
+        from deeplearning4j_tpu_torch.util import serde
+
+        return serde.to_json(self)
+
+    @staticmethod
+    def fromJson(text: str) -> "MultiLayerConfiguration":
+        from deeplearning4j_tpu_torch.util import serde
+
+        return serde.from_json(text, MultiLayerConfiguration)
+
     def inferShapes(self):
         """Propagate the InputType through the layers, inferring nIn and
         inserting preprocessors (reference: ``inferShapes``)."""

@@ -111,6 +111,19 @@ class ComputationGraphConfiguration:
         self.topoOrder = self._topo_sort()
         self._infer_shapes()
 
+    def toJson(self) -> str:
+        """Config-only JSON in the reference's format (reference:
+        ComputationGraphConfiguration.toJson; ``util.serde``)."""
+        from deeplearning4j_tpu_torch.util import serde
+
+        return serde.to_json(self)
+
+    @staticmethod
+    def fromJson(text: str) -> "ComputationGraphConfiguration":
+        from deeplearning4j_tpu_torch.util import serde
+
+        return serde.from_json(text, ComputationGraphConfiguration)
+
     def _topo_sort(self):
         order, seen, temp = [], set(), set()
 

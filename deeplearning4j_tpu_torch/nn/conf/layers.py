@@ -257,8 +257,11 @@ class ConvolutionLayer(FeedForwardLayer):
         return params, {}
 
     def param_from_reference(self, name, t):
-        if name == "W":   # HWIO -> OIHW
-            return t.permute(3, 2, 0, 1).contiguous(
+        if name == "W":   # HWIO -> OIHW, laid out as initialize lays it
+            # out: through a contiguous copy first, since with a size-1
+            # dim (nIn 1) another stride set also counts as channels_last,
+            # and the convolution's summation order follows the strides
+            return t.permute(3, 2, 0, 1).contiguous().contiguous(
                 memory_format=torch.channels_last)
         return t
 

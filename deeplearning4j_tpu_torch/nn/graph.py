@@ -23,8 +23,10 @@ autograd carries the gradient back to the fp32 master. ``output`` and
 INDArrays, tensors or numpy arrays. Truncated BPTT slices the [B, C, T]
 inputs, labels and masks into windows through the window loop
 ``MultiLayerNetwork`` uses (``multilayer.run_tbptt``); feed-forward
-inputs of a mixed graph pass whole. Solvers, ``fitDataSet``,
-``MultiDataSet``, the AOT cache, remat policies and evaluation wait for
+inputs of a mixed graph pass whole. ``fitSteps``, ``fitDataSet``
+(k-step blocks, one host sync a block), evaluation, listeners and the
+files come from ``multilayer.NetworkRuntime``; a ``MultiDataSet`` feeds a
+multi-input graph. Solvers, the AOT cache and remat policies wait for
 their slices and raise ``NotImplementedError`` naming them.
 """
 
@@ -40,10 +42,10 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.builder import refuse_checkpoint_policy
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _grad_normalize, _later, _out_act, _timed_step, _unwrap, carry_layer,
-    cast_params, check_carried, cnn_entry, default_param_update,
-    fit_batches, layer_seed, map_tree, mask_slice, run_tbptt,
-    strip_carries, time_slice, to_api_layout, uncarry_layer,
+    NetworkRuntime, _grad_normalize, _later, _out_act, _timed_step, _unwrap,
+    carry_layer, cast_params, check_carried, cnn_entry,
+    default_param_update, fit_batches, layer_seed, map_tree, mask_slice,
+    run_tbptt, strip_carries, time_slice, to_api_layout, uncarry_layer,
 )
 from deeplearning4j_tpu_torch.ops import norm as _norm
 
@@ -73,7 +75,7 @@ def params_to_reference(conf, params):
             for n, p in params.items()}
 
 
-class ComputationGraph:
+class ComputationGraph(NetworkRuntime):
     def __init__(self, conf, device=None):
         refuse_checkpoint_policy(conf.checkpointPolicy)
         self.conf = conf
@@ -87,6 +89,7 @@ class ComputationGraph:
         self._iteration = 0
         self._epoch = 0
         self._score = float("nan")
+        self._listeners = []
         self._compute_dtype = conf.dataType.torch_dtype
         self._param_dtype = (torch.float64
                              if self._compute_dtype == torch.float64
@@ -249,12 +252,13 @@ class ComputationGraph:
 
     def _train_step(self, inputs, labels, fmasks, lmasks, window=None,
                     grad_transform=None, loss_transform=None,
-                    state_transform=None, bn_group=None):
+                    state_transform=None, bn_group=None, iteration=None):
         """One eager step: forward, backward, normalize, update in place.
-        `window` is a truncated-BPTT window's index, and the hooks and
-        `bn_group` are the data-parallel trainers', as in
+        `window` is a truncated-BPTT window's index, and the hooks,
+        `bn_group` and `iteration` are as in
         ``MultiLayerNetwork._train_step`` (gradients as a list in
-        ``_layer_names`` order). Returns the loss tensor."""
+        ``_layer_names`` order). Returns the loss tensor, unread."""
+        it = self._iteration if iteration is None else iteration
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
@@ -278,8 +282,8 @@ class ComputationGraph:
                 if not self._params[name]:
                     continue
                 _, self._upd_states[name] = default_param_update(
-                    self._updaters[name], g, self._upd_states[name],
-                    self._iteration, self._params[name])
+                    self._updaters[name], g, self._upd_states[name], it,
+                    self._params[name])
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
@@ -334,25 +338,139 @@ class ComputationGraph:
             lambda x, y: self._fit_batch(self._coerce_inputs(x),
                                          self._coerce_labels(y), None,
                                          None),
-            lambda ds: self._fit_batch(*self._extract_ds(ds)))
+            self._fit_ds)
+
+    def _fit_ds(self, ds):
+        self._fit_batch(*self._extract_ds(ds))
 
     def _extract_ds(self, ds):
-        """(inputs, labels, feature masks, label masks) of a DataSet."""
-        name = self.conf.networkInputs[0]
-        fm = ds.getFeaturesMaskArray()
-        lm = ds.getLabelsMaskArray()
-        return ({name: ds.getFeatures()}, self._coerce_labels(ds.getLabels()),
-                None if fm is None else {name: _unwrap(fm, self.device)},
-                None if lm is None else [_unwrap(lm, self.device)])
+        """(inputs, labels, feature masks, label masks) of a DataSet or a
+        MultiDataSet, on the device."""
+        return self._batch_args([_unwrap(a, self.device)
+                                 for a in self._batch_arrays(ds)])
 
-    def fitDataSet(self, iterator, stepsPerSync=1, epochs=None):
-        raise _later("fitDataSet", "nn-conf slice, item 4")
+    # the hooks of NetworkRuntime (fitSteps, fitDataSet, files, params)
+    def _unit_keys(self):
+        return list(self._layer_names)
+
+    def _unit_layer(self, name):
+        return self.conf.nodes[name].payload
+
+    def _pack(self, values):
+        return dict(zip(self._layer_names, values))
+
+    @staticmethod
+    def _split_key(key):
+        # vertex names may hold underscores: split on the last one
+        name, _, pname = key.rpartition("_")
+        return name, pname
+
+    def _batch_arrays(self, ds):
+        """A DataSet or MultiDataSet as the flat list [inputs..., labels...,
+        input masks..., label masks...] (numpy, None where absent)."""
+        from deeplearning4j_tpu_torch.data.dataset import _np
+        from deeplearning4j_tpu_torch.data.multidataset import MultiDataSet
+
+        nin = len(self.conf.networkInputs)
+        nout = len(self.conf.networkOutputs)
+        if isinstance(ds, MultiDataSet):
+            fms = ds.getFeaturesMaskArrays() or [None] * nin
+            lms = ds.getLabelsMaskArrays() or [None] * nout
+            arrs = list(ds.getFeatures()) + list(ds.getLabels()) \
+                + list(fms) + list(lms)
+        else:
+            arrs = [ds.getFeatures(), ds.getLabels(),
+                    ds.getFeaturesMaskArray(), ds.getLabelsMaskArray()]
+        if len(arrs) != 2 * (nin + nout):
+            raise ValueError(
+                f"{type(ds).__name__} holds {len(arrs)} arrays; this graph "
+                f"takes {nin} input(s) and {nout} output(s)")
+        return [_np(a) for a in arrs]
+
+    def _batch_array_names(self, n):
+        nin = len(self.conf.networkInputs)
+        nout = len(self.conf.networkOutputs)
+        return ([f"features[{i}]" for i in range(nin)]
+                + [f"labels[{i}]" for i in range(nout)]
+                + [f"features-mask[{i}]" for i in range(nin)]
+                + [f"labels-mask[{i}]" for i in range(nout)])
+
+    def _batch_args(self, t):
+        names = self.conf.networkInputs
+        nin, nout = len(names), len(self.conf.networkOutputs)
+        fms = t[nin + nout:2 * nin + nout]
+        lms = t[2 * nin + nout:]
+        return (dict(zip(names, t[:nin])), list(t[nin:nin + nout]),
+                None if all(m is None for m in fms)
+                else dict(zip(names, fms)),
+                None if all(m is None for m in lms) else list(lms))
+
+    def _is_tbptt(self):
+        return self.conf.backpropType == "tbptt"
+
+    def _tbptt_windows(self, args):
+        inputs, labels, fmasks, lmasks = args
+        seqs = [v for v in inputs.values() if v.dim() == 3]
+        if not (self._is_tbptt() and seqs):
+            return [args]
+        T, L = max(v.shape[2] for v in seqs), self.conf.tbpttFwdLength
+        if T % L != 0:
+            raise ValueError(
+                f"fitSteps tBPTT needs seq len divisible by tbpttFwdLength "
+                f"(got T={T}, L={L}); use fit() for ragged tails")
+        return [({n: time_slice(v, sl) for n, v in inputs.items()},
+                 [time_slice(y, sl) for y in labels],
+                 None if fmasks is None else
+                 {n: mask_slice(m, sl) for n, m in fmasks.items()},
+                 None if lmasks is None else
+                 [mask_slice(m, sl) for m in lmasks])
+                for sl in (slice(c * L, (c + 1) * L) for c in range(T // L))]
+
+    def _check_evaluable(self):
+        if len(self.conf.networkOutputs) > 1:
+            raise ValueError(
+                "doEvaluation evaluates a single-output graph; score "
+                "multi-output graphs per-output via output() directly "
+                "(reference throws here too)")
+
+    def _eval_output(self, features):
+        return self.outputSingle(*features) \
+            if isinstance(features, (list, tuple)) \
+            else self.outputSingle(features)
+
+    def _eval_labels(self, ds):
+        from deeplearning4j_tpu_torch.data.multidataset import MultiDataSet
+
+        if isinstance(ds, MultiDataSet):
+            lm = ds.getLabelsMaskArrays()
+            return ds.getLabels(0), None if lm is None else lm[0]
+        return ds.getLabels(), ds.getLabelsMaskArray()
+
+    @staticmethod
+    def load(path, loadUpdater: bool = True, device=None):
+        from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+
+        return ModelSerializer.restoreComputationGraph(path, loadUpdater,
+                                                       device=device)
+
+    def summary(self) -> str:
+        lines = [f"{'name':<24}{'type':<26}{'inputs':<30}{'params':<10}"]
+        total = 0
+        for name in self.conf.topoOrder:
+            node = self.conf.nodes[name]
+            n = 0
+            if node.kind == "layer" and self._params:
+                n = sum(t.numel() for t in self._params[name].values())
+            total += n
+            kind = type(node.payload).__name__ \
+                if node.payload is not None else "Input"
+            lines.append(f"{name:<24}{kind:<26}{','.join(node.inputs):<30}"
+                         f"{n:<10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)
 
     def precompile(self, *args, **kwargs):
         raise _later("precompile (the AOT cache)", "runtime slice, item 13")
-
-    def evaluate(self, iterator):
-        raise _later("evaluation", "training-runtime slice, item 10")
 
     def output(self, *features):
         """The output activations, one ``INDArray`` per network output

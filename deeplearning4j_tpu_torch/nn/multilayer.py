@@ -6,8 +6,19 @@ module-level helpers (``_unwrap``, ``_tm`` training telemetry,
 ``_grad_normalize``, ``_out_act``, the truncated-BPTT window loop
 ``run_tbptt``), the carry of the reference's weights
 (``params_from_reference`` / ``params_to_reference``, layer by layer
-through each layer's layout map, nested wrapper trees included) and the
-``MultiLayerNetwork`` class.
+through each layer's layout map, nested wrapper trees included), the
+fitDataSet block driver (``BlockStager``, ``run_staged_blocks``,
+``run_fit_dataset_epoch``), ``NetworkRuntime`` (what both networks share:
+files, flat params in the reference's order, listeners, evaluation,
+``fitSteps``, ``fitDataSet``) and the ``MultiLayerNetwork`` class.
+
+fitDataSet(stepsPerSync=k) issues a block of k steps back to back with
+nothing read back: each loss stays a device tensor, the k are stacked
+and copied to pinned host memory behind an event, and the host waits on
+that event one block later, the block's one sync. Nothing in a step may
+read a tensor on the host (``sync_free_blocks`` makes such a read raise
+on the card). The dispatch side keeps its own iteration cursor for the
+updater's schedule; ``_iteration`` and the listeners move at the sync.
 
 Where the reference jits one donated-buffer train step, the port runs it
 eagerly: the forward over the layers (BN's running statistics come back
@@ -101,6 +112,21 @@ def _tm():
                 "fetch, host-observed").labels(),
             "steps": reg.counter(
                 "dl4j_train_steps_total", "optimizer steps applied").labels(),
+            "data_wait_s": reg.histogram(
+                "dl4j_fit_dataset_data_wait_seconds",
+                "fitDataSet: waiting on the iterator for a block's "
+                "batches").labels(),
+            "staging_s": reg.histogram(
+                "dl4j_fit_dataset_staging_seconds",
+                "fitDataSet: stacking a block and queueing its copy to "
+                "the device").labels(),
+            "sync_wait_s": reg.histogram(
+                "dl4j_fit_dataset_sync_wait_seconds",
+                "fitDataSet: the host blocked on a block's losses (its "
+                "one sync)").labels(),
+            "syncs": reg.counter(
+                "dl4j_fit_dataset_syncs_total",
+                "fitDataSet block syncs").labels(),
         }
     return _TM
 
@@ -247,25 +273,38 @@ def cnn_entry(x, it):
     return x
 
 
+def fire(net, hook, *args):
+    """Call `hook` on each of the net's listeners that has it (duck-typed
+    listeners may lack the epoch, sync and resilience hooks)."""
+    for lst in net._listeners:
+        fn = getattr(lst, hook, None)
+        if fn is not None:
+            fn(net, *args)
+
+
 def fit_batches(net, data, labels, epochs, step_arrays, step_ds):
     """The ``fit`` contract both networks share: (features, labels) ->
     ``step_arrays(data, labels)``; a DataSet -> ``step_ds(ds)``; an
     iterator (reset/hasNext/next) -> ``step_ds`` on each batch, for
-    ``epochs`` (default 1) passes. Each callback runs its batch's
-    optimizer step (or truncated-BPTT windows) through ``_timed_step``."""
+    ``epochs`` (default 1) passes, between the listeners' onEpochStart
+    and onEpochEnd. Each callback runs its batch's optimizer step (or
+    truncated-BPTT windows) through ``_timed_step``."""
     from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.multidataset import MultiDataSet
 
     net._require_init()
     if labels is not None:
         step_arrays(data, labels)
-    elif isinstance(data, DataSet):
+    elif isinstance(data, (DataSet, MultiDataSet)):
         step_ds(data)
     elif all(callable(getattr(data, a, None))
              for a in ("reset", "hasNext", "next")):
         for _ in range(epochs or 1):
             data.reset()
+            fire(net, "onEpochStart")
             while data.hasNext():
                 step_ds(data.next())
+            fire(net, "onEpochEnd")
             net._epoch += 1
     else:
         raise TypeError(
@@ -276,8 +315,9 @@ def fit_batches(net, data, labels, epochs, step_arrays, step_ds):
 
 
 def _timed_step(net, step):
-    """Run one optimizer step; its loss becomes the score, with the
-    ``train.step`` span and histogram, and the iteration count moves."""
+    """Run one optimizer step; its loss becomes the score (the step's
+    host sync), with the ``train.step`` span and histogram; the
+    iteration count moves and the listeners' iterationDone fires."""
     tm = _tm()
     t0 = time.perf_counter()
     net._score = float(step())
@@ -287,6 +327,8 @@ def _timed_step(net, step):
     tm["reg"].add_span("train.step", "train", t0, dt,
                        iteration=net._iteration)
     net._iteration += 1
+    for lst in net._listeners:
+        lst.iterationDone(net, net._iteration, net._epoch)
 
 
 # ----------------------------------------------------------------------
@@ -294,8 +336,10 @@ def _timed_step(net, step):
 # ----------------------------------------------------------------------
 
 def _tensor(a):
-    """A numpy array as a CPU tensor; bf16 (numpy's ml_dtypes type)
-    comes across bit for bit."""
+    """A numpy array (or a CPU tensor) as a CPU tensor of its own; bf16
+    (numpy's ml_dtypes type) comes across bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
@@ -377,11 +421,548 @@ def check_carried(src, dst, where):
                              f"{tuple(v.shape)} vs {tuple(dst[k].shape)}")
 
 
+def tree_items(tree, path=()):
+    """(path, leaf) pairs of a nested dict/list/tuple tree in
+    ``jax.tree_util``'s leaf order: dict keys sorted, sequences in order,
+    None holds no leaf. The reference's flat ``params()`` and its
+    checkpoint digest walk this order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_items(tree[k],
+                                                             path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in tree_items(v, path + (i,))]
+    return [(path, tree)]
+
+
+def tree_leaves(tree):
+    """The leaves of a nested tree in ``jax.tree_util``'s order."""
+    return [leaf for _, leaf in tree_items(tree)]
+
+
+def _params_shaped(d, keys):
+    return isinstance(d, dict) and bool(d) and set(flatten_tree(d)) == keys
+
+
+def upd_to_reference(layer, state, keys):
+    """One layer's updater state in the reference's layouts as numpy:
+    every sub-dict keyed like the layer's params (`keys`: its flat port
+    names), such as Adam's ``m`` and ``v`` or Nesterovs' whole state,
+    goes through the layer's layout map leaf by leaf."""
+    if _params_shaped(state, keys):
+        return uncarry_layer(layer, state)
+    if isinstance(state, dict):
+        return {k: upd_to_reference(layer, v, keys) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(upd_to_reference(layer, v, keys) for v in state)
+    return _array(state) if isinstance(state, torch.Tensor) else state
+
+
+def upd_from_reference(layer, state, keys):
+    """The inverse of ``upd_to_reference``: CPU tensors in the port's
+    layouts."""
+    if _params_shaped(state, keys):
+        return carry_layer(layer, state)
+    if isinstance(state, dict):
+        return {k: upd_from_reference(layer, v, keys)
+                for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(upd_from_reference(layer, v, keys)
+                           for v in state)
+    return _tensor(state) if hasattr(state, "shape") else state
+
+
+# ----------------------------------------------------------------------
+# fitDataSet: k fresh batches a block, one host sync a block
+# ----------------------------------------------------------------------
+
+_SYNC_CHECK = False
+
+
+class sync_free_blocks:
+    """Within this context every fitDataSet block issues its k steps
+    under ``torch.cuda.set_sync_debug_mode("error")``: a step that syncs
+    the host with the card raises instead of stalling the block."""
+
+    def __enter__(self):
+        global _SYNC_CHECK
+        self._was, _SYNC_CHECK = _SYNC_CHECK, True
+        return self
+
+    def __exit__(self, *exc):
+        global _SYNC_CHECK
+        _SYNC_CHECK = self._was
+
+
+def _stack_component(arrs, what):
+    """k batches' arrays of one component -> one [k', ...] tensor over
+    the k' batches that have one, and each batch's index into it (None
+    where a batch has none: that step runs as ``fit`` runs it, with no
+    array there, so a block matches ``fit`` bit for bit)."""
+    idx = [i for i, a in enumerate(arrs) if a is not None]
+    pos = [None] * len(arrs)
+    if not idx:
+        return None, pos
+    shapes = {arrs[i].shape for i in idx}
+    if len(shapes) > 1:
+        raise ValueError(
+            f"fitDataSet stack has ragged {what} shapes {sorted(shapes)}: "
+            "device staging needs one fixed shape per component (the "
+            "built-in iterators pad their final batch already)")
+    for j, i in enumerate(idx):
+        pos[i] = j
+    return torch.from_numpy(np.stack([arrs[i] for i in idx])), pos
+
+
+class BlockStager:
+    """Stages one block of k batches on the device. Each component (the
+    network's ``_batch_arrays``) is stacked on the host as ``fit`` reads
+    it (same dtype, contiguous, so the steps see the layout ``fit``'s
+    see and cuDNN picks the same algorithms); on the card the stack is
+    copied from pinned memory with ``non_blocking`` on a side stream,
+    behind an event the compute stream waits on, so block n+1's copy
+    overlaps block n's steps. Returns per-batch tensor lists and the
+    event (None on the CPU)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def __call__(self, net, batches):
+        per = [net._batch_arrays(ds) for ds in batches]
+        names = net._batch_array_names(len(per[0]))
+        stacks = [_stack_component([p[c] for p in per], names[c])
+                  for c in range(len(per[0]))]
+        event = None
+        if self.stream is not None:
+            cur = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self.stream):
+                stacks = [(None if st is None else
+                           st.pin_memory().to(self.device,
+                                              non_blocking=True), pos)
+                          for st, pos in stacks]
+            for st, _ in stacks:
+                if st is not None:
+                    st.record_stream(cur)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        else:
+            stacks = [(None if st is None else st.to(self.device), pos)
+                      for st, pos in stacks]
+        staged = [[None if pos[b] is None else st[pos[b]]
+                   for st, pos in stacks] for b in range(len(batches))]
+        return staged, event
+
+
+def run_staged_blocks(iterator, k, dispatch, consume):
+    """The double-buffered block driver every fitDataSet shares
+    (reference: ``run_staged_blocks``): for each full stack of k fresh
+    batches ``dispatch(batches)`` stages and launches the block and
+    returns its pending losses; ``consume`` blocks on them one block
+    behind the launch, so stack n+1's copy and steps are queued while
+    the host waits on stack n. Returns the ragged final stack (< k
+    batches, possibly empty) for the caller's per-batch fit."""
+    from deeplearning4j_tpu_torch.data.iterators import iter_stacks
+
+    tm = _tm()
+    pending = None
+    tail = []
+    stacks = iter_stacks(iterator, k)
+    _end = object()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            batches = next(stacks, _end)
+            dt = time.perf_counter() - t0
+            tm["data_wait_s"].observe(dt)
+            tm["reg"].add_span("fit_dataset.data_wait", "train", t0, dt, k=k)
+            if batches is _end:
+                break
+            if len(batches) < k:
+                tail = batches
+                break
+            out = dispatch(batches)
+            if pending is not None:
+                consume(pending)
+            pending = out
+    finally:
+        # an error mid-epoch lands after a block was launched: consuming
+        # it keeps the iteration count in step with the params
+        if pending is not None:
+            consume(pending)
+    return tail
+
+
+def launch_block(net, staged, ready, it0, step):
+    """Issue one block: the compute stream waits for the staged copy,
+    then k steps run back to back (``step(args, iteration)`` returns the
+    step's loss tensor, unread) and their losses are stacked and copied
+    to pinned host memory behind an event. Nothing here waits on the
+    card. Returns (host losses, event or None on the CPU)."""
+    cuda = net.device.type == "cuda"
+    if ready is not None:
+        torch.cuda.current_stream(net.device).wait_event(ready)
+    if cuda and _SYNC_CHECK:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = torch.stack([step(args, it0 + i)
+                              for i, args in enumerate(staged)])
+        if not cuda:
+            return losses, None
+        host = torch.empty(losses.shape, dtype=losses.dtype,
+                           pin_memory=True)
+        host.copy_(losses, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+    finally:
+        if cuda and _SYNC_CHECK:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def wait_block(event):
+    """The block's one host sync."""
+    if event is not None:
+        event.synchronize()
+
+
+def run_fit_dataset_epoch(net, iterator, k, step, fit_one, stager):
+    """One epoch of k-step blocks (reference: ``run_fit_dataset_epoch``).
+
+    The dispatch side keeps its own iteration cursor, so step i of a
+    block sees the updater schedule's iteration ``it0 + i`` while
+    ``net._iteration`` moves only when the block is consumed. Consuming
+    is the block's one host sync: the k losses are replayed through the
+    listeners' iterationDone one by one, then onSyncBoundary fires once.
+    The ragged final stack runs through ``fit_one``, one sync a batch.
+    Returns the syncs: one a block plus one a tail batch."""
+    syncs = 0
+    it_next = net._iteration
+    tm = _tm()
+
+    def consume(pending):
+        nonlocal syncs
+        host, event, _ = pending
+        syncs += 1
+        t0 = time.perf_counter()
+        wait_block(event)
+        vals = host.numpy()
+        dt = time.perf_counter() - t0
+        tm["sync_wait_s"].observe(dt)
+        tm["syncs"].inc()
+        tm["steps"].inc(len(vals))
+        tm["reg"].add_span("fit_dataset.sync_wait", "train", t0, dt, k=k,
+                           iteration=net._iteration)
+        for v in vals:
+            net._score = float(v)
+            net._iteration += 1
+            for lst in net._listeners:
+                lst.iterationDone(net, net._iteration, net._epoch)
+        fire(net, "onSyncBoundary", net._iteration, vals)
+
+    def dispatch(batches):
+        nonlocal it_next
+        t0 = time.perf_counter()
+        staged, ready = stager(net, batches)
+        dt = time.perf_counter() - t0
+        tm["staging_s"].observe(dt)
+        tm["reg"].add_span("fit_dataset.staging", "train", t0, dt, k=k,
+                           iteration=it_next)
+        t1 = time.perf_counter()
+        host, event = launch_block(net, staged, ready, it_next, step)
+        tm["reg"].add_span("fit_dataset.dispatch", "train", t1,
+                           time.perf_counter() - t1, k=k, iteration=it_next)
+        it_next += k
+        return host, event, staged
+
+    tail = run_staged_blocks(iterator, k, dispatch, consume)
+    for ds in tail:
+        fit_one(ds)
+        syncs += 1
+    return syncs
+
+
+TBPTT_REFUSAL = (
+    "fitDataSet does not support truncated BPTT: the k-batch stack would "
+    "need a second on-device window sweep per step; use fit() (per-batch "
+    "windows) or fitSteps()")
+
+
+def check_steps_per_sync(stepsPerSync):
+    k = int(stepsPerSync)
+    if k < 1:
+        raise ValueError(f"stepsPerSync must be >= 1, got {k}")
+    return k
+
+
+# ----------------------------------------------------------------------
+# what both networks share: files, flat params, listeners, evaluation
+# ----------------------------------------------------------------------
+
+class NetworkRuntime:
+    """The training runtime both networks share. A network supplies
+    ``_unit_keys()`` (its layers' keys: indices, or names in topological
+    order), ``_unit_layer(key)``, ``_pack(values)`` (a list, or a dict by
+    name), ``_batch_arrays(ds)`` / ``_batch_array_names(n)`` /
+    ``_batch_args(tensors)`` (a DataSet as the arrays fitDataSet stages,
+    and those arrays as ``_train_step``'s arguments), ``_is_tbptt()``,
+    ``_fit_ds(ds)`` and ``_eval_output(features)``."""
+
+    # ----- the reference's layouts ------------------------------------
+    def reference_state(self, saveUpdater=True):
+        """{"params", "states"[, "upd_states"]} in the reference's
+        layouts and containers, as numpy: what its files hold."""
+        keys = self._unit_keys()
+        lay = self._unit_layer
+        states = strip_carries(self._states)
+        out = {"params": self._pack([uncarry_layer(lay(k), self._params[k])
+                                     for k in keys]),
+               "states": self._pack([uncarry_layer(lay(k), states[k])
+                                     for k in keys])}
+        if saveUpdater:
+            out["upd_states"] = self._pack([
+                upd_to_reference(lay(k), self._upd_states[k],
+                                 set(self._params[k])) for k in keys])
+        return out
+
+    def from_reference_state(self, params, states, upd_states=None):
+        """The inverse of ``reference_state``: CPU tensors in the port's
+        layouts, as ``initFrom`` takes them."""
+        keys = self._unit_keys()
+        lay = self._unit_layer
+        ps = [carry_layer(lay(k), params[k]) for k in keys]
+        ss = [carry_layer(lay(k), states[k]) for k in keys]
+        us = None if upd_states is None else self._pack([
+            upd_from_reference(lay(k), upd_states[k], set(p))
+            for k, p in zip(keys, ps)])
+        return self._pack(ps), self._pack(ss), us
+
+    def initFrom(self, params, states, upd_states=None):
+        """Parameters, layer states and (when given) updater state from
+        existing tensors in the port's layouts, copied to the network's
+        device, without a random init (reference: ``initFrom``, the
+        restore path). The iteration count restarts."""
+        self._set_params(params, states)
+        if upd_states is not None:
+            with torch.no_grad():
+                self._upd_states = self._pack([
+                    map_tree(lambda t: t.to(self.device, copy=True),
+                             upd_states[k]) for k in self._unit_keys()])
+        self._iteration = 0
+        return self
+
+    def clone(self):
+        """An independent copy: the same configuration, copies of the
+        parameters, layer states and updater state, and the training
+        position (reference: ``clone``)."""
+        def copy(t):
+            return t.detach().clone()
+
+        net = type(self)(self.conf, device=self.device).initFrom(
+            map_tree(copy, self._params),
+            map_tree(copy, strip_carries(self._states)),
+            map_tree(copy, self._upd_states))
+        net._iteration = self._iteration
+        net._epoch = self._epoch
+        return net
+
+    # ----- parameters in the reference's order and layouts ------------
+    def _reference_params(self):
+        """The params as the reference nests them, in its layouts, on
+        the network's device (tensors)."""
+        keys = self._unit_keys()
+        return self._pack([
+            nest_tree({n: self._unit_layer(k).param_to_reference(n, t)
+                       for n, t in self._params[k].items()}) for k in keys])
+
+    def params(self) -> INDArray:
+        """Every parameter flattened into one f32 vector in the
+        reference's leaf order and layouts, so a vector carries across
+        the packages through ``setParams``."""
+        leaves = tree_leaves(self._reference_params())
+        if not leaves:
+            return INDArray(torch.zeros(0, device=self.device))
+        return INDArray(torch.cat([t.detach().reshape(-1).float()
+                                   for t in leaves]))
+
+    def setParams(self, flat):
+        """The inverse of ``params()`` (reference: ``Model.setParams``)."""
+        items = tree_items(self._reference_params())
+        vec = _unwrap(flat, self.device).reshape(-1)
+        total = sum(t.numel() for _, t in items)
+        if vec.numel() != total:
+            raise ValueError(f"setParams: got {vec.numel()} values for "
+                             f"{total} parameters")
+        with torch.no_grad():
+            for (path, t), v in zip(items, vec.split(
+                    [t.numel() for _, t in items])):
+                key, name = path[0], ".".join(map(str, path[1:]))
+                dst = self._params[key][name]
+                dst.copy_(self._unit_layer(key).param_from_reference(
+                    name, v.reshape(t.shape)).to(dst.dtype))
+        return self
+
+    def paramTable(self) -> dict:
+        """``"<layer>_<param>"`` -> ``INDArray`` in the reference's layout
+        (reference: ``paramTable``)."""
+        return {f"{k}_{n}": INDArray(
+                    self._unit_layer(k).param_to_reference(n, t.detach()))
+                for k in self._unit_keys()
+                for n, t in self._params[k].items()}
+
+    def getParam(self, key: str):
+        """One parameter by ``"<layer>_<param>"`` key, in the reference's
+        layout (reference: ``Model.getParam``)."""
+        k, name = self._split_key(key)
+        return INDArray(self._unit_layer(k).param_to_reference(
+            name, self._params[k][name].detach()))
+
+    def setParamTable(self, table: dict):
+        """Assign parameters by ``"<layer>_<param>"`` keys from arrays in
+        the reference's layout (reference: ``Model.setParamTable``)."""
+        with torch.no_grad():
+            for key, v in table.items():
+                k, name = self._split_key(key)
+                cur = self._params[k][name]
+                t = self._unit_layer(k).param_from_reference(
+                    name, _unwrap(v, self.device))
+                if tuple(t.shape) != tuple(cur.shape):
+                    raise ValueError(
+                        f"setParamTable: {key} has shape {tuple(t.shape)}, "
+                        f"expected {tuple(cur.shape)}")
+                cur.copy_(t.to(cur.dtype))
+        return self
+
+    # ----- listeners ----------------------------------------------------
+    def setListeners(self, *listeners):
+        self._listeners = list(listeners)
+        return self
+
+    def addListeners(self, *listeners):
+        self._listeners.extend(listeners)
+        return self
+
+    # ----- files --------------------------------------------------------
+    def save(self, path, saveUpdater: bool = True):
+        """Reference: ``save(File, saveUpdater)`` (``ModelSerializer``)."""
+        from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+
+        ModelSerializer.writeModel(self, path, saveUpdater)
+        return self
+
+    # ----- fitSteps / fitDataSet ---------------------------------------
+    def fitSteps(self, data, labels=None, numSteps=1):
+        """``numSteps`` optimizer steps on ONE batch with one host sync
+        at the end (reference: ``fitSteps``): the steps, iteration counts
+        and updater schedule of ``numSteps`` consecutive ``fit`` calls on
+        that batch; a truncated-BPTT net sweeps its windows each step.
+        Listeners fire once, at the end, with the last loss."""
+        from deeplearning4j_tpu_torch.data.dataset import DataSet
+
+        self._require_init()
+        ds = DataSet(data, labels) if labels is not None else data
+        args = self._batch_args([_unwrap(a, self.device)
+                                 for a in self._batch_arrays(ds)])
+        windows = self._tbptt_windows(args)
+        it = self._iteration
+        loss = None
+        for _ in range(int(numSteps)):
+            for c, window_args in enumerate(windows):
+                loss = self._train_step(*window_args, window=c if
+                                        len(windows) > 1 else None,
+                                        iteration=it)
+                it += 1
+            self._states = strip_carries(self._states)
+        self._score = float(loss)
+        self._iteration = it
+        for lst in self._listeners:
+            lst.iterationDone(self, self._iteration, self._epoch)
+        return self
+
+    def fitDataSet(self, iterator, stepsPerSync=1, epochs=None):
+        """Epoch training with ONE host sync a block of ``stepsPerSync``
+        fresh batches (reference: ``fitDataSet``): the trajectory,
+        iteration counts and listener calls of ``fit(iterator)``, with
+        the block driver of ``run_fit_dataset_epoch``. stepsPerSync=1 is
+        ``fit(iterator)``. The call's host-sync count is left in
+        ``_fit_dataset_syncs``."""
+        self._require_init()
+        k = check_steps_per_sync(stepsPerSync)
+        if k == 1:
+            it0 = self._iteration
+            self.fit(iterator, epochs=epochs)
+            self._fit_dataset_syncs = self._iteration - it0
+            return self
+        if self._is_tbptt():
+            raise ValueError(TBPTT_REFUSAL)
+        stager = BlockStager(self.device)
+
+        def step(tensors, it):
+            return self._train_step(*self._batch_args(tensors),
+                                    iteration=it)
+
+        self._fit_dataset_syncs = 0
+        for _ in range(epochs or 1):
+            iterator.reset()
+            fire(self, "onEpochStart")
+            self._fit_dataset_syncs += run_fit_dataset_epoch(
+                self, iterator, k, step, self._fit_ds, stager)
+            fire(self, "onEpochEnd")
+            self._epoch += 1
+        return self
+
+    # ----- evaluation ---------------------------------------------------
+    def doEvaluation(self, iterator, *evaluations):
+        """Stream the iterator through the network's output into any
+        number of IEvaluation instances (reference: ``doEvaluation``)."""
+        if not evaluations:
+            raise ValueError("doEvaluation needs at least one IEvaluation")
+        self._check_evaluable()
+        iterator.reset()
+        while iterator.hasNext():
+            ds = iterator.next()
+            out = self._eval_output(ds.getFeatures())
+            lab, mask = self._eval_labels(ds)
+            for e in evaluations:
+                e.eval(lab, out, mask=mask)
+        return evaluations if len(evaluations) > 1 else evaluations[0]
+
+    def _check_evaluable(self):
+        pass
+
+    def _eval_labels(self, ds):
+        return ds.getLabels(), ds.getLabelsMaskArray()
+
+    def evaluate(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation.evaluation import Evaluation
+
+        return self.doEvaluation(iterator, Evaluation())
+
+    def evaluateRegression(self, iterator):
+        from deeplearning4j_tpu_torch.evaluation.regression import \
+            RegressionEvaluation
+
+        return self.doEvaluation(iterator, RegressionEvaluation())
+
+    def evaluateROC(self, iterator, thresholdSteps=0):
+        from deeplearning4j_tpu_torch.evaluation.roc import ROC
+
+        return self.doEvaluation(iterator, ROC(thresholdSteps))
+
+    def evaluateROCMultiClass(self, iterator, thresholdSteps=0):
+        from deeplearning4j_tpu_torch.evaluation.roc import ROCMultiClass
+
+        return self.doEvaluation(iterator, ROCMultiClass(thresholdSteps))
+
+
 # ----------------------------------------------------------------------
 # MultiLayerNetwork
 # ----------------------------------------------------------------------
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(NetworkRuntime):
     """A sequential network over ``MultiLayerConfiguration.layers``
     (reference: MultiLayerNetwork)."""
 
@@ -397,6 +978,7 @@ class MultiLayerNetwork:
         self._iteration = 0
         self._epoch = 0
         self._score = float("nan")
+        self._listeners = []
         self._rnn_state = None    # rnnTimeStep's carried states
         self._compute_dtype = conf.dataType.torch_dtype
         self._param_dtype = (torch.float64
@@ -513,7 +1095,7 @@ class MultiLayerNetwork:
 
     def _train_step(self, x, y, fmask, lmask, window=None,
                     grad_transform=None, loss_transform=None,
-                    state_transform=None, bn_group=None):
+                    state_transform=None, bn_group=None, iteration=None):
         """One eager step: forward, backward, normalize, update in place;
         the layers' new states (BN running statistics) replace the old.
         `window` is the truncated-BPTT window's index: window c > 0
@@ -527,7 +1109,11 @@ class MultiLayerNetwork:
         per-layer gradients right after the backward pass and before
         gradient normalization, ``loss_transform`` the detached loss (the
         score), ``state_transform`` the new layer states; BN takes its
-        batch statistics over ``bn_group`` (``ops.norm.sync_batch_norm``)."""
+        batch statistics over ``bn_group`` (``ops.norm.sync_batch_norm``).
+        `iteration` is the updater schedule's (default: the net's count;
+        a fitDataSet block passes its own cursor). Nothing here reads a
+        tensor back to the host."""
+        it = self._iteration if iteration is None else iteration
         with _norm.sync_batch_norm(bn_group):
             loss, new_states = self._loss_fn(self._params, self._states, x,
                                              y, fmask, lmask,
@@ -546,8 +1132,8 @@ class MultiLayerNetwork:
             for i, g in enumerate(glist):
                 if self._params[i]:
                     _, self._upd_states[i] = default_param_update(
-                        self._updaters[i], g, self._upd_states[i],
-                        self._iteration, self._params[i])
+                        self._updaters[i], g, self._upd_states[i], it,
+                        self._params[i])
         for p in self._params:
             for t in p.values():
                 t.grad = None
@@ -582,16 +1168,91 @@ class MultiLayerNetwork:
         return fit_batches(
             self, data, labels, epochs,
             lambda x, y: self._fit_batch(x, y, None, None),
-            lambda ds: self._fit_batch(
-                ds.getFeatures(), ds.getLabels(),
-                _unwrap(ds.getFeaturesMaskArray(), self.device),
-                _unwrap(ds.getLabelsMaskArray(), self.device)))
+            self._fit_ds)
 
-    def fitSteps(self, data, labels=None, numSteps=1):
-        raise _later("fitSteps", "nn-conf slice, item 4")
+    def _fit_ds(self, ds):
+        self._fit_batch(ds.getFeatures(), ds.getLabels(),
+                        _unwrap(ds.getFeaturesMaskArray(), self.device),
+                        _unwrap(ds.getLabelsMaskArray(), self.device))
 
-    def fitDataSet(self, iterator, stepsPerSync=1, epochs=None):
-        raise _later("fitDataSet", "nn-conf slice, item 4")
+    # the hooks of NetworkRuntime (fitSteps, fitDataSet, files, params)
+    def _unit_keys(self):
+        return list(range(len(self.layers)))
+
+    def _unit_layer(self, i):
+        return self.layers[i]
+
+    @staticmethod
+    def _pack(values):
+        return list(values)
+
+    @staticmethod
+    def _split_key(key):
+        i, _, name = key.partition("_")
+        return int(i), name
+
+    @staticmethod
+    def _batch_arrays(ds):
+        from deeplearning4j_tpu_torch.data.dataset import _np
+
+        return [_np(ds.getFeatures()), _np(ds.getLabels()),
+                _np(ds.getFeaturesMaskArray()), _np(ds.getLabelsMaskArray())]
+
+    @staticmethod
+    def _batch_array_names(n):
+        return ["features", "labels", "features-mask", "labels-mask"]
+
+    @staticmethod
+    def _batch_args(tensors):
+        return tuple(tensors)
+
+    def _is_tbptt(self):
+        return self.conf.backpropType == BackpropType.TruncatedBPTT
+
+    def _tbptt_windows(self, args):
+        """One step's truncated-BPTT windows of (x, y, fmask, lmask), or
+        the whole batch as one."""
+        x, y, fmask, lmask = args
+        if not (self._is_tbptt() and x.dim() == 3):
+            return [args]
+        T, L = x.shape[2], self.conf.tbpttFwdLength
+        if T % L != 0:
+            raise ValueError(
+                f"fitSteps tBPTT needs seq len divisible by tbpttFwdLength "
+                f"(got T={T}, L={L}): the on-device window sweep uses "
+                "fixed-size dynamic slices. Use fit() for ragged tails.")
+        return [(time_slice(x, sl), time_slice(y, sl), mask_slice(fmask, sl),
+                 mask_slice(lmask, sl))
+                for sl in (slice(c * L, (c + 1) * L) for c in range(T // L))]
+
+    def _eval_output(self, features):
+        return self.output(features)
+
+    @staticmethod
+    def load(path, loadUpdater: bool = True, device=None):
+        from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+
+        return ModelSerializer.restoreMultiLayerNetwork(path, loadUpdater,
+                                                        device=device)
+
+    def summary(self) -> str:
+        lines = [f"{'idx':<4}{'type':<28}{'out shape':<24}{'params':<12}"]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            n = sum(t.numel() for t in self._params[i].values()) \
+                if self._params else 0
+            total += n
+            ot = layer.getOutputType(self.conf.layerInputTypes[i])
+            lines.append(f"{i:<4}{type(layer).__name__:<28}{str(ot):<24}"
+                         f"{n:<12}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)
+
+    def getLayers(self):
+        return self.layers
+
+    def getnLayers(self) -> int:
+        return len(self.layers)
 
     def pretrain(self, iterator, epochs=1):
         raise _later("layerwise pretraining", "nn-conf slice, item 4")

@@ -6,13 +6,12 @@ trainingMaster)`` then ``fit(JavaRDD<DataSet>)``). The cluster's role is
 the ranks' data group: the ``sc`` slot takes a
 ``parallel.data_parallel_mesh()`` (or None for the default process
 group), and the "RDD" is a DataSetIterator, a list of DataSet or one
-DataSet, the same on every rank. ``evaluate*`` wait for the evaluation
-module (ROADMAP Queue 1 item 10) and raise naming it.
+DataSet, the same on every rank. ``evaluate*`` score the wrapped
+network.
 """
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.nn.multilayer import _later
 from deeplearning4j_tpu_torch.parallel import trainer as _trainer
 
 __all__ = ["SparkDl4jMultiLayer", "SparkComputationGraph",
@@ -161,13 +160,13 @@ class SparkDl4jMultiLayer:
         return self._master
 
     def evaluate(self, iterator):
-        raise _later("evaluate", "training-runtime slice, item 10")
+        return self._net.evaluate(iterator)
 
     def evaluateRegression(self, iterator):
-        raise _later("evaluateRegression", "training-runtime slice, item 10")
+        return self._net.evaluateRegression(iterator)
 
     def evaluateROC(self, iterator, thresholdSteps=0):
-        raise _later("evaluateROC", "training-runtime slice, item 10")
+        return self._net.evaluateROC(iterator, thresholdSteps=thresholdSteps)
 
 
 class SparkComputationGraph(SparkDl4jMultiLayer):

@@ -40,11 +40,12 @@ step hooks (``grad_transform``, ``loss_transform``, ``state_transform``,
 The gradients that reach ``grad_transform`` are this rank's, before
 gradient normalization (the reference's order); every mode leaves the
 params bitwise equal on every rank after every step. Left out, raising
-``NotImplementedError`` naming ROADMAP Queue 1 item 7 (or item 4):
+``NotImplementedError`` naming ROADMAP Queue 1 item 7:
 ``gradient_compression="hierarchical"``, ``weight_update="sharded"``,
-``fitDataSet(stepsPerSync > 1)``; ``trainStep``/``precompile`` and the
-residual's checkpoint form wait for ResilientFit and the AOT cache
-(items 10 and 13).
+and ResilientFit over a wrapper with the residual's checkpoint form;
+``trainStep``/``precompile`` wait for the AOT cache (item 13).
+``fitDataSet(stepsPerSync=k)`` runs k-batch blocks through the networks'
+block driver, one host sync a block.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    _later, _timed_step, _unwrap, fit_batches,
+    TBPTT_REFUSAL, BlockStager, _timed_step, _unwrap, check_steps_per_sync,
+    fire, fit_batches, run_fit_dataset_epoch,
 )
 from deeplearning4j_tpu_torch.parallel import collectives as _coll
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
@@ -383,8 +385,7 @@ class ParallelWrapper:
         means, res, sent = _sh.threshold_psum_mean(
             leaves, self._ef, tau, self.encoding_capacity, g)
         clip, freq = self.residual_clip, self.residual_clip_frequency
-        if clip is not None and (freq == 1
-                                 or self.net._iteration % freq == 0):
+        if clip is not None and (freq == 1 or self._step_it % freq == 0):
             lim = (clip * tau).to(res.dtype)
             res = res.clamp(-lim, lim)
         self._ef = res
@@ -428,6 +429,12 @@ class ParallelWrapper:
                                self.batch_axis).to(self.net.device)
 
     def _fit_batch(self, x, y, fmask, lmask):
+        _timed_step(self.net, lambda: self._step(*self._args(x, y, fmask,
+                                                             lmask)))
+
+    def _args(self, x, y, fmask, lmask):
+        """One global batch as this rank's rows, in the form the net's
+        ``_train_step`` takes."""
         n = self.net
         if self._is_graph():
             conf = n.conf
@@ -443,11 +450,14 @@ class ParallelWrapper:
             x, y = {name: x}, [y]
             fmask = None if fmask is None else {name: fmask}
             lmask = None if lmask is None else [lmask]
-        _timed_step(n, lambda: self._step(x, y, fmask, lmask))
+        return x, y, fmask, lmask
 
-    def _step(self, x, y, fmask, lmask):
+    def _step(self, x, y, fmask, lmask, iteration=None):
+        n = self.net
+        self._step_it = n._iteration if iteration is None else iteration
         before = _coll.totals()
-        loss = self.net._train_step(x, y, fmask, lmask, **self._hooks(lmask))
+        loss = n._train_step(x, y, fmask, lmask, iteration=self._step_it,
+                             **self._hooks(lmask))
         self._record(before)
         return loss
 
@@ -473,17 +483,43 @@ class ParallelWrapper:
         return self
 
     def fitDataSet(self, iterator, stepsPerSync=1, epochs=None):
-        """``fit`` of an iterator, one host sync a batch (stepsPerSync 1;
-        the k-stack loop waits for item 4)."""
-        k = int(stepsPerSync)
-        if k < 1:
-            raise ValueError(f"stepsPerSync must be >= 1, got {k}")
-        if k > 1:
-            raise _later("fitDataSet(stepsPerSync > 1)",
-                         "nn-conf slice, item 4")
-        it0 = self.net._iteration
-        self.fit(iterator, epochs=epochs)
-        self._fit_dataset_syncs = self.net._iteration - it0
+        """``fit`` of an iterator with one host sync a block of
+        ``stepsPerSync`` batches, through the networks' block driver
+        (``nn.multilayer.run_fit_dataset_epoch``): each rank stages the
+        block's global batches on its device, and each step takes this
+        rank's rows of batch i and runs this mode's data-parallel step.
+        stepsPerSync=1 is ``fit``; the host syncs are left in
+        ``_fit_dataset_syncs``."""
+        n = self.net
+        k = check_steps_per_sync(stepsPerSync)
+        n._require_init()
+        if not self._placed:
+            self._place_replicated()
+        if k == 1:
+            it0 = n._iteration
+            self.fit(iterator, epochs=epochs)
+            self._fit_dataset_syncs = n._iteration - it0
+            return self
+        if n._is_tbptt():
+            raise ValueError(TBPTT_REFUSAL)
+        stager = BlockStager(n.device)
+
+        def step(tensors, it):
+            return self._step(*self._args(*tensors), iteration=it)
+
+        def fit_one(ds):
+            self._fit_batch(ds.getFeatures(), ds.getLabels(),
+                            ds.getFeaturesMaskArray(),
+                            ds.getLabelsMaskArray())
+
+        self._fit_dataset_syncs = 0
+        for _ in range(epochs or 1):
+            iterator.reset()
+            fire(n, "onEpochStart")
+            self._fit_dataset_syncs += run_fit_dataset_epoch(
+                n, iterator, k, step, fit_one, stager)
+            fire(n, "onEpochEnd")
+            n._epoch += 1
         return self
 
     def averagingFrequency(self, *_):

@@ -1,1 +1,2 @@
-"""Runtime services of the port: telemetry and fault seams."""
+"""Runtime services of the port: telemetry, fault seams and the
+resilient training harness (``resilience``)."""

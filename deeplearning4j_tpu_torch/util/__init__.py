@@ -1,1 +1,3 @@
-"""Shared host-side utilities of the port."""
+"""Shared host-side utilities of the port: the HTTP helpers, the
+tagged-tree codec (``serde``), model files (``serializer``) and
+directory checkpoints (``sharded_checkpoint``)."""

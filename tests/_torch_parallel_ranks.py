@@ -422,3 +422,52 @@ def sync_bn_rank(rank, world, device, x, w_dy, residual):
                      "dres": None if res.grad is None else res.grad.numpy(),
                      "bwd_collectives": after[0] - before[0]}
     return out
+
+
+# ----------------------------------------------------------------------
+# the rank body of tests/test_torch_fit_dataset.py (TestFitDataSetSharded)
+# ----------------------------------------------------------------------
+
+def fit_dataset_rank(rank, world, device, init, n=8, k=4, batch=16):
+    """fitDataSet(stepsPerSync=k) against per-batch fit on this rank,
+    dense, int8 and threshold; returns params in ref_params form, the
+    syncs, and the refusals' messages."""
+
+    def it(nb=n, b=batch, seed=0):
+        rng = np.random.RandomState(seed)
+        x = rng.randn(nb * b, 4).astype("float32")
+        y = np.eye(3, dtype="float32")[rng.randint(0, 3, nb * b)]
+        return DataSetIterator(x, y, b)
+
+    def pair(make, steps_per_sync, nb=n):
+        a, b = build("mlp", init), build("mlp", init)
+        make(a).fit(it(nb))
+        mb = make(b)
+        mb.fitDataSet(it(nb), stepsPerSync=steps_per_sync)
+        return a, b, mb
+
+    out = {}
+    for name, steps in (("dense", k), ("k1", 1), ("k3", 3)):
+        a, b, pw = pair(ParallelWrapper, steps)
+        out[name] = {"fit": ref_params(a), "blocks": ref_params(b),
+                     "syncs": pw._fit_dataset_syncs,
+                     "iteration": b.getIterationCount()}
+    a, b, tm = pair(SharedTrainingMaster, 2, nb=4)
+    out["int8"] = {"fit": ref_params(a), "blocks": ref_params(b),
+                   "score": b.score(), "iteration": b.getIterationCount()}
+    a, b = build("mlp", init), build("mlp", init)
+    pa = ParallelWrapper(a, gradient_compression="threshold", threshold=1e-2)
+    pb = ParallelWrapper(b, gradient_compression="threshold", threshold=1e-2)
+    pa.fit(it(4))
+    pb.fitDataSet(it(4), stepsPerSync=2)
+    out["threshold"] = {"fit": ref_params(a), "blocks": ref_params(b),
+                        "res_fit": pa._ef.numpy().copy(),
+                        "res_blocks": pb._ef.numpy().copy(),
+                        "syncs": pb._fit_dataset_syncs}
+    try:
+        ParallelWrapper(build("mlp", init)).fitDataSet(it(4, b=5),
+                                                       stepsPerSync=2)
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out

@@ -175,9 +175,12 @@ def test_multilayer_entry_points():
     net = P.MultiLayerNetwork(conf, device="cpu").init()
     with pytest.raises(TypeError, match="DataSetIterator"):
         net.fit(object())
-    for call in (lambda: net.fitSteps(None), lambda: net.fitDataSet(None),
-                 lambda: net.pretrain(None),
+    for call in (lambda: net.pretrain(None),
                  lambda: P.NeuralNetConfiguration.Builder().optimizationAlgo(
                      "LBFGS")):
         with pytest.raises(NotImplementedError, match="slice"):
             call()
+    # fitSteps / fitDataSet are ported (training-runtime slice): the
+    # reference's refusals
+    with pytest.raises(ValueError, match="stepsPerSync must be >= 1"):
+        net.fitDataSet(None, stepsPerSync=0)

@@ -548,11 +548,16 @@ def test_spark_rejects_bad_master():
 
 
 def test_spark_evaluate_waits_for_item_10():
+    """Ported with item 10: the facade's evaluate* score its network,
+    exactly as the network's own calls do."""
     spark = SparkDl4jMultiLayer(None, R.build("mlp"))
-    for call in (spark.evaluate, spark.evaluateRegression,
-                 spark.evaluateROC):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call(None)
+    net = spark.getNetwork()
+    x, y, _ = R.data(20)
+    for name in ("evaluate", "evaluateRegression"):
+        got = getattr(spark, name)(DataSetIterator(x, y, 8))
+        want = getattr(net, name)(DataSetIterator(x, y, 8))
+        assert type(got) is type(want)
+        assert got.stats() == want.stats(), name
 
 
 # ----------------------------------------------------------------------
@@ -653,12 +658,20 @@ def test_fit_dataset_steps_per_sync():
     net = R.build("mlp")
     x, y, _ = R.data(64)
     pw = ParallelWrapper(net)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pw.fitDataSet(DataSetIterator(x, y, 32), stepsPerSync=2)
     with pytest.raises(ValueError, match="stepsPerSync"):
         pw.fitDataSet(DataSetIterator(x, y, 32), stepsPerSync=0)
     pw.fitDataSet(DataSetIterator(x, y, 32), epochs=2)
     assert pw._fit_dataset_syncs == 4 and net.getIterationCount() == 4
+    # k = 2 blocks (since the training-runtime slice): one sync a block,
+    # the per-batch trajectory bit for bit
+    ref = R.build("mlp")
+    ParallelWrapper(ref).fit(DataSetIterator(x, y, 16), epochs=2)
+    blk = R.build("mlp")
+    pwb = ParallelWrapper(blk)
+    pwb.fitDataSet(DataSetIterator(x, y, 16), stepsPerSync=2, epochs=2)
+    assert pwb._fit_dataset_syncs == 4 and blk.getIterationCount() == 8
+    assert torch.equal(blk.params().tensor(), ref.params().tensor())
+    assert blk.score() == ref.score()
 
 
 # ----------------------------------------------------------------------

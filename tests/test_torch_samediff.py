@@ -629,6 +629,14 @@ def test_dropout_fit_streams_identity_in_output():
 # what waits
 # ----------------------------------------------------------------------
 
+class _NanLossListener:
+    """SameDiff's listeners see (sd, iteration, loss) after every step."""
+
+    def iterationDone(self, sd, iteration, loss):
+        if not np.isfinite(loss):
+            raise FloatingPointError(f"non-finite loss at {iteration}")
+
+
 DEFERRED = {
     "ifCond": (lambda sd: sd.ifCond(sd.constant(1.0), None, None), "item 9"),
     "whileLoop": (lambda sd: sd.whileLoop(None, None, []), "item 9"),
@@ -643,11 +651,16 @@ DEFERRED = {
     "betainc": (lambda sd: sd.math.betainc(1, 2, 3), "item 9"),
     "shardWeightUpdate": (lambda sd: sd.shardWeightUpdate(), "item 7"),
     "precompile": (lambda sd: sd.precompile(), "item 13"),
-    "fitDataSet": (lambda sd: sd.fitDataSet(iter([])), "item 10"),
-    "evaluate": (lambda sd: sd.evaluate(None, "x"), "item 10"),
-    "listeners": (lambda sd: sd.fit(features=np.zeros((B, F), "f4"),
-                                    labels=np.zeros((B, O), "f4"),
-                                    listeners=[object()]), "item 10"),
+    # ported since the training-runtime slice: the reference's refusals
+    "fitDataSet": (lambda sd: sd.fitDataSet(iter([]), stepsPerSync=0),
+                   "stepsPerSync must be >= 1", ValueError),
+    "evaluate": (lambda sd: (sd.setTrainingConfig(None),
+                             sd.evaluate(None, "x")),
+                 "setTrainingConfig first", ValueError),
+    "listeners": (lambda sd: sd.fit(
+        features=np.full((B, F), np.nan, "f4"), labels=np.zeros((B, O), "f4"),
+        listeners=[_NanLossListener()]), "non-finite loss",
+        FloatingPointError),
     "saveUpdaterState": (lambda sd: sd.save("unused.zip",
                                             saveUpdaterState=True),
                          "item 9"),
@@ -660,8 +673,8 @@ DEFERRED = {
 def test_deferred_features_name_their_item(what):
     _, _, W1, W2 = mlp_data()
     sd = build_mlp("p", W1, W2)
-    call, item = DEFERRED[what]
-    with pytest.raises(NotImplementedError, match=item):
+    call, item, *exc = DEFERRED[what]
+    with pytest.raises(exc[0] if exc else NotImplementedError, match=item):
         call(sd)
 
 
