@@ -258,13 +258,41 @@ Phases (any failure exits non-zero before the result line):
    sync check: losses and state bitwise fit's, K1-K3 12 launches a step
    each, counted over this run alone.
 
+15. the CNN zoo — (a) AlexNet (with LRN, 67x67) and VGG16 (32x32), 5
+   classes, batch 4, dropout off: 3 steps, each step's loss and
+   gradients on the card in f64 and f32 against the same net on the CPU
+   in f64 (params copied; f64 loss rel 1e-10, gradients rel L2 1e-9; f32
+   loss 1e-5 from f64, gradients 1e-2: a relu output near 0 that changes
+   sign between summation orders moves a gradient by ~7e-3). (b) VGG16
+   at 224^2, 1000 classes, bf16 NHWC, the zoo's Nesterovs(1e-2, 0.9),
+   batch 64, dropout 0.5 on, deterministic cuDNN: 20 steps on one
+   resident batch (the loss must fall): the median step of steps 3-20,
+   images/s, peak memory, share of the bf16 peak (3 x the forward's conv
+   + dense FLOPs / step / 989 TFLOP/s), and a torch.profiler split of 3
+   more steps by kind (conv, dense, pool, relu, dropout, loss, update,
+   casts; a backward kernel goes to the kind of the forward op that made
+   its autograd node). (c) AlexNet the same at batch 128, LRN and
+   dropout on (LRN's share in the split). (d) UNet at its zoo default
+   128^2, numClasses 1 (sigmoid + XENT through CnnLossLayer), bf16 NHWC,
+   Adam(1e-3), batch 32: step ms, images/s, peak memory. (e) ResNet-50's
+   space-to-depth stem: an s2d net built from a standard net's
+   parameters through stem_weights_to_s2d, its global-pool features and
+   logits in f32 eval mode within rel L2 1e-4 of the standard net's;
+   then 6 steps of the s2d net at 9(b)'s settings beside 9(b)'s step.
+   (f) 9(b)'s net for 5 steps without and with
+   checkpointPolicy="save_conv_outputs": losses and final state bitwise
+   equal; peak memory and step ms of each. (g) zoo SimpleCNN (its
+   DropoutLayer on, f32) over 9 batches: fitDataSet(stepsPerSync=4)
+   under the sync check against fit, losses and state bitwise equal.
+
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s; phases 8-10,
-12, 13, 14(a) and 14(b) run no
+12, 13, 14(a), 14(b) and 15 run no
 hand-written kernel: conv, dense and the recurrent products are
-cuDNN/cuBLAS calls, as the reference leaves them to XLA, and the
-data-parallel exchange is NCCL's or gloo's collectives).
+cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout
+and the shape layers are torch tensor ops, and the data-parallel
+exchange is NCCL's or gloo's collectives).
 """
 
 from __future__ import annotations
@@ -3286,6 +3314,517 @@ def runtime_phase(dev, phase7, phase9b, phase9c):
     return {"resnet": a, "lenet": b, "encoder": c}
 
 
+# ----------------------------------------------------------------------
+# phase 15: the CNN zoo on the card (dropout, LRN, the 2-d shape layers
+# and vertices, the s2d stem, the save_conv_outputs policy)
+# ----------------------------------------------------------------------
+
+#: 15(a): the cut sizes of tests/test_torch_zoo_cnns.py (AlexNet's 67x67
+#: is the smallest its three pools take), dropout off, 3 steps
+ZOO_PARITY = dict(steps=3, batch=4, classes=5,
+                  models={"AlexNet": 67, "VGG16": 32})
+#: the f64 band (card vs CPU) and the f32 band (card vs the CPU's f64).
+#: The f32 gradients are held to 1e-2: a relu output near 0 that changes
+#: sign between summation orders moves a whole gradient (VGG16's third
+#: step on the card: layer 0's W 6.6e-3 from f64 while its loss stays
+#: within 2e-6; which outputs flip depends on the order)
+ZOO_F64_LOSS, ZOO_F64_GRAD = 1e-10, 1e-9
+ZOO_F32_LOSS, ZOO_F32_GRAD = 1e-5, 1e-2
+#: 15(b)-(d): the zoo defaults at full width
+ZOO_VGG = dict(model="VGG16", batch=64, image=224, classes=1000,
+               steps=20, traced_steps=3)
+ZOO_ALEXNET = dict(model="AlexNet", batch=128, image=224, classes=1000,
+                   steps=20, traced_steps=3)
+ZOO_UNET = dict(batch=32, image=128, classes=1, steps=20)
+#: 15(e): the s2d stem against the standard one (f32, eval mode) and its
+#: timed steps at 9(b)'s settings; the logits' band
+S2D_CHECK = dict(batch=8, steps=6)
+S2D_LOGIT_REL = 1e-4
+#: 15(f): 9(b)'s net, with and without the remat policy
+REMAT_STEPS = 5
+#: 15(g): SimpleCNN (its zoo default 3x48x48, dropout on)
+ZOO_SIMPLE = dict(batch=64, batches=9, k=4, classes=10)
+
+
+def layer_inputs(conf):
+    """(layer, its input type) of a MultiLayerConfiguration or a
+    ComputationGraphConfiguration, in order."""
+    if hasattr(conf, "layers"):
+        return list(zip(conf.layers, conf.layerInputTypes))
+    return [(conf.nodes[n].payload, conf.nodes[n].layerInputType)
+            for n in conf.topoOrder if conf.nodes[n].kind == "layer"]
+
+
+def forward_flops(conf, batch):
+    """Multiply-adds x 2 of the forward's convolutions and dense
+    products, from the conf's shapes (phase 9(b)'s count, for either
+    network type)."""
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    total = 0
+    for layer, it in layer_inputs(conf):
+        if isinstance(layer, L.ConvolutionLayer):
+            out = layer.getOutputType(it)
+            kh, kw = layer.kernelSize
+            total += 2 * batch * out.height * out.width * out.channels \
+                * layer.nIn * kh * kw
+        elif isinstance(layer, L.FeedForwardLayer):
+            total += 2 * batch * layer.nIn * layer.nOut
+    return total
+
+
+def zoo_scopes():
+    """[(owner, attribute, original)] after wrapping the zoo's layer
+    kinds, relu, dropout, the loss and the updater step in named
+    profiler scopes (15(b)-(c)'s forward attribution; the innermost
+    scope names a kernel)."""
+    from deeplearning4j_tpu_torch.nn import activations as A
+    from deeplearning4j_tpu_torch.nn import graph, multilayer
+    from deeplearning4j_tpu_torch.nn.conf import dropout as D
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+
+    targets = [(L.ConvolutionLayer, "forward", "conv"),
+               (L.DenseLayer, "forward", "dense"),
+               (L.BaseOutputLayer, "preoutput", "dense"),
+               (L.SubsamplingLayer, "forward", "pool"),
+               (L.GlobalPoolingLayer, "forward", "pool"),
+               (L.LocalResponseNormalization, "forward", "lrn"),
+               (L.BatchNormalization, "forward", "bn"),
+               (D.Dropout, "apply", "dropout"),
+               (multilayer.MultiLayerNetwork, "_loss_from_preact", "loss"),
+               (graph.ComputationGraph, "_loss", "loss"),
+               (multilayer, "default_param_update", "update"),
+               (graph, "default_param_update", "update")]
+    saved = [(A.ACTIVATIONS, "relu", A.ACTIVATIONS["relu"])]
+    A.ACTIVATIONS["relu"] = _scoped(A.ACTIVATIONS["relu"], "relu")
+    for owner, attr, name in targets:
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, _scoped(fn, name))
+    return saved
+
+
+def unscope(saved):
+    for owner, attr, fn in reversed(saved):
+        if isinstance(owner, dict):
+            owner[attr] = fn
+        else:
+            setattr(owner, attr, fn)
+
+
+def _scope_of(evt):
+    """The innermost smoke scope over a forward event, else "casts" for
+    the params' bf16 copies, else None."""
+    e = evt
+    while e is not None:
+        if e.name.startswith("smoke:"):
+            return e.name[6:]
+        e = e.cpu_parent
+    e = evt
+    while e is not None:
+        if e.name == "aten::_to_copy":
+            return "casts"
+        e = e.cpu_parent
+    return None
+
+
+def split_by_kind(events):
+    """Device microseconds by kind: a forward kernel goes to its
+    innermost smoke scope; a backward kernel to the scope of the forward
+    op that made its autograd node (matched by sequence number), gradient
+    accumulation to "update"; anything else to "other:<op>"."""
+    fwd = {}
+    for e in events:
+        if e.sequence_nr >= 0 and not e.name.startswith("autograd::") \
+                and e.sequence_nr not in fwd:
+            kind = _scope_of(e)
+            if kind is not None:
+                fwd[e.sequence_nr] = kind
+    out = {}
+    for evt in events:
+        if not evt.kernels:
+            continue
+        kind, e = None, evt
+        while e is not None:
+            if e.name.startswith("autograd::engine::evaluate_function: "):
+                kind = ("update" if "AccumulateGrad" in e.name
+                        else fwd.get(e.sequence_nr,
+                                     "other:" + e.name.split(": ", 1)[1]))
+                break
+            e = e.cpu_parent
+        if kind is None:
+            kind = _scope_of(evt) or "other:" + evt.name
+        out[kind] = out.get(kind, 0.0) + sum(k.duration for k in evt.kernels)
+    return out
+
+
+def traced_split(net, x, y, steps, what):
+    """A torch.profiler trace of `steps` fit steps under zoo_scopes:
+    device ms a step by kind and each kind's share, the device's busy
+    and idle share of the traced wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = zoo_scopes()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                with record_function("smoke.step"):
+                    net.fit(x, y)
+                    net.score()
+            torch.cuda.synchronize()
+    finally:
+        unscope(saved)
+    events = prof.events()
+    by = split_by_kind(events)
+    total = sum(by.values())
+    need(total > 0, f"{what}: the profiler saw no device time")
+    other = {k[6:]: v for k, v in by.items() if k.startswith("other:")}
+    kinds = {k: v for k, v in by.items() if not k.startswith("other:")}
+    kinds["other"] = sum(other.values())
+    step_evts = [e for e in events if e.name == "smoke.step"
+                 and e.device_type == torch.autograd.DeviceType.CPU]
+    t0 = min(e.time_range.start for e in step_evts)
+    t1 = max(e.time_range.end for e in step_evts)
+    busy = device_busy_us(events, t0, t1)
+    return {"device_ms_per_step": {k: v / 1e3 / steps
+                                   for k, v in sorted(kinds.items())},
+            "device_share": {k: v / total for k, v in sorted(kinds.items())},
+            "device_idle_share_of_traced_wall": 1 - busy / (t1 - t0),
+            "other_top": sorted(((v / 1e3 / steps, n)
+                                 for n, v in other.items()),
+                                reverse=True)[:6]}
+
+
+def _no_dropout(conf):
+    for layer, _ in layer_inputs(conf):
+        layer.dropOut = None
+    return conf
+
+
+def zoo_parity(dev, cfg):
+    """Phase 15(a): AlexNet (LRN) and VGG16 at cut sizes, dropout off,
+    params copied from the card's f32 net: 3 steps on the card against
+    the same net on the CPU in f64. Each step: f64 card vs f64 CPU, loss
+    rel ZOO_F64_LOSS and each gradient rel L2 ZOO_F64_GRAD; f32 card vs
+    the f64 CPU, ZOO_F32_LOSS and ZOO_F32_GRAD; then a fit step each."""
+    import torch
+
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn import (
+        DataType, MultiLayerNetwork, Nesterovs,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import params_to_reference
+
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    for name, n in cfg["models"].items():
+        def build(device, dtype):
+            conf = getattr(zoo, name)(
+                numClasses=cfg["classes"], seed=SEED,
+                inputShape=(3, n, n), updater=Nesterovs(1e-3, 0.9),
+                dataType=getattr(DataType, dtype)).conf()
+            return MultiLayerNetwork(_no_dropout(conf), device=device).init()
+
+        card32 = build(dev, "FLOAT")
+        params = params_to_reference(card32.layers, card32._params)
+        nets = {"card32": card32}
+        for key, d, dt in (("card64", dev, "DOUBLE"),
+                           ("cpu64", "cpu", "DOUBLE")):
+            nets[key] = build(d, dt)
+            nets[key].load_reference_params(params)
+        rng = np.random.default_rng(SEED + 15)
+        x = rng.standard_normal((cfg["batch"], 3, n, n)).astype(np.float32)
+        y = np.eye(cfg["classes"], dtype=np.float32)[
+            rng.integers(0, cfg["classes"], cfg["batch"])]
+        worst = {"f64_loss": 0.0, "f64_grad": 0.0, "f32_loss": 0.0,
+                 "f32_grad": 0.0}
+        losses = []
+        for step in range(cfg["steps"]):
+            res = {k: net.computeGradientAndScore(x, y)
+                   for k, net in nets.items()}
+            g64, l64 = res["cpu64"]
+            f = {"f64_loss": abs(res["card64"][1] - l64) / abs(l64),
+                 "f64_grad": grads_against(res["card64"][0], g64),
+                 "f32_loss": abs(res["card32"][1] - l64) / abs(l64),
+                 "f32_grad": grads_against(res["card32"][0], g64)}
+            worst = {k: max(worst[k], v) for k, v in f.items()}
+            losses.append(l64)
+            for net in nets.values():
+                net.fit(x, y)
+        need(worst["f64_loss"] <= ZOO_F64_LOSS
+             and worst["f64_grad"] <= ZOO_F64_GRAD,
+             f"zoo (a): {name} f64 on the card vs the CPU: {worst}")
+        need(worst["f32_loss"] <= ZOO_F32_LOSS
+             and worst["f32_grad"] <= ZOO_F32_GRAD,
+             f"zoo (a): {name} f32 on the card vs the CPU's f64: {worst}")
+        out[name] = dict(worst, input=n, losses_f64=losses)
+        del nets
+    log("zoo (a): " + json.dumps(out))
+    return out
+
+
+def zoo_batch(dev, cfg, rows, channels=3, seg=False):
+    """A seeded NHWC bf16 batch resident on the card with one-hot labels
+    (or, for a segmentation net, a binary [B, H, W, C] mask)."""
+    import torch
+
+    n = cfg["image"]
+    rng = np.random.RandomState(SEED + 15)
+    x = torch.from_numpy(rng.rand(rows, n, n, channels).astype(
+        np.float32)).to(dev, torch.bfloat16)
+    if seg:
+        y = (rng.rand(rows, n, n, cfg["classes"]) > 0.5).astype(np.float32)
+    else:
+        y = np.eye(cfg["classes"], dtype=np.float32)[
+            rng.randint(0, cfg["classes"], rows)]
+    return x, torch.from_numpy(y).to(dev)
+
+
+def zoo_timed(dev, cfg, net, x, y, what, traced_steps=0):
+    """`cfg["steps"]` fit steps on one resident batch: the median step
+    of steps 3..n, images/s, peak memory, share of the bf16 peak (3 x the
+    forward's conv + dense FLOPs over 989 TFLOP/s), the loss must fall;
+    then, with `traced_steps`, the profiler split by kind."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = fit_timed(net, x, y, cfg["steps"])
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(all(math.isfinite(v) for v in losses),
+         f"{what}: non-finite loss: {losses}")
+    need(losses[-1] < losses[0],
+         f"{what}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    med = float(np.median(step_s[2:]))
+    B = x.shape[0]
+    flops = 3 * forward_flops(net.conf, B)
+    out = {"params": net.numParams(), "batch": B,
+           "loss_step1": losses[0], f"loss_step{cfg['steps']}": losses[-1],
+           "step_ms_median_3_on": med * 1e3,
+           "step_ms_first": step_s[0] * 1e3, "images_per_s": B / med,
+           "max_memory_allocated_bytes": peak,
+           "train_flops_per_step": flops,
+           "share_of_bf16_dense_peak": flops / med / PEAK_BF16_OPS}
+    if traced_steps:
+        out["trace"] = traced_split(net, x, y, traced_steps, what)
+    log(f"{what}: " + json.dumps(out))
+    return out
+
+
+def zoo_classifier(dev, cfg):
+    """Phase 15(b)/(c): VGG16 / AlexNet at 224^2, 1000 classes, bf16
+    over fp32 masters, NHWC, dropout 0.5 on, the zoo's Nesterovs(1e-2,
+    0.9), deterministic cuDNN."""
+    import torch
+
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn import DataType
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    n = cfg["image"]
+    net = getattr(zoo, cfg["model"])(
+        numClasses=cfg["classes"], seed=SEED, inputShape=(3, n, n),
+        dataType=DataType.BFLOAT16, dataFormat="NHWC", device=dev).init()
+    x, y = zoo_batch(dev, cfg, cfg["batch"])
+    what = f"zoo ({'b' if cfg['model'] == 'VGG16' else 'c'}) {cfg['model']}"
+    out = zoo_timed(dev, cfg, net, x, y, what, cfg["traced_steps"])
+    del net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo_unet(dev, cfg):
+    """Phase 15(d): UNet at its zoo default 128^2, binary segmentation
+    (numClasses 1: sigmoid + XENT through CnnLossLayer), bf16, NHWC,
+    Adam(1e-3)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import Adam, DataType
+    from deeplearning4j_tpu_torch.zoo import UNet
+
+    n = cfg["image"]
+    net = UNet(numClasses=cfg["classes"], seed=SEED, inputShape=(3, n, n),
+               updater=Adam(1e-3), dataType=DataType.BFLOAT16,
+               dataFormat="NHWC", device=dev).init()
+    x, y = zoo_batch(dev, cfg, cfg["batch"], seg=True)
+    out = zoo_timed(dev, cfg, net, x, y, "zoo (d) UNet")
+    del net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def s2d_stem(dev, cfg, phase9b):
+    """Phase 15(e): an s2d ResNet-50 built from a standard net's
+    parameters, its stem through stem_weights_to_s2d (the reference's
+    HWIO arrays) and setParamTable: the global-pool features and the
+    logits (features x fc) in f32, eval mode, TF32 off, against the
+    standard net's, rel L2 within S2D_LOGIT_REL; then timed steps of the
+    s2d net at 9(b)'s settings beside 9(b)'s step."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    std = resnet_net(dev, RESNET_TIMED)
+    s2d = resnet_net(dev, RESNET_TIMED, stemMode="space_to_depth")
+    table = {k: v.toNumpy() for k, v in std.paramTable().items()}
+    table["conv1_W"] = ResNet50.stem_weights_to_s2d(table["conv1_W"])
+    s2d.setParamTable(table)
+    n = RESNET_TIMED["image"]
+    rng = np.random.default_rng(SEED + 16)
+    x = rng.standard_normal((cfg["batch"], 3, n, n)).astype(np.float32)
+    fa, fb = std.feedForward(x)["gap"].tensor(), \
+        s2d.feedForward(x)["gap"].tensor()
+    W, b = std._params["fc"]["W"].detach(), std._params["fc"]["b"].detach()
+    logits_a, logits_b = fa @ W + b, fb @ W + b
+    feat_rel, logit_rel = rel_l2(fb, fa), rel_l2(logits_b, logits_a)
+    need(logit_rel <= S2D_LOGIT_REL and feat_rel <= S2D_LOGIT_REL,
+         f"zoo (e): s2d features rel {feat_rel:.3e}, logits rel "
+         f"{logit_rel:.3e} against the standard stem")
+    del std, s2d
+    torch.cuda.empty_cache()
+    net = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                     updater=Nesterovs(0.1, 0.9), stemMode="space_to_depth")
+    xb, yb = resnet_batch(dev, RESNET_TIMED, RESNET_TIMED["batch"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = fit_timed(net, xb, yb, cfg["steps"])
+    need(all(math.isfinite(v) for v in losses),
+         f"zoo (e): non-finite s2d loss: {losses}")
+    med = float(np.median(step_s[2:])) * 1e3
+    out = {"features_rel_l2": feat_rel, "logits_rel_l2": logit_rel,
+           "step_ms_median_3_on": med,
+           "step_ms_all": [s * 1e3 for s in step_s],
+           "images_per_s": RESNET_TIMED["batch"] / med * 1e3,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(
+               dev),
+           "phase9b_step_ms_median_3_on": phase9b["step_ms_median_3_on"]}
+    log("zoo (e): " + json.dumps(out))
+    del net, xb, yb
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_ab(dev):
+    """Phase 15(f): 9(b)'s ResNet-50 (bf16 NHWC, Nesterovs(0.1, 0.9),
+    batch 128, deterministic cuDNN) for REMAT_STEPS fit steps without and
+    with checkpointPolicy="save_conv_outputs" from the same weights: the
+    losses and the final params, BN statistics and momentum bitwise
+    equal; each run's peak memory and step ms."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    x, y = resnet_batch(dev, RESNET_TIMED, RESNET_TIMED["batch"])
+    runs, nets = {}, {}
+    for policy in (None, "save_conv_outputs"):
+        net = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                         updater=Nesterovs(0.1, 0.9), checkpointPolicy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        losses, step_s = fit_timed(net, x, y, REMAT_STEPS)
+        key = policy or "stock"
+        runs[key] = {"losses": losses,
+                     "step_ms_median_3_on": float(np.median(step_s[2:]))
+                     * 1e3,
+                     "max_memory_allocated_bytes":
+                         torch.cuda.max_memory_allocated(dev),
+                     "peak_over_resident_bytes":
+                         torch.cuda.max_memory_allocated(dev) - base}
+        nets[key] = net
+    stock, remat = nets["stock"], nets["save_conv_outputs"]
+    need(runs["stock"]["losses"] == runs["save_conv_outputs"]["losses"],
+         f"zoo (f): remat losses {runs['save_conv_outputs']['losses']} vs "
+         f"stock {runs['stock']['losses']}")
+    need(state_equal(stock, remat),
+         "zoo (f): remat's final state is not stock's bit for bit")
+    out = dict(runs, peak_ratio=runs["save_conv_outputs"][
+        "max_memory_allocated_bytes"] / runs["stock"][
+        "max_memory_allocated_bytes"])
+    log("zoo (f): " + json.dumps(out))
+    del nets, stock, remat, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def simple_cnn_blocks(dev, cfg):
+    """Phase 15(g): SimpleCNN (3x48x48, its DropoutLayer on, f32) over an
+    ExistingDataSetIterator of `batches` batches: fitDataSet(stepsPerSync
+    = k) with every block under the sync check against fit from the same
+    start, the losses and the state bitwise equal."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        DataSet, ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn.multilayer import sync_free_blocks
+    from deeplearning4j_tpu_torch.optimize import CollectScoresListener
+    from deeplearning4j_tpu_torch.zoo import SimpleCNN
+
+    B, nb = cfg["batch"], cfg["batches"]
+    rng = np.random.RandomState(SEED + 17)
+    x = rng.rand(nb * B, 3, 48, 48).astype(np.float32)
+    y = np.eye(cfg["classes"], dtype=np.float32)[
+        rng.randint(0, cfg["classes"], nb * B)]
+
+    def run(blocks):
+        net = SimpleCNN(numClasses=cfg["classes"], seed=SEED,
+                        device=dev).init()
+        scores = CollectScoresListener()
+        net.setListeners(scores)
+        it = ExistingDataSetIterator(DataSet(x, y), B)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if blocks:
+            with sync_free_blocks():
+                net.fitDataSet(it, stepsPerSync=cfg["k"])
+        else:
+            net.fit(it)
+        torch.cuda.synchronize()
+        return net, scores.scores, (time.perf_counter() - t) / nb * 1e3
+
+    a, la, ms_fit = run(False)
+    b, lb, ms_blocks = run(True)
+    need(la == lb and len(la) == nb,
+         f"zoo (g): fitDataSet losses {lb} vs fit {la}")
+    need(state_equal(a, b), "zoo (g): fitDataSet's state is not fit's")
+    need(b._fit_dataset_syncs == nb // cfg["k"] + nb % cfg["k"],
+         f"zoo (g): {b._fit_dataset_syncs} syncs")
+    out = {"losses": la, "fit_ms_per_step": ms_fit,
+           "fit_dataset_ms_per_step": ms_blocks,
+           "syncs": b._fit_dataset_syncs}
+    log("zoo (g): " + json.dumps(out))
+    return out
+
+
+def cnn_zoo_phase(dev, phase9b):
+    """Phase 15: (a) parity, (b) VGG16, (c) AlexNet, (d) UNet, (e) the
+    s2d stem, (f) the remat policy, (g) dropout inside blocks; K1-K5
+    launch no time."""
+    import torch
+
+    before = kernel_launches()
+    out = {"parity": zoo_parity(dev, ZOO_PARITY)}
+    torch.cuda.empty_cache()
+    out["vgg16"] = zoo_classifier(dev, ZOO_VGG)
+    out["alexnet"] = zoo_classifier(dev, ZOO_ALEXNET)
+    out["unet"] = zoo_unet(dev, ZOO_UNET)
+    out["s2d"] = s2d_stem(dev, S2D_CHECK, phase9b)
+    out["remat"] = remat_ab(dev)
+    out["blocks"] = simple_cnn_blocks(dev, ZOO_SIMPLE)
+    need(kernel_launches() == before, "cnn zoo: a hand-written kernel "
+         f"launched: {before} -> {kernel_launches()}")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -3358,6 +3897,7 @@ def main():
     dp = data_parallel_phase(dev, RESNET_TIMED, timed)
     torch.cuda.empty_cache()
     runtime = runtime_phase(dev, train, timed, trace)
+    zoo = cnn_zoo_phase(dev, timed)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -3478,6 +4018,35 @@ def main():
         f"{rc['fit_dataset_ms_per_step']:.2f} ms a step vs fit "
         f"{rc['fit_ms_per_step']:.2f} ms (phase 7 "
         f"{rc['phase7_ms_per_step']:.2f} ms)")
+    zp, zv, za, zu, zs, zr, zg = (zoo[k] for k in (
+        "parity", "vgg16", "alexnet", "unet", "s2d", "remat", "blocks"))
+
+    def split(r):
+        return ", ".join(f"{k} {100 * v:.1f} %" for k, v in
+                         r["trace"]["device_share"].items())
+
+    log(f"CNN zoo on {card}: parity f64 card/CPU worst gradient "
+        + ", ".join(f"{m} {v['f64_grad']:.2e}" for m, v in zp.items())
+        + "; " + "; ".join(
+            f"{m} bf16 NHWC b{r['batch']} {r['step_ms_median_3_on']:.2f} ms "
+            f"a step, {r['images_per_s']:.1f} images/s, "
+            f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB, "
+            f"{100 * r['share_of_bf16_dense_peak']:.2f} % of the bf16 peak "
+            f"(device: {split(r)})" for m, r in (("VGG16", zv),
+                                                 ("AlexNet", za)))
+        + f"; UNet b{ZOO_UNET['batch']} {zu['step_ms_median_3_on']:.2f} ms, "
+        f"{zu['images_per_s']:.1f} images/s, "
+        f"{zu['max_memory_allocated_bytes'] / 2**30:.2f} GiB; s2d stem "
+        f"logits rel {zs['logits_rel_l2']:.2e}, "
+        f"{zs['step_ms_median_3_on']:.2f} ms a step vs 9(b) "
+        f"{zs['phase9b_step_ms_median_3_on']:.2f}; save_conv_outputs "
+        f"{zr['save_conv_outputs']['step_ms_median_3_on']:.2f} ms, "
+        f"{zr['save_conv_outputs']['max_memory_allocated_bytes'] / 2**30:.2f}"
+        f" GiB vs stock {zr['stock']['step_ms_median_3_on']:.2f} ms, "
+        f"{zr['stock']['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+        "(bitwise); SimpleCNN fitDataSet(4) "
+        f"{zg['fit_dataset_ms_per_step']:.2f} ms a step vs fit "
+        f"{zg['fit_ms_per_step']:.2f} (bitwise)")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,15 +6,17 @@ arithmetic, so a graph file names its ops and either package can run it.
 Ported families: elementwise math and logic, reductions, shape and index
 ops, ``nn`` (``multiHeadDotProductAttention`` through
 ``ops.attention.multi_head_attention``, whose core is the flash
-dispatcher), the losses, ``mmul``/``tensorMmul``/``batchMmul`` and the
-random ops. The executor passes the random ops a seeded
-``torch.Generator`` as ``gen`` (where the reference folds a PRNG key)
-and the no-input ops the graph's ``device``.
+dispatcher), the losses, ``mmul``/``tensorMmul``/``batchMmul``, the
+random ops and ``spaceToDepth``/``depthToSpace``. The executor passes
+the random ops a seeded ``torch.Generator`` as ``gen`` (where the
+reference folds a PRNG key) and the no-input ops the graph's
+``device``.
 
 The families in ``DEFERRED`` wait for the rest of SameDiff (ROADMAP.md
-Queue 1 item 9): control flow, the cnn, rnn, image, fft and bitwise
-ops, the linalg decompositions, the segment ops and NMS; a graph that
-names one raises ``NotImplementedError`` when it is built or loaded.
+Queue 1 item 9): control flow, the rest of the cnn ops, the rnn, image,
+fft and bitwise ops, the linalg decompositions, the segment ops and NMS;
+a graph that names one raises ``NotImplementedError`` when it is built
+or loaded.
 
 Indices that select (``gather``, ``embeddingLookup``, scatter ops,
 ``sparseSoftmaxCrossEntropy``) are bounds-checked on the host before
@@ -34,6 +36,7 @@ from deeplearning4j_tpu_torch.ndarray.ndarray import (
 )
 from deeplearning4j_tpu_torch.nn.losses import _log_softmax
 from deeplearning4j_tpu_torch.ops import attention as _attn
+from deeplearning4j_tpu_torch.ops import conv as _conv
 
 __all__ = ["OPS", "DEFERRED", "DEVICE_OPS", "STOCHASTIC_OPS", "deferred",
            "abs_select"]
@@ -837,6 +840,10 @@ def _random_exponential(shape=None, lambda_=1.0, gen=None, dtype="float32"):
     return e.to(resolve(dtype)) / lambda_
 
 
+# ---- block rearrangements over NHWC (the SpaceToDepth layer's) ----
+_reg("spaceToDepth", _conv.space_to_depth)
+_reg("depthToSpace", _conv.depth_to_space)
+
 STOCHASTIC_OPS = frozenset({"randomNormal", "randomUniform",
                             "randomBernoulli", "randomExponential"})
 #: ops with no tensor input: the executor passes them the graph's device
@@ -848,7 +855,7 @@ DEFERRED = {}
 for _names, _what in [
     ("if_cond while_loop", "SameDiff control flow (ifCond/whileLoop)"),
     ("conv2d conv1d conv3d deconv2d maxPooling2d avgPooling2d upsampling2d "
-     "im2col spaceToDepth depthToSpace spaceToBatch batchToSpace",
+     "im2col spaceToBatch batchToSpace",
      "the SameDiff cnn namespace"),
     ("lstmLayer gru simpleRnn", "the SameDiff rnn namespace"),
     ("resizeBilinear resizeNearest cropAndResize adjustContrast hsvToRgb "

@@ -301,7 +301,7 @@ class SameDiff:
         self.loss = _LossOps(self)
         self.linalg = _LinalgOps(self)
         self.random = _RandomOps(self)
-        self.cnn = _Deferred("cnn")
+        self.cnn = _CNNOps(self)
         self.rnn = _Deferred("rnn")
         self.image = _Deferred("image")
         self.bitwise = _Deferred("bitwise")
@@ -982,6 +982,23 @@ class _Deferred:
         raise NotImplementedError(
             f"sd.{self._ns}.{name}: the SameDiff {self._ns} namespace waits "
             "for the rest of SameDiff (ROADMAP.md Queue 1 item 9)")
+
+
+class _CNNOps(_NS):
+    """``sd.cnn``: the block rearrangements over NHWC arrays
+    (``ops.conv.space_to_depth``, the SpaceToDepth layer's); the other
+    cnn ops wait, as ``_Deferred``'s do."""
+
+    def spaceToDepth(self, x, blockSize=2, name=None):
+        return self._mk("spaceToDepth", [x], {"blockSize": int(blockSize)},
+                        name=name)
+
+    def depthToSpace(self, x, blockSize=2, name=None):
+        return self._mk("depthToSpace", [x], {"blockSize": int(blockSize)},
+                        name=name)
+
+    def __getattr__(self, name):
+        return _Deferred.__getattr__(_Deferred("cnn"), name)
 
 
 def _unary(opName):

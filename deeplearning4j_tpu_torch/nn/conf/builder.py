@@ -9,9 +9,9 @@ shape-inference walk, which infers each layer's nIn and inserts the
 format preprocessors) and ``graphBuilder()``; the automatic format
 preprocessor; ``GradientNormalization``.
 
-``checkpointPolicy`` is validated and stored as the reference does; a
-network built from a configuration that sets one raises (the
-rematerialisation policy waits for ROADMAP.md Queue 1 item 5).
+``checkpointPolicy`` is validated and stored as the reference does; the
+networks run their training forward under it (``nn/multilayer.py``
+``remat_segment``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
 __all__ = ["BackpropType", "GradientNormalization", "NeuralNetConfiguration",
            "MultiLayerConfiguration", "ListBuilder", "auto_preprocessor",
-           "refuse_checkpoint_policy"]
+           "CHECKPOINT_POLICIES"]
 
 
 class BackpropType:
@@ -35,15 +35,6 @@ class BackpropType:
 
 #: the reference's named rematerialisation policies
 CHECKPOINT_POLICIES = (None, "save_conv_outputs")
-
-
-def refuse_checkpoint_policy(policy):
-    """Raise for a set checkpointPolicy: the port has no remat policy."""
-    if policy is not None:
-        raise NotImplementedError(
-            f"checkpointPolicy={policy!r} (torch.utils.checkpoint around "
-            "the loss) waits for the ResNet slice's remat item (ROADMAP.md "
-            "Queue 1 item 5)")
 
 
 class GradientNormalization:
@@ -127,7 +118,9 @@ def _wants(layer):
     if isinstance(layer, (R.BaseRecurrentLayer, R.Bidirectional,
                           R.LastTimeStep, L.RnnOutputLayer)):
         return InputType.RNN
-    if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer)):
+    if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer,
+                          L.Upsampling2D, L.ZeroPaddingLayer, L.Cropping2D,
+                          L.LocalResponseNormalization)):
         return InputType.CNN
     if isinstance(layer, (L.DenseLayer, L.BaseOutputLayer)):
         return InputType.FF

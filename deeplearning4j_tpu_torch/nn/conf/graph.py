@@ -1,12 +1,18 @@
 """ComputationGraph configuration: a DAG of layers and vertices.
 
-The counterpart of ``deeplearning4j_tpu/nn/conf/graph.py`` for the
-encoder slice: ``GraphVertex``, ``ElementWiseVertex`` (the residual add),
-``PreprocessorVertex``, ``_Node``, ``ComputationGraphConfiguration``
-(topological order, shape inference, the automatic preprocessor) and
-``GraphBuilder``. Vertices are plain functions of their inputs; autograd
-differentiates through them. The other vertices, JSON round trips and
-truncated BPTT wait for their slices (ROADMAP.md Queue 1 items 5 and 8).
+The counterpart of ``deeplearning4j_tpu/nn/conf/graph.py``:
+``GraphVertex``, ``MergeVertex``, ``ElementWiseVertex`` (the residual
+add), ``SubsetVertex``, ``StackVertex``, ``UnstackVertex``,
+``ScaleVertex``, ``ShiftVertex``, ``L2NormalizeVertex``, ``L2Vertex``,
+``DotProductVertex``, ``ReshapeVertex``, ``PreprocessorVertex``,
+``_Node``, ``ComputationGraphConfiguration`` (topological order, shape
+inference, the automatic preprocessor) and ``GraphBuilder``. Vertices
+are plain functions of their inputs; autograd differentiates through
+them. A 4-d activation is NCHW-logical here where the reference's is
+NHWC, so the channel axis is dim 1 (MergeVertex, SubsetVertex, a
+per-channel Scale/Shift factor) and ReshapeVertex reshapes in the
+reference's NHWC order. The time-series vertices wait for the rest of
+the recurrent slice (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -17,7 +23,10 @@ from deeplearning4j_tpu_torch.ndarray.dtype import DataType
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 
-__all__ = ["GraphVertex", "ElementWiseVertex", "PreprocessorVertex",
+__all__ = ["GraphVertex", "MergeVertex", "ElementWiseVertex",
+           "SubsetVertex", "StackVertex", "UnstackVertex", "ScaleVertex",
+           "ShiftVertex", "L2NormalizeVertex", "L2Vertex",
+           "DotProductVertex", "ReshapeVertex", "PreprocessorVertex",
            "ComputationGraphConfiguration", "GraphBuilder"]
 
 
@@ -29,6 +38,25 @@ class GraphVertex:
 
     def getOutputType(self, *inputTypes) -> InputType:
         raise NotImplementedError
+
+
+class MergeVertex(GraphVertex):
+    """Concatenate along the channel/feature axis (reference:
+    MergeVertex): dim 1 for 4-d (channels) and NCW 3-d (features), the
+    last dim for 2-d."""
+
+    def apply(self, inputs):
+        return torch.cat(inputs, dim=1 if inputs[0].dim() in (3, 4) else -1)
+
+    def getOutputType(self, *its):
+        it = its[0]
+        if it.kind == InputType.CNN:
+            return InputType.convolutional(it.height, it.width,
+                                           sum(i.channels for i in its))
+        if it.kind == InputType.RNN:
+            return InputType.recurrent(sum(i.size for i in its),
+                                       it.dims.get("timeSeriesLength"))
+        return InputType.feedForward(sum(i.size for i in its))
 
 
 class ElementWiseVertex(GraphVertex):
@@ -64,6 +92,179 @@ class ElementWiseVertex(GraphVertex):
         raise ValueError(f"Unknown ElementWiseVertex op {self.op}")
 
     def getOutputType(self, *its):
+        return its[0]
+
+
+class SubsetVertex(GraphVertex):
+    """The channels/features frm..to inclusive (reference: SubsetVertex)."""
+
+    def __init__(self, frm, to):
+        self.frm, self.to = int(frm), int(to)
+
+    def apply(self, inputs):
+        x = inputs[0]
+        return x[:, self.frm:self.to + 1]
+
+    def getOutputType(self, *its):
+        it = its[0]
+        n = self.to - self.frm + 1
+        if it.kind == InputType.CNN:
+            return InputType.convolutional(it.height, it.width, n)
+        if it.kind == InputType.RNN:
+            return InputType.recurrent(n, it.dims.get("timeSeriesLength"))
+        return InputType.feedForward(n)
+
+
+class StackVertex(GraphVertex):
+    """Stack along the batch axis (reference: StackVertex)."""
+
+    def apply(self, inputs):
+        return torch.cat(inputs, dim=0)
+
+    def getOutputType(self, *its):
+        return its[0]
+
+
+class UnstackVertex(GraphVertex):
+    """Slice stackIndex of numStacks equal batch blocks (reference:
+    UnstackVertex)."""
+
+    def __init__(self, stackIndex, numStacks):
+        self.stackIndex, self.numStacks = int(stackIndex), int(numStacks)
+
+    def apply(self, inputs):
+        x = inputs[0]
+        n = x.shape[0] // self.numStacks
+        return x[self.stackIndex * n:(self.stackIndex + 1) * n]
+
+    def getOutputType(self, *its):
+        return its[0]
+
+
+def _affine_factor(v):
+    """A scalar, or a 1-d per-channel factor kept as a tuple (configs
+    stay array-free, so toJson works) (reference: ``_affine_factor``)."""
+    import numpy as np
+
+    if isinstance(v, (int, float)):
+        return float(v)
+    arr = np.asarray(v, np.float32)
+    if arr.ndim == 0:
+        return float(arr)
+    if arr.ndim != 1:
+        raise ValueError(f"scale/shift factor must be a scalar or 1-d "
+                         f"per-channel array, got shape {arr.shape}")
+    return tuple(float(x) for x in arr)
+
+
+class _AffineVertex(GraphVertex):
+    """Scale/Shift: a scalar, or a per-channel factor (the channel axis:
+    dim 1 of a 4-d activation, the last of a 2-d one); refused on NCW
+    3-d activations, where it would broadcast over time."""
+
+    _factor = 0.0
+
+    def _value(self, x):
+        if isinstance(self._factor, float):
+            return self._factor
+        if x.dim() == 3:
+            raise ValueError(
+                f"per-channel {type(self).__name__} factors are not "
+                "supported on recurrent (NCW) activations — the factor "
+                "would broadcast over the time axis")
+        f = torch.tensor(self._factor, dtype=torch.float32, device=x.device)
+        return f.reshape(1, -1, 1, 1) if x.dim() == 4 else f
+
+    def getOutputType(self, *its):
+        if (not isinstance(self._factor, float)
+                and its[0].kind == InputType.RNN):
+            raise ValueError(
+                f"per-channel {type(self).__name__} factors are not "
+                "supported on recurrent inputs")
+        return its[0]
+
+
+class ScaleVertex(_AffineVertex):
+    def __init__(self, scaleFactor):
+        self.scaleFactor = self._factor = _affine_factor(scaleFactor)
+
+    def apply(self, inputs):
+        return inputs[0] * self._value(inputs[0])
+
+
+class ShiftVertex(_AffineVertex):
+    def __init__(self, shiftFactor):
+        self.shiftFactor = self._factor = _affine_factor(shiftFactor)
+
+    def apply(self, inputs):
+        return inputs[0] + self._value(inputs[0])
+
+
+class L2NormalizeVertex(GraphVertex):
+    """x / sqrt(sum over every non-batch axis of x² + eps)."""
+
+    def __init__(self, eps=1e-8):
+        self.eps = eps
+
+    def apply(self, inputs):
+        x = inputs[0]
+        axes = tuple(range(1, x.dim()))
+        return x / torch.sqrt(x.square().sum(axes, keepdim=True) + self.eps)
+
+    def getOutputType(self, *its):
+        return its[0]
+
+
+class L2Vertex(GraphVertex):
+    """The per-example L2 distance of two inputs, [B, 1] (reference:
+    L2Vertex)."""
+
+    def __init__(self, eps=1e-8):
+        self.eps = eps
+
+    def apply(self, inputs):
+        a, b = inputs[0], inputs[1]
+        axes = tuple(range(1, a.dim()))
+        return torch.sqrt((a - b).square().sum(axes)[:, None] + self.eps)
+
+    def getOutputType(self, *its):
+        return InputType.feedForward(1)
+
+
+class DotProductVertex(GraphVertex):
+    """The per-example dot product of two inputs, [B, 1] (reference:
+    DotProductVertex)."""
+
+    def apply(self, inputs):
+        a, b = inputs[0], inputs[1]
+        return (a * b).sum(tuple(range(1, a.dim())))[:, None]
+
+    def getOutputType(self, *its):
+        return InputType.feedForward(1)
+
+
+class ReshapeVertex(GraphVertex):
+    """Reshape each example (reference: ReshapeVertex). newShape is in
+    the reference's layout, NHWC for 4-d, so a 4-d input or output is
+    taken through its NHWC view."""
+
+    def __init__(self, *newShape):
+        self.newShape = tuple(int(s) for s in newShape)
+
+    def apply(self, inputs):
+        x = inputs[0]
+        if x.dim() == 4:
+            x = x.permute(0, 2, 3, 1)
+        y = x.reshape((x.shape[0],) + self.newShape[1:])
+        return y.permute(0, 3, 1, 2) if y.dim() == 4 else y
+
+    def getOutputType(self, *its):
+        if len(self.newShape) == 2:
+            return InputType.feedForward(self.newShape[1])
+        if len(self.newShape) == 4:
+            return InputType.convolutional(self.newShape[1],
+                                           self.newShape[2],
+                                           self.newShape[3])
         return its[0]
 
 

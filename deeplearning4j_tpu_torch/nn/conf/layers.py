@@ -3,13 +3,19 @@
 The counterpart of ``deeplearning4j_tpu/nn/conf/layers.py`` for what the
 ported slices need: ``Layer``, ``BaseLayer``, ``FeedForwardLayer``,
 ``DenseLayer``, ``BaseOutputLayer``, ``OutputLayer``, ``RnnOutputLayer``,
-``ActivationLayer``, ``ConvolutionLayer``, ``SubsamplingLayer``,
-``GlobalPoolingLayer`` and ``BatchNormalization``. As in the reference a
-layer config IS its implementation: ``initialize(gen, inputType, dtype,
+``LossLayer``, ``CnnLossLayer``, ``RnnLossLayer``, ``ActivationLayer``,
+``DropoutLayer``, ``ConvolutionLayer``, ``Deconvolution2D``,
+``DepthwiseConvolution2D``, ``SeparableConvolution2D``,
+``SubsamplingLayer``, ``Upsampling2D``, ``ZeroPaddingLayer``,
+``Cropping2D``, ``GlobalPoolingLayer``, ``BatchNormalization``,
+``LocalResponseNormalization`` and ``SpaceToDepth``. As in the reference
+a layer config IS its implementation: ``initialize(gen, inputType, dtype,
 device)`` returns ``(params, state)`` dicts of tensors with the
-reference's names, and ``forward(params, state, x, train, gen, mask)``
+reference's names, and ``forward(params, state, x, train, key, mask)``
 is a plain function of them that autograd differentiates (BN through the
-``ops.norm`` autograd Functions).
+``ops.norm`` autograd Functions). ``key`` is the step's
+``dropout.StepKey`` for this layer (None outside training): dropout
+applies to the layer's input when training, as in the reference.
 
 Layouts: recurrent activations between layers are NCW ``[B, F, T]``;
 convolutional ones NCHW-logical in ``channels_last`` memory, where the
@@ -17,18 +23,24 @@ reference keeps NHWC. Each layer owns the map between the reference's
 parameter layout and its own (``param_from_reference`` and its inverse
 ``param_to_reference``): dense ``W`` is ``[in, out]`` on both sides,
 a conv ``W`` is the reference's HWIO ``[kh, kw, in, out]`` and the port's
-OIHW ``[out, in, kh, kw]`` (channels_last memory). The recurrent layers
-are in ``nn/conf/recurrent.py``; the other layers wait for their slices
-(ROADMAP.md Queue 1 items 5 and 8); dropout waits for the nn-conf slice
-(item 4) and raises when asked for.
+OIHW ``[out, in, kh, kw]`` (channels_last memory); a depthwise
+``[kh, kw, 1, C·m]`` is a grouped ``[C·m, 1, kh, kw]`` (output channel
+``g·m + j`` reads input channel g on both sides); a deconvolution's
+unflipped HWIO ``[kh, kw, Cin, Cout]`` is ``conv_transpose2d``'s flipped
+``[Cin, Cout, kh, kw]``. The recurrent layers are in
+``nn/conf/recurrent.py``; the 1-d, 3-d, locally connected, capsule and
+other layers wait for their slices (ROADMAP.md Queue 1 items 4, 8
+and 12).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.nn import activations as _act
 from deeplearning4j_tpu_torch.nn import weights as _winit
+from deeplearning4j_tpu_torch.nn.conf import dropout as _do
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.ops import conv as _conv
 from deeplearning4j_tpu_torch.ops import norm as _norm
@@ -36,9 +48,13 @@ from deeplearning4j_tpu_torch.ops import pooling as _pool
 from deeplearning4j_tpu_torch.ops.conv import _pair
 
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer",
-           "BaseOutputLayer", "OutputLayer", "RnnOutputLayer",
-           "ActivationLayer", "ConvolutionLayer", "SubsamplingLayer",
-           "GlobalPoolingLayer", "BatchNormalization"]
+           "BaseOutputLayer", "OutputLayer", "RnnOutputLayer", "LossLayer",
+           "CnnLossLayer", "RnnLossLayer", "ActivationLayer", "DropoutLayer",
+           "ConvolutionLayer", "Deconvolution2D", "DepthwiseConvolution2D",
+           "SeparableConvolution2D", "SubsamplingLayer", "Upsampling2D",
+           "ZeroPaddingLayer", "Cropping2D", "GlobalPoolingLayer",
+           "BatchNormalization", "LocalResponseNormalization",
+           "SpaceToDepth"]
 
 
 class Layer:
@@ -81,7 +97,7 @@ class Layer:
     def initialize(self, gen, inputType, dtype, device):
         return {}, {}
 
-    def forward(self, params, state, x, train: bool, gen, mask=None):
+    def forward(self, params, state, x, train: bool, key, mask=None):
         raise NotImplementedError
 
     def hasParams(self) -> bool:
@@ -96,12 +112,13 @@ class Layer:
         """The inverse of ``param_from_reference``."""
         return t
 
-    def _dropout_input(self, x, train, gen):
-        if train and self.dropOut is not None:
-            raise NotImplementedError(
-                "dropout waits for the nn-conf slice (ROADMAP.md Queue 1 "
-                "item 4)")
-        return x
+    def _dropout_input(self, x, train, key):
+        """Dropout on the layer's input, when training with a key
+        (reference: ``Layer._dropout_input``)."""
+        d = _do.resolve(self.dropOut)
+        if not train or d is None or key is None:
+            return x
+        return d.apply(x, key)
 
     # neither weights nor biases: never regularized (as the reference)
     _NON_WEIGHT_PARAMS = ("b", "beta", "centers", "alpha", "vb")
@@ -159,8 +176,8 @@ class FeedForwardLayer(BaseLayer):
 class DenseLayer(FeedForwardLayer):
     """Fully connected layer (reference: conf.layers.DenseLayer)."""
 
-    def forward(self, params, state, x, train, gen, mask=None):
-        x = self._dropout_input(x, train, gen)
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
         y = x @ params["W"]
         if self.hasBias:
             y = y + params["b"]
@@ -178,8 +195,8 @@ class BaseOutputLayer(FeedForwardLayer):
             y = y + params["b"]
         return y
 
-    def forward(self, params, state, x, train, gen, mask=None):
-        x = self._dropout_input(x, train, gen)
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
         return _act.get(self.activation)(self.preoutput(params, x)), state
 
 
@@ -202,20 +219,65 @@ class RnnOutputLayer(BaseOutputLayer):
             y = y + params["b"][None, :, None]
         return y
 
-    def forward(self, params, state, x, train, gen, mask=None):
-        x = self._dropout_input(x, train, gen)
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
         pre = self.preoutput(params, x)
         # activation over the class axis (softmax must not run over time)
         act = _act.get(self.activation)
         return act(pre.transpose(1, 2)).transpose(1, 2), state
 
 
+class LossLayer(Layer):
+    """A loss head without params (reference: conf.layers.LossLayer):
+    the preoutput is the input itself."""
+
+    def __init__(self, lossFunction="mcxent", **kw):
+        super().__init__(**kw)
+        self.lossFunction = lossFunction
+        self.nOut = None
+
+    def hasParams(self):
+        return False
+
+    def preoutput(self, params, x):
+        return x
+
+    def forward(self, params, state, x, train, key, mask=None):
+        return _act.get(self.activation)(x), state
+
+
+class CnnLossLayer(LossLayer):
+    """A per-pixel loss head for dense prediction, e.g. segmentation
+    (reference: conf.layers.CnnLossLayer). The loss takes the class axis
+    last ([B,H,W,C]): summed over the pixels and classes, averaged over
+    the batch, as the reference's. A 4-d label is NHWC exactly when the
+    network's input type says ``format="NHWC"``, else NCHW."""
+
+
+class RnnLossLayer(LossLayer):
+    """A per-timestep loss head without params (reference:
+    conf.layers.RnnLossLayer)."""
+
+
 class ActivationLayer(Layer):
     def hasParams(self):
         return False
 
-    def forward(self, params, state, x, train, gen, mask=None):
+    def forward(self, params, state, x, train, key, mask=None):
         return _act.get(self.activation)(x), state
+
+
+class DropoutLayer(Layer):
+    """Dropout alone (reference: conf.layers.DropoutLayer)."""
+
+    def __init__(self, dropOut=0.5, **kw):
+        super().__init__(dropOut=dropOut, **kw)
+
+    def hasParams(self):
+        return False
+
+    def forward(self, params, state, x, train, key, mask=None):
+        return self._dropout_input(x, train, key), state
 
 
 class ConvolutionLayer(FeedForwardLayer):
@@ -236,18 +298,23 @@ class ConvolutionLayer(FeedForwardLayer):
         if self.nIn is None and inputType.kind == InputType.CNN:
             self.nIn = inputType.channels
 
-    def getOutputType(self, inputType):
-        h, w = (_conv.conv_output_size(
+    def _out_hw(self, inputType):
+        return tuple(_conv.conv_output_size(
             n, self.kernelSize[i], self.stride[i], self.padding[i],
             self.dilation[i], self.convolutionMode)
             for i, n in enumerate((inputType.height, inputType.width)))
-        return InputType.convolutional(h, w, self.nOut)
+
+    def getOutputType(self, inputType):
+        return InputType.convolutional(*self._out_hw(inputType), self.nOut)
+
+    def _w_shape(self):
+        return (self.nOut, self.nIn) + self.kernelSize
 
     def initialize(self, gen, inputType, dtype, device):
         if self.nIn is None:
             self.nIn = inputType.channels
         kh, kw = self.kernelSize
-        W = _winit.init(gen, self.weightInit, (self.nOut, self.nIn, kh, kw),
+        W = _winit.init(gen, self.weightInit, self._w_shape(),
                         kh * kw * self.nIn, kh * kw * self.nOut, dtype,
                         device, self.distribution)
         params = {"W": W.contiguous(memory_format=torch.channels_last)}
@@ -261,8 +328,7 @@ class ConvolutionLayer(FeedForwardLayer):
             # out: through a contiguous copy first, since with a size-1
             # dim (nIn 1) another stride set also counts as channels_last,
             # and the convolution's summation order follows the strides
-            return t.permute(3, 2, 0, 1).contiguous().contiguous(
-                memory_format=torch.channels_last)
+            return _conv_layout(t)
         return t
 
     def param_to_reference(self, name, t):
@@ -270,13 +336,144 @@ class ConvolutionLayer(FeedForwardLayer):
             return t.permute(2, 3, 1, 0).contiguous()
         return t
 
-    def forward(self, params, state, x, train, gen, mask=None):
-        x = self._dropout_input(x, train, gen)
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
         pad = _conv.explicit_padding(self.convolutionMode, self.padding,
                                      self.kernelSize, self.stride,
                                      self.dilation)
         y = _conv.conv2d(x, params["W"], params.get("b"), self.stride, pad,
                          self.dilation)
+        return _act.get(self.activation)(y), state
+
+
+def _conv_layout(t):
+    """HWIO [kh, kw, in, out] -> OIHW [out, in, kh, kw] in channels_last
+    memory, through a contiguous copy first (see
+    ``ConvolutionLayer.param_from_reference``)."""
+    return t.permute(3, 2, 0, 1).contiguous().contiguous(
+        memory_format=torch.channels_last)
+
+
+class Deconvolution2D(ConvolutionLayer):
+    """Transposed convolution (reference: conf.layers.Deconvolution2D).
+    The reference's W is an unflipped HWIO ``[kh, kw, nIn, nOut]`` that
+    ``lax.conv_transpose`` slides over the dilated input; the port holds
+    it spatially flipped as ``conv_transpose2d``'s ``[nIn, nOut, kh,
+    kw]``, which computes the same function."""
+
+    def _w_shape(self):
+        return (self.nIn, self.nOut) + self.kernelSize
+
+    def getOutputType(self, inputType):
+        h, w = (_conv.deconv_output_size(
+            n, self.kernelSize[i], self.stride[i], self.padding[i],
+            self.dilation[i], self.convolutionMode)
+            for i, n in enumerate((inputType.height, inputType.width)))
+        return InputType.convolutional(h, w, self.nOut)
+
+    def param_from_reference(self, name, t):
+        if name == "W":   # HWIO, unflipped -> [I, O, kh, kw], flipped
+            return t.flip(0, 1).permute(2, 3, 0, 1).contiguous().contiguous(
+                memory_format=torch.channels_last)
+        return t
+
+    def param_to_reference(self, name, t):
+        if name == "W":
+            return t.permute(2, 3, 0, 1).flip(0, 1).contiguous()
+        return t
+
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
+        pad = _conv.deconv_explicit_padding(
+            self.convolutionMode, self.padding, self.kernelSize,
+            self.dilation)
+        y = _conv.deconv2d(x, params["W"], params.get("b"), self.stride, pad,
+                           self.dilation)
+        return _act.get(self.activation)(y), state
+
+
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """Depthwise convolution (reference:
+    conf.layers.DepthwiseConvolution2D): depthMultiplier output channels
+    per input channel, a convolution of nIn groups; W ``[C·m, 1, kh,
+    kw]``."""
+
+    def __init__(self, depthMultiplier=1, **kw):
+        kw.setdefault("nOut", None)
+        super().__init__(**kw)
+        self.depthMultiplier = depthMultiplier
+
+    def getOutputType(self, inputType):
+        return InputType.convolutional(*self._out_hw(inputType),
+                                       self.nIn * self.depthMultiplier)
+
+    def initialize(self, gen, inputType, dtype, device):
+        if self.nIn is None:
+            self.nIn = inputType.channels
+        self.nOut = self.nIn * self.depthMultiplier
+        kh, kw = self.kernelSize
+        W = _winit.init(gen, self.weightInit, (self.nOut, 1, kh, kw),
+                        kh * kw, kh * kw * self.depthMultiplier, dtype,
+                        device, self.distribution)
+        params = {"W": W.contiguous(memory_format=torch.channels_last)}
+        if self.hasBias:
+            params["b"] = torch.full((self.nOut,), float(self.biasInit),
+                                     dtype=dtype, device=device)
+        return params, {}
+
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
+        pad = _conv.explicit_padding(self.convolutionMode, self.padding,
+                                     self.kernelSize, self.stride,
+                                     self.dilation)
+        y = _conv.conv2d(x, params["W"], params.get("b"), self.stride, pad,
+                         self.dilation, groups=self.nIn)
+        return _act.get(self.activation)(y), state
+
+
+class SeparableConvolution2D(ConvolutionLayer):
+    """Depthwise then pointwise convolution (reference:
+    conf.layers.SeparableConvolution2D): W the depthwise ``[C·m, 1, kh,
+    kw]``, pW the pointwise ``[nOut, C·m, 1, 1]``, the bias after the
+    pointwise."""
+
+    def __init__(self, depthMultiplier=1, **kw):
+        super().__init__(**kw)
+        self.depthMultiplier = depthMultiplier
+
+    def initialize(self, gen, inputType, dtype, device):
+        if self.nIn is None:
+            self.nIn = inputType.channels
+        kh, kw = self.kernelSize
+        depth_out = self.nIn * self.depthMultiplier
+        Wd = _winit.init(gen, self.weightInit, (depth_out, 1, kh, kw),
+                         kh * kw, kh * kw * self.depthMultiplier, dtype,
+                         device, self.distribution)
+        Wp = _winit.init(gen, self.weightInit, (self.nOut, depth_out, 1, 1),
+                         depth_out, self.nOut, dtype, device,
+                         self.distribution)
+        params = {"W": Wd.contiguous(memory_format=torch.channels_last),
+                  "pW": Wp.contiguous(memory_format=torch.channels_last)}
+        if self.hasBias:
+            params["b"] = torch.full((self.nOut,), float(self.biasInit),
+                                     dtype=dtype, device=device)
+        return params, {}
+
+    def param_from_reference(self, name, t):
+        return _conv_layout(t) if name == "pW" else \
+            super().param_from_reference(name, t)
+
+    def param_to_reference(self, name, t):
+        return super().param_to_reference("W" if name == "pW" else name, t)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
+        pad = _conv.explicit_padding(self.convolutionMode, self.padding,
+                                     self.kernelSize, self.stride,
+                                     self.dilation)
+        y = _conv.conv2d(x, params["W"], None, self.stride, pad,
+                         self.dilation, groups=self.nIn)
+        y = _conv.conv2d(y, params["pW"], params.get("b"))
         return _act.get(self.activation)(y), state
 
 
@@ -303,7 +500,7 @@ class SubsamplingLayer(Layer):
             for i, n in enumerate((inputType.height, inputType.width)))
         return InputType.convolutional(h, w, inputType.channels)
 
-    def forward(self, params, state, x, train, gen, mask=None):
+    def forward(self, params, state, x, train, key, mask=None):
         pad = _conv.explicit_padding(self.convolutionMode, self.padding,
                                      self.kernelSize, self.stride, (1, 1))
         t = str(self.poolingType).lower()
@@ -317,6 +514,80 @@ class SubsamplingLayer(Layer):
         else:
             raise ValueError(f"Unknown poolingType {self.poolingType}")
         return y, state
+
+
+def _quad(v):
+    """An int, a (vertical, horizontal) pair or (top, bottom, left,
+    right) -> the four."""
+    if isinstance(v, int):
+        v = (v, v, v, v)
+    elif len(v) == 2:
+        v = (v[0], v[0], v[1], v[1])
+    return tuple(int(a) for a in v)
+
+
+class Upsampling2D(Layer):
+    """Nearest-neighbour upsampling (reference: conf.layers.Upsampling2D)."""
+
+    def __init__(self, size=2, **kw):
+        super().__init__(**kw)
+        self.sizev = _pair(size)
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        return InputType.convolutional(inputType.height * self.sizev[0],
+                                       inputType.width * self.sizev[1],
+                                       inputType.channels)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        return _pool.upsample2d(x, self.sizev), state
+
+
+class ZeroPaddingLayer(Layer):
+    """Zero padding (reference: conf.layers.ZeroPaddingLayer); ``pad`` is
+    (top, bottom, left, right)."""
+
+    def __init__(self, padding=(1, 1), **kw):
+        super().__init__(**kw)
+        self.pad = _quad(padding)
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        t, b, l, r = self.pad
+        return InputType.convolutional(inputType.height + t + b,
+                                       inputType.width + l + r,
+                                       inputType.channels)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        t, b, l, r = self.pad
+        return F.pad(x, (l, r, t, b)), state
+
+
+class Cropping2D(Layer):
+    """Cropping (reference: conf.layers.Cropping2D); ``crop`` is (top,
+    bottom, left, right)."""
+
+    def __init__(self, cropping=(0, 0), **kw):
+        super().__init__(**kw)
+        self.crop = _quad(cropping)
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        t, b, l, r = self.crop
+        return InputType.convolutional(inputType.height - t - b,
+                                       inputType.width - l - r,
+                                       inputType.channels)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        t, b, l, r = self.crop
+        H, W = x.shape[2], x.shape[3]
+        return x[:, :, t:H - b, l:W - r], state
 
 
 class GlobalPoolingLayer(Layer):
@@ -350,7 +621,7 @@ class GlobalPoolingLayer(Layer):
             f"GlobalPoolingLayer over {inputType.kind} input waits for the "
             "3D CNN layers (ROADMAP.md Queue 1 item 12)")
 
-    def forward(self, params, state, x, train, gen, mask=None):
+    def forward(self, params, state, x, train, key, mask=None):
         if x.dim() == 4:      # [B,C,H,W]
             y = _pool.global_pool(x, self.poolingType, (2, 3), None,
                                   self.pnorm)
@@ -402,7 +673,7 @@ class BatchNormalization(Layer):
                  "var": torch.ones(n, dtype=torch.float32, device=device)}
         return params, state
 
-    def forward(self, params, state, x, train, gen, mask=None):
+    def forward(self, params, state, x, train, key, mask=None):
         kw = dict(train=train, decay=self.decay, eps=self.eps)
         if _norm.bn_act_supported(self.activation):
             y, rm, rv = _norm.batch_norm_act(
@@ -413,3 +684,51 @@ class BatchNormalization(Layer):
                                      params.get("beta"), state["mean"],
                                      state["var"], **kw)
         return _act.get(self.activation)(y), {"mean": rm, "var": rv}
+
+
+class LocalResponseNormalization(Layer):
+    """Local response normalization across channels (reference:
+    conf.layers.LocalResponseNormalization; ``ops.norm.lrn``)."""
+
+    def __init__(self, k=2.0, n=5, alpha=1e-4, beta=0.75, **kw):
+        super().__init__(**kw)
+        self.k, self.n, self.alpha, self.beta = k, n, alpha, beta
+
+    def hasParams(self):
+        return False
+
+    def forward(self, params, state, x, train, key, mask=None):
+        return _norm.lrn(x, self.k, self.n, self.alpha, self.beta), state
+
+
+class SpaceToDepth(Layer):
+    """[B,C,H,W] -> [B,C·b·b,H/b,W/b] (reference: conf.layers.SpaceToDepth)
+    with the reference's channel order ``(s·b + t)·C + c``
+    (``ops.conv.space_to_depth`` over the NHWC view). blocks must
+    divide H and W."""
+
+    def __init__(self, blocks=2, dataFormat="NCHW", **kw):
+        super().__init__(**kw)
+        self.blocks = int(blocks)
+        if str(dataFormat).upper() != "NCHW":
+            raise ValueError(
+                "SpaceToDepth API data format is NCHW (the framework "
+                "transposes to NHWC internally at the input boundary); "
+                f"got dataFormat={dataFormat!r}")
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        b = self.blocks
+        if inputType.height % b or inputType.width % b:
+            raise ValueError(
+                f"SpaceToDepth blocks={b} must divide H={inputType.height}, "
+                f"W={inputType.width}")
+        return InputType.convolutional(inputType.height // b,
+                                       inputType.width // b,
+                                       inputType.channels * b * b)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        y = _conv.space_to_depth(x.permute(0, 2, 3, 1), self.blocks)
+        return y.permute(0, 3, 1, 2), state

@@ -218,13 +218,17 @@ class Bidirectional(FeedForwardLayer):
 
     def forward(self, params, state, x, train, gen, mask=None):
         state = state or {}
+        # each direction draws from its own sub-key (the reference's
+        # fold_in(key, 0) and fold_in(key, 1))
+        gf = None if gen is None else gen.fold(0)
+        gb = None if gen is None else gen.fold(1)
         yf, sf = self.layer.forward(_split(params, "fwd"),
-                                    state.get("fwd", {}), x, train, gen,
+                                    state.get("fwd", {}), x, train, gf,
                                     mask)
         m_rev = None if mask is None else mask.flip(1)
         yb, sb = self._bwd_layer.forward(_split(params, "bwd"),
                                          state.get("bwd", {}), x.flip(2),
-                                         train, gen, m_rev)
+                                         train, gb, m_rev)
         yb = yb.flip(2)
         if self.mode == self.CONCAT:
             y = torch.cat([yf, yb], dim=1)

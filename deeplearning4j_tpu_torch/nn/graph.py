@@ -26,8 +26,12 @@ inputs, labels and masks into windows through the window loop
 inputs of a mixed graph pass whole. ``fitSteps``, ``fitDataSet``
 (k-step blocks, one host sync a block), evaluation, listeners and the
 files come from ``multilayer.NetworkRuntime``; a ``MultiDataSet`` feeds a
-multi-input graph. Solvers, the AOT cache and remat policies wait for
-their slices and raise ``NotImplementedError`` naming them.
+multi-input graph. Dropout draws from the step's key, folded with each
+layer's index in ``_layer_names``; training under the conf's remat policy
+runs the forward in ``multilayer.remat_segment``s; a ``LossLayer``
+or ``CnnLossLayer`` is an output as an ``OutputLayer`` is. Solvers and
+the AOT cache wait for their slices and raise ``NotImplementedError``
+naming them.
 """
 
 from __future__ import annotations
@@ -36,16 +40,17 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.ndarray.ndarray import INDArray
-from deeplearning4j_tpu_torch.nn import losses as _losses
 from deeplearning4j_tpu_torch.nn import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import layers as L
-from deeplearning4j_tpu_torch.nn.conf.builder import refuse_checkpoint_policy
+from deeplearning4j_tpu_torch.nn.conf.dropout import step_key
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    NetworkRuntime, _grad_normalize, _later, _out_act, _timed_step, _unwrap,
+    NetworkRuntime, _grad_normalize, _later, _timed_step, _unwrap,
     carry_layer, cast_params, check_carried, cnn_entry,
-    default_param_update, fit_batches, layer_seed, map_tree, mask_slice,
-    run_tbptt, strip_carries, time_slice, to_api_layout, uncarry_layer,
+    default_param_update, fit_batches, is_product, layer_seed, layer_trains,
+    loss_for_head, map_tree, mask_slice, out_activation, product_segments,
+    remat_segment, run_tbptt, strip_carries, time_slice, to_api_layout,
+    uncarry_layer,
 )
 from deeplearning4j_tpu_torch.ops import norm as _norm
 
@@ -77,11 +82,12 @@ def params_to_reference(conf, params):
 
 class ComputationGraph(NetworkRuntime):
     def __init__(self, conf, device=None):
-        refuse_checkpoint_policy(conf.checkpointPolicy)
         self.conf = conf
         self.device = resolve_device(device)
         self._layer_names = [n for n in conf.topoOrder
                              if conf.nodes[n].kind == "layer"]
+        # each layer's dropout stream: its index among the layers
+        self._layer_idx = {n: i for i, n in enumerate(self._layer_names)}
         self._params = None      # {layer_name: {param_name: tensor}}
         self._states = None
         self._upd_states = None
@@ -165,10 +171,14 @@ class ComputationGraph(NetworkRuntime):
         x = _unwrap(x, self.device).to(self._compute_dtype)
         return cnn_entry(x, self.conf.inputTypes.get(name))
 
-    def _run_graph(self, params, states, inputs, train, gen, fmasks):
+    def _run_graph(self, params, states, inputs, train, key, fmasks):
         """inputs: {name: tensor}. Returns (activations, preacts of the
         output layers, new states). A node's mask is its first input's
-        mask (reference: ComputationGraph.feedForwardMaskArrays)."""
+        mask (reference: ComputationGraph.feedForwardMaskArrays). `key`
+        is the training step's ``StepKey`` (None: no dropout). Training
+        under the remat policy runs the nodes in ``remat_segment``s cut
+        after each product layer, and keeps only the activations a later
+        segment or the loss reads."""
         acts, masks, new_states, preacts = {}, {}, {}, {}
         B = None
         for name in self.conf.networkInputs:
@@ -176,61 +186,98 @@ class ComputationGraph(NetworkRuntime):
             B = x.shape[0] if B is None else B
             acts[name] = x
             masks[name] = None if fmasks is None else fmasks.get(name)
-        for name in self.conf.topoOrder:
-            node = self.conf.nodes[name]
-            if node.kind == "input":
-                continue
-            if node.kind == "vertex":
-                pp = getattr(node.payload, "pp", None)
-                if pp is not None and hasattr(pp, "batch"):
-                    pp.batch = B  # FeedForwardToRnn needs B to un-flatten
-                acts[name] = node.payload.apply([acts[i] for i in node.inputs])
-                masks[name] = masks.get(node.inputs[0])
-                continue
-            layer = node.payload
-            out_mask = masks.get(node.inputs[0])
-            if getattr(layer, "multiInput", False):
-                h = [acts[i] for i in node.inputs]
-                # the KEYS' mask governs score masking; the output is
-                # aligned to the query axis
-                fmask = masks.get(node.inputs[1 if len(node.inputs) > 1
-                                              else 0])
-            else:
-                h = acts[node.inputs[0]]
-                fmask = out_mask
-            if node.preprocessor is not None:
-                if hasattr(node.preprocessor, "batch"):
-                    node.preprocessor.batch = B
-                h = node.preprocessor.preProcess(h)
-            p = cast_params(params[name], self._compute_dtype,
-                            self._param_dtype)
-            if name in self.conf.networkOutputs and isinstance(
-                    layer, L.BaseOutputLayer):
-                h = layer._dropout_input(h, train, gen)
-                pre = layer.preoutput(p, h)
-                preacts[name] = pre
-                acts[name] = _out_act(layer, pre)
-                new_states[name] = states[name]
-                continue
-            h, s = layer.forward(p, states[name], h, train, gen, fmask)
-            acts[name] = h
-            masks[name] = out_mask
-            new_states[name] = s
+        order = [n for n in self.conf.topoOrder
+                 if self.conf.nodes[n].kind != "input"]
+
+        def run(names, acts, new_states, preacts):
+            for name in names:
+                self._run_node(name, params, states, train, key, B, acts,
+                               masks, new_states, preacts)
+            return acts
+
+        if not (train and self.conf.checkpointPolicy):
+            return run(order, acts, new_states, preacts), preacts, new_states
+        last_use = {}
+        for idx, name in enumerate(order):
+            for i in self.conf.nodes[name].inputs:
+                last_use[i] = idx
+        outputs = set(self.conf.networkOutputs)
+        flags = [self.conf.nodes[n].kind == "layer"
+                 and is_product(self.conf.nodes[n].payload) for n in order]
+        for lo, hi in product_segments(flags):
+            seg = order[lo:hi]
+            ext = sorted({i for n in seg for i in self.conf.nodes[n].inputs
+                          if i not in seg})
+            keep = [n for n in seg if n in outputs or last_use.get(n, -1)
+                    >= hi]
+
+            def segment(*xs, seg=seg, ext=ext, keep=keep):
+                # its own dicts: a recompute's states and preacts are
+                # dropped, not written over the first forward's
+                st, pre = {}, {}
+                local = run(seg, dict(zip(ext, xs)), st, pre)
+                return [local[n] for n in keep], st, pre
+
+            outs, st, pre = remat_segment(segment, *[acts[i] for i in ext])
+            acts.update(zip(keep, outs))
+            new_states.update(st)
+            preacts.update(pre)
+            for i in ext:       # drop what no later segment reads
+                if last_use.get(i, -1) < hi and i not in outputs:
+                    acts.pop(i, None)
         return acts, preacts, new_states
+
+    def _run_node(self, name, params, states, train, key, B, acts, masks,
+                  new_states, preacts):
+        """One node of the forward: its activation into `acts` (and its
+        mask, new state and, for an output layer, its preact)."""
+        node = self.conf.nodes[name]
+        if node.kind == "vertex":
+            pp = getattr(node.payload, "pp", None)
+            if pp is not None and hasattr(pp, "batch"):
+                pp.batch = B  # FeedForwardToRnn needs B to un-flatten
+            acts[name] = node.payload.apply([acts[i] for i in node.inputs])
+            masks[name] = masks.get(node.inputs[0])
+            return
+        layer = node.payload
+        out_mask = masks.get(node.inputs[0])
+        if getattr(layer, "multiInput", False):
+            h = [acts[i] for i in node.inputs]
+            # the KEYS' mask governs score masking; the output is
+            # aligned to the query axis
+            fmask = masks.get(node.inputs[1 if len(node.inputs) > 1
+                                          else 0])
+        else:
+            h = acts[node.inputs[0]]
+            fmask = out_mask
+        if node.preprocessor is not None:
+            if hasattr(node.preprocessor, "batch"):
+                node.preprocessor.batch = B
+            h = node.preprocessor.preProcess(h)
+        l_train = layer_trains(layer, train)
+        lk = None if key is None or not l_train else \
+            key.fold(self._layer_idx[name])
+        p = cast_params(params[name], self._compute_dtype, self._param_dtype)
+        if name in self.conf.networkOutputs and isinstance(
+                layer, (L.BaseOutputLayer, L.LossLayer)):
+            h = layer._dropout_input(h, l_train, lk)
+            pre = layer.preoutput(p, h)
+            preacts[name] = pre
+            acts[name] = out_activation(layer, pre)
+            new_states[name] = states[name]
+            return
+        h, s = layer.forward(p, states[name], h, l_train, lk, fmask)
+        acts[name] = h
+        masks[name] = out_mask
+        new_states[name] = s
 
     def _loss(self, preacts, labels, lmasks):
         total = 0.0
         for i, name in enumerate(self.conf.networkOutputs):
-            layer = self.conf.nodes[name].payload
-            pre = preacts[name]
-            ldt = _losses.tail_dtype(pre.dtype)
-            pre = pre.to(ldt)
-            y = labels[i].to(ldt)
-            if pre.dim() == 3:  # NCW preact: loss over [B,T,O]
-                pre, y = pre.transpose(1, 2), y.transpose(1, 2)
             lmask = None if lmasks is None else lmasks[i]
-            total = total + _losses.compute(layer.lossFunction, y, pre,
-                                            layer.activation, lmask)
+            total = total + loss_for_head(self.conf.nodes[name].payload,
+                                          preacts[name], labels[i], lmask,
+                                          self._api_nhwc)
         return total
 
     def _regularization(self, params):
@@ -242,30 +289,33 @@ class ComputationGraph(NetworkRuntime):
         return reg
 
     def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks,
-                 use_carries=False):
+                 use_carries=False, key=None):
         _, preacts, new_states = self._run_graph(
             params, states if use_carries else strip_carries(states),
-            inputs, True, None, fmasks)
+            inputs, True, key, fmasks)
         loss = self._loss(preacts, labels, lmasks) \
             + self._regularization(params)
         return loss, new_states
 
     def _train_step(self, inputs, labels, fmasks, lmasks, window=None,
                     grad_transform=None, loss_transform=None,
-                    state_transform=None, bn_group=None, iteration=None):
+                    state_transform=None, bn_group=None, iteration=None,
+                    rank=None):
         """One eager step: forward, backward, normalize, update in place.
         `window` is a truncated-BPTT window's index, and the hooks,
-        `bn_group` and `iteration` are as in
+        `bn_group`, `iteration` and `rank` are as in
         ``MultiLayerNetwork._train_step`` (gradients as a list in
         ``_layer_names`` order). Returns the loss tensor, unread."""
         it = self._iteration if iteration is None else iteration
+        key = step_key(self.conf.seed, it, rank)
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
         with _norm.sync_batch_norm(bn_group):
             loss, new_states = self._loss_fn(self._params, self._states,
                                              inputs, labels, fmasks, lmasks,
-                                             use_carries=bool(window))
+                                             use_carries=bool(window),
+                                             key=key)
         loss.backward()
         grads = [{k: t.grad if t.grad is not None else torch.zeros_like(t)
                   for k, t in self._params[n].items()}
@@ -482,8 +532,16 @@ class ComputationGraph(NetworkRuntime):
             acts, _, _ = self._run_graph(self._params,
                                          strip_carries(self._states),
                                          inputs, False, None, None)
-        outs = [INDArray(acts[n]) for n in self.conf.networkOutputs]
+        # a loss head's 4-d map in the API's layout (reference:
+        # ``_run_graph``); other outputs as they are
+        outs = [INDArray(to_api_layout(acts[n], self._api_nhwc)
+                         if self._is_head(n) else acts[n])
+                for n in self.conf.networkOutputs]
         return outs[0] if len(outs) == 1 else outs
+
+    def _is_head(self, name):
+        return isinstance(self.conf.nodes[name].payload,
+                          (L.BaseOutputLayer, L.LossLayer))
 
     def outputSingle(self, *features) -> INDArray:
         """The first output's activations as an ``INDArray``."""

@@ -10,7 +10,15 @@ through each layer's layout map, nested wrapper trees included), the
 fitDataSet block driver (``BlockStager``, ``run_staged_blocks``,
 ``run_fit_dataset_epoch``), ``NetworkRuntime`` (what both networks share:
 files, flat params in the reference's order, listeners, evaluation,
-``fitSteps``, ``fitDataSet``) and the ``MultiLayerNetwork`` class.
+``fitSteps``, ``fitDataSet``) and the ``MultiLayerNetwork`` class; the
+loss heads' helpers (``out_activation``, ``loss_for_head``: a 4-d
+``CnnLossLayer`` map takes its class axis last, its label NCHW unless the
+network is NHWC-format) and the remat policy (``remat_segment``).
+
+Dropout draws from the step's key, ``dropout.step_key(seed, iteration)``
+(folded with the rank under data parallelism, with the layer's index in
+each layer), so a fitDataSet block, fitSteps, a resumed run and ``fit``
+draw the same masks; frozen layers run without it.
 
 fitDataSet(stepsPerSync=k) issues a block of k steps back to back with
 nothing read back: each loss stays a device tensor, the k are stacked
@@ -61,14 +69,17 @@ from deeplearning4j_tpu_torch.nn import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf import recurrent as R
 from deeplearning4j_tpu_torch.nn.conf.builder import (
-    BackpropType, GradientNormalization, refuse_checkpoint_policy,
+    BackpropType, GradientNormalization,
 )
+from deeplearning4j_tpu_torch.nn.conf.dropout import step_key
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.ops import norm as _norm
 
 __all__ = ["MultiLayerNetwork", "strip_carries", "cast_params",
            "default_param_update", "params_from_reference",
-           "params_to_reference", "run_tbptt", "STEP_ROWS"]
+           "params_to_reference", "run_tbptt", "STEP_ROWS",
+           "remat_segment", "product_segments", "is_product",
+           "layer_trains"]
 
 #: the single-step inference path pads its rows to a multiple of this,
 #: so batches of 1..8 rows share one product shape (module docstring)
@@ -244,6 +255,90 @@ def _out_act(layer, pre):
     if pre.dim() == 3:
         return act(pre.transpose(1, 2)).transpose(1, 2)
     return act(pre)
+
+
+def _nhwc(t):
+    """[B,C,H,W] -> [B,H,W,C] (a view)."""
+    return t.permute(0, 2, 3, 1)
+
+
+def out_activation(layer, pre, nhwc=False):
+    """The output layer's activations in the API's layout: ``_out_act``,
+    and a 4-d (CnnLossLayer) map activated over its channels, returned
+    NCHW, or NHWC for an NHWC-format network."""
+    if pre.dim() != 4:
+        return _out_act(layer, pre)
+    out = _act.get(layer.activation)(_nhwc(pre))
+    return out if nhwc else out.permute(0, 3, 1, 2)
+
+
+def loss_for_head(layer, pre, y, lmask, nhwc):
+    """A loss head's mean loss from its preoutput: NCW [B,O,T] as
+    [B,T,O]; a 4-d map with the class axis last ([B,H,W,C]), its label
+    NCHW from the API unless the network is NHWC-format (reference:
+    ``_loss_from_preact`` / ``ComputationGraph._loss``)."""
+    ldt = _losses.tail_dtype(pre.dtype)
+    pre, y = pre.to(ldt), y.to(ldt)
+    if pre.dim() == 3:
+        pre, y = pre.transpose(1, 2), y.transpose(1, 2)
+    elif pre.dim() == 4:
+        pre = _nhwc(pre)
+        if not nhwc:
+            y = _nhwc(y)
+    return _losses.compute(layer.lossFunction, y, pre, layer.activation,
+                           lmask)
+
+
+def layer_trains(layer, train):
+    """Whether `layer` runs in training mode: frozen layers run in
+    inference mode, no dropout (reference: ``_run_layers``)."""
+    return train and (not getattr(layer, "frozen", False)
+                      or getattr(layer, "frozenKeepTraining", False))
+
+
+def is_product(layer):
+    """A layer whose output ends a remat segment: a convolution or a
+    dense product (an output layer's too)."""
+    return isinstance(layer, (L.ConvolutionLayer, L.FeedForwardLayer))
+
+
+def product_segments(flags):
+    """[lo, hi) ranges over a sequence of nodes, each ending just after
+    a product (flags[i] True) or at the end."""
+    out, lo = [], 0
+    for i, f in enumerate(flags):
+        if f:
+            out.append((lo, i + 1))
+            lo = i + 1
+    if lo < len(flags):
+        out.append((lo, len(flags)))
+    return out
+
+
+def remat_segment(fn, *args):
+    """``fn(*args)``, one segment of the training forward under the
+    "save_conv_outputs" policy (reference: ``_ckpt_loss_fn``). The
+    networks cut their forward after every convolution and dense
+    product and run each segment under ``torch.utils.checkpoint``, which
+    keeps only the segment's inputs: the product outputs before it (and
+    any earlier activation it reads, such as a residual shortcut). The
+    backward recomputes a segment's BN, activations, pooling, dropout and
+    closing product from those inputs when it reaches the segment, one
+    segment at a time, so the other activations of the step are never
+    held together. The recompute runs the same ops on the same inputs,
+    so the gradients are the stock ones bit for bit; BN's running
+    statistics come from the first forward only (the recompute's copies
+    are dropped); dropout re-seeds each draw from its key, and
+    synchronised BN re-enters the group it ran in."""
+    from torch.utils.checkpoint import checkpoint
+
+    group = _norm.current_sync_group()
+
+    def run(*a):
+        with _norm.sync_batch_norm(group):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def layer_seed(seed, i):
@@ -917,7 +1012,9 @@ class NetworkRuntime:
     # ----- evaluation ---------------------------------------------------
     def doEvaluation(self, iterator, *evaluations):
         """Stream the iterator through the network's output into any
-        number of IEvaluation instances (reference: ``doEvaluation``)."""
+        number of IEvaluation instances (reference: ``doEvaluation``). A
+        4-d (CnnLossLayer) map is evaluated per pixel with its class axis
+        last, whatever the API's layout."""
         if not evaluations:
             raise ValueError("doEvaluation needs at least one IEvaluation")
         self._check_evaluable()
@@ -926,6 +1023,9 @@ class NetworkRuntime:
             ds = iterator.next()
             out = self._eval_output(ds.getFeatures())
             lab, mask = self._eval_labels(ds)
+            if out.tensor().dim() == 4 and not self._api_nhwc:
+                out = _nhwc(out.tensor())
+                lab = _nhwc(_unwrap(lab))
             for e in evaluations:
                 e.eval(lab, out, mask=mask)
         return evaluations if len(evaluations) > 1 else evaluations[0]
@@ -967,7 +1067,6 @@ class MultiLayerNetwork(NetworkRuntime):
     (reference: MultiLayerNetwork)."""
 
     def __init__(self, conf, device=None):
-        refuse_checkpoint_policy(conf.checkpointPolicy)
         self.conf = conf
         self.layers = conf.layers
         self.device = resolve_device(device)
@@ -1043,39 +1142,53 @@ class MultiLayerNetwork(NetworkRuntime):
         x = _unwrap(x, self.device).to(self._compute_dtype)
         return cnn_entry(x, self.conf.inputType)
 
-    def _run_layers(self, params, states, x, train, fmask):
+    def _run_layers(self, params, states, x, train, fmask, key=None):
         """-> (the output layer's pre-activation, or the last layer's
-        output when the last layer is not an output layer; new states)."""
+        output when the last layer is not an output layer; new states).
+        `key` is the training step's ``StepKey``: layer i draws its
+        dropout from ``key.fold(i)``. Training under the remat policy
+        runs the layers in ``remat_segment``s cut after each product."""
         h = self._entry(x)
         B = h.shape[0]
-        new_states = []
         last = len(self.layers) - 1
-        for i, layer in enumerate(self.layers):
-            pp = self.conf.preprocessors.get(i)
-            if pp is not None:
-                if hasattr(pp, "batch"):
-                    pp.batch = B
-                h = pp.preProcess(h, fmask)
-            p = cast_params(params[i], self._compute_dtype, self._param_dtype)
-            if i == last and isinstance(layer, L.BaseOutputLayer):
-                h = layer._dropout_input(h, train, None)
-                new_states.append(states[i])
-                return layer.preoutput(p, h), new_states
-            h, s = layer.forward(p, states[i], h, train, None, fmask)
-            new_states.append(s)
+
+        def run(lo, hi, h):
+            out = []
+            for i in range(lo, hi):
+                layer = self.layers[i]
+                pp = self.conf.preprocessors.get(i)
+                if pp is not None:
+                    if hasattr(pp, "batch"):
+                        pp.batch = B
+                    h = pp.preProcess(h, fmask)
+                l_train = layer_trains(layer, train)
+                lk = None if key is None or not l_train else key.fold(i)
+                p = cast_params(params[i], self._compute_dtype,
+                                self._param_dtype)
+                if i == last and isinstance(layer, (L.BaseOutputLayer,
+                                                    L.LossLayer)):
+                    # dropout applies to the output layer's input too
+                    h = layer._dropout_input(h, l_train, lk)
+                    out.append(states[i])
+                    return layer.preoutput(p, h), out
+                h, s = layer.forward(p, states[i], h, l_train, lk, fmask)
+                out.append(s)
+            return h, out
+
+        if not (train and self.conf.checkpointPolicy):
+            return run(0, len(self.layers), h)
+        new_states = []
+        for lo, hi in product_segments([is_product(l) for l in self.layers]):
+            h, s = remat_segment(run, lo, hi, h)
+            new_states.extend(s)
         return h, new_states
 
     def _loss_from_preact(self, preact, y, lmask):
         last = self.layers[-1]
-        if not isinstance(last, L.BaseOutputLayer):
-            raise ValueError("The last layer must be an OutputLayer to "
-                             "compute a loss")
-        ldt = _losses.tail_dtype(preact.dtype)
-        preact, y = preact.to(ldt), y.to(ldt)
-        if preact.dim() == 3:   # RnnOutputLayer: loss over [B,T,O]
-            preact, y = preact.transpose(1, 2), y.transpose(1, 2)
-        return _losses.compute(last.lossFunction, y, preact,
-                               last.activation, lmask)
+        if not isinstance(last, (L.BaseOutputLayer, L.LossLayer)):
+            raise ValueError("The last layer must be an OutputLayer or a "
+                             "LossLayer to compute a loss")
+        return loss_for_head(last, preact, y, lmask, self._api_nhwc)
 
     def _regularization(self, params):
         reg = 0.0
@@ -1085,17 +1198,18 @@ class MultiLayerNetwork(NetworkRuntime):
         return reg
 
     def _loss_fn(self, params, states, x, y, fmask, lmask, train=True,
-                 use_carries=False):
+                 use_carries=False, key=None):
         run_states = states if use_carries else strip_carries(states)
         preact, new_states = self._run_layers(params, run_states, x, train,
-                                              fmask)
+                                              fmask, key)
         loss = self._loss_from_preact(preact, _unwrap(y, self.device),
                                       lmask) + self._regularization(params)
         return loss, new_states
 
     def _train_step(self, x, y, fmask, lmask, window=None,
                     grad_transform=None, loss_transform=None,
-                    state_transform=None, bn_group=None, iteration=None):
+                    state_transform=None, bn_group=None, iteration=None,
+                    rank=None):
         """One eager step: forward, backward, normalize, update in place;
         the layers' new states (BN running statistics) replace the old.
         `window` is the truncated-BPTT window's index: window c > 0
@@ -1111,13 +1225,19 @@ class MultiLayerNetwork(NetworkRuntime):
         score), ``state_transform`` the new layer states; BN takes its
         batch statistics over ``bn_group`` (``ops.norm.sync_batch_norm``).
         `iteration` is the updater schedule's (default: the net's count;
-        a fitDataSet block passes its own cursor). Nothing here reads a
-        tensor back to the host."""
+        a fitDataSet block passes its own cursor). Dropout draws from the
+        step's key (``dropout.step_key`` of the seed, that iteration and,
+        under data parallelism, the `rank`), so a block, a resumed run and
+        ``fit`` draw the same masks. Under the conf's remat policy the
+        forward runs in ``remat_segment``s. Nothing here reads a tensor
+        back to the host."""
         it = self._iteration if iteration is None else iteration
+        key = step_key(self.conf.seed, it, rank)
         with _norm.sync_batch_norm(bn_group):
             loss, new_states = self._loss_fn(self._params, self._states, x,
                                              y, fmask, lmask,
-                                             use_carries=bool(window))
+                                             use_carries=bool(window),
+                                             key=key)
         loss.backward()
         grads = [{k: t.grad if t.grad is not None else torch.zeros_like(t)
                   for k, t in p.items()} for p in self._params]
@@ -1269,8 +1389,9 @@ class MultiLayerNetwork(NetworkRuntime):
                                     strip_carries(self._states), x, False,
                                     None)
         last = self.layers[-1]
-        return INDArray(_out_act(last, h)
-                        if isinstance(last, L.BaseOutputLayer) else h)
+        if isinstance(last, (L.BaseOutputLayer, L.LossLayer)):
+            return INDArray(out_activation(last, h, self._api_nhwc))
+        return INDArray(h)
 
     def feedForward(self, x):
         """The input and every layer's activation, in inference mode, as
@@ -1348,7 +1469,7 @@ class MultiLayerNetwork(NetworkRuntime):
         states = [map_carries(grow, s) for s in states]
         h, new_states = self._run_layers(params, states, x, False, None)
         last = self.layers[-1]
-        if isinstance(last, L.BaseOutputLayer):
+        if isinstance(last, (L.BaseOutputLayer, L.LossLayer)):
             h = _out_act(last, h)
         return h[:B], [map_carries(lambda t: t[:B], s) for s in new_states]
 

@@ -2,7 +2,11 @@
 
 The counterpart of ``deeplearning4j_tpu/ops/conv.py`` for the CNN
 training path: ``_pair``, ``explicit_padding`` (the Same/Truncate
-arithmetic), ``conv2d`` and ``conv_output_size``. The reference keeps
+arithmetic), ``conv2d``, the transposed convolution ``deconv2d`` with
+its padding and ``deconv_output_size``, and ``conv_output_size``; and
+the block rearrangements ``space_to_depth`` / ``depth_to_space`` over
+NHWC arrays (the reference's ``autodiff/ops_impl.py`` ops, which the
+``SpaceToDepth`` layer and SameDiff share). The reference keeps
 activations NHWC and weights HWIO and lowers to ``lax.conv``; the port
 computes with ``F.conv2d`` (cuDNN on the card) on NCHW-logical tensors
 held in ``torch.channels_last`` memory, with OIHW weights, so a
@@ -17,7 +21,8 @@ import numpy as np
 import torch.nn.functional as F
 
 __all__ = ["explicit_padding", "resolve_pads", "same_pads", "conv2d",
-           "conv_output_size"]
+           "conv_output_size", "deconv_explicit_padding", "deconv2d",
+           "deconv_output_size", "space_to_depth", "depth_to_space"]
 
 
 def _pair(v):
@@ -81,3 +86,74 @@ def conv_output_size(size, kernel, stride, pad, dilation, mode):
     if str(mode).lower() == "same":
         return int(np.ceil(size / stride))
     return (size + 2 * pad - k_eff) // stride + 1
+
+
+def deconv_output_size(size, kernel, stride, pad, dilation, mode):
+    """The transposed convolution's output size (reference:
+    ``deconv_output_size``): ``size * stride`` in Same mode, else
+    ``stride * (size - 1) + k_eff - 2 * pad``."""
+    k_eff = (kernel - 1) * dilation + 1
+    if str(mode).lower() == "same":
+        return size * stride
+    return stride * (size - 1) + k_eff - 2 * pad
+
+
+def deconv_explicit_padding(mode, padding, kernel, dilation):
+    """A ConvolutionMode + configured pad -> "SAME" or the (lo, hi)
+    pairs of ``lax.conv_transpose`` (reference: ``_deconv_pads``):
+    ``k_eff - 1 - pad`` on each side, which give the output size
+    ``s * (in - 1) + k_eff - 2 * pad``."""
+    if str(mode).lower() == "same":
+        return "SAME"
+    return tuple((k_eff - 1 - p, k_eff - 1 - p) for p, k_eff in zip(
+        _pair(padding), ((k - 1) * d + 1 for k, d in zip(_pair(kernel),
+                                                         _pair(dilation)))))
+
+
+def _transpose_same_pads(k_eff, s):
+    """``lax.conv_transpose``'s (lo, hi) for "SAME" along one axis."""
+    pad_len = k_eff + s - 2
+    lo = k_eff - 1 if s > k_eff - 1 else int(np.ceil(pad_len / 2))
+    return lo, pad_len - lo
+
+
+def deconv2d(x, w, b=None, stride=(1, 1), padding=((0, 0), (0, 0)),
+             dilation=(1, 1)):
+    """The reference's transposed convolution: ``lax.conv_transpose`` of
+    x [B,Cin,H,W] with its kernel UNFLIPPED (the port holds it flipped as
+    ``conv_transpose2d``'s [Cin, Cout, kh, kw]; ``Deconvolution2D``'s
+    layout map) and the (lo, hi) pads of ``deconv_explicit_padding``.
+    ``F.conv_transpose2d`` at pad 0 gives the output of pads (k_eff - 1,
+    k_eff - 1); each side is then cropped (a negative ``F.pad``) or
+    padded with zeros to the asked pads."""
+    s, d = _pair(stride), _pair(dilation)
+    k_eff = [(k - 1) * dd + 1 for k, dd in zip(w.shape[2:], d)]
+    if padding == "SAME":
+        padding = tuple(_transpose_same_pads(k, ss)
+                        for k, ss in zip(k_eff, s))
+    y = F.conv_transpose2d(x, w, None, s, 0, 0, 1, d)
+    (t, bo), (l, r) = padding
+    adj = (l - (k_eff[1] - 1), r - (k_eff[1] - 1),
+           t - (k_eff[0] - 1), bo - (k_eff[0] - 1))
+    if any(adj):
+        y = F.pad(y, adj)
+    return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+
+def space_to_depth(x, blockSize=2):
+    """[B,H,W,C] -> [B,H/b,W/b,C·b·b], output channel ``(s·b + t)·C + c``
+    for the pixel (s, t) of each b x b block (reference:
+    ``spaceToDepth``). ``F.pixel_unshuffle`` orders the channels
+    ``c·b² + s·b + t``, another layout, so it is not used."""
+    B, H, W, C = x.shape
+    b = int(blockSize)
+    x = x.reshape(B, H // b, b, W // b, b, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H // b, W // b, C * b * b)
+
+
+def depth_to_space(x, blockSize=2):
+    """The inverse of ``space_to_depth`` (reference: ``depthToSpace``)."""
+    B, H, W, C = x.shape
+    b = int(blockSize)
+    x = x.reshape(B, H, W, b, b, C // (b * b)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H * b, W * b, C // (b * b))

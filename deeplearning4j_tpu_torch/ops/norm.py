@@ -54,7 +54,8 @@ from deeplearning4j_tpu_torch.nn import activations as _act
 
 __all__ = ["EPILOGUE_ACTIVATIONS", "bn_act_supported", "BNTrainFn",
            "BNActTrainFn", "BNActAddTrainFn", "batch_norm",
-           "batch_norm_act", "sync_batch_norm"]
+           "batch_norm_act", "sync_batch_norm", "current_sync_group",
+           "lrn"]
 
 #: activations whose gradient is an exact function of the output
 EPILOGUE_ACTIVATIONS = ("identity", "relu", "leakyrelu", "tanh", "sigmoid")
@@ -82,6 +83,12 @@ def sync_batch_norm(group):
         yield
     finally:
         _SYNC_GROUP.reset(token)
+
+
+def current_sync_group():
+    """The group the BN forwards of the current ``sync_batch_norm``
+    context reduce over (None: local)."""
+    return _SYNC_GROUP.get()
 
 
 def _ft(x):
@@ -318,3 +325,21 @@ def batch_norm_act(x, gamma, beta, running_mean, running_var, *, train,
                                              act)
     return (y, _ema(running_mean, mean, decay, ft),
             _ema(running_var, var, decay, ft))
+
+
+def lrn(x, k=2.0, n=5, alpha=1e-4, beta=0.75):
+    """Local response normalization across channels (dim 1) (reference:
+    ``ops.norm.lrn``): ``x / (k + alpha * S)^beta`` with S the sum of x²
+    over an n-channel window, zero-padded by n // 2 on each side. alpha
+    is NOT divided by n, so this is not ``F.local_response_norm`` (which
+    averages the window). The window sum adds n shifted slices of the
+    padded squares."""
+    sq = x * x
+    half = n // 2
+    C = x.shape[1]
+    padded = torch.nn.functional.pad(
+        sq, (0, 0) * (x.dim() - 2) + (half, half))
+    summed = padded.narrow(1, 0, C)
+    for i in range(1, n):
+        summed = summed + padded.narrow(1, i, C)
+    return x / torch.pow(k + alpha * summed, beta)

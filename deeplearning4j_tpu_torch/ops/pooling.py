@@ -4,7 +4,8 @@ The counterpart of ``deeplearning4j_tpu/ops/pooling.py``'s default path:
 ``_pool_pads``, the stock ``max_pool2d`` (the reference's
 ``max_pool2d_reference`` oracle, ``lax.reduce_window`` with ``-inf``
 padding, whose gradient is select-and-scatter), ``avg_pool2d``
-(``count_include_pad``), ``pnorm_pool2d`` and ``global_pool``. Tensors
+(``count_include_pad``), ``pnorm_pool2d``, ``global_pool`` and the
+nearest-neighbour ``upsample2d``. Tensors
 are NCHW-logical (``channels_last`` memory on the CNN path); the
 reference's NHWC axes (1, 2) are the port's (2, 3).
 
@@ -33,7 +34,8 @@ import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.ops.conv import _pair, same_pads
 
-__all__ = ["max_pool2d", "avg_pool2d", "pnorm_pool2d", "global_pool"]
+__all__ = ["max_pool2d", "avg_pool2d", "pnorm_pool2d", "global_pool",
+           "upsample2d"]
 
 
 def _pool_pads(H, W, k, s, padding):
@@ -110,3 +112,16 @@ def global_pool(x, pooling_type, dims, mask=None, pnorm=2):
     if t == "pnorm":
         return x.abs().pow(pnorm).sum(dim=dims).pow(1.0 / pnorm)
     raise ValueError(f"Unknown pooling type '{pooling_type}'")
+
+
+def upsample2d(x, size):
+    """Nearest-neighbour upsampling of [B,C,H,W] by integer factors
+    (reference: ``upsample2d``, a repeat of rows then columns): each
+    pixel becomes an sh x sw block. Built as a broadcast of the NHWC
+    view, so the result is one copy in channels_last memory; the
+    gradient sums each block."""
+    sh, sw = _pair(size)
+    B, C, H, W = x.shape
+    v = x.permute(0, 2, 3, 1)[:, :, None, :, None, :]
+    v = v.expand(B, H, sh, W, sw, C).reshape(B, H * sh, W * sw, C)
+    return v.permute(0, 3, 1, 2)

@@ -37,7 +37,9 @@ step hooks (``grad_transform``, ``loss_transform``, ``state_transform``,
   adaptive tau. ``last_step`` holds the count and bytes of the last
   step (``collectives.totals``).
 
-The gradients that reach ``grad_transform`` are this rank's, before
+Each rank's dropout draws from the step's key folded with its rank, as
+the reference's replicas decorrelate theirs. The gradients that reach
+``grad_transform`` are this rank's, before
 gradient normalization (the reference's order); every mode leaves the
 params bitwise equal on every rank after every step. Left out, raising
 ``NotImplementedError`` naming ROADMAP Queue 1 item 7:
@@ -457,7 +459,7 @@ class ParallelWrapper:
         self._step_it = n._iteration if iteration is None else iteration
         before = _coll.totals()
         loss = n._train_step(x, y, fmask, lmask, iteration=self._step_it,
-                             **self._hooks(lmask))
+                             rank=self.mesh.rank, **self._hooks(lmask))
         self._record(before)
         return loss
 
@@ -689,7 +691,7 @@ class ParameterAveragingTrainingMaster(ParallelWrapper):
         canonical = self._net_state()
         n._params, n._upd_states, n._states = self._replica
         try:
-            loss = n._train_step(x, y, fmask, lmask,
+            loss = n._train_step(x, y, fmask, lmask, rank=self.mesh.rank,
                                  loss_transform=self._loss_mean)
             self._replica = self._net_state()
         finally:

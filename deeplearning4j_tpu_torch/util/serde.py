@@ -63,6 +63,33 @@ _NET_EXTRA = {"activationCheckpointing": (False, lambda v: not v),
               "maxNumLineSearchIterations": (20, lambda v: True)}
 
 
+#: what a refused attribute or module waits for
+_WAITS = {
+    "biasUpdater": "per-parameter updaters: ROADMAP.md Queue 1 item 4",
+    "constraints": "constraints: ROADMAP.md Queue 1 item 4",
+    "weightNoise": "weight noise: ROADMAP.md Queue 1 item 4",
+    "activationCheckpointing": "per-layer activation remat: ROADMAP.md "
+                               "Queue 1 item 13",
+    "optimizationAlgo": "the line-search solvers: ROADMAP.md Queue 1 "
+                        "item 10",
+}
+_MODULE_WAITS = {
+    "nn.conf.constraint": "constraints: ROADMAP.md Queue 1 item 4",
+    "nn.conf.weightnoise": "weight noise: ROADMAP.md Queue 1 item 4",
+    "nn.conf.variational": "the variational autoencoder: ROADMAP.md "
+                           "Queue 1 item 4",
+    "nn.transfer": "transfer learning: ROADMAP.md Queue 1 item 10",
+    "nn.solvers": "the line-search solvers: ROADMAP.md Queue 1 item 10",
+    "nn.objdetect": "the YOLO heads: ROADMAP.md Queue 1 item 12",
+}
+
+
+def _waits_for(mod_name):
+    rel = mod_name[len(_PKG) + 1:]
+    return _MODULE_WAITS.get(rel, "the layers and vertices that wait are "
+                             "ROADMAP.md Queue 1 items 4, 8 and 12")
+
+
 def _ref_defaults(obj):
     from deeplearning4j_tpu_torch.nn.conf.builder import \
         MultiLayerConfiguration
@@ -157,16 +184,21 @@ def decode(node, arrays):
         if not _in_pkg(mod_name):
             raise ValueError(f"refusing to instantiate {node['__o']}: "
                              f"outside {_PKG}")
-        target = importlib.import_module(_port_module(mod_name))
-        for part in qual.split("."):
-            target = getattr(target, part)
+        try:
+            target = importlib.import_module(_port_module(mod_name))
+            for part in qual.split("."):
+                target = getattr(target, part)
+        except (ImportError, AttributeError):
+            raise NotImplementedError(
+                f"{node['__o']}: the port has no such class yet ("
+                f"{_waits_for(mod_name)})") from None
         obj = object.__new__(target)
         attrs = {k: decode(v, arrays) for k, v in node["attrs"].items()}
         for k, (_, accepts) in _ref_defaults(obj).items():
             if k in attrs and not accepts(attrs[k]):
                 raise NotImplementedError(
                     f"{qual}.{k}={attrs[k]!r}: the port has no such "
-                    "feature yet (ROADMAP.md Queue 1 items 3-4)")
+                    f"feature yet ({_WAITS[k]})")
         obj.__dict__.update(attrs)
         return obj
     raise ValueError(f"unknown node {node!r}")

@@ -159,8 +159,8 @@ def _numpy_state(obj):
 class TrainingCheckpoint:
     """The full training checkpoint (reference: TrainingCheckpoint):
     model, updater and iteration/epoch, everything a bitwise resume
-    needs (the port trains without dropout, so no RNG stream rides
-    along)."""
+    needs (dropout draws from keys of the seed and the iteration, so no
+    RNG stream rides along)."""
 
     @staticmethod
     def save(net, path, normalizer=None, extra: dict = None):

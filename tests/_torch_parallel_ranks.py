@@ -471,3 +471,66 @@ def fit_dataset_rank(rank, world, device, init, n=8, k=4, batch=16):
     except ValueError as e:
         out["indivisible"] = str(e)
     return out
+
+
+# ----------------------------------------------------------------------
+# the rank body of tests/test_torch_remat.py (synchronised BN recomputed)
+# ----------------------------------------------------------------------
+
+def remat_sync_bn_rank(rank, world, device, steps=3):
+    """``bn_cnn`` through dense ParallelWrapper steps (synchronised BN)
+    with and without checkpointPolicy="save_conv_outputs", on one seeded
+    global batch: each run's params, BN statistics, losses and the
+    collectives its steps issued."""
+    x, y = bn_cnn_batch(8 * world)
+    out = {}
+    for policy in (None, "save_conv_outputs"):
+        net = bn_cnn(device)
+        net.conf.checkpointPolicy = policy
+        pw = ParallelWrapper(net)
+        before = coll.totals()
+        losses = []
+        for _ in range(steps):
+            pw.fit(x, y)
+            losses.append(net.score())
+        out[policy or "stock"] = {
+            "params": net.params().tensor().cpu().numpy(),
+            "bn": {n: net._states[n]["mean"].cpu().numpy()
+                   for n in ("b1", "b2")},
+            "losses": losses,
+            "collectives": coll.totals()[0] - before[0]}
+    return out
+
+
+# ----------------------------------------------------------------------
+# the rank body of tests/test_torch_dropout.py (each rank's masks)
+# ----------------------------------------------------------------------
+
+def dropout_rank(rank, world, device, steps=2):
+    """A dense ParallelWrapper over an MLP with dropout: the keys this
+    rank drew its masks from, and the params after `steps` steps."""
+    from deeplearning4j_tpu_torch.nn.conf import dropout as D
+
+    conf = (NeuralNetConfiguration.Builder().seed(5).updater(Sgd(0.1))
+            .activation("relu").list()
+            .layer(DenseLayer(nOut=8, dropOut=0.5))
+            .layer(OutputLayer(nOut=3, activation="softmax"))
+            .setInputType(InputType.feedForward(4)).build())
+    net = MultiLayerNetwork(conf, device=device).init()
+    rng = np.random.RandomState(0)
+    x = rng.randn(8 * world, 4).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 8 * world)]
+    keys, real = [], D.Dropout.apply
+
+    def spy(self, t, key):
+        keys.append(key.ints)
+        return real(self, t, key)
+
+    D.Dropout.apply = spy
+    try:
+        pw = ParallelWrapper(net)
+        for _ in range(steps):
+            pw.fit(x, y)
+    finally:
+        D.Dropout.apply = real
+    return {"keys": keys, "params": net.params().tensor().numpy()}

@@ -256,18 +256,21 @@ def test_resnet_num_params_at_1000_classes():
 
 
 def test_resnet_entry_points():
-    """The device policy; the options that wait for their slice."""
+    """The device policy; the stem and remat options (ported since the
+    CNN-zoo slice, where they raised); what still waits."""
     kw = dict(numClasses=CLASSES, inputShape=SHAPE)
     if torch.cuda.is_available():
         assert PZ.ResNet50(**kw).init().device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             PZ.ResNet50(**kw).init()
-    with pytest.raises(NotImplementedError, match="slice"):
-        PZ.ResNet50(stemMode="space_to_depth", **kw)
-    with pytest.raises(NotImplementedError, match="slice"):
-        PZ.ResNet50(checkpointPolicy="save_conv_outputs", device="cpu",
-                    **kw).init()
+    s2d = PZ.ResNet50(stemMode="space_to_depth", device="cpu", **kw).init()
+    assert type(s2d.conf.nodes["s2d"].payload).__name__ == "SpaceToDepth"
+    remat = PZ.ResNet50(checkpointPolicy="save_conv_outputs", device="cpu",
+                        **kw).init()
+    assert remat.conf.checkpointPolicy == "save_conv_outputs"
+    with pytest.raises(ValueError, match="stemMode"):
+        PZ.ResNet50(stemMode="other", **kw)
     with pytest.raises(ValueError, match="checkpointPolicy"):
         PZ.ResNet50(checkpointPolicy="everything", device="cpu", **kw).init()
     with pytest.raises(NotImplementedError, match="bundled"):
