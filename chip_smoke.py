@@ -284,11 +284,42 @@ Phases (any failure exits non-zero before the result line):
    equal; peak memory and step ms of each. (g) zoo SimpleCNN (its
    DropoutLayer on, f32) over 9 batches: fitDataSet(stepsPerSync=4)
    under the sync check against fit, losses and state bitwise equal.
+16. the rest of the layer catalogue — (a) every class of port PR 12 at
+   cut sizes (embeddings, the mask layers, the time vertices with masks,
+   the CNN <-> RNN preprocessors, constraints, weight noise and a
+   biasUpdater together, FrozenLayerWithBackprop, the 1-d and locally
+   connected layers, PReLU, RepeatVector, capsules, the center-loss and
+   OC-NN heads, the SameDiff layers, VAE and AutoEncoder pretraining), one
+   net each on the card in f64 and f32 against the CPU in f64 from the
+   same weights, the random draws made once on the CPU: 3 steps, f64
+   loss rel 1e-12 and gradients rel L2 1e-11, f32 within each case's band
+   (loss 1e-5, gradients 1e-4; 1e-3 through the capsule routing);
+   SpaceToBatch's forward bitwise. (b) the masked sequence classifier at
+   dl4j-examples ImdbReviewClassificationRNN widths (a trainable
+   EmbeddingSequenceLayer 20,000 x 300 -> LSTM(256, tanh) ->
+   RnnOutputLayer(2), Adam(5e-3), l2 1e-5, element-wise clip 1.0,
+   Xavier, f32) over 8 resident batches of 64 reviews cut to 256 tokens,
+   lengths uniform in 32-256, the labels mask on each review's last
+   step: 20 steps (median of 3-20, valid tokens/s, peak memory; the mean
+   loss of the last 8 below the first 8's), kernels a step and the busy
+   share of 3 traced steps, fitDataSet(4) bitwise fit over the 8, and two
+   identical steps from one saved state bitwise equal (the embedding's
+   gradient). (c) its ComputationGraph form through LastTimeStepVertex:
+   under (b)'s initial weights, logits within 1e-6 of (b)'s per-step
+   logits at each review's last valid step; under its trained weights,
+   the vertex's output bitwise (b)'s LSTM output there (the logits then
+   differ by the rounding of two product shapes, ~1 ulp of their
+   magnitude, recorded); then 3 fit steps. (d) the VAE at VaeMNIST2dPlots widths
+   (784 -> encoder 256, 256 -> 2 -> decoder 256, 256, leaky relu,
+   Bernoulli, RmsProp(1e-3), l2 1e-4, batch 128): one epoch of pretrain
+   over the flagged synthetic 60,000-digit MNIST (steps/s, the negative
+   ELBO of the first and last 20 batches must fall), then 20 fit steps
+   of a softmax head over it (its loss must fall).
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s; phases 8-10,
-12, 13, 14(a), 14(b) and 15 run no
+12, 13, 14(a), 14(b), 15 and 16 run no
 hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout
 and the shape layers are torch tensor ops, and the data-parallel
@@ -1638,17 +1669,18 @@ def trace_scopes():
     """[(owner, attribute, original)] after wrapping each layer kind's
     forward, the vertex add, the loss and the updater step in a named
     profiler scope (the trace's forward attribution)."""
-    from deeplearning4j_tpu_torch.nn import graph
+    from deeplearning4j_tpu_torch.nn import graph, multilayer
     from deeplearning4j_tpu_torch.nn.conf import graph as G
     from deeplearning4j_tpu_torch.nn.conf import layers as L
 
     targets = [(getattr(L, n), "forward", n) for n in (
         "ConvolutionLayer", "BatchNormalization", "SubsamplingLayer",
         "GlobalPoolingLayer", "ActivationLayer")]
+    # both networks step each layer through multilayer.update_layer
     targets += [(G.ElementWiseVertex, "apply", "ElementWiseVertex"),
                 (L.BaseOutputLayer, "preoutput", "dense"),
                 (graph.ComputationGraph, "_loss", "loss"),
-                (graph, "default_param_update", "update")]
+                (multilayer, "default_param_update", "update")]
     saved = []
     for owner, attr, name in targets:
         fn = getattr(owner, attr)
@@ -3393,8 +3425,7 @@ def zoo_scopes():
                (D.Dropout, "apply", "dropout"),
                (multilayer.MultiLayerNetwork, "_loss_from_preact", "loss"),
                (graph.ComputationGraph, "_loss", "loss"),
-               (multilayer, "default_param_update", "update"),
-               (graph, "default_param_update", "update")]
+               (multilayer, "default_param_update", "update")]
     saved = [(A.ACTIVATIONS, "relu", A.ACTIVATIONS["relu"])]
     A.ACTIVATIONS["relu"] = _scoped(A.ACTIVATIONS["relu"], "relu")
     for owner, attr, name in targets:
@@ -3825,6 +3856,675 @@ def cnn_zoo_phase(dev, phase9b):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 16: the rest of the layer catalogue (port PR 12)
+# ----------------------------------------------------------------------
+
+#: 16(a)'s bands: f64 on the card against f64 on the CPU
+CAT_F64_LOSS = 1e-12
+CAT_F64_GRAD = 1e-11
+CAT_STEPS = 3
+#: dl4j-examples' ImdbReviewClassificationRNN widths: 300-d word inputs,
+#: LSTM(256, tanh), RnnOutputLayer(2); the 300-d pretrained vectors are a
+#: trainable EmbeddingSequenceLayer over Keras imdb_lstm.py's 20,000-word
+#: vocabulary (PERF.md section 4); reviews cut to 256 tokens
+IMDB = dict(vocab=20000, embed=300, hidden=256, classes=2, batch=64,
+            seq=256, min_len=32, lr=5e-3, l2=1e-5, clip=1.0, steps=20,
+            batches=8, traced_steps=3, k=4, graph_steps=3, markers=200,
+            marker_share=0.1)
+#: dl4j-examples' VaeMNIST2dPlots widths
+VAE_MNIST = dict(inputs=784, encoder=(256, 256), decoder=(256, 256),
+                 latent=2, batch=128, lr=1e-3, l2=1e-4, train=60000,
+                 window=20, head_steps=20)
+GRAPH_LOGIT_ATOL = 1e-6
+
+
+def _cat_confs():
+    """16(a)'s cases at cut sizes: (name, conf(M, dtype), data(rng),
+    graph?, pretrain layer or None, the f32 band (loss rel, gradient
+    rel L2) against the CPU's f64)."""
+    from deeplearning4j_tpu_torch import nn as M
+    from deeplearning4j_tpu_torch.nn.conf import preprocessors as PP
+
+    V, T = 17, 6
+
+    def builder(dtype, seed, updater=None):
+        return (M.NeuralNetConfiguration.Builder().seed(seed)
+                .updater(updater or M.Adam(1e-2)).dataType(dtype))
+
+    def tokens(rng, b=4):
+        x = rng.integers(0, V, (b, T)).astype(np.float32)
+        lens = rng.integers(2, T + 1, b)
+        lens[-1] = T
+        fm = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+        lm = np.zeros_like(fm)
+        lm[np.arange(b), lens - 1] = 1.0
+        y = np.zeros((b, 2, T), np.float32)
+        y[np.arange(b), rng.integers(0, 2, b), :] = 1.0
+        return x, y, fm, lm
+
+    def onehot(rng, b, n):
+        return np.eye(n, dtype=np.float32)[rng.integers(0, n, b)]
+
+    def seq_labels(b, n, t):
+        y = np.zeros((b, n, t), np.float32)
+        y[:, 0, ::2] = 1.0
+        y[:, 1, 1::2] = 1.0
+        return y
+
+    class CustomDense(M.SameDiffLayer):
+        def __init__(self, nOut, **kw):
+            super().__init__(**kw)
+            self.nOut = nOut
+
+        def defineParameters(self, inputType):
+            return {"W": (inputType.size, self.nOut), "b": (self.nOut,)}
+
+        def defineLayer(self, sd, x, p):
+            return sd.math.tanh(sd.nn.linear(x, p["W"], p["b"]))
+
+    cases = []
+
+    def case(name, conf, data, graph=False, pretrain=None,
+             band=(1e-5, 1e-4)):
+        cases.append((name, conf, data, graph, pretrain, band))
+
+    case("embedding", lambda dt: (
+        builder(dt, 1, M.Sgd(0.1)).list()
+        .layer(M.EmbeddingLayer(nIn=V, nOut=5, activation="tanh",
+                                hasBias=True))
+        .layer(M.OutputLayer(nOut=3, activation="softmax"))
+        .setInputType(M.InputType.feedForward(1)).build()),
+        lambda rng: (rng.integers(0, V, (5, 1)).astype(np.float32),
+                     onehot(rng, 5, 3), None, None))
+    case("sequence_masks", lambda dt: (
+        builder(dt, 2).l2(1e-5).gradientNormalization(
+            M.GradientNormalization.ClipElementWiseAbsoluteValue).list()
+        .layer(M.EmbeddingSequenceLayer(nIn=V, nOut=5))
+        .layer(M.MaskZeroLayer(M.LSTM(nOut=4)))
+        .layer(M.MaskLayer())
+        .layer(M.RnnOutputLayer(nOut=2, activation="softmax",
+                                lossFunction="mcxent"))
+        .setInputType(M.InputType.recurrent(1, T)).build()), tokens)
+    case("time_vertices", lambda dt: (
+        builder(dt, 3).graphBuilder().addInputs("in")
+        .addLayer("emb", M.EmbeddingSequenceLayer(nIn=V, nOut=5), "in")
+        .addLayer("enc", M.LSTM(nOut=4), "emb")
+        .addVertex("rev", M.ReverseTimeSeriesVertex(), "enc")
+        .addVertex("last", M.LastTimeStepVertex(), "rev")
+        .addVertex("dup", M.DuplicateToTimeSeriesVertex(), "last", "emb")
+        .addLayer("dec", M.LSTM(nOut=4), "dup")
+        .addLayer("out", M.RnnOutputLayer(nOut=2, activation="softmax",
+                                          lossFunction="mcxent"), "dec")
+        .setOutputs("out").setInputTypes(M.InputType.recurrent(1, T))
+        .build()), tokens, graph=True)
+    case("cnn_rnn", lambda dt: (
+        builder(dt, 4).list()
+        .inputPreProcessor(0, PP.RnnToCnnPreProcessor(5, 5, 2))
+        .layer(M.ConvolutionLayer(nOut=3, kernelSize=(3, 3),
+                                  activation="relu"))
+        .layer(M.LSTM(nOut=4))
+        .layer(M.RnnOutputLayer(nOut=2, activation="softmax",
+                                lossFunction="mcxent"))
+        .setInputType(M.InputType.recurrent(50, T)).build()),
+        lambda rng: (rng.standard_normal((3, 50, T)).astype(np.float32),
+                     seq_labels(3, 2, T), None, None))
+    case("constraints_noise_bias", lambda dt: (
+        builder(dt, 5).biasUpdater(M.Sgd(0.05))
+        .weightNoise(M.DropConnect(0.8))
+        .constrainWeights(M.MaxNormConstraint(maxNorm=0.6))
+        .constrainBias(M.NonNegativeConstraint()).list()
+        .layer(M.Convolution1DLayer(nOut=4, kernelSize=3,
+                                    activation="tanh"))
+        .layer(M.GlobalPoolingLayer(poolingType="avg"))
+        .layer(M.DenseLayer(nOut=5, activation="relu"))
+        .layer(M.OutputLayer(nOut=3, activation="softmax"))
+        .setInputType(M.InputType.recurrent(3, 8)).build()),
+        lambda rng: (rng.standard_normal((4, 3, 8)).astype(np.float32),
+                     onehot(rng, 4, 3), None, None))
+    case("frozen_with_backprop", lambda dt: (
+        builder(dt, 6).list()
+        .layer(M.FrozenLayerWithBackprop(M.DenseLayer(nOut=6,
+                                                      activation="tanh")))
+        .layer(M.ElementWiseMultiplicationLayer(activation="tanh"))
+        .layer(M.PReLULayer(alphaInit=0.2))
+        .layer(M.OutputLayer(nOut=2, activation="softmax"))
+        .setInputType(M.InputType.feedForward(4)).build()),
+        lambda rng: (rng.standard_normal((6, 4)).astype(np.float32),
+                     onehot(rng, 6, 2), None, None))
+    case("layers_1d", lambda dt: (
+        builder(dt, 7).list()
+        .layer(M.Convolution1DLayer(nOut=4, kernelSize=3, padding=1,
+                                    activation="tanh"))
+        .layer(M.Subsampling1DLayer(poolingType="max", kernelSize=2,
+                                    stride=1))
+        .layer(M.Upsampling1D(size=2))
+        .layer(M.Cropping1D(cropping=(1, 2)))
+        .layer(M.ZeroPadding1DLayer(padding=(2, 1)))
+        .layer(M.LocallyConnected1D(nOut=3, kernelSize=3, stride=2,
+                                    activation="tanh"))
+        .layer(M.GlobalPoolingLayer(poolingType="max"))
+        .layer(M.OutputLayer(nOut=3, activation="softmax"))
+        .setInputType(M.InputType.recurrent(2, 9)).build()),
+        lambda rng: (rng.standard_normal((4, 2, 9)).astype(np.float32),
+                     onehot(rng, 4, 3), None, None))
+    case("repeat_vector", lambda dt: (
+        builder(dt, 8).list()
+        .layer(M.DenseLayer(nOut=4, activation="tanh"))
+        .layer(M.RepeatVector(n=5))
+        .layer(M.LSTM(nOut=3))
+        .layer(M.RnnOutputLayer(nOut=2, activation="softmax",
+                                lossFunction="mcxent"))
+        .setInputType(M.InputType.feedForward(3)).build()),
+        lambda rng: (rng.standard_normal((4, 3)).astype(np.float32),
+                     seq_labels(4, 2, 5), None, None))
+    case("layers_2d_misc", lambda dt: (
+        builder(dt, 9).list()
+        .layer(M.LocallyConnected2D(nOut=3, kernelSize=(2, 2),
+                                    activation="tanh"))
+        .layer(M.PReLULayer(sharedAxes=(2, 3), alphaInit=0.1))
+        .layer(M.OutputLayer(nOut=2, activation="softmax"))
+        .setInputType(M.InputType.convolutional(5, 4, 2)).build()),
+        lambda rng: (rng.standard_normal((3, 2, 5, 4)).astype(np.float32),
+                     onehot(rng, 3, 2), None, None))
+    case("capsules", lambda dt: (
+        builder(dt, 10).list()
+        .layer(M.ConvolutionLayer(nOut=6, kernelSize=(3, 3),
+                                  activation="relu"))
+        .layer(M.PrimaryCapsules(capsules=3, capsuleDimensions=4,
+                                 kernelSize=(3, 3), stride=(2, 2)))
+        .layer(M.CapsuleLayer(capsules=3, capsuleDimensions=5,
+                              routings=3))
+        .layer(M.CapsuleStrengthLayer())
+        .layer(M.LossLayer(lossFunction="mcxent", activation="softmax"))
+        .setInputType(M.InputType.convolutional(10, 9, 2)).build()),
+        lambda rng: (rng.random((3, 2, 10, 9)).astype(np.float32),
+                     onehot(rng, 3, 3), None, None), band=(1e-5, 1e-3))
+    case("center_loss", lambda dt: (
+        builder(dt, 11).list()
+        .layer(M.DenseLayer(nOut=5, activation="tanh"))
+        .layer(M.CenterLossOutputLayer(nOut=3, activation="softmax",
+                                       lossFunction="mcxent", lambda_=0.5))
+        .setInputType(M.InputType.feedForward(4)).build()),
+        lambda rng: (rng.standard_normal((8, 4)).astype(np.float32),
+                     onehot(rng, 8, 3), None, None))
+    case("ocnn", lambda dt: (
+        builder(dt, 12).list()
+        .layer(M.DenseLayer(nOut=8, activation="tanh"))
+        .layer(M.OCNNOutputLayer(hiddenSize=6, nu=0.1,
+                                 activation="sigmoid"))
+        .setInputType(M.InputType.feedForward(4)).build()),
+        lambda rng: (rng.standard_normal((20, 4)).astype(np.float32),
+                     np.zeros((20, 1), np.float32), None, None))
+    case("samediff", lambda dt: (
+        builder(dt, 13).list()
+        .layer(CustomDense(nOut=6))
+        .layer(M.SameDiffLambdaLayer(
+            lambdaFn=lambda sd, x: sd.math.mul(x, sd.nn.sigmoid(x))))
+        .layer(M.OutputLayer(nOut=2, activation="softmax"))
+        .setInputType(M.InputType.feedForward(4)).build()),
+        lambda rng: (rng.standard_normal((6, 4)).astype(np.float32),
+                     onehot(rng, 6, 2), None, None))
+    case("vae", lambda dt: (
+        builder(dt, 14, M.RmsProp(1e-2)).list()
+        .layer(M.VariationalAutoencoder(
+            nOut=2, encoderLayerSizes=(6, 5), decoderLayerSizes=(5,),
+            activation="leakyrelu", reconstructionDistribution="bernoulli",
+            numSamples=2))
+        .layer(M.OutputLayer(nOut=2, activation="softmax"))
+        .setInputType(M.InputType.feedForward(8)).build()),
+        lambda rng: ((rng.random((6, 8)) > 0.5).astype(np.float32),
+                     onehot(rng, 6, 2), None, None), pretrain=0)
+    case("autoencoder", lambda dt: (
+        builder(dt, 15, M.Sgd(0.1)).list()
+        .layer(M.AutoEncoder(nOut=3, corruptionLevel=0.3,
+                             activation="sigmoid"))
+        .layer(M.OutputLayer(nOut=2, activation="softmax"))
+        .setInputType(M.InputType.feedForward(6)).build()),
+        lambda rng: (rng.random((6, 6)).astype(np.float32),
+                     onehot(rng, 6, 2), None, None), pretrain=0)
+    return cases
+
+
+def _draw_on_cpu(net):
+    """Weight noise, VAE samples and AutoEncoder corruption drawn on the
+    CPU and moved to the net's device, so the card and the CPU see one
+    draw (Philox streams differ by device)."""
+    layers = net.layers if hasattr(net, "layers") else [
+        net.conf.nodes[n].payload for n in net._layer_names]
+    for layer in layers:
+        wn = getattr(layer, "weightNoise", None)
+        if wn is not None and not hasattr(wn, "_cpu_draw"):
+            wn._cpu_draw = wn.draw
+            wn.draw = lambda v, key, f=wn._cpu_draw: f(
+                v.detach().cpu(), key).to(v.device)
+        if hasattr(layer, "draw_eps"):
+            f = layer.draw_eps
+            layer.draw_eps = lambda key, shape, device, dtype, n, f=f: [
+                e.to(device) for e in f(key, shape, "cpu", dtype, n)]
+        if hasattr(layer, "draw_keep"):
+            f = layer.draw_keep
+            layer.draw_keep = lambda x, key, f=f: f(
+                x.detach().cpu(), key).to(x.device)
+
+
+def _loss_grads(net, x, y, fm, lm, graph, pretrain):
+    """The training loss (no dropout key) or a pretrain step's loss, and
+    every gradient {(layer, name): CPU tensor}."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.conf.dropout import StepKey
+    from deeplearning4j_tpu_torch.nn.multilayer import cast_params
+
+    dev = net.device
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    keys = net._unit_keys()
+    if pretrain is not None:
+        layer = net._unit_layer(pretrain)
+        p = net._params[pretrain]
+        loss = layer.pretrain_loss(
+            cast_params(p, net._compute_dtype, net._param_dtype),
+            net._frozen_feed(pretrain, x), StepKey(41, net._iteration))
+        keys = [pretrain]
+    elif graph:
+        name = net.conf.networkInputs[0]
+        loss, _ = net._loss_fn(
+            net._params, net._states, {name: t(x)}, [t(y)],
+            None if fm is None else {name: t(fm)},
+            None if lm is None else [t(lm)])
+    else:
+        loss, _ = net._loss_fn(net._params, net._states, t(x), t(y), t(fm),
+                               t(lm))
+    names = [(k, n) for k in keys for n in net._params[k]]
+    gs = torch.autograd.grad(loss, [net._params[k][n] for k, n in names],
+                             allow_unused=True)
+    return float(loss.detach()), {
+        kn: (torch.zeros_like(net._params[kn[0]][kn[1]]) if g is None
+             else g).detach().cpu() for kn, g in zip(names, gs)}
+
+
+def catalogue_parity(dev, steps=CAT_STEPS):
+    """Phase 16(a): every class ported in PR 12 at cut sizes, one net each
+    on the card in f64 and f32 and on the CPU in f64 from the same
+    weights; the weight noise, VAE samples and corruption drawn once on
+    the CPU. Each of `steps` steps: f64 card vs f64 CPU, the loss rel
+    CAT_F64_LOSS and every gradient rel L2 CAT_F64_GRAD; f32 card vs f64
+    CPU within the case's band; then a fit (or pretrain) step each, with
+    the masks. SpaceToBatch, which changes the batch, is held as a
+    forward alone."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import (
+        ComputationGraph, DataType, MultiLayerNetwork, SpaceToBatch,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import \
+        params_to_reference as g_to_ref
+    from deeplearning4j_tpu_torch.nn.multilayer import params_to_reference
+
+    out = {}
+    for name, conf, data, graph, pretrain, band in _cat_confs():
+        cls = ComputationGraph if graph else MultiLayerNetwork
+        card32 = cls(conf(DataType.FLOAT), device=dev).init()
+        ref = (g_to_ref(card32.conf, card32._params) if graph
+               else params_to_reference(card32.layers, card32._params))
+        nets = {"card32": card32}
+        for key, d in (("card64", dev), ("cpu64", "cpu")):
+            nets[key] = cls(conf(DataType.DOUBLE), device=d).init()
+            nets[key].load_reference_params(ref)
+        for net in nets.values():
+            _draw_on_cpu(net)
+        rng = np.random.default_rng(SEED + 16)
+        x, y, fm, lm = data(rng)
+        worst = {"f64_loss": 0.0, "f64_grad": 0.0, "f32_loss": 0.0,
+                 "f32_grad": 0.0}
+        for _ in range(steps):
+            res = {k: _loss_grads(n, x, y, fm, lm, graph, pretrain)
+                   for k, n in nets.items()}
+            l64, g64 = res["cpu64"]
+            f = {"f64_loss": abs(res["card64"][0] - l64) / abs(l64),
+                 "f64_grad": max(rel_l2(res["card64"][1][k], g)
+                                 for k, g in g64.items()),
+                 "f32_loss": abs(res["card32"][0] - l64) / abs(l64),
+                 "f32_grad": max(rel_l2(res["card32"][1][k], g)
+                                 for k, g in g64.items())}
+            worst = {k: max(worst[k], v) for k, v in f.items()}
+            for n in nets.values():
+                if pretrain is not None:
+                    n.pretrainLayer(pretrain, x)
+                else:
+                    n.fit(DataSet(x, y, fm, lm))
+        need(worst["f64_loss"] <= CAT_F64_LOSS
+             and worst["f64_grad"] <= CAT_F64_GRAD,
+             f"catalogue (a): {name} f64 on the card vs the CPU: {worst}")
+        need(worst["f32_loss"] <= band[0] and worst["f32_grad"] <= band[1],
+             f"catalogue (a): {name} f32 on the card vs the CPU's f64 "
+             f"beyond {band}: {worst}")
+        out[name] = dict(worst, f32_band=list(band))
+        del nets
+    x = np.random.default_rng(SEED).standard_normal((2, 3, 6, 4))
+    layer = SpaceToBatch(blocks=2, padding=((1, 1), (0, 2)))
+    got = layer.forward({}, {}, torch.from_numpy(x).to(dev), False, None)[0]
+    want = layer.forward({}, {}, torch.from_numpy(x), False, None)[0]
+    need(torch.equal(got.cpu(), want), "catalogue (a): SpaceToBatch on the "
+         "card differs from the CPU")
+    log("catalogue (a): " + json.dumps(out))
+    return out
+
+
+def imdb_conf(cfg, graph=False):
+    """16(b)'s sequence classifier (the MultiLayerNetwork), or 16(c)'s
+    graph form through LastTimeStepVertex, at the configuration's
+    widths."""
+    from deeplearning4j_tpu_torch import nn as M
+
+    b = (M.NeuralNetConfiguration.Builder().seed(SEED)
+         .updater(M.Adam(cfg["lr"])).l2(cfg["l2"])
+         .weightInit(M.WeightInit.XAVIER)
+         .gradientNormalization(
+             M.GradientNormalization.ClipElementWiseAbsoluteValue)
+         .gradientNormalizationThreshold(cfg["clip"]))
+    emb = M.EmbeddingSequenceLayer(nIn=cfg["vocab"], nOut=cfg["embed"])
+    lstm = M.LSTM(nOut=cfg["hidden"], activation="tanh")
+    it = M.InputType.recurrent(1, cfg["seq"])
+    if not graph:
+        return (b.list().layer(emb).layer(lstm)
+                .layer(M.RnnOutputLayer(nOut=cfg["classes"],
+                                        activation="softmax",
+                                        lossFunction="mcxent"))
+                .setInputType(it).build())
+    return (b.graphBuilder().addInputs("tokens")
+            .addLayer("emb", emb, "tokens").addLayer("lstm", lstm, "emb")
+            .addVertex("last", M.LastTimeStepVertex(), "lstm")
+            .addLayer("out", M.OutputLayer(nOut=cfg["classes"],
+                                           activation="softmax",
+                                           lossFunction="mcxent"), "last")
+            .setOutputs("out").setInputTypes(it).build())
+
+
+def imdb_batches(cfg, n, seed=SEED):
+    """`n` seeded batches of ragged reviews: token ids over the
+    vocabulary, lengths uniform in [min_len, seq]; a share of each
+    review's tokens comes from its class's marker words, so the loss can
+    fall. The features mask covers each review; the labels mask marks
+    its last valid step, as the example's iterator does. Returns
+    DataSets (features [B, T], labels [B, 2, T], both masks [B, T])."""
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    rng = np.random.default_rng(seed)
+    B, T, V = cfg["batch"], cfg["seq"], cfg["vocab"]
+    out = []
+    for _ in range(n):
+        cls = rng.integers(0, cfg["classes"], B)
+        x = rng.integers(2 * cfg["markers"], V, (B, T))
+        mark = rng.random((B, T)) < cfg["marker_share"]
+        words = cls[:, None] * cfg["markers"] + rng.integers(
+            0, cfg["markers"], (B, T))
+        x = np.where(mark, words, x).astype(np.float32)
+        lens = rng.integers(cfg["min_len"], T + 1, B)
+        fm = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+        lm = np.zeros_like(fm)
+        lm[np.arange(B), lens - 1] = 1.0
+        y = np.zeros((B, cfg["classes"], T), np.float32)
+        y[np.arange(B), cls, :] = 1.0
+        out.append(DataSet(x, y, fm, lm))
+    return out
+
+
+class _ListIterator:
+    """A DataSetIterator over resident DataSets (masks included)."""
+
+    def __init__(self, batches):
+        self.batches = batches
+        self.reset()
+
+    def reset(self):
+        self.i = 0
+
+    def hasNext(self):
+        return self.i < len(self.batches)
+
+    def next(self):
+        self.i += 1
+        return self.batches[self.i - 1]
+
+
+def traced_steps(fn, steps):
+    """`steps` calls of `fn` under torch.profiler: (device kernels a call,
+    the device's busy share of the traced wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.steps"):
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    scope = [e for e in events if e.name == "smoke.steps"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    need(len(scope) == 1, f"trace: {len(scope)} traced scopes")
+    t0, t1 = scope[0].time_range.start, scope[0].time_range.end
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation
+               and t0 <= e.time_range.start <= t1]
+    busy = device_busy_us(events, t0, t1)
+    need(busy > 0 and kernels, "trace: the profiler saw no device time")
+    return len(kernels) / steps, busy / (t1 - t0)
+
+
+def imdb_classifier(dev, cfg):
+    """Phase 16(b): the masked sequence classifier at full width through
+    MultiLayerNetwork.fit: `steps` steps over `batches` resident batches
+    in turn (median step of 3..n, valid tokens/s, peak memory, the loss
+    must fall), a traced window of kernels a step and busy share,
+    fitDataSet(k) bitwise fit over the batches, and two identical steps
+    from one saved state bitwise equal (the embedding's gradient is a
+    deterministic sort-and-segment-sum on the card)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    from deeplearning4j_tpu_torch.data import DataSet
+
+    net = MultiLayerNetwork(imdb_conf(cfg), device=dev).init()
+    batches = imdb_batches(cfg, cfg["batches"])
+    on_card = [DataSet(*(torch.from_numpy(a).to(dev) for a in (
+        ds.getFeatures(), ds.getLabels(), ds.getFeaturesMaskArray(),
+        ds.getLabelsMaskArray()))) for ds in batches]
+    start = net.clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    for i in range(cfg["steps"]):
+        t = time.perf_counter()
+        net.fit(on_card[i % len(on_card)])
+        losses.append(net.score())
+        step_s.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated(dev)
+    need(all(math.isfinite(v) for v in losses),
+         f"imdb (b): non-finite loss {losses}")
+    n = len(on_card)
+    first, last = float(np.mean(losses[:n])), float(np.mean(losses[-n:]))
+    need(last < first, f"imdb (b): the loss did not fall: {losses}")
+    med = float(np.median(step_s[2:]))
+    valid = float(np.mean([ds.getFeaturesMaskArray().sum()
+                           for ds in batches]))
+    kernels, busy = traced_steps(lambda: net.fit(on_card[0]),
+                                 cfg["traced_steps"])
+    # fitDataSet(k) bitwise fit over the batches, from one saved state
+    a, b = start.clone(), start.clone()
+    a.fit(_ListIterator(batches))
+    b.fitDataSet(_ListIterator(batches), stepsPerSync=cfg["k"])
+    need(state_equal(a, b), "imdb (b): fitDataSet(k) differs from fit")
+    # two identical steps from one state: the table bitwise
+    c, d = start.clone(), start.clone()
+    c.fit(batches[0])
+    d.fit(batches[0])
+    need(torch.equal(c._params[0]["W"], d._params[0]["W"])
+         and state_equal(c, d),
+         "imdb (b): two identical steps differ (embedding gradient)")
+    del a, b, c, d
+    out = {"params": net.numParams(), "batch": cfg["batch"],
+           "seq": cfg["seq"], "loss_first_mean": first,
+           "loss_last_mean": last, "losses": losses,
+           "step_ms_median_3_to_20": med * 1e3,
+           "step_ms_first": step_s[0] * 1e3,
+           "valid_tokens_per_step": valid,
+           "valid_tokens_per_s": valid / med,
+           "max_memory_allocated_bytes": peak,
+           "kernels_per_step": kernels,
+           "device_busy_share_of_traced_wall": busy,
+           "fit_dataset_bitwise_fit": True,
+           "identical_steps_bitwise": True}
+    log("imdb (b): " + json.dumps(out))
+    return net, start, batches, out
+
+
+def _graph_from(cg, mln):
+    cg.setParamTable({
+        "emb_W": mln.getParam("0_W"), "lstm_W": mln.getParam("1_W"),
+        "lstm_RW": mln.getParam("1_RW"), "lstm_b": mln.getParam("1_b"),
+        "out_W": mln.getParam("2_W"), "out_b": mln.getParam("2_b")})
+    return cg
+
+
+def _last_step(mln, cg, x, fm):
+    """(the MLN's per-step logits and LSTM output at each review's last
+    valid step; the graph's logits and LastTimeStepVertex output)."""
+    import torch
+
+    with torch.no_grad():
+        h = mln._entry(x)
+        feats = []
+        for i, layer in enumerate(mln.layers[:2]):
+            h, _ = layer.forward(mln._params[i], mln._states[i], h, False,
+                                 None, fm)
+            feats.append(h)
+        seq, _ = mln._run_layers(mln._params, mln._states, x, False, fm)
+        acts, pre, _ = cg._run_graph(cg._params, cg._states, {"tokens": x},
+                                     False, None, {"tokens": fm})
+    rows = torch.arange(x.shape[0], device=x.device)
+    last = fm.sum(1).long() - 1
+    return (seq[rows, :, last], feats[1][rows, :, last], pre["out"],
+            acts["last"])
+
+
+def imdb_graph(dev, cfg, mln, start, batches):
+    """Phase 16(c): the graph form through LastTimeStepVertex. Under (b)'s
+    initial weights its logits equal (b)'s per-step logits at each
+    review's last valid step (f32, GRAPH_LOGIT_ATOL); under (b)'s trained
+    weights the vertex's output equals (b)'s LSTM output there bit for bit
+    (the logits then differ by the rounding of two product shapes,
+    recorded). Then a few fit steps."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+
+    ds = batches[0]
+    x = torch.as_tensor(np.asarray(ds.getFeatures())).to(dev)
+    fm = torch.as_tensor(np.asarray(ds.getFeaturesMaskArray())).to(dev)
+    cg = _graph_from(ComputationGraph(imdb_conf(cfg, graph=True),
+                                      device=dev).init(), start)
+    want, _, got, _ = _last_step(start, cg, x, fm)
+    err = float((got - want).abs().max())
+    need(err <= GRAPH_LOGIT_ATOL,
+         f"imdb (c): graph logits differ from the MLN's by {err}")
+    want_t, feat, got_t, vert = _last_step(mln, _graph_from(cg, mln), x, fm)
+    need(torch.equal(vert, feat), "imdb (c): LastTimeStepVertex differs "
+         "from the MLN's LSTM output at the last valid step")
+    y = torch.as_tensor(np.asarray(ds.getLabels())[:, :, 0]).to(dev)
+    losses = []
+    for _ in range(cfg["graph_steps"]):
+        cg._fit_batch({"tokens": x}, [y], {"tokens": fm}, None)
+        losses.append(cg.score())
+    need(all(math.isfinite(v) for v in losses),
+         f"imdb (c): non-finite graph loss {losses}")
+    out = {"logits_max_abs_vs_mln": err,
+           "logits_max_abs": float(want.abs().max()),
+           "trained_logits_max_abs_vs_mln": float(
+               (got_t - want_t).abs().max()),
+           "trained_logits_max_abs": float(want_t.abs().max()),
+           "trained_last_step_bitwise": True, "graph_losses": losses}
+    log("imdb (c): " + json.dumps(out))
+    return out
+
+
+def vae_mnist(dev, cfg):
+    """Phase 16(d): the VAE at VaeMNIST2dPlots widths pretrained for one
+    epoch over the flagged synthetic 60,000-digit MNIST (pretrain steps/s,
+    the negative ELBO of the first and last `window` batches, which must
+    fall), then the VAE as the feature layer under a supervised head that
+    fits (its loss must fall)."""
+    import torch
+
+    from deeplearning4j_tpu_torch import nn as M
+    from deeplearning4j_tpu_torch.data.iterators import MnistDataSetIterator
+
+    conf = (M.NeuralNetConfiguration.Builder().seed(SEED)
+            .updater(M.RmsProp(cfg["lr"])).l2(cfg["l2"])
+            .weightInit(M.WeightInit.XAVIER).list()
+            .layer(M.VariationalAutoencoder(
+                nOut=cfg["latent"], encoderLayerSizes=cfg["encoder"],
+                decoderLayerSizes=cfg["decoder"], activation="leakyrelu",
+                pzxActivationFunction="identity",
+                reconstructionDistribution="bernoulli"))
+            .layer(M.OutputLayer(nOut=10, activation="softmax",
+                                 lossFunction="mcxent"))
+            .setInputType(M.InputType.feedForward(cfg["inputs"])).build())
+    net = M.MultiLayerNetwork(conf, device=dev).init()
+    it = MnistDataSetIterator(cfg["batch"], train=True, seed=SEED,
+                              numExamples=cfg["train"])
+    need(it.isSynthetic, "vae (d): expected the flagged synthetic MNIST")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    net.pretrain(it, epochs=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    elbo = [float(v) for v in torch.stack(net._pretrain_losses).cpu()]
+    w = cfg["window"]
+    first, last = float(np.mean(elbo[:w])), float(np.mean(elbo[-w:]))
+    need(all(math.isfinite(v) for v in elbo) and last < first,
+         f"vae (d): the negative ELBO did not fall: {first} -> {last}")
+    it.reset()
+    head = []
+    for _ in range(cfg["head_steps"]):
+        net.fit(it.next())
+        head.append(net.score())
+    need(np.mean(head[-5:]) < np.mean(head[:5]),
+         f"vae (d): the supervised head did not fit: {head}")
+    out = {"params": net.numParams(), "batches": len(elbo),
+           "pretrain_s": dt, "pretrain_steps_per_s": len(elbo) / dt,
+           "neg_elbo_first20_mean": first, "neg_elbo_last20_mean": last,
+           "head_loss_first": head[0], "head_loss_last": head[-1]}
+    log("vae (d): " + json.dumps(out))
+    return out
+
+
+def catalogue_phase(dev):
+    """Phase 16: (a) catalogue parity, (b) the sequence classifier,
+    (c) its graph form, (d) VAE pretraining; K1-K5 launch no time."""
+    import torch
+
+    before = kernel_launches()
+    parity = catalogue_parity(dev)
+    torch.cuda.empty_cache()
+    net, start, batches, imdb = imdb_classifier(dev, IMDB)
+    graph = imdb_graph(dev, IMDB, net, start, batches)
+    del net, start, batches
+    torch.cuda.empty_cache()
+    vae = vae_mnist(dev, VAE_MNIST)
+    need(kernel_launches() == before, "catalogue: a hand-written kernel "
+         f"launched: {before} -> {kernel_launches()}")
+    return {"parity": parity, "imdb": imdb, "graph": graph, "vae": vae}
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -3898,6 +4598,8 @@ def main():
     torch.cuda.empty_cache()
     runtime = runtime_phase(dev, train, timed, trace)
     zoo = cnn_zoo_phase(dev, timed)
+    torch.cuda.empty_cache()
+    catalogue = catalogue_phase(dev)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -4047,6 +4749,22 @@ def main():
         "(bitwise); SimpleCNN fitDataSet(4) "
         f"{zg['fit_dataset_ms_per_step']:.2f} ms a step vs fit "
         f"{zg['fit_ms_per_step']:.2f} (bitwise)")
+    cp, ci, cg, cv = (catalogue[k] for k in ("parity", "imdb", "graph",
+                                             "vae"))
+    log(f"layer catalogue on {card}: parity f64 card/CPU worst gradient "
+        f"{max(v['f64_grad'] for v in cp.values()):.2e} over {len(cp)} "
+        f"cases; sequence classifier b{IMDB['batch']} x {IMDB['seq']} "
+        f"{ci['step_ms_median_3_to_20']:.2f} ms a step, "
+        f"{ci['valid_tokens_per_s']:.0f} valid tokens/s, "
+        f"{ci['max_memory_allocated_bytes'] / 2**30:.2f} GiB, "
+        f"{ci['kernels_per_step']:.0f} kernels a step, device busy "
+        f"{100 * ci['device_busy_share_of_traced_wall']:.1f} %, loss "
+        f"{ci['loss_first_mean']:.4f} -> {ci['loss_last_mean']:.4f}, "
+        "fitDataSet(4) and the embedding gradient bitwise; graph logits "
+        f"{cg['logits_max_abs_vs_mln']:.2e} from the MLN's; VAE pretrain "
+        f"{cv['pretrain_steps_per_s']:.0f} steps/s, negative ELBO "
+        f"{cv['neg_elbo_first20_mean']:.2f} -> "
+        f"{cv['neg_elbo_last20_mean']:.2f}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

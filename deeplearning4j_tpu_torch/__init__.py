@@ -35,7 +35,14 @@ What is ported so far:
   (listeners, early stopping), ``fitSteps`` and ``fitDataSet`` (k-step
   blocks, one host sync a block), ``util.serializer``/``serde`` (model
   files and JSON in the reference's format), ``util.sharded_checkpoint``
-  and ``runtime.resilience`` (``ResilientFit``).
+  and ``runtime.resilience`` (``ResilientFit``);
+* the rest of the layer catalogue (all but the 3-d layers): masked
+  sequence classification (embeddings, the mask layers, the time-series
+  vertices with masks along the graph's edges, the CNN <-> RNN
+  preprocessors), constraints, weight noise, per-parameter bias
+  updaters, the variational autoencoder and AutoEncoder with layerwise
+  ``pretrain``, and the 1-d, locally connected, capsule, utility,
+  special-output and SameDiff layers (``nn.conf``).
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

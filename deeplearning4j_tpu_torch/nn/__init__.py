@@ -1,13 +1,13 @@
 """The port's networks, layers and their configuration.
 
-So far: the paged-KV serving model (``nn.transformer``), the
-``ComputationGraph`` training path with the attention layers and the
-graph vertices (``nn.graph``, ``nn.conf.*``), the CNN path:
-``MultiLayerNetwork`` (``nn.multilayer``) and the 2-d convolution,
-pooling, padding, cropping, upsampling, space-to-depth, LRN, dropout,
-batch-norm and loss layers, the recurrent layers (``nn.conf.recurrent``)
-with truncated BPTT and stateful stepping, every updater, schedule, loss
-and dropout of the reference.
+The paged-KV serving model (``nn.transformer``), ``MultiLayerNetwork``
+and ``ComputationGraph`` (``nn.multilayer``, ``nn.graph``) with every
+layer, vertex and preprocessor of the reference's catalogue but the 3-d
+layers (ROADMAP.md Queue 1 item 12): the attention, convolutional,
+recurrent, embedding, mask, 1-d, locally connected, capsule, utility,
+loss, SameDiff and pretrainable layers (``nn.conf.*``), with truncated
+BPTT, stateful stepping and layerwise pretraining; every updater,
+schedule, loss, dropout, constraint and weight noise of the reference.
 """
 
 from deeplearning4j_tpu_torch.ndarray.dtype import DataType
@@ -20,29 +20,48 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
     BackpropType, GradientNormalization, MultiLayerConfiguration,
     NeuralNetConfiguration,
 )
+from deeplearning4j_tpu_torch.nn.conf.constraint import (
+    MaxNormConstraint, MinMaxNormConstraint, NonNegativeConstraint,
+    UnitNormConstraint,
+)
 from deeplearning4j_tpu_torch.nn.conf.dropout import (
     AlphaDropout, Dropout, GaussianDropout, GaussianNoise, SpatialDropout,
 )
 from deeplearning4j_tpu_torch.nn.conf.graph import (
-    DotProductVertex, ElementWiseVertex, L2NormalizeVertex, L2Vertex,
-    MergeVertex, PreprocessorVertex, ReshapeVertex, ScaleVertex,
+    ComputationGraphConfiguration, DotProductVertex,
+    DuplicateToTimeSeriesVertex, ElementWiseVertex, GraphBuilder,
+    L2NormalizeVertex, L2Vertex, LastTimeStepVertex, MergeVertex,
+    PreprocessorVertex, ReshapeVertex, ReverseTimeSeriesVertex, ScaleVertex,
     ShiftVertex, StackVertex, SubsetVertex, UnstackVertex,
 )
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.layers import (
-    ActivationLayer, BatchNormalization, CnnLossLayer, ConvolutionLayer,
-    Cropping2D, Deconvolution2D, DenseLayer, DepthwiseConvolution2D,
-    DropoutLayer, GlobalPoolingLayer, LocalResponseNormalization, LossLayer,
-    OutputLayer, RnnLossLayer, RnnOutputLayer, SeparableConvolution2D,
-    SpaceToDepth, SubsamplingLayer, Upsampling2D, ZeroPaddingLayer,
+    ActivationLayer, AutoEncoder, BatchNormalization, CapsuleLayer,
+    CapsuleStrengthLayer, CenterLossOutputLayer, CnnLossLayer,
+    Convolution1DLayer, ConvolutionLayer, Cropping1D, Cropping2D,
+    Deconvolution2D, DenseLayer, DepthwiseConvolution2D, DropoutLayer,
+    ElementWiseMultiplicationLayer, EmbeddingLayer, EmbeddingSequenceLayer,
+    FrozenLayerWithBackprop, GlobalPoolingLayer, LocallyConnected1D,
+    LocallyConnected2D, LocalResponseNormalization, LossLayer, MaskLayer,
+    MaskZeroLayer, OCNNOutputLayer, OutputLayer, PReLULayer,
+    PrimaryCapsules, RepeatVector, RnnLossLayer, RnnOutputLayer,
+    SameDiffLambdaLayer, SameDiffLayer, SeparableConvolution2D,
+    SpaceToBatch, SpaceToDepth, Subsampling1DLayer, SubsamplingLayer,
+    Upsampling1D, Upsampling2D, ZeroPadding1DLayer, ZeroPaddingLayer,
 )
 from deeplearning4j_tpu_torch.nn.conf.recurrent import (
     GRU, LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
     LastTimeStep, SimpleRnn,
 )
 from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
-    CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor,
-    FeedForwardToRnnPreProcessor, RnnToFeedForwardPreProcessor,
+    CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
+    FeedForwardToCnnPreProcessor, FeedForwardToRnnPreProcessor,
+    RnnToCnnPreProcessor, RnnToFeedForwardPreProcessor,
+)
+from deeplearning4j_tpu_torch.nn.conf.variational import \
+    VariationalAutoencoder
+from deeplearning4j_tpu_torch.nn.conf.weightnoise import (
+    DropConnect, WeightNoise,
 )
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.losses import LossFunctions
@@ -51,7 +70,9 @@ from deeplearning4j_tpu_torch.nn.updaters import (
     AdaDelta, AdaGrad, AdaMax, Adam, AdamW, AMSGrad, Nadam, Nesterovs, NoOp,
     RmsProp, Sgd,
 )
-from deeplearning4j_tpu_torch.nn.weights import WeightInit
+from deeplearning4j_tpu_torch.nn.weights import (
+    NormalDistribution, UniformDistribution, WeightInit, WeightInitEmbedding,
+)
 
 __all__ = [
     "DataType", "Activation", "AttentionVertex", "LearnedSelfAttentionLayer",
@@ -75,5 +96,19 @@ __all__ = [
     "DropoutLayer", "LocalResponseNormalization", "LossLayer",
     "RnnLossLayer", "SeparableConvolution2D", "SpaceToDepth",
     "Upsampling2D", "ZeroPaddingLayer", "AdaDelta", "AdaGrad", "AdaMax",
-    "AdamW", "AMSGrad", "Nadam", "RmsProp",
+    "AdamW", "AMSGrad", "Nadam", "RmsProp", "MaxNormConstraint",
+    "MinMaxNormConstraint", "NonNegativeConstraint", "UnitNormConstraint",
+    "ComputationGraphConfiguration", "GraphBuilder",
+    "DuplicateToTimeSeriesVertex", "LastTimeStepVertex",
+    "ReverseTimeSeriesVertex", "AutoEncoder", "CapsuleLayer",
+    "CapsuleStrengthLayer", "CenterLossOutputLayer", "Convolution1DLayer",
+    "Cropping1D", "ElementWiseMultiplicationLayer", "EmbeddingLayer",
+    "EmbeddingSequenceLayer", "FrozenLayerWithBackprop",
+    "LocallyConnected1D", "LocallyConnected2D", "MaskLayer",
+    "MaskZeroLayer", "OCNNOutputLayer", "PReLULayer", "PrimaryCapsules",
+    "RepeatVector", "SameDiffLambdaLayer", "SameDiffLayer", "SpaceToBatch",
+    "Subsampling1DLayer", "Upsampling1D", "ZeroPadding1DLayer",
+    "CnnToRnnPreProcessor", "RnnToCnnPreProcessor",
+    "VariationalAutoencoder", "DropConnect", "WeightNoise",
+    "NormalDistribution", "UniformDistribution", "WeightInitEmbedding",
 ]

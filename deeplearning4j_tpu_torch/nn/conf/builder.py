@@ -1,9 +1,10 @@
 """Network configuration builders.
 
 The counterpart of ``deeplearning4j_tpu/nn/conf/builder.py``:
-``NeuralNetConfiguration.Builder`` with the global defaults the ported
-slices read (seed, updater, dataType, weightInit, activation, l1/l2,
-weight decay, gradient normalization, checkpointPolicy), ``list()`` ->
+``NeuralNetConfiguration.Builder`` with its global defaults (seed,
+updater, biasUpdater, dataType, weightInit, activation, l1/l2, weight
+decay, dropout, weight noise, the constraints, gradient normalization,
+checkpointPolicy), ``list()`` ->
 ``ListBuilder`` -> ``MultiLayerConfiguration`` (the sequential network's
 shape-inference walk, which infers each layer's nIn and inserts the
 format preprocessors) and ``graphBuilder()``; the automatic format
@@ -113,18 +114,46 @@ class MultiLayerConfiguration:
         return self
 
 
+def _unwrap_layer(layer):
+    """The layer a delegating wrapper holds (MaskZeroLayer.underlying,
+    FrozenLayerWithBackprop.layer), for format and nIn inference;
+    Bidirectional declares its own format and is not looked through."""
+    for _ in range(8):
+        inner = layer.__dict__.get("underlying") or layer.__dict__.get(
+            "layer")
+        if inner is None or isinstance(layer, R.Bidirectional):
+            return layer
+        layer = inner
+    return layer
+
+
 def _wants(layer):
     """The input format a layer needs (None: any)."""
+    layer = _unwrap_layer(layer)
     if isinstance(layer, (R.BaseRecurrentLayer, R.Bidirectional,
-                          R.LastTimeStep, L.RnnOutputLayer)):
+                          R.LastTimeStep, L.RnnOutputLayer,
+                          L.Convolution1DLayer, L.EmbeddingSequenceLayer)):
         return InputType.RNN
     if isinstance(layer, (L.ConvolutionLayer, L.SubsamplingLayer,
                           L.Upsampling2D, L.ZeroPaddingLayer, L.Cropping2D,
                           L.LocalResponseNormalization)):
         return InputType.CNN
-    if isinstance(layer, (L.DenseLayer, L.BaseOutputLayer)):
+    if isinstance(layer, (L.DenseLayer, L.BaseOutputLayer,
+                          L.EmbeddingLayer)):
         return InputType.FF
     return None
+
+
+def input_type_from_first_layer(layers):
+    """The input type an explicit first-layer nIn implies when no
+    setInputType(...) was given (looking through wrappers), or None."""
+    first = _unwrap_layer(layers[0])
+    if getattr(first, "nIn", None) is None:
+        return None
+    if isinstance(first, (R.BaseRecurrentLayer, R.Bidirectional,
+                          L.RnnOutputLayer)):
+        return InputType.recurrent(first.nIn)
+    return InputType.feedForward(first.nIn)
 
 
 def auto_preprocessor(layer, cur):
@@ -144,9 +173,8 @@ def auto_preprocessor(layer, cur):
         pp = PP.FeedForwardToRnnPreProcessor()
         return pp, pp.getOutputType(cur)
     if cur.kind == InputType.CNN and wants == InputType.RNN:
-        raise NotImplementedError(
-            "CnnToRnnPreProcessor waits for the rest of the recurrent "
-            "slice (ROADMAP.md Queue 1 item 8)")
+        pp = PP.CnnToRnnPreProcessor(cur.height, cur.width, cur.channels)
+        return pp, pp.getOutputType(cur)
     raise ValueError(f"No preprocessor for {cur.kind} -> {wants} (layer "
                      f"{type(layer).__name__})")
 
@@ -213,15 +241,10 @@ class ListBuilder:
                 "gradientNormalizationThreshold", 1.0))
         if conf.inputType is None:
             # every nIn set explicitly: the input type of the first layer
-            first = self._layers[0]
-            if getattr(first, "nIn", None) is None:
+            conf.inputType = input_type_from_first_layer(self._layers)
+            if conf.inputType is None:
                 raise ValueError(
                     "Either setInputType(...) or nIn on the first layer")
-            conf.inputType = (InputType.recurrent(first.nIn)
-                              if isinstance(first, (R.BaseRecurrentLayer,
-                                                    R.Bidirectional,
-                                                    L.RnnOutputLayer))
-                              else InputType.feedForward(first.nIn))
         return conf.inferShapes()
 
 
@@ -237,6 +260,49 @@ class NeuralNetConfiguration:
         def updater(self, u):
             self._d["updater"] = _upd.resolve(u)
             return self
+
+        def biasUpdater(self, u):
+            """The biases' own updater (reference: Builder.biasUpdater):
+            each layer's biases step with it and keep its state."""
+            self._d["biasUpdater"] = _upd.resolve(u)
+            return self
+
+        def weightNoise(self, wn):
+            """DropConnect or WeightNoise on every layer's weights in
+            training (reference: Builder.weightNoise)."""
+            self._d["weightNoise"] = wn
+            return self
+
+        def dropOut(self, v):
+            """Every layer's input dropout: a retain probability or an
+            ``IDropout`` (reference: Builder.dropOut)."""
+            self._d["dropOut"] = float(v) if isinstance(v, (int, float)) \
+                else v
+            return self
+
+        def _add_constraints(self, constraints, weights, biases):
+            import copy
+
+            # configured copies: a constraint shared between builders
+            # keeps its own flags
+            cs = []
+            for c in constraints:
+                c = copy.copy(c)
+                c.applyToWeights, c.applyToBiases = weights, biases
+                cs.append(c)
+            self._d["constraints"] = (self._d.get("constraints") or []) + cs
+            return self
+
+        def constrainWeights(self, *constraints):
+            """Project every layer's weights after each update (reference:
+            Builder.constrainWeights)."""
+            return self._add_constraints(constraints, True, False)
+
+        def constrainBias(self, *constraints):
+            return self._add_constraints(constraints, False, True)
+
+        def constrainAllParameters(self, *constraints):
+            return self._add_constraints(constraints, True, True)
 
         def weightInit(self, w):
             self._d["weightInit"] = w

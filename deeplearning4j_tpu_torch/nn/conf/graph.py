@@ -4,15 +4,17 @@ The counterpart of ``deeplearning4j_tpu/nn/conf/graph.py``:
 ``GraphVertex``, ``MergeVertex``, ``ElementWiseVertex`` (the residual
 add), ``SubsetVertex``, ``StackVertex``, ``UnstackVertex``,
 ``ScaleVertex``, ``ShiftVertex``, ``L2NormalizeVertex``, ``L2Vertex``,
-``DotProductVertex``, ``ReshapeVertex``, ``PreprocessorVertex``,
-``_Node``, ``ComputationGraphConfiguration`` (topological order, shape
+``DotProductVertex``, ``ReshapeVertex``, ``PreprocessorVertex``, the
+time-series vertices ``ReverseTimeSeriesVertex``, ``LastTimeStepVertex``
+and ``DuplicateToTimeSeriesVertex`` (``maskAware``: the graph hands them
+their inputs' masks and takes the mask they return), ``_Node``, ``ComputationGraphConfiguration`` (topological order, shape
 inference, the automatic preprocessor) and ``GraphBuilder``. Vertices
 are plain functions of their inputs; autograd differentiates through
 them. A 4-d activation is NCHW-logical here where the reference's is
 NHWC, so the channel axis is dim 1 (MergeVertex, SubsetVertex, a
 per-channel Scale/Shift factor) and ReshapeVertex reshapes in the
-reference's NHWC order. The time-series vertices wait for the rest of
-the recurrent slice (ROADMAP.md Queue 1 item 8).
+reference's NHWC order. The builder refuses the time-series vertices
+under truncated BPTT, which would cut the sequence they need whole.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ __all__ = ["GraphVertex", "MergeVertex", "ElementWiseVertex",
            "SubsetVertex", "StackVertex", "UnstackVertex", "ScaleVertex",
            "ShiftVertex", "L2NormalizeVertex", "L2Vertex",
            "DotProductVertex", "ReshapeVertex", "PreprocessorVertex",
-           "ComputationGraphConfiguration", "GraphBuilder"]
+           "ReverseTimeSeriesVertex", "LastTimeStepVertex",
+           "DuplicateToTimeSeriesVertex", "ComputationGraphConfiguration",
+           "GraphBuilder"]
 
 
 class GraphVertex:
@@ -279,6 +283,87 @@ class PreprocessorVertex(GraphVertex):
         return self.pp.getOutputType(its[0])
 
 
+class ReverseTimeSeriesVertex(GraphVertex):
+    """Reverse the time axis of NCW data (reference:
+    rnn.ReverseTimeSeriesVertex). With a mask each example reverses only
+    its valid prefix; the padding stays at the tail and the mask stays
+    as it is."""
+
+    maskAware = True
+
+    def apply(self, inputs):
+        return inputs[0].flip(2)
+
+    def applyMasked(self, inputs, masks):
+        x, m = inputs[0], masks[0]
+        if m is None:
+            return x.flip(2), None
+        T = x.shape[2]
+        lengths = m.sum(dim=1).long()[:, None]                 # [B, 1]
+        t = torch.arange(T, device=x.device)[None, :]          # [1, T]
+        src = torch.where(t < lengths, lengths - 1 - t, t)     # [B, T]
+        return torch.gather(x, 2, src[:, None, :].expand_as(x)), m
+
+    def getOutputType(self, *its):
+        return its[0]
+
+
+class LastTimeStepVertex(GraphVertex):
+    """[B, F, T] -> [B, F], each example's LAST VALID step (reference:
+    rnn.LastTimeStepVertex); step T - 1 with no mask. A row whose mask
+    is all zero takes index -1, which the reference's gather reads as
+    the last step, so the port wraps it to T - 1. The output is
+    feed-forward: no mask goes on."""
+
+    maskAware = True
+
+    def apply(self, inputs):
+        return inputs[0][:, :, -1]
+
+    def applyMasked(self, inputs, masks):
+        x, m = inputs[0], masks[0]
+        if m is None:
+            return x[:, :, -1], None
+        last = (m.sum(dim=1).long() - 1) % x.shape[2]          # [B]
+        idx = last[:, None, None].expand(x.shape[0], x.shape[1], 1)
+        return torch.gather(x, 2, idx)[:, :, 0], None
+
+    def getOutputType(self, *its):
+        return InputType.feedForward(its[0].size)
+
+
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """[B, F] -> [B, F, T], the vector repeated at every step (reference:
+    rnn.DuplicateToTimeSeriesVertex). T and the output's mask come from
+    the SECOND input, a [B, *, T] sequence."""
+
+    maskAware = True
+
+    @staticmethod
+    def _require_two(inputs):
+        if len(inputs) < 2:
+            raise ValueError(
+                "DuplicateToTimeSeriesVertex needs two inputs: the [B,F] "
+                "vector and a [B,*,T] sequence whose length to mirror")
+
+    def apply(self, inputs):
+        self._require_two(inputs)
+        v, seq = inputs[0], inputs[1]
+        return v[:, :, None].expand(-1, -1, seq.shape[-1])
+
+    def applyMasked(self, inputs, masks):
+        return self.apply(inputs), masks[1] if len(masks) > 1 else None
+
+    def getOutputType(self, *its):
+        self._require_two(its)  # at build time, with the other errors
+        return InputType.recurrent(its[0].size,
+                                   its[1].dims.get("timeSeriesLength"))
+
+
+_TIME_VERTICES = (ReverseTimeSeriesVertex, LastTimeStepVertex,
+                  DuplicateToTimeSeriesVertex)
+
+
 class _Node:
     """Resolved DAG node: input | layer | vertex."""
 
@@ -455,6 +540,14 @@ class GraphBuilder:
                 if dep not in self._nodes:
                     raise ValueError(
                         f"Vertex '{name}' references unknown input '{dep}'")
+        if str(self._backpropType).lower().startswith("t"):
+            bad = [n for n, node in self._nodes.items()
+                   if isinstance(node.payload, _TIME_VERTICES)]
+            if bad:
+                raise ValueError(
+                    f"vertices {bad} need the full sequence and are "
+                    "incompatible with truncated BPTT (each tbptt window "
+                    "would be processed independently)")
         return ComputationGraphConfiguration(
             self._nodes, self._inputs, self._outputs, self._defaults,
             self._inputTypes, self._backpropType, self._tbpttFwd,

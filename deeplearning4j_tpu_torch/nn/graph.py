@@ -31,7 +31,12 @@ layer's index in ``_layer_names``; training under the conf's remat policy
 runs the forward in ``multilayer.remat_segment``s; a ``LossLayer``
 or ``CnnLossLayer`` is an output as an ``OutputLayer`` is. Solvers and
 the AOT cache wait for their slices and raise ``NotImplementedError``
-naming them.
+naming them. A layer's weight noise perturbs its weights in the training
+forward; frozen layers take no gradient, regularization or update; each
+update is followed by the layer's constraints, with its biases stepped by
+its biasUpdater when it has one (``multilayer.update_layer``).
+``pretrain``/``pretrainLayer`` train pretrainable layers (the
+variational autoencoder, the AutoEncoder) on their own losses.
 """
 
 from __future__ import annotations
@@ -40,17 +45,16 @@ import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.ndarray.ndarray import INDArray
-from deeplearning4j_tpu_torch.nn import updaters as _upd
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.dropout import step_key
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import (
     NetworkRuntime, _grad_normalize, _later, _timed_step, _unwrap,
-    carry_layer, cast_params, check_carried, cnn_entry,
-    default_param_update, fit_batches, is_product, layer_seed, layer_trains,
-    loss_for_head, map_tree, mask_slice, out_activation, product_segments,
-    remat_segment, run_tbptt, strip_carries, time_slice, to_api_layout,
-    uncarry_layer,
+    carry_layer, check_carried, cnn_entry, fit_batches, forward_params,
+    is_product, layer_seed, layer_trains, layer_updater, loss_for_head,
+    map_tree, mask_slice, out_activation, pretrain_feeds, product_segments,
+    regularization, remat_segment, run_pretrain, run_tbptt, strip_carries,
+    time_slice, to_api_layout, train_params, uncarry_layer, update_layer,
 )
 from deeplearning4j_tpu_torch.ops import norm as _norm
 
@@ -123,9 +127,7 @@ class ComputationGraph(NetworkRuntime):
             self._states = map_tree(lambda t: t.to(self.device), states)
         self._updaters, self._upd_states = {}, {}
         for name in self._layer_names:
-            payload = self.conf.nodes[name].payload
-            u = _upd.resolve(payload.updater) \
-                if payload.updater is not None else _upd.Sgd()
+            u = layer_updater(self.conf.nodes[name].payload)
             self._updaters[name] = u
             with torch.no_grad():
                 self._upd_states[name] = (u.init(self._params[name])
@@ -173,8 +175,10 @@ class ComputationGraph(NetworkRuntime):
 
     def _run_graph(self, params, states, inputs, train, key, fmasks):
         """inputs: {name: tensor}. Returns (activations, preacts of the
-        output layers, new states). A node's mask is its first input's
-        mask (reference: ComputationGraph.feedForwardMaskArrays). `key`
+        output layers, new states). Masks flow along the edges: a node's
+        mask is its first input's, except that a ``maskAware`` vertex
+        (the time-series vertices) sees its inputs' masks and gives its
+        own (reference: ComputationGraph.feedForwardMaskArrays). `key`
         is the training step's ``StepKey`` (None: no dropout). Training
         under the remat policy runs the nodes in ``remat_segment``s cut
         after each product layer, and keeps only the activations a later
@@ -236,8 +240,13 @@ class ComputationGraph(NetworkRuntime):
             pp = getattr(node.payload, "pp", None)
             if pp is not None and hasattr(pp, "batch"):
                 pp.batch = B  # FeedForwardToRnn needs B to un-flatten
-            acts[name] = node.payload.apply([acts[i] for i in node.inputs])
-            masks[name] = masks.get(node.inputs[0])
+            ins = [acts[i] for i in node.inputs]
+            if getattr(node.payload, "maskAware", False):
+                acts[name], masks[name] = node.payload.applyMasked(
+                    ins, [masks.get(i) for i in node.inputs])
+            else:
+                acts[name] = node.payload.apply(ins)
+                masks[name] = masks.get(node.inputs[0])
             return
         layer = node.payload
         out_mask = masks.get(node.inputs[0])
@@ -257,7 +266,8 @@ class ComputationGraph(NetworkRuntime):
         l_train = layer_trains(layer, train)
         lk = None if key is None or not l_train else \
             key.fold(self._layer_idx[name])
-        p = cast_params(params[name], self._compute_dtype, self._param_dtype)
+        p = forward_params(layer, params[name], lk, self._compute_dtype,
+                           self._param_dtype)
         if name in self.conf.networkOutputs and isinstance(
                 layer, (L.BaseOutputLayer, L.LossLayer)):
             h = layer._dropout_input(h, l_train, lk)
@@ -271,29 +281,28 @@ class ComputationGraph(NetworkRuntime):
         masks[name] = out_mask
         new_states[name] = s
 
-    def _loss(self, preacts, labels, lmasks):
+    def _loss(self, preacts, labels, lmasks, params):
         total = 0.0
         for i, name in enumerate(self.conf.networkOutputs):
             lmask = None if lmasks is None else lmasks[i]
             total = total + loss_for_head(self.conf.nodes[name].payload,
                                           preacts[name], labels[i], lmask,
-                                          self._api_nhwc)
+                                          self._api_nhwc, params.get(name))
         return total
 
     def _regularization(self, params):
-        reg = 0.0
-        for name in self._layer_names:
-            if params[name]:
-                reg = reg + self.conf.nodes[name].payload.regularization(
-                    params[name])
-        return reg
+        return regularization([self._unit_layer(n) for n in
+                               self._layer_names],
+                              [params[n] for n in self._layer_names])
 
     def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks,
                  use_carries=False, key=None):
+        params = {n: train_params(self._unit_layer(n), p)
+                  for n, p in params.items()}
         _, preacts, new_states = self._run_graph(
             params, states if use_carries else strip_carries(states),
             inputs, True, key, fmasks)
-        loss = self._loss(preacts, labels, lmasks) \
+        loss = self._loss(preacts, labels, lmasks, params) \
             + self._regularization(params)
         return loss, new_states
 
@@ -329,11 +338,9 @@ class ComputationGraph(NetworkRuntime):
                                 self.conf.gradientNormalizationThreshold)
         with torch.no_grad():
             for name, g in zip(self._layer_names, glist):
-                if not self._params[name]:
-                    continue
-                _, self._upd_states[name] = default_param_update(
-                    self._updaters[name], g, self._upd_states[name], it,
-                    self._params[name])
+                self._upd_states[name] = update_layer(
+                    self._unit_layer(name), self._updaters[name], g,
+                    self._upd_states[name], it, self._params[name])
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
@@ -519,6 +526,43 @@ class ComputationGraph(NetworkRuntime):
         lines.append(f"Total params: {total}")
         return "\n".join(lines)
 
+    # ----- layerwise unsupervised pretraining ------------------------
+    def pretrain(self, iterator, epochs=1):
+        """Layerwise pretraining of every pretrainable layer in
+        topological order (reference: ComputationGraph.pretrain)."""
+        for name in self._layer_names:
+            if getattr(self._unit_layer(name), "pretrainable", False):
+                self.pretrainLayer(name, iterator, epochs)
+        return self
+
+    def pretrainLayer(self, layerName, data, epochs=1):
+        """Unsupervised pretraining of one named layer against its own
+        ``pretrain_loss`` (``multilayer.run_pretrain``), fed by the
+        graph's inference forward up to its input and its preprocessor
+        (reference: ComputationGraph.pretrainLayer)."""
+        self._require_init()
+        node = self.conf.nodes[layerName]
+        layer = node.payload
+        if not getattr(layer, "pretrainable", False):
+            raise ValueError(f"Layer '{layerName}' "
+                             f"({type(layer).__name__}) is not pretrainable")
+
+        def feed(features):
+            inputs = self._coerce_inputs(features)
+            acts, _, _ = self._run_graph(
+                self._params, strip_carries(self._states), inputs, False,
+                None, None)
+            h = acts[node.inputs[0]]
+            if node.preprocessor is not None:
+                if hasattr(node.preprocessor, "batch"):
+                    node.preprocessor.batch = acts[
+                        self.conf.networkInputs[0]].shape[0]
+                h = node.preprocessor.preProcess(h)
+            return h
+
+        return run_pretrain(self, layer, layerName, feed,
+                            pretrain_feeds(data, epochs))
+
     def precompile(self, *args, **kwargs):
         raise _later("precompile (the AOT cache)", "runtime slice, item 13")
 
@@ -576,7 +620,7 @@ class ComputationGraph(NetworkRuntime):
             _, preacts, _ = self._run_graph(
                 self._params, strip_carries(self._states), inputs, False,
                 None, fmasks)
-            loss = self._loss(preacts, labels, lmasks) \
+            loss = self._loss(preacts, labels, lmasks, self._params) \
                 + self._regularization(self._params)
         return float(loss)
 

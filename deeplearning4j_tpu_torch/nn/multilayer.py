@@ -18,7 +18,15 @@ network is NHWC-format) and the remat policy (``remat_segment``).
 Dropout draws from the step's key, ``dropout.step_key(seed, iteration)``
 (folded with the rank under data parallelism, with the layer's index in
 each layer), so a fitDataSet block, fitSteps, a resumed run and ``fit``
-draw the same masks; frozen layers run without it.
+draw the same masks; frozen layers run without it. Weight noise draws
+from the layer's key the same way (``forward_params``). Each step's
+update goes through ``update_layer`` for both networks: nothing for a
+frozen layer (its params take no gradient and no regularization either),
+else the layer's updater (``layer_updater``: with a biasUpdater the
+biases step by their own) and then its constraints. Layerwise
+pretraining (``run_pretrain``) trains a pretrainable layer on its own
+loss, fed by the inference forward below it, at the key
+``pretrain_key(seed, iteration)``.
 
 fitDataSet(stepsPerSync=k) issues a block of k steps back to back with
 nothing read back: each loss stays a device tensor, the k are stacked
@@ -71,7 +79,8 @@ from deeplearning4j_tpu_torch.nn.conf import recurrent as R
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     BackpropType, GradientNormalization,
 )
-from deeplearning4j_tpu_torch.nn.conf.dropout import step_key
+from deeplearning4j_tpu_torch.nn.conf.constraint import apply_constraints
+from deeplearning4j_tpu_torch.nn.conf.dropout import StepKey, step_key
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.ops import norm as _norm
 
@@ -250,7 +259,11 @@ def _grad_normalize(grads_per_layer, mode, threshold):
 
 def _out_act(layer, pre):
     """The output activation over the CLASS axis: NCW [B,O,T] output
-    needs softmax over O, not the trailing time axis."""
+    needs softmax over O, not the trailing time axis. A head with its own
+    loss (``outputFromPreact``) drops what its preoutput carries for the
+    loss."""
+    if hasattr(layer, "outputFromPreact"):
+        return layer.outputFromPreact(pre)
     act = _act.get(layer.activation)
     if pre.dim() == 3:
         return act(pre.transpose(1, 2)).transpose(1, 2)
@@ -266,17 +279,24 @@ def out_activation(layer, pre, nhwc=False):
     """The output layer's activations in the API's layout: ``_out_act``,
     and a 4-d (CnnLossLayer) map activated over its channels, returned
     NCHW, or NHWC for an NHWC-format network."""
-    if pre.dim() != 4:
+    if pre.dim() != 4 or hasattr(layer, "outputFromPreact"):
         return _out_act(layer, pre)
     out = _act.get(layer.activation)(_nhwc(pre))
     return out if nhwc else out.permute(0, 3, 1, 2)
 
 
-def loss_for_head(layer, pre, y, lmask, nhwc):
+def loss_for_head(layer, pre, y, lmask, nhwc, params=None):
     """A loss head's mean loss from its preoutput: NCW [B,O,T] as
     [B,T,O]; a 4-d map with the class axis last ([B,H,W,C]), its label
     NCHW from the API unless the network is NHWC-format (reference:
-    ``_loss_from_preact`` / ``ComputationGraph._loss``)."""
+    ``_loss_from_preact`` / ``ComputationGraph._loss``). A head with its
+    own loss (``computeLoss``: CenterLossOutputLayer, OCNNOutputLayer)
+    computes it at f32 or wider from its preoutput and its `params` (in
+    the compute dtype), as the reference does."""
+    if hasattr(layer, "computeLoss"):
+        wdt = torch.promote_types(pre.dtype, torch.float32)
+        p = {k: v.to(pre.dtype) for k, v in (params or {}).items()}
+        return layer.computeLoss(pre.to(wdt), y.to(wdt), lmask, p)
     ldt = _losses.tail_dtype(pre.dtype)
     pre, y = pre.to(ldt), y.to(ldt)
     if pre.dim() == 3:
@@ -294,6 +314,112 @@ def layer_trains(layer, train):
     inference mode, no dropout (reference: ``_run_layers``)."""
     return train and (not getattr(layer, "frozen", False)
                       or getattr(layer, "frozenKeepTraining", False))
+
+
+def train_params(layer, p):
+    """A frozen layer's params cut from autograd (their gradient is
+    structurally zero, as the reference's stop_gradient); others as they
+    are."""
+    if getattr(layer, "frozen", False):
+        return {k: t.detach() for k, t in p.items()}
+    return p
+
+
+def forward_params(layer, p, lk, compute_dtype, param_dtype):
+    """A layer's params for its forward: cast to the compute dtype, and
+    perturbed by its weight noise when it trains with a key (`lk`, its
+    dropout key; the noise draws from ``lk.fold(0x5EED)``, as the
+    reference folds its key)."""
+    p = cast_params(p, compute_dtype, param_dtype)
+    wn = getattr(layer, "weightNoise", None)
+    if wn is not None and lk is not None:
+        p = wn.apply(p, lk.fold(0x5EED))
+    return p
+
+
+def layer_updater(layer):
+    """A layer's updater (Sgd when none is set); with a biasUpdater the
+    biases take their own (``updaters.BiasSplit``)."""
+    u = _upd.resolve(layer.updater) if layer.updater is not None \
+        else _upd.Sgd()
+    bu = getattr(layer, "biasUpdater", None)
+    return u if bu is None else _upd.BiasSplit(u, _upd.resolve(bu))
+
+
+def update_layer(layer, updater, grads, upd_state, it, params):
+    """One layer's step in place under ``torch.no_grad()``: none for a
+    frozen layer, else the updater's, then the layer's constraints
+    (reference: ``_train_step``). Returns the updater state."""
+    if not params or getattr(layer, "frozen", False):
+        return upd_state
+    _, upd_state = default_param_update(updater, grads, upd_state, it,
+                                        params)
+    apply_constraints(layer, params)
+    return upd_state
+
+
+def regularization(layers, params):
+    """The summed penalty of the layers that train (frozen ones take
+    none, as in the reference)."""
+    reg = 0.0
+    for layer, p in zip(layers, params):
+        if p and not getattr(layer, "frozen", False):
+            reg = reg + layer.regularization(p)
+    return reg
+
+
+def pretrain_key(seed, iteration):
+    """A pretraining step's key (reference: ``fold_in(key(seed ^
+    0xE1B0), iteration)``)."""
+    return StepKey(int(seed) ^ 0xE1B0, iteration)
+
+
+def pretrain_feeds(data, epochs):
+    """The feature batches of a pretraining call: a DataSet's, a
+    DataSetIterator's (reset each epoch) or a features array, `epochs`
+    times."""
+    for _ in range(epochs):
+        if hasattr(data, "hasNext"):
+            data.reset()
+            while data.hasNext():
+                yield data.next().getFeatures()
+        elif hasattr(data, "getFeatures"):
+            yield data.getFeatures()
+        else:
+            yield data
+
+
+def run_pretrain(net, layer, key, feed, feeds):
+    """Layerwise unsupervised pretraining of one layer (reference:
+    ``pretrainLayer``): for each batch its input is ``feed(features)``,
+    the frozen inference forward of what lies below; its params step by
+    the layer's own updater and state against its ``pretrain_loss`` at
+    the net's iteration, which moves one a batch. The losses stay on the
+    device (``net._pretrain_losses``) and the last becomes the score,
+    the call's one host read."""
+    params, updater = net._params[key], net._updaters[key]
+    names = list(params)
+    losses = []
+    for x in feeds:
+        with torch.no_grad():
+            h = feed(x)
+        p = cast_params(params, net._compute_dtype, net._param_dtype)
+        loss = layer.pretrain_loss(
+            p, h, pretrain_key(net.conf.seed, net._iteration))
+        gs = torch.autograd.grad(loss, [params[k] for k in names],
+                                 allow_unused=True)
+        grads = {k: torch.zeros_like(params[k]) if g is None else g
+                 for k, g in zip(names, gs)}
+        with torch.no_grad():
+            _, net._upd_states[key] = default_param_update(
+                updater, grads, net._upd_states[key], net._iteration,
+                params)
+        losses.append(loss.detach())
+        net._iteration += 1
+    net._pretrain_losses = losses
+    if losses:
+        net._score = float(losses[-1])
+    return net
 
 
 def is_product(layer):
@@ -449,11 +575,13 @@ def _array(t):
 
 def flatten_tree(tree, prefix=""):
     """A nested {name: {...}} tree as one flat {"outer.inner": leaf}
-    dict (a wrapper's ``{"fwd": {"W": ...}}`` -> ``{"fwd.W": ...}``);
-    empty subtrees vanish."""
+    dict (a wrapper's ``{"fwd": {"W": ...}}`` -> ``{"fwd.W": ...}``, the
+    VAE's list ``{"enc": [{"W": ...}]}`` -> ``{"enc.0.W": ...}``); empty
+    subtrees vanish."""
     flat = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             flat.update(flatten_tree(v, f"{prefix}{k}."))
         else:
             flat[f"{prefix}{k}"] = v
@@ -461,7 +589,8 @@ def flatten_tree(tree, prefix=""):
 
 
 def nest_tree(flat):
-    """The inverse of ``flatten_tree``."""
+    """The inverse of ``flatten_tree``: a level whose names are all
+    digits is a list again."""
     tree = {}
     for k, v in flat.items():
         *outer, leaf = k.split(".")
@@ -469,7 +598,15 @@ def nest_tree(flat):
         for o in outer:
             node = node.setdefault(o, {})
         node[leaf] = v
-    return tree
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
 
 
 def carry_layer(layer, tree):
@@ -808,8 +945,12 @@ class NetworkRuntime:
 
     # ----- the reference's layouts ------------------------------------
     def reference_state(self, saveUpdater=True):
-        """{"params", "states"[, "upd_states"]} in the reference's
-        layouts and containers, as numpy: what its files hold."""
+        """{"params", "states"[, "upd_states", "bias_upd_states"]} in the
+        reference's layouts and containers, as numpy: what its files
+        hold. A layer with a biasUpdater writes its main updater's state
+        (the reference's structure) under "upd_states" and its biases'
+        under "bias_upd_states" (None for the other layers), which the
+        reference does not read."""
         keys = self._unit_keys()
         lay = self._unit_layer
         states = strip_carries(self._states)
@@ -818,22 +959,45 @@ class NetworkRuntime:
                "states": self._pack([uncarry_layer(lay(k), states[k])
                                      for k in keys])}
         if saveUpdater:
-            out["upd_states"] = self._pack([
-                upd_to_reference(lay(k), self._upd_states[k],
-                                 set(self._params[k])) for k in keys])
+            main, bias = [], []
+            for k in keys:
+                us, names = self._upd_states[k], set(self._params[k])
+                split = bool(names) and isinstance(self._updaters[k],
+                                                   _upd.BiasSplit)
+                main.append(upd_to_reference(
+                    lay(k), us["main"] if split else us, names))
+                bias.append(upd_to_reference(
+                    lay(k), us["bias"], {n for n in names
+                                         if _upd.is_bias(n)})
+                    if split else None)
+            out["upd_states"] = self._pack(main)
+            if any(b is not None for b in bias):
+                out["bias_upd_states"] = self._pack(bias)
         return out
 
-    def from_reference_state(self, params, states, upd_states=None):
+    def from_reference_state(self, params, states, upd_states=None,
+                             bias_upd_states=None):
         """The inverse of ``reference_state``: CPU tensors in the port's
-        layouts, as ``initFrom`` takes them."""
+        layouts, as ``initFrom`` takes them. A layer with a biasUpdater
+        whose biases' state the file lacks (a reference file) starts it
+        fresh."""
         keys = self._unit_keys()
         lay = self._unit_layer
         ps = [carry_layer(lay(k), params[k]) for k in keys]
         ss = [carry_layer(lay(k), states[k]) for k in keys]
-        us = None if upd_states is None else self._pack([
-            upd_from_reference(lay(k), upd_states[k], set(p))
-            for k, p in zip(keys, ps)])
-        return self._pack(ps), self._pack(ss), us
+        if upd_states is None:
+            return self._pack(ps), self._pack(ss), None
+        us = []
+        for k, p in zip(keys, ps):
+            u = upd_from_reference(lay(k), upd_states[k], set(p))
+            upd = layer_updater(lay(k))
+            if p and isinstance(upd, _upd.BiasSplit):
+                biases = {n: t for n, t in p.items() if _upd.is_bias(n)}
+                b = None if bias_upd_states is None else bias_upd_states[k]
+                u = {"main": u, "bias": upd.bias.init(biases) if b is None
+                     else upd_from_reference(lay(k), b, set(biases))}
+            us.append(u)
+        return self._pack(ps), self._pack(ss), self._pack(us)
 
     def initFrom(self, params, states, upd_states=None):
         """Parameters, layer states and (when given) updater state from
@@ -1104,8 +1268,7 @@ class MultiLayerNetwork(NetworkRuntime):
         if states is not None:
             self._states = map_tree(lambda t: t.to(self.device), states)
         self._rnn_state = None
-        self._updaters = [_upd.resolve(l.updater) if l.updater is not None
-                          else _upd.Sgd() for l in self.layers]
+        self._updaters = [layer_updater(l) for l in self.layers]
         with torch.no_grad():
             self._upd_states = [u.init(p) if p else ()
                                 for u, p in zip(self._updaters,
@@ -1163,8 +1326,8 @@ class MultiLayerNetwork(NetworkRuntime):
                     h = pp.preProcess(h, fmask)
                 l_train = layer_trains(layer, train)
                 lk = None if key is None or not l_train else key.fold(i)
-                p = cast_params(params[i], self._compute_dtype,
-                                self._param_dtype)
+                p = forward_params(layer, params[i], lk, self._compute_dtype,
+                                   self._param_dtype)
                 if i == last and isinstance(layer, (L.BaseOutputLayer,
                                                     L.LossLayer)):
                     # dropout applies to the output layer's input too
@@ -1183,27 +1346,26 @@ class MultiLayerNetwork(NetworkRuntime):
             new_states.extend(s)
         return h, new_states
 
-    def _loss_from_preact(self, preact, y, lmask):
+    def _loss_from_preact(self, preact, y, lmask, params):
         last = self.layers[-1]
         if not isinstance(last, (L.BaseOutputLayer, L.LossLayer)):
             raise ValueError("The last layer must be an OutputLayer or a "
                              "LossLayer to compute a loss")
-        return loss_for_head(last, preact, y, lmask, self._api_nhwc)
+        return loss_for_head(last, preact, y, lmask, self._api_nhwc,
+                             params[-1])
 
     def _regularization(self, params):
-        reg = 0.0
-        for layer, p in zip(self.layers, params):
-            if p:
-                reg = reg + layer.regularization(p)
-        return reg
+        return regularization(self.layers, params)
 
     def _loss_fn(self, params, states, x, y, fmask, lmask, train=True,
                  use_carries=False, key=None):
+        params = [train_params(l, p) for l, p in zip(self.layers, params)]
         run_states = states if use_carries else strip_carries(states)
         preact, new_states = self._run_layers(params, run_states, x, train,
                                               fmask, key)
         loss = self._loss_from_preact(preact, _unwrap(y, self.device),
-                                      lmask) + self._regularization(params)
+                                      lmask, params) \
+            + self._regularization(params)
         return loss, new_states
 
     def _train_step(self, x, y, fmask, lmask, window=None,
@@ -1250,10 +1412,9 @@ class MultiLayerNetwork(NetworkRuntime):
                                 self.conf.gradientNormalizationThreshold)
         with torch.no_grad():
             for i, g in enumerate(glist):
-                if self._params[i]:
-                    _, self._upd_states[i] = default_param_update(
-                        self._updaters[i], g, self._upd_states[i], it,
-                        self._params[i])
+                self._upd_states[i] = update_layer(
+                    self.layers[i], self._updaters[i], g,
+                    self._upd_states[i], it, self._params[i])
         for p in self._params:
             for t in p.values():
                 t.grad = None
@@ -1374,11 +1535,70 @@ class MultiLayerNetwork(NetworkRuntime):
     def getnLayers(self) -> int:
         return len(self.layers)
 
+    # ----- layerwise unsupervised pretraining ------------------------
+    def _frozen_feed(self, layerIdx, x):
+        """The input layer `layerIdx` receives: the inference forward of
+        the layers below it, every preprocessor up to and including its
+        own applied (reference: ``_frozen_feed``)."""
+        h = self._entry(x)
+        B = h.shape[0]
+        states = strip_carries(self._states)
+        for j in range(layerIdx + 1):
+            pp = self.conf.preprocessors.get(j)
+            if pp is not None:
+                if hasattr(pp, "batch"):
+                    pp.batch = B
+                h = pp.preProcess(h, None)
+            if j < layerIdx:
+                p = cast_params(self._params[j], self._compute_dtype,
+                                self._param_dtype)
+                h, _ = self.layers[j].forward(p, states[j], h, False, None,
+                                              None)
+        return h
+
     def pretrain(self, iterator, epochs=1):
-        raise _later("layerwise pretraining", "nn-conf slice, item 4")
+        """Layerwise pretraining of every pretrainable layer, bottom up
+        (reference: ``pretrain(DataSetIterator)``, how a
+        VariationalAutoencoder or AutoEncoder trains)."""
+        for i, layer in enumerate(self.layers):
+            if getattr(layer, "pretrainable", False):
+                self.pretrainLayer(i, iterator, epochs)
+        return self
 
     def pretrainLayer(self, layerIdx, data, epochs=1):
-        raise _later("layerwise pretraining", "nn-conf slice, item 4")
+        """Unsupervised pretraining of one layer against its own
+        ``pretrain_loss`` (``run_pretrain``), fed by the frozen forward of
+        the layers below; `data` is a DataSet, a DataSetIterator or a
+        features array (reference: ``pretrainLayer``). The port trains by
+        stochastic gradient descent only, so the reference's refusal
+        under a line-search solver never arises."""
+        self._require_init()
+        layer = self.layers[layerIdx]
+        if not getattr(layer, "pretrainable", False):
+            raise ValueError(f"Layer {layerIdx} "
+                             f"({type(layer).__name__}) is not pretrainable")
+        return run_pretrain(
+            self, layer, layerIdx,
+            lambda x: self._frozen_feed(layerIdx, x),
+            pretrain_feeds(data, epochs))
+
+    def reconstructionLogProbability(self, data, numSamples=5, layerIdx=0):
+        """Each example's log p(x) estimate from a VariationalAutoencoder
+        layer, fed by the frozen forward below it (reference:
+        ``reconstructionLogProbability``, its key 0). Higher is more
+        in-distribution."""
+        self._require_init()
+        layer = self.layers[layerIdx]
+        if not hasattr(layer, "reconstructionLogProbability"):
+            raise ValueError(
+                f"Layer {layerIdx} ({type(layer).__name__}) is not a "
+                "VariationalAutoencoder")
+        with torch.no_grad():
+            p = cast_params(self._params[layerIdx], self._compute_dtype,
+                            self._param_dtype)
+            return INDArray(layer.reconstructionLogProbability(
+                p, self._frozen_feed(layerIdx, data), int(numSamples),
+                StepKey(0)))
 
     def output(self, x, train=False):
         """The output layer's activations as an ``INDArray`` (inference

@@ -35,7 +35,7 @@ from deeplearning4j_tpu_torch.nn import schedules as _sched
 
 __all__ = ["IUpdater", "NoOp", "Sgd", "Nesterovs", "Adam", "AdamW",
            "AdaMax", "Nadam", "AMSGrad", "AdaGrad", "AdaDelta", "RmsProp",
-           "resolve"]
+           "BiasSplit", "is_bias", "resolve"]
 
 
 class IUpdater:
@@ -269,6 +269,44 @@ class RmsProp(IUpdater):
             h.mul_(d).add_((1 - d) * g * g)
             updates[k] = lr * g / torch.sqrt(h + self.epsilon)
         return updates, state
+
+
+#: the leaf names of bias vectors (an AutoEncoder's visible bias too)
+_BIAS_LEAVES = ("b", "beta", "vb")
+
+
+def is_bias(name) -> bool:
+    """Whether a (dotted) parameter name is a bias."""
+    return name.rsplit(".", 1)[-1] in _BIAS_LEAVES
+
+
+class BiasSplit(IUpdater):
+    """A layer's updater when it sets a ``biasUpdater`` (reference:
+    Builder.biasUpdater): the biases step by ``bias`` with their own
+    state. ``main`` runs over EVERY parameter, biases included, so its
+    state keeps the reference's structure and a model file crosses to
+    the reference (which steps the biases with ``main``); its bias
+    updates are replaced by ``bias``'s. The state is ``{"main": ...,
+    "bias": ...}``."""
+
+    def __init__(self, main, bias):
+        self.main, self.bias = main, bias
+
+    def init(self, params):
+        return {"main": self.main.init(params),
+                "bias": self.bias.init(_biases(params))}
+
+    def apply(self, grads, state, iteration, epoch=0, params=None):
+        upd, sm = self.main.apply(grads, state["main"], iteration, epoch,
+                                  params=params)
+        bupd, sb = self.bias.apply(
+            _biases(grads), state["bias"], iteration, epoch,
+            params=None if params is None else _biases(params))
+        return {**upd, **bupd}, {"main": sm, "bias": sb}
+
+
+def _biases(d):
+    return {k: v for k, v in d.items() if is_bias(k)}
 
 
 def resolve(u) -> IUpdater:

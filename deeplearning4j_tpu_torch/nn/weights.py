@@ -14,7 +14,8 @@ import math
 
 import torch
 
-__all__ = ["WeightInit", "init", "NormalDistribution", "UniformDistribution"]
+__all__ = ["WeightInit", "init", "NormalDistribution", "UniformDistribution",
+           "WeightInitEmbedding"]
 
 
 class WeightInit:
@@ -53,6 +54,35 @@ class UniformDistribution:
             shape, generator=gen)
 
 
+class WeightInitEmbedding:
+    """An embedding table from a raw [nIn, nOut] array (reference:
+    nn.weights.WeightInitEmbedding over an ArrayEmbeddingInitializer).
+    A word-vector model as the source (Word2Vec, StaticWordVectors,
+    FastText) waits for the NLP package (ROADMAP.md Queue 1 item 12)."""
+
+    def __init__(self, source):
+        self.source = source
+
+    def table(self, shape, dtype, device):
+        import numpy as np
+
+        src = self.source
+        if hasattr(src, "vocab") and hasattr(src, "getWordVector"):
+            raise NotImplementedError(
+                "WeightInitEmbedding from a word-vector model waits for the "
+                "NLP package (ROADMAP.md Queue 1 item 12); pass the "
+                "[nIn, nOut] array of its vectors")
+        t = src.detach().cpu() if isinstance(src, torch.Tensor) \
+            else torch.from_numpy(np.array(src, copy=True))
+        if t.dim() != 2 or tuple(t.shape) != tuple(shape):
+            rows, cols = (t.shape if t.dim() == 2 else ("?", "?"))
+            raise ValueError(
+                f"pretrained embedding shape {tuple(t.shape)} does not "
+                f"match the layer's (nIn, nOut) {tuple(shape)}: set "
+                f"nIn={rows}, nOut={cols} on the embedding layer")
+        return t.to(device=device, dtype=dtype)
+
+
 def _normal(gen, shape, std):
     return std * torch.randn(shape, generator=gen)
 
@@ -64,7 +94,11 @@ def _uniform(gen, shape, a):
 def init(gen, scheme, shape, fan_in, fan_out, dtype=torch.float32,
          device="cpu", distribution=None):
     """A weight tensor of `shape` under `scheme`, drawn from the CPU
-    generator `gen`. fan_in/fan_out are the layer's logical fans."""
+    generator `gen`. fan_in/fan_out are the layer's logical fans. A
+    ``WeightInitEmbedding`` scheme gives its table (only an embedding
+    layer's [nIn, nOut] matches it)."""
+    if isinstance(scheme, WeightInitEmbedding):
+        return scheme.table(shape, dtype, device)
     s = (scheme if isinstance(scheme, str)
          else getattr(scheme, "value", str(scheme))).lower()
     shape = tuple(shape)

@@ -1,11 +1,12 @@
-"""2D convolution.
+"""1-d and 2-d convolution.
 
 The counterpart of ``deeplearning4j_tpu/ops/conv.py`` for the CNN
 training path: ``_pair``, ``explicit_padding`` (the Same/Truncate
-arithmetic), ``conv2d``, the transposed convolution ``deconv2d`` with
-its padding and ``deconv_output_size``, and ``conv_output_size``; and
-the block rearrangements ``space_to_depth`` / ``depth_to_space`` over
-NHWC arrays (the reference's ``autodiff/ops_impl.py`` ops, which the
+arithmetic), ``conv2d``, ``conv1d`` (NCW over ``[out, in, k]``), the
+transposed convolution ``deconv2d`` with its padding and
+``deconv_output_size``, and ``conv_output_size``; and the block
+rearrangements ``space_to_depth`` / ``depth_to_space`` /
+``space_to_batch`` over NHWC arrays (the reference's ``autodiff/ops_impl.py`` ops, which the
 ``SpaceToDepth`` layer and SameDiff share). The reference keeps
 activations NHWC and weights HWIO and lowers to ``lax.conv``; the port
 computes with ``F.conv2d`` (cuDNN on the card) on NCHW-logical tensors
@@ -21,8 +22,9 @@ import numpy as np
 import torch.nn.functional as F
 
 __all__ = ["explicit_padding", "resolve_pads", "same_pads", "conv2d",
-           "conv_output_size", "deconv_explicit_padding", "deconv2d",
-           "deconv_output_size", "space_to_depth", "depth_to_space"]
+           "conv1d", "conv_output_size", "deconv_explicit_padding",
+           "deconv2d", "deconv_output_size", "space_to_depth",
+           "depth_to_space", "space_to_batch"]
 
 
 def _pair(v):
@@ -77,6 +79,19 @@ def conv2d(x, w, b=None, stride=(1, 1), padding=((0, 0), (0, 0)),
         pad = (0, 0)
     y = F.conv2d(x, w, None, _pair(stride), pad, _pair(dilation), groups)
     return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+
+def conv1d(x, w, b=None, stride=1, padding=((0, 0),), dilation=1):
+    """x: [B,Cin,T], w: [Cout,Cin,k] -> [B,Cout,T'] (reference:
+    ``conv1d``, NWC over a WIO kernel). ``padding`` is "SAME" or
+    ((lo, hi),); the bias is added after the convolution."""
+    lo, hi = (same_pads(x.shape[2], w.shape[2], int(stride), int(dilation))
+              if padding == "SAME" else tuple(padding[0]))
+    if lo != hi:
+        x = F.pad(x, (lo, hi))
+        lo = 0
+    y = F.conv1d(x, w, None, int(stride), lo, int(dilation))
+    return y if b is None else y + b.reshape(1, -1, 1)
 
 
 def conv_output_size(size, kernel, stride, pad, dilation, mode):
@@ -149,6 +164,18 @@ def space_to_depth(x, blockSize=2):
     b = int(blockSize)
     x = x.reshape(B, H // b, b, W // b, b, C).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(B, H // b, W // b, C * b * b)
+
+
+def space_to_batch(x, blockSize=2, padding=((0, 0), (0, 0))):
+    """[B,H,W,C] -> [B·b·b,(H+pads)/b,(W+pads)/b,C] after zero padding,
+    batch index ``(s·b + t)·B + n`` for the pixel (s, t) of each block
+    (reference: ``spaceToBatch``)."""
+    (pt, pb), (pl, pr) = padding
+    x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    B, H, W, C = x.shape
+    b = int(blockSize)
+    x = x.reshape(B, H // b, b, W // b, b, C).permute(2, 4, 0, 1, 3, 5)
+    return x.reshape(B * b * b, H // b, W // b, C)
 
 
 def depth_to_space(x, blockSize=2):

@@ -55,9 +55,6 @@ def _sgd_only(v):
 
 #: attributes the reference's config classes carry and the port's lack:
 #: (default written by encode, test decode applies to a read value)
-_LAYER_EXTRA = {"biasUpdater": (None, lambda v: v is None),
-                "constraints": (None, lambda v: not v),
-                "weightNoise": (None, lambda v: v is None)}
 _NET_EXTRA = {"activationCheckpointing": (False, lambda v: not v),
               "optimizationAlgo": ("STOCHASTIC_GRADIENT_DESCENT", _sgd_only),
               "maxNumLineSearchIterations": (20, lambda v: True)}
@@ -65,19 +62,12 @@ _NET_EXTRA = {"activationCheckpointing": (False, lambda v: not v),
 
 #: what a refused attribute or module waits for
 _WAITS = {
-    "biasUpdater": "per-parameter updaters: ROADMAP.md Queue 1 item 4",
-    "constraints": "constraints: ROADMAP.md Queue 1 item 4",
-    "weightNoise": "weight noise: ROADMAP.md Queue 1 item 4",
     "activationCheckpointing": "per-layer activation remat: ROADMAP.md "
                                "Queue 1 item 13",
     "optimizationAlgo": "the line-search solvers: ROADMAP.md Queue 1 "
                         "item 10",
 }
 _MODULE_WAITS = {
-    "nn.conf.constraint": "constraints: ROADMAP.md Queue 1 item 4",
-    "nn.conf.weightnoise": "weight noise: ROADMAP.md Queue 1 item 4",
-    "nn.conf.variational": "the variational autoencoder: ROADMAP.md "
-                           "Queue 1 item 4",
     "nn.transfer": "transfer learning: ROADMAP.md Queue 1 item 10",
     "nn.solvers": "the line-search solvers: ROADMAP.md Queue 1 item 10",
     "nn.objdetect": "the YOLO heads: ROADMAP.md Queue 1 item 12",
@@ -86,8 +76,8 @@ _MODULE_WAITS = {
 
 def _waits_for(mod_name):
     rel = mod_name[len(_PKG) + 1:]
-    return _MODULE_WAITS.get(rel, "the layers and vertices that wait are "
-                             "ROADMAP.md Queue 1 items 4, 8 and 12")
+    return _MODULE_WAITS.get(rel, "the classes that wait are ROADMAP.md "
+                             "Queue 1 items 10, 12 and 13")
 
 
 def _ref_defaults(obj):
@@ -95,17 +85,13 @@ def _ref_defaults(obj):
         MultiLayerConfiguration
     from deeplearning4j_tpu_torch.nn.conf.graph import \
         ComputationGraphConfiguration
-    from deeplearning4j_tpu_torch.nn.conf.layers import (
-        GlobalPoolingLayer, Layer,
-    )
+    from deeplearning4j_tpu_torch.nn.conf.layers import GlobalPoolingLayer
 
     if isinstance(obj, (MultiLayerConfiguration,
                         ComputationGraphConfiguration)):
         return _NET_EXTRA
     if isinstance(obj, GlobalPoolingLayer):
-        return {**_LAYER_EXTRA, "_mode": (None, lambda v: True)}
-    if isinstance(obj, Layer):
-        return _LAYER_EXTRA
+        return {"_mode": (None, lambda v: True)}
     return {}
 
 

@@ -41,6 +41,7 @@ def _net_payload(net, saveUpdater: bool) -> dict:
         "params": ref["params"],
         "states": ref["states"],
         "upd_states": ref.get("upd_states"),
+        "bias_upd_states": ref.get("bias_upd_states"),
         "iteration": net._iteration,
         "epoch": net._epoch,
     }
@@ -104,8 +105,9 @@ class ModelSerializer:
         payload = serde.decode(manifest["net"], arrays)
         net = build_net(expect_type, payload["conf"], device)
         upd = payload["upd_states"] if loadUpdater else None
-        net.initFrom(*net.from_reference_state(payload["params"],
-                                               payload["states"], upd))
+        net.initFrom(*net.from_reference_state(
+            payload["params"], payload["states"], upd,
+            payload.get("bias_upd_states")))
         net._iteration = payload["iteration"]
         net._epoch = payload["epoch"]
         return net

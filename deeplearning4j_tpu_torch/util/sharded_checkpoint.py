@@ -145,6 +145,8 @@ def _net_state(net, saveUpdater=True):
                           "epoch": np.asarray(net._epoch, np.int64)}}
     if saveUpdater:
         state["upd_states"] = ref["upd_states"]
+        if "bias_upd_states" in ref:    # the port's biasUpdater state
+            state["bias_upd_states"] = ref["bias_upd_states"]
     return state
 
 
@@ -238,7 +240,8 @@ class ShardedModelSerializer:
                     f"(manifest {want[:12]}…, restored {got[:12]}…): "
                     "corrupt state must not be restored")
         net.initFrom(*net.from_reference_state(
-            state["params"], state["states"], state.get("upd_states")))
+            state["params"], state["states"], state.get("upd_states"),
+            state.get("bias_upd_states")))
         net._iteration = int(state["counters"]["iteration"])
         net._epoch = int(state["counters"]["epoch"])
         return net

@@ -32,7 +32,8 @@ def test_gate_covers_the_port():
             "dtype.py", "conv.py", "pooling.py", "norm.py", "multilayer.py",
             "dataset.py", "models.py", "rnn.py", "recurrent.py",
             "trainer.py", "collectives.py", "multihost.py", "sharding.py",
-            "spark.py", "dryrun.py", "mesh.py"} <= names
+            "spark.py", "dryrun.py", "mesh.py", "constraint.py",
+            "weightnoise.py", "variational.py", "preprocessors.py"} <= names
     dirs = {p.parent.name for p in _SOURCES}
     assert {"ops", "nn", "conf", "data", "zoo", "serving",
             "parallel"} <= dirs
