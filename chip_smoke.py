@@ -315,11 +315,58 @@ Phases (any failure exits non-zero before the result line):
    over the flagged synthetic 60,000-digit MNIST (steps/s, the negative
    ELBO of the first and last 20 batches must fall), then 20 fit steps
    of a softmax head over it (its loss must fall).
+17. the data and fine-tuning runtime — (a) 14(a)'s 9 batches of config 4
+   through AsyncDataSetIterator(queueSize 4) over the native ring (the
+   Python ring fails the phase): fit and fitDataSet(4) over it beside the
+   unwrapped iterator's, each twice (in order, then in reverse), all
+   from one start, the losses and the final params, BN statistics and
+   momentum bitwise equal; ms a step (host wall / 9, 14(a)'s method;
+   both readings, and the lesser) beside 14(a)'s, the fitDataSet spans,
+   a traced prefetched block's idle share; the ring's kind, slot bytes
+   and host copies a batch. (b) 14(b)'s 60,000 / 10,000 (synthetic,
+   flagged) MNIST digits written as CSVs of 785 integer columns;
+   CSVRecordReader through the native parser (its matrix equal to the
+   rows written; MB/s), a TransformProcess over 785 columns (a
+   ConditionFilter on the label, a label conversion there and back; its
+   JSON round-trips), RecordReaderDataSetIterator(64, labelIndex 784, 10
+   classes), NormalizerStandardize, AsyncDataSetIterator, one epoch of
+   zoo LeNet, bitwise the same epoch over the unwrapped iterator: images/s
+   of both beside 14(b)'s fit, test accuracy >= 0.9.
+   (c) ImageAugmentationPreProcessor(Flip(0.5), RandomCrop(224, pad 16),
+   Rotate(15)) on the card: preProcess of a DataSet of config 4's 128 x
+   224^2 host f32 features (the card's tensor out) and run on the bf16
+   batch already there, ms (phase 3's method: CUDA events, L2 flushed,
+   median); on 16 host f32 images under the card's draws replayed on the
+   CPU, flip and crop exactly equal, the whole pipeline within 1e-5;
+   MFCCTransform(13) on the card over the numpy of 32 seeded one-second
+   16 kHz clips written with the wave module and read by
+   WavFileRecordReader, ms, within 1e-5 of the max-abs of the CPU's. (d) dl4j-examples EditLastLayerOthersFrozen on zoo VGG16 (224^2,
+   f32, random weights): frozen through fc2 (layer 19), a 5-class XAVIER
+   head, FineTuneConfiguration(Nesterovs(5e-5), seed 12345), batch 15, 20
+   steps: the loss falls, every frozen parameter bitwise unchanged, step
+   ms beside 15(b)'s; TransferLearningHelper featurize + 20
+   fitFeaturized land on the same head (rel L2 1e-5). (e) phase 7's
+   encoder through TransferLearning.GraphBuilder.setFeatureExtractor at
+   the sixth block's output: 5 steps with K1 at 12 launches a step and K2
+   and K3 at 6 (the frozen blocks run no backward), frozen params bitwise
+   unchanged, step ms beside phase 7's. (f) config 2's MLP (784 -> 256
+   -> 10, batch 256, f32) under LBFGS, CONJUGATE_GRADIENT and
+   LINE_GRADIENT_DESCENT, 20 steps each: steps/s, the loss must fall;
+   Newton-CG on tests/test_solvers.py's regression subject below 5e-3
+   after 40 steps and below fixed-step SGD. (g) config 4's ResNet-50 (bf16
+   NHWC, batch 128): int8_infer_fn against the bf16 forward (ms by CUDA
+   events, median of 20, L2 flushed), the dequantize alone (ms; and its
+   launches and device ms against a traced int8 call's: the call writes
+   every weight in bf16 before the forward reads it), param bytes,
+   max-abs logit difference, top-1 agreement; the card's q equal to the CPU's and its
+   int8 logits within rel L2 1e-5 of the CPU's (f64, 4 rows: the f32
+   forward itself differs by ~1.5e-5 across the two). (h) render_report over (a)'s StatsListener
+   log; UIServer's page and its JSON route answer 200 on localhost.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
-launches are phase 7's plus phase 11's plus phase 14(c)'s; phases 8-10,
-12, 13, 14(a), 14(b), 15 and 16 run no
+launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
+17(e)'s; phases 8-10, 12, 13, 14(a), 14(b), 15, 16 and 17 but (e) run no
 hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout
 and the shape layers are torch tensor ops, and the data-parallel
@@ -2986,6 +3033,30 @@ def state_equal(a, b):
                                       for x, y in zip(la, lb))
 
 
+def traced_device_work(fn):
+    """Run `fn` once under torch.profiler: (its device kernels and
+    copies, their busy ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("smoke.call"):
+            fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    scope = [e for e in events if e.name == "smoke.call"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    need(len(scope) == 1, f"trace: {len(scope)} traced scopes")
+    t0, t1 = scope[0].time_range.start, scope[0].time_range.end
+    work = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation
+            and e.time_range.end > t0 and e.time_range.start < t1]
+    need(len(work) > 0, "trace: the profiler saw no device work")
+    return len(work), device_busy_us(events, t0, t1) / 1e3
+
+
 def traced_busy_share(fn):
     """Run `fn` under torch.profiler: (the device's busy share of the
     call's wall time, the wall ms)."""
@@ -3005,6 +3076,17 @@ def traced_busy_share(fn):
     busy = device_busy_us(events, t0, t1)
     need(busy > 0, "runtime: the profiler saw no device time")
     return busy / (t1 - t0), (t1 - t0) / 1e3
+
+
+def runtime_images(rng, rows):
+    """14(a)'s config 4 batches from `rng`: NHWC uniform pixels at 9(b)'s
+    size and one-hot labels over its classes (17(a) draws them again)."""
+    B, n, C = RESNET_TIMED["batch"], RESNET_TIMED["image"], \
+        RESNET_TIMED["classes"]
+    x = np.empty((rows, n, n, 3), np.float32)
+    for i in range(0, rows, B):
+        x[i:i + B] = rng.rand(min(B, rows - i), n, n, 3)
+    return x, np.eye(C, dtype=np.float32)[rng.randint(0, C, rows)]
 
 
 def runtime_resnet(dev, cfg, phase9b, phase9c):
@@ -3027,20 +3109,12 @@ def runtime_resnet(dev, cfg, phase9b, phase9c):
 
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
-    B, n, C = RESNET_TIMED["batch"], RESNET_TIMED["image"], \
-        RESNET_TIMED["classes"]
+    B = RESNET_TIMED["batch"]
     nb, k = cfg["batches"], cfg["k"]
     rng = np.random.RandomState(SEED + 14)
-
-    def images(rows):
-        x = np.empty((rows, n, n, 3), np.float32)
-        for i in range(0, rows, B):
-            x[i:i + B] = rng.rand(min(B, rows - i), n, n, 3)
-        return x, np.eye(C, dtype=np.float32)[rng.randint(0, C, rows)]
-
     t = time.perf_counter()
-    x, y = images(nb * B)
-    xe, ye = images(cfg["held_out"] * B)
+    x, y = runtime_images(rng, nb * B)
+    xe, ye = runtime_images(rng, cfg["held_out"] * B)
     data_s = time.perf_counter() - t
 
     def batches(lo=0, hi=nb):
@@ -4525,6 +4599,713 @@ def catalogue_phase(dev):
     return {"parity": parity, "imdb": imdb, "graph": graph, "vae": vae}
 
 
+# ----------------------------------------------------------------------
+# phase 17: the data and fine-tuning runtime
+# ----------------------------------------------------------------------
+
+#: 17(a): 14(a)'s 9 batches of config 4 behind the native ring
+PREFETCH = dict(queue=4)
+#: 17(b): config 1 through records: 14(b)'s MNIST as CSV files
+RECORDS = dict(batch=64, train=60000, test=10000, epochs=1,
+               min_accuracy=0.9, queue=4)
+#: 17(c): config 4's batch augmented; 32 one-second 16 kHz clips
+AUGMENT = dict(pad=16, angle=15, reps=10, check_rows=16)
+AUDIO = dict(clips=32, rate=16000, seconds=1, coeffs=13, reps=10)
+#: 17(d): dl4j-examples EditLastLayerOthersFrozen on zoo VGG16 ("fc2" is
+#: layer 19: 13 convolutions and 5 pools, then fc1, fc2, predictions)
+VGG_TRANSFER = dict(batch=15, image=224, classes=5, steps=20, frozen_till=19,
+                    lr=5e-5, seed=12345)
+#: 17(e): phase 7's encoder frozen through the sixth block's output
+ENCODER_TRANSFER = dict(steps=5, cut="res2_5", trainable_blocks=6)
+#: 17(f): config 2's MLP under each line-search solver
+SOLVERS = dict(steps=20, newton_steps=40, newton_bar=5e-3)
+#: 17(g): config 4's ResNet-50 inference, int8 weights against bf16
+INT8 = dict(reps=20, check_rows=4)
+#: the CPU tests' bands (tests/test_torch_augment_audio.py,
+#: tests/test_torch_quantize.py, tests/test_torch_transfer.py)
+ROTATE_ATOL = 1e-5
+AUDIO_REL_MAX = 1e-5
+INT8_REL_L2 = 1e-5
+TRANSFER_RTOL = 1e-5
+
+
+def prefetch_spans(reg):
+    """The prefetch spans in the registry's trace: {name: [count, median
+    ms]} (the producer's next, pack and push; the consumer's pop and
+    stage)."""
+    got = {}
+    for s in reg.trace.spans():
+        if s["name"].startswith("prefetch."):
+            got.setdefault(s["name"][len("prefetch."):], []).append(
+                s["dur"] * 1e3)
+    return {n: [len(v), float(np.median(v))] for n, v in got.items()}
+
+
+def prefetch_leg(dev, cfg, phase14a, stats_log):
+    """17(a): config 4 fed through AsyncDataSetIterator over the native
+    ring: fit and fitDataSet(k) beside the unwrapped iterator's, bitwise
+    equal; the block spans and a traced block's idle share."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        DataSet, ExistingDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresListener, StatsListener,
+    )
+    from deeplearning4j_tpu_torch.runtime import (
+        AsyncDataSetIterator, telemetry,
+    )
+    from deeplearning4j_tpu_torch.runtime.async_iterator import HOST_COPIES
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    B = RESNET_TIMED["batch"]
+    nb, k = RUNTIME_RESNET["batches"], RUNTIME_RESNET["k"]
+    x, y = runtime_images(np.random.RandomState(SEED + 14), nb * B)
+
+    def base(lo=0, hi=nb):
+        return ExistingDataSetIterator(DataSet(x[lo * B:hi * B],
+                                               y[lo * B:hi * B]), B)
+
+    def prefetched(lo=0, hi=nb):
+        it = AsyncDataSetIterator(base(lo, hi), queueSize=cfg["queue"],
+                                  device=dev)
+        need(it.ring.kind == "native", f"prefetch (a): the {it.ring.kind}"
+             " ring ran, not the native one")
+        return it
+
+    start = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                       updater=Nesterovs(0.1, 0.9))
+    start.fit(base(0, 1))          # warm cuDNN and cuBLAS up off the clock
+    names = ["fit", "fit_async", "fit_dataset", "fit_dataset_async"]
+    reg = telemetry.get_registry()
+    ms = {n: [] for n in names}
+    runs, spans, pspans = {}, {}, {}
+    # each way twice, in order and then in reverse, each from a clone of
+    # one start: no way is timed only first (page faults, allocator)
+    for order in (names, names[::-1]):
+        for name in order:
+            net = start.clone()
+            it = prefetched() if name.endswith("async") else base()
+            scores = CollectScoresListener()
+            extra = [StatsListener(logFile=stats_log, frequency=1)] \
+                if name == "fit_async" and order is names else []
+            net.setListeners(scores, *extra)
+            reg.trace.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name.startswith("fit_dataset"):
+                net.fitDataSet(it, stepsPerSync=k)
+            else:
+                net.fit(it)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t) * 1e3 / nb)
+            if name.startswith("fit_dataset"):
+                spans.setdefault(name, []).append(block_spans(reg))
+            if name.endswith("async"):
+                pspans.setdefault(name, []).append(prefetch_spans(reg))
+                ring = {"kind": it.ring.kind,
+                        "slot_bytes": it.ring.slot_bytes,
+                        "queue": cfg["queue"],
+                        "host_copies_a_batch": HOST_COPIES}
+                it.close()
+            del it
+            if name in runs:
+                need(scores.scores == runs[name][0] and state_equal(
+                    net, runs[name][1]), f"prefetch (a): {name}'s second "
+                    "run differs from its first")
+            else:
+                runs[name] = (scores.scores, net)
+    del start
+    for name in names[1:]:
+        need(runs[name][0] == runs["fit"][0],
+             f"prefetch (a): {name}'s losses {runs[name][0]} vs "
+             f"fit's {runs['fit'][0]}")
+        need(state_equal(runs[name][1], runs["fit"][1]), f"prefetch (a): "
+             f"{name}'s params, BN statistics or momentum differ from fit's")
+    nets = {n: r[1] for n, r in runs.items()}
+    it4 = prefetched(0, k)
+    busy, traced_ms = traced_busy_share(
+        lambda: nets["fit_dataset_async"].fitDataSet(it4, stepsPerSync=k))
+    it4.close()
+    result = {
+        "ring": ring,
+        "ms_per_step": {n: min(v) for n, v in ms.items()},
+        "ms_per_step_in_order_and_reversed": ms,
+        "phase14a_ms_per_step": {
+            "fit": phase14a["fit_ms_per_step"],
+            "fit_dataset": phase14a["fit_dataset_ms_per_step"]},
+        "spans_ms": spans, "prefetch_spans_median_ms": pspans,
+        "losses": runs["fit"][0],
+        "traced_block_ms": traced_ms,
+        "traced_block_device_idle_share": 1 - busy,
+        "phase14a_traced_block_device_idle_share":
+            phase14a["traced_block_device_idle_share"]}
+    log("fine-tune (a) prefetch: " + json.dumps(result))
+    del nets, x, y
+    return result
+
+
+def _mnist_csv(it, path):
+    """An MNIST iterator's examples as a CSV of 785 integer columns (the
+    idx bytes of the 784 pixels, then the label); returns the rows."""
+    pix = np.rint(it._f.reshape(len(it._f), -1) * 255).astype(np.int64)
+    rows = np.concatenate([pix, it._l.argmax(1)[:, None]], 1)
+    digits = [str(i) for i in range(256)]
+    with open(path, "w") as fh:
+        for r in rows.tolist():
+            fh.write(",".join([digits[v] for v in r]))
+            fh.write("\n")
+    return rows
+
+
+def records_leg(dev, cfg, phase14b):
+    """17(b): config 1 at full size through CSV records: the native
+    parser, a TransformProcess (a column filter, a conversion, its JSON
+    round trip), RecordReaderDataSetIterator, NormalizerStandardize and
+    AsyncDataSetIterator feeding zoo LeNet."""
+    import os
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        CSVRecordReader, CollectionRecordReader, ConditionFilter,
+        ConditionOp, IntegerColumnCondition, MnistDataSetIterator,
+        NormalizerStandardize, RecordReaderDataSetIterator, Schema,
+        TransformProcess,
+    )
+    from deeplearning4j_tpu_torch.runtime import (
+        AsyncDataSetIterator, textparse,
+    )
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    B = cfg["batch"]
+    schema = (Schema.Builder()
+              .addColumnsDouble(*[f"pixel{i}" for i in range(784)])
+              .addColumnInteger("label").build())
+    tp = (TransformProcess.Builder(schema)
+          .filter(ConditionFilter(IntegerColumnCondition(
+              "label", ConditionOp.GreaterThan, 9)))
+          .integerToCategorical("label", [str(i) for i in range(10)])
+          .categoricalToInteger("label").build())
+    text = tp.toJson()
+    tp = TransformProcess.fromJson(text)
+    need(tp.toJson() == text, "records (b): the TransformProcess JSON did "
+         "not round-trip")
+    textparse.native_lib()          # raises when the parser cannot build
+    out = {"parser": "native (csrc/textparse.cpp)"}
+    with tempfile.TemporaryDirectory() as d:
+        iters = {}
+        for split, n in (("train", cfg["train"]), ("test", cfg["test"])):
+            src = MnistDataSetIterator(B, train=split == "train",
+                                       numExamples=n)
+            path = os.path.join(d, f"{split}.csv")
+            t = time.perf_counter()
+            rows = _mnist_csv(src, path)
+            write_s = time.perf_counter() - t
+            rr = CSVRecordReader().initialize(path)
+            t = time.perf_counter()
+            m = rr.asMatrix()
+            parse_s = time.perf_counter() - t
+            need(m is not None and np.array_equal(m, rows),
+                 f"records (b): the native parser's {split} matrix differs "
+                 "from the rows written")
+            t = time.perf_counter()
+            recs = m.tolist()
+            for r in recs:
+                r[784] = int(r[784])
+            recs = tp.execute(recs)
+            tp_s = time.perf_counter() - t
+            need(len(recs) == n, f"records (b): the filter kept "
+                 f"{len(recs)} of {n} {split} records")
+            t = time.perf_counter()
+            # in the CSV's order (the generator's, classes mixed): the
+            # two fits below see the same batches whatever their resets
+            iters[split] = RecordReaderDataSetIterator(
+                CollectionRecordReader(recs), B, labelIndex=784,
+                numPossibleLabels=10)
+            batch_s = time.perf_counter() - t
+            mb = os.path.getsize(path) / 1e6
+            out[split] = {"examples": n, "csv_mb": mb, "write_s": write_s,
+                          "parse_s": parse_s, "parse_mb_per_s": mb / parse_s,
+                          "transform_s": tp_s, "batching_s": batch_s,
+                          "synthetic": bool(src.isSynthetic)}
+            del m, recs, rows
+    norm = NormalizerStandardize().fit(iters["train"])
+    for it in iters.values():
+        it.setPreProcessor(norm)
+    start = LeNet(numClasses=10, seed=SEED, device=dev).init()
+    start.fit(iters["train"].next())        # warm up off the clock
+    nets, fit_s = {"fit": start.clone(), "fit_async": start.clone()}, {}
+    for name, net in nets.items():
+        it = iters["train"]
+        if name == "fit_async":
+            it = AsyncDataSetIterator(it, queueSize=cfg["queue"],
+                                      device=dev)
+            need(it.ring.kind == "native", "records (b): the native ring "
+                 "did not run")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        net.fit(it, epochs=cfg["epochs"])
+        torch.cuda.synchronize()
+        fit_s[name] = time.perf_counter() - t
+    it.close()
+    need(state_equal(nets["fit"], nets["fit_async"])
+         and nets["fit"].score() == nets["fit_async"].score(),
+         "records (b): fit through the ring differs from fit through the "
+         "records' iterator")
+    acc = nets["fit_async"].evaluate(iters["test"]).accuracy()
+    need(acc >= cfg["min_accuracy"], f"records (b): test accuracy {acc} < "
+         f"{cfg['min_accuracy']}")
+    out.update({"epochs": cfg["epochs"],
+                "fit_images_per_s": cfg["epochs"] * cfg["train"]
+                / fit_s["fit_async"],
+                "fit_unwrapped_images_per_s": cfg["epochs"] * cfg["train"]
+                / fit_s["fit"],
+                "phase14b_fit_images_per_s": phase14b["fit_images_per_s"],
+                "test_accuracy": acc})
+    log("fine-tune (b) records: " + json.dumps(out))
+    return out
+
+
+def _write_wavs(root, cfg):
+    """`clips` seeded one-second tones with noise, as 16-bit WAV files
+    under root/<label>/ (the stdlib wave module)."""
+    import os
+    import wave
+
+    rng = np.random.RandomState(SEED + 17)
+    n = cfg["rate"] * cfg["seconds"]
+    t = np.arange(n) / cfg["rate"]
+    for i in range(cfg["clips"]):
+        label = "hi" if i % 2 else "lo"
+        os.makedirs(os.path.join(root, label), exist_ok=True)
+        f0 = rng.uniform(1500, 4000) if i % 2 else rng.uniform(100, 800)
+        sig = 0.5 * np.sin(2 * np.pi * f0 * t) + 0.05 * rng.randn(n)
+        with wave.open(os.path.join(root, label, f"{i:02d}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(cfg["rate"])
+            w.writeframes((np.clip(sig, -1, 1) * 32767).astype("<i2")
+                          .tobytes())
+
+
+def augment_audio_leg(dev, acfg, ucfg):
+    """17(c): the augmentation pipeline as an iterator's preprocessor
+    runs it (a DataSet of host f32 features in, the card's tensor out)
+    and on config 4's bf16 batch already on the card, timed; under the
+    card's draws replayed on the CPU, equal to the CPU's; MFCCs of the
+    numpy clips WavFileRecordReader reads, on the card, timed, against
+    the CPU."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.data import (
+        DataSet, FlipImageTransform, ImageAugmentationPreProcessor,
+        MFCCTransform, PipelineImageTransform, RandomCropTransform,
+        RotateImageTransform, WavFileRecordReader,
+    )
+
+    n, B = RESNET_TIMED["image"], RESNET_TIMED["batch"]
+    x = np.random.RandomState(SEED).rand(B, 3, n, n).astype(np.float32)
+    labels = np.zeros((B, RESNET_TIMED["classes"]), np.float32)
+
+    def pre(device):
+        return ImageAugmentationPreProcessor(PipelineImageTransform(
+            FlipImageTransform(0.5),
+            RandomCropTransform(n, n, pad=acfg["pad"]),
+            RotateImageTransform(acfg["angle"])), seed=SEED, device=device)
+
+    card = pre(dev)
+    out = card.preProcess(DataSet(x, labels)).getFeatures()
+    need(out.device.type == "cuda" and out.shape == (B, 3, n, n),
+         f"augment (c): preProcess of host features gave "
+         f"{tuple(out.shape)} on {out.device}, not the card")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    host_ms = time_ms(lambda: card.preProcess(DataSet(x, labels)),
+                      acfg["reps"], flush)
+    xb = torch.from_numpy(x).to(dev, torch.bfloat16)
+    aug_ms = time_ms(lambda: card.run(xb), acfg["reps"], flush)
+    rows = acfg["check_rows"]
+    xs = x[:rows]
+    got = card.preProcess(DataSet(xs, labels[:rows])).getFeatures()
+    draws = [tuple(t.cpu() for t in d) if isinstance(d, tuple) else d.cpu()
+             for d in card.lastDraws]
+    want = pre("cpu").run(xs, draws=draws)
+    nhwc = torch.from_numpy(xs).permute(0, 2, 3, 1)
+    t0, t1 = card.transform.transforms[:2]
+    fc_card = t1.applyDrawn(t0.applyDrawn(nhwc.to(dev), card.lastDraws[0]),
+                            card.lastDraws[1])
+    fc_cpu = t1.applyDrawn(t0.applyDrawn(nhwc, draws[0]), draws[1])
+    need(torch.equal(fc_card.cpu(), fc_cpu), "augment (c): flip and crop "
+         "on the card differ from the CPU under the same draws")
+    rot_err = float((got.cpu() - want).abs().max())
+    need(rot_err <= ROTATE_ATOL, f"augment (c): the pipeline on the card is "
+         f"{rot_err:.3e} from the CPU's (band {ROTATE_ATOL})")
+    with tempfile.TemporaryDirectory() as d:
+        _write_wavs(d, ucfg)
+        rr = WavFileRecordReader(length=ucfg["rate"] * ucfg["seconds"])
+        rr.initialize(d)
+        clips = []
+        while rr.hasNext():
+            clips.append(rr.next()[0])
+    wav = np.stack(clips)
+    mfcc = MFCCTransform(numCoeffs=ucfg["coeffs"], sampleRate=ucfg["rate"],
+                         device=dev)
+    mfcc_ms = time_ms(lambda: mfcc.apply(wav), ucfg["reps"], flush)
+    del flush
+    m_card = mfcc.apply(wav)
+    need(m_card.device.type == "cuda", f"audio (c): MFCCs of the reader's "
+         f"clips landed on {m_card.device}, not the card")
+    m_cpu = MFCCTransform(numCoeffs=ucfg["coeffs"], sampleRate=ucfg["rate"],
+                          device="cpu").apply(wav)
+    m_card = m_card.cpu()
+    m_err = float((m_card - m_cpu).abs().max() / m_cpu.abs().max())
+    need(m_err <= AUDIO_REL_MAX, f"audio (c): MFCCs on the card are "
+         f"{m_err:.3e} of the max-abs from the CPU's (band {AUDIO_REL_MAX})")
+    out = {"augment_ms_a_batch": aug_ms, "augment_batch": list(xb.shape),
+           "preprocess_host_f32_ms_a_batch": host_ms,
+           "augment_rotation_max_abs_vs_cpu": rot_err,
+           "mfcc_ms": mfcc_ms, "mfcc_shape": list(m_card.shape),
+           "mfcc_rel_max_abs_vs_cpu": m_err, "clips": len(clips),
+           "sample_rate": rr.sampleRate}
+    log("fine-tune (c) augmentation and audio: " + json.dumps(out))
+    return out
+
+
+def transfer_leg(dev, cfg, phase15b):
+    """17(d): EditLastLayerOthersFrozen on zoo VGG16: freeze through fc2,
+    a new 5-class XAVIER head under FineTuneConfiguration, 20 steps; the
+    frozen params bitwise unchanged; TransferLearningHelper's featurized
+    fit lands on the same head."""
+    import torch
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import (
+        DenseLayer, FineTuneConfiguration, Nesterovs, OutputLayer,
+        TransferLearning, TransferLearningHelper, WeightInit,
+    )
+    from deeplearning4j_tpu_torch.zoo import VGG16
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    n, B, C = cfg["image"], cfg["batch"], cfg["classes"]
+    cut = cfg["frozen_till"]
+    t = time.perf_counter()
+    orig = VGG16(numClasses=1000, seed=SEED, inputShape=(3, n, n),
+                 device=dev).init()
+    need(isinstance(orig.layers[cut], DenseLayer)
+         and orig.layers[cut].nOut == 4096
+         and isinstance(orig.layers[cut + 1], OutputLayer),
+         f"transfer (d): layer {cut} is not fc2")
+    ftc = (FineTuneConfiguration.Builder().updater(Nesterovs(cfg["lr"]))
+           .seed(cfg["seed"]).build())
+    net = (TransferLearning.Builder(orig).fineTuneConfiguration(ftc)
+           .setFeatureExtractor(cut)
+           .nOutReplace(cut + 1, C, WeightInit.XAVIER).build())
+    del orig
+    build_s = time.perf_counter() - t
+    helper_net = net.clone()
+    rng = np.random.RandomState(SEED + 4)
+    x = torch.from_numpy(rng.rand(B, 3, n, n).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(C, dtype=np.float32)[
+        rng.randint(0, C, B)]).to(dev)
+    frozen = [{k: t.detach().clone() for k, t in p.items()}
+              for p in net._params[:cut + 1]]
+    losses, step_s = fit_timed(net, x, y, cfg["steps"])
+    need(losses[-1] < losses[0], f"transfer (d): loss did not fall: "
+         f"{losses[0]} -> {losses[-1]}")
+    need(all(torch.equal(t, net._params[i][k])
+             for i, p in enumerate(frozen) for k, t in p.items()),
+         "transfer (d): a frozen parameter moved")
+    helper = TransferLearningHelper(helper_net, frozenTill=cut)
+    feat = helper.featurize(DataSet(x, y))
+    for _ in range(cfg["steps"]):
+        helper.fitFeaturized(feat)
+    head = {k: rel_l2(helper_net._params[cut + 1][k].detach(),
+                      net._params[cut + 1][k].detach())
+            for k in net._params[cut + 1]}
+    need(max(head.values()) <= TRANSFER_RTOL, f"transfer (d): the "
+         f"featurized fit's head is {head} from the frozen fit's")
+    med = float(np.median(step_s[2:]))
+    out = {"build_s": build_s, "losses": losses,
+           "step_ms_median_3_on": med * 1e3, "images_per_s": B / med,
+           "phase15b_vgg16_bf16_b64_step_ms": phase15b[
+               "step_ms_median_3_on"],
+           "featurized_head_rel_l2": head,
+           "trainable_params": sum(t.numel()
+                                   for t in net._params[cut + 1].values()),
+           "frozen_params": sum(t.numel() for p in frozen
+                                for t in p.values())}
+    log("fine-tune (d) VGG16 transfer: " + json.dumps(out))
+    del net, helper_net, helper, frozen
+    return out
+
+
+def graph_transfer_leg(dev, cfg, phase7):
+    """17(e): phase 7's encoder through TransferLearning.GraphBuilder with
+    the lower six blocks frozen: K1 12 launches a step, K2 and K3 six; the
+    frozen params bitwise unchanged."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import ComputationGraph, TransferLearning
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+    orig = ComputationGraph(bert_encoder_conf(BERT_BASE), device=dev).init()
+    net = (TransferLearning.GraphBuilder(orig)
+           .setFeatureExtractor(cfg["cut"]).build())
+    del orig
+    frozen = {n: {k: t.detach().clone() for k, t in net._params[n].items()}
+              for n in net._layer_names
+              if getattr(net.conf.nodes[n].payload, "frozen", False)}
+    x, y = encoder_batch(BERT_BASE, dev)
+    need(not x.requires_grad, "graph transfer (e): the input requires grad")
+    fit_timed(net, x, y, 1)                  # warm up outside the count
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    losses, step_s = fit_timed(net, x, y, cfg["steps"])
+    launches = {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
+                "K3": tfa.flash_bwd_dkv.launches,
+                "plain": tfa.flash_fwd_plain.launches
+                + tfa.flash_bwd_dq_plain.launches
+                + tfa.flash_bwd_dkv_plain.launches}
+    L, s = BERT_BASE["layers"], cfg["steps"]
+    want = {"K1": L * s, "K2": cfg["trainable_blocks"] * s,
+            "K3": cfg["trainable_blocks"] * s, "plain": 0}
+    need(launches == want, f"graph transfer (e): launches {launches}, "
+         f"expected {want}")
+    need(all(torch.equal(t, net._params[n][k]) for n, p in frozen.items()
+             for k, t in p.items()), "graph transfer (e): a frozen "
+         "parameter moved")
+    need(all(math.isfinite(v) for v in losses),
+         f"graph transfer (e): non-finite loss {losses}")
+    med = float(np.median(step_s[1:]))
+    out = {"launches": launches,
+           "launches_per_step": {k: v / s for k, v in launches.items()},
+           "losses": losses, "step_ms_median_2_on": med * 1e3,
+           "phase7_step_ms": phase7["step_ms_median_3_to_20"],
+           "frozen_layers": len(frozen)}
+    log("fine-tune (e) encoder transfer: " + json.dumps(out))
+    del net, frozen
+    return out
+
+
+def solvers_leg(dev, cfg):
+    """17(f): config 2's MLP under LBFGS, CONJUGATE_GRADIENT and
+    LINE_GRADIENT_DESCENT (the loss must fall); Newton-CG held to the
+    reference test's bar on its regression subject."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import (
+        DenseLayer, MultiLayerNetwork, NeuralNetConfiguration, OutputLayer,
+        Sgd,
+    )
+
+    c = SD_MLP
+    rs = np.random.RandomState(c["seed"])
+    x = torch.from_numpy(rs.rand(c["batch"], c["inputs"])
+                         .astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(c["classes"], dtype=np.float32)[
+        rs.randint(0, c["classes"], c["batch"])]).to(dev)
+    out = {}
+    for algo in ("LBFGS", "CONJUGATE_GRADIENT", "LINE_GRADIENT_DESCENT"):
+        conf = (NeuralNetConfiguration.Builder().seed(SEED)
+                .optimizationAlgo(algo).list()
+                .layer(DenseLayer(nIn=c["inputs"], nOut=c["hidden"],
+                                  activation="relu"))
+                .layer(OutputLayer(nOut=c["classes"], activation="softmax",
+                                   lossFunction="MCXENT")).build())
+        net = MultiLayerNetwork(conf, device=dev).init()
+        losses, step_s = fit_timed(net, x, y, cfg["steps"])
+        need(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+             f"solvers (f): {algo}'s loss did not fall: {losses}")
+        out[algo] = {"losses": losses,
+                     "steps_per_s": 1.0 / float(np.median(step_s[2:]))}
+
+    rng = np.random.RandomState(1)                 # _lsq_data(seed=1)
+    X = rng.randn(64, 5).astype("float32")
+    W = rng.randn(5, 2).astype("float32")
+    Y = X @ W + 0.01 * rng.randn(64, 2).astype("float32")
+    Xd, Yd = torch.from_numpy(X).to(dev), torch.from_numpy(Y).to(dev)
+
+    def regression(algo):
+        b = NeuralNetConfiguration.Builder().seed(3).updater(Sgd(0.1))
+        if algo is not None:
+            b = b.optimizationAlgo(algo)
+        net = MultiLayerNetwork(
+            b.list().layer(DenseLayer(nIn=5, nOut=2, activation="identity"))
+            .layer(OutputLayer(nOut=2, activation="identity",
+                               lossFunction="MSE")).build(),
+            device=dev).init()
+        for _ in range(cfg["newton_steps"]):
+            net.fit(Xd, Yd)
+        return net.score()
+
+    cg, sgd = regression("CONJUGATE_GRADIENT"), regression(None)
+    need(cg < cfg["newton_bar"] and cg < sgd, f"solvers (f): Newton-CG "
+         f"{cg} after {cfg['newton_steps']} steps (bar {cfg['newton_bar']}, "
+         f"fixed-step SGD {sgd})")
+    out["newton_cg_lsq"] = {"loss": cg, "sgd_loss": sgd,
+                            "steps": cfg["newton_steps"]}
+    log("fine-tune (f) solvers: " + json.dumps(out))
+    return out
+
+
+def graph_logits(net, params, x):
+    """A one-output graph's logits (its output layer's pre-activation)
+    under `params`, in inference mode, as f64."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.multilayer import strip_carries
+
+    with torch.no_grad():
+        _, pre, _ = net._run_graph(params, strip_carries(net._states),
+                                   net._coerce_inputs(x), False, None, None)
+    return pre[net.conf.networkOutputs[0]].double()
+
+
+def int8_leg(dev, cfg):
+    """17(g): config 4's ResNet-50 inference with int8 weights against
+    its bf16 forward; the int8 logits on the card against the CPU's."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.quantize import (
+        dequantize_params, int8_infer_fn, param_bytes,
+    )
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    net = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC")
+    x, _ = resnet_batch(dev, RESNET_TIMED, RESNET_TIMED["batch"])
+    infer, qp, sc = int8_infer_fn(net)
+    o16 = graph_logits(net, net._params, x)
+    o8 = graph_logits(net, dequantize_params(qp, sc, torch.bfloat16), x)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    bf16_ms = time_ms(lambda: net._forward_infer(net._params, x),
+                      cfg["reps"], flush)
+    int8_ms = time_ms(lambda: infer(qp, sc, x), cfg["reps"], flush)
+    deq_ms = time_ms(lambda: dequantize_params(qp, sc, torch.bfloat16),
+                     cfg["reps"], flush)
+    del flush
+    # the int8 call's device work, and the dequantize's alone, traced:
+    # the call writes every weight out in bf16 before the forward reads it
+    deq_launches, deq_busy = traced_device_work(
+        lambda: dequantize_params(qp, sc, torch.bfloat16))
+    call_launches, call_busy = traced_device_work(lambda: infer(qp, sc, x))
+    bf16_params = [{k: t.to(torch.bfloat16) for k, t in p.items()}
+                   for p in net._params.values()]
+    top1 = float((o8.argmax(1) == o16.argmax(1)).float().mean())
+    diff = float((o8 - o16).abs().max())
+    need(math.isfinite(diff), "int8 (g): non-finite logits")
+    int8_bytes = param_bytes(qp)
+    del net, qp, sc, x
+    torch.cuda.empty_cache()
+    # the card's int8 forward against the CPU's on a few rows, in f64:
+    # ResNet-50's f32 forward itself differs across the two by ~1.5e-5
+    # (rel L2 of the logits), so f32 would test the convolutions' sums
+    rows = cfg["check_rows"]
+    card = resnet_net(dev, RESNET_TIMED, "DOUBLE", dataFormat="NHWC")
+    cpu = resnet_net("cpu", RESNET_TIMED, "DOUBLE", dataFormat="NHWC")
+    xs = torch.from_numpy(np.random.RandomState(SEED).rand(
+        rows, RESNET_TIMED["image"], RESNET_TIMED["image"], 3))
+    _, cq, cs = int8_infer_fn(card)
+    _, pq_, ps = int8_infer_fn(cpu)
+    need(all(torch.equal(a.cpu(), b) for p, q in zip(cq.values(),
+                                                     pq_.values())
+             for a, b in zip(p.values(), q.values())),
+         "int8 (g): the card's q differs from the CPU's")
+    got = graph_logits(card, dequantize_params(cq, cs, torch.float64),
+                       xs.to(dev)).cpu()
+    want = graph_logits(cpu, dequantize_params(pq_, ps, torch.float64), xs)
+    err = rel_l2(got, want)
+    need(err <= INT8_REL_L2, f"int8 (g): the card's int8 logits are "
+         f"{err:.3e} (rel L2) from the CPU's (band {INT8_REL_L2})")
+    out = {"batch": RESNET_TIMED["batch"], "int8_ms": int8_ms,
+           "bf16_ms": bf16_ms, "int8_param_bytes": int8_bytes,
+           "bf16_param_bytes": param_bytes(bf16_params),
+           "dequantize_ms": deq_ms,
+           "traced": {"int8_call_launches": call_launches,
+                      "int8_call_device_ms": call_busy,
+                      "dequantize_launches": deq_launches,
+                      "dequantize_device_ms": deq_busy,
+                      "dequantize_share_of_int8_call":
+                          deq_busy / call_busy},
+           "logits_max_abs_diff_vs_bf16": diff,
+           "logits_max_abs_bf16": float(o16.abs().max()),
+           "top1_agreement": top1,
+           "card_vs_cpu_int8_rel_l2_f64": err}
+    log("fine-tune (g) int8: " + json.dumps(out))
+    del card, cpu
+    return out
+
+
+def report_leg(stats_log):
+    """17(h): render_report over (a)'s StatsListener log, and UIServer's
+    page and JSON on localhost."""
+    from deeplearning4j_tpu_torch.optimize import UIServer, render_report
+
+    doc = render_report(stats_log)
+    need("score vs iteration" in doc and "<polyline" in doc,
+         "report (h): the report has no score chart")
+    ui = UIServer().attach(stats_log).start(port=0)
+    try:
+        codes = {}
+        for route in ("/", "/train/0/updates?since=0"):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ui.port}{route}", timeout=30) as r:
+                codes[route] = r.status
+                body = r.read()
+        records = json.loads(body)["records"]
+    finally:
+        ui.stop()
+    need(all(c == 200 for c in codes.values()), f"report (h): {codes}")
+    need(len(records) > 0, "report (h): the updates route returned nothing")
+    out = {"codes": codes, "report_bytes": len(doc),
+           "records": len(records)}
+    log("fine-tune (h) report: " + json.dumps(out))
+    return out
+
+
+def fine_tune_phase(dev, phase7, runtime, zoo):
+    """Phase 17: the data and fine-tuning runtime, legs (a)-(h)."""
+    import os
+    import tempfile
+
+    import torch
+
+    t = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        stats_log = os.path.join(d, "stats.jsonl")
+        out["prefetch"] = prefetch_leg(dev, PREFETCH, runtime["resnet"],
+                                       stats_log)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["records"] = records_leg(dev, RECORDS, runtime["lenet"])
+        out["augment_audio"] = augment_audio_leg(dev, AUGMENT, AUDIO)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["transfer"] = transfer_leg(dev, VGG_TRANSFER, zoo["vgg16"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["graph_transfer"] = graph_transfer_leg(dev, ENCODER_TRANSFER,
+                                                   phase7)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["solvers"] = solvers_leg(dev, SOLVERS)
+        out["int8"] = int8_leg(dev, INT8)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["report"] = report_leg(stats_log)
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 17: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -4600,6 +5381,8 @@ def main():
     zoo = cnn_zoo_phase(dev, timed)
     torch.cuda.empty_cache()
     catalogue = catalogue_phase(dev)
+    torch.cuda.empty_cache()
+    fine = fine_tune_phase(dev, train, runtime, zoo)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -4632,7 +5415,8 @@ def main():
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:{line}",
             "launches": train["launches"][key] + sd_enc["launches"][key]
-            + runtime["encoder"]["launches"][key],
+            + runtime["encoder"]["launches"][key]
+            + fine["graph_transfer"]["launches"][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -4765,6 +5549,49 @@ def main():
         f"{cv['pretrain_steps_per_s']:.0f} steps/s, negative ELBO "
         f"{cv['neg_elbo_first20_mean']:.2f} -> "
         f"{cv['neg_elbo_last20_mean']:.2f}")
+    fa, fb, fc, fd, fe, ff, fg = (fine[k] for k in (
+        "prefetch", "records", "augment_audio", "transfer",
+        "graph_transfer", "solvers", "int8"))
+    ms = fa["ms_per_step"]
+    log(f"data and fine-tuning runtime on {card}: (a) config 4 through the "
+        f"{fa['ring']['kind']} ring (queue {fa['ring']['queue']}, slot "
+        f"{fa['ring']['slot_bytes']} bytes, {fa['ring']['host_copies_a_batch']}"
+        f" host copies a batch): fit {ms['fit_async']:.2f} ms a step vs "
+        f"unwrapped {ms['fit']:.2f}, fitDataSet(4) "
+        f"{ms['fit_dataset_async']:.2f} vs unwrapped "
+        f"{ms['fit_dataset']:.2f} (phase 14(a): fit "
+        f"{fa['phase14a_ms_per_step']['fit']:.2f}, fitDataSet(4) "
+        f"{fa['phase14a_ms_per_step']['fit_dataset']:.2f}), bitwise; a "
+        f"traced prefetched block idle "
+        f"{100 * fa['traced_block_device_idle_share']:.1f} % (14(a) "
+        f"{100 * fa['phase14a_traced_block_device_idle_share']:.1f} %); "
+        f"(b) config 1 from CSV: {fb['parser']} parse "
+        f"{fb['train']['parse_mb_per_s']:.1f} MB/s, fit "
+        f"{fb['fit_images_per_s']:.0f} images/s through the ring vs "
+        f"{fb['fit_unwrapped_images_per_s']:.0f} unwrapped (14(b) "
+        f"{fb['phase14b_fit_images_per_s']:.0f}), test accuracy "
+        f"{fb['test_accuracy']:.4f}; (c) augmentation "
+        f"{fc['augment_ms_a_batch']:.3f} ms a b{RESNET_TIMED['batch']} bf16 "
+        f"batch on the card, {fc['preprocess_host_f32_ms_a_batch']:.3f} ms "
+        f"a host f32 batch through preProcess, MFCC {fc['mfcc_ms']:.3f} ms for {fc['clips']} clips; (d) "
+        f"VGG16 frozen through fc2 {fd['step_ms_median_3_on']:.2f} ms a "
+        f"b{VGG_TRANSFER['batch']} f32 step (15(b) whole bf16 b64 "
+        f"{fd['phase15b_vgg16_bf16_b64_step_ms']:.2f}); (e) encoder, six "
+        f"blocks frozen, {fe['step_ms_median_2_on']:.2f} ms a step (phase 7 "
+        f"{fe['phase7_step_ms']:.2f}), K1/K2/K3 a step "
+        + "/".join(f"{fe['launches_per_step'][k]:.0f}"
+                   for k in ("K1", "K2", "K3"))
+        + "; (f) " + ", ".join(f"{a} {ff[a]['steps_per_s']:.1f} steps/s"
+                                for a in ("LBFGS", "CONJUGATE_GRADIENT",
+                                          "LINE_GRADIENT_DESCENT"))
+        + f", Newton-CG lsq {ff['newton_cg_lsq']['loss']:.2e}; (g) int8 "
+        f"{fg['int8_ms']:.2f} ms vs bf16 {fg['bf16_ms']:.2f} ms, the "
+        f"dequantize {fg['dequantize_ms']:.2f} ms of it ("
+        f"{100 * fg['traced']['dequantize_share_of_int8_call']:.1f} % of "
+        f"a traced call's device time), "
+        f"{fg['int8_param_bytes']} vs {fg['bf16_param_bytes']} bytes, top-1 "
+        f"agreement {fg['top1_agreement']:.3f}; phase 17 "
+        f"{fine['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

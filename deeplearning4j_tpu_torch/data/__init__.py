@@ -1,4 +1,6 @@
-"""Data: DataSet, MultiDataSet, the iterators and the normalizers."""
+"""Data: DataSet, MultiDataSet, the iterators and the normalizers, the
+DataVec record readers and transforms, columnar files, image
+augmentation and audio features."""
 
 from deeplearning4j_tpu_torch.data.dataset import (
     DataSet, DataSetIterator, ExistingDataSetIterator,
@@ -18,6 +20,32 @@ from deeplearning4j_tpu_torch.data.normalizers import (
     DataNormalization, ImagePreProcessingScaler, NormalizerMinMaxScaler,
     NormalizerStandardize, VGG16ImagePreProcessor,
 )
+from deeplearning4j_tpu_torch.data.multireader import (
+    RecordReaderMultiDataSetIterator,
+)
+from deeplearning4j_tpu_torch.data.transform import (
+    Join, executeJoin, Reducer, ReduceOp, ConditionFilter, ConditionOp,
+    ColumnCondition, DoubleColumnCondition, IntegerColumnCondition,
+    CategoricalColumnCondition, StringColumnCondition, DataAnalysis,
+    analyze, DataQualityAnalysis, analyzeQuality,
+)
+from deeplearning4j_tpu_torch.data.columnar import (
+    ColumnarRecordReader, writeColumnar,
+)
+from deeplearning4j_tpu_torch.data.augment import (
+    ImageTransform, FlipImageTransform, RandomCropTransform,
+    ResizeImageTransform, RotateImageTransform, PipelineImageTransform,
+    ImageAugmentationPreProcessor,
+)
+from deeplearning4j_tpu_torch.data.audio import (
+    SpectrogramTransform, MelSpectrogramTransform, MFCCTransform,
+    WavFileRecordReader, mel_filterbank,
+)
+from deeplearning4j_tpu_torch.data.records import (
+    RecordReader, CSVRecordReader, CollectionRecordReader, ImageRecordReader,
+    Schema, TransformProcess, RecordReaderDataSetIterator,
+    CSVSequenceRecordReader, SequenceRecordReaderDataSetIterator,
+)
 
 __all__ = [
     "DataSet", "DataSetIterator", "ExistingDataSetIterator",
@@ -30,4 +58,18 @@ __all__ = [
     "MultiDataSet", "MultiDataSetIterator", "DataNormalization",
     "ImagePreProcessingScaler", "NormalizerMinMaxScaler",
     "NormalizerStandardize", "VGG16ImagePreProcessor",
+    "RecordReaderMultiDataSetIterator", "Join", "executeJoin", "Reducer",
+    "ReduceOp", "ConditionFilter", "ConditionOp", "ColumnCondition",
+    "DoubleColumnCondition", "IntegerColumnCondition",
+    "CategoricalColumnCondition", "StringColumnCondition", "DataAnalysis",
+    "analyze", "DataQualityAnalysis", "analyzeQuality",
+    "ColumnarRecordReader", "writeColumnar", "ImageTransform",
+    "FlipImageTransform", "RandomCropTransform", "ResizeImageTransform",
+    "RotateImageTransform", "PipelineImageTransform",
+    "ImageAugmentationPreProcessor", "SpectrogramTransform",
+    "MelSpectrogramTransform", "MFCCTransform", "WavFileRecordReader",
+    "mel_filterbank", "RecordReader", "CSVRecordReader",
+    "CollectionRecordReader", "ImageRecordReader", "Schema",
+    "TransformProcess", "RecordReaderDataSetIterator",
+    "CSVSequenceRecordReader", "SequenceRecordReaderDataSetIterator",
 ]

@@ -15,7 +15,7 @@ Each dataset iterator resolves its data in the reference's order:
    for the same seeds and flagged via ``.isSynthetic``.
 
 Nothing here reaches the network: the reference's ``fetch_mnist``
-download is not ported (ROADMAP.md Queue 1 item 10). Every iterator pads
+download is not ported, because it reaches the network. Every iterator pads
 its final partial batch under a zero label mask, so each batch has one
 shape.
 """

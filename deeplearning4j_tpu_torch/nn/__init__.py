@@ -7,7 +7,9 @@ layers (ROADMAP.md Queue 1 item 12): the attention, convolutional,
 recurrent, embedding, mask, 1-d, locally connected, capsule, utility,
 loss, SameDiff and pretrainable layers (``nn.conf.*``), with truncated
 BPTT, stateful stepping and layerwise pretraining; every updater,
-schedule, loss, dropout, constraint and weight noise of the reference.
+schedule, loss, dropout, constraint and weight noise of the reference;
+the line-search solvers (``nn.solvers``), transfer learning
+(``nn.transfer``) and weight-only int8 inference (``nn.quantize``).
 """
 
 from deeplearning4j_tpu_torch.ndarray.dtype import DataType
@@ -66,6 +68,11 @@ from deeplearning4j_tpu_torch.nn.conf.weightnoise import (
 from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 from deeplearning4j_tpu_torch.nn.losses import LossFunctions
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+from deeplearning4j_tpu_torch.nn.solvers import OptimizationAlgorithm
+from deeplearning4j_tpu_torch.nn.transfer import (
+    FineTuneConfiguration, FrozenLayer, TransferLearning,
+    TransferLearningHelper,
+)
 from deeplearning4j_tpu_torch.nn.updaters import (
     AdaDelta, AdaGrad, AdaMax, Adam, AdamW, AMSGrad, Nadam, Nesterovs, NoOp,
     RmsProp, Sgd,
@@ -111,4 +118,6 @@ __all__ = [
     "CnnToRnnPreProcessor", "RnnToCnnPreProcessor",
     "VariationalAutoencoder", "DropConnect", "WeightNoise",
     "NormalDistribution", "UniformDistribution", "WeightInitEmbedding",
+    "OptimizationAlgorithm", "TransferLearning", "FineTuneConfiguration",
+    "FrozenLayer", "TransferLearningHelper",
 ]

@@ -65,6 +65,10 @@ class MultiLayerConfiguration:
         self.tbpttBackLength = tbpttBackLength
         self.gradientNormalization = gradientNormalization
         self.gradientNormalizationThreshold = gradientNormalizationThreshold
+        self.optimizationAlgo = defaults.get(
+            "optimizationAlgo", "STOCHASTIC_GRADIENT_DESCENT")
+        self.maxNumLineSearchIterations = defaults.get(
+            "maxNumLineSearchIterations", 20)
         self.checkpointPolicy = defaults.get("checkpointPolicy")
         self.layerInputTypes = []   # resolved per layer by inferShapes
 
@@ -350,12 +354,21 @@ class NeuralNetConfiguration:
             return self
 
         def optimizationAlgo(self, algo):
-            """Stochastic gradient descent only: the line-search solvers
-            (LBFGS, CG, ...) wait for their slice."""
-            if str(algo).upper() != "STOCHASTIC_GRADIENT_DESCENT":
-                raise NotImplementedError(
-                    f"optimizationAlgo {algo!r}: the solvers wait for the "
-                    "training-runtime slice (ROADMAP.md Queue 1 item 10)")
+            """Reference: NeuralNetConfiguration.Builder.optimizationAlgo
+            (OptimizationAlgorithm): STOCHASTIC_GRADIENT_DESCENT (the
+            default, per-layer updaters), LINE_GRADIENT_DESCENT,
+            CONJUGATE_GRADIENT or LBFGS (``nn/solvers.py``: one
+            whole-parameter step with its line search)."""
+            from deeplearning4j_tpu_torch.nn.solvers import \
+                OptimizationAlgorithm
+
+            self._d["optimizationAlgo"] = OptimizationAlgorithm.resolve(algo)
+            return self
+
+        def maxNumLineSearchIterations(self, n):
+            """Line-search iteration cap for the non-SGD algorithms
+            (reference: Builder.maxNumLineSearchIterations)."""
+            self._d["maxNumLineSearchIterations"] = int(n)
             return self
 
         def checkpointPolicy(self, policy):

@@ -393,6 +393,10 @@ class ComputationGraphConfiguration:
         self.gradientNormalization = defaults.get("gradientNormalization")
         self.gradientNormalizationThreshold = defaults.get(
             "gradientNormalizationThreshold", 1.0)
+        self.optimizationAlgo = defaults.get(
+            "optimizationAlgo", "STOCHASTIC_GRADIENT_DESCENT")
+        self.maxNumLineSearchIterations = defaults.get(
+            "maxNumLineSearchIterations", 20)
         self.checkpointPolicy = defaults.get("checkpointPolicy")
         self.topoOrder = self._topo_sort()
         self._infer_shapes()

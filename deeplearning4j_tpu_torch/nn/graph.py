@@ -1,8 +1,7 @@
 """ComputationGraph — the DAG network executor.
 
-The counterpart of ``deeplearning4j_tpu/nn/graph.py`` for the SGD-family
-training path. Where the reference jits one donated-buffer train step,
-the port runs it eagerly: the forward over the DAG (every vertex, the
+The counterpart of ``deeplearning4j_tpu/nn/graph.py``. Where the
+reference jits one donated-buffer train step, the port runs it eagerly: the forward over the DAG (every vertex, the
 loss on every output layer, the regularization), ``loss.backward()``,
 gradient normalization, then each layer's updater applied to its
 parameters in place under ``torch.no_grad()``; the layers' new states
@@ -29,12 +28,14 @@ files come from ``multilayer.NetworkRuntime``; a ``MultiDataSet`` feeds a
 multi-input graph. Dropout draws from the step's key, folded with each
 layer's index in ``_layer_names``; training under the conf's remat policy
 runs the forward in ``multilayer.remat_segment``s; a ``LossLayer``
-or ``CnnLossLayer`` is an output as an ``OutputLayer`` is. Solvers and
-the AOT cache wait for their slices and raise ``NotImplementedError``
-naming them. A layer's weight noise perturbs its weights in the training
-forward; frozen layers take no gradient, regularization or update; each
-update is followed by the layer's constraints, with its biases stepped by
-its biasUpdater when it has one (``multilayer.update_layer``).
+or ``CnnLossLayer`` is an output as an ``OutputLayer`` is. Under a
+line-search ``optimizationAlgo`` a step is one whole-parameter solver
+step (``nn/solvers.py``); the AOT cache waits for its slice and raises
+``NotImplementedError`` naming it. A layer's weight noise perturbs its
+weights in the training forward; frozen layers take no gradient,
+regularization or update; each update is followed by the layer's
+constraints, with its biases stepped by its biasUpdater when it has one
+(``multilayer.update_layer``).
 ``pretrain``/``pretrainLayer`` train pretrainable layers (the
 variational autoencoder, the AutoEncoder) on their own losses.
 """
@@ -53,9 +54,11 @@ from deeplearning4j_tpu_torch.nn.multilayer import (
     carry_layer, check_carried, cnn_entry, fit_batches, forward_params,
     is_product, layer_seed, layer_trains, layer_updater, loss_for_head,
     map_tree, mask_slice, out_activation, pretrain_feeds, product_segments,
-    regularization, remat_segment, run_pretrain, run_tbptt, strip_carries,
-    time_slice, to_api_layout, train_params, uncarry_layer, update_layer,
+    regularization, remat_segment, run_pretrain, run_tbptt, staging_array,
+    strip_carries, time_slice, to_api_layout, train_params, uncarry_layer,
+    update_layer,
 )
+from deeplearning4j_tpu_torch.nn.solvers import network_step
 from deeplearning4j_tpu_torch.ops import norm as _norm
 
 __all__ = ["ComputationGraph", "params_from_reference",
@@ -104,6 +107,7 @@ class ComputationGraph(NetworkRuntime):
         self._param_dtype = (torch.float64
                              if self._compute_dtype == torch.float64
                              else torch.float32)
+        self._init_solver()
 
     # ------------------------------------------------------------------
     def init(self):
@@ -132,6 +136,7 @@ class ComputationGraph(NetworkRuntime):
             with torch.no_grad():
                 self._upd_states[name] = (u.init(self._params[name])
                                           if self._params[name] else ())
+        self._reset_solver()
 
     def load_reference_params(self, params, states=None):
         """Set the parameters (and, when given, the layer states: BN's
@@ -320,6 +325,14 @@ class ComputationGraph(NetworkRuntime):
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
+        if self._solver is not None:     # (distributed trainers refuse it)
+            loss, new_states = network_step(
+                self, lambda ps: self._loss_fn(ps, self._states, inputs,
+                                               labels, fmasks, lmasks,
+                                               use_carries=bool(window),
+                                               key=key))
+            return self._keep_states(new_states, window, state_transform,
+                                     loss)
         with _norm.sync_batch_norm(bn_group):
             loss, new_states = self._loss_fn(self._params, self._states,
                                              inputs, labels, fmasks, lmasks,
@@ -344,13 +357,7 @@ class ComputationGraph(NetworkRuntime):
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
-        new_states = map_tree(torch.Tensor.detach, new_states)
-        if window is None:
-            new_states = strip_carries(new_states)
-        if state_transform is not None:
-            new_states = state_transform(new_states)
-        self._states = new_states
-        return loss
+        return self._keep_states(new_states, window, state_transform, loss)
 
     def _fit_batch(self, inputs, labels, fmasks, lmasks):
         """One batch: a timed optimizer step, or under truncated BPTT
@@ -424,8 +431,8 @@ class ComputationGraph(NetworkRuntime):
 
     def _batch_arrays(self, ds):
         """A DataSet or MultiDataSet as the flat list [inputs..., labels...,
-        input masks..., label masks...] (numpy, None where absent)."""
-        from deeplearning4j_tpu_torch.data.dataset import _np
+        input masks..., label masks...] (numpy or, already on the card, a
+        tensor; None where absent)."""
         from deeplearning4j_tpu_torch.data.multidataset import MultiDataSet
 
         nin = len(self.conf.networkInputs)
@@ -442,7 +449,7 @@ class ComputationGraph(NetworkRuntime):
             raise ValueError(
                 f"{type(ds).__name__} holds {len(arrs)} arrays; this graph "
                 f"takes {nin} input(s) and {nout} output(s)")
-        return [_np(a) for a in arrs]
+        return [staging_array(a) for a in arrs]
 
     def _batch_array_names(self, n):
         nin = len(self.conf.networkInputs)
@@ -570,16 +577,24 @@ class ComputationGraph(NetworkRuntime):
         """The output activations, one ``INDArray`` per network output
         (a single INDArray for one output)."""
         self._require_init()
+        outs = self._forward_infer(self._params, *features)
+        if isinstance(outs, list):
+            return [INDArray(o) for o in outs]
+        return INDArray(outs)
+
+    def _forward_infer(self, params, *features):
+        """The inference forward over `params` (per-layer dicts as
+        ``_params``): the output tensor, or a list of them."""
         inputs = self._coerce_inputs(
             features if len(features) > 1 else features[0])
         with torch.no_grad():
-            acts, _, _ = self._run_graph(self._params,
+            acts, _, _ = self._run_graph(params,
                                          strip_carries(self._states),
                                          inputs, False, None, None)
         # a loss head's 4-d map in the API's layout (reference:
         # ``_run_graph``); other outputs as they are
-        outs = [INDArray(to_api_layout(acts[n], self._api_nhwc)
-                         if self._is_head(n) else acts[n])
+        outs = [to_api_layout(acts[n], self._api_nhwc)
+                if self._is_head(n) else acts[n]
                 for n in self.conf.networkOutputs]
         return outs[0] if len(outs) == 1 else outs
 

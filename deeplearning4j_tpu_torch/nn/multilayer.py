@@ -40,7 +40,9 @@ Where the reference jits one donated-buffer train step, the port runs it
 eagerly: the forward over the layers (BN's running statistics come back
 as the layers' new state), the loss on the output layer and the
 regularization, ``loss.backward()``, gradient normalization, then each
-layer's updater applied in place under ``torch.no_grad()``. Parameters
+layer's updater applied in place under ``torch.no_grad()`` (under a
+line-search ``optimizationAlgo``, one whole-parameter solver step of
+``nn/solvers.py`` instead). Parameters
 are a list of per-layer ``{name: tensor}`` dicts with the reference's
 names, fp32 masters (fp64 under ``DataType.DOUBLE``) cast to the compute
 dtype for the forward. Convolutional activations are NCHW-logical in
@@ -82,6 +84,7 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
 from deeplearning4j_tpu_torch.nn.conf.constraint import apply_constraints
 from deeplearning4j_tpu_torch.nn.conf.dropout import StepKey, step_key
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.solvers import build_solver, network_step
 from deeplearning4j_tpu_torch.ops import norm as _norm
 
 __all__ = ["MultiLayerNetwork", "strip_carries", "cast_params",
@@ -397,6 +400,12 @@ def run_pretrain(net, layer, key, feed, feeds):
     the net's iteration, which moves one a batch. The losses stay on the
     device (``net._pretrain_losses``) and the last becomes the score,
     the call's one host read."""
+    if net._solver is not None:
+        raise ValueError(
+            "layerwise pretraining uses the per-layer updater path; it is "
+            "not defined under a whole-parameter optimizationAlgo "
+            f"({net.conf.optimizationAlgo}): pretrain with "
+            "STOCHASTIC_GRADIENT_DESCENT, then fine-tune with the solver")
     params, updater = net._params[key], net._updaters[key]
     names = list(params)
     losses = []
@@ -745,7 +754,20 @@ def _stack_component(arrs, what):
             "built-in iterators pad their final batch already)")
     for j, i in enumerate(idx):
         pos[i] = j
+    if isinstance(arrs[idx[0]], torch.Tensor):   # already on the card
+        return torch.stack([arrs[i] for i in idx]), pos
     return torch.from_numpy(np.stack([arrs[i] for i in idx])), pos
+
+
+def staging_array(a):
+    """A batch component as fitDataSet stages it: a tensor already on
+    the card (an ``AsyncDataSetIterator``'s) as it is, anything else as
+    numpy (``data.dataset._np``)."""
+    from deeplearning4j_tpu_torch.data.dataset import _np
+
+    if isinstance(a, torch.Tensor) and a.device.type == "cuda":
+        return a
+    return _np(a)
 
 
 class BlockStager:
@@ -755,7 +777,9 @@ class BlockStager:
     see and cuDNN picks the same algorithms); on the card the stack is
     copied from pinned memory with ``non_blocking`` on a side stream,
     behind an event the compute stream waits on, so block n+1's copy
-    overlaps block n's steps. Returns per-batch tensor lists and the
+    overlaps block n's steps. A component whose batches are already on
+    the card (an ``AsyncDataSetIterator`` handed them there) is stacked
+    there, on the compute stream. Returns per-batch tensor lists and the
     event (None on the CPU)."""
 
     def __init__(self, device):
@@ -771,13 +795,14 @@ class BlockStager:
         event = None
         if self.stream is not None:
             cur = torch.cuda.current_stream(self.device)
+            host = [st is not None and not st.is_cuda for st, _ in stacks]
             with torch.cuda.stream(self.stream):
-                stacks = [(None if st is None else
-                           st.pin_memory().to(self.device,
-                                              non_blocking=True), pos)
-                          for st, pos in stacks]
-            for st, _ in stacks:
-                if st is not None:
+                stacks = [(st.pin_memory().to(self.device,
+                                              non_blocking=True)
+                           if h else st, pos)
+                          for (st, pos), h in zip(stacks, host)]
+            for (st, _), h in zip(stacks, host):
+                if h:
                     st.record_stream(cur)
             event = torch.cuda.Event()
             event.record(self.stream)
@@ -958,7 +983,9 @@ class NetworkRuntime:
                                      for k in keys]),
                "states": self._pack([uncarry_layer(lay(k), states[k])
                                      for k in keys])}
-        if saveUpdater:
+        if saveUpdater and self._solver is None:
+            # a solver's memory is batch-local and not written (reference:
+            # ``_net_payload``): a restored net starts it fresh
             main, bias = [], []
             for k in keys:
                 us, names = self._upd_states[k], set(self._params[k])
@@ -999,13 +1026,71 @@ class NetworkRuntime:
             us.append(u)
         return self._pack(ps), self._pack(ss), self._pack(us)
 
+    def _keep_states(self, new_states, window, state_transform, loss):
+        """The step's new layer states replace the old (carries stripped
+        outside truncated BPTT); returns the loss."""
+        new_states = map_tree(torch.Tensor.detach, new_states)
+        if window is None:
+            new_states = strip_carries(new_states)
+        if state_transform is not None:
+            new_states = state_transform(new_states)
+        self._states = new_states
+        return loss
+
+    def _init_solver(self):
+        """The conf's whole-parameter solver, or None under SGD
+        (reference: the solver set-up of the networks' ``__init__``)."""
+        algo = getattr(self.conf, "optimizationAlgo",
+                       "STOCHASTIC_GRADIENT_DESCENT")
+        self._solver = self._solver_state = None
+        if algo == "STOCHASTIC_GRADIENT_DESCENT":
+            return
+        self._solver = build_solver(
+            algo, getattr(self.conf, "maxNumLineSearchIterations", 20))
+        if self.conf.gradientNormalization is not None:
+            import warnings
+
+            warnings.warn(
+                f"gradientNormalization={self.conf.gradientNormalization} "
+                f"is IGNORED under optimizationAlgo={algo}: the line search "
+                "needs the true gradient of the loss for its Wolfe/Armijo "
+                "conditions, so clipping/renorm is not applied. Use "
+                "SGD-family updaters for gradient clipping.", stacklevel=3)
+
+    def load_reference_solver_state(self, state):
+        """Carry the reference network's solver state (its
+        ``_upd_states`` under a line-search ``optimizationAlgo``, as
+        numpy: an optax chain state) into this network's solver, each
+        params-shaped tree through the layers' layout maps. Load the
+        params first (``load_reference_params`` starts the solver
+        fresh)."""
+        keys = self._unit_keys()
+
+        def flat(tree):
+            out = []
+            for k in keys:
+                lay = carry_layer(self._unit_layer(k), tree[k])
+                out += [lay[n].to(self.device, self._param_dtype)
+                        for n in self._params[k]]
+            return out
+
+        self._solver_state = self._solver.from_reference(state, flat)
+        return self
+
+    def _reset_solver(self):
+        """Fresh solver memory over the current parameters."""
+        if self._solver is not None:
+            self._solver_state = self._solver.init(
+                [t.detach() for k in self._unit_keys()
+                 for t in self._params[k].values()])
+
     def initFrom(self, params, states, upd_states=None):
         """Parameters, layer states and (when given) updater state from
         existing tensors in the port's layouts, copied to the network's
         device, without a random init (reference: ``initFrom``, the
         restore path). The iteration count restarts."""
         self._set_params(params, states)
-        if upd_states is not None:
+        if upd_states is not None and self._solver is None:
             with torch.no_grad():
                 self._upd_states = self._pack([
                     map_tree(lambda t: t.to(self.device, copy=True),
@@ -1247,6 +1332,7 @@ class MultiLayerNetwork(NetworkRuntime):
         self._param_dtype = (torch.float64
                              if self._compute_dtype == torch.float64
                              else torch.float32)
+        self._init_solver()
 
     def init(self):
         """Initialize parameters, layer state and updater state."""
@@ -1273,6 +1359,7 @@ class MultiLayerNetwork(NetworkRuntime):
             self._upd_states = [u.init(p) if p else ()
                                 for u, p in zip(self._updaters,
                                                 self._params)]
+        self._reset_solver()
 
     def load_reference_params(self, params, states=None):
         """Set the parameters (and, when given, the layer states: BN's
@@ -1395,6 +1482,13 @@ class MultiLayerNetwork(NetworkRuntime):
         back to the host."""
         it = self._iteration if iteration is None else iteration
         key = step_key(self.conf.seed, it, rank)
+        if self._solver is not None:     # (distributed trainers refuse it)
+            loss, new_states = network_step(
+                self, lambda ps: self._loss_fn(ps, self._states, x, y, fmask,
+                                               lmask, use_carries=bool(window),
+                                               key=key))
+            return self._keep_states(new_states, window, state_transform,
+                                     loss)
         with _norm.sync_batch_norm(bn_group):
             loss, new_states = self._loss_fn(self._params, self._states, x,
                                              y, fmask, lmask,
@@ -1418,13 +1512,7 @@ class MultiLayerNetwork(NetworkRuntime):
         for p in self._params:
             for t in p.values():
                 t.grad = None
-        new_states = map_tree(torch.Tensor.detach, new_states)
-        if window is None:
-            new_states = strip_carries(new_states)
-        if state_transform is not None:
-            new_states = state_transform(new_states)
-        self._states = new_states
-        return loss
+        return self._keep_states(new_states, window, state_transform, loss)
 
     def _fit_batch(self, x, y, fmask, lmask):
         """One batch: a timed optimizer step, or under truncated BPTT on
@@ -1474,10 +1562,10 @@ class MultiLayerNetwork(NetworkRuntime):
 
     @staticmethod
     def _batch_arrays(ds):
-        from deeplearning4j_tpu_torch.data.dataset import _np
-
-        return [_np(ds.getFeatures()), _np(ds.getLabels()),
-                _np(ds.getFeaturesMaskArray()), _np(ds.getLabelsMaskArray())]
+        return [staging_array(ds.getFeatures()),
+                staging_array(ds.getLabels()),
+                staging_array(ds.getFeaturesMaskArray()),
+                staging_array(ds.getLabelsMaskArray())]
 
     @staticmethod
     def _batch_array_names(n):
@@ -1569,9 +1657,8 @@ class MultiLayerNetwork(NetworkRuntime):
         """Unsupervised pretraining of one layer against its own
         ``pretrain_loss`` (``run_pretrain``), fed by the frozen forward of
         the layers below; `data` is a DataSet, a DataSetIterator or a
-        features array (reference: ``pretrainLayer``). The port trains by
-        stochastic gradient descent only, so the reference's refusal
-        under a line-search solver never arises."""
+        features array (reference: ``pretrainLayer``); refused under a
+        line-search solver, as in the reference."""
         self._require_init()
         layer = self.layers[layerIdx]
         if not getattr(layer, "pretrainable", False):
@@ -1604,14 +1691,18 @@ class MultiLayerNetwork(NetworkRuntime):
         """The output layer's activations as an ``INDArray`` (inference
         mode: BN uses its running statistics)."""
         self._require_init()
+        return INDArray(self._forward_infer(self._params, x))
+
+    def _forward_infer(self, params, x):
+        """The inference forward over `params` (per-layer dicts as
+        ``_params``): the output as a tensor."""
         with torch.no_grad():
-            h, _ = self._run_layers(self._params,
-                                    strip_carries(self._states), x, False,
-                                    None)
+            h, _ = self._run_layers(params, strip_carries(self._states), x,
+                                    False, None)
         last = self.layers[-1]
         if isinstance(last, (L.BaseOutputLayer, L.LossLayer)):
-            return INDArray(out_activation(last, h, self._api_nhwc))
-        return INDArray(h)
+            return out_activation(last, h, self._api_nhwc)
+        return h
 
     def feedForward(self, x):
         """The input and every layer's activation, in inference mode, as

@@ -1,8 +1,9 @@
-"""Training-loop orchestration: listeners and early stopping.
+"""Training-loop orchestration: listeners, early stopping and the
+training report.
 
 The counterpart of ``deeplearning4j_tpu/optimize`` (reference:
-org.deeplearning4j.optimize listeners and org.deeplearning4j.earlystopping);
-``optimize/ui.py`` waits for ROADMAP.md Queue 1 item 10.
+org.deeplearning4j.optimize listeners, org.deeplearning4j.earlystopping
+and deeplearning4j-ui's report and UIServer, ``optimize/ui.py``).
 """
 
 from deeplearning4j_tpu_torch.optimize.listeners import (
@@ -34,6 +35,7 @@ from deeplearning4j_tpu_torch.optimize.earlystopping import (
     InMemoryModelSaver,
     LocalFileModelSaver,
 )
+from deeplearning4j_tpu_torch.optimize.ui import UIServer, render_report
 
 __all__ = [
     "TrainingListener", "ScoreIterationListener", "PerformanceListener",
@@ -46,5 +48,5 @@ __all__ = [
     "BestScoreEpochTerminationCondition", "MaxScoreIterationTerminationCondition",
     "MaxTimeIterationTerminationCondition", "DataSetLossCalculator",
     "InMemoryModelSaver", "LocalFileModelSaver",
-    "EarlyStoppingParallelTrainer",
+    "EarlyStoppingParallelTrainer", "UIServer", "render_report",
 ]

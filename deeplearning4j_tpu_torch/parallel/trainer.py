@@ -184,6 +184,13 @@ class ParallelWrapper:
                  residualClip=None, residualClipFrequency=1,
                  compressionBlock=None, compressionGroupSize=None,
                  intraGroupCompression="block_int8"):
+        if getattr(net, "_solver", None) is not None:
+            raise ValueError(
+                "distributed trainers require "
+                "optimizationAlgo=STOCHASTIC_GRADIENT_DESCENT: a shard-"
+                "local line search (LBFGS/CG) would accept a different "
+                "step size on every replica and silently desynchronize "
+                "the supposedly-replicated parameters")
         self.net = net
         self.mesh = _mesh.data_parallel_mesh() if mesh is None else mesh
         self.batch_axis = batch_axis

@@ -49,27 +49,17 @@ def _port_module(mod_name: str) -> str:
     return _PORT + mod_name[len(_PKG):]
 
 
-def _sgd_only(v):
-    return v == "STOCHASTIC_GRADIENT_DESCENT"
-
-
 #: attributes the reference's config classes carry and the port's lack:
 #: (default written by encode, test decode applies to a read value)
-_NET_EXTRA = {"activationCheckpointing": (False, lambda v: not v),
-              "optimizationAlgo": ("STOCHASTIC_GRADIENT_DESCENT", _sgd_only),
-              "maxNumLineSearchIterations": (20, lambda v: True)}
+_NET_EXTRA = {"activationCheckpointing": (False, lambda v: not v)}
 
 
 #: what a refused attribute or module waits for
 _WAITS = {
     "activationCheckpointing": "per-layer activation remat: ROADMAP.md "
                                "Queue 1 item 13",
-    "optimizationAlgo": "the line-search solvers: ROADMAP.md Queue 1 "
-                        "item 10",
 }
 _MODULE_WAITS = {
-    "nn.transfer": "transfer learning: ROADMAP.md Queue 1 item 10",
-    "nn.solvers": "the line-search solvers: ROADMAP.md Queue 1 item 10",
     "nn.objdetect": "the YOLO heads: ROADMAP.md Queue 1 item 12",
 }
 
@@ -77,7 +67,7 @@ _MODULE_WAITS = {
 def _waits_for(mod_name):
     rel = mod_name[len(_PKG) + 1:]
     return _MODULE_WAITS.get(rel, "the classes that wait are ROADMAP.md "
-                             "Queue 1 items 10, 12 and 13")
+                             "Queue 1 items 7, 9, 11, 12 and 13")
 
 
 def _ref_defaults(obj):

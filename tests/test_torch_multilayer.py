@@ -179,8 +179,12 @@ def test_multilayer_entry_points():
     # pretrainable layer, and asking for one is the reference's refusal
     with pytest.raises(ValueError, match="pretrainable"):
         net.pretrainLayer(0, np.zeros((1, 1, 28, 28), np.float32))
-    with pytest.raises(NotImplementedError, match="slice"):
-        P.NeuralNetConfiguration.Builder().optimizationAlgo("LBFGS")
+    # the line-search solvers are ported (the data and fine-tuning
+    # slice): an unknown algorithm is the reference's refusal
+    assert (P.NeuralNetConfiguration.Builder().optimizationAlgo("lbfgs")
+            ._d["optimizationAlgo"] == "LBFGS")
+    with pytest.raises(ValueError, match="unknown OptimizationAlgorithm"):
+        P.NeuralNetConfiguration.Builder().optimizationAlgo("newton")
     # fitSteps / fitDataSet are ported (training-runtime slice): the
     # reference's refusals
     with pytest.raises(ValueError, match="stepsPerSync must be >= 1"):

@@ -741,3 +741,113 @@ def test_more_catalogue_classes_round_trip_and_cross(name, tmp_path):
     ref = JMS.restore(path)
     np.testing.assert_allclose(np.asarray(_out(ref, x)), _out(net, x),
                                atol=1e-5)
+
+
+# ----------------------------------------------------------------------
+# transferred nets and line-search solvers
+# ----------------------------------------------------------------------
+
+def _transferred(M, net, graph):
+    if graph:
+        return (M.TransferLearning.GraphBuilder(net)
+                .setFeatureExtractor("d1")
+                .removeVertexKeepConnections("out")
+                .addLayer("out", M.OutputLayer(nOut=5, activation="softmax"),
+                          "d1").build())
+    return (M.TransferLearning.Builder(net).setFeatureExtractor(0)
+            .nOutReplace(1, 5).build())
+
+
+def _small_graph_conf(M):
+    return (M.NeuralNetConfiguration.Builder().seed(9).updater(M.Adam(1e-2))
+            .graphBuilder().addInputs("in")
+            .addLayer("d1", M.DenseLayer(nOut=6, activation="tanh"), "in")
+            .addLayer("out", M.OutputLayer(nOut=3, activation="softmax"),
+                      "d1")
+            .setOutputs("out").setInputTypes(M.InputType.feedForward(4))
+            .build())
+
+
+def _small_mlp_conf(M, algo=None):
+    b = M.NeuralNetConfiguration.Builder().seed(9).updater(M.Adam(1e-2))
+    if algo is not None:
+        b = b.optimizationAlgo(algo).maxNumLineSearchIterations(11)
+    return (b.list().layer(M.DenseLayer(nIn=4, nOut=6, activation="tanh"))
+            .layer(M.OutputLayer(nOut=3, activation="softmax")).build())
+
+
+@pytest.mark.parametrize("graph", [False, True], ids=["mln", "graph"])
+@pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
+def test_transferred_net_file_crosses_both_ways(graph, direction, tmp_path):
+    """Frozen flags and the replaced head travel in the file: restored in
+    the other package, the frozen layers stay frozen under its fit."""
+    x, _ = _data()
+    y5 = np.eye(5, dtype=np.float32)[np.arange(32) % 5]
+    conf = _small_graph_conf if graph else _small_mlp_conf
+    if direction == "ref_to_port":
+        src = (J.ComputationGraph if graph else J.MultiLayerNetwork)(
+            conf(J)).init()
+        net = _transferred(J, src, graph)
+        net.fit(x, y5)
+        path = str(tmp_path / "ref.npz")
+        JMS.writeModel(net, path, True)
+        back = ModelSerializer.restore(path, device=CPU)
+    else:
+        src = (P.ComputationGraph if graph else P.MultiLayerNetwork)(
+            conf(P), device=CPU).init()
+        net = _transferred(P, src, graph)
+        net.fit(x, y5)
+        path = str(tmp_path / "port.npz")
+        ModelSerializer.writeModel(net, path, True)
+        back = JMS.restore(path)
+    np.testing.assert_allclose(np.asarray(_out(back, x)), _out(net, x),
+                               atol=1e-5)
+    frozen = "d1" if graph else 0
+    layer = (back.conf.nodes[frozen].payload if graph
+             else back.layers[frozen])
+    assert getattr(layer, "frozen", False)
+    before = np.asarray(back._params[frozen]["W"]).copy() \
+        if direction == "port_to_ref" else \
+        back._params[frozen]["W"].detach().clone().numpy()
+    back.fit(x, y5)
+    after = back._params[frozen]["W"]
+    after = np.asarray(after) if direction == "port_to_ref" else \
+        after.detach().numpy()
+    np.testing.assert_array_equal(before, after)
+
+
+@pytest.mark.parametrize("algo", ["LBFGS", "CONJUGATE_GRADIENT",
+                                  "LINE_GRADIENT_DESCENT"])
+@pytest.mark.parametrize("direction", ["ref_to_port", "port_to_ref"])
+def test_solver_net_file_crosses_both_ways(algo, direction, tmp_path):
+    """The solver and its line-search cap travel in the file; the
+    solver's memory is not written (as in the reference) and starts fresh
+    on restore, so training continues from the restored weights."""
+    x, y = _data()
+    if direction == "ref_to_port":
+        net = J.MultiLayerNetwork(_small_mlp_conf(J, algo)).init()
+        net.fit(x, y)
+        path = str(tmp_path / "ref.npz")
+        JMS.writeModel(net, path, True)
+        back = ModelSerializer.restore(path, device=CPU)
+    else:
+        net = P.MultiLayerNetwork(_small_mlp_conf(P, algo), device=CPU).init()
+        net.fit(x, y)
+        path = str(tmp_path / "port.npz")
+        ModelSerializer.writeModel(net, path, True)
+        back = JMS.restore(path)
+    assert back.conf.optimizationAlgo == algo
+    assert back.conf.maxNumLineSearchIterations == 11
+    assert back._solver is not None
+    np.testing.assert_allclose(np.asarray(_out(back, x)), _out(net, x),
+                               atol=1e-5)
+    back.fit(x, y)
+    assert np.isfinite(back.score())
+
+
+def test_solver_conf_json_crosses_both_ways():
+    for src, dst in ((J, P), (P, J)):
+        text = _small_mlp_conf(src, "LBFGS").toJson()
+        conf = dst.MultiLayerConfiguration.fromJson(text)
+        assert conf.optimizationAlgo == "LBFGS"
+        assert json.loads(conf.toJson()) == json.loads(text)
