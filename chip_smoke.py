@@ -362,12 +362,50 @@ Phases (any failure exits non-zero before the result line):
    int8 logits within rel L2 1e-5 of the CPU's (f64, 4 rows: the f32
    forward itself differs by ~1.5e-5 across the two). (h) render_report over (a)'s StatsListener
    log; UIServer's page and its JSON route answer 200 on localhost.
+18. one-shot serving and the fleet — zoo ResNet50 at phase 9(b)'s widths
+   (224^2 NHWC, 1000 classes, bf16 over f32 masters, random weights from
+   seed 0, eval mode). (a) ModelHost.register with batch buckets 1, 8,
+   32, 128, queueLimit 1024, maxWaitMs 2: one warm forward a bucket
+   (seconds each). (b) request sizes (3, 5, 2, 7, 4, 1, 6) and (3, 2, 1,
+   2) coalesced by a thread-less MicroBatcher into one dispatch each
+   (buckets 32 and 8), in order and reversed: every answer bitwise
+   ParallelInference.output of the same rows padded to the same bucket;
+   each row alone at bucket 1 against it (max-abs, bf16 steps floored
+   at 1/256 of the max, top-1) and its logits at bucket 1 against those
+   at the coalesced bucket (max-abs over their max-abs, top-1), held to
+   CROSS_BUCKET_ULPS / CROSS_BUCKET_LOGIT_REL / CROSS_BUCKET_TOP1: a
+   stated deviation, cuDNN choosing its algorithms by batch size. (c)
+   InferenceServer
+   on localhost: 4 concurrent :predict requests of 1-2 images answer 200
+   with [n, 1000]; an unknown name 404, a body without "instances" 400;
+   a queueLimit=1 LeNet whose dispatch a chaos wedge holds: deadlineMs
+   1 answers 504, the next request 429, the wedged one 200 once
+   released. (d) in process through host.submit: the serial rate (a
+   bucket-(1,) ParallelInference under a lock, 24 requests), then
+   loadgen.run_open_loop of 512 one-image requests at max(200, 8 x
+   serial) req/s and 16 clients, serial and batched: req/s, p50/p99 ms,
+   occupancy, the speedup; zero errors, zero cold dispatches, batched
+   not below serial; the host split of one bucket-128 dispatch
+   (assemble, copy in, forward, copy out; median of 5). (e) the net
+   registered int8: top-1 against bf16 on 256 rows (bar 0.99), weight
+   bytes, ms a bucket-128 dispatch beside bf16 (median of 5). (f) two
+   rolling swaps (to seed 1's weights and back) during an open loop of
+   256 requests: zero errors and cold dispatches, every answer bitwise
+   one of the versions' oracles at a bucket. (g) two ModelHost replicas
+   behind FleetRouter serving ResNet-50 and zoo LeNet: the hot-model skew
+   scenario at 80/20 (256 requests); a chaos plan wedges r0's dispatch
+   (4 serial requests route around it to r1), then raises on r0's next
+   two (two failovers, r0's breaker opens and no request reaches it);
+   quarantine and three probes readmit r0; no client error; swap_all
+   under an open loop of 128 requests with zero errors and cold
+   dispatches; config 3's char-RNN through register_sequence and
+   swap_all (every answer changes with the weights).
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
-17(e)'s; phases 8-10, 12, 13, 14(a), 14(b), 15, 16 and 17 but (e) run no
-hand-written kernel: conv, dense and the recurrent products are
+17(e)'s; phases 8-10, 12, 13, 14(a), 14(b), 15, 16, 17 but (e) and 18
+run no hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout
 and the shape layers are torch tensor ops, and the data-parallel
 exchange is NCCL's or gloo's collectives).
@@ -1511,11 +1549,11 @@ RESNET_TIMED = dict(batch=128, image=224, classes=1000, steps=20,
                     traced_steps=3)
 
 
-def resnet_net(dev, cfg, dtype="FLOAT", **kw):
+def resnet_net(dev, cfg, dtype="FLOAT", seed=SEED, **kw):
     from deeplearning4j_tpu_torch.nn import DataType
     from deeplearning4j_tpu_torch.zoo import ResNet50
 
-    return ResNet50(numClasses=cfg["classes"], seed=SEED,
+    return ResNet50(numClasses=cfg["classes"], seed=seed,
                     inputShape=(3, cfg["image"], cfg["image"]),
                     dataType=getattr(DataType, dtype), device=dev,
                     **kw).init()
@@ -5306,6 +5344,703 @@ def fine_tune_phase(dev, phase7, runtime, zoo):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 18: one-shot serving and the fleet
+# ----------------------------------------------------------------------
+
+#: phase 9(b)'s widths served: 224^2 NHWC, 1000 classes, bf16 over f32
+#: masters, eval mode (BN's running statistics), random weights
+SERVE = dict(buckets=(1, 8, 32, 128), queue_limit=1024, max_wait_ms=2.0,
+             images=32)
+#: (b): request sizes coalesced into one dispatch (28 rows -> bucket 32,
+#: 8 rows -> bucket 8), submitted in this order and reversed
+SERVE_PARITY = ((3, 5, 2, 7, 4, 1, 6), (3, 2, 1, 2))
+#: (b): the band of a row's bucket-1 answer against its coalesced one
+#: (a stated deviation, ROADMAP Queue 3): cuDNN picks its convolution
+#: algorithms by batch size, so the bf16 sums round apart. The served
+#: softmax saturates (one class near 1.0), so the band is also held on
+#: the logits: max-abs over the logits' max-abs
+CROSS_BUCKET_ULPS = 1.0
+CROSS_BUCKET_LOGIT_REL = 2e-2
+CROSS_BUCKET_TOP1 = 1.0
+#: (c): the HTTP burst
+SERVE_HTTP = dict(requests=(1, 2, 1, 2))
+#: (d): the serial rate's requests, then the open loop's
+SERVE_LOAD = dict(serial=24, requests=512, clients=16, min_rate=200.0,
+                  x_serial=8.0, split_reps=5)
+#: (e): int8 against bf16 on `rows` rows; top-1 must agree on `top1` of
+#: them (int8 weights move near-tied logits)
+SERVE_INT8 = dict(rows=256, top1=0.99, reps=5)
+#: (f): two swaps during an open loop of `requests`, after the given
+#: numbers of completed requests
+SERVE_SWAP = dict(requests=256, images=8, swap_after=(64, 160))
+#: (g): the fleet
+SERVE_FLEET = dict(replicas=2, skew_requests=256, hot=0.8,
+                   wedged_requests=4, swap_requests=128, seq_requests=4,
+                   seq_steps=12, slot_buckets=(1, 2, 4))
+
+
+def serve_images(n, seed=SEED):
+    """n seeded uniform NHWC images [n, 224, 224, 3], float32 on the
+    host (the request payload)."""
+    s = RESNET_TIMED["image"]
+    return np.random.RandomState(seed).rand(n, s, s, 3).astype(np.float32)
+
+
+def serve_resnet(dev, seed=SEED):
+    return resnet_net(dev, RESNET_TIMED, "BFLOAT16", seed=seed,
+                      dataFormat="NHWC")
+
+
+def floored_ulps(got, want):
+    """Largest distance in bf16 steps of `want`'s magnitude, the step of
+    values below 1/256 of want's max-abs taken at that floor (the
+    measure of bf16_close)."""
+    w = np.abs(np.asarray(want, np.float64))
+    floor = max(float(w.max()), 1e-30) / 256
+    step = np.exp2(np.floor(np.log2(np.maximum(w, floor))) - 7)
+    return float((np.abs(np.asarray(got, np.float64) - want) / step).max())
+
+
+def serving_warm(dev, net):
+    """18(a): ModelHost.register warms every bucket."""
+    from deeplearning4j_tpu_torch.serving import ModelHost
+
+    host = ModelHost()
+    t = time.perf_counter()
+    rep = host.register("resnet50", net, batchBuckets=SERVE["buckets"],
+                        queueLimit=SERVE["queue_limit"],
+                        maxWaitMs=SERVE["max_wait_ms"])
+    out = {"register_s": time.perf_counter() - t,
+           "bucket_seconds": {str(b): r["seconds"]
+                              for b, r in rep["warm"].items()},
+           "status": {str(b): r["status"] for b, r in rep["warm"].items()}}
+    need(set(rep["warm"]) == set(SERVE["buckets"]),
+         f"serving (a): warmed {sorted(rep['warm'])}")
+    log("serving (a) warm: " + json.dumps(out))
+    return host, out
+
+
+def serving_parity(dev, net, images):
+    """18(b): coalesced answers bitwise the same rows' ParallelInference
+    output padded to the same bucket, whatever shares the dispatch and
+    wherever the row sits; the bucket-1 answer against it, and the
+    logits at bucket 1 against those at the coalesced bucket, in a
+    band."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import ManualClock, MicroBatcher
+
+    def logits(x, bucket):
+        xp = np.concatenate([x, np.zeros((bucket - len(x),) + x.shape[1:],
+                                          x.dtype)])
+        return graph_logits(net, net._params,
+                            torch.from_numpy(xp).to(dev))[:len(x)].cpu()
+
+    pi = ParallelInference(net, batchBuckets=SERVE["buckets"])
+    pi.precompile()
+    alone = ParallelInference(net, batchBuckets=(1,))
+    alone.precompile()
+    coalesced, single, lg_coal, lg_one = [], [], [], []
+    dispatches = []
+    for sizes in SERVE_PARITY:
+        offs = np.cumsum((0,) + sizes)
+        reqs = [images[offs[i]:offs[i + 1]] for i in range(len(sizes))]
+        bucket = pi._target_batch(int(offs[-1]))
+        oracle = ParallelInference(net, batchBuckets=(bucket,))
+        want = [oracle.output(r).toNumpy() for r in reqs]
+        for order in (list(range(len(reqs))),
+                      list(reversed(range(len(reqs))))):
+            mb = MicroBatcher(pi._dispatch_coalesced, max_rows=max(
+                SERVE["buckets"]), bucket_for=pi._target_batch,
+                clock=ManualClock(), start_thread=False)
+            handles = {i: mb.submit(reqs[i], wait=False) for i in order}
+            mb.flush()
+            need(mb.occupancy == [(int(offs[-1]), bucket)],
+                 f"serving (b): dispatches {mb.occupancy}")
+            dispatches += mb.occupancy
+            for i in order:
+                got = handles[i].wait(0)
+                need(np.array_equal(got, want[i]),
+                     f"serving (b): request {i} of {sizes} (order {order}) "
+                     f"differs from its bucket-{bucket} oracle by "
+                     f"{np.abs(got - want[i]).max():.3e}")
+            mb.close()
+        coalesced += want
+        single += [np.concatenate([alone.output(r[j:j + 1]).toNumpy()
+                                   for j in range(len(r))]) for r in reqs]
+        rows = np.concatenate(reqs)
+        lg_coal.append(logits(rows, bucket))
+        lg_one += [logits(rows[j:j + 1], 1) for j in range(len(rows))]
+        oracle.close()
+    got = np.concatenate(coalesced)
+    one = np.concatenate(single)
+    lc, lo = torch.cat(lg_coal), torch.cat(lg_one)
+    diff = float(np.abs(got - one).max())
+    u = floored_ulps(one, got)
+    lrel = float((lo - lc).abs().max() / lc.abs().max())
+    top1 = float((got.argmax(1) == one.argmax(1)).mean())
+    ltop1 = float((lo.argmax(1) == lc.argmax(1)).float().mean())
+    need(pi.cold_dispatches == 0 and alone.cold_dispatches == 0,
+         f"serving (b): cold dispatches {pi.cold_dispatches}, "
+         f"{alone.cold_dispatches}")
+    out = {"rows": int(got.shape[0]), "dispatches": dispatches,
+           "same_bucket_bitwise": True,
+           "bucket1_vs_coalesced_max_abs": diff,
+           "bucket1_vs_coalesced_floored_bf16_ulps": u,
+           "bucket1_vs_coalesced_bitwise": bool(np.array_equal(got, one)),
+           "bucket1_vs_coalesced_top1": top1,
+           "output_max": float(got.max()),
+           "logits_bucket1_vs_coalesced_rel_max_abs": lrel,
+           "logits_max_abs": float(lc.abs().max()),
+           "logits_top1": ltop1}
+    log("serving (b) parity: " + json.dumps(out))
+    need(u <= CROSS_BUCKET_ULPS and lrel <= CROSS_BUCKET_LOGIT_REL
+         and min(top1, ltop1) >= CROSS_BUCKET_TOP1,
+         f"serving (b): bucket 1 vs coalesced {u:.2f} floored ulps, logits "
+         f"{lrel:.3e} of their max-abs, top-1 {top1:.3f} / {ltop1:.3f} "
+         f"(band {CROSS_BUCKET_ULPS}, {CROSS_BUCKET_LOGIT_REL}, "
+         f"{CROSS_BUCKET_TOP1})")
+    return out
+
+
+def serving_http(dev, host, images):
+    """18(c): :predict over localhost: 200s of the right shape, 404, 400,
+    and behind a chaos wedge of a queueLimit=1 LeNet: 504 and 429."""
+    from deeplearning4j_tpu_torch.runtime.chaos import ChaosPlan
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    host.register("lenet-q1", LeNet(numClasses=10, seed=SEED,
+                                    device=dev).init(),
+                  batchBuckets=(1,), queueLimit=1, maxWaitMs=1.0)
+    srv = InferenceServer(host).start(port=0)
+    codes = {}
+    try:
+        deadline = time.monotonic() + 120
+        while http(srv.port, "/healthz", timeout=10)[0] != 200:
+            need(time.monotonic() < deadline, "/healthz never turned 200")
+            time.sleep(0.1)
+        offs = np.cumsum((0,) + SERVE_HTTP["requests"])
+        answers = [None] * len(SERVE_HTTP["requests"])
+
+        def fire(i):
+            answers[i] = http(srv.port, "/v1/models/resnet50:predict",
+                              {"instances":
+                               images[offs[i]:offs[i + 1]].tolist()})
+
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(answers))]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        wall = time.perf_counter() - t
+        for i, (code, body) in enumerate(answers):
+            need(code == 200, f"serving (c): :predict {i} answered {code}: "
+                 f"{body[:200]!r}")
+            rec = json.loads(body)
+            preds = np.asarray(rec["predictions"], np.float32)
+            n = SERVE_HTTP["requests"][i]
+            need(preds.shape == (n, RESNET_TIMED["classes"])
+                 and rec["rows"] == n and rec["model"] == "resnet50",
+                 f"serving (c): answer {i} {preds.shape}, {rec['rows']}")
+            need(np.isfinite(preds).all(), "serving (c): non-finite answer")
+        codes["predict"] = [a[0] for a in answers]
+        codes["unknown"] = http(srv.port, "/v1/models/ghost:predict",
+                                {"instances": images[:1].tolist()})[0]
+        codes["no_instances"] = http(srv.port,
+                                     "/v1/models/resnet50:predict", {})[0]
+        # behind a wedged dispatcher: A sits in the dispatch, B's 1 ms
+        # deadline passes in the queue (504), C finds the queue full (429)
+        release = threading.Event()
+        digit = np.random.RandomState(SEED).rand(1, 1, 28, 28).astype(
+            np.float32).tolist()
+        held = {}
+        plan = ChaosPlan(seed=SEED).wedge("queue.dispatch", 120.0, at=0,
+                                          release=release)
+        q1 = host.model("lenet-q1").batcher
+        with plan:
+            wedged = threading.Thread(target=lambda: held.update(
+                a=http(srv.port, "/v1/models/lenet-q1:predict",
+                       {"instances": digit})))
+            wedged.start()
+            deadline = time.monotonic() + 60
+            while plan.fired("queue.dispatch") < 1:
+                need(time.monotonic() < deadline, "serving (c): the wedge "
+                     "never fired")
+                time.sleep(0.01)
+            codes["deadline_1ms"] = http(
+                srv.port, "/v1/models/lenet-q1:predict",
+                {"instances": digit, "deadlineMs": 1})[0]
+            need(q1.depth == 1, f"serving (c): lenet-q1 depth {q1.depth}")
+            codes["queue_full"] = http(srv.port,
+                                       "/v1/models/lenet-q1:predict",
+                                       {"instances": digit})[0]
+            release.set()
+            wedged.join(120)
+        codes["wedged"] = held["a"][0]
+    finally:
+        srv.stop()
+    want = {"predict": [200] * len(answers), "unknown": 404,
+            "no_instances": 400, "deadline_1ms": 504, "queue_full": 429,
+            "wedged": 200}
+    need(codes == want, f"serving (c): codes {codes}, want {want}")
+    out = {"codes": codes, "burst_wall_s": wall}
+    log("serving (c) http: " + json.dumps(out))
+    return out
+
+
+def cold_total(*pis):
+    return sum(pi.cold_dispatches for pi in pis)
+
+
+def serving_load(dev, host, net, images):
+    """18(d): serial rate, then open-loop load serial and batched; the
+    host split of one bucket-128 dispatch."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import loadgen
+    from deeplearning4j_tpu_torch.serving.queue import (
+        occupancy_summary_from,
+    )
+
+    cfg = SERVE_LOAD
+    pi_serial = ParallelInference(net, batchBuckets=(1,))
+    pi_serial.precompile()
+    lock = threading.Lock()
+
+    def serial_submit(x):
+        with lock:                   # one dispatch per request
+            return pi_serial.output(x)
+
+    def one(i):
+        return images[i % len(images)][None]
+
+    sm = host.model("resnet50")
+    serial_submit(one(0))
+    host.submit("resnet50", one(0))
+    t = time.perf_counter()
+    for i in range(cfg["serial"]):
+        serial_submit(one(i))
+    serial_rps = cfg["serial"] / (time.perf_counter() - t)
+    rate = max(cfg["min_rate"], cfg["x_serial"] * serial_rps)
+    rs = loadgen.run_open_loop(serial_submit, one, rate=rate,
+                               n_requests=cfg["requests"], seed=SEED,
+                               max_clients=cfg["clients"])
+    n0 = len(sm.batcher.occupancy)
+    rb = loadgen.run_open_loop(lambda x: host.submit("resnet50", x), one,
+                               rate=rate, n_requests=cfg["requests"],
+                               seed=SEED + 1, max_clients=cfg["clients"])
+    occ = occupancy_summary_from(sm.batcher.occupancy[n0:],
+                                 "mean_rows_per_dispatch")
+    cold = cold_total(sm.pi, pi_serial)
+    need(rs["errors"] == {} and rb["errors"] == {},
+         f"serving (d): errors serial {rs['errors']}, batched "
+         f"{rb['errors']}")
+    need(cold == 0, f"serving (d): {cold} cold dispatches")
+    need(rb["requests_per_sec"] >= rs["requests_per_sec"],
+         f"serving (d): batched {rb['requests_per_sec']} req/s below "
+         f"serial {rs['requests_per_sec']}")
+    # the host split of one bucket-128 dispatch (median of split_reps):
+    # assemble (128 one-image requests concatenated and padded), the copy
+    # to the card, the forward, the copy back
+    reqs = [one(i) for i in range(128)]
+    split = {"assemble": [], "h2d": [], "forward": [], "d2h": []}
+    for _ in range(cfg["split_reps"]):
+        t0 = time.perf_counter()
+        x = sm.pi._pad(np.concatenate(reqs), 128)
+        t1 = time.perf_counter()
+        xd = torch.from_numpy(x).to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            o = net._forward_infer(net._params, xd)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        o.float().cpu().numpy()
+        t4 = time.perf_counter()
+        for k, a, b in (("assemble", t0, t1), ("h2d", t1, t2),
+                        ("forward", t2, t3), ("d2h", t3, t4)):
+            split[k].append(1e3 * (b - a))
+    split = {k: float(np.median(v)) for k, v in split.items()}
+    keep = ("requests_per_sec", "p50_ms", "p99_ms", "completed", "errors")
+    out = {"serial_rps_24": serial_rps, "rate": rate,
+           "serial": {k: rs[k] for k in keep},
+           "batched": {k: rb[k] for k in keep},
+           "speedup": rb["requests_per_sec"] / rs["requests_per_sec"],
+           "occupancy": occ, "cold_dispatches": cold,
+           "bucket128_split_ms": split}
+    log("serving (d) load: " + json.dumps(out))
+    pi_serial.close()
+    return out
+
+
+def serving_int8(host, net, images):
+    """18(e): the net registered int8: top-1 against bf16 on the rows,
+    resident weight bytes, ms per bucket-128 dispatch beside bf16."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.quantize import param_bytes
+
+    cfg = SERVE_INT8
+    rep = host.register("resnet50-int8", net,
+                        batchBuckets=SERVE["buckets"],
+                        queueLimit=SERVE["queue_limit"],
+                        maxWaitMs=SERVE["max_wait_ms"], int8=True)
+    q8, b16 = host.model("resnet50-int8"), host.model("resnet50")
+    rows = np.concatenate([images] * (cfg["rows"] // len(images)))
+    got, want = [], []
+    for s in range(0, cfg["rows"], 128):
+        got.append(host.submit("resnet50-int8", rows[s:s + 128]))
+        want.append(host.submit("resnet50", rows[s:s + 128]))
+    got, want = np.concatenate(got), np.concatenate(want)
+    top1 = float((got.argmax(1) == want.argmax(1)).mean())
+    x = rows[:128]
+
+    def dispatch_ms(sm):
+        times = []
+        for _ in range(cfg["reps"] + 1):
+            t = time.perf_counter()
+            sm.pi._dispatch_coalesced(x)
+            times.append(1e3 * (time.perf_counter() - t))
+        return float(np.median(times[1:]))
+
+    bf16_params = [{k: t.to(torch.bfloat16) for k, t in p.items()}
+                   for p in net._params.values()]
+    out = {"warm_seconds": {str(b): r["seconds"]
+                            for b, r in rep["warm"].items()},
+           "rows": cfg["rows"], "top1_agreement": top1,
+           "int8_weight_bytes": param_bytes(q8.pi._qp),
+           "bf16_weight_bytes": param_bytes(bf16_params),
+           "f32_master_bytes": param_bytes(net._params),
+           "int8_ms_b128": dispatch_ms(q8), "bf16_ms_b128": dispatch_ms(b16),
+           "cold_dispatches": q8.pi.cold_dispatches}
+    log("serving (e) int8: " + json.dumps(out))
+    need(np.isfinite(got).all(), "serving (e): non-finite int8 answers")
+    need(top1 >= cfg["top1"], f"serving (e): int8 top-1 agreement {top1} "
+         f"below {cfg['top1']}")
+    need(out["cold_dispatches"] == 0, "serving (e): a cold dispatch")
+    return out
+
+
+def serving_swap(dev, host, net, images):
+    """18(f): two rolling swaps during an open loop: zero errors, zero
+    cold dispatches, every answer bitwise one of the two versions'
+    same-bucket oracles."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import loadgen
+
+    cfg = SERVE_SWAP
+    net2 = serve_resnet(dev, seed=SEED + 1)
+    pool = images[:cfg["images"]]
+    oracles = []             # (version net, bucket) -> [images, classes]
+    for v in (net, net2):
+        for b in SERVE["buckets"]:
+            pi = ParallelInference(v, batchBuckets=(b,))
+            if b == 1:
+                o = np.concatenate([pi.output(pool[i:i + 1]).toNumpy()
+                                    for i in range(len(pool))])
+            else:
+                o = pi.output(pool).toNumpy()
+            oracles.append((1 if v is net else 2, b, o))
+    versions = [host.model("resnet50")]
+    done = [0]
+    lock = threading.Lock()
+    wrong, seen = [], set()
+
+    def submit(i):
+        try:
+            got = host.submit("resnet50", pool[i][None])
+        finally:
+            with lock:
+                done[0] += 1
+        hit = [v for v, _, o in oracles if np.array_equal(got[0], o[i])]
+        with lock:
+            if hit:
+                seen.add(hit[0])
+            else:
+                wrong.append(i)
+
+    swaps = []
+
+    finished = threading.Event()
+
+    def swapper():
+        # the second swap waits for an answer of the second version
+        for after, to, need_v in zip(cfg["swap_after"], (net2, net),
+                                     (1, 2)):
+            while done[0] < after or need_v not in seen:
+                if finished.wait(0.002):
+                    return
+            swaps.append(host.swap("resnet50", to))
+            versions.append(host.model("resnet50"))
+
+    sw = threading.Thread(target=swapper)
+    sw.start()
+    rec = loadgen.run_open_loop(submit, lambda i: i % len(pool),
+                                rate=SERVE_LOAD["min_rate"],
+                                n_requests=cfg["requests"], seed=SEED + 2,
+                                max_clients=SERVE_LOAD["clients"])
+    finished.set()
+    sw.join(300)
+    cold = cold_total(*(v.pi for v in versions))
+    out = {"errors": rec["errors"], "completed": rec["completed"],
+           "requests_per_sec": rec["requests_per_sec"],
+           "p99_ms": rec["p99_ms"],
+           "versions": [s["version"] for s in swaps],
+           "swap_warm_s": [s["warm_s"] for s in swaps],
+           "swap_status": [sorted({r["status"] for r in s["warm"].values()})
+                           for s in swaps],
+           "versions_seen": sorted(seen), "not_an_oracle": len(wrong),
+           "cold_dispatches": cold}
+    log("serving (f) swap: " + json.dumps(out))
+    need(rec["errors"] == {} and rec["completed"] == cfg["requests"],
+         f"serving (f): {rec['errors']}, {rec['completed']} completed")
+    need(len(swaps) == 2 and not wrong,
+         f"serving (f): {len(swaps)} swaps, {len(wrong)} answers match no "
+         "oracle")
+    need(cold == 0, f"serving (f): {cold} cold dispatches")
+    need(seen == {1, 2}, f"serving (f): versions seen {seen}")
+    del net2
+    return out
+
+
+def serving_fleet(dev, net, images):
+    """18(g): two ModelHost replicas on the card behind FleetRouter:
+    ResNet-50 and LeNet at an 80/20 skew; a chaos wedge, then raises on
+    one replica (failover, its breaker opens, quarantine, the probe
+    readmits it); swap_all under load; config 3's char-RNN through
+    register_sequence and swap_all."""
+    from deeplearning4j_tpu_torch.runtime.chaos import ChaosPlan
+    from deeplearning4j_tpu_torch.serving import (
+        FleetRouter, ModelHost, loadgen,
+    )
+    from deeplearning4j_tpu_torch.serving.fleet import (
+        scenario_hot_model_skew,
+    )
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    cfg = SERVE_FLEET
+    fleet = FleetRouter(breaker=dict(window=4, failure_ratio=0.5,
+                                     min_samples=2, open_for_s=600.0))
+    rids = [fleet.add_replica(ModelHost(), replica_id=f"r{i}")
+            for i in range(cfg["replicas"])]
+    out = {}
+    try:
+        lenet = LeNet(numClasses=10, seed=SEED, device=dev).init()
+        fleet.register("resnet50", net, batchBuckets=SERVE["buckets"],
+                       queueLimit=SERVE["queue_limit"],
+                       maxWaitMs=SERVE["max_wait_ms"])
+        fleet.register("lenet", lenet, batchBuckets=(1, 8, 32),
+                       queueLimit=SERVE["queue_limit"],
+                       maxWaitMs=SERVE["max_wait_ms"])
+        digits = np.random.RandomState(SEED).rand(
+            len(images), 1, 28, 28).astype(np.float32)
+        feeds = {"resnet50": images, "lenet": digits}
+
+        def submit_for(name):
+            return lambda i: fleet.submit(
+                name, feeds[name][i % len(images)][None])
+
+        rec = scenario_hot_model_skew(
+            submit_for, lambda i: i, models=["resnet50", "lenet"],
+            hot_fraction=cfg["hot"], rate=SERVE_LOAD["min_rate"] * 2,
+            n_requests=cfg["skew_requests"], seed=SEED)
+        need(rec["errors"] == {}, f"fleet (g): skew errors {rec['errors']}")
+        out["skew"] = {k: rec[k] for k in ("requests_per_sec", "p50_ms",
+                                           "p99_ms", "completed")}
+        out["skew"]["per_model"] = rec["per_model"]
+
+        # the chaos leg, serial so every ordinal is fixed: request w0
+        # wedges r0's dispatch (ordinal 0); the next W requests route
+        # around it to r1 (ordinals 1..W); once w0 is released, r0 ranks
+        # first again (ties go by replica id) and its next two dispatches
+        # raise (ordinals W+1 and W+3; r1 answers W+2 and W+4): two
+        # failovers, and r0's breaker opens (2 of its last 4 outcomes
+        # failed); then traffic avoids r0 until it is quarantined and
+        # three probes readmit it
+        W = cfg["wedged_requests"]
+        release = threading.Event()
+        plan = (ChaosPlan(seed=SEED)
+                .wedge("queue.dispatch", 300.0, at=0, release=release)
+                .raise_n("queue.dispatch", at=W + 1)
+                .raise_n("queue.dispatch", at=W + 3))
+        hosts = dict(fleet._hosts())
+        hits = {r: 0 for r in rids}
+        for r, h in hosts.items():
+            b = h.model("resnet50").batcher
+
+            def counted(f, _r=r, _orig=b._dispatch):
+                hits[_r] += 1
+                return _orig(f)
+
+            b._dispatch = counted
+        client_errors = []
+
+        def settle(wedged=0):
+            # a reply wakes its client just before its dispatch stops
+            # counting as load: wait for that, so each serial request
+            # ranks the replicas as the ordinals above assume
+            limit = time.monotonic() + 60
+            while hosts["r0"].queued_work("resnet50") > wedged \
+                    or hosts["r1"].queued_work("resnet50") > 0:
+                need(time.monotonic() < limit, "fleet (g): never idle")
+                time.sleep(0.001)
+
+        def call(i, wedged=0):
+            settle(wedged)
+            try:
+                return fleet.submit("resnet50",
+                                    images[i % len(images)][None])
+            except Exception as e:   # the gate counts them
+                client_errors.append(repr(e))
+
+        fo = fleet._m_failover.labels(model="resnet50", error="ChaosError")
+        fo0 = fo.value
+        with plan:
+            w0 = threading.Thread(target=call, args=(0,))
+            w0.start()
+            deadline = time.monotonic() + 60
+            while plan.fired("queue.dispatch") < 1:
+                need(time.monotonic() < deadline, "fleet (g): no wedge")
+                time.sleep(0.005)
+            around = dict(hits)
+            for i in range(W):
+                call(i + 1, wedged=1)
+            around = {r: hits[r] - around[r] for r in rids}
+            release.set()
+            w0.join(300)
+            for i in range(2):
+                call(W + 1 + i)
+            opened = fleet.health("r0").breaker.state
+            before = dict(hits)
+            for i in range(4):
+                call(W + 3 + i)
+            avoided = hits["r0"] - before["r0"]
+        fleet.quarantine("r0")
+        fleet.set_probe("resnet50", images[:1])
+        probes = [fleet.probe_tick() for _ in range(3)]
+        readmitted = [p[0]["readmitted"] for p in probes if p]
+        out["chaos"] = {"fired": plan.events,
+                        "routed_around_wedge": around,
+                        "chaos_failovers": fo.value - fo0,
+                        "breaker_after_raises": opened,
+                        "r0_dispatches_while_open": avoided,
+                        "probes_readmitted": readmitted,
+                        "breaker_after_probes":
+                            fleet.health("r0").breaker.state,
+                        "client_errors": client_errors}
+        log("fleet (g) chaos: " + json.dumps(out["chaos"]))
+        need(not client_errors, f"fleet (g): client errors {client_errors}")
+        need(around["r0"] == 0 and around["r1"] == W,
+             f"fleet (g): around the wedge {around}")
+        need(fo.value - fo0 == 2 and opened == "open" and avoided == 0,
+             f"fleet (g): failovers {fo.value - fo0}, breaker {opened}, "
+             f"{avoided} dispatches on the open replica")
+        need(readmitted == [False, False, True]
+             and not fleet.health("r0").quarantined,
+             f"fleet (g): probes {probes}")
+
+        # swap_all under load
+        net2 = serve_resnet(dev, seed=SEED + 1)
+        sw = {}
+        th = threading.Thread(target=lambda: sw.update(
+            rep=fleet.swap_all("resnet50", net2)))
+        olds = [h.model("resnet50") for h in hosts.values()]
+
+        def start_swap(i):
+            if i == cfg["swap_requests"] // 4:
+                th.start()
+            return i
+
+        rec = loadgen.run_open_loop(
+            lambda i: fleet.submit("resnet50",
+                                   images[i % len(images)][None]),
+            start_swap, rate=SERVE_LOAD["min_rate"],
+            n_requests=cfg["swap_requests"], seed=SEED + 3,
+            max_clients=SERVE_LOAD["clients"])
+        th.join(300)
+        news = [h.model("resnet50") for h in hosts.values()]
+        cold = cold_total(*(sm.pi for sm in olds + news))
+        out["swap_all"] = {"errors": rec["errors"],
+                           "completed": rec["completed"],
+                           "versions": sorted(r["version"] for r in
+                                              sw["rep"].values()),
+                           "cold_dispatches": cold}
+        need(rec["errors"] == {} and cold == 0
+             and out["swap_all"]["versions"] == [2] * len(rids),
+             f"fleet (g): swap_all {out['swap_all']}")
+        del net2
+
+        # config 3's char-RNN as a fleet sequence model
+        V = CHAR_RNN["vocab"]
+        rnn1 = char_rnn(dev, CHAR_RNN, "BFLOAT16")
+        fleet.register_sequence("char-rnn", rnn1,
+                                slotBuckets=cfg["slot_buckets"])
+        eye = np.eye(V, dtype=np.float32)
+        rng = np.random.RandomState(SEED)
+        prompts = [eye[rng.randint(0, V, cfg["seq_steps"])]
+                   for _ in range(cfg["seq_requests"])]
+        before = [fleet.submit_sequence("char-rnn", p) for p in prompts]
+        rnn2 = char_rnn(dev, dict(CHAR_RNN, seed=CHAR_RNN["seed"] + 1),
+                        "BFLOAT16")
+        rep = fleet.swap_all("char-rnn", rnn2)
+        after = [fleet.submit_sequence("char-rnn", p) for p in prompts]
+        out["char_rnn"] = {
+            "versions": sorted(r["version"] for r in rep.values()),
+            "shapes": [list(np.asarray(a).shape) for a in after],
+            "changed": sum(not np.array_equal(a, b)
+                           for a, b in zip(before, after))}
+        need(out["char_rnn"]["versions"] == [2] * len(rids)
+             and out["char_rnn"]["changed"] == len(prompts)
+             and all(np.isfinite(np.asarray(a)).all() for a in after),
+             f"fleet (g): char-RNN {out['char_rnn']}")
+        snap = fleet.metrics_snapshot()
+        out["models"] = snap["models"]
+    finally:
+        fleet.close()
+    log("fleet (g): " + json.dumps({k: v for k, v in out.items()
+                                     if k != "chaos"}))
+    return out
+
+
+def serving_phase(dev):
+    """Phase 18: one-shot serving of phase 9(b)'s ResNet-50, (a)-(g)."""
+    import torch
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    t = time.perf_counter()
+    before = kernel_launches()
+    images = serve_images(SERVE["images"])
+    net = serve_resnet(dev)
+    host, warm = serving_warm(dev, net)
+    out = {"warm": warm}
+    try:
+        out["parity"] = serving_parity(dev, net, images)
+        out["http"] = serving_http(dev, host, images)
+        out["load"] = serving_load(dev, host, net, images)
+        out["int8"] = serving_int8(host, net, images)
+        out["swap"] = serving_swap(dev, host, net, images)
+    finally:
+        host.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["fleet"] = serving_fleet(dev, net, images)
+    need(kernel_launches() == before, "serving: a hand-written kernel "
+         f"launched: {before} -> {kernel_launches()}")
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -5383,6 +6118,9 @@ def main():
     catalogue = catalogue_phase(dev)
     torch.cuda.empty_cache()
     fine = fine_tune_phase(dev, train, runtime, zoo)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving = serving_phase(dev)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -5592,6 +6330,35 @@ def main():
         f"{fg['int8_param_bytes']} vs {fg['bf16_param_bytes']} bytes, top-1 "
         f"agreement {fg['top1_agreement']:.3f}; phase 17 "
         f"{fine['seconds']:.1f} s")
+    sw, sp, sh, sl, s8, ss, sg = (serving[k] for k in (
+        "warm", "parity", "http", "load", "int8", "swap", "fleet"))
+    log(f"one-shot serving on {card}: ResNet-50 bf16 NHWC 224^2 behind "
+        "ModelHost, warm " + ", ".join(
+            f"b{b} {v:.3f} s" for b, v in sw["bucket_seconds"].items())
+        + f"; same-bucket coalescing bitwise, bucket 1 vs coalesced "
+        f"{sp['bucket1_vs_coalesced_max_abs']:.3e} max-abs "
+        f"({sp['bucket1_vs_coalesced_floored_bf16_ulps']:.2f} floored bf16 "
+        f"ulps), logits {sp['logits_bucket1_vs_coalesced_rel_max_abs']:.3e}"
+        f" of their max-abs, top-1 {sp['bucket1_vs_coalesced_top1']:.3f}; "
+        f"HTTP codes {sh['codes']}; "
+        f"open loop at {sl['rate']:.0f} req/s: serial "
+        f"{sl['serial']['requests_per_sec']} req/s (p50 "
+        f"{sl['serial']['p50_ms']} / p99 {sl['serial']['p99_ms']} ms), "
+        f"batched {sl['batched']['requests_per_sec']} req/s (p50 "
+        f"{sl['batched']['p50_ms']} / p99 {sl['batched']['p99_ms']} ms), "
+        f"{sl['speedup']:.2f}x, occupancy "
+        f"{sl['occupancy']['mean_occupancy']} ({sl['occupancy']['histogram']}"
+        f"), cold dispatches {sl['cold_dispatches']}; bucket-128 dispatch "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sl["bucket128_split_ms"].items())
+        + f" ms; int8 {s8['int8_ms_b128']:.2f} vs bf16 "
+        f"{s8['bf16_ms_b128']:.2f} ms a b128 dispatch, "
+        f"{s8['int8_weight_bytes']} vs {s8['bf16_weight_bytes']} weight "
+        f"bytes, top-1 {s8['top1_agreement']:.4f}; two swaps under load: "
+        f"errors {ss['errors']}, cold {ss['cold_dispatches']}; fleet skew "
+        f"{sg['skew']['requests_per_sec']} req/s, chaos failovers "
+        f"{sg['chaos']['chaos_failovers']:.0f}, swap_all errors "
+        f"{sg['swap_all']['errors']}; phase 18 {serving['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -7,11 +7,15 @@ dl4j-spark SharedTrainingMaster / parameter averaging): the data group
 (``collectives``), the compressed exchanges and their bill
 (``sharding``), the trainers (``trainer``), the Spark facades
 (``spark``) and the data-parallel legs of the multi-chip dry run
-(``dryrun``). Tensor, sequence and pipeline parallelism, the ZeRO
-update, the hierarchical exchange, ``ParallelInference`` and the cost
-model wait for ROADMAP Queue 1 item 7.
+(``dryrun``), and ``ParallelInference`` on one device (``inference``).
+Tensor, sequence and pipeline parallelism, the ZeRO update, the
+hierarchical exchange, ``ParallelInference``'s replica split over cards
+and the cost model wait for ROADMAP Queue 1 item 7.
 """
 
+from deeplearning4j_tpu_torch.parallel.inference import (
+    INFERENCE_MODES, ParallelInference,
+)
 from deeplearning4j_tpu_torch.parallel.mesh import (
     DATA_AXIS, GROUP_AXIS, INTRA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
     DataGroup, build_mesh, data_parallel_mesh,
@@ -48,4 +52,5 @@ __all__ = [
     "initializeMultiHost", "hybrid_mesh", "is_coordinator", "num_hosts",
     "launch", "SparkDl4jMultiLayer", "SparkComputationGraph",
     "ParameterAveragingTrainingMasterBuilder", "SharedTrainingMasterBuilder",
+    "ParallelInference", "INFERENCE_MODES",
 ]

@@ -4,9 +4,10 @@ A trimmed copy of ``deeplearning4j_tpu/runtime/telemetry.py``: the
 process-wide, thread-safe counters / gauges / fixed-bucket histograms
 (with exact percentile readout over a bounded sample reservoir),
 Prometheus-style labels, the Prometheus text exposition served on
-``GET /metrics``, and ``add_span`` into a bounded ring. Instruments
-live at dispatch boundaries on host code that already runs between
-device launches; nothing here touches a device.
+``GET /metrics``, a JSON ``snapshot()``, and ``add_span``/``event``
+into a bounded ring on an injectable clock. Instruments live at
+dispatch boundaries on host code that already runs between device
+launches; nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import math
 import os
 import re
 import threading
+import time
 
 __all__ = ["MetricsRegistry", "Counter", "Gauge", "Histogram",
            "TraceBuffer", "get_registry", "percentile", "DEFAULT_BUCKETS"]
@@ -92,6 +94,11 @@ class _Child:
             self.value += n
         return self
 
+    def dec(self, n=1.0):
+        if self._parent.kind != "gauge":
+            raise TypeError(f"dec() on a {self._parent.kind}")
+        return self.inc(-n)
+
     def set(self, v):
         if self._parent.kind != "gauge":
             raise TypeError(f"set() on a {self._parent.kind}")
@@ -123,6 +130,23 @@ class _Child:
         with self._parent._lock:
             vals = list(self.samples)
         return percentile(vals, q)
+
+    def mean(self):
+        """Mean over ALL observations (sum/count); None before the first
+        (the fleet brownout's measured per-item estimate)."""
+        with self._parent._lock:
+            return self.sum / self.count if self.count else None
+
+    def reset(self):
+        """Zero this series in place (cached handles stay attached)."""
+        with self._parent._lock:
+            self.value = 0.0
+            if self._parent.kind == "histogram":
+                self.bucket_counts = [0] * (len(self._parent.buckets) + 1)
+                self.sum = 0.0
+                self.count = 0
+                self.samples = []
+        return self
 
 
 class _Instrument:
@@ -177,13 +201,43 @@ class _Instrument:
         with self._lock:
             return list(self._children.values())
 
+    def reset(self):
+        for c in self.children():
+            c.reset()
+        return self
+
+    def _only(self):
+        """The one series of an unlabeled instrument."""
+        if self.labelnames:
+            raise ValueError(
+                f"{self.name} is labeled {self.labelnames}: address a "
+                "series via .labels(...)")
+        return self.labels()
+
 
 class Counter(_Instrument):
     kind = "counter"
 
+    @property
+    def value(self):
+        return self._only().value
+
 
 class Gauge(_Instrument):
     kind = "gauge"
+
+    def set(self, v):
+        return self._only().set(v)
+
+    def inc(self, n=1.0):
+        return self._only().inc(n)
+
+    def dec(self, n=1.0):
+        return self._only().dec(n)
+
+    @property
+    def value(self):
+        return self._only().value
 
 
 class Histogram(_Instrument):
@@ -199,10 +253,18 @@ class Histogram(_Instrument):
         self.sample_cap = int(sample_cap)
         super().__init__(name, help, labelnames)
 
+    @property
+    def count(self):
+        return self._only().count
+
+    @property
+    def sum(self):
+        return self._only().sum
+
 
 class TraceBuffer:
     """Bounded ring of structured spans: {name, cat, ts, dur (seconds),
-    pid, tid, args}."""
+    ph ('X' span, 'i' instant), pid, tid, args}."""
 
     def __init__(self, capacity=8192):
         self.capacity = int(capacity)
@@ -210,9 +272,9 @@ class TraceBuffer:
         self._spans = []
         self.dropped = 0   # spans evicted by the ring bound
 
-    def add(self, name, cat, ts, dur, args=None):
+    def add(self, name, cat, ts, dur, args=None, ph="X"):
         span = {"name": str(name), "cat": str(cat), "ts": float(ts),
-                "dur": float(dur), "pid": os.getpid(),
+                "dur": float(dur), "ph": ph, "pid": os.getpid(),
                 "tid": threading.get_ident(),
                 "args": dict(args) if args else {}}
         with self._lock:
@@ -233,9 +295,12 @@ class TraceBuffer:
 
 
 class MetricsRegistry:
-    """Process-wide instrument + span registry."""
+    """Process-wide instrument + span registry. clock: monotonic seconds
+    (default time.perf_counter) stamping ``event``s; components with a
+    clock of their own record spans through ``add_span``."""
 
-    def __init__(self, trace_capacity=8192):
+    def __init__(self, clock=None, trace_capacity=8192):
+        self.clock = clock if clock is not None else time.perf_counter
         self._lock = threading.RLock()
         self._instruments = {}
         self.trace = TraceBuffer(trace_capacity)
@@ -276,10 +341,44 @@ class MetricsRegistry:
         with self._lock:
             return dict(self._instruments)
 
+    def reset(self):
+        """Zero every series and clear the trace ring in place."""
+        for inst in self.instruments().values():
+            inst.reset()
+        self.trace.clear()
+        return self
+
     def add_span(self, name, cat, ts, dur, **args):
         """Record a span with explicit start/duration (seconds) on the
         caller's clock (a scheduler's clock may be a ManualClock)."""
         self.trace.add(name, cat, ts, dur, args)
+
+    def event(self, name, cat="", **args):
+        """Record an instant event (ph 'i') at the registry's now."""
+        self.trace.add(name, cat, self.clock(), 0.0, args, ph="i")
+
+    def snapshot(self):
+        """JSON-safe nested view of every instrument (the
+        ``metrics_snapshot()`` surface)."""
+        out = {}
+        for name, inst in sorted(self.instruments().items()):
+            series = []
+            for c in inst.children():
+                with inst._lock:
+                    if inst.kind == "histogram":
+                        rec = {"labels": dict(c.labels), "count": c.count,
+                               "sum": round(c.sum, 9),
+                               "p50": percentile(c.samples, 50),
+                               "p99": percentile(c.samples, 99),
+                               "buckets": dict(zip(
+                                   [str(b) for b in inst.buckets]
+                                   + ["+Inf"], c.bucket_counts))}
+                    else:
+                        rec = {"labels": dict(c.labels), "value": c.value}
+                series.append(rec)
+            out[name] = {"kind": inst.kind, "help": inst.help,
+                         "series": series}
+        return out
 
     def prometheus(self):
         """Prometheus text exposition (format 0.0.4): HELP/TYPE lines,

@@ -3,16 +3,23 @@
 The counterpart of ``deeplearning4j_tpu/serving/server.py``:
 ``InferenceServer`` puts a ``ModelHost`` behind the stdlib serving
 scaffold (``util/httpserve``); each connection's handler thread blocks
-on its own request while the scheduler thread batches them per step.
+on its own request while the micro-batcher coalesces them into
+dispatches (``:predict``) or a scheduler batches them per step
+(``:generate``).
 
 Routes:
 
 * ``GET /healthz`` — readiness: 503 until the warmup hook
-  (``ModelHost.warm_all`` by default: kernels built, every slot bucket
-  run once) returns.
+  (``ModelHost.warm_all`` by default: every batch bucket and slot
+  bucket run once, kernels built) returns.
 * ``GET /metrics`` — Prometheus text exposition of the registry.
 * ``GET /v1/models`` — the model policy table.
 * ``GET /v1/models/<name>`` — one model's policy row (404).
+* ``POST /v1/models/<name>:predict`` — one-shot inference through the
+  model's micro-batcher: ``{"instances": [...], "deadlineMs":
+  optional}`` -> ``{"predictions": [...], "model": ..., "version":
+  ..., "rows": n}``. Each in-flight request blocks its handler thread
+  on its slice of a coalesced dispatch.
 * ``POST /v1/models/<name>:generate`` — a token prompt for a paged LM,
   ``{"tokens": [...], "maxNewTokens": optional, "deadlineMs":
   optional}`` -> ``{"tokens": [...], "model": ..., "version": ...,
@@ -23,7 +30,8 @@ Routes:
 
 Status contract: queue full or KV pool full -> 429, deadline exceeded
 -> 504, draining/closed -> 503, unknown model -> 404, malformed request
--> 400. ``:predict`` answers 404 until the one-shot slice.
+-> 400. Every failure mode has a status code and the client is always
+released.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ class _InferenceHandler(JsonHandler):
             return "metrics"
         if path == "/v1/models":
             return "models"
+        if path.endswith(":predict"):
+            return "predict"
         if path.endswith(":generate"):
             return "generate"
         if path.startswith("/v1/models/"):
@@ -74,8 +84,10 @@ class _InferenceHandler(JsonHandler):
             return self._json({"models": host.describe()})
         if path.startswith("/v1/models/"):
             name = path[len("/v1/models/"):]
+            resolve = host.sequence_model \
+                if host.kind(name) == "sequence" else host.model
             try:
-                return self._json(host.sequence_model(name).policy())
+                return self._json(resolve(name).policy())
             except KeyError as e:
                 raise HttpError(404, str(e))
         raise HttpError(404, f"no route {path}")
@@ -87,7 +99,47 @@ class _InferenceHandler(JsonHandler):
         if path.startswith("/v1/models/") and path.endswith(":generate"):
             return self._handle_generate(
                 host, path[len("/v1/models/"):-len(":generate")])
+        if path.startswith("/v1/models/") and path.endswith(":predict"):
+            return self._handle_predict(
+                host, path[len("/v1/models/"):-len(":predict")])
         raise HttpError(404, f"no route {path}")
+
+    def _handle_predict(self, host, name):
+        """POST :predict: one request through the model's micro-batcher;
+        the deadline bounds queue wait and dispatch together."""
+        try:
+            body = self._read_json_object()
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        instances = body.get("instances")
+        if instances is None:
+            raise HttpError(400, 'body must carry "instances": [...]')
+        try:
+            feats = np.asarray(instances, dtype=np.float32)
+            deadline_ms = body.get("deadlineMs")
+            deadline_s = None if deadline_ms is None \
+                else float(deadline_ms) / 1000.0
+        except (TypeError, ValueError) as e:
+            raise HttpError(400, f"instances/deadlineMs malformed: {e}")
+        try:
+            # a request that loses the race against a rolling swap is
+            # re-routed to the new version, which then answers it
+            sm, out = host._routed(host.model, name, lambda sm: (
+                sm, sm.submit(feats, deadline_s=deadline_s)))
+        except KeyError as e:
+            raise HttpError(404, str(e))
+        except ValueError as e:       # the shape/rows contract
+            raise HttpError(400, str(e))
+        except QueueFullError as e:   # backpressure, never a hang
+            raise HttpError(429, str(e))
+        except DeadlineExceededError as e:
+            raise HttpError(504, str(e))
+        except ServingClosedError as e:
+            raise HttpError(503, str(e))
+        preds = [np.asarray(o).tolist() for o in out] \
+            if isinstance(out, list) else np.asarray(out).tolist()
+        return self._json({"predictions": preds, "model": sm.name,
+                           "version": sm.version, "rows": len(feats)})
 
     def _handle_generate(self, host, name):
         """POST :generate: a "tokens" prompt through the paged scheduler

@@ -322,8 +322,9 @@ class TestHostAndServer:
         assert out.tolist() == toks
         assert host.queued_work("lm") == 0
         assert host.queued_work("nope") is None
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="register_sequence"):
             host.register("oneshot", m)
+        assert "oneshot" not in host
         with pytest.raises(ValueError):
             host.register_sequence("lm", m)
         rep = host.swap_sequence("lm", _lm())
