@@ -400,12 +400,43 @@ Phases (any failure exits non-zero before the result line):
    under an open loop of 128 requests with zero errors and cold
    dispatches; config 3's char-RNN through register_sequence and
    swap_all (every answer changes with the weights).
+19. the rest of SameDiff and ONNX import — f32, TF32 off, cuDNN
+   deterministic. (a) zoo ResNet50 (224^2, 1000 classes, seed 0, BN
+   running statistics drawn from seed 0, eval mode) written as an NCHW
+   ONNX model by tests/_torch_onnx_models.py through the port's wire
+   codec (Conv, BatchNormalization, Relu, Add, MaxPool,
+   GlobalAveragePool, Flatten, Gemm, Softmax), read by
+   OnnxGraphMapper.importGraph into a SameDiff on the card;
+   validate_samediff reports no error; output at batch 32 against the
+   net's own eval-mode logits within ONNX_LOGIT_REL of their max-abs,
+   top-1 equal; the model's bytes, the import seconds, and the imported
+   and native forwards' median ms (host wall to a synchronize, 10) and
+   kernels a forward (torch.profiler). (b) config 1's LeNet (B 64,
+   28^2x1 NHWC, conv 5x5 20 -> max-pool 2 -> conv 5x5 50 -> max-pool 2
+   -> dense 500 relu -> dense 10, softmax cross-entropy, Adam(1e-3), on
+   seeded synthetic digits) as a SameDiff through sd.cnn with the zoo
+   LeNet's weights: the first step's loss (rel 1e-5) and gradients (rel
+   L2 1e-4) against the MultiLayerNetwork, neither regularised; 20 fit
+   steps (steps/s, kernels a step); 5 steps + save(saveUpdaterState) +
+   load(loadUpdaterState) + 5 steps bitwise 10 unbroken steps. (c) a
+   bounded whileLoop trains under fitSteps with no predicate fetch (a
+   step also under set_sync_debug_mode("error")); an unbounded loop's
+   trip count and fetches; each ifCond branch; all within 1e-5 of the
+   CPU's max-abs; a dropout body draws anew each iteration. (d) every op
+   of SameDiff's rest once on the card against the port on the CPU:
+   cnn, rnn (lstmLayer at config 3's widths, 77 -> 256, B 32, T 20, with
+   its gradient), image and segment ops within rtol 1e-5 and an atol of
+   1e-6 of each tensor's max-abs;
+   linalg by reconstructions and invariants within 1e-4; fft within
+   1e-5 of the max-abs; NMS and bitwise (uint16/uint32 widened, uint64
+   and/or/xor) exactly; betainc within 1e-5 + 1e-5 |value| of scipy on
+   the host and rtol 1e-5 of the CPU's f32.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
-17(e)'s; phases 8-10, 12, 13, 14(a), 14(b), 15, 16, 17 but (e) and 18
-run no hand-written kernel: conv, dense and the recurrent products are
+17(e)'s; phases 8-10, 12, 13, 14(a), 14(b), 15, 16, 17 but (e), 18
+and 19 run no hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout
 and the shape layers are torch tensor ops, and the data-parallel
 exchange is NCCL's or gloo's collectives).
@@ -416,6 +447,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -6041,6 +6073,672 @@ def serving_phase(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 19: the rest of SameDiff and ONNX import
+# ----------------------------------------------------------------------
+
+#: 19(a): the zoo ResNet50 written to ONNX and imported, at full width
+ONNX_RESNET = dict(batch=32, image=224, classes=1000, reps=10)
+ONNX_LOGIT_REL = 1e-4     # imported vs native logits, of their max-abs
+#: 19(b): config 1's LeNet widths as a SameDiff graph through sd.cnn
+SD_LENET = dict(batch=64, classes=10, steps=20, resume_at=5, resume_to=10)
+#: 19(c): control flow on the card against the same graph on the CPU
+CF_REL = 1e-5
+CF_STEPS = 5
+#: 19(d): lstmLayer at config 3's widths (77 -> 256, B 32, T 20)
+SD_LSTM = dict(inputs=77, hidden=256, batch=32, seq=20)
+#: 19(d) cnn/rnn/image/segment ops, card vs CPU: rtol, and atol as a
+#: share of each tensor's max-abs (ROADMAP.md Queue 3)
+SWEEP_RTOL, SWEEP_ATOL = 1e-5, 1e-6
+LINALG_REL = 1e-4
+FFT_REL = 1e-5
+#: betainc f32 against scipy: the reference's own f32 continued fraction
+#: lies up to 1.8e-5 (relative) and 5.5e-6 (absolute) from scipy at these
+#: draws, so the bar carries an absolute term (ROADMAP.md Queue 3;
+#: tests/test_torch_samediff_namespaces.py pins the reach)
+BETAINC_RTOL, BETAINC_ATOL = 1e-5, 1e-5
+
+
+def _onnx_models():
+    """tests/_torch_onnx_models.py of this checkout, loaded by path (it
+    imports no jax)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "_torch_onnx_models.py")
+    spec = importlib.util.spec_from_file_location("_torch_onnx_models", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def wall_ms(fn, reps):
+    """Median host wall ms of `fn` to a synchronize, after one warm
+    call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def onnx_resnet(dev, cfg):
+    """19(a): the zoo ResNet50 (seeded weights, seeded BN running
+    statistics) written as ONNX by tests/_torch_onnx_models.py, read by
+    OnnxGraphMapper.importGraph into a SameDiff on the card, validated,
+    and held to the net's own eval-mode forward at batch 32."""
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import validate_samediff
+    from deeplearning4j_tpu_torch.modelimport import (
+        OnnxGraphMapper, onnx_wire,
+    )
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import strip_carries
+
+    om = _onnx_models()
+    B, S = cfg["batch"], cfg["image"]
+    net = ComputationGraph(om.resnet50_conf(
+        numClasses=cfg["classes"], inputShape=(3, S, S), seed=SEED),
+        device=dev).init()
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for st in net._states.values():
+            if st:
+                st["mean"].copy_(0.1 * torch.randn(st["mean"].shape,
+                                                   generator=g))
+                st["var"].copy_(0.5 + torch.rand(st["var"].shape,
+                                                 generator=g))
+    t = time.perf_counter()
+    data = onnx_wire.encode(om.resnet_onnx(net, B))
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    sd = OnnxGraphMapper.importGraph(data, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t
+    lv, pv = sd._onnx_vars["logits"], sd._onnx_vars["probs"]
+    report = validate_samediff(sd, placeholders=["input"], outputs=[pv])
+    need(report.ok, "19(a): the validator on the imported graph: "
+         + report.format())
+    x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (B, 3, S, S), dtype=np.float32)).to(dev)
+
+    def imported():
+        return sd.output({"input": x}, [lv.name, pv.name])
+
+    def native_logits():
+        with torch.no_grad():
+            _, pre, _ = net._run_graph(net._params,
+                                       strip_carries(net._states),
+                                       net._coerce_inputs(x), False, None,
+                                       None)
+        return pre["fc"]
+
+    out = imported()
+    got, probs = out[lv.name].tensor(), out[pv.name].tensor()
+    want = native_logits()
+    rel = float((got - want).abs().max() / want.abs().max())
+    top1 = float((got.argmax(1) == want.argmax(1)).double().mean())
+    probs_err = float((probs - net.output(x).tensor()).abs().max())
+    need(rel <= ONNX_LOGIT_REL and top1 == 1.0,
+         f"19(a): imported logits {rel:.3e} of the max-abs from the native "
+         f"net's (bar {ONNX_LOGIT_REL}), top-1 agreement {top1}")
+    res = {"model_bytes": len(data), "write_s": write_s,
+           "import_s": import_s, "ops": len(sd._ops),
+           "permutes": sum(o.opName == "permute" for o in sd._ops),
+           "logits_rel_max_abs": rel, "top1_agreement": top1,
+           "probs_max_abs": probs_err,
+           "validator": report.codes(),
+           "imported_ms": wall_ms(imported, cfg["reps"]),
+           "native_ms": wall_ms(lambda: net.output(x), cfg["reps"])}
+    res["imported_kernels"], res["imported_busy_ms"] = \
+        traced_device_work(imported)
+    res["native_kernels"], res["native_busy_ms"] = \
+        traced_device_work(lambda: net.output(x))
+    log("19(a) onnx resnet-50: " + json.dumps(res))
+    del sd, net, data
+    return res
+
+
+def sd_lenet(dev, ref, cfg):
+    """Config 1's LeNet as a SameDiff graph over NHWC images: conv 5x5
+    20 -> max-pool 2 -> conv 5x5 50 -> max-pool 2 -> dense 500 relu ->
+    dense 10, softmax cross-entropy, Adam(1e-3) (the zoo net's
+    updater), from the reference-layout weights `ref` of the zoo
+    LeNet's six layers."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    B, C = cfg["batch"], cfg["classes"]
+    sd = SameDiff.create(dev)
+    x = sd.placeHolder("x", "float32", B, 28, 28, 1)
+    y = sd.placeHolder("y", "float32", B, C)
+    c1, c2, d, o = (ref[i] for i in (0, 2, 4, 5))
+    h = sd.nn.relu(sd.cnn.conv2d(x, sd.var("c1W", c1["W"]),
+                                 sd.var("c1b", c1["b"])))
+    h = sd.cnn.maxPooling2d(h, (2, 2))
+    h = sd.nn.relu(sd.cnn.conv2d(h, sd.var("c2W", c2["W"]),
+                                 sd.var("c2b", c2["b"])))
+    h = sd.cnn.maxPooling2d(h, (2, 2))
+    # the reference's flatten order is (c, h, w)
+    h = sd.math.reshape(sd.math.permute(h, 0, 3, 1, 2), [B, 800])
+    h = sd.nn.relu(sd.nn.linear(h, sd.var("dW", d["W"]),
+                                sd.var("db", d["b"])))
+    logits = sd.nn.linear(h, sd.var("oW", o["W"]), sd.var("ob", o["b"]),
+                          name="logits")
+    sd.loss.softmaxCrossEntropy(y, logits, name="loss")
+    sd.setTrainingConfig(TrainingConfig.Builder().updater(Adam(1e-3))
+                         .dataSetFeatureMapping("x")
+                         .dataSetLabelMapping("y").build())
+    return sd
+
+
+_SD_LENET_PARAMS = {"c1W": (0, "W"), "c1b": (0, "b"), "c2W": (2, "W"),
+                    "c2b": (2, "b"), "dW": (4, "W"), "db": (4, "b"),
+                    "oW": (5, "W"), "ob": (5, "b")}
+
+
+def samediff_lenet(dev, cfg):
+    """19(b): the SameDiff LeNet's first step against the zoo LeNet's
+    MultiLayerNetwork (no regularisation on either side), 20 fit steps
+    (steps/s, kernels a step), and 5 steps + save(saveUpdaterState) +
+    load(loadUpdaterState) + 5 steps bitwise 10 unbroken steps."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    from deeplearning4j_tpu_torch.nn.multilayer import params_to_reference
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    B, C = cfg["batch"], cfg["classes"]
+    rng = np.random.default_rng(SEED)
+    n = B * cfg["resume_to"]
+    xs = rng.random((n, 784), dtype=np.float32)   # synthetic digits
+    rule = rng.standard_normal((784, C))
+    ys = np.eye(C, dtype=np.float32)[(xs @ rule).argmax(1)]
+    mln = LeNet(numClasses=C, seed=SEED, device=dev).init()
+    ref = params_to_reference(mln.layers, mln._params)
+    sd = sd_lenet(dev, ref, cfg)
+    feed = {"x": xs[:B].reshape(B, 28, 28, 1), "y": ys[:B]}
+    g_mln, l_mln = mln.computeGradientAndScore(xs[:B], ys[:B])
+    g_mln = params_to_reference(mln.layers, g_mln)
+    l_sd = float(sd.output(feed, ["loss"])["loss"].toNumpy())
+    g_sd = sd.calculateGradients(feed, *_SD_LENET_PARAMS)
+    loss_rel = abs(l_sd - l_mln) / abs(l_mln)
+    worst = max(rel_l2(g_sd[n].tensor().cpu(),
+                       torch.as_tensor(g_mln[i][k]))
+                for n, (i, k) in _SD_LENET_PARAMS.items())
+    need(loss_rel <= 1e-5 and worst <= 1e-4,
+         f"19(b): SameDiff LeNet loss {l_sd} vs the MLN's {l_mln} (rel "
+         f"{loss_rel:.3e}), worst gradient rel L2 {worst:.3e}")
+    steps = []
+    for i in range(cfg["steps"]):
+        t = time.perf_counter()
+        sd.fit(features=feed["x"], labels=feed["y"])
+        steps.append(time.perf_counter() - t)
+    med = float(np.median(steps[2:]))
+    kernels, busy = traced_device_work(
+        lambda: sd.fit(features=feed["x"], labels=feed["y"]))
+    # the resume: fresh graphs from the same weights, batch i at step i
+    batches = [(xs[i * B:(i + 1) * B].reshape(B, 28, 28, 1),
+                ys[i * B:(i + 1) * B]) for i in range(cfg["resume_to"])]
+    whole = sd_lenet(dev, ref, cfg)
+    want = [whole.fit(features=bx, labels=by)[0] for bx, by in batches]
+    part = sd_lenet(dev, ref, cfg)
+    k = cfg["resume_at"]
+    got = [part.fit(features=bx, labels=by)[0] for bx, by in batches[:k]]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "lenet.zip")
+        part.save(path, saveUpdaterState=True)
+        nbytes = os.path.getsize(path)
+        back = SameDiff.load(path, loadUpdaterState=True, device=dev)
+    back.setTrainingConfig(part._tc)
+    got += [back.fit(features=bx, labels=by)[0] for bx, by in batches[k:]]
+    same_w = all(torch.equal(back._arrays[n], whole._arrays[n])
+                 for n in _SD_LENET_PARAMS)
+    need(got == want and same_w, "19(b): 5 steps + save/load + 5 steps "
+         f"are not bitwise 10 unbroken steps: {got} vs {want}, weights "
+         f"equal {same_w}")
+    res = {"first_step_loss": l_sd, "mln_loss": l_mln,
+           "loss_rel": loss_rel, "worst_grad_rel_l2": worst,
+           "fit_step_ms_median_3_on": med * 1e3,
+           "fit_steps_per_s": 1.0 / med, "kernels_per_step": kernels,
+           "busy_ms_per_step": busy, "resume_bitwise": True,
+           "file_bytes": nbytes, "losses": want}
+    log("19(b) samediff lenet: " + json.dumps(res))
+    return res
+
+
+def _cf_pair(build, dev):
+    """The graph `build(sd)` on the card and on the CPU."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    out = []
+    for d in (dev, "cpu"):
+        sd = SameDiff.create(d)
+        out.append((sd, build(sd)))
+    return out
+
+
+def _rel_to(got, want):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-300))
+
+
+def control_flow_card(dev):
+    """19(c): a bounded whileLoop trains under fitSteps with no host sync
+    of its own (its steps also run under the sync-debug "error" mode);
+    an unbounded loop's trip count and each ifCond branch; all against
+    the same graph on the CPU; a dropout body draws anew each
+    iteration."""
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import TrainingConfig
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+
+    F32 = np.float32
+    rng = np.random.default_rng(SEED)
+    X = rng.standard_normal((64, 32), dtype=np.float32)
+    Y = rng.standard_normal((64, 32), dtype=np.float32)
+    W = (rng.standard_normal((32, 32)) * 0.2).astype(np.float32)
+
+    def bounded(sd):
+        x = sd.placeHolder("x", "float32", 64, 32)
+        y = sd.placeHolder("y", "float32", 64, 32)
+        w = sd.var("w", W)
+        h, _, _ = sd.whileLoop(
+            lambda s, a, c, ww: s.math.lt(c, s.constant(F32(3.0))),
+            lambda s, a, c, ww: (s.math.tanh(s.linalg.mmul(a, ww)),
+                                 c + s.constant(F32(1.0)), ww),
+            [x, sd.constant(F32(0.0)), w], maxIterations=4)
+        sd.loss.meanSquaredError(y, h, name="loss")
+        sd.setTrainingConfig(TrainingConfig.Builder().updater(Adam(1e-2))
+                             .dataSetFeatureMapping("x")
+                             .dataSetLabelMapping("y").build())
+
+    (card, _), (cpu, _) = _cf_pair(bounded, dev)
+    losses = [g.fitSteps(features=X, labels=Y, numSteps=CF_STEPS)
+              for g in (card, cpu)]
+    need(card._control_syncs == 0, "19(c): a bounded loop fetched its "
+         f"predicate {card._control_syncs} times")
+    tc, names, params, state = card._fit_setup()
+    phs = {"x": torch.from_numpy(X).to(dev), "y": torch.from_numpy(Y).to(dev)}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, card._train_state = card._step(tc, names, params, state, phs,
+                                          card._iteration)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    card._iteration += 1
+    cpu.fitSteps(features=X, labels=Y, numSteps=1)
+    w_rel = _rel_to(card._arrays["w"], cpu._arrays["w"])
+    need(w_rel <= CF_REL and abs(losses[0] - losses[1]) <= CF_REL * abs(
+        losses[1]), f"19(c): the bounded loop's training: weights "
+         f"{w_rel:.3e} of the max-abs from the CPU's, losses {losses}")
+
+    def unbounded(sd):
+        x = sd.placeHolder("x", "float32", 256)
+        return sd.whileLoop(
+            lambda s, a, c: s.math.lt(s.math.sum(s.math.abs(a)),
+                                      s.constant(F32(1e4))),
+            lambda s, a, c: (s.math.mul(a, s.constant(F32(1.7))),
+                             c + s.constant(F32(1.0))),
+            [x, sd.constant(F32(0.0))])
+
+    xv = rng.standard_normal(256).astype(np.float32)
+    (gc_, (a_c, n_c)), (gp, (a_p, n_p)) = _cf_pair(unbounded, dev)
+    s0 = gc_._control_syncs
+    rc = gc_.output({"x": xv}, [a_c, n_c])
+    rp = gp.output({"x": xv}, [a_p, n_p])
+    trips = int(rc[n_c.name].toNumpy())
+    need(trips == int(rp[n_p.name].toNumpy()) and trips > 3
+         and gc_._control_syncs - s0 == trips + 1
+         and _rel_to(rc[a_c.name].tensor(), rp[a_p.name].tensor())
+         <= CF_REL, f"19(c): the unbounded loop: {trips} trips on the card "
+         f"vs {int(rp[n_p.name].toNumpy())}, "
+         f"{gc_._control_syncs - s0} fetches")
+
+    def branches(sd):
+        x = sd.placeHolder("x", "float32", 128, 64)
+        w = sd.constant(W[:, :16].repeat(2, 0), name="wb")
+        return sd.ifCond(sd.math.gt(sd.math.sum(x), sd.constant(F32(0.0))),
+                         lambda s, a, ww: s.math.tanh(s.linalg.mmul(a, ww)),
+                         lambda s, a, ww: s.nn.sigmoid(s.math.neg(
+                             s.linalg.mmul(a, ww))),
+                         inputs=[x, w], name="branch")
+
+    (gc_, _), (gp, _) = _cf_pair(branches, dev)
+    branch_rel = []
+    for sign in (1.0, -1.0):
+        xb = np.abs(rng.standard_normal((128, 64), dtype=np.float32)) * sign
+        s0 = gc_._control_syncs
+        a = gc_.output({"x": xb}, ["branch"])["branch"].tensor()
+        b = gp.output({"x": xb}, ["branch"])["branch"].tensor()
+        branch_rel.append(_rel_to(a, b))
+        need(gc_._control_syncs - s0 == 1 and branch_rel[-1] <= CF_REL,
+             f"19(c): ifCond branch {sign}: {branch_rel[-1]:.3e}")
+
+    def dropped(sd):
+        x = sd.placeHolder("x", "float32", 4096)
+        return sd.whileLoop(
+            lambda s, a, m, c: s.math.lt(c, s.constant(F32(2.0))),
+            lambda s, a, m, c: (s.nn.dropout(s.math.identity(m), 0.5), a,
+                                c + s.constant(F32(1.0))),
+            [x, x, sd.constant(F32(0.0))], maxIterations=2)
+
+    (gd, outs), _ = _cf_pair(dropped, dev)
+    env = dict(gd._base_env(), x=torch.ones(4096, device=dev))
+    two = gd._run_graph(dict(env), [outs[0].name], train=True,
+                        stream=1)[outs[0].name]
+    (g1, outs1), _ = _cf_pair(lambda sd: sd.whileLoop(
+        lambda s, a, m, c: s.math.lt(c, s.constant(F32(1.0))),
+        lambda s, a, m, c: (s.nn.dropout(s.math.identity(m), 0.5), a,
+                            c + s.constant(F32(1.0))),
+        [sd.placeHolder("x", "float32", 4096)] * 2
+        + [sd.constant(F32(0.0))], maxIterations=1), dev)
+    env1 = dict(g1._base_env(), x=torch.ones(4096, device=dev))
+    one = g1._run_graph(dict(env1), [outs1[0].name], train=True,
+                        stream=1)[outs1[0].name]
+    kept = float((two != 0).float().mean())
+    need(not torch.equal(one, two) and 0.45 < kept < 0.55,
+         "19(c): a dropout body replayed iteration 0's mask, or kept "
+         f"{kept}")
+    res = {"bounded_fit_steps_losses": losses, "bounded_weights_rel": w_rel,
+           "unbounded_trips": trips, "branch_rel": branch_rel,
+           "dropout_kept": kept}
+    log("19(c) control flow: " + json.dumps(res))
+    return res
+
+
+def _sweep_cases(draws):
+    """(op, class, build) for every op of SameDiff's rest; `build(sd)`
+    returns the output variables and the names of the variables whose
+    gradient is checked. Inputs come from ``draws["rng"]``, which the
+    caller reseeds before each build, so the card and the CPU see the
+    same ones."""
+    F32 = np.float32
+
+    def r(*s, scale=1.0):
+        return (draws["rng"].standard_normal(s) * scale).astype(F32)
+
+    def u(*s, lo=0.0, hi=1.0):
+        return draws["rng"].uniform(lo, hi, s).astype(F32)
+
+    draws["rng"] = np.random.default_rng(SEED)
+
+    x4, img = r(8, 32, 32, 16), u(4, 24, 32, 3)
+    spd = (lambda m: (m @ m.T / 64 + np.eye(64)).astype(F32))(r(64, 64))
+    tall = r(96, 64)
+    # rank 8 of 64, in f64: in f32 its numerically-zero singular values
+    # sit at the cut eps*max(M, N)*s_max itself
+    rank_def = r(96, 8).astype(np.float64) @ r(8, 64).astype(np.float64)
+    corner = u(512, 2, hi=10.0)
+    boxes = np.concatenate([corner, corner + u(512, 2, lo=0.5, hi=3.0)], 1)
+    ints = draws["rng"].integers(-2 ** 20, 2 ** 20, (1024,)).astype(
+        np.int32)
+    shifts = draws["rng"].integers(0, 31, (1024,)).astype(np.int32)
+    sig = draws["rng"].integers(0, 84, (4096,)).astype(np.int32)
+    L = SD_LSTM
+    cases = [
+        ("conv2d", "cnn", lambda sd: ([sd.cnn.conv2d(
+            sd.constant(x4), sd.constant(r(3, 3, 16, 32, scale=0.2)),
+            sd.constant(r(32)), stride=(1, 2), padding=((1, 1), (1, 0)))],
+            ())),
+        ("conv1d", "cnn", lambda sd: ([sd.cnn.conv1d(
+            sd.constant(r(8, 128, 16)), sd.constant(r(5, 16, 32, scale=0.2)),
+            stride=2, padding=((2, 2),))], ())),
+        ("conv3d", "cnn", lambda sd: ([sd.cnn.conv3d(
+            sd.constant(r(2, 8, 16, 16, 4)),
+            sd.constant(r(3, 3, 3, 4, 8, scale=0.2)),
+            padding=((1, 1), (1, 1), (1, 1)))], ())),
+        ("deconv2d", "cnn", lambda sd: ([sd.cnn.deconv2d(
+            sd.constant(x4), sd.constant(r(3, 3, 16, 8, scale=0.2)),
+            stride=(2, 2), padding=((1, 2), (1, 2)))], ())),
+        ("maxPooling2d", "cnn", lambda sd: ([sd.cnn.maxPooling2d(
+            sd.constant(x4), (3, 3), (2, 2), padding=((1, 1), (1, 1)))],
+            ())),
+        ("avgPooling2d", "cnn", lambda sd: ([sd.cnn.avgPooling2d(
+            sd.constant(x4), (3, 3), (2, 2), padding=((1, 1), (1, 1)),
+            count_include_pad=False)], ())),
+        ("upsampling2d", "cnn", lambda sd: ([sd.cnn.upsampling2d(
+            sd.constant(x4), (2, 2))], ())),
+        ("im2col", "cnn", lambda sd: ([sd.cnn.im2col(
+            sd.constant(x4), (3, 3), (2, 2), padding=((1, 1), (1, 1)))],
+            ())),
+        ("spaceToBatch", "cnn", lambda sd: ([sd.cnn.batchToSpace(
+            sd.cnn.spaceToBatch(sd.constant(x4), 2), 2), sd.cnn.spaceToBatch(
+                sd.constant(x4), 2, padding=((2, 0), (0, 2)))], ())),
+        ("lstmLayer", "rnn", lambda sd: (list(sd.rnn.lstmLayer(
+            sd.var("x", r(L["seq"], L["batch"], L["inputs"])),
+            sd.var("w", r(L["inputs"], 4 * L["hidden"], scale=0.1)),
+            sd.var("u", r(L["hidden"], 4 * L["hidden"], scale=0.05)),
+            sd.var("b", r(4 * L["hidden"], scale=0.1)))),
+            ("x", "w", "u", "b"))),
+        ("gru", "rnn", lambda sd: ([sd.rnn.gru(
+            sd.constant(r(20, 32, 77)), sd.constant(r(77, 768, scale=0.1)),
+            sd.constant(r(256, 768, scale=0.05)),
+            sd.constant(r(768, scale=0.1)))], ())),
+        ("simpleRnn", "rnn", lambda sd: ([sd.rnn.simpleRnn(
+            sd.constant(r(20, 32, 77)), sd.constant(r(77, 256, scale=0.1)),
+            sd.constant(r(256, 256, scale=0.05)),
+            sd.constant(r(256, scale=0.1)))], ())),
+        ("resizeBilinear", "image", lambda sd: ([sd.image.resizeBilinear(
+            sd.constant(img), 56, 40), sd.image.resizeBilinear(
+                sd.constant(img), 10, 13)], ())),
+        ("resizeNearest", "image", lambda sd: ([sd.image.resizeNearest(
+            sd.constant(img), 56, 40), sd.image.resizeNearest(
+                sd.constant(img), 10, 13)], ())),
+        ("cropAndResize", "image", lambda sd: ([sd.image.cropAndResize(
+            sd.constant(img), sd.constant(np.array(
+                [[0.1, 0.2, 0.77, 0.71], [0.03, 0.02, 0.97, 0.99]], F32)),
+            sd.constant(np.array([3, 0], np.int32)), 17, 9)], ())),
+        ("adjustContrast", "image", lambda sd: ([sd.image.adjustContrast(
+            sd.constant(img), 1.7)], ())),
+        ("hsvToRgb", "image", lambda sd: ([sd.image.hsvToRgb(
+            sd.constant(img))], ())),
+        ("rgbToHsv", "image", lambda sd: ([sd.image.rgbToHsv(
+            sd.constant(img))], ())),
+        ("nonMaxSuppression", "exact", lambda sd: ([
+            sd.image.nonMaxSuppression(sd.constant(boxes),
+                                       sd.constant(u(512)),
+                                       maxOutputSize=64, iouThreshold=0.5,
+                                       scoreThreshold=0.05)], ())),
+        ("segment", "seg", lambda sd: ([getattr(sd.math, op)(
+            sd.constant(r(4096, 8)), sd.constant(sig), numSegments=80)
+            for op in ("segmentSum", "segmentMax", "segmentMin",
+                       "segmentMean", "segmentProd")], ())),
+        ("bitwise", "exact", lambda sd: ([
+            getattr(sd.bitwise, op)(sd.constant(ints), sd.constant(shifts))
+            for op in ("leftShift", "rightShift", "bitwiseAnd", "bitwiseOr",
+                       "bitwiseXor")] + [sd.bitwise.bitwiseNot(
+                           sd.constant(ints))] + [
+            getattr(sd.bitwise, op)(sd.constant(ints.astype(dt)),
+                                    sd.constant(shifts.astype(dt)))
+            for dt in (np.uint8, np.uint16, np.uint32)
+            for op in ("leftShift", "rightShift", "bitwiseXor")] + [
+            getattr(sd.bitwise, op)(sd.constant(ints.astype(np.uint64)),
+                                    sd.constant(shifts.astype(np.uint64)))
+            for op in ("bitwiseAnd", "bitwiseOr", "bitwiseXor")], ())),
+        ("fft", "fft", lambda sd: ([
+            sd.fft.fft(sd.constant(r(16, 256))),
+            sd.fft.ifft(sd.fft.fft(sd.constant(r(16, 256)), numPoints=300)),
+            sd.fft.rfft(sd.constant(r(16, 256)), dimension=0),
+            sd.fft.irfft(sd.fft.rfft(sd.constant(r(16, 256))),
+                         numPoints=256),
+            sd.fft.fft2(sd.constant(r(4, 64, 64))),
+            sd.fft.ifft2(sd.constant(r(4, 64, 64)))] + [
+            getattr(sd.fft, p)(sd.fft.toComplex(sd.constant(r(64)),
+                                                sd.constant(r(64))))
+            for p in ("real", "imag", "conj", "angle")], ())),
+        ("betainc", "betainc", lambda sd: (lambda a, b, x: (
+            [sd.math.betainc(a, b, x), a, b, x], ()))(
+            sd.constant(u(64, 64, lo=0.5, hi=5.0)),
+            sd.constant(u(64, 64, lo=0.5, hi=5.0)),
+            sd.constant(u(64, 64, lo=0.05, hi=0.95)))),
+        ("cholesky", "linalg", lambda sd: ([sd.linalg.cholesky(
+            sd.constant(spd)), sd.constant(spd)], ())),
+        ("inv", "linalg", lambda sd: ([sd.linalg.inv(sd.constant(spd)),
+                                       sd.constant(spd)], ())),
+        ("det", "linalg", lambda sd: ([sd.linalg.det(sd.constant(
+            spd[:8, :8]))], ())),
+        ("solve", "linalg", lambda sd: ([sd.linalg.solve(
+            sd.constant(spd), sd.constant(tall[:64, :8])), sd.constant(spd),
+            sd.constant(tall[:64, :8])], ())),
+        ("lstsq", "linalg", lambda sd: ([sd.linalg.lstsq(
+            sd.constant(rank_def), sd.constant(
+                tall[:, :4].astype(np.float64)))], ())),
+        ("lu", "linalg", lambda sd: (list(sd.linalg.lu(sd.constant(tall[:64])))
+                                     + [sd.constant(tall[:64])], ())),
+        ("eigh", "linalg", lambda sd: (list(sd.linalg.eigh(sd.constant(spd)))
+                                       + [sd.constant(spd)], ())),
+        ("svd", "linalg", lambda sd: (list(sd.linalg.svd(sd.constant(tall)))
+                                      + [sd.constant(tall)], ())),
+        ("qr", "linalg", lambda sd: (list(sd.linalg.qr(sd.constant(tall)))
+                                     + [sd.constant(tall)], ())),
+    ]
+    return cases
+
+
+def _linalg_check(op, card, cpu):
+    """Sign-, phase- and pivot-free checks of a decomposition on the card:
+    its reconstruction, and its invariants against the CPU's."""
+    import torch
+
+    c = [t.double().cpu() for t in card]
+    p = [t.double().cpu() for t in cpu]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    if op == "cholesky":
+        return max(rel(c[0] @ c[0].T, c[1]), rel(c[0], p[0]))
+    if op == "inv":
+        return rel(c[1] @ c[0], torch.eye(c[1].shape[0], dtype=c[0].dtype))
+    if op in ("det", "lstsq"):
+        return rel(c[0], p[0])
+    if op == "solve":
+        return rel(c[1] @ c[0], c[2])
+    if op == "lu":
+        return rel(c[0] @ c[1] @ c[2], c[3])
+    if op == "eigh":
+        return max(rel(c[1] @ torch.diag(c[0]) @ c[1].T, c[2]),
+                   rel(c[0], p[0]))
+    if op == "svd":
+        k = c[1].shape[0]
+        return max(rel(c[0][:, :k] * c[1] @ c[2][:k], c[3]), rel(c[1], p[1]))
+    if op == "qr":
+        return max(rel(c[0] @ c[1], c[2]),
+                   rel(c[1].diagonal().abs(), p[1].diagonal().abs()))
+    raise ValueError(op)
+
+
+def namespace_sweep(dev):
+    """19(d): every op of SameDiff's rest once on the card against the
+    port on the CPU (the same seeded inputs): elementwise, cnn and rnn
+    within rtol 1e-5 / atol 1e-6 (lstmLayer at config 3's widths with its
+    gradient); linalg through reconstructions and invariants (1e-4
+    relative); fft within 1e-5 of the max-abs; NMS and bitwise exactly;
+    betainc against scipy on the host (rtol 1e-5, f32)."""
+    import scipy.special as sp
+    import torch
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    worst = {}
+    ran, failed = [], []
+    draws = {}
+    for i, (op, kind, build) in enumerate(_sweep_cases(draws)):
+        outs = {}
+        for d in (dev, "cpu"):
+            draws["rng"] = np.random.default_rng(SEED + 1 + i)
+            sd = SameDiff.create(d)
+            vs, wrt = build(sd)
+            got = sd.output({}, vs)
+            vals = [got[v.name].tensor() for v in vs]
+            grads = []
+            if wrt:
+                sd.setLossVariables(sd.math.sum(sd.math.square(vs[0]),
+                                                name="sq").name)
+                g = sd.calculateGradients({}, *wrt)
+                grads = [g[n].tensor() for n in wrt]
+            outs[d if d == "cpu" else "card"] = (vals, grads)
+        (cv, cg), (pv, pg) = outs["card"], outs["cpu"]
+        need(all(a.device.type == torch.device(dev).type for a in cv),
+             f"19(d) {op}: an output left the card")
+        if kind == "linalg":
+            err = _linalg_check(op, cv, pv)
+            ok = err <= LINALG_REL
+        elif kind == "exact":
+            err = float(sum(not torch.equal(a.cpu(), b)
+                            for a, b in zip(cv, pv)))
+            ok = err == 0 and all(a.dtype == b.dtype for a, b in zip(cv, pv))
+        elif kind == "fft":
+            err = max(_rel_to(a if not a.is_complex() else
+                              torch.view_as_real(a), b if not b.is_complex()
+                              else torch.view_as_real(b))
+                      for a, b in zip(cv, pv))
+            ok = err <= FFT_REL and all(a.dtype == b.dtype
+                                        for a, b in zip(cv, pv))
+        elif kind == "betainc":
+            want = sp.betainc(*(t.double().numpy() for t in pv[1:4]))
+            got = cv[0].cpu().double().numpy()
+            err = float(np.max(np.abs(got - want)
+                               / (BETAINC_ATOL + BETAINC_RTOL * np.abs(want))))
+            ok = err <= 1.0 and cv[0].dtype == torch.float32 and \
+                torch.allclose(cv[0].cpu(), pv[0], rtol=SWEEP_RTOL,
+                               atol=SWEEP_ATOL)
+        else:
+            # |card - cpu| <= atol * max|cpu| + rtol * |cpu|, per tensor:
+            # the sums run in other orders (cuDNN's algorithms), so the
+            # absolute term scales with the tensor's magnitude
+            err = 0.0
+            for a, b in zip(cv + cg, pv + pg):
+                a, b = a.cpu().double(), b.double()
+                lim = SWEEP_ATOL * b.abs().max() + SWEEP_RTOL * b.abs()
+                err = max(err, float(((a - b).abs() / lim).nan_to_num(
+                    0.0).max()))
+            ok = err <= 1.0
+        worst[op] = err
+        ran.append(op)
+        if not ok:
+            failed.append(f"{op} ({kind}): {err:.3e}")
+    log("19(d) namespace sweep: " + json.dumps(worst))
+    need(not failed, "19(d) against the CPU: " + "; ".join(failed))
+    return {"ops": ran, "worst": worst}
+
+
+def samediff_rest_phase(dev):
+    """Phase 19: (a) ResNet-50 from ONNX, (b) a SameDiff LeNet through
+    sd.cnn with updater state in its file, (c) control flow on the card,
+    (d) the namespace sweep; f32, TF32 off; no hand-written kernel."""
+    import torch
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    t = time.perf_counter()
+    before = kernel_launches()
+    out = {"onnx": onnx_resnet(dev, ONNX_RESNET)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["lenet"] = samediff_lenet(dev, SD_LENET)
+    out["control"] = control_flow_card(dev)
+    out["sweep"] = namespace_sweep(dev)
+    need(kernel_launches() == before, "phase 19: a hand-written kernel "
+         f"launched: {before} -> {kernel_launches()}")
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -6121,6 +6819,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdx = samediff_rest_phase(dev)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -6359,6 +7060,23 @@ def main():
         f"{sg['skew']['requests_per_sec']} req/s, chaos failovers "
         f"{sg['chaos']['chaos_failovers']:.0f}, swap_all errors "
         f"{sg['swap_all']['errors']}; phase 18 {serving['seconds']:.1f} s")
+    xa, xb, xc, xd = (sdx[k] for k in ("onnx", "lenet", "control",
+                                       "sweep"))
+    log(f"SameDiff rest and ONNX import on {card}: ResNet-50 from ONNX "
+        f"({xa['model_bytes']} bytes, {xa['ops']} ops of which "
+        f"{xa['permutes']} permutes, imported in {xa['import_s']:.2f} s) "
+        f"logits {xa['logits_rel_max_abs']:.2e} of the max-abs from the "
+        f"native net's, top-1 {xa['top1_agreement']:.3f}; b"
+        f"{ONNX_RESNET['batch']} forward imported {xa['imported_ms']:.2f} "
+        f"ms / {xa['imported_kernels']} kernels vs native "
+        f"{xa['native_ms']:.2f} ms / {xa['native_kernels']} kernels; "
+        f"SameDiff LeNet loss rel {xb['loss_rel']:.2e}, gradients "
+        f"{xb['worst_grad_rel_l2']:.2e}, fit "
+        f"{xb['fit_steps_per_s']:.0f} steps/s, {xb['kernels_per_step']} "
+        f"kernels a step, resume bitwise; control flow: unbounded "
+        f"{xc['unbounded_trips']} trips, bounded weights "
+        f"{xc['bounded_weights_rel']:.2e} from the CPU's; "
+        f"{len(xd['ops'])} sweep cases; phase 19 {sdx['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

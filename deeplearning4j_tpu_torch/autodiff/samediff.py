@@ -19,26 +19,46 @@ device; gradients are ``torch.autograd`` over the same interpretation.
   ``nn.multilayer.default_param_update`` with the iteration counter.
   ``fitSteps(k)`` is k such steps with one loss fetch at the end.
 * Stochastic ops (dropout in training, the random ops) draw from a
-  ``torch.Generator`` seeded from (stream, op index): a fixed stream in
-  ``output`` and one stream per iteration in ``fit``. The draws are
-  reproducible per device; they never match the reference's threefry.
+  ``torch.Generator`` seeded from (stream, the op's path, op index): a
+  fixed stream in ``output`` and one stream per iteration in ``fit``.
+  An op inside a control-flow body carries the body's path (the
+  reference folds ``1_000_000 + op index``) and, in a loop, the
+  iteration, so it draws afresh every iteration and never on an outer
+  op's stream. The draws are reproducible per device; they never match
+  the reference's threefry.
+* Control flow (``ifCond``/``whileLoop``, aliases ``cond``/
+  ``while_loop``): bodies are graph builders over a sub-SameDiff,
+  recorded at definition so a graph with them saves and loads.
+  ``ifCond`` reads its predicate on the host and runs one branch (one
+  host sync, as ``lax.cond`` runs one). ``whileLoop`` with
+  ``maxIterations=None`` is a Python loop with one predicate fetch an
+  iteration, inference-only as the reference's ``lax.while_loop``; with
+  ``maxIterations=N`` it is N masked iterations (``where(pred, new,
+  old)``; the body runs on after the predicate turns false) with no host
+  sync, so it trains inside ``fitSteps``/``fitDataSet`` blocks. Host
+  fetches are counted in ``_control_syncs`` (and added to
+  ``fitDataSet``'s ``_fit_dataset_syncs``).
 * ``save``/``load`` write and read the reference's format: a zip of
   ``graph.json`` (variables with ``phShape``/``phDtype``, ops with their
-  kwargs, ``lossVariables``, ``iteration``) and ``arrays.npz``, so a
-  reference file loads here and a port file loads there (bf16 arrays are
-  written widened to float32).
+  kwargs and recorded bodies, ``lossVariables``, ``iteration``),
+  ``arrays.npz`` (with the bodies' constants under ``__body__/...``) and,
+  with ``saveUpdaterState``, ``updater.npz`` (the updater state's leaves
+  in ``jax.tree_util`` order), so a reference file loads here and a port
+  file loads there (bf16 arrays are written widened to float32, complex
+  ones as they are).
 
 A graph owns its arrays: ``var``/``constant``/``setArray`` take a copy,
 and ``getArr``/``output`` hand out copies of stored arrays, so ``fit``
 may update its variables in place without any INDArray seeing it.
 
-What waits raises ``NotImplementedError`` naming its ROADMAP.md Queue 1
-item: control flow, the cnn/rnn/image/fft/bitwise namespaces, the linalg
-decompositions and segment ops (item 9, ``ops_impl.DEFERRED``);
-``shardWeightUpdate`` (item 7); ``precompile`` (item 13); saving or
-loading updater state (item 9). ``fitDataSet(stepsPerSync=k)`` runs the
-networks' block driver (one host sync a block of k batches), and
-``evaluate`` and ``fit``'s listeners are the training runtime's.
+The namespaces are the reference's: ``math`` (with the segment ops and
+``betainc``), ``nn``, ``cnn``, ``rnn``, ``loss``, ``image``, ``linalg``,
+``bitwise``, ``random`` and ``fft``. What waits raises
+``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
+``shardWeightUpdate`` (item 7) and ``precompile`` (item 13).
+``fitDataSet(stepsPerSync=k)`` runs the networks' block driver (one host
+sync a block of k batches), and ``evaluate`` and ``fit``'s listeners are
+the training runtime's.
 """
 
 from __future__ import annotations
@@ -51,7 +71,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.autodiff.ops_impl import (
-    DEFERRED, DEVICE_OPS, OPS, STOCHASTIC_OPS, abs_select, deferred,
+    CONTROL_OPS, DEVICE_OPS, OPS, STOCHASTIC_OPS, abs_select,
 )
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.ndarray import random as _random
@@ -70,11 +90,22 @@ def _later(what, item):
         f"{what} waits for a later slice (ROADMAP.md Queue 1 item {item})")
 
 
-def _stream_seed(stream, i):
+def _stream_seed(stream, i, path=()):
     """The seed of op `i`'s generator in `stream` (0: output; it + 1: the
-    fit step at iteration `it`)."""
+    fit step at iteration `it`). `path` places a control-flow body's op:
+    (1_000_000 + the control op's index, ...) for an ``ifCond`` branch,
+    (1_000_000 + index, iteration, lane) for a loop's condition (lane 2)
+    and body (lane 3), nested bodies appending theirs."""
+    for p in path:
+        stream = (stream * 0xBF58476D1CE4E5B9 + p * 0x94D049BB133111EB
+                  + 0x2545F4914F6CDD1D) % (2 ** 64)
     return (stream * 0x9E3779B97F4A7C15 + i * 0xD1B54A32D192ED03
             + 0x632BE59BD9B4E019) % (2 ** 63)
+
+
+#: the op kwargs that hold a body's in-memory callable; its recorded
+#: spec is the matching ``*Graph`` key
+_BODY_CALLABLE_KEYS = ("trueBody", "falseBody", "condBody", "loopBody")
 
 
 class VariableType:
@@ -294,18 +325,22 @@ class SameDiff:
         self._loss_vars = []
         self._tc = None
         self._train_state = None
+        self._pending_updater_leaves = None
         self._iteration = 0
+        self._control_syncs = 0   # host fetches made by control flow
+        self._sync_owner = self   # a body graph counts on its outer graph
+        self._body_cache = {}     # (op id, body, arg shapes) -> sub-graph
         # namespaces (reference: sd.math(), sd.nn(), ...)
         self.math = _MathOps(self)
         self.nn = _NNOps(self)
-        self.loss = _LossOps(self)
-        self.linalg = _LinalgOps(self)
-        self.random = _RandomOps(self)
         self.cnn = _CNNOps(self)
-        self.rnn = _Deferred("rnn")
-        self.image = _Deferred("image")
-        self.bitwise = _Deferred("bitwise")
-        self.fft = _Deferred("fft")
+        self.rnn = _RNNOps(self)
+        self.loss = _LossOps(self)
+        self.image = _ImageOps(self)
+        self.linalg = _LinalgOps(self)
+        self.bitwise = _BitwiseOps(self)
+        self.random = _RandomOps(self)
+        self.fft = _FFTOps(self)
 
     @staticmethod
     def create(device=None):
@@ -414,8 +449,6 @@ class SameDiff:
 
     # ---------- op registration ----------
     def _op(self, opName, inputs, kwargs=None, nOut=1, name=None):
-        if opName in DEFERRED:
-            raise deferred(opName)
         if opName not in OPS:
             raise ValueError(f"unknown op '{opName}'")
         in_names = [v.name for v in inputs]
@@ -445,15 +478,128 @@ class SameDiff:
         self._loss_vars = [n.name if isinstance(n, SDVariable) else n
                            for n in names]
 
-    # ---------- control flow: waits ----------
-    def ifCond(self, *args, **kwargs):
-        raise deferred("if_cond")
+    # ---------- control flow (reference: the If / While ops) ----------
+    def ifCond(self, pred, trueBody, falseBody, inputs=(), nOut=1,
+               name=None):
+        """Conditional subgraph (reference: SameDiff.ifCond). `pred` is a
+        scalar; each body is ``lambda sd, *vars: SDVariable`` (or a tuple
+        of them) built on a sub-SameDiff whose placeholders mirror
+        `inputs`. The predicate is read on the host and one branch runs;
+        autograd flows through it."""
+        ins = [self._lift(pred)] + [self._lift(v) for v in inputs]
+        n = len(ins) - 1
+        return self._op("if_cond", ins,
+                        kwargs={"trueBody": trueBody, "falseBody": falseBody,
+                                "trueGraph": _record_body(
+                                    trueBody, n, "ifCond trueBody"),
+                                "falseGraph": _record_body(
+                                    falseBody, n, "ifCond falseBody")},
+                        nOut=nOut, name=name)
 
-    def whileLoop(self, *args, **kwargs):
-        raise deferred("while_loop")
+    def whileLoop(self, condBody, loopBody, loopVars, maxIterations=None,
+                  name=None):
+        """While loop over subgraphs (reference: SameDiff.whileLoop).
+        condBody(sd, *vars) -> scalar; loopBody(sd, *vars) -> the updated
+        vars. ``maxIterations=None``: a true data-dependent trip count,
+        one host fetch of the predicate an iteration, inference-only.
+        ``maxIterations=N``: N masked iterations, ``where(pred, new,
+        old)`` each, no host sync, differentiable."""
+        ins = [self._lift(v) for v in loopVars]
+        return self._op("while_loop", ins,
+                        kwargs={"condBody": condBody, "loopBody": loopBody,
+                                "condGraph": _record_body(
+                                    condBody, len(ins), "whileLoop condBody"),
+                                "loopGraph": _record_body(
+                                    loopBody, len(ins), "whileLoop loopBody"),
+                                "maxIterations": (None if maxIterations is None
+                                                  else int(maxIterations))},
+                        nOut=len(ins), name=name)
 
     cond = ifCond
     while_loop = whileLoop
+
+    def _body_graph(self, op, key, args, n_expected, what):
+        """The sub-SameDiff of one of `op`'s bodies over placeholders
+        shaped like `args`, and its output names. Built once per arg
+        signature (the reference rebuilds it at every trace): a body's
+        constants reach the device once."""
+        sig = (id(op), key, tuple((tuple(a.shape), a.dtype) for a in args))
+        hit = self._body_cache.get(sig)
+        if hit is not None:
+            return hit
+        build = op.kwargs.get(key) or _body_from_spec(
+            op.kwargs[key.replace("Body", "Graph")])
+        sub = SameDiff(self.device)
+        sub._sync_owner = self._sync_owner
+        phs = [sub.placeHolder(f"in{i}", a.dtype, *a.shape)
+               for i, a in enumerate(args)]
+        out = build(sub, *phs)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if n_expected is not None and len(outs) != n_expected:
+            raise ValueError(
+                f"{what} returned {len(outs)} output(s) but {n_expected} "
+                f"were declared (nOut / len(loopVars))")
+        hit = (sub, [p.name for p in phs], [o.name for o in outs])
+        self._body_cache[sig] = hit
+        return hit
+
+    @staticmethod
+    def _run_body(body, args, train, stream, path):
+        sub, ins, outs = body
+        env = sub._base_env()
+        if args and args[0].device.type == "meta":     # shape inference
+            env = {n: torch.empty(a.shape, dtype=a.dtype, device="meta")
+                   for n, a in env.items()}
+        env.update(zip(ins, args))
+        res = sub._run_graph(env, outs, train=train, stream=stream,
+                             path=path)
+        return [res[n] for n in outs]
+
+    def _host_pred(self, p):
+        """A predicate read on the host: one sync, counted on the
+        outermost graph."""
+        self._sync_owner._control_syncs += 1
+        return bool(p.reshape(()).to(torch.bool))
+
+    def _exec_if_cond(self, op, env, train, stream, path, i):
+        pred, *args = [env[n] for n in op.inputs]
+        no = len(op.outputs)
+        # the branches have one signature (lax.cond's rule), so shape
+        # inference over meta tensors runs the true one
+        take = pred.device.type == "meta" or self._host_pred(pred)
+        key = "trueBody" if take else "falseBody"
+        body = self._body_graph(op, key, args, no, f"ifCond {key}")
+        return self._run_body(body, args, train, stream,
+                              path + (1_000_000 + i,))
+
+    def _exec_while_loop(self, op, env, train, stream, path, i):
+        vs = [env[n] for n in op.inputs]
+        if vs and vs[0].device.type == "meta":
+            return vs                    # the carry keeps its shapes
+        cond = self._body_graph(op, "condBody", vs, None,
+                                "whileLoop condBody")
+        body = self._body_graph(op, "loopBody", vs, len(op.outputs),
+                                "whileLoop loopBody")
+        max_it = op.kwargs.get("maxIterations")
+        base = path + (1_000_000 + i,)
+        if max_it is None:
+            if torch.is_grad_enabled() and any(v.requires_grad for v in vs):
+                raise ValueError(
+                    "Reverse-mode differentiation does not work for an "
+                    "unbounded whileLoop (maxIterations=None); pass "
+                    "maxIterations for a differentiable masked loop")
+            t = 0
+            while self._host_pred(self._run_body(
+                    cond, vs, train, stream, base + (t, 2))[0]):
+                vs = self._run_body(body, vs, train, stream, base + (t, 3))
+                t += 1
+            return vs
+        for t in range(int(max_it)):
+            p = self._run_body(cond, vs, train, stream,
+                               base + (t, 2))[0].reshape(()).to(torch.bool)
+            new = self._run_body(body, vs, train, stream, base + (t, 3))
+            vs = [torch.where(p, n, v) for n, v in zip(new, vs)]
+        return vs
 
     # ---------- execution ----------
     def _slice_for(self, out_names):
@@ -473,27 +619,34 @@ class SameDiff:
                 stack.extend(self._ops[i].inputs)
         return sorted(needed)
 
-    def _gen(self, stream, i):
+    def _gen(self, stream, i, path=()):
         g = torch.Generator(device=self.device)
-        g.manual_seed(_stream_seed(stream, i))
+        g.manual_seed(_stream_seed(stream, i, path))
         return g
 
-    def _run_graph(self, env, out_names, train=False, stream=None):
+    def _run_graph(self, env, out_names, train=False, stream=None,
+                   path=()):
         """Interpret the slice for `out_names` over the tensors in `env`.
         `train`/`stream` thread training mode and the step's random
         stream into the stochastic ops (None: output()'s fixed stream,
-        and dropout is the identity)."""
+        and dropout is the identity); `path` places a body's ops."""
         for i in self._slice_for(out_names):
             op = self._ops[i]
+            if op.opName in CONTROL_OPS:
+                run = self._exec_if_cond if op.opName == "if_cond" \
+                    else self._exec_while_loop
+                res = run(op, env, train, stream, path, i)
+                env.update(zip(op.outputs, res))
+                continue
             args = [env[n] for n in op.inputs]
             kwargs = op.kwargs
             if op.opName == "dropout":
                 on = train and stream is not None
                 kwargs = dict(kwargs, train=on,
-                              gen=self._gen(stream, i) if on else None)
+                              gen=self._gen(stream, i, path) if on else None)
             elif op.opName in STOCHASTIC_OPS:
                 kwargs = dict(kwargs, gen=self._gen(
-                    0 if stream is None else stream, i))
+                    0 if stream is None else stream, i, path))
             elif op.opName in DEVICE_OPS:
                 kwargs = dict(kwargs, device=self.device)
             res = OPS[op.opName](*args, **kwargs)
@@ -620,7 +773,26 @@ class SameDiff:
     def _train_state_for(self, params, updater):
         if self._train_state is None:
             with torch.no_grad():
-                self._train_state = updater.init(params)
+                state = updater.init(params)
+            if self._pending_updater_leaves is not None:
+                # a file's state: its leaves in jax.tree_util order, put
+                # into the structure (and dtypes) the updater gives
+                from deeplearning4j_tpu_torch.util.sharded_checkpoint \
+                    import _fill
+                from deeplearning4j_tpu_torch.nn.multilayer import \
+                    tree_leaves
+
+                like = tree_leaves(state)
+                leaves = self._pending_updater_leaves
+                if len(leaves) != len(like):
+                    raise ValueError(
+                        f"updater.npz holds {len(leaves)} leaves; the "
+                        f"TrainingConfig's updater has {len(like)}")
+                state = _fill(state, [
+                    _from_numpy(a, self.device).to(t.dtype).reshape(t.shape)
+                    for a, t in zip(leaves, like)])
+                self._pending_updater_leaves = None
+            self._train_state = state
         return self._train_state
 
     def _step(self, tc, loss_names, params, state, phs, it):
@@ -719,7 +891,8 @@ class SameDiff:
         them, and the k losses are read one block behind. The ragged
         final stack runs through ``fit``. Returns the loss history (one
         float a step); the host syncs are left in
-        ``_fit_dataset_syncs``."""
+        ``_fit_dataset_syncs``, control flow's predicate fetches
+        included."""
         from deeplearning4j_tpu_torch.data.iterators import iter_stacks
         from deeplearning4j_tpu_torch.nn.multilayer import (
             BlockStager, check_steps_per_sync, launch_block,
@@ -734,6 +907,7 @@ class SameDiff:
                 f"fitDataSet(epochs={epochs}) needs a resettable "
                 "iterator (with reset()/hasNext()/next()); a plain "
                 "iterable can only run one epoch")
+        control0 = self._control_syncs
         if k == 1:
             history = []
             for _ in range(epochs):
@@ -742,7 +916,9 @@ class SameDiff:
                 for stack in iter_stacks(iterator, 1):
                     history.extend(self.fit(data=stack[0],
                                             listeners=listeners))
-            self._fit_dataset_syncs = len(history)  # one per batch
+            # one per batch, plus control flow's
+            self._fit_dataset_syncs = len(history) + \
+                self._control_syncs - control0
             return history
         tc, loss_names, params, _ = self._fit_setup()
         stager = BlockStager(self.device)
@@ -786,6 +962,7 @@ class SameDiff:
             for b in tail:
                 history.extend(self.fit(data=b, listeners=listeners))
                 self._fit_dataset_syncs += 1
+        self._fit_dataset_syncs += self._control_syncs - control0
         return history
 
     def _batch_arrays(self, b):
@@ -881,9 +1058,15 @@ class SameDiff:
 
     # ---------- serialization ----------
     def save(self, path, saveUpdaterState=False):
-        """graph.json + arrays.npz in one zip: the reference's format."""
-        if saveUpdaterState:
-            raise _later("saving updater state", 9)
+        """graph.json + arrays.npz (+ updater.npz) in one zip: the
+        reference's format. Recorded bodies go into graph.json, their
+        constants into arrays.npz; a body that could not be recorded
+        makes this raise."""
+        from deeplearning4j_tpu_torch.nn.multilayer import tree_leaves
+
+        body_store = {}
+        op_kwargs = [_clean_spec_kwargs(o.kwargs, f"op{i}", body_store)
+                     for i, o in enumerate(self._ops)]
         graph = {
             "variables": [
                 {"name": n, "type": v.variableType,
@@ -892,33 +1075,42 @@ class SameDiff:
                              if hasattr(v, "_ph_dtype") else "")}
                 for n, v in self._vars.items()],
             "ops": [{"op": o.opName, "inputs": o.inputs,
-                     "outputs": o.outputs, "kwargs": o.kwargs}
-                    for o in self._ops],
+                     "outputs": o.outputs, "kwargs": kw}
+                    for o, kw in zip(self._ops, op_kwargs)],
             "lossVariables": self._loss_vars,
             "iteration": self._iteration,
         }
         buf = io.BytesIO()
-        np.savez(buf, **{n: to_numpy(a) for n, a in self._arrays.items()})
+        np.savez(buf, **{n: to_numpy(a) for n, a in self._arrays.items()},
+                 **body_store)
         with zipfile.ZipFile(path, "w") as z:
             z.writestr("graph.json", json.dumps(graph))
             z.writestr("arrays.npz", buf.getvalue())
+            if saveUpdaterState and self._train_state is not None:
+                sbuf = io.BytesIO()
+                np.savez(sbuf, *[to_numpy(t)
+                                 for t in tree_leaves(self._train_state)])
+                z.writestr("updater.npz", sbuf.getvalue())
 
     @staticmethod
     def load(path, loadUpdaterState=False, device=None):
-        """A graph from a ``save`` zip of either package, on `device`."""
-        if loadUpdaterState:
-            raise _later("loading updater state", 9)
+        """A graph from a ``save`` zip of either package, on `device`.
+        With ``loadUpdaterState`` the file's updater state (if it has
+        one) is restored at the first ``fit``, into the structure its
+        TrainingConfig's updater gives."""
         sd = SameDiff(device)
         with zipfile.ZipFile(path) as z:
             graph = json.loads(z.read("graph.json"))
             npz = np.load(io.BytesIO(z.read("arrays.npz")))
             arrays = {n: _from_numpy(npz[n], sd.device) for n in npz.files
                       if not n.startswith("__body__/")}
-        for od in graph["ops"]:
-            if od["op"] in DEFERRED:
-                raise deferred(od["op"])
-            if od["op"] not in OPS:
-                raise ValueError(f"unknown op '{od['op']}'")
+            if loadUpdaterState and "updater.npz" in z.namelist():
+                snpz = np.load(io.BytesIO(z.read("updater.npz")))
+                sd._pending_updater_leaves = [snpz[k] for k in snpz.files]
+            for od in graph["ops"]:
+                if od["op"] not in OPS:
+                    raise ValueError(f"unknown op '{od['op']}'")
+                _resolve_spec_kwargs(od["kwargs"], npz)
         for vd in graph["variables"]:
             v = SDVariable(sd, vd["name"], vd["type"])
             if vd["type"] == VariableType.PLACEHOLDER:
@@ -949,6 +1141,103 @@ class SameDiff:
         return "\n".join(lines)
 
 
+
+# ---------------- recorded control-flow bodies ----------------
+def _record_body(build_fn, n_inputs, what=""):
+    """A control-flow body as a serializable spec (reference:
+    ``SameDiff._record_body``): the builder runs once at definition on a
+    CPU sub-graph over shapeless placeholders ``in0..``, the names the
+    executor's sub-graphs use, so a replay is exact. A body that cannot
+    be recorded is marked, and ``save`` refuses the graph."""
+    sub = SameDiff("cpu")
+    phs = [sub.placeHolder(f"in{i}") for i in range(n_inputs)]
+    try:
+        out = build_fn(sub, *phs)
+    except Exception as e:   # save() raises the clear error instead
+        return {"unrecordable": f"{what}: {type(e).__name__}: {e}"}
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    return {
+        "inputs": [p.name for p in phs],
+        "outputs": [o.name for o in outs],
+        "variables": [{"name": n, "type": v.variableType}
+                      for n, v in sub._vars.items()],
+        "ops": [{"op": o.opName, "inputs": o.inputs, "outputs": o.outputs,
+                 "kwargs": {k: v for k, v in o.kwargs.items()
+                            if k not in _BODY_CALLABLE_KEYS}}
+                for o in sub._ops],
+        "arrays": dict(sub._arrays),
+    }
+
+
+def _body_from_spec(spec):
+    """The inverse of ``_record_body``: a builder that replays the
+    recorded ops into the executor's sub-graph."""
+    def build(sub, *phs):
+        for vd in spec["variables"]:
+            if vd["name"] not in sub._vars:
+                sub._vars[vd["name"]] = SDVariable(sub, vd["name"],
+                                                   vd["type"])
+        for n, a in spec["arrays"].items():
+            sub._arrays[n] = sub._own(a)
+        for od in spec["ops"]:
+            sub._ops.append(_Op(od["op"], list(od["inputs"]),
+                                list(od["outputs"]), od["kwargs"]))
+            for n in od["outputs"]:
+                sub._producer[n] = len(sub._ops) - 1
+        outs = [sub._vars[n] for n in spec["outputs"]]
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    return build
+
+
+def _clean_spec_kwargs(kwargs, path, body_store):
+    """Op kwargs for graph.json: the body callables dropped, every
+    (nested) recorded body checked, its constants moved to `body_store`
+    under ``__body__/<path>/<key>/<name>`` (JSON keeps the npz key)."""
+    out = {}
+    for k, v in kwargs.items():
+        if k in _BODY_CALLABLE_KEYS:
+            continue
+        if k.endswith("Graph") and isinstance(v, dict):
+            if "unrecordable" in v:
+                raise NotImplementedError(
+                    "Graph cannot be serialized: a control-flow body "
+                    "could not be recorded as a subgraph "
+                    f"({v['unrecordable']}). Bodies must be pure "
+                    "graph-builders over their SDVariable arguments.")
+            spec = dict(v)
+            refs = {}
+            for n, a in spec["arrays"].items():
+                key = f"__body__/{path}/{k}/{n}"
+                body_store[key] = _host_array(a)
+                refs[n] = key
+            spec["arrays"] = refs
+            spec["ops"] = [
+                {"op": o["op"], "inputs": o["inputs"],
+                 "outputs": o["outputs"],
+                 "kwargs": _clean_spec_kwargs(o["kwargs"], f"{path}/{k}/{j}",
+                                              body_store)}
+                for j, o in enumerate(spec["ops"])]
+            out[k] = spec
+        else:
+            out[k] = v
+    return out
+
+
+def _resolve_spec_kwargs(kwargs, npz):
+    """The inverse of ``_clean_spec_kwargs`` at load: npz keys back to
+    arrays, recursively, in place."""
+    for k, v in kwargs.items():
+        if k.endswith("Graph") and isinstance(v, dict) and "arrays" in v:
+            v["arrays"] = {n: npz[ref] for n, ref in v["arrays"].items()}
+            for o in v["ops"]:
+                _resolve_spec_kwargs(o["kwargs"], npz)
+
+
+def _host_array(a):
+    return to_numpy(a) if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
 class _GradAccessor:
     def __init__(self, sd, name):
         self.sd = sd
@@ -969,25 +1258,45 @@ class _NS:
         return self.sd._op(opName, ins, kwargs, nOut=nOut, name=name)
 
 
-class _Deferred:
-    """A namespace whose ops all wait (``sd.cnn``, ``sd.rnn``,
-    ``sd.image``, ``sd.bitwise``, ``sd.fft``)."""
-
-    def __init__(self, ns):
-        self._ns = ns
-
-    def __getattr__(self, name):
-        if name.startswith("__"):
-            raise AttributeError(name)
-        raise NotImplementedError(
-            f"sd.{self._ns}.{name}: the SameDiff {self._ns} namespace waits "
-            "for the rest of SameDiff (ROADMAP.md Queue 1 item 9)")
-
-
 class _CNNOps(_NS):
-    """``sd.cnn``: the block rearrangements over NHWC arrays
-    (``ops.conv.space_to_depth``, the SpaceToDepth layer's); the other
-    cnn ops wait, as ``_Deferred``'s do."""
+    """Reference: ops.SDCNN. NHWC activations, HWIO kernels (NDHWC and
+    DHWIO for conv3d, NWC and WIO for conv1d)."""
+
+    @staticmethod
+    def _geom(stride, padding, dilation=None):
+        kw = {"stride": list(stride) if isinstance(stride, (tuple, list))
+              else stride,
+              "padding": [list(p) for p in padding]}
+        if dilation is not None:
+            kw["dilation"] = list(dilation) \
+                if isinstance(dilation, (tuple, list)) else dilation
+        return kw
+
+    def conv2d(self, x, w, b=None, stride=(1, 1), padding=((0, 0), (0, 0)),
+               dilation=(1, 1), name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._mk("conv2d", ins, self._geom(stride, padding, dilation),
+                        name=name)
+
+    def conv1d(self, x, w, b=None, stride=1, padding=((0, 0),), dilation=1,
+               name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._mk("conv1d", ins, self._geom(stride, padding, dilation),
+                        name=name)
+
+    def conv3d(self, x, w, b=None, stride=(1, 1, 1),
+               padding=((0, 0), (0, 0), (0, 0)), dilation=(1, 1, 1),
+               name=None):
+        """x [B,D,H,W,C], w [kd,kh,kw,I,O] (reference: SDCNN.conv3d)."""
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._mk("conv3d", ins, self._geom(stride, padding, dilation),
+                        name=name)
+
+    def deconv2d(self, x, w, b=None, stride=(1, 1), padding=((0, 0), (0, 0)),
+                 name=None):
+        ins = [x, w] + ([b] if b is not None else [])
+        return self._mk("deconv2d", ins, self._geom(stride, padding),
+                        name=name)
 
     def spaceToDepth(self, x, blockSize=2, name=None):
         return self._mk("spaceToDepth", [x], {"blockSize": int(blockSize)},
@@ -997,8 +1306,56 @@ class _CNNOps(_NS):
         return self._mk("depthToSpace", [x], {"blockSize": int(blockSize)},
                         name=name)
 
-    def __getattr__(self, name):
-        return _Deferred.__getattr__(_Deferred("cnn"), name)
+    def spaceToBatch(self, x, blockSize=2, padding=((0, 0), (0, 0)),
+                     name=None):
+        return self._mk("spaceToBatch", [x],
+                        {"blockSize": int(blockSize),
+                         "padding": [list(q) for q in padding]}, name=name)
+
+    def batchToSpace(self, x, blockSize=2, crops=((0, 0), (0, 0)),
+                     name=None):
+        return self._mk("batchToSpace", [x],
+                        {"blockSize": int(blockSize),
+                         "crops": [list(q) for q in crops]}, name=name)
+
+    def maxPooling2d(self, x, kernel, stride=None, padding=((0, 0), (0, 0)),
+                     name=None):
+        return self._mk("maxPooling2d", [x],
+                        {"kernel": list(kernel),
+                         "stride": list(stride or kernel),
+                         "padding": [list(p) for p in padding]}, name=name)
+
+    def avgPooling2d(self, x, kernel, stride=None, padding=((0, 0), (0, 0)),
+                     count_include_pad=True, name=None):
+        return self._mk("avgPooling2d", [x],
+                        {"kernel": list(kernel),
+                         "stride": list(stride or kernel),
+                         "padding": [list(p) for p in padding],
+                         "count_include_pad": count_include_pad}, name=name)
+
+    def upsampling2d(self, x, size=(2, 2), name=None):
+        return self._mk("upsampling2d", [x], {"size": list(size)}, name=name)
+
+    def im2col(self, x, kernel, stride=(1, 1), padding=((0, 0), (0, 0)),
+               name=None):
+        return self._mk("im2col", [x],
+                        {"kernel": list(kernel), "stride": list(stride),
+                         "padding": [list(p) for p in padding]}, name=name)
+
+
+class _RNNOps(_NS):
+    """Reference: ops.SDRNN; time-major x [T, B, F], the reference's gate
+    order ([i, f, o, g] for the LSTM, (r, z, n) for the GRU)."""
+
+    def lstmLayer(self, x, w, u, b, name=None):
+        """-> (h_seq [T,B,H], h_last [B,H], c_last [B,H])."""
+        return self._mk("lstmLayer", [x, w, u, b], nOut=3, name=name)
+
+    def gru(self, x, w, u, b, name=None):
+        return self._mk("gru", [x, w, u, b], name=name)
+
+    def simpleRnn(self, x, w, u, b, name=None):
+        return self._mk("simpleRnn", [x, w, u, b], name=name)
 
 
 def _unary(opName):
@@ -1024,13 +1381,6 @@ def _reduction(opName):
     return m
 
 
-def _waits(opName):
-    def m(self, *args, **kwargs):
-        raise deferred(opName)
-    m.__name__ = opName
-    return m
-
-
 class _MathOps(_NS):
     """Reference: org.nd4j.autodiff.samediff.ops.SDMath."""
 
@@ -1045,18 +1395,40 @@ class _MathOps(_NS):
         locals()[_n] = _binary(_n)
     for _n in "sum mean prod max min std variance norm1 norm2 normmax".split():
         locals()[_n] = _reduction(_n)
-    for _n in "segmentSum segmentMax segmentMin segmentMean segmentProd " \
-              "betainc".split():
-        locals()[_n] = _waits(_n)
     del _n
-    unsortedSegmentSum = segmentSum      # noqa: F821 (made in the loop)
-    unsortedSegmentMax = segmentMax      # noqa: F821
-    unsortedSegmentMin = segmentMin      # noqa: F821
-    unsortedSegmentMean = segmentMean    # noqa: F821
-    unsortedSegmentProd = segmentProd    # noqa: F821
 
     def logicalNot(self, x, name=None):
         return self._mk("not", [x], name=name)
+
+    def betainc(self, a, b, x, name=None):
+        """Regularized incomplete beta I_x(a, b) (reference: SDMath)."""
+        return self._mk("betainc", [a, b, x], name=name)
+
+    # -- segment reductions (numSegments fixes the output shape) --
+    def _seg(self, opName, data, ids, numSegments, name):
+        return self._mk(opName, [data, ids], {"numSegments": numSegments},
+                        name=name)
+
+    def segmentSum(self, data, segmentIds, numSegments=None, name=None):
+        return self._seg("segmentSum", data, segmentIds, numSegments, name)
+
+    def segmentMax(self, data, segmentIds, numSegments=None, name=None):
+        return self._seg("segmentMax", data, segmentIds, numSegments, name)
+
+    def segmentMin(self, data, segmentIds, numSegments=None, name=None):
+        return self._seg("segmentMin", data, segmentIds, numSegments, name)
+
+    def segmentMean(self, data, segmentIds, numSegments=None, name=None):
+        return self._seg("segmentMean", data, segmentIds, numSegments, name)
+
+    def segmentProd(self, data, segmentIds, numSegments=None, name=None):
+        return self._seg("segmentProd", data, segmentIds, numSegments, name)
+
+    unsortedSegmentSum = segmentSum      # the ids may come in any order
+    unsortedSegmentMax = segmentMax
+    unsortedSegmentMin = segmentMin
+    unsortedSegmentMean = segmentMean
+    unsortedSegmentProd = segmentProd
 
     # -- reduce3-style distance ops --
     def _dist(self, opName, x, y, dimensions, name):
@@ -1358,8 +1730,52 @@ class _LossOps(_NS):
                           {"dimension": dimension}, name=name)
 
 
+class _ImageOps(_NS):
+    """Reference: ops.SDImage (NHWC)."""
+
+    def resizeBilinear(self, x, height, width, name=None):
+        """``jax.image.resize``'s bilinear: half-pixel centres, and a
+        triangle kernel widened when downsampling (antialiased)."""
+        return self._mk("resizeBilinear", [x],
+                        {"height": height, "width": width}, name=name)
+
+    def resizeNearest(self, x, height, width, name=None):
+        return self._mk("resizeNearest", [x],
+                        {"height": height, "width": width}, name=name)
+
+    def cropAndResize(self, x, boxes, boxIndices, cropHeight, cropWidth,
+                      name=None):
+        return self._mk("cropAndResize", [x, boxes, boxIndices],
+                        {"cropHeight": cropHeight, "cropWidth": cropWidth},
+                        name=name)
+
+    def adjustContrast(self, x, factor, name=None):
+        return self._mk("adjustContrast", [x], {"factor": factor}, name=name)
+
+    def hsvToRgb(self, x, name=None):
+        return self._mk("hsvToRgb", [x], name=name)
+
+    def rgbToHsv(self, x, name=None):
+        return self._mk("rgbToHsv", [x], name=name)
+
+    # the block ops live in sd.cnn (reference: SDCNN), aliased here
+    spaceToDepth = _CNNOps.spaceToDepth
+    depthToSpace = _CNNOps.depthToSpace
+    spaceToBatch = _CNNOps.spaceToBatch
+    batchToSpace = _CNNOps.batchToSpace
+
+    def nonMaxSuppression(self, boxes, scores, maxOutputSize=10,
+                          iouThreshold=0.5, scoreThreshold=float("-inf"),
+                          name=None):
+        return self._mk("nonMaxSuppression", [boxes, scores],
+                        {"maxOutputSize": int(maxOutputSize),
+                         "iouThreshold": float(iouThreshold),
+                         "scoreThreshold": float(scoreThreshold)},
+                        name=name)
+
+
 class _LinalgOps(_NS):
-    """Reference: ops.SDLinalg (products; the decompositions wait)."""
+    """Reference: ops.SDLinalg."""
 
     def mmul(self, a, b, transposeA=False, transposeB=False, name=None):
         return self._mk("mmul", [a, b], {"transposeA": transposeA,
@@ -1373,11 +1789,87 @@ class _LinalgOps(_NS):
     def matmul(self, a, b, name=None):
         return self._mk("batchMmul", [a, b], name=name)
 
-    trace = _unary("trace")
-    cross = _binary("cross")
-    for _n in "cholesky inv det solve lstsq lu eigh svd qr".split():
-        locals()[_n] = _waits(_n)
+    for _n in "cholesky inv det trace".split():
+        locals()[_n] = _unary(_n)
+    for _n in "cross solve lstsq".split():
+        locals()[_n] = _binary(_n)
     del _n
+
+    def lu(self, x, name=None):
+        """Explicit P, L, U factors with x = P @ L @ U (the reference's
+        deliberate change from SDLinalg.lu's packed form)."""
+        return self._mk("lu", [x], nOut=3, name=name)
+
+    def eigh(self, x, name=None):
+        """Eigenvalues (ascending) and eigenvectors of a symmetric
+        matrix."""
+        return self._mk("eigh", [x], nOut=2, name=name)
+
+    def svd(self, x, fullUV=False, name=None):
+        return self._mk("svd", [x], {"fullUV": fullUV}, nOut=3, name=name)
+
+    def qr(self, x, name=None):
+        return self._mk("qr", [x], nOut=2, name=name)
+
+
+class _FFTOps(_NS):
+    """Reference: the Nd4j.fft spectral family; complex64/complex128
+    arrays are first-class, real/imag/conj/angle/toComplex convert at
+    the boundary."""
+
+    def _spec(self, opName, x, numPoints, dimension, name):
+        return self._mk(opName, [x], {"numPoints": numPoints,
+                                      "dimension": int(dimension)},
+                        name=name)
+
+    def fft(self, x, numPoints=None, dimension=-1, name=None):
+        return self._spec("fft", x, numPoints, dimension, name)
+
+    def ifft(self, x, numPoints=None, dimension=-1, name=None):
+        return self._spec("ifft", x, numPoints, dimension, name)
+
+    def rfft(self, x, numPoints=None, dimension=-1, name=None):
+        """Real input -> the positive-frequency half spectrum."""
+        return self._spec("rfft", x, numPoints, dimension, name)
+
+    def irfft(self, x, numPoints=None, dimension=-1, name=None):
+        return self._spec("irfft", x, numPoints, dimension, name)
+
+    def fft2(self, x, name=None):
+        return self._mk("fft2", [x], name=name)
+
+    def ifft2(self, x, name=None):
+        return self._mk("ifft2", [x], name=name)
+
+    for _n in "real imag conj angle".split():
+        locals()[_n] = _unary(_n)
+    del _n
+
+    def toComplex(self, re, im, name=None):
+        return self._mk("toComplex", [re, im], name=name)
+
+
+class _BitwiseOps(_NS):
+    """Reference: ops.SDBitwise. uint16/uint32 run widened exactly;
+    uint64 shifts are refused (``ops_impl``)."""
+
+    def leftShift(self, a, b, name=None):
+        return self._mk("shiftLeft", [a, b], name=name)
+
+    def rightShift(self, a, b, name=None):
+        return self._mk("shiftRight", [a, b], name=name)
+
+    def bitwiseAnd(self, a, b, name=None):
+        return self._mk("bitwiseAnd", [a, b], name=name)
+
+    def bitwiseOr(self, a, b, name=None):
+        return self._mk("bitwiseOr", [a, b], name=name)
+
+    def bitwiseXor(self, a, b, name=None):
+        return self._mk("bitwiseXor", [a, b], name=name)
+
+    def bitwiseNot(self, x, name=None):
+        return self._mk("bitwiseNot", [x], name=name)
 
 
 class _RandomOps(_NS):

@@ -2,7 +2,8 @@
 
 The counterpart of ``deeplearning4j_tpu/ndarray/dtype.py``: a
 ``DataType`` is a thin name over a torch dtype, with the reference's
-floating, integer, unsigned and bool members and its aliases (``INT``,
+floating, integer, unsigned, bool and complex (``COMPLEX64``,
+``COMPLEX128``: the fft ops' results) members and its aliases (``INT``,
 ``LONG``, ``FLOAT32``, ``FLOAT64``, ``FLOAT16``). ``torch_dtype`` stands
 where the reference keeps ``np_dtype``; ``np_name`` is the numpy name the
 reference's files carry (``"float32"``, ``"bfloat16"``).
@@ -50,6 +51,7 @@ class DataType:
 
     def is_integer(self) -> bool:
         return not (self.torch_dtype.is_floating_point
+                    or self.torch_dtype.is_complex
                     or self.torch_dtype == torch.bool)
 
     @staticmethod
@@ -78,6 +80,8 @@ DataType.UINT16 = DataType("UINT16", torch.uint16, "uint16")
 DataType.UINT32 = DataType("UINT32", torch.uint32, "uint32")
 DataType.UINT64 = DataType("UINT64", torch.uint64, "uint64")
 DataType.BOOL = DataType("BOOL", torch.bool, "bool")
+DataType.COMPLEX64 = DataType("COMPLEX64", torch.complex64, "complex64")
+DataType.COMPLEX128 = DataType("COMPLEX128", torch.complex128, "complex128")
 
 # the reference's aliases, registered so their names resolve too
 for _alias, _target in [

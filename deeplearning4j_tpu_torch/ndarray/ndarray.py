@@ -47,7 +47,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach()
     if t.dtype == torch.bfloat16:
         t = t.float()
-    return t.cpu().numpy()
+    return t.resolve_conj().resolve_neg().cpu().numpy()
 
 
 def _from_numpy(a, device) -> torch.Tensor:
@@ -57,7 +57,9 @@ def _from_numpy(a, device) -> torch.Tensor:
             torch.bfloat16).to(device)
     if a.dtype.kind == "U" or a.dtype == object:
         raise TypeError(f"INDArray cannot hold {a.dtype} data")
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # ascontiguousarray makes a 0-d array 1-d: keep the scalar's shape
+    return torch.from_numpy(np.ascontiguousarray(a)).reshape(
+        a.shape).to(device)
 
 
 def as_tensor(x, device=None) -> torch.Tensor:

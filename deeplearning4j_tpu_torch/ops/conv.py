@@ -2,12 +2,15 @@
 
 The counterpart of ``deeplearning4j_tpu/ops/conv.py`` for the CNN
 training path: ``_pair``, ``explicit_padding`` (the Same/Truncate
-arithmetic), ``conv2d``, ``conv1d`` (NCW over ``[out, in, k]``), the
+arithmetic), ``conv2d``, ``conv1d`` (NCW over ``[out, in, k]``),
+``conv3d`` (NDHWC over a DHWIO kernel, the reference's layouts, for
+SameDiff's ``conv3d`` op), the
 transposed convolution ``deconv2d`` with its padding and
 ``deconv_output_size``, and ``conv_output_size``; and the block
 rearrangements ``space_to_depth`` / ``depth_to_space`` /
-``space_to_batch`` over NHWC arrays (the reference's ``autodiff/ops_impl.py`` ops, which the
-``SpaceToDepth`` layer and SameDiff share). The reference keeps
+``space_to_batch`` / ``batch_to_space`` over NHWC arrays (the
+reference's ``autodiff/ops_impl.py`` ops, which the ``SpaceToDepth``
+layer and SameDiff share). The reference keeps
 activations NHWC and weights HWIO and lowers to ``lax.conv``; the port
 computes with ``F.conv2d`` (cuDNN on the card) on NCHW-logical tensors
 held in ``torch.channels_last`` memory, with OIHW weights, so a
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 __all__ = ["explicit_padding", "resolve_pads", "same_pads", "conv2d",
            "conv1d", "conv_output_size", "deconv_explicit_padding",
            "deconv2d", "deconv_output_size", "space_to_depth",
-           "depth_to_space", "space_to_batch"]
+           "depth_to_space", "space_to_batch", "batch_to_space", "conv3d"]
 
 
 def _pair(v):
@@ -92,6 +95,27 @@ def conv1d(x, w, b=None, stride=1, padding=((0, 0),), dilation=1):
         lo = 0
     y = F.conv1d(x, w, None, int(stride), lo, int(dilation))
     return y if b is None else y + b.reshape(1, -1, 1)
+
+
+def conv3d(x, w, b=None, stride=(1, 1, 1), padding=((0, 0),) * 3,
+           dilation=(1, 1, 1)):
+    """x: [B,D,H,W,Cin], w: [kd,kh,kw,Cin,Cout] -> [B,D',H',W',Cout]
+    (reference: ``conv3d``, NDHWC over DHWIO). The views in torch's
+    NCDHW/OIDHW order are free (channels_last_3d strides); asymmetric
+    pads go through ``F.pad``; the bias is added after the product."""
+    xc = x.permute(0, 4, 1, 2, 3)
+    wc = w.permute(4, 3, 0, 1, 2)
+    pads = [tuple(int(v) for v in p) for p in padding]
+    if all(lo == hi for lo, hi in pads):
+        pad = tuple(lo for lo, _ in pads)
+    else:
+        xc = F.pad(xc, tuple(v for lo, hi in reversed(pads)
+                             for v in (lo, hi)))
+        pad = 0
+    y = F.conv3d(xc, wc, None, tuple(int(s) for s in stride), pad,
+                 tuple(int(d) for d in dilation))
+    y = y.permute(0, 2, 3, 4, 1)
+    return y if b is None else y + b
 
 
 def conv_output_size(size, kernel, stride, pad, dilation, mode):
@@ -184,3 +208,23 @@ def depth_to_space(x, blockSize=2):
     b = int(blockSize)
     x = x.reshape(B, H, W, b, b, C // (b * b)).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(B, H * b, W * b, C // (b * b))
+
+
+def batch_to_space(x, blockSize=2, crops=((0, 0), (0, 0))):
+    """The inverse of ``space_to_batch``, then the crops (reference:
+    ``batchToSpace``, which refuses a batch not divisible by blockSize²
+    and crops larger than the expanded image)."""
+    b = int(blockSize)
+    Bb, H, W, C = x.shape
+    if Bb % (b * b):
+        raise ValueError(
+            f"batchToSpace needs batch ({Bb}) divisible by "
+            f"blockSize^2 ({b * b})")
+    B = Bb // (b * b)
+    x = x.reshape(b, b, B, H, W, C).permute(2, 3, 0, 4, 1, 5)
+    x = x.reshape(B, H * b, W * b, C)
+    (ct, cb), (cl, cr) = (tuple(int(v) for v in q) for q in crops)
+    if ct + cb > x.shape[1] or cl + cr > x.shape[2]:
+        raise ValueError(f"crops {crops} exceed the expanded spatial dims "
+                         f"{x.shape[1]}x{x.shape[2]}")
+    return x[:, ct:x.shape[1] - cb, cl:x.shape[2] - cr, :]

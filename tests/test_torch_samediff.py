@@ -18,8 +18,10 @@ reference:
   multi-output ops.
 * Cross-loading both ways: the reference saves and the port loads, the
   port saves and the reference loads, with equal outputs (rtol 1e-6).
-* Each deferred feature raises NotImplementedError naming its ROADMAP
-  Queue 1 item.
+* Each feature that waits raises NotImplementedError naming its ROADMAP
+  Queue 1 item; those of item 9 (the rest of SameDiff) run now, each
+  checked on a small case (``tests/test_torch_samediff_namespaces.py``
+  and ``test_torch_samediff_control.py`` hold them to the reference).
 
 Dropout and the random ops are held to in-port reproducibility and to
 their moments, never to the reference's draws.
@@ -637,18 +639,63 @@ class _NanLossListener:
             raise FloatingPointError(f"non-finite loss at {iteration}")
 
 
+def _save_load_trains_on(sd, tmp_path):
+    """Item 9's updater state in model files: 2 steps, save with the
+    state, load it, and the next step equals the unbroken graph's."""
+    X, Y, _, _ = mlp_data()
+    sd.fit(features=X, labels=Y, epochs=2)
+    path = str(tmp_path / "upd.zip")
+    sd.save(path, saveUpdaterState=True)
+    back = SameDiff.load(path, loadUpdaterState=True, device=CPU)
+    back.setTrainingConfig(sd._tc)
+    assert back.fit(features=X, labels=Y) == sd.fit(features=X, labels=Y)
+    return True
+
+
+def _ported(fn, want):
+    """An item 9 feature: `fn(sd, tmp_path)` builds it and `want` is its
+    value."""
+    def check(sd, tmp_path):
+        got = fn(sd, tmp_path)
+        got = got if isinstance(got, bool) else got.eval().toNumpy()
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-6)
+    return check
+
+
+_F = np.float32
 DEFERRED = {
-    "ifCond": (lambda sd: sd.ifCond(sd.constant(1.0), None, None), "item 9"),
-    "whileLoop": (lambda sd: sd.whileLoop(None, None, []), "item 9"),
-    "cnn": (lambda sd: sd.cnn.conv2d(None, None), "item 9"),
-    "rnn": (lambda sd: sd.rnn.lstmLayer(None, None, None, None), "item 9"),
-    "image": (lambda sd: sd.image.resizeBilinear(None, 2, 2), "item 9"),
-    "fft": (lambda sd: sd.fft.fft(None), "item 9"),
-    "bitwise": (lambda sd: sd.bitwise.leftShift(None, None), "item 9"),
-    "svd": (lambda sd: sd.linalg.svd(sd.constant(np.eye(2))), "item 9"),
-    "qr": (lambda sd: sd.linalg.qr(sd.constant(np.eye(2))), "item 9"),
-    "segment": (lambda sd: sd.math.segmentSum(None, None, 2), "item 9"),
-    "betainc": (lambda sd: sd.math.betainc(1, 2, 3), "item 9"),
+    "ifCond": (_ported(lambda sd, tmp: sd.ifCond(
+        sd.constant(1.0), lambda s, a: a * 2.0, lambda s, a: a - 1.0,
+        inputs=[sd.constant(_F(3.0))]), 6.0), None),
+    "whileLoop": (_ported(lambda sd, tmp: sd.whileLoop(
+        lambda s, v: s.math.lt(v, s.constant(_F(10.0))),
+        lambda s, v: v * 2.0, [sd.constant(_F(1.0))]), 16.0), None),
+    "cnn": (_ported(lambda sd, tmp: sd.cnn.conv2d(
+        sd.constant(np.ones((1, 3, 3, 1), _F)),
+        sd.constant(np.ones((2, 2, 1, 1), _F))),
+        np.full((1, 2, 2, 1), 4.0)), None),
+    "rnn": (_ported(lambda sd, tmp: sd.rnn.lstmLayer(
+        *(sd.constant(np.zeros(s, _F)) for s in
+          ((3, 2, 4), (4, 20), (5, 20), (20,))))[2], np.zeros((2, 5))),
+        None),
+    "image": (_ported(lambda sd, tmp: sd.image.resizeBilinear(
+        sd.constant(np.ones((1, 4, 4, 1), _F)), 2, 2),
+        np.ones((1, 2, 2, 1))), None),
+    "fft": (_ported(lambda sd, tmp: sd.fft.fft(
+        sd.constant(np.array([1, 0, 0, 0], _F))), np.ones(4)), None),
+    "bitwise": (_ported(lambda sd, tmp: sd.bitwise.leftShift(
+        sd.constant(np.array([1, 2], np.int32)),
+        sd.constant(np.array([3, 1], np.int32))), [8, 4]), None),
+    "svd": (_ported(lambda sd, tmp: sd.linalg.svd(
+        sd.constant(np.eye(2)))[1], [1.0, 1.0]), None),
+    "qr": (_ported(lambda sd, tmp: sd.linalg.mmul(*sd.linalg.qr(
+        sd.constant(np.eye(2)))), np.eye(2)), None),
+    "segment": (_ported(lambda sd, tmp: sd.math.segmentSum(
+        sd.constant(np.array([1.0, 2.0, 3.0])),
+        sd.constant(np.array([0, 0, 1])), 2), [3.0, 3.0]), None),
+    "betainc": (_ported(lambda sd, tmp: sd.math.betainc(
+        sd.constant(1.0), sd.constant(2.0), sd.constant(0.5)), 0.75),
+        None),
     "shardWeightUpdate": (lambda sd: sd.shardWeightUpdate(), "item 7"),
     "precompile": (lambda sd: sd.precompile(), "item 13"),
     # ported since the training-runtime slice: the reference's refusals
@@ -661,31 +708,37 @@ DEFERRED = {
         features=np.full((B, F), np.nan, "f4"), labels=np.zeros((B, O), "f4"),
         listeners=[_NanLossListener()]), "non-finite loss",
         FloatingPointError),
-    "saveUpdaterState": (lambda sd: sd.save("unused.zip",
-                                            saveUpdaterState=True),
-                         "item 9"),
-    "loadUpdaterState": (lambda sd: SameDiff.load(
-        "unused.zip", loadUpdaterState=True, device=CPU), "item 9"),
+    "saveUpdaterState": (_ported(lambda sd, tmp: _save_load_trains_on(
+        sd, tmp), True), None),
+    "loadUpdaterState": (_ported(lambda sd, tmp: _save_load_trains_on(
+        sd, tmp), True), None),
 }
 
 
 @pytest.mark.parametrize("what", sorted(DEFERRED))
-def test_deferred_features_name_their_item(what):
+def test_deferred_features_name_their_item(what, tmp_path):
     _, _, W1, W2 = mlp_data()
     sd = build_mlp("p", W1, W2)
     call, item, *exc = DEFERRED[what]
+    if item is None:            # item 9: ported, so it runs
+        call(sd, tmp_path)
+        return
     with pytest.raises(exc[0] if exc else NotImplementedError, match=item):
         call(sd)
 
 
 def test_loading_a_deferred_op_raises(tmp_path):
+    """A reference file naming an item 9 op (qr) loads and runs now."""
     j = JSD.create()
     x = j.constant(np.arange(4.0).reshape(2, 2), name="x")
-    j.linalg.qr(x)
+    q, r = j.linalg.qr(x)
     path = str(tmp_path / "qr.zip")
     j.save(path)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        SameDiff.load(path, device=CPU)
+    p = SameDiff.load(path, device=CPU)
+    for n in (q.name, r.name):
+        np.testing.assert_allclose(p.output({}, [n])[n].toNumpy(),
+                                   j.output({}, [n])[n].toNumpy(),
+                                   rtol=1e-6, atol=1e-12)
 
 
 def test_samediff_needs_a_device_here():
