@@ -431,12 +431,47 @@ Phases (any failure exits non-zero before the result line):
    1e-5 of the max-abs; NMS and bitwise (uint16/uint32 widened, uint64
    and/or/xor) exactly; betainc within 1e-5 + 1e-5 |value| of scipy on
    the host and rtol 1e-5 of the CPU's f32.
+20. detection, the rest of the zoo, the 3-d CNNs and model import —
+   TF32 off, cuDNN deterministic. (a) zoo YOLO2 at its COCO defaults
+   (416^2, 80 classes, 5 COCO anchors, Adam(1e-3)): the first step at
+   batch 2 on the card against the CPU in f64 (loss 1e-10, gradients
+   1e-9 rel L2) and in f32 against the CPU's f64 (PARITY_F32_*); the f64
+   nets' detections (YoloUtils, threshold 0.5, NMS 0.4) equal on 4
+   images; then bf16 NHWC b16 on synthetic boxes (flagged; 1-8 an
+   image): 20 fit steps (median ms of 3-20, images/s, peak memory, the
+   loss falls), kernels a step and the traced split by kind (conv, BN,
+   leaky relu, pooling, s2d/merge, the Yolo2 loss, update, casts); save
+   (no updater state), restore and output bitwise. (b) Darknet19,
+   TinyYOLO, SqueezeNet, Xception, InceptionResNetV1, FaceNetNN4Small2
+   and NASNet at their default inputs, bf16 NHWC, b32 (b16 for Xception
+   and NASNet), 5 steps; the first step's f32 loss at b2 against the
+   CPU's f64. (c) C3D at its published widths (8 3x3x3 convs 64-512, 5
+   max pools, fc 4096 x 2, 101 classes), 3x16x112^2 clips, bf16, b8, 10
+   steps (clips/s, peak memory, kernels a step); then each 3-d layer
+   alone (Deconvolution3D, Upsampling3D, Cropping3D, ZeroPadding3D, avg
+   pooling with explicit pads and "same", GlobalPoolingLayer, PReLULayer)
+   in f32 with its gradients against the CPU within rtol 1e-5 and an
+   atol of 1e-6 of each tensor's max-abs. (d) from
+   tests/_torch_keras_models.py, with no h5py and no tensorflow: (i)
+   keras.applications.ResNet50's config (224^2, 1000 classes) imported
+   with seeded weights, its b32 eval logits against zoo ResNet50 holding
+   the same arrays through the pretrained mapping within
+   IMPORT_LOGIT_REL of their max-abs, top-1 equal; (ii) a 2-block
+   MultiHeadAttention encoder at BERT-base widths (768, 12 x 64, T 512,
+   B 8): K1 launches once a block and its plain version never; the
+   output against the same import on the CPU within IMPORT_LOGIT_REL.
+   (e) phase 19(a)'s ResNet-50 as a frozen GraphDef written by
+   tests/_torch_tf_models.py through tf_wire, imported by importFrozenTF
+   into a SameDiff on the card: b32 logits within IMPORT_LOGIT_REL of
+   the native net's, top-1 equal; the graph's bytes, import seconds, ms
+   and kernels a forward beside 19(a)'s.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
-17(e)'s; phases 8-10, 12, 13, 14(a), 14(b), 15, 16, 17 but (e), 18
-and 19 run no hand-written kernel: conv, dense and the recurrent products are
+17(e)'s, and K1's plus phase 20(d)(ii)'s; phases 8-10, 12, 13, 14(a),
+14(b), 15, 16, 17 but (e), 18, 19 and 20 but (d)(ii) run no
+hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout
 and the shape layers are torch tensor ops, and the data-parallel
 exchange is NCCL's or gloo's collectives).
@@ -3551,12 +3586,13 @@ def forward_flops(conf, batch):
 
 def zoo_scopes():
     """[(owner, attribute, original)] after wrapping the zoo's layer
-    kinds, relu, dropout, the loss and the updater step in named
-    profiler scopes (15(b)-(c)'s forward attribution; the innermost
-    scope names a kernel)."""
+    kinds, relu and leaky relu, dropout, space-to-depth and merges, the
+    loss and the updater step in named profiler scopes (15(b)-(c)'s and
+    20(a)'s forward attribution; the innermost scope names a kernel)."""
     from deeplearning4j_tpu_torch.nn import activations as A
     from deeplearning4j_tpu_torch.nn import graph, multilayer
     from deeplearning4j_tpu_torch.nn.conf import dropout as D
+    from deeplearning4j_tpu_torch.nn.conf import graph as G
     from deeplearning4j_tpu_torch.nn.conf import layers as L
 
     targets = [(L.ConvolutionLayer, "forward", "conv"),
@@ -3569,9 +3605,13 @@ def zoo_scopes():
                (D.Dropout, "apply", "dropout"),
                (multilayer.MultiLayerNetwork, "_loss_from_preact", "loss"),
                (graph.ComputationGraph, "_loss", "loss"),
+               (L.SpaceToDepth, "forward", "s2d_merge"),
+               (G.MergeVertex, "apply", "s2d_merge"),
                (multilayer, "default_param_update", "update")]
-    saved = [(A.ACTIVATIONS, "relu", A.ACTIVATIONS["relu"])]
-    A.ACTIVATIONS["relu"] = _scoped(A.ACTIVATIONS["relu"], "relu")
+    saved = []
+    for act in ("relu", "leakyrelu"):
+        saved.append((A.ACTIVATIONS, act, A.ACTIVATIONS[act]))
+        A.ACTIVATIONS[act] = _scoped(A.ACTIVATIONS[act], act)
     for owner, attr, name in targets:
         fn = getattr(owner, attr)
         saved.append((owner, attr, fn))
@@ -6099,17 +6139,52 @@ FFT_REL = 1e-5
 BETAINC_RTOL, BETAINC_ATOL = 1e-5, 1e-5
 
 
-def _onnx_models():
-    """tests/_torch_onnx_models.py of this checkout, loaded by path (it
-    imports no jax)."""
+def _test_helper(name):
+    """tests/_torch_<name>_models.py of this checkout, loaded by path (it
+    imports no jax, tensorflow or h5py)."""
     import importlib.util
 
+    mod_name = f"_torch_{name}_models"
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "_torch_onnx_models.py")
-    spec = importlib.util.spec_from_file_location("_torch_onnx_models", path)
+                        mod_name + ".py")
+    spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def seeded_resnet(dev, cfg):
+    """The zoo ResNet50 (f32, seed 0) with its BN running statistics
+    drawn from seed 0, as 19(a) and 20(e) import it."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    S = cfg["image"]
+    net = ComputationGraph(_test_helper("onnx").resnet50_conf(
+        numClasses=cfg["classes"], inputShape=(3, S, S), seed=SEED),
+        device=dev).init()
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for st in net._states.values():
+            if st:
+                st["mean"].copy_(0.1 * torch.randn(st["mean"].shape,
+                                                   generator=g))
+                st["var"].copy_(0.5 + torch.rand(st["var"].shape,
+                                                 generator=g))
+    return net
+
+
+def eval_logits(net, x, head):
+    """The eval-mode preoutput of output layer `head` (the logits)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.multilayer import strip_carries
+
+    with torch.no_grad():
+        _, pre, _ = net._run_graph(net._params, strip_carries(net._states),
+                                   net._coerce_inputs(x), False, None, None)
+    return pre[head]
 
 
 def wall_ms(fn, reps):
@@ -6139,22 +6214,10 @@ def onnx_resnet(dev, cfg):
     from deeplearning4j_tpu_torch.modelimport import (
         OnnxGraphMapper, onnx_wire,
     )
-    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
-    from deeplearning4j_tpu_torch.nn.multilayer import strip_carries
 
-    om = _onnx_models()
+    om = _test_helper("onnx")
     B, S = cfg["batch"], cfg["image"]
-    net = ComputationGraph(om.resnet50_conf(
-        numClasses=cfg["classes"], inputShape=(3, S, S), seed=SEED),
-        device=dev).init()
-    g = torch.Generator().manual_seed(SEED)
-    with torch.no_grad():
-        for st in net._states.values():
-            if st:
-                st["mean"].copy_(0.1 * torch.randn(st["mean"].shape,
-                                                   generator=g))
-                st["var"].copy_(0.5 + torch.rand(st["var"].shape,
-                                                 generator=g))
+    net = seeded_resnet(dev, cfg)
     t = time.perf_counter()
     data = onnx_wire.encode(om.resnet_onnx(net, B))
     write_s = time.perf_counter() - t
@@ -6173,12 +6236,7 @@ def onnx_resnet(dev, cfg):
         return sd.output({"input": x}, [lv.name, pv.name])
 
     def native_logits():
-        with torch.no_grad():
-            _, pre, _ = net._run_graph(net._params,
-                                       strip_carries(net._states),
-                                       net._coerce_inputs(x), False, None,
-                                       None)
-        return pre["fc"]
+        return eval_logits(net, x, "fc")
 
     out = imported()
     got, probs = out[lv.name].tensor(), out[pv.name].tensor()
@@ -6739,6 +6797,535 @@ def samediff_rest_phase(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 20: detection, the rest of the zoo, the 3-d CNNs, Keras and TF
+# import
+# ----------------------------------------------------------------------
+
+#: 20(a): zoo YOLO2 at the reference's COCO defaults (416^2, 80 classes,
+#: 5 COCO anchors, Adam(1e-3)), bf16 over f32 masters, NHWC; labels are
+#: synthetic (flagged): 1-8 boxes an image, in grid units
+YOLO_MAIN = dict(batch=16, image=416, classes=80, steps=20, traced_steps=3,
+                 parity_batch=2, boxes=(1, 8))
+#: 20(b): the rest of the 2-d zoo at each model's default input:
+#: model -> (image, classes, batch)
+ZOO_REST = {"Darknet19": (224, 1000, 32), "TinyYOLO": (416, 20, 32),
+            "SqueezeNet": (224, 1000, 32), "Xception": (299, 1000, 16),
+            "InceptionResNetV1": (160, 1001, 32),
+            "FaceNetNN4Small2": (96, 5749, 32), "NASNet": (224, 1000, 16)}
+ZOO_REST_STEPS = 5
+#: 20(c): C3D's published widths (Tran et al., ICCV 2015, Fig. 3): UCF101
+#: clips of 16 frames at 112^2, bf16, momentum SGD as the paper's; at the
+#: paper's rate (3e-3, batch 30) b8 from He init diverged in 8 steps (measured
+#: on one H100), so the rate is 1e-4
+C3D = dict(batch=8, frames=16, image=112, classes=101, steps=10, lr=1e-4,
+           convs=(64, 128, 256, 256, 512, 512, 512, 512), fc=4096)
+#: 20(d): Keras configs written by tests/_torch_keras_models.py
+KERAS_RESNET = dict(batch=32, image=224, classes=1000, reps=10)
+KERAS_MHA = dict(seq=512, dim=768, heads=12, key_dim=64, blocks=2, batch=8,
+                 classes=10)
+#: 20(e): zoo ResNet-50 as a frozen GraphDef (tests/_torch_tf_models.py)
+TF_RESNET = dict(batch=32, image=224, classes=1000, reps=10)
+#: parity bands. f64 card vs f64 CPU: phase 15's. f32 card (TF32 off) vs
+#: the CPU's f64: the loss within 5e-5 and each gradient within 5e-2 rel
+#: L2. The CPU's own f32 sits 6.1e-6 (loss) and up to 1.2e-2 (gradients)
+#: from its f64 for YOLO2 at 416^2 b2, 2.8e-5 and 2.4e-2 at 64^2 (measured
+#: on the CPU): near-zero pre-activations change side between summation orders
+#: and move whole gradients through the BN layers
+PARITY_F32_LOSS, PARITY_F32_GRAD = 5e-5, 5e-2
+#: a detection's box and confidence, f64 card vs f64 CPU
+DETECT_ATOL = 1e-9
+#: 20(c) each 3-d layer alone, f32, card vs CPU: rtol, and atol as a
+#: share of each tensor's max-abs (19(d)'s band)
+LAYER3D_RTOL, LAYER3D_ATOL = 1e-5, 1e-6
+#: 20(d)-(e): imported vs native logits, of their max-abs; 20(d)(ii)
+#: card vs CPU, phase 6's f32 band
+IMPORT_LOGIT_REL = 1e-4
+
+
+def yolo_labels(rows, grid, classes, boxes, seed, nhwc):
+    """Synthetic (flagged) YOLO labels [B, 4+C, grid, grid] (NHWC when
+    `nhwc`): 1-8 boxes an image, corners in grid units, each in the cell
+    of its center with a one-hot class."""
+    rng = np.random.default_rng(seed)
+    lab = np.zeros((rows, 4 + classes, grid, grid), np.float32)
+    for b in range(rows):
+        for _ in range(rng.integers(boxes[0], boxes[1] + 1)):
+            w, h = rng.uniform(0.5, 5.0, 2)
+            cx, cy = rng.uniform(0.5, grid - 0.5, 2)
+            gx, gy = int(cx), int(cy)
+            lab[b, :, gy, gx] = 0.0
+            lab[b, 0:4, gy, gx] = (cx - w / 2, cy - h / 2, cx + w / 2,
+                                   cy + h / 2)
+            lab[b, 4 + rng.integers(0, classes), gy, gx] = 1.0
+    return lab.transpose(0, 2, 3, 1).copy() if nhwc else lab
+
+
+def zoo_net(name, dev, cfg, dtype, nhwc=True, **kw):
+    """The zoo model `name` at `cfg`'s (image, classes), seed 0."""
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn import DataType
+
+    image, classes = cfg[:2]
+    return getattr(zoo, name)(
+        numClasses=classes, seed=SEED, inputShape=(3, image, image),
+        dataType=getattr(DataType, dtype), device=dev,
+        dataFormat="NHWC" if nhwc else "NCHW", **kw).init()
+
+
+def carry_to(net, other):
+    """`other` (same conf) takes `net`'s params and states."""
+    from deeplearning4j_tpu_torch.nn import graph, multilayer
+
+    if hasattr(net.conf, "nodes"):
+        p = graph.params_to_reference(net.conf, net._params)
+        s = graph.params_to_reference(net.conf, net._states)
+    else:
+        p = multilayer.params_to_reference(net.layers, net._params)
+        s = multilayer.params_to_reference(net.layers, net._states)
+    other.load_reference_params(p, s)
+    return other
+
+
+def f64_and_f32_parity(name, dev, cfg, x, y, what):
+    """The first step on the card against the CPU from the same f64
+    weights: f64 card vs f64 CPU (loss ZOO_F64_LOSS, gradients
+    ZOO_F64_GRAD rel L2) and f32 card vs the CPU's f64 (PARITY_F32_*).
+    Returns the worst of each and the f64 nets."""
+    cpu64 = zoo_net(name, "cpu", cfg, "DOUBLE", nhwc=False)
+    card64 = carry_to(cpu64, zoo_net(name, dev, cfg, "DOUBLE", nhwc=False))
+    card32 = carry_to(cpu64, zoo_net(name, dev, cfg, "FLOAT", nhwc=False))
+    g64, l64 = cpu64.computeGradientAndScore(x, y)
+    out = {}
+    for key, net, loss_bar, grad_bar in (
+            ("f64", card64, ZOO_F64_LOSS, ZOO_F64_GRAD),
+            ("f32", card32, PARITY_F32_LOSS, PARITY_F32_GRAD)):
+        g, loss = net.computeGradientAndScore(x, y)
+        out[f"{key}_loss_rel"] = abs(loss - l64) / abs(l64)
+        out[f"{key}_worst_grad_rel_l2"] = grads_against(g, g64)
+        need(out[f"{key}_loss_rel"] <= loss_bar
+             and out[f"{key}_worst_grad_rel_l2"] <= grad_bar,
+             f"{what}: {key} on the card vs the CPU's f64: {out}")
+    out["loss_f64"] = l64
+    del card32
+    return out, cpu64, card64
+
+
+def yolo_main(dev, cfg):
+    """20(a): YOLO2 trains at full width on one card; parity, the
+    detections, and a save/restore/output round trip."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.objdetect import YoloUtils
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    grid = cfg["image"] // 32
+    zcfg = (cfg["image"], cfg["classes"])
+    rng = np.random.default_rng(SEED + 20)
+    xb = 2 * cfg["parity_batch"]
+    xp = rng.random((xb, 3, cfg["image"], cfg["image"]), dtype=np.float32)
+    yp = yolo_labels(xb, grid, cfg["classes"], cfg["boxes"], SEED + 21,
+                     nhwc=False)
+    parity, cpu64, card64 = f64_and_f32_parity(
+        "YOLO2", dev, zcfg, xp[:cfg["parity_batch"]],
+        yp[:cfg["parity_batch"]], "20(a) YOLO2")
+    # the detections of the f64 nets' outputs (eval mode), NHWC maps
+    layer = card64.conf.nodes["out"].payload
+    maps = [n.output(xp).toNumpy().transpose(0, 2, 3, 1)
+            for n in (card64, cpu64)]
+    dets = [YoloUtils.getPredictedObjects(layer, m, 0.5, 0.4) for m in maps]
+    key = lambda d: (d.exampleNumber, d.predictedClass, -d.confidence)
+    got, want = (sorted(d, key=key) for d in dets)
+    need(len(got) == len(want) and all(
+        a.exampleNumber == b.exampleNumber
+        and a.predictedClass == b.predictedClass
+        and max(abs(a.centerX - b.centerX), abs(a.centerY - b.centerY),
+                abs(a.width - b.width), abs(a.height - b.height),
+                abs(a.confidence - b.confidence)) <= DETECT_ATOL
+        for a, b in zip(got, want)),
+        f"20(a): detections card {len(got)} vs CPU {len(want)}")
+    parity["detections"] = len(got)
+    del cpu64, card64
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = zoo_net("YOLO2", dev, zcfg, "BFLOAT16")
+    x = torch.from_numpy(rng.random(
+        (cfg["batch"], cfg["image"], cfg["image"], 3),
+        dtype=np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(yolo_labels(cfg["batch"], grid, cfg["classes"],
+                                     cfg["boxes"], SEED + 22,
+                                     nhwc=True)).to(dev)
+    out = zoo_timed(dev, cfg, net, x, y, "20(a) YOLO2", cfg["traced_steps"])
+    out["kernels_per_step"], out["device_busy_ms_per_step"] = \
+        traced_device_work(lambda: (net.fit(x, y), net.score()))
+    out["parity"] = parity
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "yolo2.npz")
+        t = time.perf_counter()
+        ModelSerializer.writeModel(net, path, saveUpdater=False)
+        out["save_s"] = time.perf_counter() - t
+        back = ModelSerializer.restoreComputationGraph(path, device=dev)
+        out["file_bytes"] = os.path.getsize(path)
+    a, b = net.output(x[:4]).tensor(), back.output(x[:4]).tensor()
+    need(torch.equal(a, b), "20(a): the restored YOLO2's output differs")
+    log("20(a) YOLO2 parity, kernels, file: " + json.dumps(
+        {k: out[k] for k in ("parity", "kernels_per_step",
+                             "device_busy_ms_per_step", "save_s",
+                             "file_bytes")}))
+    del net, back, x, y
+    return out
+
+
+def zoo_rest(dev, models, steps):
+    """20(b): each model at its default input, bf16 NHWC: `steps` fit
+    steps (median ms of steps 3 on, images/s, peak memory), and the first
+    step's f32 loss at batch 2 against the CPU's f64."""
+    import torch
+
+    out = {}
+    for name, cfg in models.items():
+        image, classes, batch = cfg
+        rng = np.random.default_rng(SEED + 23)
+        if name == "TinyYOLO":
+            y2 = yolo_labels(2, image // 32, classes, (1, 8), SEED + 24,
+                             nhwc=False)
+            yb = yolo_labels(batch, image // 32, classes, (1, 8), SEED + 25,
+                             nhwc=True)
+        else:
+            y2 = np.eye(classes, dtype=np.float32)[rng.integers(0, classes,
+                                                                2)]
+            yb = np.eye(classes, dtype=np.float32)[rng.integers(0, classes,
+                                                                batch)]
+        x2 = rng.random((2, 3, image, image), dtype=np.float32)
+        cpu64 = zoo_net(name, "cpu", cfg, "DOUBLE", nhwc=False)
+        _, l64 = cpu64.computeGradientAndScore(x2, y2)
+        card32 = carry_to(cpu64, zoo_net(name, dev, cfg, "FLOAT",
+                                         nhwc=False))
+        _, l32 = card32.computeGradientAndScore(x2, y2)
+        rel = abs(l32 - l64) / abs(l64)
+        need(rel <= PARITY_F32_LOSS, f"20(b) {name}: f32 loss {l32} vs "
+             f"the CPU's f64 {l64} (rel {rel:.2e})")
+        del cpu64, card32
+        net = zoo_net(name, dev, cfg, "BFLOAT16")
+        x = torch.from_numpy(rng.random((batch, image, image, 3),
+                                        dtype=np.float32)).to(
+            dev, torch.bfloat16)
+        y = torch.from_numpy(yb).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_s = fit_timed(net, x, y, steps)
+        need(all(math.isfinite(v) for v in losses),
+             f"20(b) {name}: non-finite loss {losses}")
+        med = float(np.median(step_s[2:]))
+        out[name] = {"image": image, "classes": classes, "batch": batch,
+                     "params": net.numParams(), "f32_loss_rel": rel,
+                     "step_ms_median_3_on": med * 1e3,
+                     "images_per_s": batch / med,
+                     "max_memory_allocated_bytes":
+                         torch.cuda.max_memory_allocated(dev),
+                     "losses": losses}
+        log(f"20(b) {name}: " + json.dumps(out[name]))
+        del net, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def c3d_conf(cfg, dtype):
+    """C3D (Tran et al. 2015, Fig. 3): eight 3x3x3 convolutions, five max
+    pools (pool1 1x2x2, pool5 padded), two dense 4096 with dropout 0.5,
+    softmax over the classes; NCDHW clips."""
+    from deeplearning4j_tpu_torch.nn import (
+        Convolution3D, DataType, DenseLayer, InputType, Nesterovs,
+        NeuralNetConfiguration, OutputLayer, Subsampling3DLayer,
+        WeightInit,
+    )
+
+    lb = (NeuralNetConfiguration.Builder().seed(SEED)
+          .updater(Nesterovs(cfg["lr"], 0.9)).weightInit(WeightInit.RELU)
+          .dataType(getattr(DataType, dtype)).list())
+
+    def conv(n):
+        lb.layer(Convolution3D(nOut=n, kernelSize=3, padding=1,
+                               activation="relu"))
+
+    def pool(k=(2, 2, 2), pad=(0, 0, 0)):
+        lb.layer(Subsampling3DLayer(poolingType="max", kernelSize=k,
+                                    stride=k, padding=pad))
+
+    c = cfg["convs"]
+    conv(c[0])
+    pool((1, 2, 2))
+    conv(c[1])
+    pool()
+    for i in (2, 4, 6):
+        conv(c[i])
+        conv(c[i + 1])
+        pool(pad=(0, 1, 1) if i == 6 else (0, 0, 0))
+    for _ in range(2):
+        lb.layer(DenseLayer(nOut=cfg["fc"], activation="relu", dropOut=0.5))
+    lb.layer(OutputLayer(nOut=cfg["classes"], activation="softmax"))
+    n = cfg["image"]
+    return lb.setInputType(InputType.convolutional3D(cfg["frames"], n, n,
+                                                     3)).build()
+
+
+def layer3d_cases():
+    """20(c)'s layers alone: (name, layer, input shape NCDHW). The shapes
+    keep each weight gradient's sum to a few thousand terms: over 25,088
+    (B 4, 8 x 28 x 28) cuDNN's order took Deconvolution3D's to 1.23 of
+    the band (measured on one H100)."""
+    from deeplearning4j_tpu_torch.nn import (
+        Cropping3D, Deconvolution3D, GlobalPoolingLayer, PReLULayer,
+        Subsampling3DLayer, Upsampling3D, ZeroPadding3D,
+    )
+
+    shape = (2, 32, 6, 14, 14)
+    return [
+        ("Deconvolution3D", Deconvolution3D(nOut=32, kernelSize=(3, 3, 3),
+                                            stride=2, padding=1), shape),
+        ("Upsampling3D", Upsampling3D((2, 2, 2)), shape),
+        ("Cropping3D", Cropping3D((1, 0, 2, 1, 0, 3)), shape),
+        ("ZeroPadding3D", ZeroPadding3D(((1, 0), (2, 1), (0, 3))), shape),
+        ("avg_pool3d_include_pad", Subsampling3DLayer(
+            poolingType="avg", kernelSize=(3, 3, 3), stride=2,
+            padding=(1, 1, 1)), shape),
+        ("avg_pool3d_same", Subsampling3DLayer(
+            poolingType="avg", kernelSize=(3, 3, 3), stride=2,
+            convolutionMode="same"), (2, 32, 7, 13, 13)),
+        ("GlobalPoolingLayer", GlobalPoolingLayer(poolingType="avg"), shape),
+        ("PReLULayer", PReLULayer(alphaInit=0.25), shape),
+    ]
+
+
+def layers3d_card(dev):
+    """Each 3-d layer once, f32: its output and the gradients of a seeded
+    cotangent into its input and params on the card against the CPU."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import InputType
+
+    worst = {}
+    for name, layer, shape in layer3d_cases():
+        layer.mergeGlobals({})
+        it = InputType.convolutional3D(*shape[2:], shape[1])
+        g = torch.Generator().manual_seed(SEED)
+        params, _ = layer.initialize(g, it, torch.float32, "cpu")
+        params = {k: v + 0.1 * torch.randn(v.shape, generator=g)
+                  for k, v in params.items()}
+        x = torch.randn(shape, generator=g)
+        res = {}
+        for d in ("cpu", dev):
+            xi = x.to(d).requires_grad_(True)
+            pi = {k: v.to(d).requires_grad_(True) for k, v in params.items()}
+            y, _ = layer.forward(pi, {}, xi, True, None)
+            ct = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+                SEED + 1)).to(d)
+            grads = torch.autograd.grad(y, [xi, *pi.values()], ct)
+            res[str(d)] = [y.detach().cpu(), *(t.cpu() for t in grads)]
+        shares = []
+        for got, want in zip(res[str(dev)], res["cpu"]):
+            bar = LAYER3D_RTOL * want.abs() + LAYER3D_ATOL * want.abs().max()
+            shares.append(float(((got - want).abs() / bar).max()))
+        worst[name] = max(shares)
+        need(worst[name] <= 1.0, f"20(c) {name}: (output, input and param "
+             f"gradients) at {shares} of the band")
+    return worst
+
+
+def c3d_phase(dev, cfg):
+    """20(c): C3D at its published widths, bf16, `steps` fit steps; then
+    each 3-d layer alone against the CPU."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    torch.backends.cudnn.benchmark = False
+    net = MultiLayerNetwork(c3d_conf(cfg, "BFLOAT16"), device=dev).init()
+    rng = np.random.default_rng(SEED + 26)
+    n, B = cfg["image"], cfg["batch"]
+    x = torch.from_numpy(rng.random((B, 3, cfg["frames"], n, n),
+                                    dtype=np.float32)).to(dev, torch.bfloat16)
+    y = torch.from_numpy(np.eye(cfg["classes"], dtype=np.float32)[
+        rng.integers(0, cfg["classes"], B)]).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = fit_timed(net, x, y, cfg["steps"])
+    need(all(math.isfinite(v) for v in losses),
+         f"20(c) C3D: non-finite loss {losses}")
+    med = float(np.median(step_s[2:]))
+    out = {"params": net.numParams(), "batch": B,
+           "step_ms_median_3_on": med * 1e3, "clips_per_s": B / med,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+           "losses": losses}
+    out["kernels_per_step"], out["device_busy_ms_per_step"] = \
+        traced_device_work(lambda: (net.fit(x, y), net.score()))
+    log("20(c) C3D: " + json.dumps(out))
+    del net, x, y
+    torch.cuda.empty_cache()
+    out["layers_share_of_band"] = layers3d_card(dev)
+    log("20(c) 3-d layers, share of the band: "
+        + json.dumps(out["layers_share_of_band"]))
+    return out
+
+
+def keras_resnet(dev, cfg):
+    """20(d)(i): keras.applications.ResNet50's config and seeded weights
+    (tests/_torch_keras_models.py, no h5py, no tensorflow) imported on
+    the card, against zoo ResNet50 holding the same arrays through the
+    pretrained mapping: eval logits at batch 32, f32."""
+    import torch
+
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    from deeplearning4j_tpu_torch.zoo.pretrained import _map_keras_weights
+
+    km = _test_helper("keras")
+    S = cfg["image"]
+    config = km.resnet50_config(S, cfg["classes"])
+    weights = km.resnet50_weights(config, seed=SEED)
+    t = time.perf_counter()
+    imported = KerasModelImport.importKerasModelAndWeights(
+        config, weights=weights, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t
+    model = ResNet50(numClasses=cfg["classes"], inputShape=(3, S, S),
+                     seed=SEED, device=dev)
+    zoo = _map_keras_weights(model, model.init(), weights)
+    x = torch.from_numpy(np.random.default_rng(SEED + 27).standard_normal(
+        (cfg["batch"], 3, S, S), dtype=np.float32)).to(dev)
+    got = eval_logits(imported, x, "predictions")
+    want = eval_logits(zoo, x, "fc")
+    rel = float((got - want).abs().max() / want.abs().max())
+    top1 = float((got.argmax(1) == want.argmax(1)).double().mean())
+    need(rel <= IMPORT_LOGIT_REL and top1 == 1.0,
+         f"20(d)(i): imported logits {rel:.3e} of the max-abs from the zoo "
+         f"net's (bar {IMPORT_LOGIT_REL}), top-1 {top1}")
+    out = {"import_s": import_s, "logits_rel_max_abs": rel,
+           "top1_agreement": top1,
+           "imported_ms": wall_ms(lambda: imported.output(x), cfg["reps"]),
+           "zoo_ms": wall_ms(lambda: zoo.output(x), cfg["reps"])}
+    out["imported_kernels"], out["imported_busy_ms"] = \
+        traced_device_work(lambda: imported.output(x))
+    log("20(d)(i) Keras ResNet-50: " + json.dumps(out))
+    del imported, zoo, x
+    return out
+
+
+def keras_mha(dev, cfg):
+    """20(d)(ii): a MultiHeadAttention encoder at BERT-base widths from a
+    Keras config: K1 launches on the card and its plain version does
+    not; the output against the same import on the CPU."""
+    import torch
+
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+    km = _test_helper("keras")
+    config = km.mha_encoder_config(cfg["seq"], cfg["dim"], cfg["heads"],
+                                   cfg["key_dim"], cfg["blocks"],
+                                   cfg["classes"])
+    weights = km.mha_encoder_weights(config, seed=SEED)
+    nets = {d: KerasModelImport.importKerasModelAndWeights(
+        config, weights=weights, device=d) for d in ("cpu", dev)}
+    x = np.random.default_rng(SEED + 28).standard_normal(
+        (cfg["batch"], cfg["dim"], cfg["seq"]), dtype=np.float32)
+    want = nets["cpu"].output(x).toNumpy()
+    tfa.flash_fwd.launches = tfa.flash_fwd_plain.launches = 0
+    got = nets[dev].output(x).toNumpy()
+    launches = {"K1": tfa.flash_fwd.launches,
+                "plain": tfa.flash_fwd_plain.launches}
+    need(launches["K1"] == cfg["blocks"] and launches["plain"] == 0,
+         f"20(d)(ii): attention launches {launches}")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    need(rel <= IMPORT_LOGIT_REL, f"20(d)(ii): card vs CPU {rel:.3e} of "
+         f"the max-abs (bar {IMPORT_LOGIT_REL})")
+    out = {"launches": launches, "output_rel_max_abs": rel}
+    log("20(d)(ii) Keras MultiHeadAttention encoder: " + json.dumps(out))
+    del nets
+    return out
+
+
+def tf_resnet(dev, cfg, onnx):
+    """20(e): zoo ResNet-50 written as a frozen GraphDef by
+    tests/_torch_tf_models.py through tf_wire, imported by importFrozenTF
+    into a SameDiff on the card, against the net's own eval logits at
+    batch 32; its forward beside 19(a)'s."""
+    import torch
+
+    from deeplearning4j_tpu_torch.modelimport import (
+        TFGraphMapper, importFrozenTF, tf_wire,
+    )
+
+    B, S = cfg["batch"], cfg["image"]
+    net = seeded_resnet(dev, cfg)
+    data = tf_wire.encode(_test_helper("tf").resnet_graphdef(net, B))
+    t = time.perf_counter()
+    sd = importFrozenTF(data, device=dev)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t
+    lv = TFGraphMapper.outputVariable(sd, "logits")
+    xn = np.random.default_rng(SEED).standard_normal((B, 3, S, S),
+                                                     dtype=np.float32)
+    feed = {"input": torch.from_numpy(xn.transpose(0, 2, 3, 1).copy()).to(
+        dev)}
+
+    def imported():
+        return sd.output(feed, [lv.name])[lv.name].tensor()
+
+    got = imported()
+    want = eval_logits(net, torch.from_numpy(xn).to(dev), "fc")
+    rel = float((got - want).abs().max() / want.abs().max())
+    top1 = float((got.argmax(1) == want.argmax(1)).double().mean())
+    need(rel <= IMPORT_LOGIT_REL and top1 == 1.0,
+         f"20(e): imported logits {rel:.3e} of the max-abs from the native "
+         f"net's (bar {IMPORT_LOGIT_REL}), top-1 {top1}")
+    out = {"graph_bytes": len(data), "import_s": import_s,
+           "ops": len(sd._ops), "logits_rel_max_abs": rel,
+           "top1_agreement": top1,
+           "imported_ms": wall_ms(imported, cfg["reps"]),
+           "phase19a_onnx_ms": onnx["imported_ms"],
+           "phase19a_native_ms": onnx["native_ms"]}
+    out["imported_kernels"], out["imported_busy_ms"] = \
+        traced_device_work(imported)
+    out["phase19a_onnx_kernels"] = onnx["imported_kernels"]
+    log("20(e) TF ResNet-50: " + json.dumps(out))
+    del sd, net, data
+    return out
+
+
+def detection_import_phase(dev, onnx):
+    """Phase 20: (a) YOLO2 trains at 416^2, (b) the rest of the 2-d zoo,
+    (c) C3D and the 3-d layers, (d) Keras import with no h5py and no
+    tensorflow, (e) TF frozen-graph import; f32 parity with TF32 off.
+    K1 launches in (d)(ii) only."""
+    import torch
+
+    t = time.perf_counter()
+    before = kernel_launches()
+    out = {"yolo2": yolo_main(dev, YOLO_MAIN)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["zoo"] = zoo_rest(dev, ZOO_REST, ZOO_REST_STEPS)
+    out["c3d"] = c3d_phase(dev, C3D)
+    gc.collect()
+    torch.cuda.empty_cache()
+    need(kernel_launches() == before, "phase 20: a hand-written kernel "
+         f"launched in (a)-(c): {before} -> {kernel_launches()}")
+    out["keras_resnet"] = keras_resnet(dev, KERAS_RESNET)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["keras_mha"] = keras_mha(dev, KERAS_MHA)
+    out["tf_resnet"] = tf_resnet(dev, TF_RESNET, onnx)
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 20: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -6822,6 +7409,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     sdx = samediff_rest_phase(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    det = detection_import_phase(dev, sdx["onnx"])
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -6855,7 +7445,8 @@ def main():
             "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:{line}",
             "launches": train["launches"][key] + sd_enc["launches"][key]
             + runtime["encoder"]["launches"][key]
-            + fine["graph_transfer"]["launches"][key],
+            + fine["graph_transfer"]["launches"][key]
+            + det["keras_mha"]["launches"].get(key, 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -7077,6 +7668,37 @@ def main():
         f"{xc['unbounded_trips']} trips, bounded weights "
         f"{xc['bounded_weights_rel']:.2e} from the CPU's; "
         f"{len(xd['ops'])} sweep cases; phase 19 {sdx['seconds']:.1f} s")
+    da, dz, dc = det["yolo2"], det["zoo"], det["c3d"]
+    dk, dm, dt = det["keras_resnet"], det["keras_mha"], det["tf_resnet"]
+    log(f"detection, zoo, 3-d and import on {card}: YOLO2 bf16 NHWC b"
+        f"{YOLO_MAIN['batch']} at {YOLO_MAIN['image']}^2 "
+        f"{da['step_ms_median_3_on']:.2f} ms a step, "
+        f"{da['images_per_s']:.1f} images/s, "
+        f"{da['max_memory_allocated_bytes'] / 2**30:.2f} GiB, "
+        f"{da['kernels_per_step']} kernels a step (device: " + ", ".join(
+            f"{k} {100 * v:.1f} %"
+            for k, v in da["trace"]["device_share"].items())
+        + f"), f32 loss {da['parity']['f32_loss_rel']:.2e} / gradients "
+        f"{da['parity']['f32_worst_grad_rel_l2']:.2e} from the CPU's f64, "
+        f"{da['parity']['detections']} detections equal; " + "; ".join(
+            f"{m} b{r['batch']} {r['step_ms_median_3_on']:.2f} ms, "
+            f"{r['images_per_s']:.1f} images/s, "
+            f"{r['max_memory_allocated_bytes'] / 2**30:.2f} GiB"
+            for m, r in dz.items())
+        + f"; C3D b{C3D['batch']} {dc['step_ms_median_3_on']:.2f} ms a step, "
+        f"{dc['clips_per_s']:.1f} clips/s, "
+        f"{dc['max_memory_allocated_bytes'] / 2**30:.2f} GiB; Keras "
+        f"ResNet-50 logits {dk['logits_rel_max_abs']:.2e} from the zoo "
+        f"net's, imported in {dk['import_s']:.2f} s, b"
+        f"{KERAS_RESNET['batch']} {dk['imported_ms']:.2f} ms / "
+        f"{dk['imported_kernels']} kernels; Keras MHA K1 "
+        f"{dm['launches']['K1']} launches, {dm['output_rel_max_abs']:.2e} "
+        f"from the CPU; TF ResNet-50 ({dt['graph_bytes']} bytes, imported "
+        f"in {dt['import_s']:.2f} s) logits {dt['logits_rel_max_abs']:.2e}, "
+        f"b{TF_RESNET['batch']} {dt['imported_ms']:.2f} ms / "
+        f"{dt['imported_kernels']} kernels beside 19(a)'s ONNX "
+        f"{dt['phase19a_onnx_ms']:.2f} ms / {dt['phase19a_onnx_kernels']}; "
+        f"phase 20 {det['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

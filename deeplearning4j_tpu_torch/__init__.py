@@ -36,13 +36,27 @@ What is ported so far:
   blocks, one host sync a block), ``util.serializer``/``serde`` (model
   files and JSON in the reference's format), ``util.sharded_checkpoint``
   and ``runtime.resilience`` (``ResilientFit``);
-* the rest of the layer catalogue (all but the 3-d layers): masked
-  sequence classification (embeddings, the mask layers, the time-series
-  vertices with masks along the graph's edges, the CNN <-> RNN
-  preprocessors), constraints, weight noise, per-parameter bias
-  updaters, the variational autoencoder and AutoEncoder with layerwise
-  ``pretrain``, and the 1-d, locally connected, capsule, utility,
-  special-output and SameDiff layers (``nn.conf``).
+* the rest of the layer catalogue: masked sequence classification
+  (embeddings, the mask layers, the time-series vertices with masks
+  along the graph's edges, the CNN <-> RNN preprocessors), constraints,
+  weight noise, per-parameter bias updaters, the variational autoencoder
+  and AutoEncoder with layerwise ``pretrain``, and the 1-d, 3-d,
+  locally connected, capsule, utility, special-output and SameDiff
+  layers (``nn.conf``);
+* the 2-d CNN zoo (``zoo``: AlexNet, VGG, UNet, the s2d stem, remat) and
+  the data and fine-tuning runtime (``data.records``/``transform``, the
+  native prefetch ring, ``nn.transfer``, the line-search solvers, int8
+  inference);
+* one-shot serving (``parallel.inference.ParallelInference``, the
+  micro-batcher, ``:predict``, the fleet router, breakers and chaos);
+* the rest of SameDiff (control flow, the op namespaces, the validator)
+  and ONNX import (``modelimport.onnx``);
+* detection and the rest of the zoo (``nn.objdetect``: the YOLOv2 head
+  and ``YoloUtils``; Darknet19, TinyYOLO, YOLO2, SqueezeNet, Xception,
+  InceptionResNetV1, FaceNetNN4Small2, NASNet), pretrained weights from
+  local files (``zoo.pretrained``), Keras import
+  (``modelimport.keras``) and TF frozen-graph import through the port's
+  own GraphDef codec (``modelimport.tensorflow``, ``tf_wire``).
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.
@@ -53,5 +67,8 @@ unless the caller passes ``device="cpu"``; with no card and no explicit
 """
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.ndarray import DataType, INDArray, Nd4j
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["INDArray", "Nd4j", "DataType", "__version__", "resolve_device"]

@@ -748,6 +748,8 @@ class SameDiff:
         env.update(ph)
         leaves = {n: env[n].detach().requires_grad_(True)
                   for n in w_names + p_names}
+        if not leaves:      # nothing to differentiate: as the reference
+            return {}
         env.update(leaves)
         with torch.enable_grad():
             outs = self._run_graph(env, loss_names)

@@ -47,7 +47,10 @@ from deeplearning4j_tpu_torch.data.records import (
     CSVSequenceRecordReader, SequenceRecordReaderDataSetIterator,
 )
 
+from deeplearning4j_tpu_torch.data.resilient import RetryingDataSetIterator
+
 __all__ = [
+    "RetryingDataSetIterator",
     "DataSet", "DataSetIterator", "ExistingDataSetIterator",
     "ExistingMiniBatchDataSetIterator", "KFoldIterator",
     "ListDataSetIterator", "MiniBatchFileDataSetIterator",

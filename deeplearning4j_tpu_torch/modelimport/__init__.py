@@ -1,60 +1,34 @@
 """Model import (reference: deeplearning4j-modelimport and nd4j-api's
-graph mappers).
+graph mappers): ``KerasModelImport`` (Keras configs and weights ->
+MultiLayerNetwork / ComputationGraph), ``TFGraphMapper`` /
+``importFrozenTF`` (a frozen GraphDef -> SameDiff, through the port's
+own GraphDef codec ``tf_wire``) and ``OnnxGraphMapper`` / ``importOnnx``
+(an ONNX model -> SameDiff, through ``onnx_wire``)."""
 
-The ONNX importer is ported: ``OnnxGraphMapper.importGraph`` maps an
-ONNX model onto a SameDiff graph through the port's own wire codec.
-Keras import (``KerasModelImport``) and the TF frozen-graph importer
-(``TFGraphMapper``, ``importFrozenTF``) wait for ROADMAP.md Queue 1 item
-12 and raise ``NotImplementedError`` naming it.
-"""
-
+from deeplearning4j_tpu_torch.modelimport.keras import (
+    InvalidKerasConfigurationException,
+    KerasModelImport,
+    UnsupportedKerasConfigurationException,
+)
 from deeplearning4j_tpu_torch.modelimport.onnx import (
     ONNXImportException,
     OnnxGraphMapper,
     importOnnx,
 )
+from deeplearning4j_tpu_torch.modelimport.tensorflow import (
+    TFGraphMapper,
+    TFImportException,
+    importFrozenTF,
+)
 
 __all__ = [
     "KerasModelImport",
+    "InvalidKerasConfigurationException",
+    "UnsupportedKerasConfigurationException",
     "TFGraphMapper",
+    "TFImportException",
     "importFrozenTF",
     "OnnxGraphMapper",
     "ONNXImportException",
     "importOnnx",
 ]
-
-
-def _item12(what):
-    return NotImplementedError(
-        f"{what} waits for a later slice (ROADMAP.md Queue 1 item 12)")
-
-
-def _keras(name):
-    def m(*args, **kwargs):
-        raise _item12(f"Keras import (KerasModelImport.{name})")
-    m.__name__ = name
-    return staticmethod(m)
-
-
-class KerasModelImport:
-    """Keras import builds networks, not SameDiff graphs: item 12."""
-
-    for _n in ("importKerasModelAndWeights",
-               "importKerasSequentialModelAndWeights",
-               "importKerasModelConfiguration",
-               "importKerasSequentialConfiguration"):
-        locals()[_n] = _keras(_n)
-    del _n
-
-
-class TFGraphMapper:
-    """The TF frozen-graph importer parses GraphDef through the
-    ``tensorflow`` package, which the card's machine lacks: item 12."""
-
-    @staticmethod
-    def importGraph(*args, **kwargs):
-        raise _item12("TF frozen-graph import (TFGraphMapper)")
-
-
-def importFrozenTF(*args, **kwargs):
-    raise _item12("TF frozen-graph import (importFrozenTF)")

@@ -128,13 +128,19 @@ ATTR_FLOATS, ATTR_INTS, ATTR_STRINGS, ATTR_TENSORS = 6, 7, 8, 9
 
 
 class Message:
-    """A decoded protobuf message: fields as attributes, repeated -> list."""
+    """A decoded protobuf message: fields as attributes, repeated -> list.
+    `schema` is the table the message's type is in (ONNX's unless
+    another is given, as ``tf_wire`` gives TensorFlow's); ``_seen``
+    holds the names of the fields a decode read (a oneof's member)."""
 
-    def __init__(self, type_name, **fields):
-        if type_name not in SCHEMA:
-            raise ValueError(f"unknown ONNX message type {type_name!r}")
+    def __init__(self, type_name, schema=None, **fields):
+        schema = SCHEMA if schema is None else schema
+        if type_name not in schema:
+            raise ValueError(f"unknown message type {type_name!r}")
         self._type = type_name
-        for _num, (fname, kind) in SCHEMA[type_name].items():
+        self._schema = schema
+        self._seen = set()
+        for _num, (fname, kind) in schema[type_name].items():
             if kind.startswith("rep_"):
                 setattr(self, fname, [])
             elif kind in ("int", "float"):
@@ -206,21 +212,24 @@ def _tag(field_num, wire_type):
 def encode(msg):
     """Message -> wire bytes."""
     out = bytearray()
-    for num, (fname, kind) in sorted(SCHEMA[msg._type].items()):
+    for num, (fname, kind) in sorted(msg._schema[msg._type].items()):
         val = getattr(msg, fname)
+        # a zero scalar is written only where a decode read it (a oneof
+        # member set to its default)
+        put = bool(val) or fname in msg._seen
         if kind == "int":
-            if val:
+            if put:
                 _write_varint(out, _tag(num, 0))
                 _write_varint(out, val)
         elif kind == "float":
-            if val:
+            if put:
                 _write_varint(out, _tag(num, 5))
                 out += struct.pack("<f", val)
         elif kind == "str":
-            if val:
+            if put:
                 _emit_len(out, num, val.encode("utf-8"))
         elif kind == "bytes":
-            if val:
+            if put:
                 _emit_len(out, num, bytes(val))
         elif kind in ("rep_int", "rep_uint"):
             if val:
@@ -259,10 +268,12 @@ def _emit_len(out, num, payload):
 # decoder
 # ---------------------------------------------------------------------------
 
-def decode(type_name, data):
-    """wire bytes -> Message (unknown fields skipped)."""
-    msg = Message(type_name)
-    fields = SCHEMA[type_name]
+def decode(type_name, data, schema=None):
+    """wire bytes -> Message of `schema` (ONNX's unless given; unknown
+    fields skipped)."""
+    schema = SCHEMA if schema is None else schema
+    msg = Message(type_name, schema)
+    fields = schema[type_name]
     pos = 0
     while pos < len(data):
         key, pos = _read_varint(data, pos)
@@ -272,6 +283,7 @@ def decode(type_name, data):
             pos = _skip(data, pos, wt)
             continue
         fname, kind = spec
+        msg._seen.add(fname)
         if wt == 0:  # varint
             raw, pos = _read_varint(data, pos)
             if kind == "int":
@@ -328,11 +340,12 @@ def decode(type_name, data):
                 getattr(msg, fname).extend(
                     struct.unpack(f"<{len(payload) // 8}d", payload))
             elif kind.startswith("rep_"):
-                getattr(msg, fname).append(decode(kind[4:], payload))
+                getattr(msg, fname).append(decode(kind[4:], payload,
+                                                  schema))
             elif kind in ("int", "float"):
                 pass  # wrong wire type: ignore
             else:  # embedded message
-                setattr(msg, fname, decode(kind, payload))
+                setattr(msg, fname, decode(kind, payload, schema))
         else:
             raise ValueError(f"unsupported wire type {wt} in {type_name}")
     return msg

@@ -259,8 +259,9 @@ class INDArray:
 
     def distribute(self, mesh, row_axis="data", col_axis=None):
         raise NotImplementedError(
-            "distribute (the distributed matrix tier over a device mesh) "
-            "waits for the data-parallel slice (ROADMAP.md Queue 1 item 7)")
+            "distribute (linalg.DistributedMatrix, the distributed matrix "
+            "tier over a device mesh) waits for the linalg slice "
+            "(ROADMAP.md Queue 1 item 12c)")
 
     def castTo(self, dtype) -> "INDArray":
         return INDArray(self._t.to(resolve(dtype)))

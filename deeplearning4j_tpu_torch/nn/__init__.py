@@ -2,8 +2,8 @@
 
 The paged-KV serving model (``nn.transformer``), ``MultiLayerNetwork``
 and ``ComputationGraph`` (``nn.multilayer``, ``nn.graph``) with every
-layer, vertex and preprocessor of the reference's catalogue but the 3-d
-layers (ROADMAP.md Queue 1 item 12): the attention, convolutional,
+layer, vertex and preprocessor of the reference's catalogue: the
+attention, convolutional (2-d and 3-d),
 recurrent, embedding, mask, 1-d, locally connected, capsule, utility,
 loss, SameDiff and pretrainable layers (``nn.conf.*``), with truncated
 BPTT, stateful stepping and layerwise pretraining; every updater,
@@ -50,6 +50,8 @@ from deeplearning4j_tpu_torch.nn.conf.layers import (
     SameDiffLambdaLayer, SameDiffLayer, SeparableConvolution2D,
     SpaceToBatch, SpaceToDepth, Subsampling1DLayer, SubsamplingLayer,
     Upsampling1D, Upsampling2D, ZeroPadding1DLayer, ZeroPaddingLayer,
+    Convolution3D, Cropping3D, Deconvolution3D, Subsampling3DLayer,
+    Upsampling3D, ZeroPadding3D,
 )
 from deeplearning4j_tpu_torch.nn.conf.recurrent import (
     GRU, LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
@@ -59,6 +61,7 @@ from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
     CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
     FeedForwardToCnnPreProcessor, FeedForwardToRnnPreProcessor,
     RnnToCnnPreProcessor, RnnToFeedForwardPreProcessor,
+    Cnn3DToFeedForwardPreProcessor,
 )
 from deeplearning4j_tpu_torch.nn.conf.variational import \
     VariationalAutoencoder
@@ -119,5 +122,7 @@ __all__ = [
     "VariationalAutoencoder", "DropConnect", "WeightNoise",
     "NormalDistribution", "UniformDistribution", "WeightInitEmbedding",
     "OptimizationAlgorithm", "TransferLearning", "FineTuneConfiguration",
-    "FrozenLayer", "TransferLearningHelper",
+    "FrozenLayer", "TransferLearningHelper", "Convolution3D", "Cropping3D",
+    "Deconvolution3D", "Subsampling3DLayer", "Upsampling3D", "ZeroPadding3D",
+    "Cnn3DToFeedForwardPreProcessor",
 ]

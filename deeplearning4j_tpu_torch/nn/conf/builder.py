@@ -170,6 +170,10 @@ def auto_preprocessor(layer, cur):
         pp = PP.CnnToFeedForwardPreProcessor(cur.height, cur.width,
                                              cur.channels)
         return pp, pp.getOutputType(cur)
+    if cur.kind == InputType.CNN3D and wants == InputType.FF:
+        pp = PP.Cnn3DToFeedForwardPreProcessor(cur.depth, cur.height,
+                                               cur.width, cur.channels)
+        return pp, pp.getOutputType(cur)
     if cur.kind == InputType.RNN and wants == InputType.FF:
         pp = PP.RnnToFeedForwardPreProcessor()
         return pp, pp.getOutputType(cur)

@@ -4,7 +4,8 @@ A copy of ``deeplearning4j_tpu/nn/conf/inputs.py`` (it holds no array
 code): declare the network's input shape once and each layer's nIn is
 inferred by propagating shapes through getOutputType. Recurrent data
 is NCW ``[batch, features, time]``; convolutional data is NCHW, or NHWC
-where ``InputType.convolutional(.., format="NHWC")`` declares the feed.
+where ``InputType.convolutional(.., format="NHWC")`` declares the feed;
+3-d convolutional data is NCDHW.
 ``format`` does not take part in the dims or in equality.
 """
 
@@ -49,6 +50,14 @@ class InputType:
     def convolutionalFlat(height: int, width: int, depth: int) -> "InputType":
         return InputType(InputType.CNN_FLAT, height=int(height),
                          width=int(width), channels=int(depth))
+
+    @staticmethod
+    def convolutional3D(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        """Reference: InputType.convolutional3D (NCDHW per example)."""
+        return InputType(InputType.CNN3D, depth=int(depth),
+                         height=int(height), width=int(width),
+                         channels=int(channels))
 
     def arrayElementsPerExample(self) -> int:
         if self.kind == InputType.FF:

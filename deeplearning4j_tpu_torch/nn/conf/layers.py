@@ -1,8 +1,7 @@
 """Layer configurations with their init and forward.
 
 The counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``: every layer
-of the reference's catalogue but the 3-d family (ROADMAP.md Queue 1
-item 12), which waits. As in the reference a layer config IS its
+of the reference's catalogue. As in the reference a layer config IS its
 implementation: ``initialize(gen, inputType, dtype, device)`` returns
 ``(params, state)`` dicts of tensors with the reference's names, and
 ``forward(params, state, x, train, key, mask)`` is a plain function of
@@ -27,7 +26,11 @@ grouped ``[C·m, 1, kh, kw]`` (output channel ``g·m + j`` reads input
 channel g on both sides); a deconvolution's unflipped HWIO ``[kh, kw,
 Cin, Cout]`` is ``conv_transpose2d``'s flipped ``[Cin, Cout, kh, kw]``
 (output axis 1); PReLU's alpha over CNN input is ``[C, H, W]`` where the
-reference's is ``[H, W, C]``. The locally connected and capsule layers
+reference's is ``[H, W, C]`` (``[C, D, H, W]`` for ``[D, H, W, C]`` over
+3-d input). 3-d activations are NCDHW-logical where the reference keeps
+NDHWC; a 3-d conv ``W`` is the reference's DHWIO ``[kd, kh, kw, in,
+out]`` and the port's OIDHW, a 3-d deconvolution's unflipped DHWIO is
+``conv_transpose3d``'s flipped ``[in, out, kd, kh, kw]``. The locally connected and capsule layers
 keep the reference's layouts. The recurrent layers are in
 ``nn/conf/recurrent.py``, the variational autoencoder in
 ``nn/conf/variational.py``.
@@ -62,7 +65,9 @@ __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer",
            "ElementWiseMultiplicationLayer", "CenterLossOutputLayer",
            "OCNNOutputLayer", "AutoEncoder", "PrimaryCapsules",
            "CapsuleLayer", "CapsuleStrengthLayer", "SameDiffLambdaLayer",
-           "SameDiffLayer"]
+           "SameDiffLayer", "Convolution3D", "Deconvolution3D",
+           "Cropping3D", "Upsampling3D", "Subsampling3DLayer",
+           "ZeroPadding3D"]
 
 
 class Layer:
@@ -628,8 +633,8 @@ class Cropping2D(Layer):
 class GlobalPoolingLayer(Layer):
     """Global pooling over the spatial dims (CNN input [B,C,H,W] ->
     [B,C]) or time (RNN input [B,F,T] -> [B,F]); FF input passes through
-    (reference: conf.layers.GlobalPoolingLayer). 3D CNN input waits for
-    its slice."""
+    (reference: conf.layers.GlobalPoolingLayer); 3-d CNN input
+    [B,C,D,H,W] pools D, H and W."""
 
     def __init__(self, poolingType="max", pnorm=2, collapseDimensions=True,
                  **kw):
@@ -650,14 +655,19 @@ class GlobalPoolingLayer(Layer):
             if not self.collapseDimensions:
                 return InputType.recurrent(inputType.size, 1)
             return InputType.feedForward(inputType.size)
-        if inputType.kind == InputType.FF:
-            return inputType
-        raise NotImplementedError(
-            f"GlobalPoolingLayer over {inputType.kind} input waits for the "
-            "3D CNN layers (ROADMAP.md Queue 1 item 12)")
+        if inputType.kind == InputType.CNN3D:
+            if not self.collapseDimensions:
+                return InputType.convolutional3D(1, 1, 1, inputType.channels)
+            return InputType.feedForward(inputType.channels)
+        return inputType
 
     def forward(self, params, state, x, train, key, mask=None):
-        if x.dim() == 4:      # [B,C,H,W]
+        if x.dim() == 5:      # [B,C,D,H,W]
+            y = _pool.global_pool(x, self.poolingType, (2, 3, 4), None,
+                                  self.pnorm)
+            if not self.collapseDimensions:
+                y = y[:, :, None, None, None]
+        elif x.dim() == 4:    # [B,C,H,W]
             y = _pool.global_pool(x, self.poolingType, (2, 3), None,
                                   self.pnorm)
             if not self.collapseDimensions:
@@ -767,6 +777,249 @@ class SpaceToDepth(Layer):
     def forward(self, params, state, x, train, key, mask=None):
         y = _conv.space_to_depth(x.permute(0, 2, 3, 1), self.blocks)
         return y.permute(0, 3, 1, 2), state
+
+
+# ----------------------------------------------------------------------
+# 3-d convolution and spatial reshaping
+# ----------------------------------------------------------------------
+
+_triple = _pool._triple
+
+
+def _pads3(mode, padding):
+    """A ConvolutionMode + configured pads -> "SAME" or ((p, p),) * 3 (the
+    reference's 3-d layers)."""
+    if str(mode).lower() == "same":
+        return "SAME"
+    return tuple((p, p) for p in padding)
+
+
+class Convolution3D(FeedForwardLayer):
+    """3-d convolution (reference: conf.layers.Convolution3D): NCDHW in,
+    W OIDHW ``[nOut, nIn, kd, kh, kw]`` (the reference's DHWIO), bias
+    ``[nOut]`` added after the product, as the reference's."""
+
+    def __init__(self, kernelSize=(2, 2, 2), stride=(1, 1, 1),
+                 padding=(0, 0, 0), dilation=(1, 1, 1),
+                 convolutionMode="truncate", **kw):
+        super().__init__(**kw)
+        self.kernelSize = _triple(kernelSize)
+        self.stride = _triple(stride)
+        self.padding = _triple(padding)
+        self.dilation = _triple(dilation)
+        self.convolutionMode = convolutionMode
+
+    def inferNIn(self, inputType):
+        if self.nIn is None:
+            self.nIn = inputType.channels
+
+    def _out_dims(self, inputType, size_fn):
+        return tuple(size_fn(n, self.kernelSize[i], self.stride[i],
+                             self.padding[i], self.dilation[i],
+                             self.convolutionMode)
+                     for i, n in enumerate((inputType.depth,
+                                            inputType.height,
+                                            inputType.width)))
+
+    def getOutputType(self, inputType):
+        return InputType.convolutional3D(
+            *self._out_dims(inputType, _conv.conv_output_size), self.nOut)
+
+    def _w_shape(self):
+        return (self.nOut, self.nIn) + self.kernelSize
+
+    def initialize(self, gen, inputType, dtype, device):
+        self.inferNIn(inputType)
+        k = self.kernelSize[0] * self.kernelSize[1] * self.kernelSize[2]
+        params = {"W": _winit.init(gen, self.weightInit, self._w_shape(),
+                                   self.nIn * k, self.nOut * k, dtype,
+                                   device, self.distribution)}
+        if self.hasBias:
+            params["b"] = torch.full((self.nOut,), float(self.biasInit),
+                                     dtype=dtype, device=device)
+        return params, {}
+
+    def param_from_reference(self, name, t):
+        if name == "W":   # DHWIO -> OIDHW
+            return t.permute(4, 3, 0, 1, 2).contiguous()
+        return t
+
+    def param_to_reference(self, name, t):
+        if name == "W":
+            return t.permute(2, 3, 4, 1, 0).contiguous()
+        return t
+
+    def output_axis(self, name, t):
+        return 0
+
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
+        pads = _pads3(self.convolutionMode, self.padding)
+        if pads == "SAME":
+            pads = tuple(_conv.same_pads(n, k, s, d) for n, k, s, d in zip(
+                x.shape[2:], self.kernelSize, self.stride, self.dilation))
+        if all(lo == hi for lo, hi in pads):
+            pad = tuple(lo for lo, _ in pads)
+        else:
+            x = F.pad(x, tuple(v for lo_hi in reversed(pads)
+                               for v in lo_hi))
+            pad = 0
+        y = F.conv3d(x, params["W"], None, self.stride, pad, self.dilation)
+        if self.hasBias:
+            y = y + params["b"].reshape(1, -1, 1, 1, 1)
+        return _act.get(self.activation)(y), state
+
+
+class Deconvolution3D(Convolution3D):
+    """Transposed 3-d convolution (reference:
+    conf.layers.Deconvolution3D). The reference's W is the forward
+    layout DHWIO ``[kd, kh, kw, nIn, nOut]``, unflipped, which
+    ``lax.conv_transpose`` slides over the dilated input; the port holds
+    it flipped as ``conv_transpose3d``'s ``[nIn, nOut, kd, kh, kw]``."""
+
+    def _w_shape(self):
+        return (self.nIn, self.nOut) + self.kernelSize
+
+    def getOutputType(self, inputType):
+        return InputType.convolutional3D(
+            *self._out_dims(inputType, _conv.deconv_output_size), self.nOut)
+
+    def param_from_reference(self, name, t):
+        if name == "W":
+            return t.flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+        return t
+
+    def param_to_reference(self, name, t):
+        if name == "W":
+            return t.permute(2, 3, 4, 0, 1).flip(0, 1, 2).contiguous()
+        return t
+
+    def output_axis(self, name, t):
+        return 1 if t.dim() > 1 else 0
+
+    def forward(self, params, state, x, train, key, mask=None):
+        x = self._dropout_input(x, train, key)
+        pad = _conv.deconv3d_explicit_padding(
+            self.convolutionMode, self.padding, self.kernelSize,
+            self.dilation)
+        y = _conv.deconv3d(x, params["W"], params.get("b"), self.stride, pad,
+                           self.dilation)
+        return _act.get(self.activation)(y), state
+
+
+class Cropping3D(Layer):
+    """Crop D/H/W (reference: conf.layers.Cropping3D); ``crop`` is (d0,
+    d1, h0, h1, w0, w1)."""
+
+    def __init__(self, cropping=(0, 0, 0, 0, 0, 0), **kw):
+        super().__init__(**kw)
+        c = cropping
+        if isinstance(c, int):
+            c = (c,) * 6
+        elif len(c) == 3:
+            c = (c[0], c[0], c[1], c[1], c[2], c[2])
+        self.crop = tuple(int(v) for v in c)
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        d0, d1, h0, h1, w0, w1 = self.crop
+        return InputType.convolutional3D(
+            inputType.depth - d0 - d1, inputType.height - h0 - h1,
+            inputType.width - w0 - w1, inputType.channels)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        d0, d1, h0, h1, w0, w1 = self.crop
+        D, H, W = x.shape[2:]
+        return x[:, :, d0:D - d1, h0:H - h1, w0:W - w1], state
+
+
+class Upsampling3D(Layer):
+    """Nearest-neighbour upsampling of D/H/W (reference:
+    conf.layers.Upsampling3D)."""
+
+    def __init__(self, size=2, **kw):
+        super().__init__(**kw)
+        self.sizev = _triple(size)
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        return InputType.convolutional3D(
+            inputType.depth * self.sizev[0], inputType.height * self.sizev[1],
+            inputType.width * self.sizev[2], inputType.channels)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        return _pool.upsample3d(x, self.sizev), state
+
+
+class Subsampling3DLayer(Layer):
+    """3-d max/avg pooling (reference: conf.layers.Subsampling3DLayer;
+    avg divides by the window's volume under explicit pads, by the real
+    inputs under "same")."""
+
+    def __init__(self, poolingType="max", kernelSize=(2, 2, 2),
+                 stride=(2, 2, 2), padding=(0, 0, 0),
+                 convolutionMode="truncate", **kw):
+        super().__init__(**kw)
+        self.poolingType = poolingType
+        self.kernelSize = _triple(kernelSize)
+        self.stride = _triple(stride)
+        self.padding = _triple(padding)
+        self.convolutionMode = convolutionMode
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        d, h, w = (_conv.conv_output_size(
+            n, self.kernelSize[i], self.stride[i], self.padding[i], 1,
+            self.convolutionMode)
+            for i, n in enumerate((inputType.depth, inputType.height,
+                                   inputType.width)))
+        return InputType.convolutional3D(d, h, w, inputType.channels)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        pad = _pads3(self.convolutionMode, self.padding)
+        t = str(self.poolingType).lower()
+        if t == "max":
+            y = _pool.max_pool3d(x, self.kernelSize, self.stride, pad)
+        elif t == "avg":
+            y = _pool.avg_pool3d(x, self.kernelSize, self.stride, pad)
+        else:
+            raise ValueError(f"Unknown poolingType {self.poolingType}")
+        return y, state
+
+
+class ZeroPadding3D(Layer):
+    """Zero-pad D/H/W (reference: conf.layers.ZeroPadding3D); ``pad`` is
+    ((d_lo, d_hi), (h_lo, h_hi), (w_lo, w_hi))."""
+
+    def __init__(self, padding=(1, 1, 1), **kw):
+        super().__init__(**kw)
+        p = padding
+        if isinstance(p, int):
+            p = ((p, p),) * 3
+        elif len(p) == 3 and not isinstance(p[0], (list, tuple)):
+            p = tuple((int(v), int(v)) for v in p)
+        else:
+            p = tuple((int(a), int(b)) for a, b in p)
+        self.pad = p
+
+    def hasParams(self):
+        return False
+
+    def getOutputType(self, inputType):
+        (dl, dh), (hl, hh), (wl, wh) = self.pad
+        return InputType.convolutional3D(
+            inputType.depth + dl + dh, inputType.height + hl + hh,
+            inputType.width + wl + wh, inputType.channels)
+
+    def forward(self, params, state, x, train, key, mask=None):
+        (dl, dh), (hl, hh), (wl, wh) = self.pad
+        return F.pad(x, (wl, wh, hl, hh, dl, dh)), state
 
 
 # ----------------------------------------------------------------------
@@ -1263,7 +1516,8 @@ class PReLULayer(Layer):
     conf.layers.PReLULayer): per element of [C, H, W] for CNN input (the
     reference's HWC ``[H, W, C]``), ``[F, 1]`` for a sequence, ``[F]``
     otherwise; ``sharedAxes`` (1-based over [C, H, W]) collapse alpha's
-    axes to 1. 3-d CNN input waits for item 12."""
+    axes to 1; over 3-d CNN input alpha is per element of [C, D, H, W]
+    (the reference's ``[D, H, W, C]``), with no shared axes."""
 
     def __init__(self, sharedAxes=None, alphaInit=0.0, **kw):
         super().__init__(**kw)
@@ -1277,19 +1531,26 @@ class PReLULayer(Layer):
                 shape[int(a) - 1] = 1
         elif inputType.kind == InputType.RNN:
             shape = [inputType.size, 1]
-        elif inputType.kind == InputType.FF:
-            shape = [inputType.size]
+        elif inputType.kind == InputType.CNN3D:
+            if self.sharedAxes:
+                raise ValueError(
+                    "PReLULayer sharedAxes are defined for 2D CNN input "
+                    "only; 3D input gets a full per-element alpha")
+            shape = [inputType.channels, inputType.depth, inputType.height,
+                     inputType.width]
         else:
-            raise NotImplementedError(
-                f"PReLULayer over {inputType.kind} input waits for the 3-d "
-                "layers (ROADMAP.md Queue 1 item 12)")
+            shape = [inputType.size]
         return {"alpha": torch.full(shape, self.alphaInit, dtype=dtype,
                                     device=device)}, {}
 
     def param_from_reference(self, name, t):
+        if t.dim() == 4:                                    # DHWC -> CDHW
+            return t.permute(3, 0, 1, 2).contiguous()
         return t.permute(2, 0, 1) if t.dim() == 3 else t   # HWC -> CHW
 
     def param_to_reference(self, name, t):
+        if t.dim() == 4:
+            return t.permute(1, 2, 3, 0).contiguous()
         return t.permute(1, 2, 0) if t.dim() == 3 else t
 
     def forward(self, params, state, x, train, key, mask=None):

@@ -7,9 +7,12 @@ pairs. Formats: FF ``[B, N]``, RNN NCW ``[B, F, T]``, CNN NCHW-logical
 NHWC). The flatten order is the reference's [C, H, W], so a dense or
 recurrent layer's weights after a conv carry across unchanged; with the
 channel axis already at dim 1 the port's flatten is a reshape where the
-reference transposes from NHWC first. The preprocessors that un-flatten
-a batch of B·T rows read B from their ``batch`` attribute, which the
-networks set before every forward.
+reference transposes from NHWC first. ``Cnn3DToFeedForwardPreProcessor``
+flattens 3-d CNN activations (NCDHW-logical) in [D, H, W, C] order, the
+order of the reference's internal NDHWC activation; the reference has
+no such preprocessor and refuses a dense layer after a 3-d one. The
+preprocessors that un-flatten a batch of B·T rows read B from their
+``batch`` attribute, which the networks set before every forward.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 __all__ = ["InputPreProcessor", "CnnToFeedForwardPreProcessor",
            "FeedForwardToCnnPreProcessor", "RnnToFeedForwardPreProcessor",
            "FeedForwardToRnnPreProcessor", "RnnToCnnPreProcessor",
-           "CnnToRnnPreProcessor"]
+           "CnnToRnnPreProcessor", "Cnn3DToFeedForwardPreProcessor"]
 
 
 class InputPreProcessor:
@@ -128,3 +131,18 @@ class CnnToRnnPreProcessor(InputPreProcessor):
     def getOutputType(self, inputType):
         return InputType.recurrent(
             inputType.height * inputType.width * inputType.channels)
+
+
+class Cnn3DToFeedForwardPreProcessor(InputPreProcessor):
+    """[B,C,D,H,W] -> [B, D*H*W*C] in [D, H, W, C] order."""
+
+    def __init__(self, inputDepth=None, inputHeight=None, inputWidth=None,
+                 numChannels=None):
+        self.inputDepth, self.inputHeight = inputDepth, inputHeight
+        self.inputWidth, self.numChannels = inputWidth, numChannels
+
+    def preProcess(self, x, mask=None):
+        return x.permute(0, 2, 3, 4, 1).reshape(x.shape[0], -1)
+
+    def getOutputType(self, inputType):
+        return InputType.feedForward(inputType.arrayElementsPerExample())

@@ -295,10 +295,16 @@ def loss_for_head(layer, pre, y, lmask, nhwc, params=None):
     ``_loss_from_preact`` / ``ComputationGraph._loss``). A head with its
     own loss (``computeLoss``: CenterLossOutputLayer, OCNNOutputLayer)
     computes it at f32 or wider from its preoutput and its `params` (in
-    the compute dtype), as the reference does."""
+    the compute dtype), as the reference does; a 4-d one
+    (Yolo2OutputLayer) from the NHWC view of its map and NCHW labels,
+    the reference's layouts."""
     if hasattr(layer, "computeLoss"):
         wdt = torch.promote_types(pre.dtype, torch.float32)
         p = {k: v.to(pre.dtype) for k, v in (params or {}).items()}
+        if pre.dim() == 4:
+            pre = _nhwc(pre)
+            if nhwc and y.dim() == 4:
+                y = y.permute(0, 3, 1, 2)
         return layer.computeLoss(pre.to(wdt), y.to(wdt), lmask, p)
     ldt = _losses.tail_dtype(pre.dtype)
     pre, y = pre.to(ldt), y.to(ldt)
@@ -492,7 +498,8 @@ def cnn_entry(x, it):
     """A network input in the internal layout for its InputType: a CNN
     feed [B,C,H,W] to channels_last (an NHWC feed [B,H,W,C] through a
     permute, which is channels_last already), a convolutionalFlat feed
-    [B, C*H*W] reshaped to [B,C,H,W]; anything else as it is."""
+    [B, C*H*W] reshaped to [B,C,H,W]; anything else (a 3-d feed is
+    NCDHW, the internal layout) as it is."""
     if it is not None and it.kind == InputType.CNN and x.dim() == 4:
         if getattr(it, "format", "NCHW") == "NHWC":
             return x.permute(0, 3, 1, 2)
@@ -1701,7 +1708,8 @@ class MultiLayerNetwork(NetworkRuntime):
                                     False, None)
         last = self.layers[-1]
         if isinstance(last, (L.BaseOutputLayer, L.LossLayer)):
-            return out_activation(last, h, self._api_nhwc)
+            return out_activation(last, h, self._api_nhwc or getattr(
+                last, "mlnOutputNHWC", False))
         return h
 
     def feedForward(self, x):

@@ -58,7 +58,7 @@ class WeightInitEmbedding:
     """An embedding table from a raw [nIn, nOut] array (reference:
     nn.weights.WeightInitEmbedding over an ArrayEmbeddingInitializer).
     A word-vector model as the source (Word2Vec, StaticWordVectors,
-    FastText) waits for the NLP package (ROADMAP.md Queue 1 item 12)."""
+    FastText) waits for the NLP package (ROADMAP.md Queue 1 item 12b)."""
 
     def __init__(self, source):
         self.source = source
@@ -70,7 +70,7 @@ class WeightInitEmbedding:
         if hasattr(src, "vocab") and hasattr(src, "getWordVector"):
             raise NotImplementedError(
                 "WeightInitEmbedding from a word-vector model waits for the "
-                "NLP package (ROADMAP.md Queue 1 item 12); pass the "
+                "NLP package (ROADMAP.md Queue 1 item 12b); pass the "
                 "[nIn, nOut] array of its vectors")
         t = src.detach().cpu() if isinstance(src, torch.Tensor) \
             else torch.from_numpy(np.array(src, copy=True))

@@ -4,7 +4,8 @@ The counterpart of ``deeplearning4j_tpu/ops/conv.py`` for the CNN
 training path: ``_pair``, ``explicit_padding`` (the Same/Truncate
 arithmetic), ``conv2d``, ``conv1d`` (NCW over ``[out, in, k]``),
 ``conv3d`` (NDHWC over a DHWIO kernel, the reference's layouts, for
-SameDiff's ``conv3d`` op), the
+SameDiff's ``conv3d`` op) and its transpose ``deconv3d`` with
+``deconv3d_explicit_padding`` (the ``Deconvolution3D`` layer), the
 transposed convolution ``deconv2d`` with its padding and
 ``deconv_output_size``, and ``conv_output_size``; and the block
 rearrangements ``space_to_depth`` / ``depth_to_space`` /
@@ -27,7 +28,8 @@ import torch.nn.functional as F
 __all__ = ["explicit_padding", "resolve_pads", "same_pads", "conv2d",
            "conv1d", "conv_output_size", "deconv_explicit_padding",
            "deconv2d", "deconv_output_size", "space_to_depth",
-           "depth_to_space", "space_to_batch", "batch_to_space", "conv3d"]
+           "depth_to_space", "space_to_batch", "batch_to_space", "conv3d",
+           "deconv3d", "deconv3d_explicit_padding"]
 
 
 def _pair(v):
@@ -149,6 +151,17 @@ def deconv_explicit_padding(mode, padding, kernel, dilation):
                                                          _pair(dilation)))))
 
 
+def deconv3d_explicit_padding(mode, padding, kernel, dilation):
+    """``deconv_explicit_padding`` over three spatial axes (reference:
+    ``deconv3d_explicit_padding``)."""
+    if str(mode).lower() == "same":
+        return "SAME"
+    return tuple((k_eff - 1 - int(p), k_eff - 1 - int(p))
+                 for p, k_eff in zip(padding, ((int(k) - 1) * int(d) + 1
+                                               for k, d in zip(kernel,
+                                                               dilation))))
+
+
 def _transpose_same_pads(k_eff, s):
     """``lax.conv_transpose``'s (lo, hi) for "SAME" along one axis."""
     pad_len = k_eff + s - 2
@@ -177,6 +190,30 @@ def deconv2d(x, w, b=None, stride=(1, 1), padding=((0, 0), (0, 0)),
     if any(adj):
         y = F.pad(y, adj)
     return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+
+def deconv3d(x, w, b=None, stride=(1, 1, 1), padding=((0, 0),) * 3,
+             dilation=(1, 1, 1)):
+    """The reference's transposed 3-d convolution (``lax.conv_transpose``
+    of NDHWC x over its DHWIO kernel [kd, kh, kw, Cin, Cout], unflipped,
+    read in the forward layout), on x [B,Cin,D,H,W] in any memory
+    format, with the kernel held as ``conv_transpose3d``'s flipped
+    [Cin, Cout, kd, kh, kw] (``Deconvolution3D``'s layout map). As
+    ``deconv2d``: pad 0, then each side cropped or zero-padded to the
+    asked (lo, hi) pads."""
+    s = tuple(int(v) for v in stride)
+    d = tuple(int(v) for v in dilation)
+    k_eff = [(k - 1) * dd + 1 for k, dd in zip(w.shape[2:], d)]
+    if padding == "SAME":
+        padding = tuple(_transpose_same_pads(k, ss)
+                        for k, ss in zip(k_eff, s))
+    y = F.conv_transpose3d(x, w, None, s, 0, 0, 1, d)
+    adj = []
+    for (lo, hi), k in reversed(list(zip(padding, k_eff))):
+        adj += [int(lo) - (k - 1), int(hi) - (k - 1)]
+    if any(adj):
+        y = F.pad(y, tuple(adj))
+    return y if b is None else y + b.reshape(1, -1, 1, 1, 1)
 
 
 def space_to_depth(x, blockSize=2):

@@ -45,7 +45,8 @@ from deeplearning4j_tpu_torch.runtime.chaos import fault_point, register_seam
 from deeplearning4j_tpu_torch.util import sharded_checkpoint as _ckpt
 
 __all__ = ["RetryPolicy", "retry", "Preemption", "FaultInjector",
-           "NonFiniteStepError", "NonFiniteGuard", "ResilientFit"]
+           "NonFiniteStepError", "NonFiniteGuard", "non_finite_guard",
+           "ResilientFit"]
 
 register_seam("checkpoint.write")
 register_seam("checkpoint.restore")
@@ -264,6 +265,29 @@ def _select(keep, new, old):
     if isinstance(new, torch.Tensor) and new.is_floating_point():
         return torch.where(keep, new, old)
     return new
+
+
+def non_finite_guard(step_fn):
+    """Wrap a functional train step ``(params, upd, states, it, x, y,
+    key, fm, lm) -> (params', upd', states', loss)`` so that a step whose
+    loss or updated parameters hold NaN/Inf returns its inputs unchanged,
+    and an ``ok`` flag (reference: ``non_finite_guard``; the reference
+    selects inside the jitted step, this one on the device with
+    ``torch.where``, no host sync). The networks' own guarded step is
+    ``NonFiniteGuard``."""
+
+    def guarded(params, upd_states, states, iteration, x, y, key, fmask,
+                lmask):
+        new_p, new_u, new_s, loss = step_fn(
+            params, upd_states, states, iteration, x, y, key, fmask, lmask)
+        ok = torch.isfinite(torch.as_tensor(loss)).all()
+        for t in _tensors(new_p):
+            if t.is_floating_point():
+                ok = ok & torch.isfinite(t).all()
+        return (_select(ok, new_p, params), _select(ok, new_u, upd_states),
+                _select(ok, new_s, states), loss, ok)
+
+    return guarded
 
 
 class NonFiniteGuard:

@@ -29,7 +29,8 @@ from deeplearning4j_tpu_torch.serving.kvcache import (
     KVCacheFullError, PagedKVCache,
 )
 from deeplearning4j_tpu_torch.serving.sampling import (
-    greedy_sampler, stream_rng, temperature_sampler,
+    greedy_sampler, sampled_onehot_feedback, stream_rng,
+    temperature_sampler,
 )
 from deeplearning4j_tpu_torch.serving.sequence import (
     GenerationRequest, PagedSequenceScheduler, SequenceRequest,
@@ -48,7 +49,7 @@ __all__ = ["DeadlineExceededError", "InferenceRequest", "ManualClock",
            "greedy_onehot_feedback", "GenerationRequest",
            "PagedSequenceScheduler", "KVCacheFullError", "PagedKVCache",
            "greedy_sampler", "temperature_sampler", "stream_rng",
-           "ModelHost", "ServedModel", "ServedSequenceModel",
+           "sampled_onehot_feedback", "ModelHost", "ServedModel", "ServedSequenceModel",
            "FleetRouter", "ModelSLO", "InferenceServer",
            "BrownoutController", "CircuitBreaker", "ReplicaHealth",
            "RetryBudget", "loadgen"]

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["greedy_sampler", "temperature_sampler", "stream_rng"]
+__all__ = ["greedy_sampler", "temperature_sampler", "stream_rng",
+           "sampled_onehot_feedback"]
 
 
 def stream_rng(seed, stream_id):
@@ -56,3 +57,16 @@ def temperature_sampler(temperature=1.0, top_k=None):
         return int(rng.choice(p.shape[0], p=p))
 
     return sample
+
+
+def sampled_onehot_feedback(vocab, sampler, rng):
+    """The sampled twin of ``greedy_onehot_feedback`` for the carry-slot
+    scheduler: the one-hot row of the token `sampler` draws from an
+    output row with `rng` is the next input; deterministic per the
+    sampler's rng stream."""
+    eye = np.eye(int(vocab), dtype=np.float32)
+
+    def feedback(out_row):
+        return eye[sampler(np.asarray(out_row, np.float32), rng)]
+
+    return feedback

@@ -59,15 +59,9 @@ _WAITS = {
     "activationCheckpointing": "per-layer activation remat: ROADMAP.md "
                                "Queue 1 item 13",
 }
-_MODULE_WAITS = {
-    "nn.objdetect": "the YOLO heads: ROADMAP.md Queue 1 item 12",
-}
-
-
 def _waits_for(mod_name):
-    rel = mod_name[len(_PKG) + 1:]
-    return _MODULE_WAITS.get(rel, "the classes that wait are ROADMAP.md "
-                             "Queue 1 items 7, 9, 11, 12 and 13")
+    return ("the classes that wait are ROADMAP.md Queue 1 items 7, 11, "
+            "12b, 12c and 13")
 
 
 def _ref_defaults(obj):

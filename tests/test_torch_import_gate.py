@@ -6,7 +6,11 @@ ml_dtypes nor tensorflow; scipy stays off the runtime path), by an AST
 walk of every source file — the shape of tests/test_telemetry.py's
 no-jax gate. Module names are matched exactly, so
 ``deeplearning4j_tpu_torch`` itself passes. The walk covers every
-subpackage, ``modelimport/`` and ``analysis/`` included."""
+subpackage, ``modelimport/`` and ``analysis/`` included. ``h5py`` is
+imported by the package only inside the calls that read a Keras file,
+never at a module's top level; ``chip_smoke.py`` and the test helpers it
+loads on the card's machine (``tests/_torch_{onnx,keras,tf}_models.py``)
+import neither ``tensorflow`` nor ``h5py``."""
 
 import ast
 from pathlib import Path
@@ -20,6 +24,11 @@ _FORBIDDEN = {"jax", "jaxlib", "deeplearning4j_tpu"}
 _PACKAGE_FORBIDDEN = _FORBIDDEN | {"ml_dtypes", "scipy", "tensorflow"}
 _SOURCES = sorted((_ROOT / "deeplearning4j_tpu_torch").rglob("*.py")) \
     + [_ROOT / "chip_smoke.py"]
+#: loaded by chip_smoke.py on the card's machine, which has neither
+#: tensorflow nor h5py
+_CARD_HELPERS = [_ROOT / "tests" / f"_torch_{m}_models.py"
+                 for m in ("onnx", "keras", "tf")]
+_CARD_FORBIDDEN = _PACKAGE_FORBIDDEN | {"h5py"}
 
 
 def _imported_roots(tree):
@@ -29,6 +38,23 @@ def _imported_roots(tree):
                 yield a.name.split(".")[0], node.lineno
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield (node.module or "").split(".")[0], node.lineno
+
+
+def _top_level_roots(tree):
+    """The roots imported outside any function body."""
+    def walk(node, in_fn):
+        for child in ast.iter_child_nodes(node):
+            fn = in_fn or isinstance(child, (ast.FunctionDef,
+                                             ast.AsyncFunctionDef,
+                                             ast.Lambda))
+            if not fn and isinstance(child, ast.Import):
+                for a in child.names:
+                    yield a.name.split(".")[0], child.lineno
+            elif not fn and isinstance(child, ast.ImportFrom) \
+                    and child.level == 0:
+                yield (child.module or "").split(".")[0], child.lineno
+            yield from walk(child, fn)
+    return list(walk(tree, False))
 
 
 def test_gate_covers_the_port():
@@ -42,7 +68,9 @@ def test_gate_covers_the_port():
             "spark.py", "dryrun.py", "mesh.py", "constraint.py",
             "weightnoise.py", "variational.py", "preprocessors.py",
             "onnx.py", "onnx_wire.py", "samediff_check.py",
-            "diagnostics.py", "samediff.py", "ops_impl.py"} <= names
+            "diagnostics.py", "samediff.py", "ops_impl.py", "keras.py",
+            "tensorflow.py", "tf_wire.py", "objdetect.py",
+            "pretrained.py"} <= names
     dirs = {p.parent.name for p in _SOURCES}
     assert {"ops", "nn", "conf", "data", "zoo", "serving",
             "parallel", "modelimport", "analysis", "autodiff"} <= dirs
@@ -53,11 +81,23 @@ def test_gate_covers_the_port():
                          ids=[str(p.relative_to(_ROOT)) for p in _SOURCES])
 def test_no_jax_or_reference_import(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    banned = _FORBIDDEN if path.name == "chip_smoke.py" \
-        else _PACKAGE_FORBIDDEN
+    banned = _FORBIDDEN | {"tensorflow", "h5py"} \
+        if path.name == "chip_smoke.py" else _PACKAGE_FORBIDDEN
     bad = [(mod, line) for mod, line in _imported_roots(tree)
            if mod in banned]
     assert not bad, f"{path.relative_to(_ROOT)} imports {bad}"
+    top = [(mod, line) for mod, line in _top_level_roots(tree)
+           if mod == "h5py"]
+    assert not top, f"{path.relative_to(_ROOT)} imports h5py at top level"
+
+
+@pytest.mark.parametrize("path", _CARD_HELPERS,
+                         ids=[p.name for p in _CARD_HELPERS])
+def test_card_helpers_need_no_jax_tensorflow_or_h5py(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(mod, line) for mod, line in _imported_roots(tree)
+           if mod in _CARD_FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 def test_gate_catches_what_it_must():
@@ -68,3 +108,8 @@ def test_gate_catches_what_it_must():
     flagged = [m for m, _ in _imported_roots(ast.parse(src))
                if m in _FORBIDDEN]
     assert flagged == ["jax", "jaxlib", "deeplearning4j_tpu"]
+    src = ("import h5py\ndef f():\n    import h5py\n"
+           "class K:\n    def g(self):\n        from h5py import File\n"
+           "    import tensorflow\n")
+    assert [m for m, _ in _top_level_roots(ast.parse(src))] == \
+        ["h5py", "tensorflow"]

@@ -653,7 +653,7 @@ def test_executioner_surface(capsys):
         ex.enableProfiling(False)
     assert "[TorchExecutioner]" in capsys.readouterr().out
     ex.commit()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 12c"):
         P.Nd4j.zeros(2, 2, device=CPU).distribute(None)
 
 
