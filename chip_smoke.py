@@ -465,16 +465,54 @@ Phases (any failure exits non-zero before the result line):
    into a SameDiff on the card: b32 logits within IMPORT_LOGIT_REL of
    the native net's, top-1 equal; the graph's bytes, import seconds, ms
    and kernels a forward beside 19(a)'s.
+21. word vectors and nearest neighbours — f32, TF32 off, over a seeded
+   topic-structured Zipf corpus (synthetic, standing in for text8: the
+   71,290 words text8 keeps at -min-count 5, 4 M of its 17 M tokens).
+   Every card-vs-CPU check takes the same steps under one set of draws
+   (recorded on the CPU, replayed on the card) and holds the tables
+   within W2V_PARITY_REL of their max-abs. (a) Word2Vec CBOW at
+   word2vec.c's demo-word.sh text8 widths (200-d, window 8, negative 25;
+   batch 1024, one epoch): scan s, words/s, steps/s, kernels a step and
+   the busy share of 20 traced steps, peak memory; the loss falls; the
+   probe words' 10 neighbours in their topic at a stated share; 3 steps
+   card vs CPU. (b) skip-gram NS, skip-gram and CBOW HS (code length),
+   PV-DBOW, PV-DM and inferVector on a 150,000-token prefix: steps/s and
+   3 steps (50 for inferVector) card vs CPU. (c) FastText at the
+   skipgram CLI's defaults (100-d, ws 5, neg 5, n-grams 3-6, 2,000,000
+   buckets, lr 0.05), one epoch on a prefix, and supervised at
+   wordNgrams 2: steps/s, peak memory, 3 steps card vs CPU. (d) GloVe at
+   Pennington et al.'s settings (300-d, window 10, xMax 100, alpha 0.75,
+   AdaGrad 0.05) on a prefix: co-occurrence s and entries, steps/s, the
+   loss falls, 3 steps card vs CPU. (e) (a)'s model through
+   WordVectorSerializer (binary exact, text within %.6g), into
+   WeightInitEmbedding (bitwise) and through CnnSentenceDataSetIterator
+   into a Kim (2014) CNN at DL4J's CnnSentenceClassificationExample
+   widths (3/4/5 x 100 maps, max over time, dropout 0.5, 2 classes, 256
+   words, b32): 20 ComputationGraph.fit steps, ms and sentences/s, the
+   loss falls. (f) over (a)'s 71,290 x 200 vectors: k-means (k 100,
+   100 iterations at most: iterations, host flag reads, ms, inertia;
+   assignments equal the CPU's under its first centre), LSH (index ms,
+   recall@10 against brute force), a VPTree over 20,000 of them (kNN
+   equal to brute force) and NearestNeighborsServer over HTTP (/status,
+   20 /knn and 20 /knnnew equal to brute force, a 400, a 404, p50 ms).
+   (g) DeepWalk on a seeded graph at BlogCatalog's size (10,312
+   vertices, 333,983 edges; 128-d, window 10, walks of 40, 1 a vertex):
+   walk s, words/s; t-SNE (tiled) of (a)'s 10,000 most frequent words,
+   perplexity 30, 1,000 iterations, lr 200: ms an iteration, the KL
+   falls; exact vs tiled (knnK N-1) and card vs CPU at N 2,000 within
+   TSNE_GATE_REL of the max-abs after 10 iterations, reported after 50.
+   No hand-written kernel launches.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
 17(e)'s, and K1's plus phase 20(d)(ii)'s; phases 8-10, 12, 13, 14(a),
-14(b), 15, 16, 17 but (e), 18, 19 and 20 but (d)(ii) run no
+14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii) and 21 run no
 hand-written kernel: conv, dense and the recurrent products are
-cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout
-and the shape layers are torch tensor ops, and the data-parallel
-exchange is NCCL's or gloo's collectives).
+cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout,
+the shape layers and the word-vector, k-means and t-SNE steps are torch
+tensor ops, and the data-parallel exchange is NCCL's or gloo's
+collectives).
 """
 
 from __future__ import annotations
@@ -7326,6 +7364,742 @@ def detection_import_phase(dev, onnx):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 21: word vectors and nearest neighbours
+# ----------------------------------------------------------------------
+
+#: text8 at word2vec.c's -min-count 5 keeps 71,290 words; the corpus is
+#: synthetic (flagged), Zipf-distributed and topic-structured, 4 M tokens
+#: of text8's 17 M
+TEXT8 = dict(vocab=71_290, tokens=4_000_000, topics=100, function_words=50,
+             sentence=20, min_count=5, seed=SEED)
+
+
+def synthetic_text8(cfg):
+    """A seeded topic-structured Zipf corpus (synthetic, standing in for
+    text8): word "w<r>" has rank r and count max(5, A / (r + 1)) with A
+    set so the counts sum to `tokens`; every word of rank >= function_words
+    belongs to topic r % topics and its tokens fill sentences of that
+    topic only; the function words' tokens fall into random sentences.
+    -> (sentences, topic of each rank (-1: function word), counts)"""
+    rng = np.random.default_rng(cfg["seed"])
+    V = cfg["vocab"]
+    r = np.arange(V)
+    lo, hi = 1.0, 1e12
+    for _ in range(100):
+        mid = (lo + hi) / 2
+        if np.maximum(cfg["min_count"], (mid / (r + 1)).astype(np.int64)
+                      ).sum() >= cfg["tokens"]:
+            hi = mid
+        else:
+            lo = mid
+    counts = np.maximum(cfg["min_count"], (hi / (r + 1)).astype(np.int64))
+    topic = np.where(r < cfg["function_words"], -1, r % cfg["topics"])
+    tok = np.repeat(r, counts)
+    fn = topic[tok] < 0
+    tt = tok[~fn]
+    tt = tt[np.lexsort((rng.random(tt.size), topic[tt]))]
+    sizes = np.bincount(topic[tt], minlength=cfg["topics"])
+    starts = np.cumsum(sizes) - sizes
+    pos = np.arange(tt.size) - np.repeat(starts, sizes)
+    per = -(-sizes // cfg["sentence"])
+    sid = np.repeat(np.cumsum(per) - per, sizes) + pos // cfg["sentence"]
+    sid = rng.permutation(int(per.sum()))[sid]     # sentences in random order
+    ft = tok[fn]
+    all_t = np.concatenate([tt, ft])
+    all_s = np.concatenate([sid, rng.integers(0, int(per.sum()), ft.size)])
+    order = np.lexsort((rng.random(all_t.size), all_s))
+    all_t, all_s = all_t[order], all_s[order]
+    cuts = np.flatnonzero(np.diff(all_s)) + 1
+    words = np.array([f"w{i}" for i in range(V)], dtype=object)
+    sents = [" ".join(chunk) for chunk in np.split(words[all_t], cuts)]
+    return sents, topic, counts
+
+
+def topic_share(model, topic, probes, n=10):
+    """Mean share of each probe word's n nearest words in its topic."""
+    shares = []
+    for w in probes:
+        near = model.wordsNearest(w, n)
+        shares.append(np.mean([topic[int(x[1:])] == topic[int(w[1:])]
+                               for x in near]))
+    return float(np.mean(shares)), [float(x) for x in shares]
+
+
+#: (a) word2vec.c's demo-word.sh at text8: CBOW, -size 200, -window 8,
+#: -negative 25; batch 1024, one epoch (-iter 15 and -sample 1e-4 cut).
+#: The step is the reference's mean over the batch, so the rate is not
+#: word2vec.c's per-pair 0.05: scripts/w2v_rate_sweep.py on the card gave
+#: the probe share 0.005, 0.025, 1.0, 1.0 and 1.0 at 0.025, 1, 4, 10 and
+#: 20, and a NaN loss at 50
+W2V_TEXT8 = dict(layer=200, window=8, negative=25, batch=1024, lr=10.0,
+                 epochs=1, probe_ranks=(50, 2050, 100), share_bar=0.8,
+                 traced_steps=20, parity_steps=3)
+#: (b) the other modes at (a)'s widths on a prefix of the corpus; a
+#: skip-gram step moves a centre row by each of its pairs, undivided by
+#: the window, so (a)'s rate diverges there within 20 steps
+W2V_MODES = dict(prefix=150_000, lr=1.0, timed_steps=200, parity_steps=3,
+                 infer_steps=50)
+#: (c) the `fasttext skipgram` CLI defaults (Bojanowski et al. 2017), one
+#: epoch of 5 on a prefix; supervised at wordNgrams 2
+FASTTEXT_CLI = dict(dim=100, ws=5, neg=5, minn=3, maxn=6, bucket=2_000_000,
+                    lr=0.05, min_count=5, epochs=1, prefix=100_000,
+                    sup_sentences=20_000, word_ngrams=2, sup_lr=0.5,
+                    parity_steps=3)
+#: (d) Pennington et al. 2014: 300-d, window 10, xMax 100, alpha 0.75,
+#: AdaGrad 0.05, on a prefix
+GLOVE_PAPER = dict(dim=300, window=10, xmax=100.0, alpha=0.75, lr=0.05,
+                   batch=4096, epochs=1, prefix=300_000, parity_steps=3)
+#: (e) DL4J's CnnSentenceClassificationExample (Kim 2014) at (a)'s 200-d
+#: vectors in place of Google News' 300-d
+KIM_CNN = dict(widths=(3, 4, 5), maps=100, dropout=0.5, classes=2,
+               maxlen=256, batch=32, steps=20, lr=1e-2)
+#: (f) nearest neighbours over (a)'s vectors
+NEIGHBOURS = dict(k=100, max_iter=100, hash_length=12, tables=32,
+                  recall_queries=100, topk=10, vp_points=20_000,
+                  server_queries=20)
+#: (g) DeepWalk at BlogCatalog's widths (Perozzi et al. 2014: 10,312
+#: vertices, 333,983 edges, 39 groups; d 128, window 10, walks of 40; 1
+#: walk a vertex of the paper's 80) and t-SNE of (a)'s 10,000 most
+#: frequent words
+BLOGCATALOG = dict(vertices=10_312, edges=333_983, groups=39, within=0.8,
+                   dim=128, window=10, walk=40, walks_per_vertex=1,
+                   lr=1.0)
+TSNE_WORDS = dict(points=10_000, perplexity=30.0, iters=1000, lr=200.0,
+                  tile=2048, exact_n=2000, gate_iters=10, long_iters=50)
+W2V_PARITY_REL = 1e-5      # card vs CPU tables, of their max-abs
+TSNE_GATE_REL = 1e-4       # t-SNE pairs after gate_iters, of the max-abs
+
+
+def _prefix(sents, tokens):
+    """The first sentences holding at least `tokens` tokens."""
+    n = np.cumsum([s.count(" ") + 1 for s in sents])
+    return sents[:int(np.searchsorted(n, tokens)) + 1]
+
+
+def _rel_to(got, want):
+    import torch
+
+    g = torch.as_tensor(np.asarray(got.detach().cpu() if torch.is_tensor(
+        got) else got, np.float64))
+    w = torch.as_tensor(np.asarray(want.detach().cpu() if torch.is_tensor(
+        want) else want, np.float64))
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def card_vs_cpu(dev, make, tables, steps, what):
+    """`steps` steps of make() on the CPU under recorded draws, then on
+    the card under the same draws: the tables' max-abs rel each."""
+    from deeplearning4j_tpu_torch.util.draws import Draws, ReplayDraws
+
+    rec = Draws(SEED, "cpu", record=True)
+    cpu = make().fit(device="cpu", draws=rec, steps=steps)
+    card = make().fit(device=dev, draws=ReplayDraws(rec.log, dev),
+                      steps=steps)
+    out = {t: _rel_to(getattr(card, t), getattr(cpu, t)) for t in tables}
+    need(all(v < W2V_PARITY_REL for v in out.values()),
+         f"{what}: card vs CPU after {steps} steps {out} (bar "
+         f"{W2V_PARITY_REL})")
+    return out, cpu, card
+
+
+def _timed_log(log):
+    return {"steps": log.steps, "train_s": log.seconds,
+            "steps_per_s": log.steps / log.seconds,
+            "loss_first": log.first, "loss_last": log.last}
+
+
+def word2vec_text8(dev, corpus, cfg):
+    """21(a): CBOW at demo-word.sh's widths over the whole corpus."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import (CollectionSentenceIterator,
+                                              Word2Vec)
+
+    sents, topic, _ = corpus
+
+    def builder():
+        return (Word2Vec.Builder().minWordFrequency(TEXT8["min_count"])
+                .layerSize(cfg["layer"]).windowSize(cfg["window"])
+                .negativeSample(cfg["negative"]).batchSize(cfg["batch"])
+                .learningRate(cfg["lr"]).iterations(cfg["epochs"])
+                .seed(SEED).elementsLearningAlgorithm("cbow")
+                .iterate(CollectionSentenceIterator(sents)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m = builder().device(dev).build()
+    t = time.perf_counter()
+    m.fit()
+    out = {"fit_s": time.perf_counter() - t, "scan_s": m.scanSeconds,
+           "vocab": len(m.vocab)}
+    out.update(_timed_log(m.trainLog))
+    words = sum(len(i) for i in m._ids)
+    out["words"] = words
+    out["words_per_s"] = words * cfg["epochs"] / m.trainLog.seconds
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    need(out["vocab"] == TEXT8["vocab"], f"21(a): vocabulary {out['vocab']}")
+    need(np.isfinite(out["loss_last"]) and
+         out["loss_last"] < out["loss_first"],
+         f"21(a): loss {out['loss_first']} -> {out['loss_last']}")
+    probes = [f"w{r}" for r in range(*cfg["probe_ranks"])]
+    out["topic_share"], out["topic_share_each"] = topic_share(m, topic,
+                                                              probes)
+    need(out["topic_share"] >= cfg["share_bar"],
+         f"21(a): {out['topic_share']:.3f} of the probes' 10 neighbours in "
+         f"their topic (bar {cfg['share_bar']})")
+    par, _, _ = card_vs_cpu(dev, lambda: builder().vocabCache(m).build(),
+                            ("_W", "_C"), cfg["parity_steps"], "21(a)")
+    out["parity_rel"] = par
+    idx = torch.arange(cfg["batch"], device=dev)
+    out["kernels_per_step"], out["device_busy_share_of_traced_wall"] = \
+        traced_steps(lambda: m.trainLog.step(idx, 0, 0),
+                     cfg["traced_steps"])
+    log("21(a) Word2Vec CBOW text8 widths: " + json.dumps(
+        {k: v for k, v in out.items() if k != "topic_share_each"}))
+    return m, out
+
+
+def word2vec_modes(dev, corpus, cfg, wcfg):
+    """21(b): skip-gram NS, skip-gram and CBOW HS, PV-DBOW, PV-DM and
+    inferVector at (a)'s widths on a corpus prefix."""
+    from deeplearning4j_tpu_torch.nlp import (CollectionSentenceIterator,
+                                              ParagraphVectors, Word2Vec)
+    from deeplearning4j_tpu_torch.util.draws import Draws, ReplayDraws
+
+    sents = _prefix(corpus[0], cfg["prefix"])
+    base = []
+
+    def builder(cls, **kw):
+        b = (cls.Builder().minWordFrequency(TEXT8["min_count"])
+             .layerSize(wcfg["layer"]).windowSize(wcfg["window"])
+             .negativeSample(wcfg["negative"]).batchSize(wcfg["batch"])
+             .learningRate(cfg["lr"]).seed(SEED)
+             .iterate(CollectionSentenceIterator(sents)))
+        for k, v in kw.items():
+            getattr(b, k)(v)
+        if base:
+            b.vocabCache(base[0])
+        return b
+
+    out = {"sentences": len(sents)}
+    modes = {"skipgram_ns": (Word2Vec, dict(elementsLearningAlgorithm=
+                                             "skipgram")),
+             "skipgram_hs": (Word2Vec, dict(elementsLearningAlgorithm=
+                                             "skipgram",
+                                             useHierarchicSoftmax=True)),
+             "cbow_hs": (Word2Vec, dict(elementsLearningAlgorithm="cbow",
+                                        useHierarchicSoftmax=True)),
+             "pv_dbow": (ParagraphVectors, dict()),
+             "pv_dm": (ParagraphVectors, dict(
+                 sequenceLearningAlgorithm="DM"))}
+    for name, (cls, kw) in modes.items():
+        m = builder(cls, **kw).device(dev).build()
+        m.fit(steps=cfg["timed_steps"])
+        base.append(m)
+        r = _timed_log(m.trainLog)
+        if getattr(m, "docTrainLog", None) is not None:
+            r["doc"] = _timed_log(m.docTrainLog)
+        if m.useHierarchicSoftmax:
+            r["huffman_code_length"] = m.huffmanCodeLength
+        tables = ("_W", "_C", "_D") if cls is ParagraphVectors \
+            else ("_W", "_C")
+        r["parity_rel"], cpu, card = card_vs_cpu(
+            dev, lambda: builder(cls, **kw).build(), tables,
+            cfg["parity_steps"], f"21(b) {name}")
+        if cls is ParagraphVectors:
+            text = sents[7]
+            rec = Draws(SEED, "cpu", record=True)
+            a = cpu.inferVector(text, steps=cfg["infer_steps"], draws=rec)
+            t = time.perf_counter()
+            b = card.inferVector(text, steps=cfg["infer_steps"],
+                                 draws=ReplayDraws(rec.log, dev))
+            r["infer_ms"] = 1e3 * (time.perf_counter() - t)
+            r["infer_rel"] = _rel_to(b, a)
+            need(r["infer_rel"] < W2V_PARITY_REL,
+                 f"21(b) {name} inferVector card vs CPU {r['infer_rel']}")
+        out[name] = r
+    log("21(b) the other modes: " + json.dumps(out))
+    return out
+
+
+def _sentence_topics(sents, topic):
+    """Each sentence's topic: its commonest non-function word topic."""
+    out = []
+    for s in sents:
+        t = topic[[int(w[1:]) for w in s.split()]]
+        t = t[t >= 0]
+        out.append(int(np.bincount(t).argmax()) if t.size else 0)
+    return np.asarray(out)
+
+
+def fasttext_cli(dev, corpus, cfg):
+    """21(c): FastText skip-gram at the CLI defaults, then supervised."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import (CollectionSentenceIterator,
+                                              FastText)
+
+    sents, topic, _ = corpus
+    pre = _prefix(sents, cfg["prefix"])
+
+    def builder(data, sup):
+        return (FastText.Builder().supervised(sup).dim(cfg["dim"])
+                .contextWindow(cfg["ws"]).negativeSamples(cfg["neg"])
+                .minNgramLength(cfg["minn"]).maxNgramLength(cfg["maxn"])
+                .bucket(cfg["bucket"]).minCount(cfg["min_count"])
+                .wordNgrams(cfg["word_ngrams"] if sup else 1)
+                .learningRate(cfg["sup_lr"] if sup else cfg["lr"])
+                .epochs(cfg["epochs"]).seed(SEED)
+                .iterate(CollectionSentenceIterator(data)))
+
+    out = {}
+    sup_sents = sents[-cfg["sup_sentences"]:]
+    labels = _sentence_topics(sup_sents, topic) < TEXT8["topics"] // 2
+    labelled = [("__label__a " if a else "__label__b ") + s
+                for a, s in zip(labels, sup_sents)]
+    for name, data, sup, tables in (
+            ("skipgram", pre, False, ("_Win", "_G", "_C", "_W")),
+            ("supervised", labelled, True, ("_E", "_L", "_b"))):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m = builder(data, sup).device(dev).build()
+        t = time.perf_counter()
+        m.fit()
+        r = {"fit_s": time.perf_counter() - t, "vocab": len(m.vocab)}
+        r.update(_timed_log(m.trainLog))
+        r["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        need(np.isfinite(r["loss_last"]), f"21(c) {name}: loss {r}")
+        if sup:
+            guess = [m.predict(s.split(" ", 1)[1]) for s in labelled[:500]]
+            r["train_accuracy_500"] = float(np.mean(
+                [g == ("a" if a else "b") for g, a in zip(guess,
+                                                          labels[:500])]))
+        else:
+            r["words_per_s"] = sum(len(s) for s in m._sents) \
+                / m.trainLog.seconds
+        del m
+        r["parity_rel"], _, _ = card_vs_cpu(
+            dev, lambda: builder(data, sup).build(), tables,
+            cfg["parity_steps"], f"21(c) {name}")
+        out[name] = r
+    log("21(c) FastText CLI widths: " + json.dumps(out))
+    return out
+
+
+def glove_objective(m, p, cfg):
+    """GloVe's weighted least squares, mean over every entry."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp.glove import cooccurrences
+
+    ii, jj, xx = cooccurrences(m._ids, cfg["window"])
+    dev = p["W"].device
+    i = torch.as_tensor(ii, dtype=torch.int64, device=dev)
+    j = torch.as_tensor(jj, dtype=torch.int64, device=dev)
+    x = torch.as_tensor(xx, device=dev)
+    f = torch.clamp((x / cfg["xmax"]) ** cfg["alpha"], max=1.0)
+    with torch.no_grad():
+        err = ((p["W"][i] * p["Wt"][j]).sum(-1) + p["b"][i] + p["bt"][j]
+               - torch.log(x))
+        return float((f * err * err).mean())
+
+
+def glove_paper(dev, corpus, cfg):
+    """21(d): GloVe at the paper's settings on a prefix."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import CollectionSentenceIterator, Glove
+    from deeplearning4j_tpu_torch.util.draws import Draws
+
+    pre = _prefix(corpus[0], cfg["prefix"])
+
+    def builder():
+        return (Glove.Builder().minWordFrequency(TEXT8["min_count"])
+                .layerSize(cfg["dim"]).windowSize(cfg["window"])
+                .xMax(cfg["xmax"]).alpha(cfg["alpha"])
+                .learningRate(cfg["lr"]).batchSize(cfg["batch"])
+                .epochs(cfg["epochs"]).seed(SEED)
+                .iterate(CollectionSentenceIterator(pre)))
+
+    m = builder().device(dev).build()
+    t = time.perf_counter()
+    m.fit()
+    out = {"fit_s": time.perf_counter() - t, "vocab": len(m.vocab),
+           "cooccurrence_s": m.cooccurrenceSeconds,
+           "entries": m.cooccurrenceEntries}
+    out.update(_timed_log(m.trainLog))
+    # the objective over every entry, at the start (the same first draws)
+    # and after the epoch
+    V, D = len(m.vocab), cfg["dim"]
+    start = Draws(SEED, dev)
+    scale = np.float32(0.5 / D)
+    p0 = {k: start.uniform(f"glove.{k}", (V, D)) * (2 * scale) - scale
+          for k in ("W", "Wt")}
+    p0["b"] = p0["bt"] = torch.zeros(V, device=dev)
+    out["objective_start"] = glove_objective(m, p0, cfg)
+    out["objective_end"] = glove_objective(m, m._params, cfg)
+    need(out["objective_end"] < out["objective_start"],
+         f"21(d): objective {out['objective_start']} -> "
+         f"{out['objective_end']}")
+    out["parity_rel"], _, _ = card_vs_cpu(
+        dev, lambda: builder().vocabCache(m).build(), ("_W", "_C"),
+        cfg["parity_steps"], "21(d)")
+    log("21(d) GloVe paper settings: " + json.dumps(out))
+    return out
+
+
+def kim_cnn_conf(cfg, D):
+    from deeplearning4j_tpu_torch import nn as M
+
+    g = (M.NeuralNetConfiguration.Builder().seed(SEED)
+         .updater(M.Adam(cfg["lr"])).weightInit(M.WeightInit.RELU)
+         .graphBuilder().addInputs("input"))
+    names = []
+    for w in cfg["widths"]:
+        g = g.addLayer(f"cnn{w}", M.ConvolutionLayer(
+            nOut=cfg["maps"], kernelSize=(w, D), stride=(1, D),
+            convolutionMode="same", activation="relu"), "input")
+        names.append(f"cnn{w}")
+    return (g.addVertex("merge", M.MergeVertex(), *names)
+            .addLayer("pool", M.GlobalPoolingLayer(poolingType="max"),
+                      "merge")
+            .addLayer("drop", M.DropoutLayer(cfg["dropout"]), "pool")
+            .addLayer("out", M.OutputLayer(nOut=cfg["classes"],
+                                           activation="softmax",
+                                           lossFunction="mcxent"), "drop")
+            .setOutputs("out")
+            .setInputTypes(M.InputType.convolutional(cfg["maxlen"], D, 1))
+            .build())
+
+
+def into_the_stack(dev, corpus, m, cfg):
+    """21(e): serializer round trips, WeightInitEmbedding, and a Kim CNN
+    sentence classifier fed by CnnSentenceDataSetIterator."""
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import nn as M
+    from deeplearning4j_tpu_torch.nlp import (
+        CnnSentenceDataSetIterator, CollectionLabeledSentenceProvider,
+        WordVectorSerializer)
+
+    W = m._matrix()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, write, read in (
+                ("binary", WordVectorSerializer.writeBinaryModel,
+                 WordVectorSerializer.readBinaryModel),
+                ("text", WordVectorSerializer.writeWordVectors,
+                 WordVectorSerializer.loadTxtVectors)):
+            path = os.path.join(tmp, "vectors." + fmt)
+            t = time.perf_counter()
+            write(m, path)
+            tw = time.perf_counter() - t
+            t = time.perf_counter()
+            back = read(path)
+            tr = time.perf_counter() - t
+            need(back._ivocab == m._ivocab, f"21(e) {fmt}: vocabulary")
+            if fmt == "binary":
+                need(np.array_equal(back._W, W), "21(e) binary not exact")
+            else:
+                # %.6g: 5e-6 of the value, then the f32 parse
+                need(np.allclose(back._W, W, rtol=5.1e-6, atol=0),
+                     "21(e) text beyond its printed digits")
+            out[fmt] = {"bytes": os.path.getsize(path), "write_s": tw,
+                        "read_s": tr}
+    V, D = W.shape
+    conf = (M.NeuralNetConfiguration.Builder().seed(SEED).list()
+            .layer(M.EmbeddingSequenceLayer(
+                nIn=V, nOut=D, weightInit=M.WeightInitEmbedding(m)))
+            .layer(M.GlobalPoolingLayer(poolingType="avg"))
+            .layer(M.OutputLayer(nOut=2, activation="softmax"))
+            .setInputType(M.InputType.recurrent(1, 16)).build())
+    net = M.MultiLayerNetwork(conf, device=dev).init()
+    need(np.array_equal(net.getParam("0_W").toNumpy(), W),
+         "21(e): WeightInitEmbedding's table is not the model's W")
+    out["embedding_table_bitwise"] = True
+    del net
+    sents, topic, _ = corpus
+    n = cfg["batch"] * cfg["steps"]
+    pick = sents[:n]
+    labels = ["a" if t < TEXT8["topics"] // 2 else "b"
+              for t in _sentence_topics(pick, topic)]
+    t = time.perf_counter()
+    it = (CnnSentenceDataSetIterator.Builder()
+          .sentenceProvider(CollectionLabeledSentenceProvider(pick, labels))
+          .wordVectors(m).maxSentenceLength(cfg["maxlen"])
+          .minibatchSize(cfg["batch"]).format("CNN").build())
+    out["iterator_s"] = time.perf_counter() - t
+    cg = M.ComputationGraph(kim_cnn_conf(cfg, D), device=dev).init()
+    ms, losses = [], []
+    for ds in it:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cg.fit(ds)
+        losses.append(float(cg.score()))
+        ms.append(1e3 * (time.perf_counter() - t))
+    need(len(losses) == cfg["steps"], f"21(e): {len(losses)} steps")
+    need(all(np.isfinite(losses)) and np.mean(losses[-5:])
+         < np.mean(losses[:5]), f"21(e): Kim CNN loss {losses}")
+    step = float(np.median(ms[2:]))
+    out["kim_cnn"] = {"step_ms_median_3_on": step,
+                      "sentences_per_s": cfg["batch"] * 1e3 / step,
+                      "loss_first5": float(np.mean(losses[:5])),
+                      "loss_last5": float(np.mean(losses[-5:]))}
+    log("21(e) word vectors into the stack: " + json.dumps(out))
+    return out
+
+
+def nearest_neighbours(dev, m, cfg):
+    """21(f): k-means, LSH, VPTree and NearestNeighborsServer over (a)'s
+    vectors."""
+    import torch
+    from deeplearning4j_tpu_torch.clustering import (
+        KMeansClustering, NearestNeighbors, NearestNeighborsServer,
+        RandomProjectionLSH, VPTree)
+    from deeplearning4j_tpu_torch.util.draws import Draws, ReplayDraws
+
+    X = m._matrix()
+    out = {}
+    rec = Draws(SEED, "cpu", record=True)
+    cpu = KMeansClustering.setup(cfg["k"], cfg["max_iter"]).applyTo(
+        X, device="cpu", draws=rec)
+    km = KMeansClustering.setup(cfg["k"], cfg["max_iter"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = km.applyTo(X, device=dev, draws=ReplayDraws(rec.log, "cpu"))
+    out["kmeans"] = {"ms": 1e3 * (time.perf_counter() - t),
+                     "iterations": km.iterations,
+                     "host_flag_reads": km.hostFlagReads,
+                     "inertia": card.inertia, "inertia_cpu": cpu.inertia,
+                     "assignments_differ": int(np.sum(
+                         card.getAssignments() != cpu.getAssignments()))}
+    need(out["kmeans"]["assignments_differ"] == 0,
+         f"21(f): k-means assignments card vs CPU {out['kmeans']}")
+    lsh = RandomProjectionLSH(cfg["hash_length"], cfg["tables"], X.shape[1])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lsh.index(X, device=dev)
+    idx_ms = 1e3 * (time.perf_counter() - t)
+    q = X[np.linspace(0, X.shape[0] - 1, cfg["recall_queries"]).astype(int)]
+    brute, _ = NearestNeighbors(X, device=dev).search(q, cfg["topk"])
+    hits, cand = [], []
+    for row, want in zip(q, brute):
+        got, _ = lsh.search(row, cfg["topk"])
+        hits.append(len(set(got.tolist()) & set(want.tolist())))
+        cand.append(lsh.bucket(row).size)
+    out["lsh"] = {"index_ms": idx_ms, "hash_length": cfg["hash_length"],
+                  "tables": cfg["tables"],
+                  "recall_at_10": float(np.mean(hits)) / cfg["topk"],
+                  "mean_candidates": float(np.mean(cand))}
+    sub = X[:cfg["vp_points"]].astype(np.float64)
+    t = time.perf_counter()
+    vp = VPTree(sub)
+    build_s = time.perf_counter() - t
+    rs = np.random.RandomState(SEED)
+    for i in rs.choice(sub.shape[0], 20, replace=False):
+        got, _ = vp.search(sub[i] + 1e-3, cfg["topk"])
+        d = np.linalg.norm(sub - (sub[i] + 1e-3), axis=1)
+        need(got.tolist() == np.argsort(d, kind="stable")[:cfg["topk"]]
+             .tolist(), "21(f): VPTree kNN differs from brute force")
+    out["vptree"] = {"points": sub.shape[0], "build_s": build_s}
+    srv = NearestNeighborsServer(points=sub).start(port=0)
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        code, raw = http(srv.port, "/status")
+        st = json.loads(raw)
+        need(code == 200 and st == {"numPoints": sub.shape[0],
+                                    "dims": sub.shape[1], "index": "VPTree"},
+             f"21(f): /status {code} {st}")
+        lat = []
+        for i in rs.choice(sub.shape[0], cfg["server_queries"],
+                           replace=False):
+            for route, body, target, drop in (
+                    ("/knn", {"index": int(i), "k": cfg["topk"]}, sub[i],
+                     True),
+                    ("/knnnew", {"point": (sub[i] + 0.01).tolist(),
+                                 "k": cfg["topk"]}, sub[i] + 0.01, False)):
+                t = time.perf_counter()
+                code, raw = http(srv.port, route, body)
+                lat.append(1e3 * (time.perf_counter() - t))
+                resp = json.loads(raw)
+                d = np.linalg.norm(sub - target, axis=1)
+                want = [j for j in np.argsort(d, kind="stable")
+                        if not (drop and j == i)][:cfg["topk"]]
+                need(code == 200 and [r["index"] for r in resp["results"]]
+                     == [int(j) for j in want],
+                     f"21(f): {route} {i} differs from brute force")
+        code_400, _ = http(srv.port, "/knnnew", {"point": [1.0], "k": 3})
+        code_404, _ = http(srv.port, "/nope", {})
+        need((code_400, code_404) == (400, 404),
+             f"21(f): error codes {code_400}, {code_404}")
+        out["server"] = {"queries": len(lat), "p50_ms": float(
+            np.median(lat)), "max_ms": float(np.max(lat)),
+            "codes": [200, code_400, code_404], "url": base}
+    finally:
+        srv.stop()
+    log("21(f) nearest neighbours: " + json.dumps(out))
+    return out
+
+
+def blogcatalog_graph(cfg):
+    """A seeded graph at BlogCatalog's size (synthetic): 39 groups,
+    a share `within` of each edge's ends in one group."""
+    from deeplearning4j_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(SEED)
+    n, E = cfg["vertices"], cfg["edges"]
+    group = rng.integers(0, cfg["groups"], n)
+    members = [np.flatnonzero(group == g) for g in range(cfg["groups"])]
+    seen, edges = set(), []
+    while len(edges) < E:
+        a = rng.integers(0, n, 2 * E)
+        same = rng.random(2 * E) < cfg["within"]
+        b = rng.integers(0, n, 2 * E)
+        for x, y, s in zip(a.tolist(), b.tolist(), same.tolist()):
+            if s:
+                mem = members[group[x]]
+                y = int(mem[y % mem.size])
+            key = (min(x, y), max(x, y))
+            if x == y or key in seen:
+                continue
+            seen.add(key)
+            edges.append(key)
+            if len(edges) == E:
+                break
+    g = Graph(n)
+    for x, y in edges:
+        g.addEdge(x, y)
+    return g
+
+
+def tsne_kl(Y, rows, cols, vals):
+    """KL(P || Q) of a sparse P at the embedding Y (Q over all pairs)."""
+    import torch
+
+    with torch.no_grad():
+        sq = (Y * Y).sum(1)
+        num = 1.0 / (1.0 + torch.clamp(sq[:, None] + sq[None, :]
+                                       - 2.0 * Y @ Y.T, min=0.0))
+        num.fill_diagonal_(0.0)
+        S = num.sum()
+        r = torch.as_tensor(rows, device=Y.device, dtype=torch.int64)
+        c = torch.as_tensor(cols, device=Y.device, dtype=torch.int64)
+        p = torch.as_tensor(vals, device=Y.device)
+        q = num[r, c] / S
+        return float((p * (torch.log(p) - torch.log(q))).sum())
+
+
+def graph_and_tsne(dev, m, gcfg, tcfg):
+    """21(g): DeepWalk at BlogCatalog's widths; t-SNE of (a)'s words."""
+    import torch
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+    from deeplearning4j_tpu_torch.util.draws import Draws, ReplayDraws
+
+    out = {}
+    t = time.perf_counter()
+    g = blogcatalog_graph(gcfg)
+    graph_s = time.perf_counter() - t
+    dw = (DeepWalk.Builder().vectorSize(gcfg["dim"])
+          .windowSize(gcfg["window"]).learningRate(gcfg["lr"]).seed(SEED)
+          .device(dev).build())
+    t = time.perf_counter()
+    dw.fit(g, walkLength=gcfg["walk"],
+           walksPerVertex=gcfg["walks_per_vertex"], iterations=1)
+    w2v = dw._w2v
+    words = sum(len(i) for i in w2v._ids)
+    out["deepwalk"] = {"graph_s": graph_s, "walk_s": dw.walkSeconds,
+                       "fit_s": time.perf_counter() - t, "words": words,
+                       "words_per_s": words / w2v.trainLog.seconds}
+    out["deepwalk"].update(_timed_log(w2v.trainLog))
+    need(np.isfinite(out["deepwalk"]["loss_last"]),
+         f"21(g) DeepWalk loss {out['deepwalk']}")
+    X = m._matrix()[:tcfg["points"]]
+    ts = (BarnesHutTsne.Builder().setMaxIter(tcfg["iters"])
+          .perplexity(tcfg["perplexity"]).learningRate(tcfg["lr"])
+          .tileSize(tcfg["tile"]).seed(SEED).device(dev).build())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ts.fit(X)
+    fit_s = time.perf_counter() - t
+    rows, cols, vals = ts._P_sparse
+    y0 = 1e-4 * Draws(SEED, dev).normal("tsne.Y0", (X.shape[0], 2))
+    out["tsne"] = {"method": ts.usedMethod, "points": X.shape[0],
+                   "affinity_s": ts.affinitySeconds,
+                   "ms_per_iteration": 1e3 * (fit_s - ts.affinitySeconds)
+                   / tcfg["iters"],
+                   "kl_start": tsne_kl(y0, rows, cols, vals),
+                   "kl_end": tsne_kl(torch.as_tensor(ts.getData(),
+                                                     device=dev),
+                                     rows, cols, vals)}
+    need(ts.usedMethod == "tiled" and
+         out["tsne"]["kl_end"] < out["tsne"]["kl_start"],
+         f"21(g) t-SNE {out['tsne']}")
+    X2 = X[:tcfg["exact_n"]]
+    n2 = X2.shape[0]
+
+    def run(method, iters, device, draws=None, **kw):
+        b = (BarnesHutTsne.Builder().setMaxIter(iters)
+             .perplexity(tcfg["perplexity"]).learningRate(tcfg["lr"])
+             .seed(SEED).method(method))
+        for k, v in kw.items():
+            getattr(b, k)(v)
+        return b.build().fit(X2, device=device, draws=draws).getData()
+
+    for iters in (tcfg["gate_iters"], tcfg["long_iters"]):
+        ex = run("exact", iters, dev)
+        ti = run("tiled", iters, dev, knnK=n2 - 1, tileSize=tcfg["tile"])
+        out["tsne"][f"exact_vs_tiled_rel_{iters}"] = _rel_to(ti, ex)
+        rec = Draws(SEED, "cpu", record=True)
+        cpu = run("exact", iters, "cpu", rec)
+        card = run("exact", iters, dev, ReplayDraws(rec.log, dev))
+        out["tsne"][f"card_vs_cpu_rel_{iters}"] = _rel_to(card, cpu)
+    gi = tcfg["gate_iters"]
+    need(out["tsne"][f"exact_vs_tiled_rel_{gi}"] < TSNE_GATE_REL
+         and out["tsne"][f"card_vs_cpu_rel_{gi}"] < TSNE_GATE_REL,
+         f"21(g) t-SNE after {gi} iterations {out['tsne']}")
+    log("21(g) DeepWalk and t-SNE: " + json.dumps(out))
+    return out
+
+
+def word_vectors_phase(dev):
+    """Phase 21: (a)-(g). No hand-written kernel launches."""
+    import torch
+
+    t = time.perf_counter()
+    before = kernel_launches()
+    corpus = synthetic_text8(TEXT8)
+    out = {"corpus": {"sentences": len(corpus[0]),
+                      "tokens": int(corpus[2].sum()),
+                      "seconds": time.perf_counter() - t}}
+    log("21 corpus (synthetic, seeded): " + json.dumps(out["corpus"]))
+    legs = {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        legs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    m, out["word2vec"] = leg("a", word2vec_text8, dev, corpus, W2V_TEXT8)
+    out["modes"] = leg("b", word2vec_modes, dev, corpus, W2V_MODES,
+                       W2V_TEXT8)
+    out["fasttext"] = leg("c", fasttext_cli, dev, corpus, FASTTEXT_CLI)
+    out["glove"] = leg("d", glove_paper, dev, corpus, GLOVE_PAPER)
+    out["stack"] = leg("e", into_the_stack, dev, corpus, m, KIM_CNN)
+    out["neighbours"] = leg("f", nearest_neighbours, dev, m, NEIGHBOURS)
+    out["graph_tsne"] = leg("g", graph_and_tsne, dev, m, BLOGCATALOG,
+                            TSNE_WORDS)
+    out["leg_seconds"] = legs
+    need(kernel_launches() == before, "phase 21: a hand-written kernel "
+         f"launched: {before} -> {kernel_launches()}")
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 21: {out['seconds']:.1f} s (legs " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()) + ")")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -7412,6 +8186,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     det = detection_import_phase(dev, sdx["onnx"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    wv = word_vectors_phase(dev)
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -7699,6 +8476,41 @@ def main():
         f"{dt['imported_kernels']} kernels beside 19(a)'s ONNX "
         f"{dt['phase19a_onnx_ms']:.2f} ms / {dt['phase19a_onnx_kernels']}; "
         f"phase 20 {det['seconds']:.1f} s")
+    wa, wb, wc, wd, we, wf, wg = (wv[k] for k in (
+        "word2vec", "modes", "fasttext", "glove", "stack", "neighbours",
+        "graph_tsne"))
+    log(f"word vectors and nearest neighbours on {card}: (a) CBOW "
+        f"{wa['vocab']} x {W2V_TEXT8['layer']} over {wa['words']} words, "
+        f"scan {wa['scan_s']:.2f} s, {wa['words_per_s']:.0f} words/s, "
+        f"{wa['steps_per_s']:.0f} steps/s, {wa['kernels_per_step']:.0f} "
+        f"kernels a step, busy {100 * wa['device_busy_share_of_traced_wall']:.1f}"
+        f" %, {wa['max_memory_allocated_bytes'] / 2**30:.2f} GiB, loss "
+        f"{wa['loss_first']:.4f} -> {wa['loss_last']:.4f}, topic share "
+        f"{wa['topic_share']:.3f}, card vs CPU "
+        f"{max(wa['parity_rel'].values()):.2e}; (b) steps/s " + ", ".join(
+            f"{k} {v['steps_per_s']:.0f}" for k, v in wb.items()
+            if isinstance(v, dict))
+        + f", Huffman code length {wb['cbow_hs']['huffman_code_length']}; "
+        f"(c) FastText skipgram {wc['skipgram']['steps_per_s']:.0f} steps/s"
+        f", {wc['skipgram']['max_memory_allocated_bytes'] / 2**30:.2f} GiB, "
+        f"supervised {wc['supervised']['steps_per_s']:.0f} steps/s, "
+        f"{wc['supervised']['max_memory_allocated_bytes'] / 2**30:.2f} GiB; "
+        f"(d) GloVe {wd['entries']} entries in {wd['cooccurrence_s']:.2f} s, "
+        f"{wd['steps_per_s']:.0f} steps/s; (e) binary "
+        f"{we['binary']['bytes']} bytes {we['binary']['write_s']:.2f} s, text "
+        f"{we['text']['bytes']} bytes {we['text']['write_s']:.2f} s, Kim CNN "
+        f"{we['kim_cnn']['step_ms_median_3_on']:.2f} ms a step, "
+        f"{we['kim_cnn']['sentences_per_s']:.0f} sentences/s; (f) k-means "
+        f"{wf['kmeans']['iterations']} iterations, "
+        f"{wf['kmeans']['host_flag_reads']} flag reads, "
+        f"{wf['kmeans']['ms']:.1f} ms; LSH recall@10 "
+        f"{wf['lsh']['recall_at_10']:.3f}, index {wf['lsh']['index_ms']:.1f} "
+        f"ms; server p50 {wf['server']['p50_ms']:.2f} ms; (g) DeepWalk walks "
+        f"{wg['deepwalk']['walk_s']:.2f} s, "
+        f"{wg['deepwalk']['words_per_s']:.0f} words/s; t-SNE "
+        f"{wg['tsne']['ms_per_iteration']:.3f} ms an iteration, KL "
+        f"{wg['tsne']['kl_start']:.3f} -> {wg['tsne']['kl_end']:.3f}; phase "
+        f"21 {wv['seconds']:.1f} s")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -56,7 +56,12 @@ What is ported so far:
   InceptionResNetV1, FaceNetNN4Small2, NASNet), pretrained weights from
   local files (``zoo.pretrained``), Keras import
   (``modelimport.keras``) and TF frozen-graph import through the port's
-  own GraphDef codec (``modelimport.tensorflow``, ``tf_wire``).
+  own GraphDef codec (``modelimport.tensorflow``, ``tf_wire``);
+* word vectors and nearest neighbours: ``nlp`` (Word2Vec and
+  ParagraphVectors in every mode, Glove, FastText, the tokenizers,
+  vectorizers, serializer and CnnSentenceDataSetIterator), ``clustering``
+  (k-means, LSH, the trees, NearestNeighborsServer), ``graph.DeepWalk``
+  and ``plot.BarnesHutTsne``, their random numbers behind ``util.draws``.
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

@@ -55,10 +55,13 @@ class UniformDistribution:
 
 
 class WeightInitEmbedding:
-    """An embedding table from a raw [nIn, nOut] array (reference:
-    nn.weights.WeightInitEmbedding over an ArrayEmbeddingInitializer).
-    A word-vector model as the source (Word2Vec, StaticWordVectors,
-    FastText) waits for the NLP package (ROADMAP.md Queue 1 item 12b)."""
+    """An embedding table from pretrained vectors (reference:
+    nn.weights.WeightInitEmbedding over an EmbeddingInitializer): a raw
+    [nIn, nOut] array, or any word-vector model of the nlp package
+    (Word2Vec, ParagraphVectors, Glove, FastText, StaticWordVectors:
+    anything with ``vocab`` and ``getWordVector``), whose rows follow
+    the model's vocabulary index order, the order EmbeddingSequenceLayer
+    inputs use when tokenized against that vocabulary."""
 
     def __init__(self, source):
         self.source = source
@@ -68,12 +71,15 @@ class WeightInitEmbedding:
 
         src = self.source
         if hasattr(src, "vocab") and hasattr(src, "getWordVector"):
-            raise NotImplementedError(
-                "WeightInitEmbedding from a word-vector model waits for the "
-                "NLP package (ROADMAP.md Queue 1 item 12b); pass the "
-                "[nIn, nOut] array of its vectors")
-        t = src.detach().cpu() if isinstance(src, torch.Tensor) \
-            else torch.from_numpy(np.array(src, copy=True))
+            words = getattr(src, "_ivocab", None) \
+                or sorted(src.vocab, key=src.vocab.get)
+            t = torch.from_numpy(np.stack(
+                [np.asarray(src.getWordVector(w), np.float32)
+                 for w in words]))
+        elif isinstance(src, torch.Tensor):
+            t = src.detach().cpu()
+        else:
+            t = torch.from_numpy(np.array(src, copy=True))
         if t.dim() != 2 or tuple(t.shape) != tuple(shape):
             rows, cols = (t.shape if t.dim() == 2 else ("?", "?"))
             raise ValueError(

@@ -6,7 +6,8 @@ ml_dtypes nor tensorflow; scipy stays off the runtime path), by an AST
 walk of every source file — the shape of tests/test_telemetry.py's
 no-jax gate. Module names are matched exactly, so
 ``deeplearning4j_tpu_torch`` itself passes. The walk covers every
-subpackage, ``modelimport/`` and ``analysis/`` included. ``h5py`` is
+subpackage, ``modelimport/``, ``analysis/``, ``nlp/``, ``clustering/``,
+``graph/`` and ``plot/`` included. ``h5py`` is
 imported by the package only inside the calls that read a Keras file,
 never at a module's top level; ``chip_smoke.py`` and the test helpers it
 loads on the card's machine (``tests/_torch_{onnx,keras,tf}_models.py``)
@@ -70,10 +71,14 @@ def test_gate_covers_the_port():
             "onnx.py", "onnx_wire.py", "samediff_check.py",
             "diagnostics.py", "samediff.py", "ops_impl.py", "keras.py",
             "tensorflow.py", "tf_wire.py", "objdetect.py",
-            "pretrained.py"} <= names
+            "pretrained.py", "word2vec.py", "glove.py", "fasttext.py",
+            "tokenization.py", "query.py", "vectorizers.py",
+            "cnn_sentence.py", "kmeans.py", "trees.py", "lsh.py",
+            "deepwalk.py", "tsne.py", "draws.py"} <= names
     dirs = {p.parent.name for p in _SOURCES}
     assert {"ops", "nn", "conf", "data", "zoo", "serving",
-            "parallel", "modelimport", "analysis", "autodiff"} <= dirs
+            "parallel", "modelimport", "analysis", "autodiff", "nlp",
+            "clustering", "graph", "plot"} <= dirs
     assert all(p.exists() for p in _SOURCES)
 
 

@@ -50,9 +50,7 @@ WAITING = {
         "ulysses_attention"}, "7"),
 }
 #: reference packages with no counterpart yet, with their item
-WAITING_PACKAGES = {"clustering": "12b", "nlp": "12b", "graph": "12b",
-                    "plot": "12b", "rl": "12b", "arbiter": "12b",
-                    "linalg": "12c"}
+WAITING_PACKAGES = {"rl": "12b", "arbiter": "12b", "linalg": "12c"}
 
 
 def _public(path):
@@ -177,7 +175,7 @@ def test_sampled_onehot_feedback_is_the_references():
 def _serde_refusal():
     from deeplearning4j_tpu_torch.util import serde
 
-    serde.decode({"__o": "deeplearning4j_tpu.nlp.word2vec:Word2Vec",
+    serde.decode({"__o": "deeplearning4j_tpu.rl.qlearning:QLearningConfiguration",
                   "attrs": {}}, [])
 
 

@@ -208,16 +208,19 @@ def test_weight_init_embedding_refusals():
         P.MultiLayerNetwork(_embedding_ff(P, P.WeightInitEmbedding(bad)),
                             device="cpu").init()
 
-    class Vectors:   # a word-vector model's surface
-        vocab = {"a": 0}
+    class Vectors:   # a word-vector model's surface, V words
+        vocab = {f"w{i}": i for i in range(V)}
 
         def getWordVector(self, w):
-            return np.zeros(D)
+            return np.full(D, float(self.vocab[w]), np.float32)
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        P.MultiLayerNetwork(
-            _embedding_ff(P, P.WeightInitEmbedding(Vectors())),
-            device="cpu").init()
+    # a word-vector model is ported: its rows in vocabulary order
+    net = P.MultiLayerNetwork(
+        _embedding_ff(P, P.WeightInitEmbedding(Vectors())),
+        device="cpu").init()
+    np.testing.assert_array_equal(
+        net.getParam("0_W").toNumpy(),
+        np.repeat(np.arange(V, dtype=np.float32)[:, None], D, 1))
 
 
 # ----------------------------------------------------------------------
