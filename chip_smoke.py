@@ -502,17 +502,50 @@ Phases (any failure exits non-zero before the result line):
    falls; exact vs tiled (knnK N-1) and card vs CPU at N 2,000 within
    TSNE_GATE_REL of the max-abs after 10 iterations, reported after 50.
    No hand-written kernel launches.
+22. RL, search and the profiler (f32, TF32 off). (a) The Nature DQN
+   (Mnih et al. 2015: 84x84x4, conv 32 8x8/4, 64 4x4/2, 64 3x3/1, dense
+   512, 6 actions, RMSProp 2.5e-4, b32, gamma 0.99, frame skip 4, TD
+   error clipped to 1, double DQN) through QLearningDiscreteConv on a
+   seeded 84x84 catch game written here (ALE does not ship), replay
+   5,000, learning from step 500, target sync every 1,000, 3,000 steps:
+   env steps/s, learn steps/s and the median learn step, kernels a learn
+   step and the busy share of a traced block, host->device copies and
+   bytes and device->host copies a learn step (from (e)'s trace), peak
+   memory; card vs CPU from the same weights, replay and RandomState
+   draws: Q-values, the first TD targets and gradients within
+   RL_PARITY_REL of each tensor's max-abs, the parameters after 3
+   RMSProp steps reported. (b) A3C and async n-step Q on CartPole-v1
+   dynamics written here (Barto, Sutton & Anderson 1983) at the
+   reference's defaults (hidden 32, 8 environments, nStep 8), A3C also
+   at 64: rollouts/s, env steps/s, ms an update, kernels a rollout and
+   its update, the busy share; one update from one fixed rollout card
+   vs CPU from the card's parameters and Adam state, within
+   RL_PARITY_REL. (c) The reference tests' ChainMDP(5) policies (dense
+   DQN 2,500 steps, A3C and n-step Q 12,000) score 10.0 in play. (d)
+   Arbiter over LeNet at DL4J's LeNetMNIST widths on seeded synthetic
+   28x28 digits (6,000 / 1,000, b64, one epoch a candidate): random
+   search (6), a 2x2 grid (dense 250/500 x conv 20/32), genetic search
+   (population 6, 2 generations), a ComputationGraphSpace search and a
+   MaxTimeCondition stop: seconds a candidate, the best score; every
+   candidate completes but one made invalid on purpose (a 5x5 kernel
+   over a 2x2 input), whose error must be the convolution's shape check.
+   (e) On (a)'s trainer: OpProfiler sections (first call, steady) beside
+   CUDA-event time, a section under set_enabled(False) records nothing,
+   trace() writes a file with kernels and the annotate region,
+   compiled_cost of the b32 Q forward equals the analytic 598,147,072
+   flops, mfu of the learn step, the spans exported as Chrome trace and
+   JSONL read back. No hand-written kernel launches.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
 17(e)'s, and K1's plus phase 20(d)(ii)'s; phases 8-10, 12, 13, 14(a),
-14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii) and 21 run no
+14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii), 21 and 22 run no
 hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout,
-the shape layers and the word-vector, k-means and t-SNE steps are torch
-tensor ops, and the data-parallel exchange is NCCL's or gloo's
-collectives).
+the shape layers, the word-vector, k-means and t-SNE steps and the
+actor-critic trunks are torch tensor ops, and the data-parallel exchange
+is NCCL's or gloo's collectives).
 """
 
 from __future__ import annotations
@@ -8100,6 +8133,834 @@ def word_vectors_phase(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 22: reinforcement learning, hyperparameter search, the profiler
+# ----------------------------------------------------------------------
+
+#: 22(a): the Nature DQN (Mnih et al. 2015, "Human-level control through
+#: deep reinforcement learning", Methods): 84x84 frames, 4 stacked, conv
+#: 32 8x8/4 -> 64 4x4/2 -> 64 3x3/1 -> dense 512, relu, one identity
+#: output an action (6), RMSProp at 2.5e-4, batch 32, gamma 0.99, frame
+#: skip 4, the TD error clipped to 1, double DQN. Cut: the replay (1 M ->
+#: 5,000 transitions), the start of learning (50,000 -> 500 steps), the
+#: target sync (10,000 -> 1,000 steps), the run (50 M frames -> 3,000
+#: steps) and epsilon's anneal (1 M frames -> 2,000 steps, to 0.1)
+NATURE_DQN = dict(image=84, history=4, skip=4, actions=6, batch=32,
+                  gamma=0.99, lr=2.5e-4, replay=5000, update_start=500,
+                  target_every=1000, steps=3000, epsilon_steps=2000,
+                  min_epsilon=0.1, balls=5, traced_steps=5,
+                  profiled_steps=20, parity_replay=256, parity_steps=3,
+                  seed=SEED)
+#: one image's multiply-adds through NATURE_DQN's products: the convs
+#: (20x20x32 x 8x8x4, 9x9x64 x 4x4x32, 7x7x64 x 3x3x64), dense, output
+NATURE_DQN_MACS = 3_276_800 + 2_654_208 + 1_806_336 + 1_605_632 + 3_072
+#: 22(a) and (b) card vs CPU, of each tensor's max-abs
+RL_PARITY_REL = 1e-5
+#: 22(b): A3C and n-step Q at the reference's defaults (hidden 32, 8
+#: environments, nStep 8) on CartPole-v1 dynamics, and A3C at 64
+CARTPOLE = dict(hidden=32, envs=8, wide_envs=64, nstep=8, updates=300,
+                wide_updates=100, traced=3, episode=500, seed=SEED)
+#: 22(c): the reference tests' chain task and budgets
+#: (tests/test_rl.py:74, tests/test_rl_breadth.py:113, :154)
+CHAIN = dict(n=5, dqn_steps=2500, ac_steps=12_000)
+#: 22(d): Arbiter over LeNet at DL4J's LeNetMNIST widths (conv 20 and 50
+#: 5x5, max pooling 2x2, dense 500), seeded synthetic 28x28 digits
+ARBITER_LENET = dict(train=6000, test=1000, batch=64, classes=10,
+                     random=6, population=6, generations=2, graph=2,
+                     time_budget=3.0, seed=SEED)
+
+
+class CatchMDP:
+    """A seeded 84x84 "catch" game for 22(a) (ALE does not ship on the
+    card's machine): a 2x2 ball falls 2 rows a frame from a random column
+    of the top row; an 8-pixel paddle on the bottom two rows moves 2
+    pixels a frame right (actions 2, 4), left (3, 5) or not (0, 1); +1
+    when the ball reaches the bottom over the paddle, -1 when it does not;
+    an episode is `balls` balls."""
+
+    PADDLE = 8
+
+    def __init__(self, cfg, seed):
+        self.n, self.balls, self.actions = (cfg["image"], cfg["balls"],
+                                            cfg["actions"])
+        self._rng = np.random.RandomState(seed)
+        self.frames = 0
+
+    def obsSize(self):
+        return self.n * self.n
+
+    def numActions(self):
+        return self.actions
+
+    def _new_ball(self):
+        self.by, self.bx = 0, int(self._rng.randint(0, self.n - 1))
+
+    def _frame(self):
+        f = np.zeros((self.n, self.n), np.float32)
+        f[self.by:self.by + 2, self.bx:self.bx + 2] = 1.0
+        f[self.n - 2:, self.px:self.px + self.PADDLE] = 1.0
+        return f
+
+    def reset(self):
+        self.px = (self.n - self.PADDLE) // 2
+        self.left = self.balls
+        self._new_ball()
+        return self._frame()
+
+    def step(self, action):
+        move = (0, 0, 2, -2, 2, -2)[int(action)]
+        self.px = min(max(self.px + move, 0), self.n - self.PADDLE)
+        self.by += 2
+        self.frames += 1
+        reward, done = 0.0, False
+        if self.by >= self.n - 2:
+            caught = self.px - 1 <= self.bx <= self.px + self.PADDLE - 1
+            reward = 1.0 if caught else -1.0
+            self.left -= 1
+            done = self.left == 0
+            self._new_ball()
+        return self._frame(), reward, done
+
+
+def nature_dqn_net(device, cfg):
+    from deeplearning4j_tpu_torch.nn import (ConvolutionLayer, DenseLayer,
+                                             InputType, MultiLayerNetwork,
+                                             NeuralNetConfiguration,
+                                             OutputLayer, RmsProp)
+
+    conf = (NeuralNetConfiguration.Builder().seed(cfg["seed"])
+            .updater(RmsProp(cfg["lr"])).list()
+            .layer(ConvolutionLayer(nOut=32, kernelSize=(8, 8),
+                                    stride=(4, 4), activation="relu"))
+            .layer(ConvolutionLayer(nOut=64, kernelSize=(4, 4),
+                                    stride=(2, 2), activation="relu"))
+            .layer(ConvolutionLayer(nOut=64, kernelSize=(3, 3),
+                                    stride=(1, 1), activation="relu"))
+            .layer(DenseLayer(nOut=512, activation="relu"))
+            .layer(OutputLayer(nOut=cfg["actions"], activation="identity",
+                               lossFunction="mse"))
+            .setInputType(InputType.convolutional(
+                cfg["image"], cfg["image"], cfg["history"])).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def nature_dqn_trainer(net, cfg):
+    from deeplearning4j_tpu_torch.rl import (HistoryProcessorConfiguration,
+                                             QLearningConfiguration,
+                                             QLearningDiscreteConv)
+
+    conf = QLearningConfiguration(
+        seed=cfg["seed"], gamma=cfg["gamma"], batchSize=cfg["batch"],
+        expRepMaxSize=cfg["replay"], targetDqnUpdateFreq=cfg["target_every"],
+        updateStart=cfg["update_start"], minEpsilon=cfg["min_epsilon"],
+        epsilonNbStep=cfg["epsilon_steps"], maxEpochStep=200,
+        doubleDQN=True, errorClamp=1.0)
+    hp = HistoryProcessorConfiguration(historyLength=cfg["history"],
+                                       skipFrame=cfg["skip"])
+    return QLearningDiscreteConv(CatchMDP(cfg, cfg["seed"]), net, hp, conf)
+
+
+def random_play(trainer, n, seed):
+    """`n` transitions of uniformly random play through the trainer's
+    frame ring, in its replay's form."""
+    rng = np.random.RandomState(seed)
+    items, obs = [], trainer._reset_env()
+    while len(items) < n:
+        a = int(rng.randint(trainer.mdp.numActions()))
+        obs2, r, done = trainer._step_env(a)
+        items.append((obs, a, float(r), obs2, float(done)))
+        obs = trainer._reset_env() if done else obs2
+    return items
+
+
+def max_rel(got, want):
+    """The worst max-abs rel over same-structured lists of tensor dicts."""
+    return max(_rel_to(g[k], w[k]) for g, w in zip(got, want) for k in w)
+
+
+def dqn_parity(dev, cfg):
+    """22(a) parity: the card and the CPU from the same weights, replay
+    and RandomState draws: Q-values, the first learn step's TD targets
+    and gradients, and the parameters after `parity_steps` learn steps."""
+    from deeplearning4j_tpu_torch.nn.multilayer import params_to_reference
+
+    net, cpu = nature_dqn_net(dev, cfg), nature_dqn_net("cpu", cfg)
+    cpu.load_reference_params(params_to_reference(net.layers, net._params),
+                              params_to_reference(net.layers, net._states))
+    card_t, cpu_t = nature_dqn_trainer(net, cfg), nature_dqn_trainer(cpu, cfg)
+    replay = random_play(cpu_t, cfg["parity_replay"], cfg["seed"] + 1)
+    card_t._replay, cpu_t._replay = list(replay), list(replay)
+    s = np.stack([it[0] for it in replay[:cfg["batch"]]])
+    q_rel = _rel_to(card_t._q(net._params, s), cpu_t._q(cpu._params, s))
+    first = {}
+
+    def record(t, key):
+        fit = t.net.fit
+
+        def rec(x, y):
+            if key not in first:
+                first[key] = (np.array(y),
+                              t.net.computeGradientAndScore(x, y)[0])
+            return fit(x, y)
+
+        t.net.fit = rec
+
+    record(card_t, "card")
+    record(cpu_t, "cpu")
+    for _ in range(cfg["parity_steps"]):
+        card_t._learn_batch()
+        cpu_t._learn_batch()
+    out = {"q_rel": q_rel,
+           "td_targets_rel": _rel_to(first["card"][0], first["cpu"][0]),
+           "first_grads_rel": max_rel(first["card"][1], first["cpu"][1]),
+           "rmsprop_steps": cfg["parity_steps"],
+           "params_rel_after_rmsprop_steps": max_rel(net._params,
+                                                     cpu._params)}
+    need(max(out["q_rel"], out["td_targets_rel"], out["first_grads_rel"])
+         <= RL_PARITY_REL, f"22(a) parity: {out} (bar {RL_PARITY_REL} of "
+         "the max-abs)")
+    return out
+
+
+def copy_traffic(fn, steps):
+    """`steps` calls of `fn` under a TorchDispatchMode that sees every
+    aten copy as it runs: (host->device copies, their bytes, device->host
+    reads: copies to the host and scalar reads) a call."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    n = {"h2d_copies": 0, "h2d_bytes": 0, "d2h_reads": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten._local_scalar_dense.default:
+                n["d2h_reads"] += args[0].device.type == "cuda"
+            elif func in (aten._to_copy.default, aten.copy_.default):
+                src, dst = ((args[1], args[0]) if func is aten.copy_.default
+                            else (args[0], out))
+                way = (src.device.type, dst.device.type)
+                if way == ("cpu", "cuda"):
+                    n["h2d_copies"] += 1
+                    n["h2d_bytes"] += src.numel() * src.element_size()
+                elif way == ("cuda", "cpu"):
+                    n["d2h_reads"] += 1
+            return out
+
+    with Count():
+        for _ in range(steps):
+            fn()
+    return {k: v / steps for k, v in n.items()}
+
+
+def learn_host_split(dqn, dev, reps):
+    """A learn step's batch handling alone, median ms over `reps`: the
+    two np.stack calls of 32 sampled observations each, and the four
+    unpinned copies of them to the card (s' twice, s twice) to a
+    synchronize."""
+    import torch
+
+    rng = np.random.RandomState(1)
+    stack, h2d = [], []
+    for _ in range(reps):
+        idx = rng.randint(len(dqn._replay), size=dqn.conf.batchSize)
+        t0 = time.perf_counter()
+        s = np.stack([dqn._replay[i][0] for i in idx])
+        s2 = np.stack([dqn._replay[i][3] for i in idx])
+        t1 = time.perf_counter()
+        for a in (s2, s2, s, s):
+            torch.from_numpy(a).to(dev)
+        torch.cuda.synchronize()
+        stack.append(t1 - t0)
+        h2d.append(time.perf_counter() - t1)
+    return {"stack_ms": float(np.median(stack)) * 1e3,
+            "h2d_ms": float(np.median(h2d)) * 1e3}
+
+
+def nature_dqn(dev, cfg):
+    """22(a): the Nature DQN trains `steps` steps of catch on the card:
+    env steps/s, learn steps/s, the median learn step, kernels a learn
+    step and the busy share of a traced block, peak memory; parity."""
+    import torch
+
+    t0 = time.perf_counter()
+    parity = dqn_parity(dev, cfg)
+    parity["seconds"] = time.perf_counter() - t0
+    log("22(a) parity: " + json.dumps(parity))
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dqn = nature_dqn_trainer(nature_dqn_net(dev, cfg), cfg)
+    learn_s = []
+    learn = dqn._learn_batch
+
+    def timed():
+        t0 = time.perf_counter()
+        learn()
+        learn_s.append(time.perf_counter() - t0)
+
+    dqn._learn_batch = timed
+    t0 = time.perf_counter()
+    dqn.train(maxSteps=cfg["steps"])
+    wall = time.perf_counter() - t0
+    del dqn._learn_batch
+    n_learn = len(learn_s)
+    need(n_learn == cfg["steps"] - max(cfg["update_start"],
+                                       cfg["batch"]) + 1,
+         f"22(a): {n_learn} learn steps in {cfg['steps']} steps")
+    t0 = time.perf_counter()
+    kernels, busy = traced_steps(dqn._learn_batch, cfg["traced_steps"])
+    traced_s = time.perf_counter() - t0
+    traffic = copy_traffic(dqn._learn_batch, cfg["traced_steps"])
+    B, img = cfg["batch"], cfg["history"] * cfg["image"] ** 2 * 4
+    # s' twice and s twice (the three Q reads and fit), then the targets
+    want = 4 * B * img + B * cfg["actions"] * 4
+    need(traffic["h2d_bytes"] == want, f"22(a): {traffic} host->device "
+         f"a learn step, {want} bytes from the shapes")
+    unique = {id(a): a.nbytes for it in dqn._replay for a in (it[0], it[3])}
+    score = dqn.getPolicy().play(CatchMDP(cfg, cfg["seed"] + 7),
+                                 maxSteps=1000)
+    out = {"parity": parity, "steps": cfg["steps"],
+           "frames": dqn.mdp.frames, "learn_steps": n_learn,
+           "wall_s": wall, "env_steps_per_s": cfg["steps"] / wall,
+           "env_steps_per_s_outside_learning":
+               cfg["steps"] / (wall - sum(learn_s)),
+           "learn_steps_per_s": n_learn / sum(learn_s),
+           "learn_ms_median": float(np.median(learn_s)) * 1e3,
+           "kernels_per_learn_step": kernels,
+           "device_busy_share_of_traced_wall": busy,
+           "replay_transitions": len(dqn._replay),
+           "replay_bytes_referenced": 2 * len(dqn._replay)
+           * dqn._replay[0][0].nbytes,
+           "replay_bytes_unique": sum(unique.values()),
+           "greedy_play_score": score, "traced_s": traced_s,
+           "copy_traffic_per_learn_step": traffic,
+           "host_split": learn_host_split(dqn, dev, cfg["traced_steps"]),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "peak_over_before_bytes":
+               torch.cuda.max_memory_allocated() - before}
+    log("22(a): " + json.dumps(out))
+    return dqn, out
+
+
+def trace_events(fn):
+    """Run `fn` (which takes a directory) and read back the one Chrome
+    trace it writes there."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        fn(d)
+        names = os.listdir(d)
+        need(len(names) == 1, f"trace: {names} in the log directory")
+        with open(os.path.join(d, names[0])) as fh:
+            return json.load(fh)["traceEvents"]
+
+
+def profiler_leg(dev, dqn, cfg, a):
+    """22(e): OpProfiler sections over (a)'s learn step (first call and
+    steady, beside CUDA-event time), the kill switch, a trace() file with
+    kernels and an annotate region, compiled_cost of the b32 Q forward
+    against the analytic count, mfu of the learn step at (a)'s median
+    (`a`), the spans exported and read back."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.runtime import telemetry
+    from deeplearning4j_tpu_torch.runtime.telemetry import MetricsRegistry
+    from deeplearning4j_tpu_torch.util.profiler import (OpProfiler,
+                                                        annotate,
+                                                        compiled_cost,
+                                                        device_peak_flops,
+                                                        mfu, trace)
+
+    reg = MetricsRegistry()
+    prof = OpProfiler(registry=reg)
+    marks = []
+    for _ in range(cfg["profiled_steps"]):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        with reg.span("rl.learn", "rl"), prof.section("dqn.learn"):
+            dqn._learn_batch()
+        e1.record()
+        marks.append((e0, e1))
+    torch.cuda.synchronize()
+    event_ms = [e0.elapsed_time(e1) for e0, e1 in marks]
+    n = cfg["profiled_steps"]
+    need(prof.invocations("dqn.learn") == n, "22(e): section count")
+    sections = {"first_call_ms": prof.compileTime("dqn.learn") * 1e3,
+                "steady_avg_ms": prof.averageTime("dqn.learn") * 1e3,
+                "first_event_ms": event_ms[0],
+                "steady_event_ms_mean": float(np.mean(event_ms[1:]))}
+    telemetry.set_enabled(False)
+    try:
+        with prof.section("dqn.off"):
+            dqn._learn_batch()
+    finally:
+        telemetry.set_enabled(True)
+    need(prof.invocations("dqn.off") == 0
+         and prof.timeSpent("dqn.off") == 0.0,
+         "22(e): a section recorded while telemetry was off")
+
+    def traced(d):
+        with trace(d):
+            for _ in range(2):
+                with annotate("dqn.learn"):
+                    dqn._learn_batch()
+
+    events = trace_events(traced)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    regions = [e for e in events if e.get("name") == "dqn.learn"]
+    need(kernels and regions, f"22(e): the trace holds {len(kernels)} "
+         f"kernels and {len(regions)} annotate regions")
+    B = cfg["batch"]
+    x = torch.from_numpy(np.stack([dqn._replay[i][0] for i in range(B)]))
+    cost = compiled_cost(dqn.net._forward_infer, dqn.net._params, x.to(dev))
+    need(cost["flops"] == 2 * NATURE_DQN_MACS * B,
+         f"22(e): compiled_cost {cost['flops']} flops vs the analytic "
+         f"{2 * NATURE_DQN_MACS * B}")
+    step_cost = compiled_cost(dqn._learn_batch)
+    learn_s = a["learn_ms_median"] / 1e3
+    with tempfile.TemporaryDirectory() as d:
+        with open(reg.export_chrome_trace(os.path.join(d, "t.json"))) as fh:
+            chrome = json.load(fh)["traceEvents"]
+        with open(reg.export_jsonl(os.path.join(d, "t.jsonl"))) as fh:
+            lines = [json.loads(line) for line in fh]
+    need(len(chrome) == len(lines) == 2 * n,
+         f"22(e): {len(chrome)} Chrome events, {len(lines)} JSONL spans, "
+         f"expected {2 * n}")
+    out = {"sections": sections, "trace_kernels": len(kernels),
+           "trace_regions": len(regions),
+           "q_forward_b32_flops": cost["flops"],
+           "q_forward_b32_bytes_accessed": cost["bytes_accessed"],
+           "learn_step_flops": step_cost["flops"],
+           "learn_step_bytes_accessed": step_cost["bytes_accessed"],
+           "peak_flops": device_peak_flops(dev),
+           "learn_step_mfu": mfu(step_cost["flops"], learn_s, dev),
+           "exported_spans": len(lines)}
+    log("22(e): " + json.dumps(out))
+    return out
+
+
+class CartPoleMDP:
+    """Barto, Sutton & Anderson (1983) cart-pole with gym's CartPole-v1
+    constants: gravity 9.8, cart 1.0 kg, pole 0.1 kg, half-length 0.5 m,
+    force 10 N, tau 0.02 s, Euler steps; done past 12 degrees or 2.4 m;
+    reward 1 a step; reset uniform in +-0.05 from its own seed."""
+
+    def __init__(self, seed):
+        self._rng = np.random.RandomState(seed)
+        self.state = None
+
+    def obsSize(self):
+        return 4
+
+    def numActions(self):
+        return 2
+
+    def reset(self):
+        self.state = self._rng.uniform(-0.05, 0.05, 4)
+        return self.state.astype(np.float32)
+
+    def step(self, action):
+        x, x_dot, th, th_dot = self.state
+        force = 10.0 if int(action) == 1 else -10.0
+        cos, sin = math.cos(th), math.sin(th)
+        temp = (force + 0.05 * th_dot * th_dot * sin) / 1.1
+        th_acc = (9.8 * sin - cos * temp) / (
+            0.5 * (4.0 / 3.0 - 0.1 * cos * cos / 1.1))
+        x_acc = temp - 0.05 * th_acc * cos / 1.1
+        self.state = np.array([x + 0.02 * x_dot, x_dot + 0.02 * x_acc,
+                               th + 0.02 * th_dot, th_dot + 0.02 * th_acc])
+        done = abs(self.state[0]) > 2.4 or \
+            abs(self.state[2]) > 12 * 2 * math.pi / 360
+        return self.state.astype(np.float32), 1.0, bool(done)
+
+
+def cartpole_trainer(kind, device, cfg, envs):
+    from deeplearning4j_tpu_torch.rl import (
+        A3CConfiguration, A3CDiscreteDense, AsyncNStepQLConfiguration,
+        AsyncNStepQLearningDiscreteDense)
+
+    seeds = iter(range(cfg["seed"], cfg["seed"] + envs))
+    factory = lambda: CartPoleMDP(next(seeds))   # noqa: E731
+    if kind == "a3c":
+        conf = A3CConfiguration(seed=cfg["seed"], nStep=cfg["nstep"],
+                                numThreads=envs,
+                                maxEpochStep=cfg["episode"])
+        return A3CDiscreteDense(factory, conf, cfg["hidden"], device)
+    conf = AsyncNStepQLConfiguration(seed=cfg["seed"], nStep=cfg["nstep"],
+                                     numThreads=envs,
+                                     maxEpochStep=cfg["episode"])
+    return AsyncNStepQLearningDiscreteDense(factory, conf, cfg["hidden"],
+                                            device)
+
+
+def host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def cartpole_run(dev, cfg, kind, envs, updates):
+    """Train `updates` rollouts (after two to warm up): rollouts/s, env
+    steps/s, ms an update (to its result on the host), kernels a rollout
+    and its update, the busy share of a traced block."""
+    import torch
+
+    t = cartpole_trainer(kind, dev, cfg, envs)
+    per = envs * cfg["nstep"]
+    t.train(maxSteps=2 * per)
+    upd_s = []
+    update = t._update
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        r = update(*args)
+        torch.cuda.synchronize()
+        upd_s.append(time.perf_counter() - t0)
+        return r
+
+    t._update = timed
+    t0 = time.perf_counter()
+    t.train(maxSteps=t._step + updates * per)
+    wall = time.perf_counter() - t0
+    del t._update
+    kernels, busy = traced_steps(lambda: t.train(maxSteps=t._step + per),
+                                 cfg["traced"])
+    return {"envs": envs, "updates": updates,
+            "rollouts_per_s": updates / wall,
+            "env_steps_per_s": updates * per / wall,
+            "update_ms_median": float(np.median(upd_s)) * 1e3,
+            "kernels_per_rollout_and_update": kernels,
+            "device_busy_share_of_traced_wall": busy}
+
+
+def cartpole_parity(dev, cfg, kind):
+    """One update from one fixed rollout, card vs CPU, from the card's
+    parameters and Adam state after five rollouts."""
+    card = cartpole_trainer(kind, dev, cfg, cfg["envs"])
+    card.train(maxSteps=5 * cfg["envs"] * cfg["nstep"])
+    cpu = cartpole_trainer(kind, "cpu", cfg, cfg["envs"])
+    cpu.load_reference_params(host_tree(card.params),
+                              host_tree(card._upd_state))
+    cpu._iteration = card._iteration
+    rng = np.random.RandomState(cfg["seed"] + 3)
+    N = cfg["envs"] * cfg["nstep"]
+    rollout = (rng.uniform(-0.2, 0.2, (N, 4)).astype(np.float32),
+               rng.randint(0, 2, N), rng.uniform(0, 20, N).astype(np.float32))
+    losses = [r if isinstance(r, tuple) else (r,)   # A3C: (pg, v)
+              for r in (card._update(*rollout), cpu._update(*rollout))]
+    out = {"params_rel": max(_rel_to(card.params[k], cpu.params[k])
+                             for k in cpu.params),
+           "adam_rel": max(_rel_to(card._upd_state[m][k],
+                                   cpu._upd_state[m][k])
+                           for m in ("m", "v") for k in cpu.params),
+           "loss_rel": max(_rel_to(c.reshape(1), p.reshape(1))
+                           for c, p in zip(*losses))}
+    need(max(out.values()) <= RL_PARITY_REL,
+         f"22(b) {kind} parity: {out} (bar {RL_PARITY_REL})")
+    return out
+
+
+def actor_critic(dev, cfg):
+    """22(b): A3C and async n-step Q on CartPole dynamics."""
+    out = {"a3c": cartpole_run(dev, cfg, "a3c", cfg["envs"],
+                               cfg["updates"]),
+           "a3c_wide": cartpole_run(dev, cfg, "a3c", cfg["wide_envs"],
+                                    cfg["wide_updates"]),
+           "nstep": cartpole_run(dev, cfg, "nstep", cfg["envs"],
+                                 cfg["updates"]),
+           "parity": {k: cartpole_parity(dev, cfg, k)
+                      for k in ("a3c", "nstep")}}
+    log("22(b): " + json.dumps(out))
+    return out
+
+
+class ChainMDP:
+    """tests/test_rl.py's chain: states 0..n-1 one-hot; action 1 moves
+    right (10.0 at the end, which ends the episode), action 0 left (0.2
+    at state 0)."""
+
+    def __init__(self, n=5):
+        self.n, self.s = n, 0
+
+    def obsSize(self):
+        return self.n
+
+    def numActions(self):
+        return 2
+
+    def _obs(self):
+        o = np.zeros(self.n, "float32")
+        o[self.s] = 1.0
+        return o
+
+    def reset(self):
+        self.s = 0
+        return self._obs()
+
+    def step(self, action):
+        if action == 1:
+            self.s += 1
+            if self.s >= self.n - 1:
+                return self._obs(), 10.0, True
+            return self._obs(), 0.0, False
+        self.s = max(0, self.s - 1)
+        return self._obs(), (0.2 if self.s == 0 else 0.0), False
+
+
+def chain_tasks(dev, cfg):
+    """22(c): the reference tests' chain policies trained on the card
+    score 10.0 in play (dense DQN, A3C, n-step Q)."""
+    from deeplearning4j_tpu_torch.nn import (Adam, DenseLayer, InputType,
+                                             MultiLayerNetwork,
+                                             NeuralNetConfiguration,
+                                             OutputLayer)
+    from deeplearning4j_tpu_torch.rl import (
+        A3CConfiguration, A3CDiscreteDense, AsyncNStepQLConfiguration,
+        AsyncNStepQLearningDiscreteDense, QLearningConfiguration,
+        QLearningDiscreteDense)
+
+    n = cfg["n"]
+    conf = (NeuralNetConfiguration.Builder().seed(0).updater(Adam(5e-3))
+            .list().layer(DenseLayer(nOut=24, activation="tanh"))
+            .layer(OutputLayer(nOut=2, activation="identity",
+                               lossFunction="mse"))
+            .setInputType(InputType.feedForward(n)).build())
+    runs = {
+        "dqn": lambda: QLearningDiscreteDense(
+            ChainMDP(n), MultiLayerNetwork(conf, device=dev).init(),
+            QLearningConfiguration(
+                seed=7, gamma=0.9, batchSize=32, expRepMaxSize=2000,
+                targetDqnUpdateFreq=100, updateStart=64, minEpsilon=0.05,
+                epsilonNbStep=1200, maxEpochStep=30, doubleDQN=True))
+        .train(maxSteps=cfg["dqn_steps"]),
+        "a3c": lambda: A3CDiscreteDense(
+            lambda: ChainMDP(n), A3CConfiguration(
+                seed=5, gamma=0.9, nStep=10, numThreads=8,
+                learningRate=3e-3, entropyCoef=0.01, valueCoef=0.5,
+                maxEpochStep=30), 32, dev).train(maxSteps=cfg["ac_steps"]),
+        "nstep": lambda: AsyncNStepQLearningDiscreteDense(
+            lambda: ChainMDP(n), AsyncNStepQLConfiguration(
+                seed=11, gamma=0.9, nStep=10, numThreads=8,
+                learningRate=3e-3, targetDqnUpdateFreq=20, minEpsilon=0.05,
+                epsilonNbStep=6000, maxEpochStep=30), 32, dev)
+        .train(maxSteps=cfg["ac_steps"])}
+    out = {}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        score = run().getPolicy().play(ChainMDP(n), maxSteps=20)
+        out[name] = {"play_score": score,
+                     "train_s": time.perf_counter() - t0}
+    need(all(v["play_score"] == 10.0 for v in out.values()),
+         f"22(c): chain play scores {out} (bar 10.0)")
+    log("22(c): " + json.dumps(out))
+    return out
+
+
+def synthetic_digits(cfg):
+    """Seeded 28x28x1 images in `classes` classes: a random sparse
+    stroke pattern a class, blended with uniform noise."""
+    rng = np.random.RandomState(cfg["seed"])
+    protos = (rng.rand(cfg["classes"], 1, 28, 28) > 0.75).astype(np.float32)
+    n = cfg["train"] + cfg["test"]
+    y = rng.randint(0, cfg["classes"], n)
+    x = (0.5 * protos[y] + 0.5 * rng.rand(n, 1, 28, 28)).astype(np.float32)
+    onehot = np.eye(cfg["classes"], dtype=np.float32)[y]
+    cut = cfg["train"]
+    return (x[:cut], onehot[:cut]), (x[cut:], onehot[cut:])
+
+
+def lenet_space(dev, cfg, lr, dense, conv1):
+    from deeplearning4j_tpu_torch.arbiter import (ConvolutionLayerSpace,
+                                                  DenseLayerSpace, LayerSpace,
+                                                  MultiLayerSpace,
+                                                  OutputLayerSpace)
+    from deeplearning4j_tpu_torch.nn import InputType, SubsamplingLayer
+
+    pool = dict(poolingType="max", kernelSize=(2, 2), stride=(2, 2))
+    return (MultiLayerSpace.Builder().seed(cfg["seed"]).device(dev)
+            .learningRate(lr)
+            .addLayer(ConvolutionLayerSpace(nOut=conv1, kernelSize=(5, 5),
+                                            activation="identity"))
+            .addLayer(LayerSpace(SubsamplingLayer, **pool))
+            .addLayer(ConvolutionLayerSpace(nOut=50, kernelSize=(5, 5),
+                                            activation="identity"))
+            .addLayer(LayerSpace(SubsamplingLayer, **pool))
+            .addLayer(DenseLayerSpace(nOut=dense, activation="relu"))
+            .addLayer(OutputLayerSpace(nOut=cfg["classes"],
+                                       activation="softmax",
+                                       lossFunction="mcxent"))
+            .setInputType(InputType.convolutional(28, 28, 1)).build())
+
+
+def lenet_graph_space(dev, cfg, dense):
+    from deeplearning4j_tpu_torch.arbiter import (ComputationGraphSpace,
+                                                  ConvolutionLayerSpace,
+                                                  DenseLayerSpace, LayerSpace,
+                                                  OutputLayerSpace)
+    from deeplearning4j_tpu_torch.nn import InputType, SubsamplingLayer
+
+    pool = dict(poolingType="max", kernelSize=(2, 2), stride=(2, 2))
+    return (ComputationGraphSpace.Builder().seed(cfg["seed"]).device(dev)
+            .learningRate(1e-3).addInputs("in")
+            .addLayer("c1", ConvolutionLayerSpace(
+                nOut=20, kernelSize=(5, 5), activation="identity"), "in")
+            .addLayer("p1", LayerSpace(SubsamplingLayer, **pool), "c1")
+            .addLayer("c2", ConvolutionLayerSpace(
+                nOut=50, kernelSize=(5, 5), activation="identity"), "p1")
+            .addLayer("p2", LayerSpace(SubsamplingLayer, **pool), "c2")
+            .addLayer("d", DenseLayerSpace(nOut=dense, activation="relu"),
+                      "p2")
+            .addLayer("out", OutputLayerSpace(
+                nOut=cfg["classes"], activation="softmax",
+                lossFunction="mcxent"), "d")
+            .setOutputs("out")
+            .setInputTypes(InputType.convolutional(28, 28, 1)).build())
+
+
+def arbiter_lenet(dev, cfg):
+    """22(d): random, grid and genetic search over LeNet, a graph-space
+    search, a MaxTimeCondition stop and one candidate invalid on purpose
+    (a 5x5 kernel over a 2x2 input). Every other candidate must
+    complete."""
+    from deeplearning4j_tpu_torch.arbiter import (
+        ContinuousParameterSpace, ConvolutionLayerSpace,
+        DiscreteParameterSpace, EvaluationScoreFunction,
+        GeneticSearchCandidateGenerator, GridSearchCandidateGenerator,
+        LayerSpace, LocalOptimizationRunner, MaxCandidatesCondition,
+        MaxTimeCondition, MultiLayerSpace, OptimizationConfiguration,
+        OutputLayerSpace, RandomSearchGenerator, TestSetLossScoreFunction)
+    from deeplearning4j_tpu_torch.data import DataSetIterator
+    from deeplearning4j_tpu_torch.nn import GlobalPoolingLayer, InputType
+
+    (xt, yt), (xv, yv) = synthetic_digits(cfg)
+    B = cfg["batch"]
+    train = DataSetIterator(xt, yt, B)
+    test = DataSetIterator(xv, yv, B)
+    lr = ContinuousParameterSpace(1e-4, 1e-1, log=True)
+    dense = DiscreteParameterSpace(250, 500)
+    conv1 = DiscreteParameterSpace(20, 32)
+    space = lenet_space(dev, cfg, lr, dense, conv1)
+
+    def search(gen, score, builder, *conds):
+        conf = (OptimizationConfiguration.Builder().candidateGenerator(gen)
+                .scoreFunction(score).terminationConditions(*conds)
+                .epochsPerCandidate(1).build())
+        t0 = time.perf_counter()
+        res = LocalOptimizationRunner(conf, builder, train).execute()
+        wall = time.perf_counter() - t0
+        return res, {"candidates": len(res.results), "wall_s": wall,
+                     "s_per_candidate": wall / max(len(res.results), 1),
+                     "best_score": res.bestScore(),
+                     "best": res.bestCandidate()}
+
+    def completed(res, what):
+        bad = [(r.candidate, repr(r.error)) for r in res.results
+               if r.error is not None]
+        need(not bad, f"22(d) {what}: failed candidates {bad}")
+
+    out = {}
+    acc = EvaluationScoreFunction(test)
+    res, out["random"] = search(
+        RandomSearchGenerator(space.parameterSpaces(), seed=cfg["seed"]),
+        acc, space.modelBuilder, MaxCandidatesCondition(cfg["random"]))
+    completed(res, "random")
+    grid_space = lenet_space(dev, cfg, 1e-3, dense, conv1)
+    res, out["grid"] = search(
+        GridSearchCandidateGenerator(grid_space.parameterSpaces()), acc,
+        grid_space.modelBuilder, MaxCandidatesCondition(100))
+    completed(res, "grid")
+    need(out["grid"]["candidates"] == 4, f"22(d) grid: {out['grid']}")
+    gen = GeneticSearchCandidateGenerator(
+        space.parameterSpaces(), populationSize=cfg["population"],
+        seed=cfg["seed"])
+    res, out["genetic"] = search(
+        gen, acc, space.modelBuilder,
+        MaxCandidatesCondition(cfg["population"] * cfg["generations"]))
+    completed(res, "genetic")
+    out["genetic"]["generation"] = gen.generation
+    graph_space = lenet_graph_space(dev, cfg, dense)
+    res, out["graph"] = search(
+        RandomSearchGenerator(graph_space.parameterSpaces(),
+                              seed=cfg["seed"]),
+        TestSetLossScoreFunction(test), graph_space.modelBuilder,
+        MaxCandidatesCondition(cfg["graph"]))
+    completed(res, "graph")
+    budget = cfg["time_budget"] * out["random"]["s_per_candidate"]
+    res, out["max_time"] = search(
+        RandomSearchGenerator(space.parameterSpaces(),
+                              seed=cfg["seed"] + 1),
+        acc, space.modelBuilder, MaxCandidatesCondition(100),
+        MaxTimeCondition(budget))
+    completed(res, "max_time")
+    out["max_time"]["budget_s"] = budget
+    need(1 <= out["max_time"]["candidates"] < 100
+         and out["max_time"]["wall_s"] >= budget,
+         f"22(d): the time condition did not stop the search: "
+         f"{out['max_time']}")
+    tiny = (MultiLayerSpace.Builder().seed(cfg["seed"]).device(dev)
+            .learningRate(1e-2)
+            .addLayer(ConvolutionLayerSpace(
+                nOut=4, kernelSize=DiscreteParameterSpace((1, 1), (5, 5)),
+                activation="relu"))
+            .addLayer(LayerSpace(GlobalPoolingLayer, poolingType="avg"))
+            .addLayer(OutputLayerSpace(nOut=2, activation="softmax"))
+            .setInputType(InputType.convolutional(2, 2, 1)).build())
+    rng = np.random.RandomState(cfg["seed"])
+    small = DataSetIterator(rng.rand(8, 1, 2, 2).astype(np.float32),
+                            np.eye(2, dtype=np.float32)[
+                                rng.randint(0, 2, 8)], 4)
+    conf = (OptimizationConfiguration.Builder()
+            .candidateGenerator(GridSearchCandidateGenerator(
+                tiny.parameterSpaces()))
+            .scoreFunction(TestSetLossScoreFunction(small))
+            .terminationConditions(MaxCandidatesCondition(10)).build())
+    res = LocalOptimizationRunner(conf, tiny.modelBuilder, small).execute()
+    errs = [r.error for r in res.results]
+    need(len(errs) == 2 and errs[0] is None
+         and "Kernel size" in str(errs[1]),
+         f"22(d): the invalid candidate's errors {errs}")
+    out["invalid"] = {"error": str(errs[1])}
+    log("22(d): " + json.dumps(out))
+    return out
+
+
+def rl_search_profiler_phase(dev):
+    """Phase 22: (a), (e) on (a)'s trainer, then (b)-(d). No
+    hand-written kernel launches."""
+    import torch
+
+    t = time.perf_counter()
+    before = kernel_launches()
+    legs, out = {}, {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        legs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    dqn, out["dqn"] = leg("a", nature_dqn, dev, NATURE_DQN)
+    out["profiler"] = leg("e", profiler_leg, dev, dqn, NATURE_DQN,
+                          out["dqn"])
+    del dqn
+    out["actor_critic"] = leg("b", actor_critic, dev, CARTPOLE)
+    out["chain"] = leg("c", chain_tasks, dev, CHAIN)
+    out["arbiter"] = leg("d", arbiter_lenet, dev, ARBITER_LENET)
+    out["leg_seconds"] = legs
+    need(kernel_launches() == before, "phase 22: a hand-written kernel "
+         f"launched: {before} -> {kernel_launches()}")
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 22: {out['seconds']:.1f} s (legs " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()) + ")")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -8150,45 +9011,75 @@ def main():
         "source started together (sm_90a): " + ", ".join(
             f"{n} {s:.2f} s" for n, s in sorted(_kernels.BUILD_SECONDS.items())))
 
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The seconds since the last lap, under the phase's name."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
     rows = check_kernels(dev)
+    lap("3")
     result = serve_and_check(dev, GPT2_SMALL)
+    lap("4-5")
     flash_rows = check_flash(dev)
+    lap("6")
     train = train_and_check(dev, BERT_BASE)
+    lap("7")
     torch.cuda.empty_cache()
     lenet = lenet_and_check(dev, LENET)
+    lap("8")
     parity = resnet_parity(dev, RESNET_PARITY)
     net, x, y, timed = resnet_timed(dev, RESNET_TIMED)
     trace = resnet_trace(net, x, y, RESNET_TIMED["traced_steps"],
                          timed["step_ms_median_3_on"])
+    lap("9")
     del net, x, y
     torch.cuda.empty_cache()
     nd4j = nd4j_and_check(dev)
+    lap("10")
     torch.cuda.empty_cache()
     sd_mlp_res = samediff_mlp(dev, SD_MLP)
     sd_enc = samediff_encoder(dev, BERT_BASE, train)
+    lap("11")
     torch.cuda.empty_cache()
     rnn = char_rnn_phase(dev)
+    lap("12")
     torch.cuda.empty_cache()
     dp = data_parallel_phase(dev, RESNET_TIMED, timed)
+    lap("13")
     torch.cuda.empty_cache()
     runtime = runtime_phase(dev, train, timed, trace)
+    lap("14")
     zoo = cnn_zoo_phase(dev, timed)
+    lap("15")
     torch.cuda.empty_cache()
     catalogue = catalogue_phase(dev)
+    lap("16")
     torch.cuda.empty_cache()
     fine = fine_tune_phase(dev, train, runtime, zoo)
+    lap("17")
     gc.collect()
     torch.cuda.empty_cache()
     serving = serving_phase(dev)
+    lap("18")
     gc.collect()
     torch.cuda.empty_cache()
     sdx = samediff_rest_phase(dev)
+    lap("19")
     gc.collect()
     torch.cuda.empty_cache()
     det = detection_import_phase(dev, sdx["onnx"])
+    lap("20")
     gc.collect()
     torch.cuda.empty_cache()
     wv = word_vectors_phase(dev)
+    lap("21")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl = rl_search_profiler_phase(dev)
+    lap("22")
     launches = result["serve"]["launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
@@ -8511,6 +9402,50 @@ def main():
         f"{wg['tsne']['ms_per_iteration']:.3f} ms an iteration, KL "
         f"{wg['tsne']['kl_start']:.3f} -> {wg['tsne']['kl_end']:.3f}; phase "
         f"21 {wv['seconds']:.1f} s")
+    ra, rp, rb, rc, rd = (rl[k] for k in ("dqn", "profiler",
+                                          "actor_critic", "chain",
+                                          "arbiter"))
+    rt = ra["copy_traffic_per_learn_step"]
+    log(f"RL, search and the profiler on {card}: (a) Nature DQN "
+        f"b{NATURE_DQN['batch']} {ra['steps']} steps ({ra['frames']} "
+        f"frames), {ra['env_steps_per_s']:.0f} env steps/s, "
+        f"{ra['learn_steps_per_s']:.0f} learn steps/s, learn step "
+        f"{ra['learn_ms_median']:.2f} ms median, "
+        f"{ra['kernels_per_learn_step']:.0f} kernels, "
+        f"{rt['h2d_copies']:.0f} host->device copies of "
+        f"{rt['h2d_bytes']:.0f} bytes and {rt['d2h_reads']:.0f} "
+        f"device->host reads a learn step (np.stack "
+        f"{ra['host_split']['stack_ms']:.2f} ms, the copies "
+        f"{ra['host_split']['h2d_ms']:.2f} ms), busy "
+        f"{100 * ra['device_busy_share_of_traced_wall']:.1f} %, "
+        f"{ra['peak_over_before_bytes'] / 2**30:.2f} GiB peak over what was "
+        "allocated before, replay "
+        f"{ra['replay_bytes_unique'] / 2**30:.2f} GiB, card vs CPU Q "
+        f"{ra['parity']['q_rel']:.2e}, gradients "
+        f"{ra['parity']['first_grads_rel']:.2e}, params after "
+        f"{NATURE_DQN['parity_steps']} RMSProp steps "
+        f"{ra['parity']['params_rel_after_rmsprop_steps']:.2e}"
+        + "; (b) " + "; ".join(
+            f"{k} ({v['envs']} envs) {v['rollouts_per_s']:.0f} rollouts/s, "
+                    f"{v['env_steps_per_s']:.0f} env steps/s, update "
+                    f"{v['update_ms_median']:.2f} ms, "
+                    f"{v['kernels_per_rollout_and_update']:.0f} kernels a "
+                    f"rollout, busy "
+                    f"{100 * v['device_busy_share_of_traced_wall']:.1f} %"
+                    for k, v in rb.items() if k != "parity")
+        + f"; (c) chain scores " + ", ".join(
+            f"{k} {v['play_score']}" for k, v in rc.items())
+        + "; (d) " + ", ".join(
+            f"{k} {v['candidates']} x {v['s_per_candidate']:.2f} s, best "
+            f"{v['best_score']:.4f}" for k, v in rd.items()
+            if k != "invalid")
+        + f"; (e) section first {rp['sections']['first_call_ms']:.2f} ms, "
+        f"steady {rp['sections']['steady_avg_ms']:.2f} ms vs CUDA events "
+        f"{rp['sections']['steady_event_ms_mean']:.2f} ms, Q forward "
+        f"{rp['q_forward_b32_flops']:.0f} flops, learn step mfu "
+        f"{rp['learn_step_mfu']:.2e}; phase 22 {rl['seconds']:.1f} s")
+    log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in laps.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -61,7 +61,14 @@ What is ported so far:
   ParagraphVectors in every mode, Glove, FastText, the tokenizers,
   vectorizers, serializer and CnnSentenceDataSetIterator), ``clustering``
   (k-means, LSH, the trees, NearestNeighborsServer), ``graph.DeepWalk``
-  and ``plot.BarnesHutTsne``, their random numbers behind ``util.draws``.
+  and ``plot.BarnesHutTsne``, their random numbers behind ``util.draws``;
+* reinforcement learning, hyperparameter search and the profiler:
+  ``rl`` (DQN over dense and pixel inputs with frame stacking, A3C,
+  async n-step Q, the gym adapter), ``arbiter`` (random, grid and
+  genetic search over ``MultiLayerSpace``/``ComputationGraphSpace``),
+  ``util.profiler`` (``OpProfiler``, ``trace``/``annotate`` over
+  ``torch.profiler``, ``compiled_cost``, ``mfu``), ``util.workspace``
+  and the telemetry kill switch, spans and trace exports.
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

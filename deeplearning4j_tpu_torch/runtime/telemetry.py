@@ -1,17 +1,24 @@
-"""Metrics registry + span ring for the serving path.
+"""Metrics registry + span ring.
 
-A trimmed copy of ``deeplearning4j_tpu/runtime/telemetry.py``: the
+The counterpart of ``deeplearning4j_tpu/runtime/telemetry.py``: the
 process-wide, thread-safe counters / gauges / fixed-bucket histograms
 (with exact percentile readout over a bounded sample reservoir),
 Prometheus-style labels, the Prometheus text exposition served on
-``GET /metrics``, a JSON ``snapshot()``, and ``add_span``/``event``
-into a bounded ring on an injectable clock. Instruments live at
-dispatch boundaries on host code that already runs between device
-launches; nothing here touches a device.
+``GET /metrics``, a JSON ``snapshot()``, spans (``span``, ``add_span``,
+``event``) into a bounded ring on an injectable clock, exported as
+Chrome trace-event JSON (``export_chrome_trace``, which Perfetto opens)
+or JSONL (``export_jsonl``), and a process-wide kill switch:
+``set_enabled(False)`` (or env ``DL4J_TPU_TELEMETRY=off``) turns every
+instrument write and span record into a no-op, while reads (snapshot,
+exposition, export) keep working on what was recorded. Instruments
+live at dispatch boundaries on host code that already runs between
+device launches; nothing here touches a device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import math
 import os
 import re
@@ -19,7 +26,25 @@ import threading
 import time
 
 __all__ = ["MetricsRegistry", "Counter", "Gauge", "Histogram",
-           "TraceBuffer", "get_registry", "percentile", "DEFAULT_BUCKETS"]
+           "TraceBuffer", "get_registry", "set_enabled", "enabled",
+           "percentile", "DEFAULT_BUCKETS"]
+
+# process-wide kill switch (the overhead A/B: instrumented vs disabled)
+_ENABLED = os.environ.get("DL4J_TPU_TELEMETRY", "on").lower() \
+    not in ("off", "0", "false", "no")
+
+
+def set_enabled(on: bool) -> bool:
+    """Flip the process-wide telemetry switch. Disabled = every
+    instrument write and span record is a no-op (reads keep working on
+    whatever was recorded)."""
+    global _ENABLED
+    _ENABLED = bool(on)
+    return _ENABLED
+
+
+def enabled() -> bool:
+    return _ENABLED
 
 
 def percentile(values, q):
@@ -88,6 +113,8 @@ class _Child:
             self.samples = []         # bounded ring, newest last
 
     def inc(self, n=1.0):
+        if not _ENABLED:
+            return self
         if self._parent.kind == "counter" and n < 0:
             raise ValueError(f"counter increment must be >= 0, got {n}")
         with self._parent._lock:
@@ -102,6 +129,8 @@ class _Child:
     def set(self, v):
         if self._parent.kind != "gauge":
             raise TypeError(f"set() on a {self._parent.kind}")
+        if not _ENABLED:
+            return self
         with self._parent._lock:
             self.value = float(v)
         return self
@@ -109,6 +138,8 @@ class _Child:
     def observe(self, v):
         if self._parent.kind != "histogram":
             raise TypeError(f"observe() on a {self._parent.kind}")
+        if not _ENABLED:
+            return self
         v = float(v)
         p = self._parent
         with p._lock:
@@ -273,6 +304,8 @@ class TraceBuffer:
         self.dropped = 0   # spans evicted by the ring bound
 
     def add(self, name, cat, ts, dur, args=None, ph="X"):
+        if not _ENABLED:
+            return
         span = {"name": str(name), "cat": str(cat), "ts": float(ts),
                 "dur": float(dur), "ph": ph, "pid": os.getpid(),
                 "tid": threading.get_ident(),
@@ -348,6 +381,19 @@ class MetricsRegistry:
         self.trace.clear()
         return self
 
+    @contextlib.contextmanager
+    def span(self, name, cat="", **args):
+        """Record the wrapped block as one complete span on this
+        registry's clock (nothing while telemetry is disabled)."""
+        if not _ENABLED:
+            yield
+            return
+        t0 = self.clock()
+        try:
+            yield
+        finally:
+            self.trace.add(name, cat, t0, self.clock() - t0, args)
+
     def add_span(self, name, cat, ts, dur, **args):
         """Record a span with explicit start/duration (seconds) on the
         caller's clock (a scheduler's clock may be a ManualClock)."""
@@ -410,6 +456,40 @@ class MetricsRegistry:
                 else:
                     lines.append(f"{name}{suffix} {c.value:g}")
         return "\n".join(lines) + "\n"
+
+
+    def chrome_trace(self):
+        """The span ring as a Chrome trace-event JSON object (ts and dur
+        in microseconds, as the format wants)."""
+        events = []
+        for s in self.trace.spans():
+            ev = {"name": s["name"], "cat": s["cat"] or "default",
+                  "ph": s["ph"], "ts": s["ts"] * 1e6,
+                  "pid": s["pid"], "tid": s["tid"], "args": s["args"]}
+            if s["ph"] == "X":
+                ev["dur"] = s["dur"] * 1e6
+            else:
+                ev["s"] = "t"   # instant scope: thread
+            events.append(ev)
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def export_chrome_trace(self, path):
+        """Write ``chrome_trace()`` to `path` (tmp + rename); -> path."""
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as fh:
+            json.dump(self.chrome_trace(), fh)
+        os.replace(tmp, path)
+        return path
+
+    def export_jsonl(self, path):
+        """One JSON object per span, oldest first (tmp + rename);
+        -> path."""
+        tmp = f"{path}.tmp"
+        with open(tmp, "w") as fh:
+            for s in self.trace.spans():
+                fh.write(json.dumps(s) + "\n")
+        os.replace(tmp, path)
+        return path
 
 
 _REGISTRY = MetricsRegistry()

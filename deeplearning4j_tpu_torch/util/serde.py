@@ -61,7 +61,7 @@ _WAITS = {
 }
 def _waits_for(mod_name):
     return ("the classes that wait are ROADMAP.md Queue 1 items 7, 11, "
-            "12b, 12c and 13")
+            "12c and 13")
 
 
 def _ref_defaults(obj):

@@ -7,7 +7,7 @@ walk of every source file — the shape of tests/test_telemetry.py's
 no-jax gate. Module names are matched exactly, so
 ``deeplearning4j_tpu_torch`` itself passes. The walk covers every
 subpackage, ``modelimport/``, ``analysis/``, ``nlp/``, ``clustering/``,
-``graph/`` and ``plot/`` included. ``h5py`` is
+``graph/``, ``plot/``, ``rl/`` and ``arbiter/`` included. ``h5py`` is
 imported by the package only inside the calls that read a Keras file,
 never at a module's top level; ``chip_smoke.py`` and the test helpers it
 loads on the card's machine (``tests/_torch_{onnx,keras,tf}_models.py``)
@@ -74,11 +74,14 @@ def test_gate_covers_the_port():
             "pretrained.py", "word2vec.py", "glove.py", "fasttext.py",
             "tokenization.py", "query.py", "vectorizers.py",
             "cnn_sentence.py", "kmeans.py", "trees.py", "lsh.py",
-            "deepwalk.py", "tsne.py", "draws.py"} <= names
+            "deepwalk.py", "tsne.py", "draws.py", "qlearning.py",
+            "a3c.py", "async_nstep.py", "gym.py", "spaces.py",
+            "layerspace.py", "profiler.py", "workspace.py",
+            "pytree.py"} <= names
     dirs = {p.parent.name for p in _SOURCES}
     assert {"ops", "nn", "conf", "data", "zoo", "serving",
             "parallel", "modelimport", "analysis", "autodiff", "nlp",
-            "clustering", "graph", "plot"} <= dirs
+            "clustering", "graph", "plot", "rl", "arbiter"} <= dirs
     assert all(p.exists() for p in _SOURCES)
 
 

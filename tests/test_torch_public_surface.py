@@ -25,8 +25,6 @@ _REF, _PORT = "deeplearning4j_tpu", "deeplearning4j_tpu_torch"
 #: names of the reference that wait, by package, with the item that
 #: holds them
 WAITING = {
-    "util": ({"MemoryWorkspace", "WorkspaceConfiguration",
-              "WorkspaceManager", "OpProfiler", "trace", "annotate"}, "13"),
     "ndarray": ({"XlaExecutioner"}, "13"),
     "analysis": ({
         "CollectiveContract", "CollectiveSignature", "ConfigValidationError",
@@ -50,7 +48,7 @@ WAITING = {
         "ulysses_attention"}, "7"),
 }
 #: reference packages with no counterpart yet, with their item
-WAITING_PACKAGES = {"rl": "12b", "arbiter": "12b", "linalg": "12c"}
+WAITING_PACKAGES = {"linalg": "12c"}
 
 
 def _public(path):
@@ -175,8 +173,8 @@ def test_sampled_onehot_feedback_is_the_references():
 def _serde_refusal():
     from deeplearning4j_tpu_torch.util import serde
 
-    serde.decode({"__o": "deeplearning4j_tpu.rl.qlearning:QLearningConfiguration",
-                  "attrs": {}}, [])
+    serde.decode({"__o": "deeplearning4j_tpu.linalg.distributed:"
+                         "DistributedMatrix", "attrs": {}}, [])
 
 
 def _distribute():
@@ -186,7 +184,7 @@ def _distribute():
 
 
 DEFERRED = {
-    "serde": (_serde_refusal, r"items 7, 11, 12b, 12c and 13"),
+    "serde": (_serde_refusal, r"items 7, 11, 12c and 13"),
     "distribute": (_distribute, r"item 12c"),
 }
 
