@@ -38,8 +38,9 @@ Phases (any failure exits non-zero before the result line):
    behind ModelHost + InferenceServer; 8 concurrent HTTP :generate
    requests with 64..512-token prompts and maxNewTokens 32. Every answer
    must be 200 with 32 tokens, both kernels must have launched and the
-   plain version not at all. Reports time to first token and decode
-   tokens/s. Then one bucket-8 decode_paged step at the burst's lengths,
+   plain version not at all (the scheduler replays one captured decode
+   graph per bucket; prefill stays eager). Reports time
+   to first token and decode tokens/s. Then one bucket-8 decode_paged step at the burst's lengths,
    timed two ways (median of 5): host wall time to a synchronize, and
    device time: CUDA events around the step queued behind a spin
    kernel, so its kernels run back to back with no host gap between
@@ -507,7 +508,8 @@ Phases (any failure exits non-zero before the result line):
    512, 6 actions, RMSProp 2.5e-4, b32, gamma 0.99, frame skip 4, TD
    error clipped to 1, double DQN) through QLearningDiscreteConv on a
    seeded 84x84 catch game written here (ALE does not ship), replay
-   5,000, learning from step 500, target sync every 1,000, 3,000 steps:
+   5,000, learning from step 500, target sync every 1,000, 2,000 steps
+   (cut from 3,000 to keep the whole smoke near 720 s):
    env steps/s, learn steps/s and the median learn step, kernels a learn
    step and the busy share of a traced block, host->device copies and
    bytes and device->host copies a learn step (from (e)'s trace), peak
@@ -535,11 +537,45 @@ Phases (any failure exits non-zero before the result line):
    compiled_cost of the b32 Q forward equals the analytic 598,147,072
    flops, mfu of the learn step, the spans exported as Chrome trace and
    JSONL read back. No hand-written kernel launches.
+23. capture, warm start and tuning (runtime.aot's CUDA graphs, TF32
+   off). (a) Phase 4's model (GPT-2-small widths, page 16, bf16, 513
+   pages): warm() captures one decode graph per slot bucket (1/2/4/8);
+   the 8-request burst served eager and replayed (TTFT, decode tokens/s,
+   K4 12 launches a decode step in both, zero captures and uncaptured
+   dispatches in the burst by CompileWatch); a swap_sequence re-captures
+   one graph a bucket, counted; the bucket-8 decode_paged step captured
+   and timed both ways by phase 4's method (host wall to a synchronize,
+   device by CUDA events behind a spin kernel), the replayed logits
+   bitwise the eager ones and a replay adding K4 once a layer; phase
+   12(c)'s carry-slot bucket-8 step the same way (config 3's widths,
+   random weights). (b) Phase 18's
+   ResNet-50 bf16 eval behind ParallelInference at buckets 1/8/32/128,
+   precompiled (one graph a bucket): b1 and b128 output() host ms eager
+   vs replayed (median of 10), outputs bitwise within a bucket, zero
+   cold dispatches. (c) Eager against captured training (precompile,
+   then fit), losses and final parameters and state bitwise, step ms,
+   rate and peak memory of each: (i) phase 9(b)'s ResNet-50 (224^2, 1000
+   classes, bf16, NHWC, Nesterovs(0.1, 0.9), b128; the features fed as
+   f32) 20 steps, (ii) phase 8's LeNet with Adam on a step schedule
+   (device-scalar hyperparameters) 20 steps, (iii) phase 7's encoder 20
+   steps with K1-K3 replayed 12 times a step each, (iv) VGG16 bf16 b64
+   with dropout on, 5 steps (the replayed masks are the eager ones).
+   (d) autotune of LeNet b64 (the bf16 subject) and ResNet-50 b128,
+   scored by the captured step's CUDA-event wall: each candidate's
+   bytes, wall and verdict, the skipped ("identical") knobs, the
+   winners; a second process's autotune and warm_start from the
+   persisted record sweep nothing and capture nothing. (e) ResNet-50
+   b128 bf16: train_step_floor, the counted bytes (compiled_cost's rule,
+   op by op), their ratio, the bins summing to the count,
+   static_memory_terms against max_memory_allocated; the dtype audit
+   clean under the compute tail and flagging the wide one.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
-17(e)'s, and K1's plus phase 20(d)(ii)'s; phases 8-10, 12, 13, 14(a),
+17(e)'s plus phase 23(c)(iii)'s replays, and K1's plus phase
+20(d)(ii)'s; K4's phase 4's plus phase 23(a)'s two bursts, replays
+included; phases 8-10, 12, 13, 14(a),
 14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii), 21 and 22 run no
 hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout,
@@ -5515,8 +5551,9 @@ SERVE_LOAD = dict(serial=24, requests=512, clients=16, min_rate=200.0,
 #: them (int8 weights move near-tied logits)
 SERVE_INT8 = dict(rows=256, top1=0.99, reps=5)
 #: (f): two swaps during an open loop of `requests`, after the given
-#: numbers of completed requests
-SERVE_SWAP = dict(requests=256, images=8, swap_after=(64, 160))
+#: numbers of completed requests; 1,024 at 200/s hold both (a captured
+#: version's warm takes ~1.7 s: its four buckets' warm-up and capture)
+SERVE_SWAP = dict(requests=1024, images=8, swap_after=(64, 160))
 #: (g): the fleet
 SERVE_FLEET = dict(replicas=2, skew_requests=256, hot=0.8,
                    wedged_requests=4, swap_requests=128, seq_requests=4,
@@ -8143,11 +8180,11 @@ def word_vectors_phase(dev):
 #: output an action (6), RMSProp at 2.5e-4, batch 32, gamma 0.99, frame
 #: skip 4, the TD error clipped to 1, double DQN. Cut: the replay (1 M ->
 #: 5,000 transitions), the start of learning (50,000 -> 500 steps), the
-#: target sync (10,000 -> 1,000 steps), the run (50 M frames -> 3,000
+#: target sync (10,000 -> 1,000 steps), the run (50 M frames -> 2,000
 #: steps) and epsilon's anneal (1 M frames -> 2,000 steps, to 0.1)
 NATURE_DQN = dict(image=84, history=4, skip=4, actions=6, batch=32,
                   gamma=0.99, lr=2.5e-4, replay=5000, update_start=500,
-                  target_every=1000, steps=3000, epsilon_steps=2000,
+                  target_every=1000, steps=2000, epsilon_steps=2000,
                   min_epsilon=0.1, balls=5, traced_steps=5,
                   profiled_steps=20, parity_replay=256, parity_steps=3,
                   seed=SEED)
@@ -8961,6 +8998,483 @@ def rl_search_profiler_phase(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 23: capture, warm start and tuning
+# ----------------------------------------------------------------------
+
+#: 23(a): phase 4's model and burst; the decode step at bucket 8
+CAPTURE_DECODE = dict(requests=8, new_tokens=32, buckets=(1, 2, 4, 8),
+                      pages=513)
+#: 23(c): steps of each eager/captured pair (VGG16 5: dropout's masks)
+CAPTURE_TRAIN = dict(resnet=20, lenet=20, encoder=20, vgg=5, vgg_batch=64)
+#: 23(d): the sweeps' proving steps and timed replays a candidate
+CAPTURE_TUNE = dict(steps=2, reps=5, lenet_batch=64)
+
+
+def both_step_times(steps, reps=5):
+    """Phase 4's method for each {name: step}: host wall to a synchronize
+    (median of `reps`) and device time by CUDA events behind a spin
+    kernel (median of `reps`)."""
+    import torch
+
+    out = {}
+    for name, step in steps.items():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        host, device = [], []
+        for _ in range(reps):
+            t = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            step()
+            b.record()
+            need(not a.query(), f"capture: {name}'s spin ended before the "
+                 "step was queued")
+            b.synchronize()
+            device.append(a.elapsed_time(b))
+        out[name] = {"host_ms": float(np.median(host)),
+                     "device_ms": float(np.median(device)),
+                     "host_ms_all": host, "device_ms_all": device}
+    return out
+
+
+def _bitwise(a, b, what):
+    """Two tensors (or lists of them) equal bit for bit."""
+    import torch
+
+    a = a if isinstance(a, (list, tuple)) else [a]
+    b = b if isinstance(b, (list, tuple)) else [b]
+    need(len(a) == len(b), f"{what}: {len(a)} vs {len(b)} tensors")
+    for i, (u, v) in enumerate(zip(a, b)):
+        need(u.shape == v.shape and torch.equal(u, v),
+             f"{what}: tensor {i} differs")
+
+
+def capture_decode(dev, cfg):
+    """23(a): one captured decode graph per slot bucket, the burst served
+    replayed and eager, the bucket-8 step both ways, the swap."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.transformer import CausalTransformerLM
+    from deeplearning4j_tpu_torch.ops import paged_attention as tpa
+    from deeplearning4j_tpu_torch.runtime import aot, telemetry
+    from deeplearning4j_tpu_torch.serving import ModelHost
+
+    lm = CausalTransformerLM(device=dev, **GPT2_SMALL)
+    rng = np.random.default_rng(SEED + 23)
+    lens = rng.integers(64, 513, size=cfg["requests"])
+    prompts = [rng.integers(0, lm.vocab, size=int(n)).tolist()
+               for n in lens]
+    reg = telemetry.get_registry()
+    cache = aot.session_cache() or aot.enable()
+    host = ModelHost()
+    out = {}
+    try:
+        for name, capture in (("eager", False), ("graphs", True)):
+            c0 = dict(cache.stats)
+            rep = host.register_sequence(
+                name, lm, numPages=cfg["pages"],
+                slotBuckets=cfg["buckets"], precompile=capture)
+            if not capture:
+                # the eager baseline: the scheduler's own device step
+                sm = host._sequences[name]
+                sm.scheduler._step_capture = None
+                rep["warm"] = sm.warm()
+            captured = cache.stats["captures"] - c0["captures"]
+            need(captured == (len(cfg["buckets"]) if capture else 0),
+                 f"capture (a): warm() of {name} captured {captured}")
+            reg.trace.clear()
+            tpa.reset_launches()
+            with aot.CompileWatch(cache) as watch:
+                t = time.perf_counter()
+                reqs = [host.generate(name, p, max_new_tokens=cfg[
+                    "new_tokens"], wait=False) for p in prompts]
+                toks = [r.wait(600) for r in reqs]
+                wall = time.perf_counter() - t
+            watch.assert_no_compiles(f"capture (a): {name}'s burst")
+            need(all(len(x) == cfg["new_tokens"] for x in toks),
+                 f"capture (a): {name}: a request came back short")
+            steps = [s for s in reg.trace.spans()
+                     if s["name"] == "sequence.step"
+                     and s["args"]["model"] == f"{name}:v1"]
+            dec = sum(s["args"]["slots"] for s in steps)
+            k4 = tpa.paged_flash_decode.launches
+            need(k4 == len(steps) * lm.n_layers, f"capture (a): {name}: K4 "
+                 f"{k4} launches for {len(steps)} decode steps")
+            ttft = reg.get("dl4j_seq_ttft_seconds").labels(
+                model=f"{name}:v1")
+            out[name] = {"warm_s": {str(k): v for k, v in
+                                    rep["warm"].items()},
+                         "ttft_p50_s": ttft.percentile(50),
+                         "ttft_max_s": ttft.percentile(100),
+                         "decode_steps": len(steps),
+                         "decode_tok_per_s": dec / sum(s["dur"]
+                                                       for s in steps),
+                         "burst_wall_s": wall, "k4_launches": k4,
+                         "k4_per_step": k4 / max(1, len(steps))}
+        c0 = cache.stats["captures"]
+        host.swap_sequence("graphs", lm)
+        recaptured = cache.stats["captures"] - c0
+        need(recaptured == len(cfg["buckets"]), f"capture (a): the swap "
+             f"re-captured {recaptured}, one a bucket expected")
+        out["swap_recaptures"] = recaptured
+    finally:
+        host.close(drain=False)
+
+    # the bucket-8 step as phase 4 times it, eager and replayed
+    S = cfg["buckets"][-1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (lm.n_layers, P, lm.page_size, lm.n_heads, lm.head_dim)
+    kps, vps = (torch.randn(shape, generator=gen, device=dev,
+                            dtype=lm.emb.dtype) for _ in range(2))
+    sl_list = [int(n) + 16 for n in lens]
+    bt = torch.from_numpy(tables(np.random.default_rng(SEED),
+                                 [n + 1 for n in sl_list])).to(dev)
+    sl = torch.tensor(sl_list, dtype=torch.int32, device=dev)
+    tokens = torch.zeros(S, dtype=torch.int64, device=dev)
+
+    def eager():
+        return lm.decode_paged(tokens, kps, vps, bt, sl)[0]
+
+    step = aot.CapturedStep(lambda t: lm.decode_paged(t, kps, vps, bt,
+                                                      sl)[0],
+                            entry="smoke.decode_step",
+                            fingerprint="smoke.decode_step")
+    step.capture((tokens,))
+    _bitwise(eager(), step(tokens).clone(),
+             "capture (a): replayed vs eager decode logits")
+    k0 = tpa.paged_flash_decode.launches
+    step(tokens)
+    need(tpa.paged_flash_decode.launches - k0 == lm.n_layers,
+         "capture (a): a replayed decode step does not add K4 once a layer")
+    out["decode_step"] = both_step_times(
+        {"eager": eager, "replayed": lambda: step(tokens)})
+    del step, kps, vps
+    out["carry_slot_step"] = capture_carry_step(dev)
+    log("capture (a): " + json.dumps(out))
+    return out
+
+
+def capture_carry_step(dev):
+    """23(a): phase 12(c)'s carry-slot bucket-8 step, eager and replayed
+    (config 3's widths, bf16, random weights)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.runtime import aot
+
+    net = char_rnn(dev, CHAR_RNN, "BFLOAT16")
+    S = 8
+    x = torch.zeros((S, net.conf.inputType.size), device=dev)
+    x[:, 0] = 1.0
+    carries = net.rnnCarryZeros(S)
+
+    def eager():
+        return net.rnnStepBatched(x, carries)[0]
+
+    step = aot.CapturedStep(lambda xx: net.rnnStepBatched(xx, carries)[0],
+                            entry="smoke.carry_step",
+                            fingerprint="smoke.carry_step")
+    step.capture((x,))
+    _bitwise(eager(), step(x).clone(),
+             "capture (a): replayed vs eager carry-slot outputs")
+    return both_step_times({"eager": eager, "replayed": lambda: step(x)})
+
+
+def capture_oneshot(dev):
+    """23(b): phase 18's ResNet-50 bf16 eval behind ParallelInference,
+    buckets 1/8/32/128: b1 and b128 host ms eager vs replayed, outputs
+    bitwise within a bucket, no cold dispatch."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+
+    net = serve_resnet(dev)
+    images = serve_images(128, seed=SEED + 23)
+    eager = ParallelInference(net, batchBuckets=SERVE["buckets"])
+    graphs = ParallelInference(net, batchBuckets=SERVE["buckets"])
+    t = time.perf_counter()
+    rep = graphs.precompile()
+    capture_s = time.perf_counter() - t
+    out = {"capture_s": capture_s,
+           "bucket_capture_s": {str(b): r["seconds"]
+                                for b, r in rep.items()}}
+    for rows in (1, 128):
+        x = images[:rows]
+        a = eager.output(x).toNumpy()        # warms the eager bucket
+        b = graphs.output(x).toNumpy()
+        need(np.array_equal(a.view(np.uint32), b.view(np.uint32)),
+             f"capture (b): replayed b{rows} outputs differ from eager")
+        for name, pi in (("eager", eager), ("replayed", graphs)):
+            ms = []
+            for _ in range(10):
+                t = time.perf_counter()
+                pi.output(x)
+                ms.append((time.perf_counter() - t) * 1e3)
+            out[f"b{rows}_{name}_host_ms"] = float(np.median(ms))
+            out[f"b{rows}_{name}_host_ms_all"] = ms
+    need(graphs.cold_dispatches == 0,
+         f"capture (b): {graphs.cold_dispatches} cold dispatches")
+    out["cold_dispatches"] = graphs.cold_dispatches
+    log("capture (b): " + json.dumps(out))
+    return out
+
+
+def _train_pair(build, x, y, steps, what, precompile):
+    """`steps` fit steps of an eager net and of a captured one built the
+    same way (one at a time: a captured step keeps its pool): losses and
+    final parameters bitwise; step ms, rate and peak memory of each."""
+    import torch
+
+    res = {}
+    finals = {}
+    for name in ("eager", "captured"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        net = build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(net.device)
+        base = torch.cuda.memory_reserved(net.device)
+        if name == "captured":
+            t = time.perf_counter()
+            rep = precompile(net)
+            res["capture_s"] = time.perf_counter() - t
+            res["capture_report"] = {k: v["status"] for k, v in rep.items()}
+        losses, step_s = fit_timed(net, x, y, steps)
+        med = float(np.median(step_s[2:])) if steps > 3 \
+            else float(np.median(step_s))
+        # the peak from before the capture (its warm-up included); the
+        # graph's pool is reserved, not allocated, between replays
+        res[name] = {"step_ms": med * 1e3, "per_s": x.shape[0] / med,
+                     "peak_bytes": torch.cuda.max_memory_allocated(
+                         net.device),
+                     "reserved_growth_bytes": torch.cuda.max_memory_reserved(
+                         net.device) - base, "losses": losses}
+        if name == "captured":
+            cap = net._captured
+            need(cap.uncaptured == 0 and cap.replays == steps,
+                 f"{what}: {cap.replays} replays, {cap.uncaptured} "
+                 f"uncaptured of {steps} steps")
+        finals[name] = [t.detach().cpu() for t in net._step_state()]
+        del net
+    need(res["eager"]["losses"] == res["captured"]["losses"],
+         f"{what}: captured losses differ from eager: "
+         f"{res['eager']['losses'][:3]} vs {res['captured']['losses'][:3]}")
+    _bitwise(finals["eager"], finals["captured"],
+             f"{what}: final parameters and state")
+    return res
+
+
+def capture_training(dev, cfg):
+    """23(c): each pair bitwise, eager against captured."""
+    import torch
+
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.nn import Adam, DataType, Nesterovs
+    from deeplearning4j_tpu_torch.nn.schedules import StepSchedule
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    # (i) 9(b)'s configuration; the features fed as f32, the signature
+    # precompile captures (the network casts to bf16 on the card)
+    x, y = resnet_batch(dev, RESNET_TIMED, RESNET_TIMED["batch"])
+    x = x.float()
+    out["resnet50"] = _train_pair(
+        lambda: resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                           updater=Nesterovs(0.1, 0.9)),
+        x, y, cfg["resnet"], "capture (c)(i) ResNet-50",
+        lambda n: n.precompile(batchSize=RESNET_TIMED["batch"],
+                               entries=("train",)))
+    del x, y
+    # (ii) phase 8's LeNet, Adam on a step schedule
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.random((LENET["batch"], 1, 28, 28),
+                                    dtype=np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, LENET["batch"])]).to(dev)
+    out["lenet"] = _train_pair(
+        lambda: zoo.LeNet(numClasses=10, seed=SEED, device=dev,
+                          updater=Adam(StepSchedule("ITERATION", 1e-3, 0.5,
+                                                    5))).init(),
+        x, y, cfg["lenet"], "capture (c)(ii) LeNet",
+        lambda n: n.precompile(batchSize=LENET["batch"], entries=("train",)))
+    # (iii) phase 7's encoder: K1-K3 replayed, 12 a step each
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+
+    x, y = encoder_batch(BERT_BASE, dev)
+
+    def encoder_pre(n):
+        rep = n.precompile(batchSize=BERT_BASE["batch"], entries=("train",))
+        tfa.reset_launches()
+        return rep
+
+    out["encoder"] = _train_pair(
+        lambda: ComputationGraph(bert_encoder_conf(BERT_BASE)).init(),
+        x, y, cfg["encoder"], "capture (c)(iii) encoder", encoder_pre)
+    launches = {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
+                "K3": tfa.flash_bwd_dkv.launches}
+    want = BERT_BASE["layers"] * cfg["encoder"]
+    need(all(v == want for v in launches.values()), f"capture (c)(iii): "
+         f"replayed launches {launches}, {want} each expected")
+    out["encoder"]["launches"] = launches
+    del x, y
+    # (iv) VGG16 bf16 with dropout on: the replayed masks are the eager
+    vcfg = dict(ZOO_VGG, batch=cfg["vgg_batch"])
+    x, y = zoo_batch(dev, vcfg, vcfg["batch"])
+    x = x.float()
+    out["vgg16_dropout"] = _train_pair(
+        lambda: zoo.VGG16(numClasses=1000, seed=SEED, inputShape=(3, 224,
+                                                                  224),
+                          dataType=DataType.BFLOAT16, dataFormat="NHWC",
+                          device=dev).init(),
+        x, y, cfg["vgg"], "capture (c)(iv) VGG16 dropout",
+        lambda n: n.precompile(batchSize=vcfg["batch"], entries=("train",)))
+    del x, y
+    log("capture (c): " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items()
+             if kk not in ("eager", "captured")} | {
+            "eager_step_ms": v["eager"]["step_ms"],
+            "captured_step_ms": v["captured"]["step_ms"],
+            "eager_peak": v["eager"]["peak_bytes"],
+            "captured_peak": v["captured"]["peak_bytes"],
+            "eager_reserved_growth": v["eager"]["reserved_growth_bytes"],
+            "captured_reserved_growth":
+                v["captured"]["reserved_growth_bytes"]}
+         for k, v in out.items()}))
+    return out
+
+
+def capture_autotune(dev, cfg):
+    """23(d): sweeps of LeNet b64 and ResNet-50 b128 (scored by the
+    captured step's CUDA-event wall), persisted; a second process's
+    warm_start applies them with no sweep and no capture."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.runtime import aot
+    from deeplearning4j_tpu_torch.runtime import autotune as at
+
+    d = tempfile.mkdtemp(prefix="dl4j_tune_")
+    out = {}
+    try:
+        st = at.TuningStore(d)
+        before = at.current_knobs()
+        lenet = at.autotune_subject("lenet", batch_size=cfg["lenet_batch"],
+                                    device=dev, store_=st,
+                                    steps=cfg["steps"])
+        rnet = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                          updater=Nesterovs(0.1, 0.9))
+        shape = (RESNET_TIMED["batch"], RESNET_TIMED["image"],
+                 RESNET_TIMED["image"], 3)
+        res = at.autotune(rnet, shape, store_=st, steps=cfg["steps"])
+        need(at.current_knobs() == before,
+             "capture (d): a sweep left the knobs moved")
+        for name, r in (("lenet", lenet), ("resnet50", res)):
+            need(r.swept, f"capture (d): {name} did not sweep")
+            out[name] = {"knobs": r.knobs, "per_knob": r.per_knob,
+                         "wall": r.wall, "baseline_bytes": r.baseline_bytes,
+                         "tuned_bytes": r.tuned_bytes,
+                         "skipped": [p["knob"] for p in r.per_knob
+                                     if p["verdict"] == "identical"]}
+        # the second process: a fresh store on the directory
+        cache = aot.session_cache() or aot.enable()
+        st2 = at.TuningStore(d)
+        with aot.CompileWatch(cache) as watch:
+            again = at.autotune(rnet, shape, store_=st2)
+            installed = at.warm_start(rnet, store_=st2)
+        watch.assert_no_compiles("capture (d): the second warm_start")
+        at.install(before)
+        need(not again.swept and installed == res.knobs,
+             "capture (d): the second process swept or installed another "
+             "record")
+        out["second_warm_start"] = {"swept": again.swept,
+                                    "installed": installed,
+                                    "captures": watch.captures}
+        del rnet
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    log("capture (d): " + json.dumps(out))
+    return out
+
+
+def capture_ledger(dev):
+    """23(e): ResNet-50 b128 bf16: the floor, the counted bytes, their
+    ratio, the bins (summing to the count), residency against the peak,
+    the dtype audit clean under the compute tail and flagging the wide
+    one."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.ops import norm as tnorm
+    from deeplearning4j_tpu_torch.util import hbm_ledger as H
+
+    net = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                     updater=Nesterovs(0.1, 0.9))
+    shape = (RESNET_TIMED["batch"], RESNET_TIMED["image"],
+             RESNET_TIMED["image"], 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    rows = H.record_step(net, shape)
+    rec = H.attribute_ledger(net, shape, rows=rows)
+    need(sum(rec["bins"].values()) == rec["ledger_total_bytes"],
+         "capture (e): the bins do not sum to the count")
+    res = H.residency(net, shape)
+    audit = H.audit_activation_dtypes(net, shape, rows=rows)
+    need(audit == [], f"capture (e): the compute tail's audit flagged "
+         f"{audit[:3]}")
+    old, tnorm._TAIL_MODE = tnorm._TAIL_MODE, "wide"
+    try:
+        wide = H.audit_activation_dtypes(net, shape)
+    finally:
+        tnorm._TAIL_MODE = old
+    need(len(wide) > 0, "capture (e): the wide tail's audit is clean")
+    out = {"floor_bytes": rec["floor_bytes"],
+           "counted_bytes": rec["ledger_total_bytes"],
+           "ratio_to_floor": rec["ratio_to_floor"], "bins": rec["bins"],
+           "static": res["static"],
+           "max_allocated_bytes": res["max_allocated_bytes"],
+           "wide_tail_offenders": len(wide),
+           "wide_tail_offender_bytes": sum(r["bytes"] for r in wide)}
+    del net, rows
+    log("capture (e): " + json.dumps(out))
+    return out
+
+
+def capture_phase(dev):
+    """Phase 23: (a) decode graphs, (b) one-shot buckets, (c) captured
+    training, (d) autotune, (e) the ledger."""
+    import torch
+
+    t = time.perf_counter()
+    legs, out = {}, {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        legs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    out["decode"] = leg("a", capture_decode, dev, CAPTURE_DECODE)
+    out["oneshot"] = leg("b", capture_oneshot, dev)
+    out["training"] = leg("c", capture_training, dev, CAPTURE_TRAIN)
+    out["autotune"] = leg("d", capture_autotune, dev, CAPTURE_TUNE)
+    out["ledger"] = leg("e", capture_ledger, dev)
+    out["leg_seconds"] = legs
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 23: {out['seconds']:.1f} s (legs " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()) + ")")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -9080,7 +9594,13 @@ def main():
     torch.cuda.empty_cache()
     rl = rl_search_profiler_phase(dev)
     lap("22")
-    launches = result["serve"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cap = capture_phase(dev)
+    lap("23")
+    launches = dict(result["serve"]["launches"])
+    launches["decode"] += sum(cap["decode"][k]["k4_launches"]
+                              for k in ("eager", "graphs"))
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
                             ("prefill", "paged_flash_prefill", 580)):
@@ -9114,7 +9634,8 @@ def main():
             "launches": train["launches"][key] + sd_enc["launches"][key]
             + runtime["encoder"]["launches"][key]
             + fine["graph_transfer"]["launches"][key]
-            + det["keras_mha"]["launches"].get(key, 0),
+            + det["keras_mha"]["launches"].get(key, 0)
+            + cap["training"]["encoder"]["launches"][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
@@ -9444,6 +9965,28 @@ def main():
         f"{rp['sections']['steady_event_ms_mean']:.2f} ms, Q forward "
         f"{rp['q_forward_b32_flops']:.0f} flops, learn step mfu "
         f"{rp['learn_step_mfu']:.2e}; phase 22 {rl['seconds']:.1f} s")
+    cd, ct = cap["decode"], cap["training"]
+    co = cap["oneshot"]
+    log(f"capture on {card}: bucket-8 decode step host "
+        f"{cd['decode_step']['eager']['host_ms']:.3f} -> "
+        f"{cd['decode_step']['replayed']['host_ms']:.3f} ms, device "
+        f"{cd['decode_step']['eager']['device_ms']:.3f} -> "
+        f"{cd['decode_step']['replayed']['device_ms']:.3f} ms; carry-slot "
+        f"step host {cd['carry_slot_step']['eager']['host_ms']:.3f} -> "
+        f"{cd['carry_slot_step']['replayed']['host_ms']:.3f} ms; burst TTFT "
+        f"p50 {cd['eager']['ttft_p50_s']:.4f} -> "
+        f"{cd['graphs']['ttft_p50_s']:.4f} s, decode "
+        f"{cd['eager']['decode_tok_per_s']:.0f} -> "
+        f"{cd['graphs']['decode_tok_per_s']:.0f} tokens/s; one-shot b1 "
+        f"{co['b1_eager_host_ms']:.2f} -> {co['b1_replayed_host_ms']:.2f} "
+        f"ms, b128 {co['b128_eager_host_ms']:.2f} -> "
+        f"{co['b128_replayed_host_ms']:.2f} ms; training step ms (eager -> "
+        "captured): " + ", ".join(
+            f"{k} {v['eager']['step_ms']:.2f} -> {v['captured']['step_ms']:.2f}"
+            for k, v in ct.items()) + f"; autotune winners "
+        f"{cap['autotune']['resnet50']['knobs']}; ledger ratio "
+        f"{cap['ledger']['ratio_to_floor']:.3f}; phase 23 "
+        f"{cap['seconds']:.1f} s")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in laps.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")

@@ -68,7 +68,14 @@ What is ported so far:
   genetic search over ``MultiLayerSpace``/``ComputationGraphSpace``),
   ``util.profiler`` (``OpProfiler``, ``trace``/``annotate`` over
   ``torch.profiler``, ``compiled_cost``, ``mfu``), ``util.workspace``
-  and the telemetry kill switch, spans and trace exports.
+  and the telemetry kill switch, spans and trace exports;
+* capture, warm start and tuning: ``runtime.aot`` (a step captured as a
+  CUDA graph per signature, with warm-start records on disk:
+  ``precompile`` on both networks, SameDiff, ``ParallelWrapper`` and
+  ``ParallelInference``; one captured decode step per slot bucket in the
+  schedulers' ``warm()``), ``runtime.autotune`` (the knobs' arbiter),
+  ``util.hbm_ledger`` and ``analysis.hbm`` (the memory-traffic ledger),
+  ``analysis.RetraceSentinel`` and ``entry.entry``.
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

@@ -55,7 +55,13 @@ The namespaces are the reference's: ``math`` (with the segment ops and
 ``betainc``), ``nn``, ``cnn``, ``rnn``, ``loss``, ``image``, ``linalg``,
 ``bitwise``, ``random`` and ``fft``. What waits raises
 ``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
-``shardWeightUpdate`` (item 7) and ``precompile`` (item 13).
+``shardWeightUpdate`` (item 7). ``precompile`` captures the training
+step as a CUDA graph (``runtime.aot``) that ``fit``, ``fitSteps`` and
+``fitDataSet`` replay; a graph whose ``ifCond`` or unbounded
+``whileLoop`` reads a predicate on the host, or whose random ops draw
+from the step's host-seeded stream, refuses capture with that reason
+(``aot.CaptureRefused``), and each of its steps is counted as an
+uncaptured dispatch.
 ``fitDataSet(stepsPerSync=k)`` runs the networks' block driver (one host
 sync a block of k batches), and ``evaluate`` and ``fit``'s listeners are
 the training runtime's.
@@ -80,6 +86,7 @@ from deeplearning4j_tpu_torch.ndarray.ndarray import (
     INDArray, _from_numpy, to_numpy,
 )
 from deeplearning4j_tpu_torch.nn import updaters as _upd
+from deeplearning4j_tpu_torch.nn.conf import dropout as _dropout
 from deeplearning4j_tpu_torch.nn import weights as _weights
 
 __all__ = ["SameDiff", "SDVariable", "TrainingConfig", "VariableType"]
@@ -557,7 +564,11 @@ class SameDiff:
 
     def _host_pred(self, p):
         """A predicate read on the host: one sync, counted on the
-        outermost graph."""
+        outermost graph (under a capture's warm-up, a refusal)."""
+        sites = _dropout._SITES.get()
+        if sites is not None:
+            sites.refuse("ifCond or an unbounded whileLoop reads its "
+                         "predicate on the host (_control_syncs)")
         self._sync_owner._control_syncs += 1
         return bool(p.reshape(()).to(torch.bool))
 
@@ -620,6 +631,10 @@ class SameDiff:
         return sorted(needed)
 
     def _gen(self, stream, i, path=()):
+        sites = _dropout._SITES.get()
+        if sites is not None:
+            sites.refuse(f"op {i} draws from the step's host-seeded "
+                         "stream, which a graph would bake in")
         g = torch.Generator(device=self.device)
         g.manual_seed(_stream_seed(stream, i, path))
         return g
@@ -660,8 +675,94 @@ class SameDiff:
     def _base_env(self):
         return dict(self._arrays)
 
-    def precompile(self, *args, **kwargs):
-        raise _later("precompile (the AOT executable cache)", 13)
+    def precompile(self, features=None, labels=None, data=None,
+                   cache=None):
+        """Capture the training step at one batch signature (reference:
+        ``precompile``): pass one example batch, (features, labels) or a
+        DataSet. On the card a CUDA graph that the fits replay; on the
+        CPU the same warm-up, eagerly, with its key. The variables,
+        updater state and iteration are as before. Returns {"fit_step":
+        {key, status, seconds}}; raises ``aot.CaptureRefused`` for a
+        graph that cannot be captured (module docstring)."""
+        from deeplearning4j_tpu_torch.runtime import aot
+
+        if self._tc is None:
+            raise ValueError("setTrainingConfig first")
+        cap = self._fit_capture()
+        if cache is not None:
+            cap.pin_cache(cache)
+        if cap.refusal is not None:
+            cap.cache().note_uncaptured(cap.entry, "refused")
+            raise aot.CaptureRefused(cap.refusal)
+        phs = self._batch_to_placeholders(
+            data if data is not None else (features, labels), self._tc)
+        key, status, secs = cap.capture((phs,), iteration=self._iteration)
+        return {"fit_step": {"key": key, "status": status,
+                             "seconds": round(secs, 3)}}
+
+    def _fit_capture(self):
+        """The ``CapturedStep`` of the training step (made once a
+        TrainingConfig and variable set)."""
+        from deeplearning4j_tpu_torch.runtime import aot
+
+        sig = (id(self._tc), tuple(self._trainables()), len(self._ops))
+        if getattr(self, "_captured_sig", None) != sig:
+            sd = self
+
+            def body(phs, iteration):
+                tc, loss_names, params, state = sd._fit_setup()
+                loss, _ = sd._step(tc, loss_names, params, state, phs,
+                                   iteration, hyper=sd._hyper_scalars())
+                return loss
+
+            def snapshot():
+                with torch.no_grad():
+                    return [t.detach().clone() for t in sd._step_tensors()]
+
+            def restore(snap):
+                with torch.no_grad():
+                    for t, v in zip(sd._step_tensors(), snap):
+                        t.copy_(v)
+
+            self._hyper = None
+            self._captured = aot.CapturedStep(
+                body, entry="fit_step",
+                fingerprint=aot.samediff_fingerprint(self),
+                prologue=lambda iteration: self._hyper_scalars().write(
+                    iteration),
+                snapshot=snapshot, restore=restore)
+            self._captured_sig = sig
+        return self._captured
+
+    def _hyper_scalars(self):
+        if getattr(self, "_hyper", None) is None:
+            params = [self._arrays[n] for n in self._trainables()]
+            dt = torch.float64 if any(p.dtype == torch.float64
+                                      for p in params) else torch.float32
+            self._hyper = _upd.HyperScalars([self._tc.updater], dt,
+                                            self.device)
+        return self._hyper
+
+    def _step_tensors(self):
+        """The tensors a training step writes in place: the variables
+        and the updater state."""
+        from deeplearning4j_tpu_torch.nn.multilayer import tree_leaves
+
+        tc, _, params, state = self._fit_setup()
+        return [params[n] for n in sorted(params)] + [
+            t for t in tree_leaves(state) if isinstance(t, torch.Tensor)]
+
+    def _dispatch_step(self, tc, loss_names, params, state, phs, it):
+        """One training step: a replay of the captured graph at this
+        batch's signature once ``precompile`` ran (an uncaptured one is
+        counted), else the eager step. Returns (loss, state)."""
+        cap = getattr(self, "_captured", None)
+        if cap is None or getattr(self, "_captured_sig", None) != (
+                id(tc), tuple(self._trainables()), len(self._ops)):
+            return self._step(tc, loss_names, params, state, phs, it)
+        if cap.refusal is not None:
+            return cap._eager((phs,), {"iteration": it}, "refused"), state
+        return cap(phs, iteration=it).clone(), state
 
     def output(self, placeholders, outputs):
         """Run the slice for `outputs` (reference: SameDiff.output/exec)
@@ -797,10 +898,12 @@ class SameDiff:
             self._train_state = state
         return self._train_state
 
-    def _step(self, tc, loss_names, params, state, phs, it):
+    def _step(self, tc, loss_names, params, state, phs, it, hyper=None):
         """One training step at iteration `it`: forward, loss, gradients,
         weight decay and the update, which writes the graph's variable
-        tensors in place. Returns the loss tensor (not fetched)."""
+        tensors in place (`hyper`: the updater's hyperparameters as
+        device scalars, as a captured step reads them). Returns the loss
+        tensor (not fetched)."""
         from deeplearning4j_tpu_torch.nn.multilayer import \
             default_param_update
 
@@ -832,8 +935,9 @@ class SameDiff:
             if tc.weightDecay:
                 grads = {n: g + tc.weightDecay * params[n]
                          for n, g in grads.items()}
-            _, state = default_param_update(tc.updater, grads, state, it,
-                                            params)
+            _, state = default_param_update(
+                tc.updater, grads, state, it, params,
+                None if hyper is None else hyper.views(0))
         return loss.detach(), state
 
     def _fit_setup(self):
@@ -859,8 +963,9 @@ class SameDiff:
         for _ in range(epochs):
             for b in batches:
                 phs = self._batch_to_placeholders(b, tc)
-                loss, state = self._step(tc, loss_names, params, state,
-                                         phs, self._iteration)
+                loss, state = self._dispatch_step(tc, loss_names, params,
+                                                  state, phs,
+                                                  self._iteration)
                 self._train_state = state
                 self._iteration += 1
                 history.append(float(loss))
@@ -877,8 +982,8 @@ class SameDiff:
             data if data is not None else (features, labels), tc)
         loss = None
         for _ in range(int(numSteps)):
-            loss, state = self._step(tc, loss_names, params, state, phs,
-                                     self._iteration)
+            loss, state = self._dispatch_step(tc, loss_names, params, state,
+                                              phs, self._iteration)
             self._train_state = state
             self._iteration += 1
         return float(loss)
@@ -929,7 +1034,7 @@ class SameDiff:
         it_next = 0   # the dispatch-side iteration cursor
 
         def step(tensors, it):
-            loss, self._train_state = self._step(
+            loss, self._train_state = self._dispatch_step(
                 tc, loss_names, params, self._train_state,
                 self._batch_args(tensors), it)
             return loss

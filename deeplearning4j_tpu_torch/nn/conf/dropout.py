@@ -22,9 +22,25 @@ and never touches the global generator; a forward recomputed under a
 checkpoint policy draws the same mask again. JAX's threefry and torch's
 Philox never agree, so the port's masks differ from the reference's:
 parity holds under an injected mask.
+
+Under a CUDA-graph capture (``runtime.aot``) a generator made on the host
+would bake its seed into the graph, and every replay would draw the same
+masks. ``DrawSites`` takes its place: the warm-up RECORDS each draw site
+of the step (its key, whose second integer is the iteration), the
+capture hands each site a generator registered with the graph, and
+before every replay ``reseed(iteration)`` seeds each with the seed the
+eager step would have made at that iteration. Philox reads its seed and
+offset at launch, so a replay draws the eager step's masks bitwise. A
+draw that takes ``StepKey.seed()`` itself (a SameDiff-defined layer's
+stream) cannot be reseeded so, nor can a read of a tensor on the host:
+``refuse`` raises ``aot.CaptureRefused`` with the reason, and the step is
+not captured.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -54,21 +70,107 @@ class StepKey:
         """A key for a sub-stream (a layer, a rank, a direction)."""
         return StepKey(*self.ints, i)
 
-    def seed(self) -> int:
-        """A 63-bit seed mixed from the tuple, on the host."""
+    def _mix(self) -> int:
         h = 0
         for i in self.ints:
             h = _splitmix64(h ^ (i & _MASK64))
         return h >> 1
 
+    def seed(self) -> int:
+        """A 63-bit seed mixed from the tuple, on the host."""
+        sites = _SITES.get()
+        if sites is not None:
+            sites.host_seed(self)
+        return self._mix()
+
     def generator(self, device) -> torch.Generator:
-        """A fresh generator on `device`, seeded from the tuple."""
+        """A fresh generator on `device`, seeded from the tuple (under a
+        capture, the draw site's registered generator)."""
+        sites = _SITES.get()
+        if sites is not None:
+            return sites.generator(self, device)
         g = torch.Generator(device=device)
-        g.manual_seed(self.seed())
+        g.manual_seed(self._mix())
         return g
 
     def __repr__(self):
         return f"StepKey{self.ints}"
+
+
+_SITES = contextvars.ContextVar("draw_sites", default=None)
+
+
+class DrawSites:
+    """The draw sites of one captured step (module docstring)."""
+
+    def __init__(self):
+        self.sites = []         # each site's key integers, in draw order
+        self._gens = []
+        self._mode = None
+        self._next = 0
+
+    @contextlib.contextmanager
+    def _active(self, mode):
+        self._mode, self._next = mode, 0
+        token = _SITES.set(self)
+        try:
+            yield self
+        finally:
+            _SITES.reset(token)
+            self._mode = None
+
+    def recording(self):
+        """The warm-up: note each site, draw from a fresh generator."""
+        self.sites = []
+        return self._active("record")
+
+    def capturing(self):
+        """The capture: hand out the registered generators in order."""
+        return self._active("capture")
+
+    def describe(self):
+        return ", ".join(f"key {k}" for k in self.sites)
+
+    @staticmethod
+    def refuse(reason):
+        """Raise ``aot.CaptureRefused``: the step cannot be captured."""
+        from deeplearning4j_tpu_torch.runtime.aot import CaptureRefused
+
+        raise CaptureRefused(reason)
+
+    def host_seed(self, key):
+        self.refuse(f"the draw at key {key.ints} takes StepKey.seed() on "
+                    "the host (a SameDiff-defined layer's stream), which a "
+                    "graph would bake in")
+
+    def generator(self, key, device):
+        if self._mode == "record":
+            self.sites.append(key.ints)
+            g = torch.Generator(device=device)
+            g.manual_seed(key._mix())
+            return g
+        i = self._next
+        if i >= len(self._gens) or len(self.sites[i]) != len(key.ints):
+            raise RuntimeError(
+                f"the captured step drew at key {key.ints}, which its "
+                "warm-up did not: the draws depend on host state")
+        self._next += 1
+        return self._gens[i]
+
+    def bind(self, graph, device):
+        """One generator per site, registered with `graph` (before the
+        capture begins, as CUDA requires)."""
+        self._gens = []
+        for _ in self.sites:
+            g = torch.Generator(device=device)
+            graph.register_generator_state(g)
+            self._gens.append(g)
+
+    def reseed(self, iteration):
+        """Seed every site as the eager step at `iteration` would."""
+        for ints, g in zip(self.sites, self._gens):
+            g.manual_seed(StepKey(ints[0], int(iteration),
+                                  *ints[2:])._mix())
 
 
 def step_key(seed, iteration, rank=None):

@@ -50,7 +50,7 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.dropout import step_key
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    NetworkRuntime, _grad_normalize, _later, _timed_step, _unwrap,
+    NetworkRuntime, _grad_normalize, _timed_step, _unwrap,
     carry_layer, check_carried, cnn_entry, fit_batches, forward_params,
     is_product, layer_seed, layer_trains, layer_updater, loss_for_head,
     map_tree, mask_slice, out_activation, pretrain_feeds, product_segments,
@@ -129,6 +129,7 @@ class ComputationGraph(NetworkRuntime):
                         for n, p in params.items()}
         if states is not None:
             self._states = map_tree(lambda t: t.to(self.device), states)
+        self._rebind()
         self._updaters, self._upd_states = {}, {}
         for name in self._layer_names:
             u = layer_updater(self.conf.nodes[name].payload)
@@ -314,7 +315,7 @@ class ComputationGraph(NetworkRuntime):
     def _train_step(self, inputs, labels, fmasks, lmasks, window=None,
                     grad_transform=None, loss_transform=None,
                     state_transform=None, bn_group=None, iteration=None,
-                    rank=None):
+                    rank=None, hyper=None):
         """One eager step: forward, backward, normalize, update in place.
         `window` is a truncated-BPTT window's index, and the hooks,
         `bn_group`, `iteration` and `rank` are as in
@@ -350,10 +351,11 @@ class ComputationGraph(NetworkRuntime):
         glist = _grad_normalize(grads, self.conf.gradientNormalization,
                                 self.conf.gradientNormalizationThreshold)
         with torch.no_grad():
-            for name, g in zip(self._layer_names, glist):
+            for i, (name, g) in enumerate(zip(self._layer_names, glist)):
                 self._upd_states[name] = update_layer(
                     self._unit_layer(name), self._updaters[name], g,
-                    self._upd_states[name], it, self._params[name])
+                    self._upd_states[name], it, self._params[name],
+                    None if hyper is None else hyper.views(i))
         for p in self._params.values():
             for t in p.values():
                 t.grad = None
@@ -377,8 +379,8 @@ class ComputationGraph(NetworkRuntime):
             run_tbptt(self, max(v.shape[2] for v in seqs),
                       self.conf.tbpttFwdLength, window)
         else:
-            _timed_step(self, lambda: self._train_step(inputs, labels,
-                                                       fmasks, lmasks))
+            _timed_step(self, lambda: self._dispatch_train(inputs, labels,
+                                                           fmasks, lmasks))
 
     # ------------------------------------------------------------------
     # public API
@@ -570,8 +572,55 @@ class ComputationGraph(NetworkRuntime):
         return run_pretrain(self, layer, layerName, feed,
                             pretrain_feeds(data, epochs))
 
-    def precompile(self, *args, **kwargs):
-        raise _later("precompile (the AOT cache)", "runtime slice, item 13")
+    def _example_shapes(self, batchSize, featuresShape=None,
+                        labelsShape=None):
+        """(featuresShape, labelsShape) of a precompile example batch, for
+        single-input/single-output graphs (reference:
+        ``_example_shapes``)."""
+        from deeplearning4j_tpu_torch.nn.multilayer import \
+            shape_for_output_type
+        from deeplearning4j_tpu_torch.parallel.inference import \
+            shape_for_input_type
+
+        if len(self.conf.networkInputs) != 1 \
+                or len(self.conf.networkOutputs) != 1:
+            raise ValueError(
+                "precompile supports single-input/single-output "
+                "ComputationGraphs; warm a multi-IO graph by fitting "
+                "one real (or zero) MultiDataSet")
+        if featuresShape is None:
+            featuresShape = shape_for_input_type(
+                self.conf.inputTypes.get(self.conf.networkInputs[0]),
+                batchSize)
+        if labelsShape is None:
+            out_node = self.conf.nodes[self.conf.networkOutputs[0]]
+            if out_node.kind != "layer" \
+                    or hasattr(out_node.payload, "computeLoss"):
+                raise ValueError(
+                    "precompile needs labelsShape=... for this output "
+                    "(vertex output or composite-loss head)")
+            labelsShape = shape_for_output_type(
+                out_node.inputType, batchSize, api_nhwc=self._api_nhwc,
+                t_fallback=featuresShape[-1]
+                if len(featuresShape) == 3 else None)
+        return featuresShape, labelsShape
+
+    def precompile(self, batchSize=32, featuresShape=None,
+                   labelsShape=None, entries=("train", "infer"),
+                   stepsPerSync=None, cache=None, autotune=False):
+        """Capture the train step of a single-input/single-output graph
+        (``MultiLayerNetwork.precompile``; reference: ``precompile``)."""
+        from deeplearning4j_tpu_torch.nn.multilayer import precompile_network
+
+        featuresShape, labelsShape = self._example_shapes(
+            batchSize, featuresShape, labelsShape)
+        in_name = self.conf.networkInputs[0]
+        return precompile_network(
+            self, batchSize=batchSize, featuresShape=featuresShape,
+            labelsShape=labelsShape, entries=entries,
+            stepsPerSync=stepsPerSync, cache=cache,
+            wrap_args=lambda x, y: ({in_name: x}, [y]),
+            autotune=autotune)
 
     def output(self, *features):
         """The output activations, one ``INDArray`` per network output

@@ -10,7 +10,9 @@ gathers each example's class weight. The dtype policy is the reference's
 default ("compute") tail: under a sub-fp32 compute dtype the
 activation-scale tensors stay in that dtype and fp32 appears only in the
 reduction accumulators and the per-row logsumexp (``tail_dtype`` says
-what a trainer casts to first).
+what a trainer casts to first). ``_TAIL_MODE`` "wide" (the autotune
+arbiter's ``loss_tail`` knob; initial value from ``DL4J_TPU_LOSS_TAIL``)
+is the reference's all-fp32 tail: ``tail_dtype`` then widens.
 
 All the reference's losses: MCXENT / NEGATIVELOGLIKELIHOOD, SPARSE_MCXENT,
 XENT (and its alias RECONSTRUCTION_CROSSENTROPY), MSE / L2, MAE / L1,
@@ -20,11 +22,17 @@ MSLE and WASSERSTEIN.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from deeplearning4j_tpu_torch.nn import activations as _act
 
 __all__ = ["LossFunctions", "compute", "tail_dtype"]
+
+#: "compute" (default): activation-scale loss math in the compute dtype;
+#: "wide": the all-fp32 tail
+_TAIL_MODE = os.environ.get("DL4J_TPU_LOSS_TAIL", "compute")
 
 
 def tail_dtype(dtype):
@@ -33,7 +41,7 @@ def tail_dtype(dtype):
     compute dtype itself; the fp32 accumulation then happens inside the
     reduces here."""
     wide = torch.promote_types(dtype, torch.float32)
-    return wide if dtype == wide else dtype
+    return wide if _TAIL_MODE == "wide" or dtype == wide else dtype
 
 
 def _log_softmax(preact):

@@ -185,6 +185,42 @@ def map_carries(fn, state):
             for k, v in state.items()}
 
 
+def copy_tree_(dst, src):
+    """Copy a nested dict/list of tensors into `dst`'s tensors in place;
+    False (nothing copied) when the two differ in structure or shape."""
+    pairs = []
+
+    def walk(d, s_):
+        if isinstance(d, dict) and isinstance(s_, dict):
+            return d.keys() == s_.keys() and all(walk(d[k], s_[k])
+                                                  for k in d)
+        if isinstance(d, (list, tuple)) and isinstance(s_, (list, tuple)):
+            return len(d) == len(s_) and all(map(walk, d, s_))
+        if isinstance(d, torch.Tensor) and isinstance(s_, torch.Tensor):
+            pairs.append((d, s_))
+            return d.shape == s_.shape and d.dtype == s_.dtype
+        return d is None and s_ is None
+
+    if not walk(dst, src):
+        return False
+    with torch.no_grad():
+        for d, s_ in pairs:
+            if d is not s_:
+                d.copy_(s_)
+    return True
+
+
+def keep_held(held, new):
+    """`new`'s states with `held`'s tensors in every place but the rnn
+    carries (h/c), which come from `new`."""
+    if isinstance(new, dict):
+        return {k: v if k in ("h", "c") else keep_held(held[k], v)
+                for k, v in new.items()}
+    if isinstance(new, (list, tuple)):
+        return type(new)(keep_held(h, v) for h, v in zip(held, new))
+    return held
+
+
 def run_tbptt(net, T, L, window_step):
     """The truncated-BPTT window loop MultiLayerNetwork and
     ComputationGraph share (reference: ``run_tbptt``): ceil(T / L)
@@ -218,10 +254,13 @@ def cast_params(p, compute_dtype, param_dtype):
             for k, a in p.items()}
 
 
-def default_param_update(updater, grads, upd_state, iteration, params):
+def default_param_update(updater, grads, upd_state, iteration, params,
+                         hp=None):
     """Apply one layer's updater and subtract its updates from the params
-    in place (the caller holds ``torch.no_grad()``)."""
-    upd, us = updater.apply(grads, upd_state, iteration, params=params)
+    in place (the caller holds ``torch.no_grad()``); `hp` are the
+    updater's hyperparameters as device scalars (``HyperScalars``)."""
+    upd, us = updater.apply(grads, upd_state, iteration, params=params,
+                            hp=hp)
     for k, p in params.items():
         p.sub_(upd[k].to(p.dtype))
     return params, us
@@ -355,14 +394,14 @@ def layer_updater(layer):
     return u if bu is None else _upd.BiasSplit(u, _upd.resolve(bu))
 
 
-def update_layer(layer, updater, grads, upd_state, it, params):
+def update_layer(layer, updater, grads, upd_state, it, params, hp=None):
     """One layer's step in place under ``torch.no_grad()``: none for a
     frozen layer, else the updater's, then the layer's constraints
     (reference: ``_train_step``). Returns the updater state."""
     if not params or getattr(layer, "frozen", False):
         return upd_state
     _, upd_state = default_param_update(updater, grads, upd_state, it,
-                                        params)
+                                        params, hp)
     apply_constraints(layer, params)
     return upd_state
 
@@ -549,6 +588,101 @@ def fit_batches(net, data, labels, epochs, step_arrays, step_ds):
             f"a DataSetIterator (reset/hasNext/next), got "
             f"{type(data).__name__}")
     return net
+
+
+def shape_for_output_type(ot, batchSize, api_nhwc=False, t_fallback=None):
+    """The API-layout labels shape of one output layer's type (reference:
+    ``shape_for_output_type``)."""
+    B = int(batchSize)
+    if ot.kind == InputType.FF:
+        return (B, ot.size)
+    if ot.kind == InputType.RNN:
+        T = ot.dims.get("timeSeriesLength") or t_fallback
+        if not T:
+            raise ValueError(
+                "precompile needs labelsShape=(B, size, T) for a "
+                "recurrent output with no timeSeriesLength")
+        return (B, ot.size, T)
+    if ot.kind == InputType.CNN:
+        return (B, ot.height, ot.width, ot.channels) if api_nhwc \
+            else (B, ot.channels, ot.height, ot.width)
+    raise ValueError(f"unsupported output type {ot!r}; pass "
+                     "labelsShape explicitly")
+
+
+def example_batch(net, batchSize, featuresShape=None, labelsShape=None):
+    """(x, y) zero arrays of one training batch of a MultiLayerNetwork in
+    the API layout ``fit`` takes (reference: ``example_batch``)."""
+    from deeplearning4j_tpu_torch.parallel.inference import \
+        shape_for_input_type
+
+    if featuresShape is None:
+        featuresShape = shape_for_input_type(net.conf.inputType, batchSize)
+    if labelsShape is None:
+        last = net.layers[-1]
+        if hasattr(last, "computeLoss"):
+            raise ValueError(
+                f"precompile needs labelsShape=... for composite head "
+                f"{type(last).__name__} (bespoke label layout)")
+        ot = last.getOutputType(net.conf.layerInputTypes[-1])
+        labelsShape = shape_for_output_type(
+            ot, batchSize, api_nhwc=net._api_nhwc,
+            t_fallback=featuresShape[-1] if len(featuresShape) == 3
+            else None)
+    return (np.zeros(featuresShape, np.float32),
+            np.zeros(labelsShape, np.float32))
+
+
+def precompile_network(net, batchSize=32, featuresShape=None,
+                       labelsShape=None, entries=("train", "infer"),
+                       stepsPerSync=None, cache=None, wrap_args=None,
+                       autotune=False):
+    """The precompile routine both networks share (reference:
+    ``precompile_network``): the train step captured at one batch
+    signature, and at each signature a warm-start record names;
+    `wrap_args` adapts (x, y) to the network's ``_train_step`` form."""
+    from deeplearning4j_tpu_torch.runtime import aot
+
+    net._require_init()
+    if stepsPerSync is not None:
+        check_steps_per_sync(stepsPerSync)
+    if autotune:
+        from deeplearning4j_tpu_torch.runtime import autotune as _at
+
+        _at.warm_start(net)
+    x, y = example_batch(net, batchSize, featuresShape, labelsShape) \
+        if wrap_args is None else (np.zeros(featuresShape, np.float32),
+                                   np.zeros(labelsShape, np.float32))
+    adapt = wrap_args or (lambda xx, yy: (xx, yy))
+    report = {}
+    if "train" in entries:
+        cap = net._train_capture()
+        if cache is not None:
+            cap.pin_cache(cache)
+        if cap.refusal is not None:
+            cap.cache().note_uncaptured(cap.entry, "refused")
+            raise aot.CaptureRefused(f"{cap.entry}: {cap.refusal}")
+        xx, yy = adapt(_unwrap(x, net.device).float(),
+                       _unwrap(y, net.device).float())
+        args = (xx, yy, None, None)
+        signatures = [args]
+        for _key, rec in cap.records():
+            sig = aot.zeros_from(rec["signature"], net.device)
+            if aot.abstract_signature(sig) != aot.abstract_signature(args):
+                signatures.append(tuple(sig))
+        for a in signatures:
+            if cap.captured(a):
+                continue
+            k_, status, secs = cap.capture(
+                a, iteration=net._iteration,
+                record={"buckets": [int(batchSize)]})
+            name = "train_step" if a is args else \
+                f"train_step[{aot.abstract_signature(a)!r}]"
+            report[name] = {"key": k_, "status": status,
+                            "seconds": round(secs, 3)}
+    if "infer" in entries:
+        net._eval_output(x)
+    return report
 
 
 def _timed_step(net, step):
@@ -1041,8 +1175,123 @@ class NetworkRuntime:
             new_states = strip_carries(new_states)
         if state_transform is not None:
             new_states = state_transform(new_states)
+        # once a graph holds the persistent state tensors (BN statistics;
+        # any CapturedStep of this net, its own or a serving one's),
+        # write into them and keep them; a state of another structure
+        # rebinds them, and the graphs go
+        if self._graphs_hold and self._states is not None:
+            if copy_tree_(strip_carries(self._states),
+                          strip_carries(new_states)):
+                new_states = keep_held(self._states, new_states)
+            else:
+                self._rebind()
         self._states = new_states
         return loss
+
+    # ----- the captured step (runtime.aot) ----------------------------
+    #: moves whenever the tensors a captured graph holds are rebound
+    _bind_version = 0
+    #: set by a capture that holds this net's tensors
+    _graphs_hold = False
+    _captured = None
+    _hyper = None
+
+    def _rebind(self):
+        """The params, updater state or states were rebound: captured
+        graphs no longer hold them."""
+        self._bind_version += 1
+        self._hyper = None
+
+    def _updater_list(self):
+        return [self._updaters[k] if self._params[k] else None
+                for k in self._unit_keys()]
+
+    def _hyper_scalars(self):
+        """The device buffer the captured step reads its updaters'
+        hyperparameters from (one per binding)."""
+        if self._hyper is None:
+            self._hyper = _upd.HyperScalars(self._updater_list(),
+                                            self._param_dtype, self.device)
+        return self._hyper
+
+    def _step_state(self):
+        """Every tensor a step writes in place: params, updater state,
+        layer state."""
+        return [t for t in tree_leaves(self._params)
+                + tree_leaves(self._upd_states)
+                + tree_leaves(strip_carries(self._states))
+                if isinstance(t, torch.Tensor)]
+
+    def _snapshot(self):
+        with torch.no_grad():
+            return [t.detach().clone() for t in self._step_state()]
+
+    def _restore(self, snap):
+        with torch.no_grad():
+            for t, v in zip(self._step_state(), snap):
+                t.copy_(v)
+
+    def _capture_refusal(self):
+        if self._solver is not None:
+            return ("a line-search optimizationAlgo reads its step size "
+                    "and conditions on the host")
+        if self._is_tbptt():
+            return ("truncated BPTT runs a batch as several windows, each "
+                    "a step of its own")
+        return None
+
+    def _train_capture(self):
+        """The ``CapturedStep`` of the train step (made once)."""
+        from deeplearning4j_tpu_torch.runtime import aot
+
+        if self._captured is None:
+            net = self
+
+            def body(*args, iteration):
+                return net._train_step(*args, iteration=iteration,
+                                       hyper=net._hyper_scalars())
+
+            self._captured = aot.CapturedStep(
+                body, owner=self, entry="train_step",
+                prologue=lambda iteration: self._hyper_scalars().write(
+                    iteration, self._epoch),
+                snapshot=self._snapshot, restore=self._restore)
+            self._captured.refusal = self._capture_refusal()
+        return self._captured
+
+    def _dispatch_train(self, *args, iteration=None):
+        """One optimizer step: a replay of the captured graph at this
+        signature, else the eager step (counted as uncaptured once the
+        net has been precompiled). Returns the loss tensor."""
+        it = self._iteration if iteration is None else iteration
+        cap = self._captured
+        if cap is None:
+            return self._train_step(*args, iteration=it)
+        if cap.refusal is not None:
+            return cap._eager(args, {"iteration": it}, "refused")
+        return cap(*args, iteration=it).clone()
+
+    def precompile(self, batchSize=32, featuresShape=None,
+                   labelsShape=None, entries=("train", "infer"),
+                   stepsPerSync=None, cache=None, autotune=False):
+        """Capture the train step at one batch signature before the first
+        real batch (reference: ``precompile``): on the card a CUDA graph
+        that ``fit``, ``fitSteps`` and ``fitDataSet`` then replay; on the
+        CPU the same warm-up, eagerly, with its key recorded. Signatures
+        named by warm-start records on the cache's disk level are
+        captured too. entries: "train" (and "infer", which warms the
+        inference forward eagerly: one-shot serving captures its own);
+        stepsPerSync is accepted for the reference's signature
+        (fitDataSet's blocks replay the same step). cache: an
+        ``aot.ExecutableCache`` (default: the session cache).
+        autotune=True installs this network's persisted knobs first
+        (``runtime.autotune.warm_start``). Returns {entry: {key, status
+        cold|warm, seconds}}; a step that cannot be captured raises
+        ``aot.CaptureRefused`` with the reason."""
+        return precompile_network(
+            self, batchSize=batchSize, featuresShape=featuresShape,
+            labelsShape=labelsShape, entries=entries,
+            stepsPerSync=stepsPerSync, cache=cache, autotune=autotune)
 
     def _init_solver(self):
         """The conf's whole-parameter solver, or None under SGD
@@ -1102,6 +1351,7 @@ class NetworkRuntime:
                 self._upd_states = self._pack([
                     map_tree(lambda t: t.to(self.device, copy=True),
                              upd_states[k]) for k in self._unit_keys()])
+            self._rebind()
         self._iteration = 0
         return self
 
@@ -1222,9 +1472,10 @@ class NetworkRuntime:
         loss = None
         for _ in range(int(numSteps)):
             for c, window_args in enumerate(windows):
-                loss = self._train_step(*window_args, window=c if
-                                        len(windows) > 1 else None,
-                                        iteration=it)
+                loss = (self._train_step(*window_args, window=c,
+                                         iteration=it)
+                        if len(windows) > 1 else
+                        self._dispatch_train(*window_args, iteration=it))
                 it += 1
             self._states = strip_carries(self._states)
         self._score = float(loss)
@@ -1252,8 +1503,8 @@ class NetworkRuntime:
         stager = BlockStager(self.device)
 
         def step(tensors, it):
-            return self._train_step(*self._batch_args(tensors),
-                                    iteration=it)
+            return self._dispatch_train(*self._batch_args(tensors),
+                                        iteration=it)
 
         self._fit_dataset_syncs = 0
         for _ in range(epochs or 1):
@@ -1361,6 +1612,7 @@ class MultiLayerNetwork(NetworkRuntime):
         if states is not None:
             self._states = map_tree(lambda t: t.to(self.device), states)
         self._rnn_state = None
+        self._rebind()
         self._updaters = [layer_updater(l) for l in self.layers]
         with torch.no_grad():
             self._upd_states = [u.init(p) if p else ()
@@ -1465,7 +1717,7 @@ class MultiLayerNetwork(NetworkRuntime):
     def _train_step(self, x, y, fmask, lmask, window=None,
                     grad_transform=None, loss_transform=None,
                     state_transform=None, bn_group=None, iteration=None,
-                    rank=None):
+                    rank=None, hyper=None):
         """One eager step: forward, backward, normalize, update in place;
         the layers' new states (BN running statistics) replace the old.
         `window` is the truncated-BPTT window's index: window c > 0
@@ -1485,8 +1737,10 @@ class MultiLayerNetwork(NetworkRuntime):
         step's key (``dropout.step_key`` of the seed, that iteration and,
         under data parallelism, the `rank`), so a block, a resumed run and
         ``fit`` draw the same masks. Under the conf's remat policy the
-        forward runs in ``remat_segment``s. Nothing here reads a tensor
-        back to the host."""
+        forward runs in ``remat_segment``s. `hyper` (``HyperScalars``)
+        gives the updaters their hyperparameters as device scalars, as a
+        captured step reads them. Nothing here reads a tensor back to the
+        host."""
         it = self._iteration if iteration is None else iteration
         key = step_key(self.conf.seed, it, rank)
         if self._solver is not None:     # (distributed trainers refuse it)
@@ -1515,7 +1769,8 @@ class MultiLayerNetwork(NetworkRuntime):
             for i, g in enumerate(glist):
                 self._upd_states[i] = update_layer(
                     self.layers[i], self._updaters[i], g,
-                    self._upd_states[i], it, self._params[i])
+                    self._upd_states[i], it, self._params[i],
+                    None if hyper is None else hyper.views(i))
         for p in self._params:
             for t in p.values():
                 t.grad = None
@@ -1533,7 +1788,8 @@ class MultiLayerNetwork(NetworkRuntime):
                           mask_slice(fmask, sl), mask_slice(lmask, sl),
                           window=c))
         else:
-            _timed_step(self, lambda: self._train_step(x, y, fmask, lmask))
+            _timed_step(self, lambda: self._dispatch_train(x, y, fmask,
+                                                           lmask))
 
     # ------------------------------------------------------------------
     # public API

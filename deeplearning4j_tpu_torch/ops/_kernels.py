@@ -11,12 +11,20 @@ are loaded with ``ctypes``: every pointer and the stream are
 ``cudaGetLastError()`` after its launch; ``check`` raises when that is
 not 0.
 
+``count_launch`` is where a wrapper counts its kernel's launch. On a
+stream that a CUDA graph is capturing nothing ran: the launch goes to
+that capture's tally (``capture_tally``), whichever thread made it (the
+backward runs on autograd's worker thread, on the forward's stream),
+and the graph adds it back at every replay (``add_launches``). A launch
+on another stream while a graph captures is counted as it happens.
+
 Nothing here runs at import: CPU-only test runs import every module
 and have no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +34,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["library", "check", "SOURCES", "BUILD_SECONDS"]
+__all__ = ["library", "check", "count_launch", "add_launches",
+           "capture_tally", "SOURCES", "BUILD_SECONDS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
@@ -142,3 +151,43 @@ def check(err, what):
                    "allows)"}.get(err, "")
         raise RuntimeError(
             f"{what}: CUDA launch failed with cudaError {err}{hint}")
+
+
+_COUNT_LOCK = threading.Lock()
+#: capturing stream's handle -> {wrapper name: launches} of its capture
+_TALLIES: dict = {}
+
+
+def add_launches(fn, n=1):
+    """Add `n` to the launch count of the wrapper `fn`."""
+    with _COUNT_LOCK:
+        fn.launches += n
+
+
+def count_launch(fn):
+    """One launch of the wrapper `fn`'s kernel (module docstring)."""
+    import torch
+
+    if torch.cuda.is_current_stream_capturing():
+        key = torch.cuda.current_stream().cuda_stream
+        with _COUNT_LOCK:
+            tally = _TALLIES.get(key)
+            if tally is not None:
+                tally[fn.__name__] = tally.get(fn.__name__, 0) + 1
+        return
+    add_launches(fn)
+
+
+@contextlib.contextmanager
+def capture_tally(stream):
+    """{wrapper name: launches} recorded on `stream` inside the block,
+    while a graph captures on it."""
+    key = stream.cuda_stream
+    tally = {}
+    with _COUNT_LOCK:
+        _TALLIES[key] = tally
+    try:
+        yield tally
+    finally:
+        with _COUNT_LOCK:
+            _TALLIES.pop(key, None)

@@ -350,7 +350,7 @@ def flash_fwd(q, k, v, causal=False, block_q=512, block_k=512,
             B, H, Tq, Tk, D, int(bool(causal)), 1.0 / math.sqrt(D),
             _stream(q.device))
     _kernels.check(err, "flash_fwd")
-    flash_fwd.launches += 1
+    _kernels.count_launch(flash_fwd)
     return o, lse
 
 
@@ -394,7 +394,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=False, block_q=512,
             B, H, Tq, Tk, D, int(bool(causal)), 1.0 / math.sqrt(D),
             _stream(q.device))
     _kernels.check(err, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _kernels.count_launch(flash_bwd_dq)
     return dq
 
 
@@ -421,7 +421,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=False, block_q=512,
             strides, B, H, Tq, Tk, D, int(bool(causal)),
             1.0 / math.sqrt(D), _stream(q.device))
     _kernels.check(err, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _kernels.count_launch(flash_bwd_dkv)
     return dk, dv
 
 

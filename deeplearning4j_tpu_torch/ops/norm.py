@@ -24,9 +24,17 @@ Dtype policy, the reference's default ("compute") tail: under bf16/fp16
 compute the activation-scale math stays in the compute dtype, with the
 statistics accumulated in fp32 inside the reduces and
 ``var = E[(x - round(mean))^2]``; under f32/f64 the whole tail runs in
-that width (the reference's "wide" tail). The reference's knobs
-(``DL4J_TPU_BN_TAIL``, ``DL4J_TPU_BN_EPILOGUE``, ``set_bn_epilogue``)
-are not ported: the port has the default behaviour only.
+that width (the reference's "wide" tail).
+
+The reference's two knobs (the autotune arbiter's ``bn_tail`` and
+``bn_epilogue``): ``_TAIL_MODE`` ("compute", default, or "wide"; initial
+value from ``DL4J_TPU_BN_TAIL``) runs a bf16/fp16 tensor's BN math in
+fp32 under "wide" and casts at the edges, as the reference's pre-round-6
+tail; ``_EPILOGUE`` ("fused", default, or "unfused"; ``set_bn_epilogue``,
+initial value from ``DL4J_TPU_BN_EPILOGUE``) makes ``batch_norm_act``
+the plain composition, BN, the add, then the activation under autograd.
+Each Function reads the tail mode when its forward runs and keeps it for
+its backward.
 
 Synchronised BN for data-parallel training: inside ``sync_batch_norm(group)``
 the three Functions take their batch statistics over every rank of
@@ -47,6 +55,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import os
 
 import torch
 
@@ -55,7 +64,31 @@ from deeplearning4j_tpu_torch.nn import activations as _act
 __all__ = ["EPILOGUE_ACTIVATIONS", "bn_act_supported", "BNTrainFn",
            "BNActTrainFn", "BNActAddTrainFn", "batch_norm",
            "batch_norm_act", "sync_batch_norm", "current_sync_group",
-           "lrn"]
+           "lrn", "set_bn_epilogue"]
+
+#: "compute" (default): activation-scale BN math in the compute dtype;
+#: "wide": all of it in fp32, cast at the edges (module docstring)
+_TAIL_MODE = os.environ.get("DL4J_TPU_BN_TAIL", "compute")
+
+#: "fused" (default): BN -> activation (-> add) as one Function;
+#: "unfused": the plain composition
+_EPILOGUE = os.environ.get("DL4J_TPU_BN_EPILOGUE", "fused").lower()
+if _EPILOGUE not in ("fused", "unfused"):
+    raise ValueError(
+        f"DL4J_TPU_BN_EPILOGUE must be 'fused' or 'unfused', got "
+        f"{os.environ['DL4J_TPU_BN_EPILOGUE']!r}")
+
+
+def set_bn_epilogue(mode):
+    """Set the BN epilogue ("fused" or "unfused"); returns the previous
+    value (the autotune arbiter's entry)."""
+    global _EPILOGUE
+    mode = str(mode).lower()
+    if mode not in ("fused", "unfused"):
+        raise ValueError(
+            f"bn_epilogue must be 'fused' or 'unfused', got {mode!r}")
+    old, _EPILOGUE = _EPILOGUE, mode
+    return old
 
 #: activations whose gradient is an exact function of the output
 EPILOGUE_ACTIVATIONS = ("identity", "relu", "leakyrelu", "tanh", "sigmoid")
@@ -113,6 +146,10 @@ def _bn_train_fwd_math(x, gamma, beta, eps, group=None):
     ``_bn_train_fwd_math``), the statistics over `group`'s ranks when one
     is given."""
     axes, ft, wide = _axes(x), _ft(x), _wide(x)
+    if not wide and _TAIL_MODE == "wide":
+        y, mean, var, inv = _bn_train_fwd_math(x.to(ft), gamma, beta, eps,
+                                               group)
+        return y.to(x.dtype), mean, var, inv
     if group is not None:
         n = x.numel() // x.shape[1] * group.size
         mean = group.all_reduce_sum(x.sum(axes, dtype=ft)) / n
@@ -143,10 +180,15 @@ def _global_sums(dbeta, dgamma, group):
     return both[:dbeta.numel()], both[dbeta.numel():]
 
 
-def _bn_train_bwd(x, mean, inv, gamma, dy, group=None):
+def _bn_train_bwd(x, mean, inv, gamma, dy, group=None, tail="compute"):
     """(dx, dgamma, dbeta) (reference: ``_bn_train_bwd``); over `group`,
-    dx takes the global sums and count, dgamma/dbeta stay local."""
+    dx takes the global sums and count, dgamma/dbeta stay local. `tail`
+    is the mode the forward ran under."""
     axes, ft = _axes(x), _ft(x)
+    if not _wide(x) and tail == "wide":
+        dx, dgamma, dbeta = _bn_train_bwd(x.to(ft), mean, inv, gamma,
+                                          dy.to(ft), group)
+        return dx.to(x.dtype), dgamma, dbeta
     n = x.numel() // x.shape[1] * (1 if group is None else group.size)
     if _wide(x):
         xhat = (x - _vec(mean, x)) * _vec(inv, x)
@@ -191,7 +233,7 @@ class BNTrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps):
-        ctx.group = _SYNC_GROUP.get()
+        ctx.group, ctx.tail = _SYNC_GROUP.get(), _TAIL_MODE
         y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps,
                                                ctx.group)
         ctx.save_for_backward(x, mean, inv, gamma)
@@ -202,7 +244,7 @@ class BNTrainFn(torch.autograd.Function):
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, inv, gamma = ctx.saved_tensors
         dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy,
-                                          ctx.group)
+                                          ctx.group, ctx.tail)
         return dx, dgamma, dbeta, None
 
 
@@ -212,7 +254,7 @@ class BNActTrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, eps, act):
-        ctx.group = _SYNC_GROUP.get()
+        ctx.group, ctx.tail = _SYNC_GROUP.get(), _TAIL_MODE
         y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps,
                                                ctx.group)
         out = _epilogue_apply(y, act)
@@ -227,7 +269,7 @@ class BNActTrainFn(torch.autograd.Function):
         g = _epilogue_grad_from_out(out, ctx.act)
         dy = dout if g is None else dout * g
         dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy,
-                                          ctx.group)
+                                          ctx.group, ctx.tail)
         return dx, dgamma, dbeta, None, None
 
 
@@ -237,7 +279,7 @@ class BNActAddTrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, residual, eps, act):
-        ctx.group = _SYNC_GROUP.get()
+        ctx.group, ctx.tail = _SYNC_GROUP.get(), _TAIL_MODE
         y, mean, var, inv = _bn_train_fwd_math(x, gamma, beta, eps,
                                                ctx.group)
         out = _epilogue_apply(y + residual, act)
@@ -252,7 +294,7 @@ class BNActAddTrainFn(torch.autograd.Function):
         g = _epilogue_grad_from_out(out, ctx.act)
         dy = dout if g is None else dout * g
         dx, dgamma, dbeta = _bn_train_bwd(x, mean, inv, gamma, dy,
-                                          ctx.group)
+                                          ctx.group, ctx.tail)
         return dx, dgamma, dbeta, dy, None, None
 
 
@@ -283,6 +325,11 @@ def batch_norm(x, gamma, beta, running_mean, running_var, *, train,
         y, mean, var = BNTrainFn.apply(x, g, b, float(eps))
         return (y, _ema(running_mean, mean, decay, ft),
                 _ema(running_var, var, decay, ft))
+    if not _wide(x) and _TAIL_MODE == "wide":
+        y, rm, rv = batch_norm(x.to(ft), gamma, beta, running_mean,
+                               running_var, train=False, decay=decay,
+                               eps=eps)
+        return y.to(x.dtype), rm, rv
     mean = running_mean.to(ft)
     inv = torch.rsqrt(running_var.to(ft) + eps)
     if _wide(x):
@@ -303,17 +350,18 @@ def batch_norm(x, gamma, beta, running_mean, running_var, *, train,
 def batch_norm_act(x, gamma, beta, running_mean, running_var, *, train,
                    activation, decay=0.9, eps=1e-5, residual=None):
     """``batch_norm`` with the activation (and an optional residual add
-    before it) fused into one epilogue; same returns. Eval mode is
-    ``batch_norm``, the add and the activation in plain ops."""
+    before it) fused into one epilogue; same returns. Eval mode, and
+    training under the "unfused" epilogue, is ``batch_norm``, the add and
+    the activation in plain ops."""
     act = str(activation).lower()
     if not bn_act_supported(act):
         raise ValueError(
             f"activation {activation!r} is not epilogue-fusable; "
             f"supported: {EPILOGUE_ACTIVATIONS}")
     ft = _ft(x)
-    if not train:
+    if not train or _EPILOGUE == "unfused":
         y, rm, rv = batch_norm(x, gamma, beta, running_mean, running_var,
-                               train=False, decay=decay, eps=eps)
+                               train=train, decay=decay, eps=eps)
         if residual is not None:
             y = y + residual
         return _epilogue_apply(y, act), rm, rv

@@ -284,7 +284,7 @@ def paged_flash_decode(q, k_pool, v_pool, block_tables, seq_lens,
                      S, H, Dh, page, MP, 1.0 / math.sqrt(Dh),
                      torch.cuda.current_stream().cuda_stream)
         _kernels.check(err, "paged_flash_decode")
-        paged_flash_decode.launches += 1
+        _kernels.count_launch(paged_flash_decode)
     return (out, lse) if need_lse else out
 
 
@@ -328,7 +328,7 @@ def paged_flash_prefill(q_chunk, k_pool, v_pool, block_table, t0,
                  H, Dh, page, MP, t0, n_valid, 1.0 / math.sqrt(Dh),
                  torch.cuda.current_stream().cuda_stream)
     _kernels.check(err, "paged_flash_prefill")
-    paged_flash_prefill.launches += 1
+    _kernels.count_launch(paged_flash_prefill)
     return out
 
 

@@ -22,12 +22,20 @@ inference forward under ``torch.no_grad()`` (set in the dispatching
 thread: grad mode is thread-local) and brings the output back to the
 host once; callers' rows are sliced there.
 
-Where the reference compiles an executable per bucket, the port WARMS
-one: ``precompile`` runs one forward per bucket so that cuDNN and cuBLAS
-choose their plans and the caching allocator grows before the first
-request. ``cold_dispatches`` counts request-path forwards at a padded
-batch this instance never warmed (or ran before): the analog of the
-reference's "zero request-path compiles", and the serving gate.
+Where the reference compiles an executable per bucket, the port
+CAPTURES one: ``precompile`` captures the inference forward of each
+bucket as a CUDA graph (``runtime.aot``; on the CPU the same forward runs
+eagerly, with its key) and a dispatch at a captured bucket copies its
+rows into the graph's static input, replays it and copies the static
+output back, under one lock (concurrent callers share the buffers).
+Once precompiled, every dispatch goes through the capture: one that
+cannot replay (a bucket never captured, a model rebound by ``init`` or
+a load, other knob values) runs eagerly and is counted
+(``dl4j_capture_uncaptured_total``). ``cold_dispatches`` counts request-path forwards at a padded batch this
+instance never warmed (or ran before): the analog of the reference's
+"zero request-path compiles", and the serving gate. ``WarmSignatures``
+reports a bucket "warm" when its signature was seen before by its owner
+(another instance, a swapped-out version).
 
 ``int8=True`` serves through ``nn/quantize.int8_infer_fn``: the weights
 are quantized once here and dequantized to the compute dtype in every
@@ -37,7 +45,6 @@ forward.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import itertools
 import threading
 import time
@@ -46,7 +53,10 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.ndarray import INDArray
-from deeplearning4j_tpu_torch.runtime import telemetry
+from deeplearning4j_tpu_torch.runtime import aot, telemetry
+from deeplearning4j_tpu_torch.runtime.aot import (  # noqa: F401
+    DEFAULT_BATCH_BUCKETS, bucket_batch, pad_batch,
+)
 
 __all__ = ["ParallelInference", "INFERENCE_MODES", "DEFAULT_BATCH_BUCKETS",
            "WarmSignatures", "bucket_batch", "pad_batch",
@@ -56,36 +66,7 @@ __all__ = ["ParallelInference", "INFERENCE_MODES", "DEFAULT_BATCH_BUCKETS",
 #: construction
 INFERENCE_MODES = ("INPLACE", "SEQUENTIAL", "BATCHED")
 
-#: the BATCHED mode's buckets when none are given (reference:
-#: runtime/aot.py DEFAULT_BATCH_BUCKETS)
-DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
-
 _PI_SEQ = itertools.count(1)
-
-
-def bucket_batch(n, buckets=DEFAULT_BATCH_BUCKETS):
-    """Smallest bucket >= n; past the largest, the next multiple of it."""
-    n = int(n)
-    if n < 1:
-        raise ValueError(f"batch size must be >= 1, got {n}")
-    for b in buckets:
-        if n <= b:
-            return b
-    top = max(buckets)
-    return ((n + top - 1) // top) * top
-
-
-def pad_batch(arr, bucket):
-    """Zero-pad arr's leading (batch) axis up to `bucket` on the host;
-    the caller slices the surplus rows off the output."""
-    arr = np.asarray(arr)
-    pad = bucket - arr.shape[0]
-    if pad < 0:
-        raise ValueError(f"batch {arr.shape[0]} exceeds bucket {bucket}")
-    if pad == 0:
-        return arr
-    return np.concatenate(
-        [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)], axis=0)
 
 
 def shape_for_input_type(it, batchSize):
@@ -116,24 +97,17 @@ def shape_for_input_type(it, batchSize):
     raise ValueError(f"unsupported InputType {it!r}; pass featuresShape")
 
 
-class WarmSignatures:
-    """The forward signatures (the network's parameter shapes and
-    dtypes, device, compute dtype, int8, padded batch) an owner has run:
-    a warm's first forward at a signature reports "cold", a repeat
-    "warm". ``ModelHost`` keeps one for all its versions, so a swap to a
-    network of the same shape warms "warm", as the reference's AOT cache
-    reports a hit."""
+class WarmSignatures(aot.ExecutableCache):
+    """A memory-only capture cache an owner shares among its
+    ParallelInference instances: a bucket's capture reports "cold" the
+    first time its key (the network's configuration, the padded batch,
+    the card, the knobs, int8) is captured into it while no other graph
+    of that key lives, "warm" after. ``ModelHost`` keeps one for all its
+    versions, so a swap to a network of the same configuration warms
+    "warm", as the reference's AOT cache reports a hit."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._keys = set()
-
-    def add(self, key):
-        """Record `key`; True when it was new."""
-        with self._lock:
-            new = key not in self._keys
-            self._keys.add(key)
-            return new
+        super().__init__(None)
 
 
 def _graph(model):
@@ -184,8 +158,8 @@ class ParallelInference:
     clock: injectable clock for the BATCHED queue; with one, the queue
         runs no thread and the owner drives ``poll()``/``flush()``.
     metricsName: the `model` label of the queue's instruments.
-    warmSignatures: the ``WarmSignatures`` the warm report reads (one
-        of this instance's own by default).
+    warmSignatures: the ``WarmSignatures`` (capture cache) the buckets'
+        captures and the warm report use (the session cache by default).
     """
 
     def __init__(self, model, mesh=None, batchLimit=0, batchBuckets=None,
@@ -229,26 +203,18 @@ class ParallelInference:
             from deeplearning4j_tpu_torch.nn.quantize import int8_infer_fn
 
             self._infer, self._qp, self._sc = int8_infer_fn(model)
-        self._signatures = warmSignatures if warmSignatures is not None \
-            else WarmSignatures()
-        self._signature = self._net_signature()
+        #: the cache the buckets' captures go to (None: the session's)
+        self._signatures = warmSignatures
         self._warm_lock = threading.Lock()
         self._warmed = set()       # padded batches this instance ran
+        self._capture = None       # the forward's CapturedStep
+        self._replay_lock = threading.Lock()
         #: request-path forwards at a padded batch never warmed or run
         self.cold_dispatches = 0
         self._m_cold = telemetry.get_registry().counter(
             "dl4j_serving_cold_dispatches_total",
             "forwards at a padded batch the instance never warmed",
             labels=("model",)).labels(model=self.metricsName)
-
-    def _net_signature(self):
-        params = self.model._params
-        groups = params.items() if isinstance(params, dict) \
-            else enumerate(params)
-        shapes = tuple((str(n), k, tuple(t.shape), str(t.dtype))
-                       for n, p in groups for k, t in sorted(p.items()))
-        return (type(self.model).__name__, shapes, str(self.device),
-                str(self.model._compute_dtype), self._int8)
 
     # upstream builder-pattern compatibility ---------------------------
     class Builder:
@@ -315,8 +281,9 @@ class ParallelInference:
         each finds its plans chosen and its memory allocated.
         featuresShape overrides the per-example shape derived from the
         conf's InputType. Returns {batch: {key, status, seconds}}:
-        status "cold" for a signature new to the WarmSignatures, "warm"
-        for a repeat."""
+        status "cold" for a key new to the capture cache (the
+        WarmSignatures given, else the session cache), "warm" for a key
+        it holds."""
         sizes = tuple(batchSizes) if batchSizes is not None else \
             (self.batchBuckets or ())
         if not sizes:
@@ -329,18 +296,42 @@ class ParallelInference:
                 "warm a multi-input graph by running one real batch "
                 "through output()")
         report = {}
+        cap = self._forward_capture()
         for B in sizes:
             Bt = self._target_batch(int(B))
             x = np.zeros(self._input_shape(Bt, featuresShape), np.float32)
             t0 = time.perf_counter()
-            self._forward([x], Bt, warm=True)
+            feed = (torch.from_numpy(x).to(self.device),)
+            if cap.captured(feed):
+                key, status = cap.key_for(feed), "warm"
+            else:
+                with torch.no_grad(), _on(self.device):
+                    key, status, _ = cap.capture(feed)
+            with self._warm_lock:
+                self._warmed.add(Bt)
             secs = time.perf_counter() - t0
-            sig = self._signature + (Bt, x.shape[1:])
-            key = hashlib.sha256(repr(sig).encode()).hexdigest()[:16]
-            status = "cold" if self._signatures.add(sig) else "warm"
-            report[int(B)] = {"key": key, "status": status,
+            report[int(B)] = {"key": key[:16], "status": status,
                               "seconds": round(secs, 3)}
         return report
+
+    def _forward_capture(self):
+        """The inference forward's ``CapturedStep`` (one graph a
+        bucket)."""
+        if self._capture is None:
+            def body(*feed):
+                with torch.no_grad():
+                    return self._infer_feed(list(feed))
+
+            self._capture = aot.CapturedStep(
+                body, owner=self.model, entry="forward_infer",
+                extra=f"|int8={self._int8}", cache=self._signatures)
+        return self._capture
+
+    def _infer_feed(self, feed):
+        feed = feed if _graph(self.model) and len(feed) > 1 else feed[0]
+        if self._int8:
+            return self._infer(self._qp, self._sc, feed)
+        return self.model._forward_infer(self.model._params, feed)
 
     def example_shape(self):
         """Per-example feature shape from the conf's InputType, or None
@@ -367,15 +358,21 @@ class ParallelInference:
             self._m_cold.inc()
         feed = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 for a in arrays]
-        feed = feed if _graph(self.model) and len(feed) > 1 else feed[0]
+        cap = self._capture
         # grad mode and the current device are thread-local: set both
         # here, in whichever thread dispatches
         with torch.no_grad(), _on(self.device):
-            if self._int8:
-                out = self._infer(self._qp, self._sc, feed)
-            else:
-                out = self.model._forward_infer(self.model._params, feed)
-        outs = out if isinstance(out, list) else [out]
+            if cap is None:
+                return self._host_rows(self._infer_feed(feed), B)
+            # once precompiled, every dispatch goes through the capture:
+            # a replay, else an eager forward it counts (a bucket never
+            # captured, a rebound model, other knobs)
+            with self._replay_lock:       # the graph's static buffers
+                return self._host_rows(cap(*feed), B)
+
+    @staticmethod
+    def _host_rows(out, B):
+        outs = out if isinstance(out, (list, tuple)) else [out]
         host = []
         for o in outs:
             if o.dtype in (torch.bfloat16, torch.float16):

@@ -44,8 +44,12 @@ gradient normalization (the reference's order); every mode leaves the
 params bitwise equal on every rank after every step. Left out, raising
 ``NotImplementedError`` naming ROADMAP Queue 1 item 7:
 ``gradient_compression="hierarchical"``, ``weight_update="sharded"``,
-and ResilientFit over a wrapper with the residual's checkpoint form;
-``trainStep``/``precompile`` wait for the AOT cache (item 13).
+and ResilientFit over a wrapper with the residual's checkpoint form.
+``precompile`` captures the data-parallel step as a CUDA graph
+(``runtime.aot``) at world 1, which ``fit`` and ``fitDataSet`` replay;
+over more ranks it warms the step eagerly and records its key, and each
+step runs eagerly, counted as uncaptured (capturing the NCCL exchange is
+item 7's). ``trainStep`` returns the step function.
 ``fitDataSet(stepsPerSync=k)`` runs k-batch blocks through the networks'
 block driver, one host sync a block.
 """
@@ -282,6 +286,7 @@ class ParallelWrapper:
                 f"is on {net.device}: build it with a CUDA device, or "
                 "initialise the group with backend='gloo'")
         self._placed = False
+        self._captured = None  # the CapturedStep, once precompiled
         self._ef = None       # threshold: this rank's residual, one flat
         self._tau = None      # threshold: the live tau, 0-d f32
         self._weight = None   # dense under a label mask: this rank's share
@@ -461,14 +466,104 @@ class ParallelWrapper:
             lmask = None if lmask is None else [lmask]
         return x, y, fmask, lmask
 
+    def _body(self, x, y, fmask, lmask, iteration):
+        """This mode's data-parallel step at `iteration` (what a capture
+        holds); the loss tensor."""
+        self._step_it = iteration
+        n = self.net
+        return n._train_step(
+            x, y, fmask, lmask, iteration=iteration, rank=self.mesh.rank,
+            hyper=None if self._captured is None else n._hyper_scalars(),
+            **self._hooks(lmask))
+
     def _step(self, x, y, fmask, lmask, iteration=None):
         n = self.net
-        self._step_it = n._iteration if iteration is None else iteration
+        it = n._iteration if iteration is None else iteration
         before = _coll.totals()
-        loss = n._train_step(x, y, fmask, lmask, iteration=self._step_it,
-                             rank=self.mesh.rank, **self._hooks(lmask))
+        cap = self._captured
+        if cap is None:
+            loss = self._body(x, y, fmask, lmask, it)
+        elif cap.refusal is not None:
+            loss = cap._eager((x, y, fmask, lmask), {"iteration": it},
+                              "refused")
+        else:
+            loss = cap(x, y, fmask, lmask, iteration=it).clone()
         self._record(before)
         return loss
+
+    def precompile(self, batchSize=32, featuresShape=None,
+                   labelsShape=None, cache=None):
+        """Capture the data-parallel step for one GLOBAL batch signature
+        (reference: ``precompile``): at world 1 a CUDA graph that ``fit``
+        replays; over more ranks (every rank calls it) one eager warm
+        step, put back, with the key recorded, and the steps stay eager,
+        each counted as uncaptured. Returns {"pw_train_step": {key,
+        status, seconds}}."""
+        import time
+
+        import numpy as np
+
+        from deeplearning4j_tpu_torch.nn.multilayer import example_batch
+        from deeplearning4j_tpu_torch.runtime import aot
+
+        n = self.net
+        n._require_init()
+        if not self._placed:
+            self._place_replicated()
+        if self._is_graph():
+            fs, ls = n._example_shapes(batchSize, featuresShape, labelsShape)
+            x, y = np.zeros(fs, np.float32), np.zeros(ls, np.float32)
+        else:
+            x, y = example_batch(n, batchSize, featuresShape, labelsShape)
+        args = self._args(x, y, None, None)
+        if self._captured is None:
+            n._train_capture()      # the net's own fits: counted too
+            self._captured = aot.CapturedStep(
+                self._body, owner=n, entry="pw_train_step",
+                extra=f"|{self.gradient_compression}|{self.mesh.size}",
+                prologue=lambda iteration: n._hyper_scalars().write(
+                    iteration, n._epoch),
+                snapshot=n._snapshot, restore=n._restore)
+            if self.mesh.size > 1 or self.mesh.pg is not None:
+                self._captured.refusal = (
+                    "capturing the NCCL exchange of a step over "
+                    f"{self.mesh.size} rank(s) waits for ROADMAP.md Queue 1 "
+                    "item 7; the steps run eagerly")
+            else:
+                self._captured.refusal = n._capture_refusal()
+        cap = self._captured
+        if cache is not None:
+            cap.pin_cache(cache)
+        if cap.refusal is None:
+            key, status, secs = cap.capture(args, iteration=n._iteration)
+        else:
+            t0 = time.perf_counter()
+            snap = n._snapshot()
+            self._body(*args, iteration=n._iteration)
+            n._restore(snap)
+            key, status = cap.key_for(args), "eager"
+            secs = time.perf_counter() - t0
+        return {"pw_train_step": {"key": key, "status": status,
+                                  "seconds": round(secs, 3)}}
+
+    def trainStep(self):
+        """The per-batch step with the reference's signature,
+        ``(params, upd, states, it, x, y, key, fmask, lmask) -> (params,
+        upd, states, loss)``: the port's step updates the network's own
+        tensors in place, so it takes the net's containers (anything
+        else raises) and returns them. `x`, `y` are this rank's rows."""
+        n = self.net
+
+        def step(params, upd, states, it, x, y, key=None, fmask=None,
+                 lmask=None):
+            if params is not n._params or upd is not n._upd_states:
+                raise ValueError(
+                    "the port's step updates the network's tensors in "
+                    "place: pass net._params and net._upd_states")
+            loss = self._step(x, y, fmask, lmask, iteration=int(it))
+            return n._params, n._upd_states, n._states, loss
+
+        return step
 
     def _record(self, before):
         count, payload, wire = (a - b for a, b in
@@ -649,6 +744,21 @@ class ParameterAveragingTrainingMaster(ParallelWrapper):
         self._avg_freq = int(averagingFrequency)
         self._replica = None    # this rank's [params, upd, states]
         self._in_sync = True    # every replica equal (just averaged)
+
+    def trainStep(self):
+        raise ValueError(
+            "ParameterAveragingTrainingMaster's step is not expressible "
+            "as one wrappable train step: it takes LOCAL per-replica "
+            "steps with a periodic average, all inside its own "
+            "_fit_batch. Wrap ParallelWrapper/SharedTrainingMaster "
+            "instead")
+
+    def precompile(self, *args, **kwargs):
+        raise ValueError(
+            "ParameterAveragingTrainingMaster picks a local step or an "
+            "averaging step per iteration on the host: there is no one "
+            "step to capture; precompile the ParallelWrapper/"
+            "SharedTrainingMaster step instead")
 
     def fitDataSet(self, iterator, stepsPerSync=1, epochs=None):
         if int(stepsPerSync) == 1:

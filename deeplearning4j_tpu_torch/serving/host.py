@@ -134,7 +134,7 @@ class ServedSequenceModel:
 
     def warm(self):
         """Run every slot bucket once (the paged LM builds its kernels
-        first)."""
+        first), capturing each bucket's step."""
         return self.scheduler.warm()
 
     def _deadline(self, deadline_s):
@@ -312,7 +312,8 @@ class ModelHost:
         samplerSeed and prefixSharing apply there), a recurrent network
         behind the carry-slot one (feedback applies there).
         precompile=True warms every slot bucket before the model is
-        routable."""
+        routable; the warm captures each bucket's step as a CUDA graph
+        that serving then replays."""
         self._reserve(name, "swap_sequence")
         try:
             sm = ServedSequenceModel(name, 1, network,
@@ -338,7 +339,9 @@ class ModelHost:
         return {"model": name, "version": sm.version, "warm": report}
     def swap_sequence(self, name, network, **overrides):
         """Rolling swap: build + WARM the new version while the current
-        one keeps stepping, flip atomically, drain the old scheduler."""
+        one keeps stepping (its warm captures its own graphs, counted in
+        ``dl4j_capture_total``), flip atomically, drain the old scheduler
+        (its graphs go at its close)."""
         with self._lock:
             old = self._sequences.get(name)
             if old is None:

@@ -11,13 +11,14 @@ they share (the FIFO and its ``QueueFullError``, per-step deadlines,
 ``SequenceScheduler`` serves a recurrent ``MultiLayerNetwork`` (LSTM,
 GravesLSTM, SimpleRnn, GRU): per-step feature rows in, per-step output
 rows out. Each layer's carries live on the network's device as
-``[max_slots + 1, H]`` tensors in the compute dtype, one row per slot and
-a last row that stays zero. Every iteration copies the step's input rows
-and slot indices over in one staging copy each, gathers the live rows'
-carries by slot index (the zero row pads the bucket), runs ONE
-``MultiLayerNetwork.rnnStepBatched``, scatters the new carries back by
-slot index on the device and copies the ``[S, O]`` output to the host
-once, for the results and the feedback. ``admission="step"`` refills
+``[max_slots + 2, H]`` tensors in the compute dtype, one row per slot, a
+row that stays zero and a scratch row. Every iteration copies the step's
+input rows and its read and write slot indices over in one staging copy
+each, gathers the rows' carries by read index (the zero row pads the
+bucket), runs ONE ``MultiLayerNetwork.rnnStepBatched``, scatters all S
+new carries back by write index on the device (the pad rows into the
+scratch row) and copies the ``[S, O]`` output to the host once, for the
+results and the feedback. ``admission="step"`` refills
 free slots every iteration; ``"gang"`` admits only into an empty table,
 the run-to-completion baseline. A request may ask for ``extra_steps``
 past its prompt; each then consumes ``feedback(last_output_row)``
@@ -56,6 +57,20 @@ host-side per request with a ``stream_rng(sampler_seed, stream_id)``
 stream, stream ids in submit order, so generation is deterministic per
 (seed, stream) and bitwise the serial dense trajectory within one
 bucket.
+
+Captured steps: ``warm()`` captures
+each slot bucket's device step as a CUDA graph (``runtime.aot``) over
+the bucket's fixed device staging twins: the paged scheduler's
+``decode_paged`` over its staging buffer and KV pools, with K4's
+workspace allocated inside the capture from the graph's pool; the
+carry-slot scheduler's gather, ``rnnStepBatched`` and scatter. An
+iteration then copies its staging over, replays the bucket's graph and
+copies the static output back once. A step at a bucket with no graph
+runs eagerly and is counted (``dl4j_capture_uncaptured_total``). The KV
+pools are allocated once, never rebound while graphs hold them; a
+version swap builds a new scheduler, whose ``warm()`` captures (and
+counts) its own graphs, and the old one drops its graphs at close. On
+the CPU the step runs eagerly, as before.
 
 ``warm()`` runs one step per slot bucket (the paged one builds its
 kernels first and runs a prefill chunk), so the first request never
@@ -222,6 +237,28 @@ class _SlotScheduler:
         self._m = _seq_metrics(self._registry, self.name)
         self._thread = None
         self._warm_asks = []                # warm() calls for the thread
+        from deeplearning4j_tpu_torch.runtime import aot
+
+        #: the device step's CapturedStep (module docstring); the model
+        #: owns it, so a rebind of the model's tensors drops its graphs.
+        #: None steps eagerly, uncounted (an eager baseline's)
+        self._step_capture = aot.CapturedStep(
+            self._device_step, owner=model,
+            entry=f"{type(self).__name__}.step",
+            fingerprint=f"{type(model).__name__}:{id(model)}")
+
+    def _run_step(self, *staged):
+        """The device step over staged inputs: a replay of the bucket's
+        graph once ``warm()`` captured it, else eagerly, counted as
+        uncaptured."""
+        if self._step_capture is None:
+            return self._device_step(*staged)
+        return self._step_capture(*staged)
+
+    def _capture_bucket(self, *staged):
+        if self._step_capture is not None \
+                and not self._step_capture.captured(staged):
+            self._step_capture.capture(staged)
 
     def _start(self, start_thread):
         if start_thread:
@@ -400,7 +437,10 @@ class _SlotScheduler:
         return occupancy_summary_from(self.occupancy, "mean_live_slots")
 
     def _teardown(self):
-        """Release the scheduler's own resources at close."""
+        """Release the scheduler's own resources at close (its graphs
+        first)."""
+        if self._step_capture is not None:
+            self._step_capture.invalidate()
 
     def close(self, drain=True):
         """Stop accepting. drain=True serves everything queued or
@@ -538,9 +578,10 @@ class SequenceScheduler(_SlotScheduler):
         self.feature_size = int(model.conf.inputType.size)
         #: the carries' dtype: the model's compute dtype
         self._carry_dtype = model._compute_dtype
-        # per layer and key, one row per slot plus the zero pad row
+        # per layer and key, one row per slot, the zero pad row and the
+        # scratch row the pad rows' new carries go to
         self._carries = [
-            {k: torch.zeros((self.max_slots + 1, int(layer.nOut)),
+            {k: torch.zeros((self.max_slots + 2, int(layer.nOut)),
                             dtype=self._carry_dtype, device=self.device)
              for k in keys}
             for keys, layer in zip(spec, model.layers)]
@@ -606,14 +647,15 @@ class SequenceScheduler(_SlotScheduler):
     # -- one iteration ----------------------------------------------------
     def _staging_for(self, S):
         """Per-bucket staging, allocated once and reused: the input rows
-        [S, F] and slot indices [S] on the host (pinned on the card) and
-        their device twins (the same tensors on the CPU)."""
+        [S, F] and the read and write slot indices [2S] on the host
+        (pinned on the card) and their device twins (the same tensors on
+        the CPU)."""
         st = self._staging.get(S)
         if st is None:
             pin = self.device.type == "cuda"
             xh = torch.zeros((S, self.feature_size), dtype=torch.float32,
                              pin_memory=pin)
-            ih = torch.zeros((S,), dtype=torch.int64, pin_memory=pin)
+            ih = torch.zeros((2 * S,), dtype=torch.int64, pin_memory=pin)
             st = (xh, ih, xh.to(self.device), ih.to(self.device))
             self._staging[S] = st
         else:
@@ -621,25 +663,38 @@ class SequenceScheduler(_SlotScheduler):
                 + st[1].numel() * 8
         return st
 
+    def _stage_slots(self, ih, slots):
+        """Read indices: the live slots, then the zero row; write
+        indices: the live slots, then the scratch row."""
+        S = ih.shape[0] // 2
+        pad = S - len(slots)
+        ih.numpy()[:] = list(slots) + [self.max_slots] * pad \
+            + list(slots) + [self.max_slots + 1] * pad
+
+    def _device_step(self, xd, idx):
+        """Gather, ONE ``rnnStepBatched``, scatter all S rows (what a
+        captured bucket holds). Returns the output [S, O] as float32."""
+        S = xd.shape[0]
+        carries = [{k: c.index_select(0, idx[:S]) for k, c in d.items()}
+                   for d in self._carries]
+        out, new = self.model.rnnStepBatched(xd, carries)
+        for d, nd in zip(self._carries, new):
+            for k, c in d.items():
+                c.index_copy_(0, idx[S:], nd[k])
+        return out.float()
+
     def _step_on_device(self, staging, n):
         """Step a staged bucket: copy the rows and slot indices over,
-        gather the carries (pad rows read the zero row), ONE
-        ``rnnStepBatched``, scatter the live rows' new carries back.
-        Returns the live rows' output [n, O] as host float32."""
+        then the device step (``_run_step``). Returns the live rows'
+        output [n, O] as host float32."""
         xh, ih, xd, idx = staging
         if xd is not xh:
             xd.copy_(xh, non_blocking=True)
             idx.copy_(ih, non_blocking=True)
-        carries = [{k: c.index_select(0, idx) for k, c in d.items()}
-                   for d in self._carries]
-        out, new = self.model.rnnStepBatched(xd, carries)
-        live = idx[:n]
-        for d, nd in zip(self._carries, new):
-            for k, c in d.items():
-                c.index_copy_(0, live, nd[k][:n])
+        out = self._run_step(xd, idx)
         # the one device-to-host copy; it also orders the next step's
         # staging writes after this step's host-to-device copies
-        return out[:n].float().cpu().numpy()
+        return out.cpu().numpy()[:n]
 
     def _iterate_locked(self):
         """One iteration: expire -> refill -> gather -> ONE step ->
@@ -681,7 +736,7 @@ class SequenceScheduler(_SlotScheduler):
         x = xh.numpy()
         x[:n] = np.stack(rows)
         x[n:] = 0.0
-        ih.numpy()[:] = [r.slot for r in batch] + [self.max_slots] * (S - n)
+        self._stage_slots(ih, [r.slot for r in batch])
         t0 = self.clock()
         self._m["dispatches"].inc()
         self._m["slot_steps"].inc(n)
@@ -725,7 +780,11 @@ class SequenceScheduler(_SlotScheduler):
                 t = time.perf_counter()
                 st = self._staging_for(S)
                 st[0].zero_()
-                st[1].fill_(self.max_slots)
+                self._stage_slots(st[1], [])
+                if st[2] is not st[0]:
+                    st[2].copy_(st[0])
+                    st[3].copy_(st[1])
+                self._capture_bucket(st[2], st[3])
                 self._step_on_device(st, 0)
                 report[int(S)] = time.perf_counter() - t
         return report
@@ -967,14 +1026,21 @@ class PagedSequenceScheduler(_SlotScheduler):
             self.staging_reuse_bytes += st[3].numel() * 4
         return st
 
-    def _decode_on_device(self, S, host, dev):
-        """Copy the staging over once and step the model; returns the
-        logits [S, V] as host fp32 (one device-to-host copy)."""
-        dev.copy_(host, non_blocking=True)
+    def _device_step(self, dev):
+        """``decode_paged`` over a bucket's device staging twin (what a
+        captured bucket holds): the logits [S, V] fp32."""
+        S = dev.shape[0] // (2 + self._mp)
         out, _, _ = self.model.decode_paged(
             dev[:S], self.cache.k_pools, self.cache.v_pools,
             dev[2 * S:].view(S, self._mp), dev[S:2 * S])
-        return out.cpu().numpy()
+        return out
+
+    def _decode_on_device(self, S, host, dev):
+        """Copy the staging over once and step the model (a replay of
+        the bucket's graph once captured); returns the logits [S, V] as
+        host fp32 (one device-to-host copy)."""
+        dev.copy_(host, non_blocking=True)
+        return self._run_step(dev).cpu().numpy()
 
     def _decode_batch(self, batch):
         """One slot-batched decode step over every fully-prefilled slot:
@@ -1092,6 +1158,8 @@ class PagedSequenceScheduler(_SlotScheduler):
                 tok[:] = 0
                 sls[:] = 0
                 bts[:] = 0
+                dev.copy_(host)
+                self._capture_bucket(dev)
                 self._decode_on_device(S, host, dev)
                 report[int(S)] = time.perf_counter() - t
             t = time.perf_counter()

@@ -1,0 +1,65 @@
+#!/usr/bin/env python3
+"""Run chip_smoke.py's phases alone, from the root of a checkout: the
+capture legs of phase 23 one by one, and the phases whose serving paths
+replay captured graphs (4-5, 12, 18), each with its own pass/fail line.
+
+    python3 scripts/capture_legs.py            # all of phase 23
+    python3 scripts/capture_legs.py 23a 23c 4  # the named legs, in order
+
+Legs: 23 (the whole phase), 23a-23e (decode graphs, one-shot buckets,
+captured training, autotune, the ledger), 4 (phases 4-5), 12, 18. TF32
+is off, as chip_smoke.py's main sets it. Exits 1 if a leg failed, 2
+without a CUDA card.
+"""
+
+import gc
+import os
+import sys
+import time
+import traceback
+
+
+def main(which):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("capture_legs: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.ops import _kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    _kernels.library()
+    legs = {
+        "23": lambda: cs.capture_phase(dev),
+        "23a": lambda: cs.capture_decode(dev, cs.CAPTURE_DECODE),
+        "23b": lambda: cs.capture_oneshot(dev),
+        "23c": lambda: cs.capture_training(dev, cs.CAPTURE_TRAIN),
+        "23d": lambda: cs.capture_autotune(dev, cs.CAPTURE_TUNE),
+        "23e": lambda: cs.capture_ledger(dev),
+        "4": lambda: cs.serve_and_check(dev, cs.GPT2_SMALL),
+        "12": lambda: cs.char_rnn_phase(dev),
+        "18": lambda: cs.serving_phase(dev),
+    }
+    ok = True
+    for name in which or ["23"]:
+        t = time.perf_counter()
+        try:
+            legs[name]()
+            print(f"PHASE {name} OK {time.perf_counter() - t:.1f} s",
+                  flush=True)
+        except Exception:
+            ok = False
+            traceback.print_exc()
+            print(f"PHASE {name} FAILED {time.perf_counter() - t:.1f} s",
+                  flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -239,13 +239,16 @@ def test_entry_points_need_a_device_or_the_card():
 @pytest.mark.parametrize("call,exc,match", [
     (lambda net: net.fitDataSet(None, stepsPerSync=0), ValueError,
      "stepsPerSync must be >= 1"),
-    (lambda net: net.precompile(), NotImplementedError, "slice"),
+    (lambda net: net.precompile(batchSize=2, stepsPerSync=0), ValueError,
+     "stepsPerSync must be >= 1"),
     (lambda net: net.doEvaluation(None), ValueError,
      "at least one IEvaluation")],
     ids=["fitDataSet", "precompile", "evaluate"])
 def test_later_slices_raise_and_name_themselves(call, exc, match):
     """What waits names its slice; fitDataSet and evaluation (ported in
-    the training-runtime slice) keep the reference's refusals."""
+    the training-runtime slice) keep the reference's refusals, and
+    precompile (ported in the capture slice) refuses the block size
+    fitDataSet refuses."""
     conf = encoder(P, P.FeedForwardToRnnPreProcessor, P.DataType.FLOAT)
     net = P.ComputationGraph(conf, device="cpu").init()
     with pytest.raises(exc, match=match):

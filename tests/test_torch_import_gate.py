@@ -77,11 +77,13 @@ def test_gate_covers_the_port():
             "deepwalk.py", "tsne.py", "draws.py", "qlearning.py",
             "a3c.py", "async_nstep.py", "gym.py", "spaces.py",
             "layerspace.py", "profiler.py", "workspace.py",
-            "pytree.py"} <= names
+            "pytree.py", "aot.py", "autotune.py", "retrace.py",
+            "hbm_ledger.py", "hbm.py", "entry.py"} <= names
     dirs = {p.parent.name for p in _SOURCES}
     assert {"ops", "nn", "conf", "data", "zoo", "serving",
             "parallel", "modelimport", "analysis", "autodiff", "nlp",
-            "clustering", "graph", "plot", "rl", "arbiter"} <= dirs
+            "clustering", "graph", "plot", "rl", "arbiter",
+            "runtime", "util"} <= dirs
     assert all(p.exists() for p in _SOURCES)
 
 

@@ -697,8 +697,11 @@ DEFERRED = {
         sd.constant(1.0), sd.constant(2.0), sd.constant(0.5)), 0.75),
         None),
     "shardWeightUpdate": (lambda sd: sd.shardWeightUpdate(), "item 7"),
-    "precompile": (lambda sd: sd.precompile(), "item 13"),
-    # ported since the training-runtime slice: the reference's refusals
+    # ported since the training-runtime slice (precompile since the
+    # capture slice): the reference's refusals
+    "precompile": (lambda sd: (sd.setTrainingConfig(None),
+                               sd.precompile()),
+                   "setTrainingConfig first", ValueError),
     "fitDataSet": (lambda sd: sd.fitDataSet(iter([]), stepsPerSync=0),
                    "stepsPerSync must be >= 1", ValueError),
     "evaluate": (lambda sd: (sd.setTrainingConfig(None),

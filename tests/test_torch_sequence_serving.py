@@ -389,7 +389,8 @@ class TestWarm:
         assert {b for _, b in sched.occupancy} == {2, 4}
         for d in sched._carries:
             for c in d.values():
-                assert c.shape[0] == 5 and not c[-1].any()
+                # slots 0-3, the zero pad row 4, the pad rows' scratch row
+                assert c.shape[0] == 6 and not c[4].any()
         assert sorted(sched._free) == [0, 1, 2, 3]
         sched.close()
 
