@@ -569,13 +569,41 @@ Phases (any failure exits non-zero before the result line):
    op by op), their ratio, the bins summing to the count,
    static_memory_terms against max_memory_allocated; the dtype audit
    clean under the compute tail and flagging the wide one.
+24. the static analysis tier (analysis/): (a) validate_or_raise on every
+   zoo model at the card's total memory: 0 errors, its seconds, and not
+   one byte allocated on the card; (b) PAR06's predicted high-water
+   mark beside torch.cuda.max_memory_allocated for 9(b)'s ResNet-50
+   bf16 b128 and YOLO2 bf16 b16 at 416^2, over 3 eager fit steps and
+   over a capture plus 3 replayed steps: the prediction within
+   PAR06_BAND of the measurement (never more than 10 % below it), and a
+   batch PAR06 says will not fit raising ConfigValidationError at
+   init(validate=True, hbm_gb=...) before any allocation; (c)
+   init(validate=True) then 3 LeNet fit steps bitwise the losses and
+   parameters of init(); (d) a seeded chaos soak over the paged
+   :generate path (K4/K5, counts reset before it) and the one-shot
+   :predict tier, one fault of each kind on each serving seam (corrupt
+   at sequence.step included) and raises and a corrupt path on the
+   aot.disk_* seams, every failed request classified (a 500 names the
+   injected raise that failed it, no raise fails more requests than
+   share its work, a 400 is the prompt the corrupt fault pushed out of
+   the vocabulary, a failed fleet.submit raised ChaosError, every answer
+   well formed), then a counting soak with no fault armed whose requests
+   all answer 200, whose rows equal the network's own output and whose
+   tokens are the f32 reference's greedy choices, whose coverage_gaps
+   over the serving seams are empty, and torch.cuda.synchronize() after;
+   (e) the collective signatures of a dense and an int8 step on two gloo
+   ranks on the card, against compression_contract, the port's wire
+   bill and the bytes the trainer reports, the record-only step leaving
+   the params as they were and equal on both ranks (over NCCL too with
+   2 or more cards).
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
 17(e)'s plus phase 23(c)(iii)'s replays, and K1's plus phase
 20(d)(ii)'s; K4's phase 4's plus phase 23(a)'s two bursts, replays
-included; phases 8-10, 12, 13, 14(a),
+included, plus phase 24(d)'s soak, and K5's phase 4's plus 24(d)'s;
+phases 8-10, 12, 13, 14(a),
 14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii), 21 and 22 run no
 hand-written kernel: conv, dense and the recurrent products are
 cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout,
@@ -5551,9 +5579,10 @@ SERVE_LOAD = dict(serial=24, requests=512, clients=16, min_rate=200.0,
 #: them (int8 weights move near-tied logits)
 SERVE_INT8 = dict(rows=256, top1=0.99, reps=5)
 #: (f): two swaps during an open loop of `requests`, after the given
-#: numbers of completed requests; 1,024 at 200/s hold both (a captured
-#: version's warm takes ~1.7 s: its four buckets' warm-up and capture)
-SERVE_SWAP = dict(requests=1024, images=8, swap_after=(64, 160))
+#: numbers of completed requests; 2,048 at 200/s (~10 s) hold both: a
+#: captured version's warm takes ~1.7 s, but a first, cold one took
+#: 1.95-4.69 s on the H100, and 1,024 (~5 s) once ended before it served
+SERVE_SWAP = dict(requests=2048, images=8, swap_after=(64, 160))
 #: (g): the fleet
 SERVE_FLEET = dict(replicas=2, skew_requests=256, hot=0.8,
                    wedged_requests=4, swap_requests=128, seq_requests=4,
@@ -9475,6 +9504,533 @@ def capture_phase(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 24: the static analysis tier
+# ----------------------------------------------------------------------
+
+#: 24(b): the band predicted/measured must lie in (written in PERF.md
+#: before the first run on the card): never more than 10 % under, at
+#: most 30 % over
+PAR06_BAND = (0.90, 1.30)
+#: 24(b): the configurations: 9(b)'s ResNet-50 and 20(a)'s YOLO2
+PAR06_CASES = (("ResNet50", 224, 1000, 128), ("YOLO2", 416, 80, 16))
+#: 24(d): the soak's LM (paged, K4/K5) and its requests
+SOAK_LM = dict(vocab=512, d_model=256, n_heads=4, n_layers=2,
+               max_context=256, page_size=16, seed=SEED)
+SOAK = dict(generate=12, predict=12, new_tokens=8, prompt=(20, 60))
+
+
+def analysis_zoo(dev):
+    """24(a): validate_or_raise on every zoo model at the card's memory;
+    the card allocates nothing."""
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import (
+        validate_or_raise, zoo_corpus,
+    )
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    hbm = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    t = time.perf_counter()
+    reports = {}
+    for name, model in zoo_corpus():
+        rep = validate_or_raise(model, batchSize=32, hbm_gb=hbm)
+        need(rep.ok and not rep.errors, f"24(a) {name}: {rep.format()}")
+        reports[name] = rep.plan["memory"]["total_bytes"]
+    secs = time.perf_counter() - t
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated(dev)
+    need(after == before, f"24(a): the pass allocated {after - before} "
+         "bytes on the card")
+    out = {"models": len(reports), "errors": 0, "seconds": secs,
+           "allocated_delta_bytes": after - before, "hbm_gb": hbm,
+           "predicted_total_bytes_b32": reports}
+    log("24(a): " + json.dumps(out))
+    return out
+
+
+def _par06_batch(dev, image, classes, rows, yolo):
+    import torch
+
+    rng = np.random.default_rng(SEED + 24)
+    x = torch.from_numpy(rng.random((rows, image, image, 3),
+                                    dtype=np.float32)).to(dev)
+    if yolo:
+        y = yolo_labels(rows, image // 32, classes, (1, 8), SEED + 25,
+                        nhwc=True)
+    else:
+        y = np.eye(classes, dtype=np.float32)[rng.integers(0, classes,
+                                                           rows)]
+    return x, torch.from_numpy(y).to(dev)
+
+
+def _measured_peak(dev, make, steps, capture):
+    """max_memory_allocated over building the net, (capturing it) and
+    `steps` fit steps, over what was allocated before: the net's own
+    high-water mark."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    net, x, y = make()
+    if capture:
+        net.precompile(batchSize=x.shape[0], featuresShape=tuple(x.shape),
+                       labelsShape=tuple(y.shape), entries=("train",))
+    losses = []
+    for _ in range(steps):
+        net.fit(x, y)
+        losses.append(net.score())
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    need(all(math.isfinite(v) for v in losses), f"24(b): losses {losses}")
+    del net, x, y
+    return peak
+
+
+def analysis_par06(dev):
+    """24(b): the port's PAR06 prediction against the card, eager and
+    captured; an over-budget batch raises before any allocation."""
+    import torch
+
+    from deeplearning4j_tpu_torch import zoo
+    from deeplearning4j_tpu_torch.analysis import (
+        ConfigValidationError, validate_plan,
+    )
+    from deeplearning4j_tpu_torch.nn import DataType, Nesterovs
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    total = torch.cuda.get_device_properties(dev).total_memory
+    out = {}
+    for name, image, classes, rows in PAR06_CASES:
+        def model(**more):
+            # a fresh updater each time: a trained net's is not reused
+            kw = dict(numClasses=classes, seed=SEED,
+                      inputShape=(3, image, image),
+                      dataType=DataType.BFLOAT16, dataFormat="NHWC")
+            if name == "ResNet50":
+                kw["updater"] = Nesterovs(0.1, 0.9)
+            return getattr(zoo, name)(**kw, **more)
+
+        conf = model().conf()
+        t = time.perf_counter()
+        rep = validate_plan(conf, {"data": 1}, batchSize=rows,
+                            hbm_gb=total / 1e9)
+        pred_s = time.perf_counter() - t
+        mem = rep.plan["memory"]
+        need(rep.ok and mem is not None,
+             f"24(b) {name}: no prediction: {rep.format()}")
+
+        def make():
+            net = model(device=dev).init()
+            x, y = _par06_batch(dev, image, classes, rows,
+                                name == "YOLO2")
+            return net, x, y
+
+        row = {"batch": rows, "predict_s": pred_s,
+               "predicted_eager_bytes": mem["total_bytes"],
+               "predicted_captured_bytes": mem["captured_total_bytes"],
+               "terms": {k: v for k, v in mem.items()
+                         if k.endswith("_bytes")}}
+        for mode, capture in (("eager", False), ("captured", True)):
+            peak = _measured_peak(dev, make, 3, capture)
+            key = "predicted_eager_bytes" if mode == "eager" \
+                else "predicted_captured_bytes"
+            ratio = row[key] / peak
+            row[f"{mode}_measured_bytes"] = peak
+            row[f"{mode}_ratio"] = ratio
+            need(PAR06_BAND[0] <= ratio <= PAR06_BAND[1],
+                 f"24(b) {name} {mode}: predicted {row[key]} B, measured "
+                 f"{peak} B, ratio {ratio:.3f} outside {PAR06_BAND}")
+        # a batch PAR06 says will not fit: refused before any allocation
+        big = rows * int(math.ceil(1.25 * total / mem["step_peak_bytes"]))
+        over = validate_plan(model().conf(), {"data": 1}, batchSize=big,
+                             hbm_gb=total / 1e9)
+        need("PAR06" in over.codes(), f"24(b) {name} b{big}: PAR06 does "
+             f"not refuse it: {over.format()}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        net = ComputationGraph(model().conf(), dev)
+        try:
+            net.init(validate=True, hbm_gb=total / 1e9, batchSize=big)
+            need(False, f"24(b) {name} b{big}: init(validate=True) passed "
+                 "a batch PAR06 says will not fit")
+        except ConfigValidationError as e:
+            need("PAR06" in e.report.codes(), f"24(b) {name}: {e}")
+        torch.cuda.synchronize()
+        need(net._params is None and torch.cuda.memory_allocated(dev)
+             == before, f"24(b) {name}: the refused init allocated")
+        row["refused_batch"] = big
+        out[name] = row
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("24(b): " + json.dumps(out))
+    return out
+
+
+def analysis_init_bitwise(dev):
+    """24(c): init(validate=True) + 3 LeNet fit steps bitwise init()'s."""
+    import torch
+
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(SEED + 26)
+    x = torch.from_numpy(rng.random((64, 1, 28, 28),
+                                    dtype=np.float32)).to(dev)
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, 64)]).to(dev)
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+
+    runs = []
+    for kw in (dict(validate=True, hbm_gb=80, batchSize=64), {}):
+        conf = LeNet(numClasses=10, seed=SEED).conf()
+        net = MultiLayerNetwork(conf, dev).init(**kw)
+        losses = []
+        for _ in range(3):
+            net.fit(x, y)
+            losses.append(net.score())
+        runs.append((losses, [t.detach().clone() for p in net._params
+                              for t in p.values()]))
+    need(runs[0][0] == runs[1][0], f"24(c): losses {runs[0][0]} vs "
+         f"{runs[1][0]}")
+    need(all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])),
+         "24(c): parameters after 3 steps differ")
+    out = {"losses": runs[0][0], "bitwise": True}
+    log("24(c): " + json.dumps(out))
+    return out
+
+
+def _soak_traffic(port, gens, preds, rng):
+    """Concurrent :generate and :predict requests, their payloads drawn
+    before any thread starts; returns one (kind, payload, HTTP code,
+    decoded body) a request, in submission order."""
+    payloads = []
+    for _ in range(gens):
+        n = int(rng.integers(*SOAK["prompt"]))
+        payloads.append(("generate", rng.integers(
+            0, SOAK_LM["vocab"], size=n).tolist()))
+    for _ in range(preds):
+        payloads.append(("predict", rng.random((2, 1, 28, 28))
+                         .astype(np.float32)))
+    out = [None] * len(payloads)
+
+    def send(i):
+        kind, p = payloads[i]
+        if kind == "generate":
+            code, body = http(port, "/v1/models/lm:generate",
+                              {"tokens": p,
+                               "maxNewTokens": SOAK["new_tokens"]},
+                              timeout=120)
+        else:
+            code, body = http(port, "/v1/models/cnn:predict",
+                              {"instances": p.tolist()}, timeout=120)
+        out[i] = (kind, p, code, json.loads(body))
+
+    threads = [threading.Thread(target=send, args=(i,))
+               for i in range(len(payloads))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    need(all(r is not None for r in out),
+         "24(d): a soak request never answered")
+    return out
+
+
+#: 24(d): the most requests one injected raise at a seam may fail: the
+#: requests sharing the failed work (a decode step's 4 slots, a
+#: prefill chunk's or a page allocation's step, a predict batch's 8 rows
+#: = 4 requests of 2 rows), else the one request
+SOAK_RAISE_CAP = {"sequence.step": 4, "sequence.prefill": 4,
+                  "kv.page_alloc": 4, "queue.dispatch": 4}
+
+
+def _classify_soak(plan, rows, fleet_errors):
+    """24(d): every failed request is an injected fault, and no more
+    fail than the faults fired could fail: a 500 names the raise that
+    failed it (``chaos[seam#n]``), no raise fails more requests than
+    share its work (SOAK_RAISE_CAP), a 400 is a prompt the corrupt fault
+    at host.submit_sequence pushed out of the vocabulary (no more of
+    them than that fault fired), a fleet.submit that fails raised
+    ChaosError, and every answer is well formed (non-finite predictions
+    only as many as corrupt faults fired on the predict path)."""
+    import re
+
+    from deeplearning4j_tpu_torch.runtime.chaos import ChaosError
+
+    raised = {f"{s}#{n}" for s, k, n in plan.events if k == "raise"}
+    corrupt = {}
+    for s, k, _ in plan.events:
+        if k == "corrupt":
+            corrupt[s] = corrupt.get(s, 0) + 1
+    blamed, bad_tokens, nonfinite, codes = {}, 0, 0, {}
+    for kind, _, code, body in rows:
+        codes[str(code)] = codes.get(str(code), 0) + 1
+        if code == 200:
+            if kind == "generate":
+                toks = body["tokens"]
+                need(len(toks) == SOAK["new_tokens"] and all(
+                    0 <= t < SOAK_LM["vocab"] for t in toks),
+                    f"24(d): a malformed :generate answer {toks}")
+            else:
+                pr = np.asarray(body["predictions"], dtype=np.float64)
+                need(pr.shape == (2, 10), f"24(d): predictions {pr.shape}")
+                nonfinite += int(not np.isfinite(pr).all())
+            continue
+        err = body.get("error", "")
+        if code == 400:
+            need("prompt token ids must be in" in err,
+                 f"24(d): a 400 no fault explains: {err}")
+            bad_tokens += 1
+            continue
+        m = re.search(r"chaos\[([a-z_.]+#\d+)\]", err)
+        need(code == 500 and m is not None and m.group(1) in raised,
+             f"24(d): a {code} no injected raise explains: {err}")
+        blamed[m.group(1)] = blamed.get(m.group(1), 0) + 1
+    for fault, n in blamed.items():
+        cap = SOAK_RAISE_CAP.get(fault.split("#")[0], 1)
+        need(n <= cap, f"24(d): the raise {fault} failed {n} requests "
+             f"(at most {cap} share its work)")
+    need(bad_tokens <= corrupt.get("host.submit_sequence", 0),
+         f"24(d): {bad_tokens} prompts refused, "
+         f"{corrupt.get('host.submit_sequence', 0)} corrupted")
+    need(nonfinite <= corrupt.get("host.submit", 0)
+         + corrupt.get("queue.dispatch", 0),
+         f"24(d): {nonfinite} non-finite :predict answers")
+    for e in fleet_errors:
+        need(isinstance(e, ChaosError),
+             f"24(d): fleet.submit failed with {type(e).__name__}: {e}")
+    return {"http_codes": codes, "failed_by_raise": blamed,
+            "refused_prompts": bad_tokens,
+            "nonfinite_predictions": nonfinite,
+            "fleet_errors": len(fleet_errors)}
+
+
+def _check_clean_answers(rows, lm, cnn):
+    """24(d): the coverage soak (no fault armed): every request answers
+    200; each :predict row equals the network's own output on the same
+    instances (1e-4), and each :generate token is the greedy choice of
+    the f32 full causal forward fed the prompt and the served tokens
+    before it (within 1e-3 of the largest logit)."""
+    import torch
+
+    worst_row = worst_tok = 0.0
+    for kind, p, code, body in rows:
+        need(code == 200, f"24(d): a clean {kind} answered {code}: {body}")
+        if kind == "predict":
+            want = cnn.output(p).tensor().float().cpu().numpy()
+            got = np.asarray(body["predictions"], dtype=np.float32)
+            worst_row = max(worst_row, float(np.abs(got - want).max()))
+            continue
+        toks = body["tokens"]
+        ids = torch.tensor(p + toks[:-1], device=lm.emb.device)
+        with torch.inference_mode():
+            ref = reference_logits(lm, ids)[len(p) - 1:].cpu().numpy()
+        gap = ref.max(axis=1) - ref[np.arange(len(toks)), toks]
+        worst_tok = max(worst_tok, float(gap.max()))
+    need(worst_row <= 1e-4, f"24(d): served rows off the net's own "
+         f"output by {worst_row}")
+    need(worst_tok <= 1e-3, f"24(d): a served token {worst_tok} below "
+         "the reference's greedy choice")
+    return {"max_row_err": worst_row, "max_token_logit_gap": worst_tok}
+
+
+def analysis_chaos_soak(dev):
+    """24(d): the chaos soak over the paged and one-shot tiers."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis import coverage_gaps, \
+        seam_coverage
+    from deeplearning4j_tpu_torch.nn.transformer import CausalTransformerLM
+    from deeplearning4j_tpu_torch.ops import paged_attention as tpa
+    from deeplearning4j_tpu_torch.runtime import aot
+    from deeplearning4j_tpu_torch.runtime.chaos import ChaosPlan
+    from deeplearning4j_tpu_torch.serving import (
+        FleetRouter, InferenceServer, ModelHost,
+    )
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    serving = ("host.submit", "host.submit_sequence", "queue.dispatch",
+               "sequence.step", "fleet.dispatch", "server.request",
+               "kv.page_alloc", "sequence.prefill")
+    host = ModelHost()
+    lm = CausalTransformerLM(device=dev, **SOAK_LM)
+    cnn = LeNet(numClasses=10, seed=SEED, device=dev).init()
+    host.register_sequence("lm", lm, slotBuckets=(4,), numPages=96)
+    host.register("cnn", cnn, batchBuckets=(8,), maxWaitMs=1.0)
+    fleet = FleetRouter()
+    for _ in range(2):
+        fleet.add_replica(ModelHost())
+    fleet_cnn = LeNet(numClasses=10, seed=SEED, device=dev).init()
+    fleet.register("cnn", fleet_cnn, batchBuckets=(8,), maxWaitMs=1.0)
+    srv = InferenceServer(host).start(port=0)
+    out = {}
+    try:
+        deadline = time.monotonic() + 120
+        while http(srv.port, "/healthz", timeout=10)[0] != 200:
+            need(time.monotonic() < deadline, "/healthz never turned 200")
+            time.sleep(0.1)
+        rng = np.random.default_rng(SEED + 27)
+        release = threading.Event()
+        release.set()
+        plan = ChaosPlan(seed=SEED)
+        for i, seam in enumerate(serving):
+            plan.raise_n(seam, at=0)
+            plan.slow(seam, 0.01, at=1)
+            plan.wedge(seam, 0.05, at=2, release=release)
+            plan.corrupt(seam, at=3)
+        plan.raise_n("aot.disk_read", at=0).corrupt("aot.disk_read", at=1)
+        plan.raise_n("aot.disk_write", at=0)
+        fleet_errors = []
+        d = tempfile.mkdtemp(prefix="dl4j_soak_")
+        cache = aot.ExecutableCache(d)
+
+        class _Owner:
+            pass
+
+        owner, entry = _Owner(), _Owner()
+        tpa.reset_launches()
+        t = time.perf_counter()
+        feats = rng.random((4, 1, 28, 28)).astype(np.float32)
+        with plan:
+            rows = _soak_traffic(srv.port, SOAK["generate"],
+                                 SOAK["predict"], rng)
+            for _ in range(6):
+                try:
+                    fleet.submit("cnn", feats)
+                except Exception as e:  # classified: ChaosError only
+                    fleet_errors.append(e)
+            for k in range(3):
+                cache.put(f"{k:016d}", entry, owner=owner,
+                          record={"entry": "soak"})
+                cache.record(f"{k:016d}")
+        out["fault_soak_s"] = time.perf_counter() - t
+        torch.cuda.synchronize()
+        out["fired"] = len(plan.events)
+        out["fired_by_kind"] = {k: sum(1 for e in plan.events if e[1] == k)
+                                for k in ("raise", "wedge", "slow",
+                                          "corrupt")}
+        out.update(_classify_soak(plan, rows, fleet_errors))
+        out["failed_requests"] = sum(v for c, v in out["http_codes"].items()
+                                     if c != "200") + len(fleet_errors)
+        out["aot_stats"] = dict(cache.stats)
+        need(cache.stats["store_errors"] == 1
+             and cache.stats["corrupt"] >= 2,
+             f"24(d): aot seams not absorbed: {cache.stats}")
+        missed = [s for s in serving if plan.fired(s) < 4]
+        need(not missed, f"24(d): faults never fired at {missed}")
+        out["k4_launches"] = tpa.paged_flash_decode.launches
+        out["k5_launches"] = tpa.paged_flash_prefill.launches
+        need(out["k4_launches"] > 0 and out["k5_launches"] > 0,
+             f"24(d): K4/K5 launched {out['k4_launches']}/"
+             f"{out['k5_launches']} times under the soak")
+
+        clean = []
+
+        def counted():
+            clean.extend(_soak_traffic(srv.port, 4, 4, rng))
+            clean.append(("fleet", feats, 200,
+                          fleet.submit("cnn", feats)))
+            cache.put("f" * 16, entry, owner=owner, record={"e": 1})
+            cache.record("f" * 16)
+
+        k4 = tpa.paged_flash_decode.launches
+        k5 = tpa.paged_flash_prefill.launches
+        counts = seam_coverage(counted, seams=serving
+                               + ("aot.disk_read", "aot.disk_write"))
+        out["k4_launches"] += tpa.paged_flash_decode.launches - k4
+        out["k5_launches"] += tpa.paged_flash_prefill.launches - k5
+        out["coverage"] = counts
+        gaps = coverage_gaps(counts)
+        need(gaps == [], f"24(d): seams never fired: {gaps}")
+        _, fx, _, got = clean.pop()
+        want = fleet_cnn.output(fx).tensor().float().cpu().numpy()
+        got = np.asarray(got.tensor().float().cpu().numpy()
+                         if hasattr(got, "tensor") else got)
+        need(float(np.abs(got - want).max()) <= 1e-4,
+             "24(d): the fleet's clean answer is off the net's output")
+        out["clean"] = _check_clean_answers(clean, lm, cnn)
+        torch.cuda.synchronize()
+        out["context_alive"] = True
+    finally:
+        srv.stop()
+        host.close(drain=True)
+        fleet.close()
+    log("24(d): " + json.dumps(out))
+    return out
+
+
+def analysis_collectives(dev):
+    """24(e): the collective signature of a dense and an int8 step on
+    two gloo ranks on this card (and over NCCL with 2+ cards)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import launch
+    from deeplearning4j_tpu_torch.parallel.dryrun import signature_legs
+
+    out = {}
+    runs = [("gloo", "gloo")]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("nccl", "nccl"))
+    for name, backend in runs:
+        res = launch(signature_legs, 2, device="cuda", backend=backend,
+                     timeout=300, args=((None, "int8"),))
+        for rank, legs in enumerate(res):
+            for r in legs:
+                need(r["codes"] == [], f"24(e) {name} rank {rank} "
+                     f"{r['mode']}: {r['errors']}")
+                need(r["held"] and r["replicated"], f"24(e) {name} rank "
+                     f"{rank} {r['mode']}: the record-only step left the "
+                     "params changed or the replicas unequal")
+        for a, b in zip(res[0], res[1]):
+            need(a["executed"] == b["executed"],
+                 f"24(e) {name} {a['mode']}: the ranks' signatures differ")
+        out[name] = [{k: r[k] for k in ("mode", "counts", "wire_bytes",
+                                        "recorded_wire_bytes",
+                                        "exchange_wire_bytes", "bill",
+                                        "lanes")} for r in res[0]]
+    log("24(e): " + json.dumps(out))
+    return out
+
+
+def analysis_phase(dev):
+    """Phase 24: (a) the zoo corpus, (b) PAR06 against the card, (c)
+    validation changes nothing, (d) the chaos soak, (e) collectives."""
+    import torch
+
+    t = time.perf_counter()
+    legs, out = {}, {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        legs[name] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r
+
+    out["zoo"] = leg("a", analysis_zoo, dev)
+    out["par06"] = leg("b", analysis_par06, dev)
+    out["init"] = leg("c", analysis_init_bitwise, dev)
+    out["soak"] = leg("d", analysis_chaos_soak, dev)
+    out["collectives"] = leg("e", analysis_collectives, dev)
+    out["leg_seconds"] = legs
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 24: {out['seconds']:.1f} s (legs " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()) + ")")
+    return out
+
+
 def kernel_launches():
     """The launch counts of K1-K5 (phase 12 must add none)."""
     from deeplearning4j_tpu_torch.ops import flash_attention as tfa
@@ -9598,9 +10154,15 @@ def main():
     torch.cuda.empty_cache()
     cap = capture_phase(dev)
     lap("23")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ana = analysis_phase(dev)
+    lap("24")
     launches = dict(result["serve"]["launches"])
     launches["decode"] += sum(cap["decode"][k]["k4_launches"]
                               for k in ("eager", "graphs"))
+    launches["decode"] += ana["soak"]["k4_launches"]
+    launches["prefill"] += ana["soak"]["k5_launches"]
     kernels = []
     for key, name, line in (("decode", "paged_flash_decode", 465),
                             ("prefill", "paged_flash_prefill", 580)):
@@ -9987,6 +10549,20 @@ def main():
         f"{cap['autotune']['resnet50']['knobs']}; ledger ratio "
         f"{cap['ledger']['ratio_to_floor']:.3f}; phase 23 "
         f"{cap['seconds']:.1f} s")
+    ab, az = ana["par06"], ana["zoo"]
+    log(f"analysis on {card}: {az['models']} zoo models validated in "
+        f"{az['seconds']:.2f} s, {az['allocated_delta_bytes']} bytes on the "
+        "card; PAR06 predicted/measured: " + ", ".join(
+            f"{k} b{v['batch']} eager {v['eager_ratio']:.3f} "
+            f"({v['predicted_eager_bytes'] / 1e9:.2f}/"
+            f"{v['eager_measured_bytes'] / 1e9:.2f} GB), captured "
+            f"{v['captured_ratio']:.3f} ({v['predicted_captured_bytes'] / 1e9:.2f}/"
+            f"{v['captured_measured_bytes'] / 1e9:.2f} GB), b"
+            f"{v['refused_batch']} refused" for k, v in ab.items())
+        + f"; soak K4 {ana['soak']['k4_launches']}, K5 "
+        f"{ana['soak']['k5_launches']}, {ana['soak']['fired']} faults, "
+        f"coverage {ana['soak']['coverage']}; phase 24 "
+        f"{ana['seconds']:.1f} s")
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                       for k, v in laps.items()))
     log(f"total {time.perf_counter() - t_all:.1f} s")

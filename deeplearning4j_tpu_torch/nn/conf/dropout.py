@@ -89,7 +89,9 @@ class StepKey:
         sites = _SITES.get()
         if sites is not None:
             return sites.generator(self, device)
-        g = torch.Generator(device=device)
+        # meta tensors (the static analyzer's step) draw from the host
+        dev = torch.device(device)
+        g = torch.Generator(device="cpu" if dev.type == "meta" else dev)
         g.manual_seed(self._mix())
         return g
 

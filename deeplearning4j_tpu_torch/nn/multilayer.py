@@ -1592,8 +1592,25 @@ class MultiLayerNetwork(NetworkRuntime):
                              else torch.float32)
         self._init_solver()
 
-    def init(self):
-        """Initialize parameters, layer state and updater state."""
+    def init(self, validate=False, mesh=None, hbm_gb=None, plan=None,
+             batchSize=32):
+        """Initialize parameters, layer state and updater state.
+
+        validate=True runs the static shape/dtype pass first
+        (``analysis.validate_or_raise``) and raises ConfigValidationError
+        with every finding, before any parameter is drawn; it takes no
+        draw from the init generators, so the parameters are bitwise
+        those of ``init()``. `mesh` (axis->size dict, a DataGroup, or
+        "data=4,model=2") or `hbm_gb` extend the check with the
+        partition-plan passes (sharding specs, collective axes, pipeline
+        balance, the per-card memory fit at `batchSize`, the global
+        batch you will fit with). A mesh here is a pre-flight only: it
+        executes nothing on its axes."""
+        if validate or mesh is not None or hbm_gb is not None:
+            from deeplearning4j_tpu_torch.analysis import validate_or_raise
+
+            validate_or_raise(self.conf, batchSize=batchSize, mesh=mesh,
+                              hbm_gb=hbm_gb, plan=plan)
         params, states = [], []
         for i, layer in enumerate(self.layers):
             gen = torch.Generator().manual_seed(layer_seed(self.conf.seed, i))

@@ -32,6 +32,9 @@ from deeplearning4j_tpu_torch.nn.conf.layers import LossLayer
 
 __all__ = ["Yolo2OutputLayer", "DetectedObject", "YoloUtils"]
 
+#: the anchor priors on each device and dtype (``Yolo2OutputLayer._anchors``)
+_ANCHORS = {}
+
 
 class Yolo2OutputLayer(LossLayer):
     """YOLOv2 detection loss head (reference:
@@ -71,8 +74,16 @@ class Yolo2OutputLayer(LossLayer):
             return Yolo2OutputLayer(**self._kw)
 
     def _anchors(self, like):
-        return torch.as_tensor(np.asarray(_host(self.anchors), np.float32),
-                               device=like.device).to(like.dtype)
+        """The priors on `like`'s device and dtype, copied there once
+        (kept outside the conf, which stays array-free of tensors): a
+        step makes no host-to-device copy, so a captured step replays."""
+        a = np.asarray(_host(self.anchors), np.float32)
+        key = (a.tobytes(), a.shape, str(like.device), like.dtype)
+        t = _ANCHORS.get(key)
+        if t is None:
+            t = _ANCHORS[key] = torch.as_tensor(
+                a, device=like.device).to(like.dtype)
+        return t
 
     # ----- geometry ---------------------------------------------------
     def _decode(self, pre):
@@ -125,8 +136,10 @@ class Yolo2OutputLayer(LossLayer):
         # ties (a cell with no object has IOU 0 with every prior)
         anchors = self._anchors(pre)
         prior_iou = self._iou_wh(wh_l[..., None, :], anchors)   # [B,H,W,A]
-        resp = torch.nn.functional.one_hot(
-            prior_iou.argmax(-1), anchors.shape[0]).to(pre.dtype)
+        # one-hot by comparison: F.one_hot checks its indices on the host
+        # (a sync a step, and refused inside a captured step)
+        resp = (prior_iou.argmax(-1)[..., None] == torch.arange(
+            anchors.shape[0], device=pre.device)).to(pre.dtype)
         resp = resp * obj[..., None]
         n_obj = torch.clamp(obj.sum(), min=1.0)
         d_xy = (xy_p - xy_l[..., None, :]).square().sum(-1)

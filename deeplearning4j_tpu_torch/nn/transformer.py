@@ -50,6 +50,25 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _LAYER_KEYS = ("ln1", "wq", "wk", "wv", "wo", "ln2", "w1", "w2")
 
 
+def _rows(table, idx):
+    """``table[idx]`` with XLA's gather semantics, as the reference's
+    ``params["emb"][tokens]`` gets them: an index in [-n, 0) counts from
+    the end, and any index still outside [0, n) is clamped to the nearest
+    row. Elementwise on the device, so it sits inside a captured step; a
+    corrupted token never reaches the gather as an out-of-range index
+    (which asserts on the card and ends the CUDA context)."""
+    n = table.shape[0]
+    i = idx.long()
+    return table[torch.where(i < 0, i + n, i).clamp(0, n - 1)]
+
+
+def _pos_slice(pos, t0, C):
+    """``pos[t0:t0 + C]`` as the reference's ``dynamic_slice`` takes it:
+    the start clamped so the C rows lie inside the table."""
+    t0 = min(max(int(t0), 0), pos.shape[0] - C)
+    return pos[t0:t0 + C]
+
+
 def _rmsnorm(x, g):
     """RMSNorm in fp32, cast to the compute dtype BEFORE the gain
     multiply, exactly as the reference orders it."""
@@ -217,7 +236,7 @@ class CausalTransformerLM(nn.Module):
         garbage rows into the null page, which no live slot attends."""
         S = tokens.shape[0]
         sl = seq_lens.long()
-        h = self.emb[tokens.long()] + self.pos[sl]
+        h = _rows(self.emb, tokens) + _rows(self.pos, sl)
         pages = block_tables.long()[torch.arange(S, device=sl.device),
                                     sl // self.page_size]
         offs = sl % self.page_size
@@ -245,7 +264,7 @@ class CausalTransformerLM(nn.Module):
         Returns (last-valid-row logits [V] fp32, k_pools, v_pools)."""
         C = tokens.shape[0]
         t0, n_valid = int(t0), int(n_valid)
-        h = self.emb[tokens.long()] + self.pos[t0:t0 + C]
+        h = _rows(self.emb, tokens) + _pos_slice(self.pos, t0, C)
         blk = t0 // self.page_size
         page_id = block_table[blk:blk + 1].long()
         for li, lp in enumerate(self.layers):
@@ -267,7 +286,7 @@ class CausalTransformerLM(nn.Module):
         SAME attention entry point as ``decode_paged``."""
         S = tokens.shape[0]
         sl = seq_lens.long()
-        h = self.emb[tokens.long()] + self.pos[sl]
+        h = _rows(self.emb, tokens) + _rows(self.pos, sl)
         rows = torch.arange(S, device=sl.device)
         mp = self.max_pages_per_slot
         ident = (rows[:, None] * mp + torch.arange(mp, device=sl.device)
@@ -290,7 +309,7 @@ class CausalTransformerLM(nn.Module):
         the paged path — the oracle takes the same block steps)."""
         C = tokens.shape[0]
         t0, n_valid, slot = int(t0), int(n_valid), int(slot)
-        h = self.emb[tokens.long()] + self.pos[t0:t0 + C]
+        h = _rows(self.emb, tokens) + _pos_slice(self.pos, t0, C)
         mp = self.max_pages_per_slot
         bt = torch.arange(slot * mp, (slot + 1) * mp, dtype=torch.int32,
                           device=h.device)

@@ -219,8 +219,12 @@ def _epilogue_grad_from_out(out, act):
     if act == "relu":
         return (out > 0).to(out.dtype)
     if act == "leakyrelu":
-        return torch.where(out >= 0, torch.ones((), dtype=out.dtype),
-                           torch.tensor(_LEAKY_ALPHA, dtype=out.dtype))
+        # 0-d fills on out's device: a host scalar would be a copy a
+        # captured backward refuses
+        return torch.where(
+            out >= 0, torch.ones((), dtype=out.dtype, device=out.device),
+            torch.full((), _LEAKY_ALPHA, dtype=out.dtype,
+                       device=out.device))
     if act == "tanh":
         return 1 - out * out
     if act == "sigmoid":

@@ -8,9 +8,12 @@ dl4j-spark SharedTrainingMaster / parameter averaging): the data group
 (``sharding``), the trainers (``trainer``), the Spark facades
 (``spark``) and the data-parallel legs of the multi-chip dry run
 (``dryrun``), and ``ParallelInference`` on one device (``inference``).
-Tensor, sequence and pipeline parallelism, the ZeRO update, the
-hierarchical exchange, ``ParallelInference``'s replica split over cards
-and the cost model wait for ROADMAP Queue 1 item 7.
+The planning functions the partition-plan analyzer needs are here too:
+``spec_for_param`` (``sharding``) and ``partition_stages``
+(``pipeline``). Executing tensor, sequence and pipeline parallelism
+(``PipelineParallel`` raises), the ZeRO update, the hierarchical
+exchange, ``ParallelInference``'s replica split over cards and the cost
+model wait for ROADMAP Queue 1 item 7.
 """
 
 from deeplearning4j_tpu_torch.parallel.inference import (
@@ -24,10 +27,13 @@ from deeplearning4j_tpu_torch.parallel.multihost import (
     hybrid_mesh, initialize as initializeMultiHost, is_coordinator, launch,
     num_hosts,
 )
+from deeplearning4j_tpu_torch.parallel.pipeline import (
+    PipelineParallel, partition_stages,
+)
 from deeplearning4j_tpu_torch.parallel.sharding import (
     COMPRESSION_MODES, DEFAULT_COMPRESSION_BLOCK, DEFAULT_COMPRESSION_GROUP,
     DEFAULT_ENCODING_CAPACITY, compressed_wire_bytes,
-    default_compression_group, hierarchical_shard_elems,
+    default_compression_group, hierarchical_shard_elems, spec_for_param,
 )
 from deeplearning4j_tpu_torch.parallel.spark import (
     ParameterAveragingTrainingMasterBuilder, SharedTrainingMasterBuilder,
@@ -53,4 +59,5 @@ __all__ = [
     "launch", "SparkDl4jMultiLayer", "SparkComputationGraph",
     "ParameterAveragingTrainingMasterBuilder", "SharedTrainingMasterBuilder",
     "ParallelInference", "INFERENCE_MODES",
+    "PipelineParallel", "partition_stages", "spec_for_param",
 ]

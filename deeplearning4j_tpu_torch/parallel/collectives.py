@@ -24,6 +24,15 @@ enough for 254·dp, so the int32 all-reduce adds every lane exactly with
 no carry between lanes: 4/k bytes an element (k = 3 up to dp 4, 2 up to
 dp 129) where an int32 sum would send 4, one all-reduce, and it runs on
 every backend that all-reduces int32 (gloo on the card included).
+
+The collective signature: under ``recording()`` every call made here
+appends one ``Site`` (op, dtype, element count, group axes and size,
+payload and wire bytes, the int8 lanes it carries) to the recording, in
+call order: the port's counterpart of the reference's jaxpr walk
+(``analysis.collectives`` checks it). ``recording(execute=False)``
+records without communicating (each op returns what a one-rank group
+would), so ranks whose signatures differ can compare them instead of
+deadlocking.
 """
 
 from __future__ import annotations
@@ -31,11 +40,83 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-__all__ = ["all_reduce", "all_gather", "broadcast", "int8_lane_sum",
-           "lane_bits", "totals", "wire_bytes"]
+__all__ = ["Site", "all_reduce", "all_gather", "broadcast",
+           "int8_lane_sum", "lane_bits", "recording", "totals",
+           "wire_bytes"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 _COUNTERS = None
+#: the active recording: (list of Site, execute?) or None
+_RECORDING = None
+
+
+class Site:
+    """One collective call, in call order (the signature's entry)."""
+
+    __slots__ = ("op", "dtype", "count", "axes", "size", "payload_bytes",
+                 "wire_bytes", "lanes", "reduce")
+
+    def __init__(self, op, dtype, count, axes, size, payload_bytes,
+                 wire_bytes, lanes=None, reduce=None):
+        self.op, self.dtype, self.count = op, str(dtype), int(count)
+        self.axes, self.size = tuple(axes), int(size)
+        self.payload_bytes = int(payload_bytes)
+        self.wire_bytes = int(wire_bytes)
+        self.lanes = lanes
+        self.reduce = reduce
+
+    def key(self):
+        """What two ranks' signatures must agree on."""
+        return (self.op, self.dtype, self.count, self.axes, self.size,
+                self.reduce)
+
+    def format(self):
+        extra = "" if self.lanes is None else f" lanes={self.lanes}"
+        red = "" if self.reduce is None else f" op={self.reduce}"
+        return (f"{self.op}[axes={','.join(self.axes)} size={self.size} "
+                f"dtype={self.dtype} count={self.count}{red}{extra} "
+                f"wire={self.wire_bytes}B]")
+
+    def __repr__(self):
+        return f"<Site {self.format()}>"
+
+
+class recording:
+    """Context manager: record every collective made here in this
+    process, in call order (``.sites``); with ``execute=False`` nothing
+    communicates."""
+
+    def __init__(self, execute=True):
+        self.execute = bool(execute)
+        self.sites = []
+
+    def __enter__(self):
+        global _RECORDING
+        if _RECORDING is not None:
+            raise RuntimeError("a collective recording is already active")
+        _RECORDING = (self.sites, self.execute)
+        return self
+
+    def __exit__(self, *exc):
+        global _RECORDING
+        _RECORDING = None
+        return False
+
+
+def _record(op, t, group, reduce=None, lanes=None):
+    """Append `op` on `t` over `group` to the active recording; return
+    whether the op should communicate."""
+    rec = _RECORDING
+    if rec is None:
+        return True
+    n = t.numel() * t.element_size()
+    size = group.size
+    rec[0].append(Site(op, str(t.dtype).replace("torch.", ""), t.numel(),
+                       tuple(getattr(group, "shape", {"data": size})),
+                       size, n, wire_bytes(
+                           "all_reduce" if op == "int8_lane_sum" else op,
+                           n, size), lanes=lanes, reduce=reduce))
+    return rec[1]
 
 
 def _counters():
@@ -82,10 +163,14 @@ def totals():
                  for inst in _counters())
 
 
-def all_reduce(t, group, op="sum"):
+def all_reduce(t, group, op="sum", _lanes=None):
     """`t` reduced in place over the group's ranks (op "sum" or "max");
     returns `t`."""
     if group.pg is not None:
+        if not _record("int8_lane_sum" if _lanes is not None
+                       else "all_reduce", t, group, reduce=op,
+                       lanes=_lanes):
+            return t
         _count("all_reduce", t, group.size)
         dist.all_reduce(t, op=_OPS[op], group=group.pg)
     return t
@@ -95,6 +180,8 @@ def all_gather(t, group):
     """Every rank's `t`, stacked in rank order: [size, *t.shape]."""
     if group.pg is None:
         return t.unsqueeze(0)
+    if not _record("all_gather", t, group):
+        return t.unsqueeze(0).expand(group.size, *t.shape).clone()
     _count("all_gather", t, group.size)
     out = [torch.empty_like(t) for _ in range(group.size)]
     dist.all_gather(out, t.contiguous(), group=group.pg)
@@ -104,6 +191,8 @@ def all_gather(t, group):
 def broadcast(t, group, src=0):
     """`t` overwritten in place by rank `src`'s; returns `t`."""
     if group.pg is not None:
+        if not _record("broadcast", t, group):
+            return t
         _count("broadcast", t, group.size)
         dist.broadcast(t, src, group=group.pg)
     return t
@@ -126,6 +215,6 @@ def int8_lane_sum(q, group):
     u = torch.nn.functional.pad(u, (0, (-n) % k)).view(-1, k)
     shifts = torch.arange(k, dtype=torch.int32, device=q.device) * bits
     words = (u << shifts).sum(1, dtype=torch.int32)
-    all_reduce(words, group)
+    all_reduce(words, group, _lanes=n)
     lanes = (words.unsqueeze(1) >> shifts) & ((1 << bits) - 1)
     return lanes.reshape(-1)[:n] - 127 * group.size

@@ -19,7 +19,9 @@ collectives:
   to the exact mean of the ranks' own gradients (``sync_bn_leg``).
 
 Each leg checks its losses are finite and the params bitwise equal on
-every rank. The tensor-parallel, sequence-parallel (ring attention) and
+every rank. ``signature_leg`` (not a default leg) records one step's
+collective signature for the static analyzer's COL checks
+(``analysis.collectives``). The tensor-parallel, sequence-parallel (ring attention) and
 pipeline legs wait for ROADMAP Queue 1 item 7 and raise naming it.
 """
 
@@ -34,7 +36,8 @@ from deeplearning4j_tpu_torch.parallel import collectives as _coll
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["DP_LEGS", "SYNC_BN_F32_ATOL", "dryrun_multichip", "bn_cnn",
-           "bn_cnn_batch", "sync_bn_leg", "params_vector"]
+           "bn_cnn_batch", "sync_bn_leg", "params_vector", "signature_leg",
+           "signature_legs"]
 
 #: how far sync_bn_leg's dense f32 params may lie from single-device
 #: training on the combined batch (sums in another order: the batch
@@ -175,6 +178,83 @@ def sync_bn_leg(rank, world, device, dtype="FLOAT", steps=3, batch=None):
         out["single"] = params_vector(single)
         out["single_losses"] = single_losses
     return out
+
+
+def signature_leg(rank, world, device, mode=None):
+    """The collective signature of one data-parallel step of `mode`
+    (None: dense ParallelWrapper; "int8"/"block_int8"/"threshold":
+    SharedTrainingMaster) of ``bn_cnn`` on this rank: a first step
+    (which also places the replicas), then one executed step under a
+    recording (its signature and the wire bytes the trainer reports),
+    then ``analysis.collectives.verify_program`` over a record-only step
+    on every rank against the mode's contract, the int8 lane contract
+    and the port's bill (the trainer's state is put back after it).
+    Returns plain data: the executed and record-only signatures' keys,
+    codes, wire bytes and bill, and whether the params came out of the
+    record-only step as they went in (`held`) and bitwise equal on every
+    rank (`replicated`)."""
+    from deeplearning4j_tpu_torch.analysis import collectives as C
+    from deeplearning4j_tpu_torch.parallel.trainer import (
+        ParallelWrapper, SharedTrainingMaster, _leaves,
+    )
+
+    group = _mesh.data_parallel_mesh()
+    net = bn_cnn(device)
+    x, y = bn_cnn_batch(8 * world)
+    master = (ParallelWrapper(net, mesh=group) if mode is None
+              else SharedTrainingMaster(net, mesh=group,
+                                        gradient_compression=mode))
+    master.fit(x, y)
+    with _coll.recording() as rec:
+        master.fit(x, y)
+    executed = C.CollectiveSignature(rec.sites)
+    reported = dict(master.last_step)
+    sizes = [t.numel() for t in _leaves(net._params)]
+    bn = sum(1 for layer in _leaves_layers(net)
+             if type(layer).__name__ == "BatchNormalization")
+    stateful = bool(_leaves(net._states))
+    contract = C.compression_contract(mode, len(sizes),
+                                      sync_bn_layers=bn if mode is None
+                                      else 0, stateful=stateful)
+
+    k = 31 // _coll.lane_bits(world)
+    before = params_vector(net)
+    rep = C.verify_program(master.fit, x, y, group=group,
+                           contract=contract, dp=world,
+                           billed_acc_bytes=4.0 / k)
+    after = params_vector(net)
+    exchange = sum(s.wire_bytes for s in executed
+                   if s.op in ("int8_lane_sum", "all_gather")
+                   or (mode is None and s.count == sum(sizes))
+                   or (mode in ("int8", "block_int8")
+                       and s.reduce == "max"))
+    bill = C.port_wire_bill(mode, sizes, world)
+    rep.extend(C.check_bill(exchange, bill, rel=0.10,
+                            where=f"{mode or 'dense'} exchange"))
+    rep.extend(C.check_bill(reported["wire_bytes"],
+                            executed.wire_bytes(), rel=0.0,
+                            where="trainer-reported vs recorded"))
+    return {"mode": mode or "dense", "executed": executed.keys(),
+            "recorded_only": rep.signature.keys(),
+            "codes": rep.codes(), "errors": [d.format() for d in rep.errors],
+            "wire_bytes": reported["wire_bytes"],
+            "recorded_wire_bytes": executed.wire_bytes(),
+            "exchange_wire_bytes": exchange, "bill": bill,
+            "counts": executed.counts(), "lanes": [
+                s.lanes for s in executed if s.op == "int8_lane_sum"],
+            "held": bool(np.array_equal(before, after)),
+            "replicated": _equal_on_all_ranks(after, group)}
+
+
+def signature_legs(rank, world, device, modes=(None, "int8")):
+    """``signature_leg`` for each of `modes`, in one rank process."""
+    return [signature_leg(rank, world, device, m) for m in modes]
+
+
+def _leaves_layers(net):
+    if hasattr(net, "_layer_names"):
+        return [net.conf.nodes[n].payload for n in net._layer_names]
+    return list(net.layers)
 
 
 def _leg_resnet50_dp(rank, world, device):

@@ -191,6 +191,7 @@ class ParallelInference:
         self.metricsName = metricsName or f"pi{next(_PI_SEQ)}"
         self._batcher = None
         self._batcher_lock = threading.Lock()
+        self._capture_lock = threading.Lock()
         self._closed = False
         if batchBuckets is None and mode == "BATCHED":
             # unbounded per-coalesced-size shapes would pay plan
@@ -317,15 +318,19 @@ class ParallelInference:
     def _forward_capture(self):
         """The inference forward's ``CapturedStep`` (one graph a
         bucket)."""
-        if self._capture is None:
-            def body(*feed):
-                with torch.no_grad():
-                    return self._infer_feed(list(feed))
+        cap = self._capture  # thread-ok[THR01]: atomic reference read: the double-checked fast path
+        if cap is not None:
+            return cap
+        with self._capture_lock:
+            if self._capture is None:
+                def body(*feed):
+                    with torch.no_grad():
+                        return self._infer_feed(list(feed))
 
-            self._capture = aot.CapturedStep(
-                body, owner=self.model, entry="forward_infer",
-                extra=f"|int8={self._int8}", cache=self._signatures)
-        return self._capture
+                self._capture = aot.CapturedStep(
+                    body, owner=self.model, entry="forward_infer",
+                    extra=f"|int8={self._int8}", cache=self._signatures)
+            return self._capture
 
     def _infer_feed(self, feed):
         feed = feed if _graph(self.model) and len(feed) > 1 else feed[0]
@@ -358,7 +363,7 @@ class ParallelInference:
             self._m_cold.inc()
         feed = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                 for a in arrays]
-        cap = self._capture
+        cap = self._capture  # thread-ok[THR01]: atomic reference read; None (not yet precompiled) takes the eager path
         # grad mode and the current device are thread-local: set both
         # here, in whichever thread dispatches
         with torch.no_grad(), _on(self.device):
@@ -407,7 +412,7 @@ class ParallelInference:
         return outs if len(outs) > 1 else outs[0]
 
     def _ensure_batcher(self):
-        b = self._batcher
+        b = self._batcher  # thread-ok[THR01]: atomic reference read: the double-checked fast path; a stale None falls through to the locked slow path
         if b is not None:
             return b
         with self._batcher_lock:

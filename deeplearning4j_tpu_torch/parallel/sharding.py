@@ -37,6 +37,17 @@ The counterpart of the data-parallel part of
   a step, copied whole (pure arithmetic, the hierarchical term
   included); it publishes the same gauge on the port's registry.
 
+* ``spec_for_param``: the reference's tensor-parallel naming and size
+  rule (``parallel/sharding.py:75`` there), pure, so the partition-plan
+  analyzer (``analysis.partitioning``) can check plans over model axes
+  the port does not execute yet. Specs are tuples of axis names (None:
+  that dimension is not sharded; ``()``: replicated). The rule shards a
+  weight's output dimension, which is the last in the reference's
+  layouts and in the port's dense and recurrent ones, and dimension 0
+  in the port's OIHW convolution kernels. ``shard_params``, which
+  would place parameters by these specs, waits for ROADMAP Queue 1 item
+  7.
+
 ``COMPRESSION_MODES`` lists the reference's modes; "hierarchical" waits
 for ROADMAP Queue 1 item 7 (the trainer raises naming it).
 """
@@ -48,9 +59,9 @@ import torch
 
 from deeplearning4j_tpu_torch.ndarray.compression import threshold_cap
 from deeplearning4j_tpu_torch.parallel import collectives as _coll
-from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS
+from deeplearning4j_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
 
-__all__ = ["shard_batch", "quantized_psum_mean", "threshold_psum_mean",
+__all__ = ["shard_batch", "spec_for_param", "quantized_psum_mean", "threshold_psum_mean",
            "COMPRESSION_MODES", "DEFAULT_COMPRESSION_BLOCK",
            "DEFAULT_COMPRESSION_GROUP", "DEFAULT_ENCODING_CAPACITY",
            "compressed_wire_bytes", "default_compression_group",
@@ -198,6 +209,24 @@ def threshold_psum_mean(leaves, residual, tau, capacity, group):
 # ----------------------------------------------------------------------
 # the bytes-on-wire bill per compression mode (reference: :585-712)
 # ----------------------------------------------------------------------
+
+def spec_for_param(name, shape, model_axis=MODEL_AXIS,
+                   min_shard_size=2 ** 16):
+    """The partition spec (a tuple) of one parameter by the reference's
+    rule: below `min_shard_size` elements replicated; a 2-d weight
+    (dense, recurrent, embedding) [in, out] sharded on its output
+    dimension; a 4-d convolution kernel on its output channels (OIHW:
+    dimension 0); a 1-d bias or gain on its one dimension."""
+    if int(np.prod(shape)) < min_shard_size:
+        return ()
+    if len(shape) == 2:
+        return (None, model_axis)
+    if len(shape) == 4:
+        return (model_axis, None, None, None)
+    if len(shape) == 1:
+        return (model_axis,)
+    return ()
+
 
 def default_compression_group(dp):
     """The node-group size "hierarchical" picks when none is given

@@ -429,7 +429,7 @@ class ParallelWrapper:
     def _hooks(self, lmask):
         """The step hooks of this mode (module docstring)."""
         dense = self.gradient_compression is None
-        self._weight = self._mask_weight(lmask) if dense else None
+        self._weight = self._mask_weight(lmask) if dense else None  # purity-ok[PUR04]: a device tensor the same step's hooks read while it is captured; a replay reruns the kernels that compute it
         return dict(grad_transform=self._exchange_grads,
                     loss_transform=self._loss_mean,
                     state_transform=None if dense else self._state_mean,
@@ -469,7 +469,7 @@ class ParallelWrapper:
     def _body(self, x, y, fmask, lmask, iteration):
         """This mode's data-parallel step at `iteration` (what a capture
         holds); the loss tensor."""
-        self._step_it = iteration
+        self._step_it = iteration  # purity-ok[PUR04]: read only by the threshold exchange, whose capture is refused (precompile)
         n = self.net
         return n._train_step(
             x, y, fmask, lmask, iteration=iteration, rank=self.mesh.rank,
@@ -529,6 +529,12 @@ class ParallelWrapper:
                     "capturing the NCCL exchange of a step over "
                     f"{self.mesh.size} rank(s) waits for ROADMAP.md Queue 1 "
                     "item 7; the steps run eagerly")
+            elif self.gradient_compression == "threshold":
+                self._captured.refusal = (
+                    "the threshold exchange rebinds its residual and tau "
+                    "on the host each step and clips the residual on the "
+                    "iteration's count: a replay would reuse the "
+                    "capture's buffers and decision")
             else:
                 self._captured.refusal = n._capture_refusal()
         cap = self._captured

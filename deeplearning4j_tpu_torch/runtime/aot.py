@@ -64,6 +64,8 @@ import weakref
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.runtime.chaos import fault_point
+
 __all__ = [
     "ExecutableCache", "CapturedStep", "CachedJit", "GraphEntry",
     "cached_jit",
@@ -195,12 +197,29 @@ def _sha(text):
     return hashlib.sha256(text.encode("utf-8")).hexdigest()
 
 
+def _conf_identity(conf):
+    """The configuration's JSON, and, for a configuration that holds
+    arrays (YOLO2's anchor priors), each array's shape, dtype and bytes
+    hashed: the reference raises there and runs uncached; the port's
+    precompile needs a key."""
+    from deeplearning4j_tpu_torch.util import serde
+
+    arrays = []
+    text = json.dumps(serde.encode(conf, arrays))
+    for a in arrays:
+        a = np.ascontiguousarray(a.detach().cpu().numpy()
+                                 if isinstance(a, torch.Tensor) else a)
+        text += f"|{a.shape}:{a.dtype}:" \
+            + hashlib.sha256(a.tobytes()).hexdigest()
+    return text
+
+
 def network_fingerprint(net):
     """Content hash of a MultiLayerNetwork/ComputationGraph's step: its
-    configuration JSON and the solver choice (reference:
+    configuration (``_conf_identity``) and the solver choice (reference:
     ``network_fingerprint``)."""
     return _sha("|".join([
-        type(net).__name__, net.conf.toJson(),
+        type(net).__name__, _conf_identity(net.conf),
         "solver" if getattr(net, "_solver", None) is not None else "sgd",
         str(getattr(net, "device", "")),
     ]))
@@ -409,11 +428,15 @@ class ExecutableCache:
         if not os.path.exists(path):
             return None
         try:
+            # chaos seam INSIDE the corrupt-handling try: an injected
+            # raise or a corrupted path is absorbed as disk rot is, a
+            # miss and never an error (runtime/chaos.py)
+            path = fault_point("aot.disk_read", path)
             with open(path, "r", encoding="utf-8") as fh:
                 rec = json.load(fh)
             if not isinstance(rec, dict):
                 raise ValueError("not a record")
-        except (OSError, ValueError, UnicodeDecodeError):
+        except Exception:  # fault-ok[FLT01]: classified: _bad counts it as corrupt (stats and the records counter) and removes the file
             self._bad(path, "corrupt")
             return None
         amb = ambient if ambient is not None else ambient_fingerprint()
@@ -478,6 +501,9 @@ class ExecutableCache:
         rec["ambient"] = _jsonable(ambient if ambient is not None
                                    else ambient_fingerprint())
         try:
+            # chaos seam inside the counted try: an injected write fault
+            # costs the record, never the process (runtime/chaos.py)
+            fault_point("aot.disk_write")
             fd, tmp = tempfile.mkstemp(dir=self.directory, suffix=".tmp")
             try:
                 with os.fdopen(fd, "w", encoding="utf-8") as fh:
@@ -486,7 +512,7 @@ class ExecutableCache:
             except BaseException:
                 self._remove(tmp)
                 raise
-        except OSError:
+        except Exception:
             with self._lock:
                 self.stats["store_errors"] += 1
 
@@ -666,7 +692,7 @@ class CapturedStep:
 
     def fingerprint(self):
         if self._fingerprint is None:
-            self._fingerprint = network_fingerprint(self._owner)
+            self._fingerprint = network_fingerprint(self._owner)  # thread-ok[THR04]: idempotent: racers compute the same string; no thread, queue or graph is built
         return self._fingerprint
 
     def key_for(self, args):
@@ -688,7 +714,7 @@ class CapturedStep:
 
     def captured(self, args):
         """Whether `args`' signature has a live entry."""
-        ent = self._table.get(self._slot(args))
+        ent = self._table.get(self._slot(args))  # thread-ok[THR01]: one atomic dict read; the entry's bind_version is checked, and a miss is answered by a locked capture
         return ent is not None and ent.bind_version == self._bind_version()
 
     def drop(self, args):
@@ -809,13 +835,13 @@ class CapturedStep:
 
     # -- dispatch ------------------------------------------------------
     def __call__(self, *args, **host):
-        ent = self._table.get(self._slot(args))
+        ent = self._table.get(self._slot(args))  # thread-ok[THR01]: one atomic dict read on the replay path; a stale miss runs eagerly and is counted, a stale hit is checked against bind_version
         if ent is not None and ent.bind_version != self._bind_version():
             self.invalidate()
             return self._eager(args, host, "rebound")
         if ent is None and self.auto and self.refusal is None:
             self.capture(args, **host)
-            ent = self._table.get(self._slot(args))
+            ent = self._table.get(self._slot(args))  # thread-ok[THR01]: read back after this thread's own locked capture
         if ent is None:
             return self._eager(args, host, "signature")
         if ent.prologue is not None:

@@ -248,7 +248,7 @@ class AsyncDataSetIterator:
         _span("prefetch.pack", t0)
         return payload
 
-    def _producer(self, ring):
+    def _producer(self, ring):  # fault-ok[FLT02]: data-layer faults are FaultInjector's domain (runtime/resilience.py wraps the base iterator); the chaos seams cover the serving tier
         # one pack buffer a pass: the push copies each payload into the
         # ring, so the buffer is free again when it returns
         buf = np.empty(ring.slot_bytes, np.uint8)
@@ -286,7 +286,7 @@ class AsyncDataSetIterator:
         if self._ring is None:
             # 2x + header margin: a padded final minibatch can carry mask
             # arrays the first batch lacks
-            self._ring = make_ring(self._queueSize, 2 * first.size + 1024,
+            self._ring = make_ring(self._queueSize, 2 * first.size + 1024,  # thread-ok[THR04]: single-consumer contract: only the consumer thread starts an epoch; the producer gets the ring as an argument
                                    force_python=self._forcePython)
             if self.device.type == "cuda":
                 self._feed = _DeviceFeed(self.device, self._ring.slot_bytes)

@@ -19,10 +19,16 @@ seam                      dispatch boundary
 ``fleet.dispatch``        FleetRouter per-replica dispatch attempt
                           (inside the failover try)
 ``server.request``        the HTTP GET/POST handlers
+``aot.disk_read``         a warm-start record's read (inside the try
+                          that turns disk rot into a miss)
+``aot.disk_write``        a warm-start record's write (inside the try
+                          that costs the record, never the process)
+``checkpoint.write``      ResilientFit's checkpoint write
+``checkpoint.restore``    ResilientFit's checkpoint restore
 ========================  ============================================
 
-Other modules register theirs (``kv.page_alloc``, ``sequence.prefill``,
-``checkpoint.write``, ``checkpoint.restore``) with ``register_seam``.
+Other modules register theirs (``kv.page_alloc``, ``sequence.prefill``)
+with ``register_seam``.
 
 Fault kinds, per rule: ``raise`` N times, ``wedge`` for T seconds
 (blocking on an optional release event), ``slow`` by T seconds, and
@@ -55,7 +61,9 @@ __all__ = ["ChaosError", "ChaosPlan", "SEAMS", "arm", "armed_plan",
 
 #: the built-in seam inventory; modules add theirs via register_seam
 SEAMS = ("host.submit", "host.submit_sequence", "queue.dispatch",
-         "sequence.step", "fleet.dispatch", "server.request")
+         "sequence.step", "fleet.dispatch", "server.request",
+         "aot.disk_read", "aot.disk_write", "checkpoint.write",
+         "checkpoint.restore")
 
 _KINDS = ("raise", "wedge", "slow", "corrupt")
 
@@ -247,7 +255,7 @@ class ChaosPlan:
             return self._m_fired
 
     def _fire(self, seam, payload):
-        rules = self._rules.get(seam)
+        rules = self._rules.get(seam)  # thread-ok[THR01]: rule books are built before arm() and only read after; a dict get is one atomic read
         if not rules:
             return payload
         with self._lock:

@@ -41,15 +41,12 @@ import time
 
 import torch
 
-from deeplearning4j_tpu_torch.runtime.chaos import fault_point, register_seam
+from deeplearning4j_tpu_torch.runtime.chaos import fault_point
 from deeplearning4j_tpu_torch.util import sharded_checkpoint as _ckpt
 
 __all__ = ["RetryPolicy", "retry", "Preemption", "FaultInjector",
            "NonFiniteStepError", "NonFiniteGuard", "non_finite_guard",
            "ResilientFit"]
-
-register_seam("checkpoint.write")
-register_seam("checkpoint.restore")
 
 _TM = None
 

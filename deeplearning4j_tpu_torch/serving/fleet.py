@@ -578,7 +578,7 @@ class FleetRouter:
                 try:
                     host.submit(name, feats, deadline_s=deadline_s)
                     ok = True
-                except Exception:
+                except Exception:  # fault-ok[FLT01]: the outcome IS the classification (below)
                     # the outcome is the classification: it feeds
                     # dl4j_fleet_probes_total{outcome=fail} and the
                     # readmission streak below

@@ -99,7 +99,7 @@ def run_open_loop(submit, make_request, *, rate, n_requests, seed=0,
     next_i = [0]
     t0 = [None]
 
-    def client():
+    def client():  # fault-ok[FLT02]: the load generator is the traffic source; faults are injected at the serving seams it drives
         while True:
             with state_lock:
                 i = next_i[0]
@@ -166,7 +166,7 @@ def run_closed_loop(submit, make_request, *, n_clients,
     errors = {}
     state_lock = threading.Lock()
 
-    def client(c):
+    def client(c):  # fault-ok[FLT02]: traffic source, not a served boundary: the submit() it calls crosses the real seams
         rng = np.random.RandomState(seed + c)
         for i in range(per):
             t0 = clock()

@@ -367,7 +367,12 @@ class _SlotScheduler:
                 self._cond.notify()
         if ask is None:
             return self._warm()
-        ask["done"].wait()
+        # bounded: a loop thread that died never answers
+        while not ask["done"].wait(0.5):
+            if not self._thread.is_alive():
+                raise RuntimeError(
+                    "the scheduler thread ended before it warmed the "
+                    "slot buckets")
         if "error" in ask:
             raise ask["error"]
         return ask["report"]
@@ -381,7 +386,7 @@ class _SlotScheduler:
             finally:
                 ask["done"].set()
 
-    def _loop(self):
+    def _loop(self):  # fault-ok[FLT02]: each step runs a subclass's _iterate_locked, which fires sequence.step, sequence.prefill and kv.page_alloc (reachability does not follow overrides)
         while True:
             with self._cond:
                 asks, self._warm_asks = self._warm_asks, []
@@ -743,7 +748,11 @@ class SequenceScheduler(_SlotScheduler):
         self._m["occupancy"].observe(n / S)
         self.occupancy.append((n, S))
         try:
-            fault_point("sequence.step", x)
+            # the (possibly corrupted) payload goes back into the
+            # staging the step reads: a captured step replays from it
+            y = fault_point("sequence.step", x)
+            if y is not x:
+                x[...] = y
             out = self._step_on_device(self._staging[S], n)
         except Exception as e:
             self._fail_batch(batch, e)
@@ -1084,7 +1093,9 @@ class PagedSequenceScheduler(_SlotScheduler):
         self._m["occupancy"].observe(n / S)
         self.occupancy.append((n, S))
         try:
-            fault_point("sequence.step", tok)
+            y = fault_point("sequence.step", tok)
+            if y is not tok:
+                tok[...] = y
             out = self._decode_on_device(S, host, dev)
         except Exception as e:
             self._fail_batch(ready, e)

@@ -90,7 +90,7 @@ class JsonHandler(http.server.BaseHTTPRequestHandler):
                     return  # the deadline already answered 503
                 self._responded = True
         else:
-            self._responded = True
+            self._responded = True  # thread-ok[THR01]: no-deadline mode: this request runs on exactly one handler thread; the lock (and its writers) only exist in deadline mode
         self._record_metrics(code)
         self.send_response(code)
         self.send_header("Content-Type", ctype)
@@ -143,10 +143,10 @@ class JsonHandler(http.server.BaseHTTPRequestHandler):
             try:
                 return impl()
             except HttpError as e:
-                if not self._responded:
+                if not self._responded:  # thread-ok[THR01]: no-deadline mode: one handler thread per request
                     self._json({"error": e.message}, e.code)
             except Exception as e:
-                if not self._responded:
+                if not self._responded:  # thread-ok[THR01]: no-deadline mode: one handler thread per request
                     self._json({"error": f"{type(e).__name__}: {e}"}, 500)
             return None
         # deadline mode: the handler runs on a watched daemon thread; if
@@ -156,7 +156,7 @@ class JsonHandler(http.server.BaseHTTPRequestHandler):
         self._resp_lock = threading.Lock()
         done = threading.Event()
 
-        def run():
+        def run():  # fault-ok[FLT02]: deadline-mode dispatch wrapper: impl() is the concrete handler, which owns the request seam (serving/server.py fires server.request before routing)
             try:
                 impl()
             except HttpError as e:
@@ -204,13 +204,13 @@ class HttpServerOwner:
     @property
     def port(self):
         """Bound port once started (pass port=0 for an ephemeral one)."""
-        httpd = self._httpd
+        httpd = self._httpd  # thread-ok[THR01]: atomic reference read; a probe racing stop() sees the old server or None, both valid answers
         return httpd.server_address[1] if httpd else None
 
     @property
     def ready(self) -> bool:
         """What /healthz answers: started and warmed."""
-        return self._httpd is not None and self._ready
+        return self._httpd is not None and self._ready  # thread-ok[THR01]: atomic reads; readiness is advisory and a stale answer is a probe a moment earlier
 
     def _serve(self, handler_cls, port, requestDeadline=None,
                warmup=None):
@@ -234,7 +234,7 @@ class HttpServerOwner:
             # server ready: publish only if its server is still live
             httpd = self._httpd
         if warmup is not None:
-            def _warm():
+            def _warm():  # fault-ok[FLT02]: warmup runs a user callable whose own boundaries carry the seams; its failure is classified into _warmup_error and surfaced on /healthz
                 try:
                     warmup()
                 except Exception as e:

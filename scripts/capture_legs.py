@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's phases alone, from the root of a checkout: the
-capture legs of phase 23 one by one, and the phases whose serving paths
-replay captured graphs (4-5, 12, 18), each with its own pass/fail line.
+capture legs of phase 23 one by one, the phases whose serving paths
+replay captured graphs (4-5, 12, 18), and the static analysis tier's
+legs (24), each with its own pass/fail line.
 
     python3 scripts/capture_legs.py            # all of phase 23
     python3 scripts/capture_legs.py 23a 23c 4  # the named legs, in order
 
 Legs: 23 (the whole phase), 23a-23e (decode graphs, one-shot buckets,
-captured training, autotune, the ledger), 4 (phases 4-5), 12, 18. TF32
-is off, as chip_smoke.py's main sets it. Exits 1 if a leg failed, 2
-without a CUDA card.
+captured training, autotune, the ledger), 4 (phases 4-5), 12, 18, 24
+(the whole phase), 24a-24e (the zoo, PAR06 against the card, validation
+bitwise, the chaos soak, collectives). TF32 is off, as chip_smoke.py's
+main sets it. Exits 1 if a leg failed, 2 without a CUDA card.
 """
 
 import gc
@@ -43,6 +45,12 @@ def main(which):
         "4": lambda: cs.serve_and_check(dev, cs.GPT2_SMALL),
         "12": lambda: cs.char_rnn_phase(dev),
         "18": lambda: cs.serving_phase(dev),
+        "24": lambda: cs.analysis_phase(dev),
+        "24a": lambda: cs.analysis_zoo(dev),
+        "24b": lambda: cs.analysis_par06(dev),
+        "24c": lambda: cs.analysis_init_bitwise(dev),
+        "24d": lambda: cs.analysis_chaos_soak(dev),
+        "24e": lambda: cs.analysis_collectives(dev),
     }
     ok = True
     for name in which or ["23"]:

@@ -534,3 +534,51 @@ def dropout_rank(rank, world, device, steps=2):
     finally:
         D.Dropout.apply = real
     return {"keys": keys, "params": net.params().tensor().numpy()}
+
+
+# ----------------------------------------------------------------------
+# the collective-safety pass (analysis.collectives.verify_program)
+# ----------------------------------------------------------------------
+
+def divergent_signature_rank(rank, world, device):
+    """A record-only dense step on every rank, rank 1 adding one
+    all-reduce (the deadlock shape COL01 must name): the codes and
+    errors ``verify_program`` reports on this rank."""
+    from deeplearning4j_tpu_torch.analysis.collectives import verify_program
+
+    group = data_parallel_mesh()
+    net = bn_cnn(device)
+    x, y = bn_cnn_batch(8 * world)
+    master = ParallelWrapper(net, mesh=group)
+    master.fit(x, y)
+
+    def step():
+        master.fit(x, y)
+        if rank == 1:
+            coll.all_reduce(torch.zeros(1, device=net.device), group)
+
+    rep = verify_program(step, group=group)
+    return {"codes": rep.codes(), "errors": [d.format() for d in rep.errors]}
+
+
+def record_only_rank(rank, world, device):
+    """A dense step's record-only run, through the trainer's own ``fit``
+    (a bound method: its owner is put back) and through a closure (whose
+    side effects stand): the params after each, as f64 numpy, and the
+    params before."""
+    from deeplearning4j_tpu_torch.analysis.collectives import verify_program
+    from deeplearning4j_tpu_torch.parallel.dryrun import params_vector
+
+    group = data_parallel_mesh()
+    net = bn_cnn(device)
+    x, y = bn_cnn_batch(8 * world)
+    master = ParallelWrapper(net, mesh=group)
+    master.fit(x, y)
+    before = params_vector(net)
+    it = net._iteration
+    verify_program(master.fit, x, y, group=group)
+    held = params_vector(net)
+    held_it = net._iteration
+    verify_program(lambda: master.fit(x, y), group=group)
+    return {"before": before, "held": held, "held_iteration": held_it,
+            "iteration": it, "unheld": params_vector(net)}

@@ -25,25 +25,14 @@ _REF, _PORT = "deeplearning4j_tpu", "deeplearning4j_tpu_torch"
 #: names of the reference that wait, by package, with the item that
 #: holds them
 WAITING = {
-    "analysis": ({
-        "CollectiveContract", "CollectiveSignature", "ConfigValidationError",
-        "ShardingPlan", "THREADED_TIER",
-        "check_acc_dtype", "check_bill", "check_collectives",
-        "check_signature", "collective_counts", "collective_signature",
-        "compression_contract", "coverage_gaps", "linalg_contract",
-        "lint_fault_paths", "lint_fault_source", "lint_paths",
-        "lint_retrace", "lint_retrace_paths", "lint_source",
-        "lint_thread_paths", "lint_thread_source", "seam_coverage",
-        "validate_model", "validate_or_raise", "validate_plan",
-        "verify_program", "zoo_corpus"}, "13"),
     "parallel": ({
         "CHIPS", "ChipSpec", "DataParallelModel", "ManualZeroUpdate",
-        "PipelineParallel", "ZeroShardedUpdate", "all_gather_time",
+        "ZeroShardedUpdate", "all_gather_time",
         "all_reduce_time", "compressed_hlo_collective_bytes",
         "dp_weight_update_bytes", "hierarchical_grad_exchange",
-        "hierarchical_mesh", "partition_stages", "ppermute_time",
+        "hierarchical_mesh", "ppermute_time",
         "reduce_scatter_time", "replicate_params", "resnet50_scaling",
-        "ring_attention", "shard_params", "spec_for_param",
+        "ring_attention", "shard_params",
         "ulysses_attention"}, "7"),
 }
 #: reference packages with no counterpart yet, with their item
