@@ -88,7 +88,12 @@ Phases (any failure exits non-zero before the result line):
    L2 of 1e-4 of the whole gradient's); (b) 20 fit steps: K1, K2 and K3 at
    12 launches a step each, their plain versions at 0, every loss finite,
    the last below the first; (c) median step ms over steps 3-20,
-   sequences/s, tokens/s and peak device memory.
+   sequences/s, tokens/s and peak device memory; (d) the same encoder
+   with activationCheckpointing(True) from (b)'s initial weights, 20
+   steps: K1 24 launches a step (each block's forward again in the
+   backward), K2 and K3 12, the losses within REMAT_LOSS_REL of (b)'s
+   (bitwise expected; the line says which), step ms and peak memory
+   beside (b)'s.
 
 8. lenet — zoo LeNet (1x28x28, 10 classes, Adam(1e-3), f32, TF32 off,
    seed 0) through MultiLayerNetwork, batch 64 of seeded uniform pixels
@@ -215,7 +220,14 @@ Phases (any failure exits non-zero before the result line):
    a copy); each compressed mode's first exchange held to the port's
    exchange functions run on the CPU on the card's own first gradient
    (int8 lanes bitwise, the dequantized mean within 1 f32 ulp; threshold
-   mean and residual bitwise); every loss finite. (b) two ranks on the
+   mean and residual bitwise); every loss finite. Then the ZeRO legs,
+   weight_update="sharded" dense and int8: losses and final params
+   bitwise the replicated run of their mode (at world 1 the flat view is
+   a reshape and Nesterovs elementwise), and one more recorded step's
+   reduce-scatter and all-gather wire bytes equal to
+   dp_weight_update_bytes' collective_wire_bytes over the eligible
+   leaves (dense) or its whole exchange to the port's wire bill (int8),
+   the updater state a rank holds. (b) two ranks on the
    one card over gloo (NCCL refuses two ranks on one device; gloo stages
    CUDA tensors through the host, the backend's own staging, asked for
    here): first an all-reduce of a CUDA tensor, which must succeed; then
@@ -223,11 +235,18 @@ Phases (any failure exits non-zero before the result line):
    synchronised over the ranks within SYNC_BN_F32_ATOL of fit on the
    combined batch, and an int8 step's exchange within its grid (|mean -
    exact mean| <= scale/254) of the exact mean of the ranks' gradients.
-   Threshold is not in this leg: gloo has no all-gather of CUDA tensors.
-   (c) with two or more cards only: (a)'s four modes at dp =
-   min(cards, 4) on NCCL ranks, images/s a rank and the scaling against
-   (a); on one card the line says it did not run. K1-K5 launch no time
-   in this phase.
+   Threshold is not in this leg.
+   A probe of gloo's reduce-scatter and all-gather of CUDA tensors: when
+   both run, the sharded dense leg (bn_cnn, 3 steps) within
+   SYNC_BN_F32_ATOL of the replicated one, then four gloo ranks on the
+   card run the hierarchical exchange (node groups of 2, both hop-1
+   encodings, 3 steps): every rank's params equal, the losses finite,
+   the last step's exchange wire bytes equal to the port's bill; when
+   not, the line says which was refused and why. (c) with two or more cards only: (a)'s four modes
+   and the two sharded legs at dp = min(cards, 4) on NCCL ranks, and with
+   four the hierarchical exchange (node groups of 2), images/s a rank
+   and the scaling against (a); on one card the line says it did not
+   run. K1-K5 launch no time in this phase.
 
 14. training runtime — (a) BASELINE config 4 (phase 9(b)'s ResNet-50,
    bf16 NHWC, Nesterovs(0.1, 0.9), batch 128, deterministic cuDNN) over
@@ -280,9 +299,12 @@ Phases (any failure exits non-zero before the result line):
    parameters through stem_weights_to_s2d, its global-pool features and
    logits in f32 eval mode within rel L2 1e-4 of the standard net's;
    then 6 steps of the s2d net at 9(b)'s settings beside 9(b)'s step.
-   (f) 9(b)'s net for 5 steps without and with
-   checkpointPolicy="save_conv_outputs": losses and final state bitwise
-   equal; peak memory and step ms of each. (g) zoo SimpleCNN (its
+   (f) 9(b)'s net for 5 steps stock, with
+   checkpointPolicy="save_conv_outputs" and with
+   activationCheckpointing(True): losses and final state bitwise equal;
+   peak memory and step ms of each, the peak ratios; PAR06's prediction
+   for the per-layer net over its measured peak (24(b)'s measure: from
+   before the build, the batch added) within PAR06_BAND. (g) zoo SimpleCNN (its
    DropoutLayer on, f32) over 9 batches: fitDataSet(stepsPerSync=4)
    under the sync check against fit, losses and state bitwise equal.
 16. the rest of the layer catalogue — (a) every class of port PR 12 at
@@ -559,7 +581,9 @@ Phases (any failure exits non-zero before the result line):
    f32) 20 steps, (ii) phase 8's LeNet with Adam on a step schedule
    (device-scalar hyperparameters) 20 steps, (iii) phase 7's encoder 20
    steps with K1-K3 replayed 12 times a step each, (iv) VGG16 bf16 b64
-   with dropout on, 5 steps (the replayed masks are the eager ones).
+   with dropout on, 5 steps (the replayed masks are the eager ones), (v)
+   (i)'s net with activationCheckpointing(True), 5 steps (the per-layer
+   recomputes inside the graph), no capture after warm().
    (d) autotune of LeNet b64 (the bf16 subject) and ResNet-50 b128,
    scored by the captured step's CUDA-event wall: each candidate's
    bytes, wall and verdict, the skipped ("identical") knobs, the
@@ -574,7 +598,9 @@ Phases (any failure exits non-zero before the result line):
    one byte allocated on the card; (b) PAR06's predicted high-water
    mark beside torch.cuda.max_memory_allocated for 9(b)'s ResNet-50
    bf16 b128 and YOLO2 bf16 b16 at 416^2, over 3 eager fit steps and
-   over a capture plus 3 replayed steps: the prediction within
+   over a capture plus 3 replayed steps, and SimpleCNN f32 b64 at 64²
+   eager (TF32 off: PAR06 counts its convolutions' cuDNN workspaces):
+   the prediction within
    PAR06_BAND of the measurement (never more than 10 % below it), and a
    batch PAR06 says will not fit raising ConfigValidationError at
    init(validate=True, hbm_gb=...) before any allocation; (c)
@@ -1637,7 +1663,60 @@ def train_and_check(dev, cfg):
               "launches_per_step": {k: launches[k] / TRAIN_STEPS
                                     for k in ("K1", "K2", "K3")}}
     log("train (b, c): " + json.dumps(result))
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["remat"] = encoder_remat(dev, cfg, x, y, result)
     return result
+
+
+#: 7(d): the remat leg's losses against 7(b)'s, relative (bitwise is
+#: expected: K1's recompute is deterministic; the leg reports which)
+REMAT_LOSS_REL = 1e-6
+
+
+def encoder_remat(dev, cfg, x, y, stock):
+    """7(d): phase 7's encoder with activationCheckpointing(True), from
+    7(b)'s initial weights (the same seed), TRAIN_STEPS fit steps: the
+    losses against 7(b)'s, K1 launched twice a step a block (its forward
+    again in the backward), K2 and K3 once; step ms and peak memory
+    beside 7(b)'s."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+
+    conf = bert_encoder_conf(cfg)
+    conf.activationCheckpointing = True
+    net = ComputationGraph(conf).init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tfa.reset_launches()
+    losses, step_s = fit_timed(net, x, y, TRAIN_STEPS)
+    launches = {"K1": tfa.flash_fwd.launches, "K2": tfa.flash_bwd_dq.launches,
+                "K3": tfa.flash_bwd_dkv.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_att = cfg["layers"] * TRAIN_STEPS
+    need(launches == {"K1": 2 * n_att, "K2": n_att, "K3": n_att},
+         f"train (d): remat launches {launches}, expected K1 {2 * n_att}, "
+         f"K2 and K3 {n_att}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, stock["losses"]))
+    need(rel <= REMAT_LOSS_REL, f"train (d): remat losses {rel:.3e} (rel) "
+         f"from 7(b)'s, bar {REMAT_LOSS_REL}")
+    med = float(np.median(step_s[2:]))
+    out = {"losses": losses, "bitwise_7b": losses == stock["losses"],
+           "max_rel_to_7b": rel, "step_ms_median_3_to_20": med * 1e3,
+           "step_over_7b": med * 1e3 / stock["step_ms_median_3_to_20"],
+           "max_memory_allocated_bytes": peak,
+           "peak_over_7b": peak / stock["max_memory_allocated_bytes"],
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()}}
+    log("train (d) remat: " + json.dumps(out))
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -2985,19 +3064,76 @@ DP_MODES = ("int8", None, "block_int8", "threshold")
 DP_TAU, DP_CAPACITY = 1e-3, 0.125
 
 
-def dp_master(net, group, mode):
+#: 13(a)/(c): the ZeRO legs, (gradient_compression, weight_update), held
+#: to the replicated run of their mode
+DP_SHARDED = ((None, "sharded"), ("int8", "sharded"))
+#: 13(c) with four or more cards: the hierarchical leg (node groups of 2)
+DP_HIER_GROUP = 2
+
+
+def dp_master(net, group, mode, weight_update="replicated"):
     """SharedTrainingMaster over `group` in `mode`, as a user builds it."""
     from deeplearning4j_tpu_torch.parallel import (
         FixedThresholdAlgorithm, SharedTrainingMaster,
     )
 
     if mode == "int8":
-        return SharedTrainingMaster(net, mesh=group)
+        return SharedTrainingMaster(net, mesh=group,
+                                    weight_update=weight_update)
     if mode == "threshold":
         return SharedTrainingMaster(
             net, mesh=group, encodingCapacity=DP_CAPACITY,
             thresholdAlgorithm=FixedThresholdAlgorithm(DP_TAU))
-    return SharedTrainingMaster(net, mesh=group, gradient_compression=mode)
+    if mode == "hierarchical":
+        return SharedTrainingMaster(
+            net, mesh=group, encodingCapacity=DP_CAPACITY,
+            compressionGroupSize=DP_HIER_GROUP,
+            thresholdAlgorithm=FixedThresholdAlgorithm(DP_TAU))
+    return SharedTrainingMaster(net, mesh=group, gradient_compression=mode,
+                                weight_update=weight_update)
+
+
+def zero_bytes(master, sites):
+    """A sharded step's recorded ZeRO collectives against their bills:
+    the reduce-scatter and all-gather wire bytes against
+    dp_weight_update_bytes' collective_wire_bytes over the eligible
+    leaves (dense), the whole gradient exchange's (its max all-reduces
+    of the scales, the lanes and the all-gather) against the port's
+    wire bill (int8); payloads beside them."""
+    from deeplearning4j_tpu_torch.analysis.collectives import port_wire_bill
+    from deeplearning4j_tpu_torch.parallel import dp_weight_update_bytes
+
+    z, net = master._zero, master.net
+    sizes = [t.numel() for p in net._params for t in p.values()] \
+        if isinstance(net._params, list) else \
+        [t.numel() for p in net._params.values() for t in p.values()]
+    elig = sum(n for n in sizes if z.eligible(n))
+    zero = [s for s in sites if s.op in ("reduce_scatter", "all_gather",
+                                         "int8_lane_scatter")]
+    out = {"eligible_bytes": 4 * elig,
+           "sites": {s.op: {"payload": s.payload_bytes, "wire": s.wire_bytes}
+                     for s in zero}}
+    if z.compression is None:
+        bill = dp_weight_update_bytes(4 * elig, z.dp, sharded=True)
+        got = sum(s.wire_bytes for s in zero)
+        need(got == bill["collective_wire_bytes"]
+             and out["sites"]["reduce_scatter"]["payload"] == 4 * elig,
+             f"dp sharded: wire {got} B vs the bill "
+             f"{bill['collective_wire_bytes']} B, payload "
+             f"{out['sites']['reduce_scatter']['payload']} vs {4 * elig}")
+        out["bill_collective_wire_bytes"] = bill["collective_wire_bytes"]
+    else:
+        grad = [s for s in sites if s.op in ("int8_lane_scatter",
+                                             "int8_lane_sum", "all_gather")
+                or (s.op == "all_reduce" and s.reduce == "max")]
+        got = sum(s.wire_bytes for s in grad)
+        bill = port_wire_bill(z.compression, sizes, z.dp, sharded=True,
+                              min_shard_size=z.min_shard_size)
+        need(got == bill, f"dp {z.compression} sharded: wire {got} B vs "
+             f"the port's bill {bill} B")
+        out["bill_wire_bytes"] = bill
+    out["wire_bytes"] = got
+    return out
 
 
 def first_exchange(master):
@@ -3069,27 +3205,42 @@ def plain_exchange(master, mode, seen):
     return {"lanes": q_cpu.numel(), "lanes_off": 0, "mean_max_ulps": worst}
 
 
-def dp_train(dev, cfg, group, x, y, mode, plain_ms=None, check=True):
+def dp_train(dev, cfg, group, x, y, mode, plain_ms=None, check=True,
+             weight_update="replicated"):
     """One mode of phase 13 on this rank: a fresh config-5 net, 20 steps
     through SharedTrainingMaster on the global batch (x, y); the first
     exchange held to its plain version when `check`. Returns the
-    measurements (images/s of the global batch, and a rank's share)."""
+    measurements (images/s of the global batch, and a rank's share); a
+    sharded leg adds one recorded step's ZeRO bytes against the bill
+    and the final params' digest."""
+    import hashlib
+
     import torch
 
     from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.parallel import collectives as coll
     from deeplearning4j_tpu_torch.parallel import compressed_wire_bytes
 
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     net = resnet_net(dev, cfg, "BFLOAT16", dataFormat="NHWC",
                      updater=Nesterovs(0.1, 0.9))
-    master = dp_master(net, group, mode)
-    seen = first_exchange(master) if check and mode is not None else None
+    master = dp_master(net, group, mode, weight_update)
+    sharded = weight_update == "sharded"
+    seen = first_exchange(master) \
+        if check and mode is not None and not sharded else None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     losses, step_s = fit_timed(net, x, y, cfg["steps"], trainer=master)
     peak = torch.cuda.max_memory_allocated(dev)
-    name = mode or "dense"
+    digest = hashlib.sha256(net.params().tensor().cpu().numpy().tobytes()
+                            ).hexdigest()
+    zero = None
+    if sharded:
+        with coll.recording() as rec:
+            master.fit(x, y)
+        zero = zero_bytes(master, rec.sites)
+    name = (mode or "dense") + ("+sharded" if sharded else "")
     need(all(math.isfinite(v) for v in losses),
          f"dp {name}: non-finite loss: {losses}")
     med = float(np.median(step_s[2:]))
@@ -3105,7 +3256,12 @@ def dp_train(dev, cfg, group, x, y, mode, plain_ms=None, check=True):
            "payload_bytes_per_step": master.last_step["payload_bytes"],
            "wire_bytes_per_step": master.last_step["wire_bytes"],
            "bill_wire_bytes": bill["wire_bytes"],
-           "bill_dense_wire_bytes": bill["dense_wire_bytes"]}
+           "bill_dense_wire_bytes": bill["dense_wire_bytes"],
+           "params_sha256": digest}
+    if zero is not None:
+        out["zero"] = zero
+        out["updater_state_bytes_per_rank"] = \
+            master._zero.per_rank_state_bytes(net._upd_states)
     if plain_ms is not None:
         out["step_over_phase9b"] = med * 1e3 / plain_ms
     if seen is not None:
@@ -3122,8 +3278,11 @@ def dp_nccl_rank(rank, world, device, cfg):
 
     group = data_parallel_mesh()
     x, y = resnet_batch(device, cfg, cfg["batch"] * world)
-    return [dp_train(device, cfg, group, x, y, mode, check=False)
-            for mode in DP_MODES]
+    legs = [(mode, "replicated") for mode in DP_MODES] + list(DP_SHARDED)
+    if world >= 2 * DP_HIER_GROUP:
+        legs.append(("hierarchical", "replicated"))
+    return [dp_train(device, cfg, group, x, y, mode, check=False,
+                     weight_update=wu) for mode, wu in legs]
 
 
 def gloo_card_rank(rank, world, device):
@@ -3143,8 +3302,94 @@ def gloo_card_rank(rank, world, device):
     need(float(t[0]) == world * (world + 1) / 2,
          f"gloo's CUDA all-reduce gave {t.tolist()}")
     out = sync_bn_leg(rank, world, device, "FLOAT", steps=3)
-    return {k: (v.tolist() if isinstance(v, np.ndarray) else v)
-            for k, v in out.items()}
+    out = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+           for k, v in out.items()}
+    # the ZeRO update needs a reduce-scatter and an all-gather of CUDA
+    # tensors; the port never stages them through the host itself
+    probe = {}
+    for op, call in (("reduce_scatter", lambda: dist.reduce_scatter_tensor(
+                          torch.empty(2, device=device),
+                          torch.ones(2 * world, device=device))),
+                     ("all_gather", lambda: dist.all_gather(
+                          [torch.empty(2, device=device)
+                           for _ in range(world)],
+                          torch.ones(2, device=device)))):
+        try:
+            call()
+            probe[op] = "ok"
+        except (RuntimeError, ValueError) as e:
+            probe[op] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    out["zero_probe"] = probe
+    if all(v == "ok" for v in probe.values()):
+        out["sharded"] = gloo_sharded_leg(rank, world, device)
+    return out
+
+
+def gloo_hier_rank(rank, world, device, steps=3):
+    """13(b)'s hierarchical leg (launched: four gloo ranks on the one
+    card): parallel.dryrun's bn_cnn in node groups of 2, both hop-1
+    encodings, `steps` steps, the last recorded: the params' digest (every
+    rank's must agree), the losses, and the step's exchange wire bytes
+    (its intra and group sites) beside the port's bill."""
+    import hashlib
+
+    from deeplearning4j_tpu_torch.analysis.collectives import port_wire_bill
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel import collectives as coll
+    from deeplearning4j_tpu_torch.parallel.dryrun import (
+        bn_cnn, bn_cnn_batch, params_vector,
+    )
+    from deeplearning4j_tpu_torch.parallel.trainer import _leaves
+
+    x, y = bn_cnn_batch(8 * world)
+    out = {}
+    for intra in ("block_int8", None):
+        net = bn_cnn(device, "FLOAT", lr=0.05)
+        pw = ParallelWrapper(net, gradient_compression="hierarchical",
+                             compressionGroupSize=DP_HIER_GROUP,
+                             intraGroupCompression=intra, threshold=1e-3,
+                             encodingCapacity=1.0)
+        losses = []
+        for i in range(steps):
+            if i == steps - 1:
+                with coll.recording() as rec:
+                    pw.fit(x, y)
+            else:
+                pw.fit(x, y)
+            losses.append(net.score())
+        sizes = [t.numel() for t in _leaves(net._params)]
+        out[intra or "dense"] = {
+            "losses": losses,
+            "params_sha256": hashlib.sha256(
+                params_vector(net).tobytes()).hexdigest(),
+            "wire_bytes": sum(s.wire_bytes for s in rec.sites
+                              if s.axes != ("data",)),
+            "bill": port_wire_bill("hierarchical", sizes, world,
+                                   capacity=1.0, group_size=DP_HIER_GROUP,
+                                   intra_mode=intra)}
+    return out
+
+
+def gloo_sharded_leg(rank, world, device, steps=3):
+    """13(b)'s sharded dense leg, when gloo takes both collectives of
+    CUDA tensors: parallel.dryrun's bn_cnn, dense, replicated and
+    sharded (every leaf of 64 elements or more), `steps` steps each: the
+    largest |difference| of the params."""
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.parallel.dryrun import (
+        bn_cnn, bn_cnn_batch, params_vector,
+    )
+
+    x, y = bn_cnn_batch(8 * world)
+    params = {}
+    for wu in ("replicated", "sharded"):
+        net = bn_cnn(device, "FLOAT", lr=0.05)
+        pw = ParallelWrapper(net, weight_update=wu, min_shard_size=64)
+        for _ in range(steps):
+            pw.fit(x, y)
+        params[wu] = params_vector(net)
+    return {"max_abs": float(np.abs(params["sharded"]
+                                    - params["replicated"]).max())}
 
 
 def data_parallel_phase(dev, cfg, phase9b):
@@ -3173,9 +3418,11 @@ def data_parallel_phase(dev, cfg, phase9b):
     x, y = resnet_batch(dev, cfg, cfg["batch"])
     modes = {}
     try:
-        for mode in DP_MODES:
+        for mode, wu in [(m, "replicated") for m in DP_MODES] \
+                + list(DP_SHARDED):
             r = dp_train(dev, cfg, group, x, y, mode,
-                         plain_ms=phase9b["step_ms_median_3_on"])
+                         plain_ms=phase9b["step_ms_median_3_on"],
+                         weight_update=wu)
             modes[r["mode"]] = r
             log(f"dp (a) {r['mode']}: " + json.dumps(
                 {k: v for k, v in r.items() if k != "losses"}))
@@ -3186,6 +3433,13 @@ def data_parallel_phase(dev, cfg, phase9b):
     need(dense == phase9b["losses"],
          "dp (a): dense at world 1 is not bitwise ComputationGraph.fit: "
          f"{dense} vs {phase9b['losses']}")
+    for mode, _ in DP_SHARDED:
+        rep, sh = modes[mode or "dense"], modes[(mode or "dense")
+                                                + "+sharded"]
+        need(sh["losses"] == rep["losses"]
+             and sh["params_sha256"] == rep["params_sha256"],
+             f"dp (a) {sh['mode']}: not bitwise the replicated run at "
+             f"world 1: losses {sh['losses'][:3]} vs {rep['losses'][:3]}")
     del x, y
     torch.cuda.empty_cache()
 
@@ -3208,10 +3462,43 @@ def data_parallel_phase(dev, cfg, phase9b):
             "dense_max_abs_vs_fit": gap, "bar": SYNC_BN_F32_ATOL,
             "int8_grid_excess": excess, "dense_losses": r0["dense_losses"],
             "single_losses": r0["single_losses"],
-            "collectives_per_dense_step": r0["comm"]["collectives"]}
-    log("dp (b): two ranks on one card over gloo (gloo stages CUDA tensors "
+            "collectives_per_dense_step": r0["comm"]["collectives"],
+            "zero_probe": r0["zero_probe"]}
+    if "sharded" in r0:
+        worst = max(r["sharded"]["max_abs"] for r in ranks)
+        need(worst <= SYNC_BN_F32_ATOL, f"dp (b): sharded dense dp 2 "
+             f"{worst:.3e} from replicated (bar {SYNC_BN_F32_ATOL})")
+        gloo["sharded_max_abs_vs_replicated"] = worst
+        # the 2-hop exchange needs four ranks: node groups of 2
+        t4 = time.perf_counter()
+        hier = launch(gloo_hier_rank, 2 * DP_HIER_GROUP, device=one_card,
+                      backend="gloo", timeout=600)
+        for intra, h in hier[0].items():
+            need(all(r[intra]["params_sha256"] == h["params_sha256"]
+                     for r in hier), f"dp (b) hierarchical {intra}: the "
+                 "ranks' params differ")
+            need(all(math.isfinite(v) for r in hier
+                     for v in r[intra]["losses"]),
+                 f"dp (b) hierarchical {intra}: non-finite loss")
+            need(all(r[intra]["wire_bytes"] == r[intra]["bill"]
+                     for r in hier), f"dp (b) hierarchical {intra}: wire "
+                 f"{h['wire_bytes']} B vs the port's bill {h['bill']} B")
+        gloo["hierarchical"] = {k: {kk: vv for kk, vv in v.items()
+                                    if kk != "params_sha256"}
+                                for k, v in hier[0].items()}
+        gloo["hierarchical_seconds"] = time.perf_counter() - t4
+        zero_note = ("the sharded dense leg and, on four ranks, the "
+                     "hierarchical leg ran")
+    else:
+        zero_note = ("the sharded and hierarchical legs left out: gloo "
+                     "refused " + "; ".join(
+                         f"{k} ({v})" for k, v in r0["zero_probe"].items()
+                         if v != "ok")
+                     + " of CUDA tensors, and the port never stages a "
+                     "collective through the host itself")
+    log("dp (b): ranks on one card over gloo (gloo stages CUDA tensors "
         "through the host: the backend's own staging, asked for here; "
-        "threshold mode left out: gloo has no CUDA all-gather): "
+        f"threshold mode left out of this leg; {zero_note}): "
         + json.dumps(gloo))
 
     cards = torch.cuda.device_count()
@@ -3221,16 +3508,20 @@ def data_parallel_phase(dev, cfg, phase9b):
         res = launch(dp_nccl_rank, dp, device=dev, timeout=900,
                      args=(cfg,))
         multi = {}
-        for i, mode in enumerate(DP_MODES):
-            r = res[0][i]
+        for i, r in enumerate(res[0]):
             need(all(math.isfinite(v) for rr in res for v in rr[i]["losses"]),
                  f"dp (c) {r['mode']}: non-finite loss")
-            r["scaling_vs_world1"] = (r["images_per_s"]
-                                      / modes[r["mode"]]["images_per_s"])
+            if r["mode"] in modes:
+                r["scaling_vs_world1"] = (r["images_per_s"]
+                                          / modes[r["mode"]]["images_per_s"])
             multi[r["mode"]] = {k: v for k, v in r.items() if k != "losses"}
-        log(f"dp (c): dp {dp} over {cards} cards: " + json.dumps(multi))
+        log(f"dp (c): dp {dp} over {cards} cards (the hierarchical leg "
+            f"{'ran' if dp >= 2 * DP_HIER_GROUP else 'needs four cards'}): "
+            + json.dumps(multi))
     else:
-        log(f"dp (c): not run: {cards} card visible (needs two or more)")
+        log(f"dp (c): not run: {cards} card visible (needs two or more: "
+            "NCCL takes one rank a card; the sharded and hierarchical "
+            "legs ran over gloo in (b))")
     need(kernel_launches() == before, "dp: a hand-written kernel launched: "
          f"{before} -> {kernel_launches()}")
     return {"modes": modes, "gloo": gloo, "multi": multi}
@@ -4061,46 +4352,79 @@ def s2d_stem(dev, cfg, phase9b):
 
 def remat_ab(dev):
     """Phase 15(f): 9(b)'s ResNet-50 (bf16 NHWC, Nesterovs(0.1, 0.9),
-    batch 128, deterministic cuDNN) for REMAT_STEPS fit steps without and
-    with checkpointPolicy="save_conv_outputs" from the same weights: the
-    losses and the final params, BN statistics and momentum bitwise
-    equal; each run's peak memory and step ms."""
+    batch 128, deterministic cuDNN) for REMAT_STEPS fit steps stock, with
+    checkpointPolicy="save_conv_outputs" and with
+    activationCheckpointing(True), from the same weights: the losses and
+    the final params, BN statistics and momentum bitwise equal; each
+    run's peak memory and step ms; PAR06's prediction for the per-layer
+    run over its measured peak, within PAR06_BAND."""
     import torch
 
-    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.analysis import validate_plan
+    from deeplearning4j_tpu_torch.nn import DataType, Nesterovs
+    from deeplearning4j_tpu_torch.zoo import ResNet50
 
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     x, y = resnet_batch(dev, RESNET_TIMED, RESNET_TIMED["batch"])
     runs, nets = {}, {}
-    for policy in (None, "save_conv_outputs"):
-        net = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
-                         updater=Nesterovs(0.1, 0.9), checkpointPolicy=policy)
+    for key, policy in (("stock", None),
+                        ("save_conv_outputs", "save_conv_outputs"),
+                        ("per_layer", None)):
+        gc.collect()
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
+        built_from = torch.cuda.memory_allocated(dev)
+        net = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                         updater=Nesterovs(0.1, 0.9), checkpointPolicy=policy)
+        net.conf.activationCheckpointing = key == "per_layer"
+        torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         losses, step_s = fit_timed(net, x, y, REMAT_STEPS)
-        key = policy or "stock"
+        peak = torch.cuda.max_memory_allocated(dev)
         runs[key] = {"losses": losses,
                      "step_ms_median_3_on": float(np.median(step_s[2:]))
                      * 1e3,
-                     "max_memory_allocated_bytes":
-                         torch.cuda.max_memory_allocated(dev),
-                     "peak_over_resident_bytes":
-                         torch.cuda.max_memory_allocated(dev) - base}
+                     "max_memory_allocated_bytes": peak,
+                     "peak_over_resident_bytes": peak - base,
+                     # the net's own high-water mark and its batch, as
+                     # PAR06 predicts it (24(b)'s measure)
+                     "net_peak_bytes": peak - built_from + x.nbytes
+                     + y.nbytes}
         nets[key] = net
-    stock, remat = nets["stock"], nets["save_conv_outputs"]
-    need(runs["stock"]["losses"] == runs["save_conv_outputs"]["losses"],
-         f"zoo (f): remat losses {runs['save_conv_outputs']['losses']} vs "
-         f"stock {runs['stock']['losses']}")
-    need(state_equal(stock, remat),
-         "zoo (f): remat's final state is not stock's bit for bit")
-    out = dict(runs, peak_ratio=runs["save_conv_outputs"][
-        "max_memory_allocated_bytes"] / runs["stock"][
-        "max_memory_allocated_bytes"])
+        if key == "stock":
+            continue
+        need(runs[key]["losses"] == runs["stock"]["losses"],
+             f"zoo (f): {key} losses {runs[key]['losses']} vs stock "
+             f"{runs['stock']['losses']}")
+        need(state_equal(nets["stock"], net),
+             f"zoo (f): {key}'s final state is not stock's bit for bit")
+        del nets[key]
+    conf = ResNet50(numClasses=RESNET_TIMED["classes"], seed=SEED,
+                    inputShape=(3, RESNET_TIMED["image"],
+                                RESNET_TIMED["image"]),
+                    dataType=DataType.BFLOAT16, dataFormat="NHWC",
+                    updater=Nesterovs(0.1, 0.9)).conf()
+    conf.activationCheckpointing = True
+    pred = validate_plan(conf, {"data": 1}, batchSize=RESNET_TIMED["batch"]
+                         ).plan["memory"]["total_bytes"]
+    ratio = pred / runs["per_layer"]["net_peak_bytes"]
+    need(PAR06_BAND[0] <= ratio <= PAR06_BAND[1],
+         f"zoo (f): PAR06 predicts {pred} B for the per-layer run, "
+         f"measured {runs['per_layer']['net_peak_bytes']} B, ratio "
+         f"{ratio:.3f} outside {PAR06_BAND}")
+    peak = {k: v["max_memory_allocated_bytes"] for k, v in runs.items()}
+    ms = {k: v["step_ms_median_3_on"] for k, v in runs.items()}
+    out = dict(runs, peak_ratio=peak["save_conv_outputs"] / peak["stock"],
+               per_layer_peak_ratio=peak["per_layer"] / peak["stock"],
+               per_layer_over_policy_peak=peak["per_layer"]
+               / peak["save_conv_outputs"],
+               per_layer_step_over_stock=ms["per_layer"] / ms["stock"],
+               per_layer_par06_predicted_bytes=pred,
+               per_layer_par06_ratio=ratio)
     log("zoo (f): " + json.dumps(out))
-    del nets, stock, remat, x, y
+    del nets, net, x, y
     torch.cuda.empty_cache()
     return out
 
@@ -9035,7 +9359,8 @@ def rl_search_profiler_phase(dev):
 CAPTURE_DECODE = dict(requests=8, new_tokens=32, buckets=(1, 2, 4, 8),
                       pages=513)
 #: 23(c): steps of each eager/captured pair (VGG16 5: dropout's masks)
-CAPTURE_TRAIN = dict(resnet=20, lenet=20, encoder=20, vgg=5, vgg_batch=64)
+CAPTURE_TRAIN = dict(resnet=20, lenet=20, encoder=20, vgg=5, vgg_batch=64,
+                     resnet_remat=5)
 #: 23(d): the sweeps' proving steps and timed replays a candidate
 CAPTURE_TUNE = dict(steps=2, reps=5, lenet_batch=64)
 
@@ -9273,6 +9598,7 @@ def _train_pair(build, x, y, steps, what, precompile):
             rep = precompile(net)
             res["capture_s"] = time.perf_counter() - t
             res["capture_report"] = {k: v["status"] for k, v in rep.items()}
+            warm = net._captured.captures
         losses, step_s = fit_timed(net, x, y, steps)
         med = float(np.median(step_s[2:])) if steps > 3 \
             else float(np.median(step_s))
@@ -9288,6 +9614,7 @@ def _train_pair(build, x, y, steps, what, precompile):
             need(cap.uncaptured == 0 and cap.replays == steps,
                  f"{what}: {cap.replays} replays, {cap.uncaptured} "
                  f"uncaptured of {steps} steps")
+            res["captures_after_warm"] = cap.captures - warm
         finals[name] = [t.detach().cpu() for t in net._step_state()]
         del net
     need(res["eager"]["losses"] == res["captured"]["losses"],
@@ -9320,6 +9647,22 @@ def capture_training(dev, cfg):
         x, y, cfg["resnet"], "capture (c)(i) ResNet-50",
         lambda n: n.precompile(batchSize=RESNET_TIMED["batch"],
                                entries=("train",)))
+    # (v) the same net under activationCheckpointing: the per-layer
+    # regions' recomputes inside the captured step
+    def remat_net():
+        n = resnet_net(dev, RESNET_TIMED, "BFLOAT16", dataFormat="NHWC",
+                       updater=Nesterovs(0.1, 0.9))
+        n.conf.activationCheckpointing = True
+        return n
+
+    out["resnet50_remat"] = _train_pair(
+        remat_net, x, y, cfg["resnet_remat"],
+        "capture (c)(v) ResNet-50 activationCheckpointing",
+        lambda n: n.precompile(batchSize=RESNET_TIMED["batch"],
+                               entries=("train",)))
+    need(out["resnet50_remat"]["captures_after_warm"] == 0,
+         "capture (c)(v): the remat step was captured again after warm(): "
+         f"{out['resnet50_remat']['captures_after_warm']}")
     del x, y
     # (ii) phase 8's LeNet, Adam on a step schedule
     rng = np.random.default_rng(SEED)
@@ -9600,6 +9943,8 @@ def analysis_par06(dev):
     from deeplearning4j_tpu_torch.analysis import (
         ConfigValidationError, validate_plan,
     )
+    from deeplearning4j_tpu_torch.analysis.partitioning import \
+        step_high_water
     from deeplearning4j_tpu_torch.nn import DataType, Nesterovs
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
 
@@ -9671,6 +10016,32 @@ def analysis_par06(dev):
         out[name] = row
         gc.collect()
         torch.cuda.empty_cache()
+    # an f32 convolutional step under the smoke's cuDNN settings (TF32
+    # off, deterministic), where PAR06 counts the workspaces
+    conf = zoo.SimpleCNN(numClasses=10, inputShape=(3, 64, 64)).conf()
+    mem = validate_plan(conf, {"data": 1}, batchSize=64).plan["memory"]
+
+    def make_simple():
+        rng = np.random.default_rng(SEED + 24)
+        x = torch.from_numpy(rng.random((64, 3, 64, 64),
+                                        dtype=np.float32)).to(dev)
+        y = torch.from_numpy(np.eye(10, dtype=np.float32)[
+            rng.integers(0, 10, 64)]).to(dev)
+        return zoo.SimpleCNN(numClasses=10, inputShape=(3, 64, 64),
+                             seed=SEED, device=dev).init(), x, y
+
+    peak = _measured_peak(dev, make_simple, 3, False)
+    ratio = mem["total_bytes"] / peak
+    need(PAR06_BAND[0] <= ratio <= PAR06_BAND[1],
+         f"24(b) SimpleCNN f32: predicted {mem['total_bytes']} B, measured "
+         f"{peak} B, ratio {ratio:.3f} outside {PAR06_BAND}")
+    out["SimpleCNN_f32"] = {
+        "batch": 64, "predicted_eager_bytes": mem["total_bytes"],
+        "eager_measured_bytes": peak, "eager_ratio": ratio,
+        "conv_workspace_bytes": step_high_water(conf, 64)[
+            "conv_workspace_bytes"]}
+    gc.collect()
+    torch.cuda.empty_cache()
     log("24(b): " + json.dumps(out))
     return out
 
@@ -10193,7 +10564,8 @@ def main():
             "name": name, "route": "cuda",
             "source": "deeplearning4j_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"deeplearning4j_tpu/ops/pallas_attention.py:{line}",
-            "launches": train["launches"][key] + sd_enc["launches"][key]
+            "launches": train["launches"][key]
+            + train["remat"]["launches"][key] + sd_enc["launches"][key]
             + runtime["encoder"]["launches"][key]
             + fine["graph_transfer"]["launches"][key]
             + det["keras_mha"]["launches"].get(key, 0)
@@ -10555,10 +10927,12 @@ def main():
         "card; PAR06 predicted/measured: " + ", ".join(
             f"{k} b{v['batch']} eager {v['eager_ratio']:.3f} "
             f"({v['predicted_eager_bytes'] / 1e9:.2f}/"
-            f"{v['eager_measured_bytes'] / 1e9:.2f} GB), captured "
-            f"{v['captured_ratio']:.3f} ({v['predicted_captured_bytes'] / 1e9:.2f}/"
-            f"{v['captured_measured_bytes'] / 1e9:.2f} GB), b"
-            f"{v['refused_batch']} refused" for k, v in ab.items())
+            f"{v['eager_measured_bytes'] / 1e9:.2f} GB)" + (
+                f", captured {v['captured_ratio']:.3f} "
+                f"({v['predicted_captured_bytes'] / 1e9:.2f}/"
+                f"{v['captured_measured_bytes'] / 1e9:.2f} GB), b"
+                f"{v['refused_batch']} refused"
+                if "captured_ratio" in v else "") for k, v in ab.items())
         + f"; soak K4 {ana['soak']['k4_launches']}, K5 "
         f"{ana['soak']['k5_launches']}, {ana['soak']['fired']} faults, "
         f"coverage {ana['soak']['coverage']}; phase 24 "

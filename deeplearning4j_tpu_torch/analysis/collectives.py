@@ -6,7 +6,8 @@ choke point).
 The reference traces a program (``jax.make_jaxpr``) and walks its
 jaxpr for collective primitives. Every collective of the port goes
 through ``parallel/collectives.py`` (``all_reduce``, ``all_gather``,
-``broadcast``, ``int8_lane_sum``), which records the ordered
+``broadcast``, ``reduce_scatter``, ``int8_lane_sum``,
+``int8_lane_scatter``), which records the ordered
 **collective signature** of whatever runs under
 ``collectives.recording()``: one ``Site`` a call (op, dtype, element
 count, group axes and size, payload and wire bytes, the int8 lanes it
@@ -29,7 +30,8 @@ record-only recording (nothing communicates) and returns it.
          bits)). This replaces the reference's int16 ``psum``.
 - COL04  a signature that drifted from its declared
          ``CollectiveContract`` (``compression_contract`` for the dense,
-         int8, block_int8 and threshold modes).
+         int8, block_int8, threshold and hierarchical modes and the
+         sharded weight update).
 - COL05  ``check_bill``: measured wire bytes against an analytic bill
          (``port_wire_bill``: the port's own wire format; the
          reference's ``sharding.compressed_wire_bytes`` bills the
@@ -257,6 +259,21 @@ def check_acc_dtype(sig, dp, billed_acc_bytes=None, subject=""):
                  "ones waste the wire")
     k = 31 // bits
     for s in sig:
+        if s.op == "int8_lane_scatter":
+            # rows bound for each of the group's ranks, packed apart; the
+            # lanes sum over this site's group (hop 1: the node group)
+            ks = 31 // expected_lane_bits(s.size)
+            want = s.size * -(-(int(s.lanes) // s.size) // ks)
+            if s.dtype != "int32" or s.count != want:
+                report.add(
+                    "COL03", ERROR, s.format(),
+                    f"int8_lane_scatter sent {s.count} {s.dtype} word(s) "
+                    f"for {s.lanes} lanes over {s.size} ranks; the "
+                    f"contract packs each rank's row {ks} lanes an int32 "
+                    f"word: {want} words",
+                    hint="route the exchange through "
+                         "parallel.collectives.int8_lane_scatter")
+            continue
         if s.op != "int8_lane_sum":
             continue
         want = -(-int(s.lanes) // k)
@@ -305,7 +322,9 @@ def check_bill(measured_bytes, analytic_bytes, rel=0.10, where="",
     return report
 
 
-def port_wire_bill(mode, leaf_sizes, dp, block=None, capacity=None):
+def port_wire_bill(mode, leaf_sizes, dp, block=None, capacity=None,
+                   sharded=False, min_shard_size=2 ** 16, group_size=None,
+                   intra_mode="block_int8"):
     """Analytic wire bytes one rank sends for ONE gradient exchange in
     the port's wire format (ring convention, ``collectives.wire_bytes``):
 
@@ -317,33 +336,88 @@ def port_wire_bill(mode, leaf_sizes, dp, block=None, capacity=None):
                   blocks
       threshold   all-gather of one int32 code a transmitted element,
                   threshold_cap(n, capacity) a leaf
+      hierarchical  over node groups of g (``group_size``) ranks, n_i
+                  padded to g·s_i: hop 1 a reduce-scatter inside the
+                  group of the f32 leaves (dense) or of their packed
+                  lanes (rows of ceil(sum s_i / k_g) words) after a max
+                  all-reduce of their block scales; hop 2 the threshold
+                  codes of the blocks (threshold_cap(s_i)) all-gathered
+                  over the dp/g groups; hop 3 the f32 blocks all-gathered
+                  inside the group
+
+    ``sharded=True`` (dense, int8, block_int8: the ZeRO update) bills the
+    eligible leaves (n >= min_shard_size, n % dp == 0) as a
+    reduce-scatter of the f32 gradients (or the max all-reduce of their
+    scales and the reduce-scatter of rows of ceil(E / dp / k) lane
+    words) plus the all-gather of the f32 param blocks, and the other
+    leaves as the replicated mode does: dense, the first two terms are
+    ``sharding.dp_weight_update_bytes``'s ``collective_wire_bytes``.
     """
     from deeplearning4j_tpu_torch.ndarray.compression import threshold_cap
     from deeplearning4j_tpu_torch.parallel import collectives as _coll
     from deeplearning4j_tpu_torch.parallel.sharding import (
         DEFAULT_COMPRESSION_BLOCK, DEFAULT_ENCODING_CAPACITY,
+        default_compression_group, hierarchical_shard_elems,
     )
 
     sizes = [int(n) for n in leaf_sizes]
     dp = int(dp)
+    b = DEFAULT_COMPRESSION_BLOCK if block is None else int(block)
+    cap = DEFAULT_ENCODING_CAPACITY if capacity is None else float(capacity)
+
+    def scales(leaves, mode):
+        if mode == "int8":
+            return len(leaves)
+        return sum(-(-n // b) for n in leaves)
+
+    if sharded:
+        if mode not in (None, "int8", "block_int8"):
+            raise ValueError(f"the sharded weight update does not compose "
+                             f"with gradient_compression {mode!r}")
+        elig = [n for n in sizes if n >= min_shard_size and n % dp == 0]
+        rest = [n for n in sizes if not (n >= min_shard_size
+                                         and n % dp == 0)]
+        E = sum(elig)
+        wire = _coll.wire_bytes("all_gather", 4 * E // dp, dp) if E else 0
+        if E and mode is None:
+            wire += _coll.wire_bytes("reduce_scatter", 4 * E, dp)
+        elif E:
+            k = 31 // _coll.lane_bits(dp)
+            words = dp * -(-(E // dp) // k)
+            wire += _coll.wire_bytes("all_reduce", 4 * scales(elig, mode),
+                                     dp) \
+                + _coll.wire_bytes("reduce_scatter", 4 * words, dp)
+        return wire + (port_wire_bill(mode, rest, dp, block, capacity)
+                       if rest else 0)
     if mode is None:
         return _coll.wire_bytes("all_reduce", 4 * sum(sizes), dp)
     if mode in ("int8", "block_int8"):
         k = 31 // _coll.lane_bits(dp)
         if mode == "int8":
-            lanes, scales = sum(sizes), len(sizes)
+            lanes = sum(sizes)
         else:
-            b = DEFAULT_COMPRESSION_BLOCK if block is None else int(block)
-            blocks = sum(-(-n // b) for n in sizes)
-            lanes, scales = b * blocks, blocks
+            lanes = b * scales(sizes, mode)
         words = -(-lanes // k)
-        return _coll.wire_bytes("all_reduce", 4 * scales, dp) \
+        return _coll.wire_bytes("all_reduce", 4 * scales(sizes, mode), dp) \
             + _coll.wire_bytes("all_reduce", 4 * words, dp)
     if mode == "threshold":
-        cap = DEFAULT_ENCODING_CAPACITY if capacity is None \
-            else float(capacity)
         codes = sum(threshold_cap(n, cap) for n in sizes)
         return _coll.wire_bytes("all_gather", 4 * codes, dp)
+    if mode == "hierarchical":
+        g = default_compression_group(dp) if group_size is None \
+            else int(group_size)
+        ns = [hierarchical_shard_elems(n, g) for n in sizes]
+        S = sum(ns)
+        if intra_mode == "block_int8":
+            k = 31 // _coll.lane_bits(g)
+            hop1 = _coll.wire_bytes(
+                "all_reduce", 4 * sum(-(-g * s // b) for s in ns), g) \
+                + _coll.wire_bytes("reduce_scatter", 4 * g * -(-S // k), g)
+        else:
+            hop1 = _coll.wire_bytes("reduce_scatter", 4 * g * S, g)
+        codes = sum(threshold_cap(s, cap) for s in ns)
+        return hop1 + _coll.wire_bytes("all_gather", 4 * codes, dp // g) \
+            + _coll.wire_bytes("all_gather", 4 * S, g)
     raise ValueError(f"no port wire format for gradient_compression "
                      f"{mode!r}")
 
@@ -420,7 +494,9 @@ class CollectiveContract:
 
 def compression_contract(mode, n_leaves=None, axis="data",
                          sync_bn_layers=0, stateful=False,
-                         adaptive=False):
+                         adaptive=False, sharded=False,
+                         replicated_leaves=True, group_axis="group",
+                         intra_axis="intra", intra_quantized=True):
     """The declared collective contract of one data-parallel step of
     ``ParallelWrapper``/``SharedTrainingMaster`` in gradient_compression
     `mode` (the port packs every leaf into one exchange, so the counts
@@ -439,9 +515,48 @@ def compression_contract(mode, n_leaves=None, axis="data",
                   all_reduce = 1 (+1)(+1) the loss mean (+ state mean)
                                          (+ the adaptive tau's sent
                                          fraction)
+      hierarchical  (over the data, group and intra axes)
+                  int8_lane_scatter = 1  hop 1's packed lanes (intra;
+                                         reduce_scatter = 1 when dense)
+                  all_gather = 2         hop 2's codes (group), hop 3's
+                                         fan-back (intra)
+                  all_reduce = 2 (+1)(+1) hop 1's block scales (max,
+                                         quantized only), the loss mean
+                                         (+ state mean) (+ the adaptive
+                                         tau's sent fraction)
+      sharded     (``sharded=True``, the ZeRO update, one dtype)
+        None      reduce_scatter = 1     the eligible gradients
+                  all_gather = 1         the fresh param blocks
+                  all_reduce = 1 (+1) + 3·B  the loss (+ the
+                                         replicated leaves' mean)
+        int8 /    int8_lane_scatter = 1  the eligible leaves' lanes
+        block_int8 all_gather = 1        the fresh param blocks
+                  all_reduce = 2 (+1)    their scales, the loss (+ state)
+                  (+ int8_lane_sum = 1, all_reduce +1: the replicated
+                  leaves' lanes and scales)
     """
     del n_leaves
     st = 1 if stateful else 0
+    if sharded:
+        if mode not in (None, "int8", "block_int8"):
+            raise ValueError(f"the sharded weight update does not compose "
+                             f"with gradient_compression {mode!r}")
+        rep = 1 if replicated_leaves else 0
+        if mode is None:
+            counts = {"reduce_scatter": 1, "all_gather": 1,
+                      "all_reduce": 1 + rep + 3 * int(sync_bn_layers)}
+        else:
+            counts = {"int8_lane_scatter": 1, "all_gather": 1,
+                      "all_reduce": 2 + st + rep}
+            if rep:
+                counts["int8_lane_sum"] = 1
+        return CollectiveContract(
+            f"{mode or 'dense'}+zero", counts, axes=(axis,),
+            description="the ZeRO update: the eligible gradients "
+                        "reduce-scattered, the fresh param blocks "
+                        "all-gathered; the other leaves replicated; the "
+                        "loss mean",
+            expects_quantized=mode is not None)
     if mode is None:
         return CollectiveContract(
             "dense", {"all_reduce": 2 + 3 * int(sync_bn_layers)},
@@ -464,12 +579,24 @@ def compression_contract(mode, n_leaves=None, axis="data",
             description="Strom threshold encoding: one all-gather of "
                         "the codes + the loss mean")
     if mode == "hierarchical":
-        raise NotImplementedError(
-            "the hierarchical exchange waits for the rest of the "
-            "data-parallel slice (ROADMAP.md Queue 1 item 7)")
+        counts = {"all_gather": 2, "all_reduce": 1 + st + (1 if adaptive
+                                                            else 0)}
+        if intra_quantized:
+            counts["int8_lane_scatter"] = 1
+            counts["all_reduce"] += 1
+        else:
+            counts["reduce_scatter"] = 1
+        return CollectiveContract(
+            "hierarchical", counts, axes=(axis, group_axis, intra_axis),
+            description="2-hop exchange: the intra reduce-scatter (block "
+                        "scales max + packed lanes, or dense), the "
+                        "leaders' threshold codes all-gathered over the "
+                        "group axis, the intra fan-back all-gather; + the "
+                        "loss mean",
+            expects_quantized=bool(intra_quantized))
     raise ValueError(
         f"unknown gradient_compression mode {mode!r}; pick one of "
-        "(None, 'int8', 'block_int8', 'threshold')")
+        "(None, 'int8', 'block_int8', 'threshold', 'hierarchical')")
 
 
 def linalg_contract(routine):
@@ -539,7 +666,8 @@ def verify_program(fn, *args, mesh=None, group=None, contract=None,
     all_keys = _gather_signatures(sig, group)
     _compare_ranks(report, all_keys)
     report.extend(check_signature(sig, mesh_axes=axes, subject=subject))
-    quantized = any(s.op == "int8_lane_sum" for s in sig)
+    quantized = any(s.op in ("int8_lane_sum", "int8_lane_scatter")
+                    for s in sig)
     if contract is not None and contract.expects_quantized:
         if not quantized:
             report.add(

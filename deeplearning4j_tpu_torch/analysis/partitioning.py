@@ -43,17 +43,21 @@ refused. Nothing is allocated and no kernel runs. A step that does not
 run on meta tensors is an error naming its layer when a budget is set
 (the gate cannot be off unseen), a warning when none is.
 
-Not counted: the process's one-time cuBLAS workspaces (34 MiB),
-allocator fragmentation, and cuDNN's convolution workspaces, which no
-static rule bounds closely (``scripts/conv_workspace.py`` over every
-convolution of eight zoo steps on the H100: a call's workspace reached
-1.41x its input and output bytes in bf16, 2.29x in f32 with TF32, 55x
-in f32 without, where cuDNN's first call of a shape may hold an FFT
-engine's). At PyTorch's default cuDNN settings the workspaces that
-overlap the step's peak stay small (prediction / measured peak:
-SimpleCNN f32 b64 at 64² 0.987; ResNet-50 and YOLO2 bf16 0.98-0.99);
-with TF32 off, f32 convolutions are under-predicted (SimpleCNN: 0.727,
-deterministic; a known defect, ROADMAP Queue 3): PAR06 warns then.
+Not counted: the process's one-time cuBLAS workspaces (34 MiB) and
+allocator fragmentation. cuDNN's convolution workspaces are counted only
+where they are large: with cuDNN's TF32 off, each f32 convolution call
+holds ``F32_CONV_WORKSPACE_RATIO`` (4.25x) its input plus output bytes
+while it runs, the median of what ``scripts/conv_workspace.py``
+measured over every convolution of eight zoo steps on the H100 (1.41x
+at most in bf16, 2.29x in f32 with TF32, 55x without, where cuDNN's
+first call of a shape may hold an FFT engine's). The workspace is added
+to the live count at its call only, since cuDNN frees it after the call,
+so it raises the peak only where it overlaps the step's tensors (SimpleCNN
+f32 b64 at 64², deterministic, TF32 off: the first convolution's
+backward; prediction / measured peak 0.727 before the term). At
+PyTorch's default cuDNN settings the workspaces that overlap the step's
+peak stay small (SimpleCNN 0.987; ResNet-50 and YOLO2 bf16 0.98-0.99)
+and none is counted; PAR06 warns on f32 convolutions with TF32 off.
 On a model or pipe axis the parameter, gradient and updater terms are
 divided as the plan shards them; the step's activations are not (an
 upper bound until item 7 executes those axes). The budget defaults to
@@ -501,6 +505,13 @@ def _check_pipeline(report, conf, rows, axes, plan, batchSize):
 #: predicted at (the shape pass's too)
 _T_DEFAULT = 8
 
+#: cuDNN's workspace of an f32 convolution call with TF32 off, as a
+#: multiple of the call's input plus output bytes: the median over the 58
+#: f32 calls ``scripts/conv_workspace.py`` measured on the H100 under the
+#: deterministic setting (the smoke's; 2.0 without it, 54.9 the largest)
+F32_CONV_WORKSPACE_RATIO = 4.25
+
+
 class _LiveBytes:
     """A dispatch mode counting the bytes the aten ops under it
     allocate and free: each new storage (rounded up to the caching
@@ -508,11 +519,18 @@ class _LiveBytes:
     storages in `resident` (parameters, states, the batch) are not
     counted. ``peak`` is the high-water mark of the count;
     ``f32_convolutions`` counts the f32 convolution calls (forward and
-    backward), whose cuDNN workspaces are the largest with TF32 off."""
+    backward), whose cuDNN workspaces are the largest with TF32 off.
+    With `workspace_ratio` > 0 each such call also holds a workspace of
+    that many times its input plus output bytes (a forward's input and
+    output, a backward's output gradient and input) while it runs: cuDNN
+    frees it after the call, so it adds to the count at that call only
+    and can raise the peak there; ``tensor_peak`` is the peak without
+    the workspaces."""
 
-    def __init__(self, resident):
+    def __init__(self, resident, workspace_ratio=0.0):
         self.resident = set(resident)
-        self.live = self.peak = self.f32_convolutions = 0
+        self.workspace_ratio = float(workspace_ratio)
+        self.live = self.peak = self.tensor_peak = self.f32_convolutions = 0
         self._refs, self._size = {}, {}
 
     def _release(self, sid):
@@ -536,7 +554,8 @@ class _LiveBytes:
         class _Mode(TorchDispatchMode):
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 out = func(*args, **(kwargs or {}))
-                if func in convs and args[1].dtype == torch.float32:
+                f32_conv = func in convs and args[1].dtype == torch.float32
+                if f32_conv:
                     owner.f32_convolutions += 1
                 for t in tree_flatten(out)[0]:
                     if not isinstance(t, torch.Tensor):
@@ -550,8 +569,15 @@ class _LiveBytes:
                         owner._size[sid], owner._refs[sid] = n, 0
                         owner.live += n
                         owner.peak = max(owner.peak, owner.live)
+                        owner.tensor_peak = max(owner.tensor_peak,
+                                                owner.live)
                     owner._refs[sid] += 1
                     weakref.finalize(t, owner._release, sid)
+                if f32_conv and owner.workspace_ratio:
+                    io = args[0].numel() + (out.numel() if func is convs[0]
+                                            else args[1].numel())
+                    ws = int(owner.workspace_ratio * io * 4)
+                    owner.peak = max(owner.peak, owner.live + ws)
                 return out
 
         self._mode = _Mode()
@@ -620,7 +646,10 @@ def step_high_water(conf, batchSize):
     run on meta tensors (module docstring). Returns {params_bytes,
     layer_state_bytes, optimizer_state_bytes, input_bytes,
     step_peak_bytes, total_bytes, f32_convolutions,
-    captured_total_bytes}."""
+    conv_workspace_bytes, captured_total_bytes}. With cuDNN's TF32 off
+    the peak holds each f32 convolution's workspace while its call runs
+    (``F32_CONV_WORKSPACE_RATIO``); ``conv_workspace_bytes`` is what the
+    workspaces add to the peak."""
     import copy
 
     import torch
@@ -666,9 +695,11 @@ def step_high_water(conf, batchSize):
     states = _leaves(net._states)
     opt = _leaves(net._upd_states)
     resident = params + states + opt + batch
+    ratio = F32_CONV_WORKSPACE_RATIO if torch.backends.cudnn.enabled \
+        and not torch.backends.cudnn.allow_tf32 else 0.0
     try:
         with _LiveBytes([t.untyped_storage()._cdata
-                         for t in resident]) as live:
+                         for t in resident], ratio) as live:
             net._train_step(x, y, None, None, iteration=0)
     except Exception as e:
         where = _failing_layer(net, e)
@@ -683,6 +714,7 @@ def step_high_water(conf, batchSize):
              "step_peak_bytes": int(live.peak)}
     terms["total_bytes"] = sum(terms.values())
     terms["f32_convolutions"] = live.f32_convolutions
+    terms["conv_workspace_bytes"] = int(live.peak - live.tensor_peak)
     # a capture (``runtime.aot``) holds static copies of its inputs, and
     # its warm-up a snapshot of the step's state (params, updater and
     # layer state) while it captures
@@ -735,7 +767,7 @@ def _predict_hbm(report, conf, rows, axes, plan, batchSize, balance,
                   and plan.batch_axis is not None) else 1
 
     full_elems = card_elems = 0
-    opt_full = opt_card = 0.0
+    opt_full = opt_card = opt_tp = 0.0
     for row in rows:
         key = row["key"]
         shapes = row.get("param_shapes") or {}
@@ -768,6 +800,7 @@ def _predict_hbm(report, conf, rows, axes, plan, batchSize, balance,
             state = _updater_state_elems(_layer_updater(conf, key), shapes)
             share = layer_elems / max(1, full)
             opt_full += state
+            opt_tp += state * share
             if dp_w > 1:
                 f_e = elig_elems / max(1, full)
                 opt_card += state * (f_e / dp_w + (1 - f_e) * share)
@@ -793,9 +826,10 @@ def _predict_hbm(report, conf, rows, axes, plan, batchSize, balance,
             and not torch.backends.cudnn.allow_tf32:
         report.add("PAR06", WARNING, f"hbm @ {_mesh_tag(axes)}",
                    f"{step['f32_convolutions']} f32 convolution calls run "
-                   "with cuDNN's TF32 off: their workspaces, not counted, "
-                   "may hold up to 55x a call's input and output bytes "
-                   "(an FFT engine's first call), so the measured peak "
+                   "with cuDNN's TF32 off: their workspaces are counted at "
+                   f"the measured median, {F32_CONV_WORKSPACE_RATIO}x a "
+                   "call's input and output bytes, but one may hold up to "
+                   "55x (an FFT engine's first call), so the measured peak "
                    "can exceed the prediction",
                    hint="leave a margin under the budget, or turn "
                         "torch.backends.cudnn.allow_tf32 on")
@@ -823,6 +857,11 @@ def _predict_hbm(report, conf, rows, axes, plan, batchSize, balance,
              + params_b + opt_b + step["layer_state_bytes"]}
     terms["per_card_gb"] = round(terms["total_bytes"] / 1e9, 4)
     terms["weight_update"] = plan.weight_update
+    # the updater state the plan's tensor/pipeline placement would hold
+    # over what the ZeRO layout holds a card (reference:
+    # ``weight_update_sharding``; < 1 where tp > dp)
+    terms["weight_update_sharding"] = round(opt_tp / opt_card, 6) \
+        if opt_card else 1.0
     terms["mesh"] = dict(axes)
     terms["pipeline_stages"] = pp if balance is not None else 1
     terms["gradient_compression"] = plan.gradient_compression
@@ -851,6 +890,8 @@ _COLLECTIVES = {
     # the port's choke point (parallel/collectives.py): the group is the
     # second argument; a string there names an axis
     "all_reduce": 1, "broadcast": 1, "int8_lane_sum": 1,
+    "reduce_scatter": 1, "int8_lane_scatter": 1, "scatter_mean": 1,
+    "quantized_psum_scatter_mean": 1,
     "quantized_psum_mean": 1, "threshold_psum_mean": 4,
     "shard_batch": 2,
 }

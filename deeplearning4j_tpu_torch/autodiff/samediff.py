@@ -53,9 +53,9 @@ may update its variables in place without any INDArray seeing it.
 
 The namespaces are the reference's: ``math`` (with the segment ops and
 ``betainc``), ``nn``, ``cnn``, ``rnn``, ``loss``, ``image``, ``linalg``,
-``bitwise``, ``random`` and ``fft``. What waits raises
-``NotImplementedError`` naming its ROADMAP.md Queue 1 item:
-``shardWeightUpdate`` (item 7). ``precompile`` captures the training
+``bitwise``, ``random`` and ``fft``. ``shardWeightUpdate`` installs the
+ZeRO update (``parallel.sharding.ZeroShardedUpdate``) over the ranks of
+a data group. ``precompile`` captures the training
 step as a CUDA graph (``runtime.aot``) that ``fit``, ``fitSteps`` and
 ``fitDataSet`` replay; a graph whose ``ifCond`` or unbounded
 ``whileLoop`` reads a predicate on the host, or whose random ops draw
@@ -90,11 +90,6 @@ from deeplearning4j_tpu_torch.nn.conf import dropout as _dropout
 from deeplearning4j_tpu_torch.nn import weights as _weights
 
 __all__ = ["SameDiff", "SDVariable", "TrainingConfig", "VariableType"]
-
-
-def _later(what, item):
-    return NotImplementedError(
-        f"{what} waits for a later slice (ROADMAP.md Queue 1 item {item})")
 
 
 def _stream_seed(stream, i, path=()):
@@ -332,6 +327,7 @@ class SameDiff:
         self._loss_vars = []
         self._tc = None
         self._train_state = None
+        self._update_impl = None  # the ZeRO hook (shardWeightUpdate)
         self._pending_updater_leaves = None
         self._iteration = 0
         self._control_syncs = 0   # host fetches made by control flow
@@ -874,6 +870,10 @@ class SameDiff:
                       if v.variableType == VariableType.VARIABLE)
 
     def _train_state_for(self, params, updater):
+        z = self._update_impl
+        if self._train_state is None and z is not None \
+                and self._pending_updater_leaves is None:
+            self._train_state = z.init_state(updater, params)
         if self._train_state is None:
             with torch.no_grad():
                 state = updater.init(params)
@@ -895,7 +895,7 @@ class SameDiff:
                     _from_numpy(a, self.device).to(t.dtype).reshape(t.shape)
                     for a, t in zip(leaves, like)])
                 self._pending_updater_leaves = None
-            self._train_state = state
+            self._train_state = state if z is None else z.place_state(state)
         return self._train_state
 
     def _step(self, tc, loss_names, params, state, phs, it, hyper=None):
@@ -935,9 +935,13 @@ class SameDiff:
             if tc.weightDecay:
                 grads = {n: g + tc.weightDecay * params[n]
                          for n, g in grads.items()}
-            _, state = default_param_update(
-                tc.updater, grads, state, it, params,
-                None if hyper is None else hyper.views(0))
+            hp = None if hyper is None else hyper.views(0)
+            if self._update_impl is not None:
+                state = self._update_impl.step(
+                    [(tc.updater, grads, state, params, hp)], it)[0]
+            else:
+                _, state = default_param_update(tc.updater, grads, state,
+                                                it, params, hp)
         return loss.detach(), state
 
     def _fit_setup(self):
@@ -1120,7 +1124,37 @@ class SameDiff:
 
     def shardWeightUpdate(self, mesh=None, batch_axis=None,
                           min_shard_size=2 ** 16):
-        raise _later("shardWeightUpdate (the sharded weight update)", 7)
+        """The ZeRO-style sharded weight update for this graph's training
+        (reference: ``shardWeightUpdate``;
+        ``parallel.sharding.ZeroShardedUpdate``): every rank of `mesh`
+        (default: the data axis over every rank) runs the step on its
+        batch, the eligible gradients are reduce-scattered into 1/dp
+        blocks, the updater runs on this rank's blocks of the variables
+        and of its state (allocated sharded) and the fresh blocks are
+        all-gathered. An existing updater state is re-placed sharded,
+        bitwise; ``save`` writes it canonical. Returns self."""
+        from deeplearning4j_tpu_torch.parallel import mesh as _pmesh
+        from deeplearning4j_tpu_torch.parallel.sharding import \
+            ZeroShardedUpdate
+
+        mesh = mesh if mesh is not None else _pmesh.data_parallel_mesh()
+        z = ZeroShardedUpdate(mesh, axis=batch_axis or _pmesh.DATA_AXIS,
+                              min_shard_size=min_shard_size)
+        if self._train_state is not None:
+            if self._update_impl is not None:
+                self._train_state = self._canonical_train_state()
+            self._train_state = z.place_state(self._train_state)
+        self._update_impl = z
+        return self
+
+    def _canonical_train_state(self):
+        """The updater state in its full-shape layout (a ZeRO hook's
+        blocks all-gathered: every rank calls it)."""
+        z, st = self._update_impl, self._train_state
+        if z is None or st is None:
+            return st
+        params = {n: self._arrays[n] for n in self._trainables()}
+        return z.unview_state(st, self._tc.updater, params)
 
     def _batch_to_placeholders(self, b, tc):
         feats, labs = self._batch_lists(b, tc)
@@ -1195,8 +1229,8 @@ class SameDiff:
             z.writestr("arrays.npz", buf.getvalue())
             if saveUpdaterState and self._train_state is not None:
                 sbuf = io.BytesIO()
-                np.savez(sbuf, *[to_numpy(t)
-                                 for t in tree_leaves(self._train_state)])
+                np.savez(sbuf, *[to_numpy(t) for t in tree_leaves(
+                    self._canonical_train_state())])
                 z.writestr("updater.npz", sbuf.getvalue())
 
     @staticmethod

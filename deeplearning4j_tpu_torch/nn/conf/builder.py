@@ -4,7 +4,7 @@ The counterpart of ``deeplearning4j_tpu/nn/conf/builder.py``:
 ``NeuralNetConfiguration.Builder`` with its global defaults (seed,
 updater, biasUpdater, dataType, weightInit, activation, l1/l2, weight
 decay, dropout, weight noise, the constraints, gradient normalization,
-checkpointPolicy), ``list()`` ->
+checkpointPolicy, activationCheckpointing), ``list()`` ->
 ``ListBuilder`` -> ``MultiLayerConfiguration`` (the sequential network's
 shape-inference walk, which infers each layer's nIn and inserts the
 format preprocessors) and ``graphBuilder()``; the automatic format
@@ -12,7 +12,8 @@ preprocessor; ``GradientNormalization``.
 
 ``checkpointPolicy`` is validated and stored as the reference does; the
 networks run their training forward under it (``nn/multilayer.py``
-``remat_segment``).
+``remat_segment``). ``activationCheckpointing`` turns on per-layer remat
+(``checkpointed_forward``), on both configurations.
 """
 
 from __future__ import annotations
@@ -70,6 +71,8 @@ class MultiLayerConfiguration:
         self.maxNumLineSearchIterations = defaults.get(
             "maxNumLineSearchIterations", 20)
         self.checkpointPolicy = defaults.get("checkpointPolicy")
+        self.activationCheckpointing = defaults.get(
+            "activationCheckpointing", False)
         self.layerInputTypes = []   # resolved per layer by inferShapes
 
     def toJson(self) -> str:
@@ -381,6 +384,16 @@ class NeuralNetConfiguration:
             if policy not in CHECKPOINT_POLICIES:
                 raise ValueError(f"unknown checkpointPolicy {policy!r}")
             self._d["checkpointPolicy"] = policy
+            return self
+
+        def activationCheckpointing(self, flag=True):
+            """Per-layer activation remat (reference:
+            Builder.activationCheckpointing): when training, every layer
+            but the output head runs under ``torch.utils.checkpoint``
+            (``nn/multilayer.py`` ``checkpointed_forward``), so only the
+            layers' inputs are kept and each layer's forward is run again
+            in the backward. It composes with ``checkpointPolicy``."""
+            self._d["activationCheckpointing"] = bool(flag)
             return self
 
         def list(self):

@@ -398,6 +398,8 @@ class ComputationGraphConfiguration:
         self.maxNumLineSearchIterations = defaults.get(
             "maxNumLineSearchIterations", 20)
         self.checkpointPolicy = defaults.get("checkpointPolicy")
+        self.activationCheckpointing = defaults.get(
+            "activationCheckpointing", False)
         self.topoOrder = self._topo_sort()
         self._infer_shapes()
 

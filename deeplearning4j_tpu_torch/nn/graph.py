@@ -50,13 +50,13 @@ from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.conf.dropout import step_key
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.multilayer import (
-    NetworkRuntime, _grad_normalize, _timed_step, _unwrap,
-    carry_layer, check_carried, cnn_entry, fit_batches, forward_params,
-    is_product, layer_seed, layer_trains, layer_updater, loss_for_head,
-    map_tree, mask_slice, out_activation, pretrain_feeds, product_segments,
-    regularization, remat_segment, run_pretrain, run_tbptt, staging_array,
-    strip_carries, time_slice, to_api_layout, train_params, uncarry_layer,
-    update_layer,
+    NetworkRuntime, _grad_normalize, _timed_step, _unwrap, carry_layer,
+    check_carried, checkpointed_forward, cnn_entry, fit_batches,
+    forward_params, is_product, layer_seed, layer_trains, layer_updater,
+    loss_for_head, map_tree, mask_slice, out_activation, pretrain_feeds,
+    product_segments, regularization, remat_segment, run_pretrain,
+    run_tbptt, staging_array, strip_carries, time_slice, to_api_layout,
+    train_params, uncarry_layer,
 )
 from deeplearning4j_tpu_torch.nn.solvers import network_step
 from deeplearning4j_tpu_torch.ops import norm as _norm
@@ -299,7 +299,16 @@ class ComputationGraph(NetworkRuntime):
             acts[name] = out_activation(layer, pre)
             new_states[name] = states[name]
             return
-        h, s = layer.forward(p, states[name], h, l_train, lk, fmask)
+        if train and len(node.inputs) == 1 and \
+                getattr(self.conf, "activationCheckpointing", False):
+            # per-layer remat of a node with one input edge, an attention
+            # vertex used as self-attention too (the reference exempts
+            # every multi-input layer, so it keeps that vertex's
+            # activations); a node with several edges keeps the plain path
+            h, s = checkpointed_forward(layer, l_train)(
+                p, states[name], h, lk, fmask)
+        else:
+            h, s = layer.forward(p, states[name], h, l_train, lk, fmask)
         acts[name] = h
         masks[name] = out_mask
         new_states[name] = s
@@ -367,12 +376,7 @@ class ComputationGraph(NetworkRuntime):
             loss = loss_transform(loss)
         glist = _grad_normalize(grads, self.conf.gradientNormalization,
                                 self.conf.gradientNormalizationThreshold)
-        with torch.no_grad():
-            for i, (name, g) in enumerate(zip(self._layer_names, glist)):
-                self._upd_states[name] = update_layer(
-                    self._unit_layer(name), self._updaters[name], g,
-                    self._upd_states[name], it, self._params[name],
-                    None if hyper is None else hyper.views(i))
+        self._apply_updates(glist, it, hyper)
         for p in self._params.values():
             for t in p.values():
                 t.grad = None

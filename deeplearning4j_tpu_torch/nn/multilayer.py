@@ -13,7 +13,8 @@ files, flat params in the reference's order, listeners, evaluation,
 ``fitSteps``, ``fitDataSet``) and the ``MultiLayerNetwork`` class; the
 loss heads' helpers (``out_activation``, ``loss_for_head``: a 4-d
 ``CnnLossLayer`` map takes its class axis last, its label NCHW unless the
-network is NHWC-format) and the remat policy (``remat_segment``).
+network is NHWC-format) and remat (``remat_segment`` for the policy,
+``checkpointed_forward`` per layer).
 
 Dropout draws from the step's key, ``dropout.step_key(seed, iteration)``
 (folded with the rank under data parallelism, with the layer's index in
@@ -90,8 +91,8 @@ from deeplearning4j_tpu_torch.ops import norm as _norm
 __all__ = ["MultiLayerNetwork", "strip_carries", "cast_params",
            "default_param_update", "params_from_reference",
            "params_to_reference", "run_tbptt", "STEP_ROWS",
-           "remat_segment", "product_segments", "is_product",
-           "layer_trains"]
+           "remat_segment", "checkpointed_forward", "product_segments",
+           "is_product", "layer_trains"]
 
 #: the single-step inference path pads its rows to a multiple of this,
 #: so batches of 1..8 rows share one product shape (module docstring)
@@ -509,7 +510,11 @@ def remat_segment(fn, *args):
     so the gradients are the stock ones bit for bit; BN's running
     statistics come from the first forward only (the recompute's copies
     are dropped); dropout re-seeds each draw from its key, and
-    synchronised BN re-enters the group it ran in."""
+    synchronised BN re-enters the group it ran in. The global RNG state
+    is neither saved nor restored (``preserve_rng_state=False``): no
+    layer draws from it (dropout draws from its step key's generators,
+    ``nn/conf/dropout.py``), and reading the CUDA generator's state is
+    refused inside a CUDA-graph capture."""
     from torch.utils.checkpoint import checkpoint
 
     group = _norm.current_sync_group()
@@ -518,7 +523,28 @@ def remat_segment(fn, *args):
         with _norm.sync_batch_norm(group):
             return fn(*a)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def checkpointed_forward(layer, l_train):
+    """``layer.forward`` under per-layer activation remat (reference:
+    ``checkpointed_forward``, ``jax.checkpoint`` there): a function of
+    (params, state, h, key, mask) -> (h, state) that keeps only the
+    layer's inputs and runs its forward again when the backward reaches
+    it, through ``remat_segment`` (the same dropout masks, BN statistics
+    from the first forward only, the sync-BN group re-entered). Both
+    networks use it for every layer but the output head when the conf
+    sets ``activationCheckpointing``; within a ``checkpointPolicy``
+    segment the per-layer regions nest inside the segment's."""
+
+    def fwd(p, s, h, lk, m):
+        return remat_segment(
+            lambda p_, s_, h_, k_, m_: layer.forward(p_, s_, h_, l_train,
+                                                     k_, m_),
+            p, s, h, lk, m)
+
+    return fwd
 
 
 def layer_seed(seed, i):
@@ -1126,10 +1152,12 @@ class NetworkRuntime:
                                      for k in keys])}
         if saveUpdater and self._solver is None:
             # a solver's memory is batch-local and not written (reference:
-            # ``_net_payload``): a restored net starts it fresh
+            # ``_net_payload``): a restored net starts it fresh; a ZeRO
+            # layout is written canonical, so it restores into any mode
+            upd_states = self._canonical_upd_states()
             main, bias = [], []
             for k in keys:
-                us, names = self._upd_states[k], set(self._params[k])
+                us, names = upd_states[k], set(self._params[k])
                 split = bool(names) and isinstance(self._updaters[k],
                                                    _upd.BiasSplit)
                 main.append(upd_to_reference(
@@ -1187,6 +1215,32 @@ class NetworkRuntime:
                 self._rebind()
         self._states = new_states
         return loss
+
+    # ----- the update ------------------------------------------------
+    #: the weight-update hook a data-parallel trainer installs
+    #: (``parallel.sharding.ZeroShardedUpdate``); None: each layer's own
+    _update_impl = None
+
+    def _apply_updates(self, glist, it, hyper=None):
+        """Every layer's update in place from its gradients (`glist`, in
+        ``_unit_keys`` order): the installed hook's, else each layer's
+        updater and constraints."""
+        keys = self._unit_keys()
+        if self._update_impl is not None:
+            self._update_impl(self, keys, glist, it, hyper)
+            return
+        with torch.no_grad():
+            for i, (k, g) in enumerate(zip(keys, glist)):
+                self._upd_states[k] = update_layer(
+                    self._unit_layer(k), self._updaters[k], g,
+                    self._upd_states[k], it, self._params[k],
+                    None if hyper is None else hyper.views(i))
+
+    def _canonical_upd_states(self):
+        """The updater state in its full-shape layout: a ZeRO hook's
+        blocks all-gathered (every rank calls it), else as held."""
+        z = self._update_impl
+        return self._upd_states if z is None else z.canonical_states(self)
 
     # ----- the captured step (runtime.aot) ----------------------------
     #: moves whenever the tensors a captured graph holds are rebound
@@ -1673,10 +1727,15 @@ class MultiLayerNetwork(NetworkRuntime):
         output when the last layer is not an output layer; new states).
         `key` is the training step's ``StepKey``: layer i draws its
         dropout from ``key.fold(i)``. Training under the remat policy
-        runs the layers in ``remat_segment``s cut after each product."""
+        runs the layers in ``remat_segment``s cut after each product;
+        under ``activationCheckpointing`` each layer but the output head
+        runs under ``checkpointed_forward`` (inside those segments when
+        both are set)."""
         h = self._entry(x)
         B = h.shape[0]
         last = len(self.layers) - 1
+        per_layer = train and getattr(self.conf, "activationCheckpointing",
+                                      False)
 
         def run(lo, hi, h):
             out = []
@@ -1697,7 +1756,11 @@ class MultiLayerNetwork(NetworkRuntime):
                     h = layer._dropout_input(h, l_train, lk)
                     out.append(states[i])
                     return layer.preoutput(p, h), out
-                h, s = layer.forward(p, states[i], h, l_train, lk, fmask)
+                if per_layer:
+                    h, s = checkpointed_forward(layer, l_train)(
+                        p, states[i], h, lk, fmask)
+                else:
+                    h, s = layer.forward(p, states[i], h, l_train, lk, fmask)
                 out.append(s)
             return h, out
 
@@ -1782,12 +1845,7 @@ class MultiLayerNetwork(NetworkRuntime):
             loss = loss_transform(loss)
         glist = _grad_normalize(grads, self.conf.gradientNormalization,
                                 self.conf.gradientNormalizationThreshold)
-        with torch.no_grad():
-            for i, g in enumerate(glist):
-                self._upd_states[i] = update_layer(
-                    self.layers[i], self._updaters[i], g,
-                    self._upd_states[i], it, self._params[i],
-                    None if hyper is None else hyper.views(i))
+        self._apply_updates(glist, it, hyper)
         for p in self._params:
             for t in p.values():
                 t.grad = None

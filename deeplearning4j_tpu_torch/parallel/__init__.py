@@ -8,12 +8,14 @@ dl4j-spark SharedTrainingMaster / parameter averaging): the data group
 (``sharding``), the trainers (``trainer``), the Spark facades
 (``spark``) and the data-parallel legs of the multi-chip dry run
 (``dryrun``), and ``ParallelInference`` on one device (``inference``).
-The planning functions the partition-plan analyzer needs are here too:
+The ZeRO weight update (``ZeroShardedUpdate``, ``weight_update=
+"sharded"``) and the hierarchical 2-hop exchange (``hierarchical_mesh``,
+``gradient_compression="hierarchical"``) are in ``sharding``. The
+planning functions the partition-plan analyzer needs are here too:
 ``spec_for_param`` (``sharding``) and ``partition_stages``
 (``pipeline``). Executing tensor, sequence and pipeline parallelism
-(``PipelineParallel`` raises), the ZeRO update, the hierarchical
-exchange, ``ParallelInference``'s replica split over cards and the cost
-model wait for ROADMAP Queue 1 item 7.
+(``PipelineParallel`` raises), ``ParallelInference``'s replica split
+over cards and the cost model wait for ROADMAP Queue 1 item 7.
 """
 
 from deeplearning4j_tpu_torch.parallel.inference import (
@@ -32,8 +34,10 @@ from deeplearning4j_tpu_torch.parallel.pipeline import (
 )
 from deeplearning4j_tpu_torch.parallel.sharding import (
     COMPRESSION_MODES, DEFAULT_COMPRESSION_BLOCK, DEFAULT_COMPRESSION_GROUP,
-    DEFAULT_ENCODING_CAPACITY, compressed_wire_bytes,
-    default_compression_group, hierarchical_shard_elems, spec_for_param,
+    DEFAULT_ENCODING_CAPACITY, ManualZeroUpdate, ZeroShardedUpdate,
+    compressed_wire_bytes, default_compression_group,
+    dp_weight_update_bytes, hierarchical_grad_exchange, hierarchical_mesh,
+    hierarchical_shard_elems, spec_for_param,
 )
 from deeplearning4j_tpu_torch.parallel.spark import (
     ParameterAveragingTrainingMasterBuilder, SharedTrainingMasterBuilder,
@@ -55,6 +59,8 @@ __all__ = [
     "COMPRESSION_MODES", "DEFAULT_COMPRESSION_BLOCK",
     "DEFAULT_COMPRESSION_GROUP", "DEFAULT_ENCODING_CAPACITY",
     "default_compression_group", "hierarchical_shard_elems",
+    "ZeroShardedUpdate", "ManualZeroUpdate", "dp_weight_update_bytes",
+    "hierarchical_grad_exchange", "hierarchical_mesh",
     "initializeMultiHost", "hybrid_mesh", "is_coordinator", "num_hosts",
     "launch", "SparkDl4jMultiLayer", "SparkComputationGraph",
     "ParameterAveragingTrainingMasterBuilder", "SharedTrainingMasterBuilder",

@@ -13,7 +13,8 @@ registry, labelled by op: ``dl4j_collectives_total``,
 collective) and ``dl4j_collective_wire_bytes_total`` (what it sends
 under the ring convention ``sharding.compressed_wire_bytes`` bills:
 2(dp-1)/dp of the payload for an all-reduce, (dp-1) payloads for an
-all-gather, (dp-1)/dp for a broadcast). ``totals()`` reads them, so a
+all-gather, (dp-1)/dp for a broadcast and for a reduce-scatter, whose
+payload is the whole input). ``totals()`` reads them, so a
 trainer can report collectives and bytes a step.
 
 ``int8_lane_sum`` is the int8 exchange's wire format. The reference sums
@@ -24,6 +25,8 @@ enough for 254·dp, so the int32 all-reduce adds every lane exactly with
 no carry between lanes: 4/k bytes an element (k = 3 up to dp 4, 2 up to
 dp 129) where an int32 sum would send 4, one all-reduce, and it runs on
 every backend that all-reduces int32 (gloo on the card included).
+``int8_lane_scatter`` packs each rank's row the same way and
+reduce-scatters the words: the ZeRO update's compressed half.
 
 The collective signature: under ``recording()`` every call made here
 appends one ``Site`` (op, dtype, element count, group axes and size,
@@ -41,8 +44,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Site", "all_reduce", "all_gather", "broadcast",
-           "int8_lane_sum", "lane_bits", "recording", "totals",
-           "wire_bytes"]
+           "reduce_scatter", "int8_lane_sum", "int8_lane_scatter",
+           "lane_bits", "recording", "totals", "wire_bytes"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 _COUNTERS = None
@@ -103,6 +106,11 @@ class recording:
         return False
 
 
+#: the op a recorded site's wire bytes are billed as
+_WIRE_OP = {"int8_lane_sum": "all_reduce",
+            "int8_lane_scatter": "reduce_scatter"}
+
+
 def _record(op, t, group, reduce=None, lanes=None):
     """Append `op` on `t` over `group` to the active recording; return
     whether the op should communicate."""
@@ -113,9 +121,8 @@ def _record(op, t, group, reduce=None, lanes=None):
     size = group.size
     rec[0].append(Site(op, str(t.dtype).replace("torch.", ""), t.numel(),
                        tuple(getattr(group, "shape", {"data": size})),
-                       size, n, wire_bytes(
-                           "all_reduce" if op == "int8_lane_sum" else op,
-                           n, size), lanes=lanes, reduce=reduce))
+                       size, n, wire_bytes(_WIRE_OP.get(op, op), n, size),
+                       lanes=lanes, reduce=reduce))
     return rec[1]
 
 
@@ -145,6 +152,8 @@ def wire_bytes(op, payload, size):
         return 2 * (size - 1) * payload // size
     if op == "all_gather":
         return (size - 1) * payload
+    # a broadcast, and a reduce-scatter of `payload` bytes (each rank
+    # keeps 1/size of the sum)
     return (size - 1) * payload // size
 
 
@@ -188,6 +197,23 @@ def all_gather(t, group):
     return torch.stack(out)
 
 
+def reduce_scatter(t, group, _lanes=None):
+    """This rank's block of the sum over the group's ranks of `t`, a 1-D
+    tensor whose length the group's size divides: rank r keeps elements
+    [r·n/size, (r+1)·n/size) of the sum."""
+    if group.pg is None:
+        return t
+    m = t.numel() // group.size
+    if not _record("int8_lane_scatter" if _lanes is not None
+                   else "reduce_scatter", t, group, reduce="sum",
+                   lanes=_lanes):
+        return t[group.rank * m:(group.rank + 1) * m].clone()
+    _count("reduce_scatter", t, group.size)
+    out = torch.empty(m, dtype=t.dtype, device=t.device)
+    dist.reduce_scatter_tensor(out, t.contiguous(), group=group.pg)
+    return out
+
+
 def broadcast(t, group, src=0):
     """`t` overwritten in place by rank `src`'s; returns `t`."""
     if group.pg is not None:
@@ -204,6 +230,30 @@ def lane_bits(size):
     return (254 * int(size)).bit_length()
 
 
+def _pack(u, bits, k):
+    """Rows of biased lanes [rows, n] -> int32 words [rows, ceil(n/k)],
+    k lanes of `bits` bits a word."""
+    u = torch.nn.functional.pad(u, (0, (-u.shape[1]) % k))
+    u = u.view(u.shape[0], -1, k)
+    shifts = torch.arange(k, dtype=torch.int32, device=u.device) * bits
+    return (u << shifts).sum(2, dtype=torch.int32), shifts
+
+
+def int8_lane_scatter(q, group):
+    """The exact sum over the group's ranks of `q` [size, m] (integer
+    lanes in [-127, 127], row r bound for rank r), as this rank's row of
+    the sum in int32: each row packed into int32 words as
+    ``int8_lane_sum`` packs (no word straddles two rows) and
+    reduce-scattered once."""
+    size, m = q.shape
+    bits = lane_bits(group.size)
+    k = 31 // bits
+    words, shifts = _pack(q.to(torch.int32) + 127, bits, k)
+    mine = reduce_scatter(words.reshape(-1), group, _lanes=q.numel())
+    lanes = (mine.unsqueeze(1) >> shifts) & ((1 << bits) - 1)
+    return lanes.reshape(-1)[:m] - 127 * group.size
+
+
 def int8_lane_sum(q, group):
     """The exact sum over the group's ranks of `q`, an integer tensor of
     lanes in [-127, 127] of the same length on every rank, as int32:
@@ -211,10 +261,8 @@ def int8_lane_sum(q, group):
     bits = lane_bits(group.size)
     k = 31 // bits
     n = q.numel()
-    u = q.reshape(-1).to(torch.int32) + 127
-    u = torch.nn.functional.pad(u, (0, (-n) % k)).view(-1, k)
-    shifts = torch.arange(k, dtype=torch.int32, device=q.device) * bits
-    words = (u << shifts).sum(1, dtype=torch.int32)
+    words, shifts = _pack(q.reshape(1, -1).to(torch.int32) + 127, bits, k)
+    words = words.reshape(-1)
     all_reduce(words, group, _lanes=n)
     lanes = (words.unsqueeze(1) >> shifts) & ((1 << bits) - 1)
     return lanes.reshape(-1)[:n] - 127 * group.size

@@ -6,9 +6,10 @@ is one process per rank over ``torch.distributed``, so its mesh is the
 default process group seen from this rank: a ``DataGroup`` holding the
 rank, the world size, the backend, the process group and, under NCCL,
 this rank's card. ``build_mesh``/``data_parallel_mesh`` take a pure
-data axis; the model, sequence and pipeline axes (and the hierarchical
-exchange's group/intra factorization) wait for ROADMAP Queue 1 item 7
-and raise naming it.
+data axis; the model, sequence and pipeline axes wait for ROADMAP Queue
+1 item 7 and raise naming it. The hierarchical exchange factors the
+data axis into subgroups over GROUP_AXIS and INTRA_AXIS
+(``sharding.hierarchical_mesh``).
 
 When ``torch.distributed`` is not initialised the group is this one
 process (size 1, no process group) and every collective is the identity,

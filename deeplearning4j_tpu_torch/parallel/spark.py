@@ -79,7 +79,8 @@ class SharedTrainingMasterBuilder:
         return self
 
     def compressionGroupSize(self, g):
-        """The hierarchical exchange's group size (waits for item 7)."""
+        """The hierarchical 2-hop exchange's node-group size (selects
+        gradient_compression="hierarchical")."""
         self._kw["compressionGroupSize"] = int(g)
         return self
 
@@ -88,6 +89,7 @@ class SharedTrainingMasterBuilder:
         return self
 
     def weightUpdate(self, mode):
+        """"replicated" or "sharded" (the ZeRO update)."""
         self._kw["weight_update"] = mode
         return self
 

@@ -29,23 +29,39 @@ step hooks (``grad_transform``, ``loss_transform``, ``state_transform``,
   mode's per-rank error-feedback residual and live tau are the
   wrapper's (``_residual``), with the reference's residual clipping and
   adaptive tau.
+* "hierarchical" (``sharding.hierarchical_grad_exchange``) is the 2-hop
+  exchange over node groups of ``compressionGroupSize`` contiguous ranks
+  (``sharding.hierarchical_mesh``: a ``torch.distributed`` subgroup a
+  node group and one an intra position): a dense or block_int8
+  reduce-scatter inside the group, the threshold exchange between the
+  ranks holding the same block, an all-gather back; its residual is
+  this rank's blocks, with the flat mode's clipping and adaptive tau,
+  BN statistics, loss and layer state as in the compressed modes.
+* ``weight_update="sharded"`` installs ``sharding.ZeroShardedUpdate`` on
+  the net (``_update_impl``): dense, int8 or block_int8, the eligible
+  gradients are reduce-scattered instead of all-reduced, the updater
+  runs on this rank's 1/dp block of the params and of its state
+  (allocated sharded), and the fresh blocks are all-gathered. Files
+  and checkpoints hold the updater state canonical (full-shape).
 * Collectives a step: dense 1 (the gradients; 1 more per dtype beyond
   the first) + 1 (the loss) + 3 per BN layer at dp > 1 (two in its
   forward, one in its backward); int8 and block_int8 4 (the scales, the
   packed lanes, the loss, the layer state; 3 with no layer state);
   threshold 3 (the codes, the loss, the layer state) + 1 with an
-  adaptive tau. ``last_step`` holds the count and bytes of the last
-  step (``collectives.totals``).
+  adaptive tau; hierarchical 5 (dense hop 1) or 6 (block_int8: its
+  scales) + 1 with an adaptive tau; sharded dense 2 a dtype (the
+  reduce-scatter, the all-gather) + 1 for the replicated leaves.
+  ``last_step`` holds the count and bytes of the last step
+  (``collectives.totals``).
 
 Each rank's dropout draws from the step's key folded with its rank, as
 the reference's replicas decorrelate theirs. The gradients that reach
 ``grad_transform`` are this rank's, before
 gradient normalization (the reference's order); every mode leaves the
-params bitwise equal on every rank after every step. Left out, raising
-``NotImplementedError`` naming ROADMAP Queue 1 item 7:
-``gradient_compression="hierarchical"``, ``weight_update="sharded"``,
-and ResilientFit over a wrapper with the residual's checkpoint form.
-``precompile`` captures the data-parallel step as a CUDA graph
+params bitwise equal on every rank after every step. ``_trainer_state``
+is what a checkpoint holds beyond the net (every rank's residual and the
+tau; ``runtime.resilience.ResilientFit`` over a wrapper resumes from
+it). ``precompile`` captures the data-parallel step as a CUDA graph
 (``runtime.aot``) at world 1, which ``fit`` and ``fitDataSet`` replay;
 over more ranks it warms the step eagerly and records its key, and each
 step runs eagerly, counted as uncaptured (capturing the NCCL exchange is
@@ -172,6 +188,17 @@ def _inexact(t):
     return t.is_floating_point() or t.is_complex()
 
 
+def _uninstall_update_hook(net):
+    """A ZeRO hook a wrapper left on `net`, removed, with its updater
+    state put back in the canonical layout (reference:
+    ``_uninstall_sharded_update``)."""
+    if getattr(net, "_update_impl", None) is None or net._upd_states is None:
+        return
+    net._upd_states = net._canonical_upd_states()
+    net._update_impl = None
+    net._rebind()
+
+
 class ParallelWrapper:
     """Data-parallel trainer over the ranks of a data group.
 
@@ -252,10 +279,19 @@ class ParallelWrapper:
                 "reduce-scatter) or 'block_int8', got "
                 f"{intraGroupCompression!r}")
         self.intra_compression = intraGroupCompression
+        self._hier = None
+        self.compression_group = None
         if gradient_compression == "hierarchical":
-            raise _mesh.later("gradient_compression='hierarchical' (the "
-                              "2-hop exchange)")
-        if compressionGroupSize is not None:
+            dp = self.mesh.shape.get(self.batch_axis, 0)
+            gsz = _sh.default_compression_group(dp) \
+                if compressionGroupSize is None else int(compressionGroupSize)
+            # hierarchical_mesh validates (a pure data axis, g >= 2, g <
+            # dp, g | dp) and makes this rank's two subgroups
+            self._hier = _sh.hierarchical_mesh(self.mesh, gsz,
+                                               batch_axis=self.batch_axis)
+            self.compression_group = gsz
+            self._n_groups = self._hier.n_groups
+        elif compressionGroupSize is not None:
             raise ValueError(
                 f"compressionGroupSize given together with "
                 f"gradient_compression={gradient_compression!r}: the "
@@ -265,7 +301,8 @@ class ParallelWrapper:
             raise ValueError(
                 "weight_update must be 'replicated' or 'sharded', got "
                 f"{weight_update!r}")
-        if weight_update == "sharded" and gradient_compression == "threshold":
+        if weight_update == "sharded" \
+                and gradient_compression in ("threshold", "hierarchical"):
             raise ValueError(
                 "weight_update='sharded' composes with "
                 "gradient_compression None/'int8'/'block_int8' "
@@ -276,10 +313,30 @@ class ParallelWrapper:
                 "all-gathered messages, which have no per-parameter "
                 "reduce-scatter form. Pick 'int8'/'block_int8', or "
                 "keep the update replicated.")
-        if weight_update == "sharded":
-            raise _mesh.later("weight_update='sharded' (the ZeRO update)")
+        if gradient_compression in ("int8", "block_int8") \
+                and weight_update == "sharded" \
+                and getattr(net.conf, "gradientNormalization", None) \
+                is not None:
+            raise ValueError(
+                "gradient normalization is applied to the REDUCED "
+                "gradient, but the compressed sharded update "
+                "reduce-scatters inside the weight-update hook — the "
+                "normalization would see per-replica gradients and "
+                "silently change semantics. Drop gradientNormalization "
+                "or use weight_update='replicated'.")
         self.weight_update = weight_update
         self.min_shard_size = int(min_shard_size)
+        self._zero = None
+        if weight_update == "sharded":
+            self._zero = _sh.ZeroShardedUpdate(
+                self.mesh, axis=self.batch_axis,
+                min_shard_size=self.min_shard_size,
+                compression=gradient_compression,
+                block=self.compression_block)
+            # the dense exchange under gradient normalization reduces the
+            # whole gradient first; the hook then takes its blocks
+            self._zero.pre_reduced = gradient_compression is None and \
+                getattr(net.conf, "gradientNormalization", None) is not None
         if self.mesh.backend == "nccl" and net.device.type != "cuda":
             raise ValueError(
                 f"a NCCL group trains networks on the card, and this one "
@@ -287,23 +344,28 @@ class ParallelWrapper:
                 "initialise the group with backend='gloo'")
         self._placed = False
         self._captured = None  # the CapturedStep, once precompiled
-        self._ef = None       # threshold: this rank's residual, one flat
-        self._tau = None      # threshold: the live tau, 0-d f32
+        self._ef = None       # threshold, hierarchical: this rank's
+        self._tau = None      # residual (one flat) and the live tau
         self._weight = None   # dense under a label mask: this rank's share
         #: collectives and bytes of the last step (collectives.totals)
         self.last_step = {}
 
     @property
     def _residual(self):
-        """Threshold mode's (this rank's error-feedback residual in the
-        shape of the net's params, live tau); None outside threshold
-        mode or before the first fit."""
+        """(this rank's error-feedback residual, live tau) in threshold
+        mode (in the shape of the net's params) and hierarchical mode
+        (one flat block a param, ``hierarchical_shard_elems`` long: this
+        rank's row of the reference's [groups, group, shard]); None in
+        the other modes or before the first fit."""
         if self._ef is None:
             return None
         layers = self._layer_params()
         leaves = _leaves(layers)
-        views = iter(v.view(t.shape) for v, t in zip(
-            self._ef.split([t.numel() for t in leaves]), leaves))
+        if self._hier is None:
+            views = iter(v.view(t.shape) for v, t in zip(
+                self._ef.split([t.numel() for t in leaves]), leaves))
+        else:
+            views = iter(self._ef.split(self._ef_sizes(leaves)))
         ef = [_rebuild(p, views) for p in layers]
         if self._is_graph():
             ef = dict(zip(self.net._layer_names, ef))
@@ -325,6 +387,14 @@ class ParallelWrapper:
         n = self.net
         return [n._params, n._upd_states, n._states]
 
+    def _ef_sizes(self, leaves):
+        """The residual's length a param leaf."""
+        if self._hier is None:
+            return [t.numel() for t in leaves]
+        return [_sh.hierarchical_shard_elems(t.numel(),
+                                             self.compression_group)
+                for t in leaves]
+
     # ------------------------------------------------------------------
     def _broadcast_from_rank0(self, tree):
         """Overwrite every tensor of `tree` in place with rank 0's."""
@@ -339,33 +409,81 @@ class ParallelWrapper:
 
     def _place_replicated(self):
         """Rank 0's params, updater state and layer state on every rank
-        (reference: ``_place_replicated``); threshold mode's zero
-        residual and initial tau."""
+        (reference: ``_place_replicated``), the ZeRO hook installed or a
+        stale one uninstalled (``_place_sharded_update``), and the
+        threshold and hierarchical modes' zero residual and initial
+        tau."""
+        _uninstall_update_hook(self.net)
         self._broadcast_from_rank0(self._net_state())
-        if self.gradient_compression == "threshold":
+        if self._zero is not None:
+            self._place_sharded_update()
+        if self.gradient_compression in ("threshold", "hierarchical"):
             leaves = _leaves(self._layer_params())
-            self._ef = torch.zeros(sum(t.numel() for t in leaves),
+            self._ef = torch.zeros(sum(self._ef_sizes(leaves)),
                                    dtype=leaves[0].dtype,
                                    device=self.net.device)
             self._tau = torch.tensor(self.threshold, dtype=torch.float32,
                                      device=self.net.device)
         self._placed = True
 
+    def _place_sharded_update(self):
+        """Install the ZeRO hook and put the updater state into the
+        sharded layout (reference: ``_place_sharded_update``): a fresh
+        net (iteration 0) allocates it sharded, a trained or restored
+        one (the canonical full-shape layout) keeps this rank's blocks,
+        bitwise."""
+        n, z = self.net, self._zero
+        fresh = n._iteration == 0
+        keys = n._unit_keys()
+        for k in keys:
+            if n._params[k]:
+                n._upd_states[k] = z.init_state(n._updaters[k],
+                                                n._params[k]) \
+                    if fresh else z.place_state(n._upd_states[k])
+        n._update_impl = z
+        n._rebind()
+
+    def _trainer_state(self):
+        """What a checkpoint must hold beyond the net for a bitwise
+        resume (reference: the carry ``{ef, tau}``): every rank's
+        error-feedback residual, gathered in rank order [dp, len], and
+        the live tau; None in the modes without one. Every rank calls
+        it."""
+        if self._ef is None:
+            return None
+        return {"ef": _coll.all_gather(self._ef, self.mesh),
+                "tau": self._tau.reshape(())}
+
+    def _load_trainer_state(self, state):
+        """This rank's row of a checkpoint's trainer state (after
+        placement); a layout this wrapper's mode does not hold
+        raises."""
+        if state is None:
+            if self._ef is not None:
+                raise ValueError(
+                    f"the checkpoint holds no trainer state, and "
+                    f"gradient_compression={self.gradient_compression!r} "
+                    "needs its residual and tau for a bitwise resume")
+            return
+        ef = torch.as_tensor(state["ef"])
+        want = (self.mesh.size, 0 if self._ef is None else self._ef.numel())
+        if self._ef is None or tuple(ef.shape) != want:
+            raise ValueError(
+                f"incompatible trainer state: the checkpoint's residual "
+                f"is {tuple(ef.shape)}, this wrapper "
+                f"(gradient_compression={self.gradient_compression!r}, "
+                f"{self.mesh.size} ranks) holds {want}")
+        self._ef = _sh.own_row(ef, self.mesh).to(
+            self._ef.device, self._ef.dtype).clone()
+        self._tau = torch.as_tensor(state["tau"]).to(
+            self._tau.device, torch.float32).reshape(()).clone()
+
     # ------------------------------------------------------------------
     def _mean(self, tensors, weight=None):
-        """The mean over the ranks of each tensor (bucketed): the sum of
-        `weight`-scaled tensors when a weight is given."""
-        g = self.mesh
-        if g.pg is None:
-            return tensors
-
-        def reduce(flat):
-            if weight is not None:
-                flat.mul_(weight.to(flat.dtype))
-            _coll.all_reduce(flat, g)
-            return flat if weight is not None else _sh._div(flat, g.size)
-
-        return _flat_apply(tensors, reduce)
+        """The mean over the ranks of each tensor (one all-reduce a
+        dtype): the sum of `weight`-scaled tensors when a weight is
+        given."""
+        return _sh.mean_all(tensors, self.mesh, weight)
 
     def _mask_weight(self, lmask):
         """This rank's share of the global unmasked label count (dense
@@ -383,9 +501,15 @@ class ParallelWrapper:
         mode); `grads` as the networks' ``_train_step`` hands them."""
         leaves = _leaves(grads)
         mode = self.gradient_compression
-        if mode is None:
+        if self._zero is not None:
+            # the hook reduce-scatters; only the dense mode under
+            # gradient normalization reduces the whole gradient here
+            if not self._zero.pre_reduced:
+                return grads
             out = self._mean(leaves, self._weight)
-        elif mode == "threshold":
+        elif mode is None:
+            out = self._mean(leaves, self._weight)
+        elif mode in ("threshold", "hierarchical"):
             out = self._threshold_exchange(leaves)
         else:
             out = _sh.quantized_psum_mean(leaves, self.mesh, mode,
@@ -393,18 +517,26 @@ class ParallelWrapper:
         return _rebuild(grads, iter(out))
 
     def _threshold_exchange(self, leaves):
-        """The Strom exchange with error feedback, residual clipping and
-        the adaptive tau (reference: ``_threshold_step``)."""
+        """The Strom exchange, flat or hierarchical (its leader hop),
+        with error feedback, residual clipping and the adaptive tau
+        (reference: ``_threshold_step``, ``_hierarchical_step``: the
+        transmitted fraction is of the residual's entries, averaged over
+        every rank)."""
         g, tau = self.mesh, self._tau
-        means, res, sent = _sh.threshold_psum_mean(
-            leaves, self._ef, tau, self.encoding_capacity, g)
+        if self._hier is None:
+            means, res, sent = _sh.threshold_psum_mean(
+                leaves, self._ef, tau, self.encoding_capacity, g)
+        else:
+            means, res, sent = _sh.hierarchical_grad_exchange(
+                leaves, self._ef, tau, self._hier, self.encoding_capacity,
+                self.intra_compression, self.compression_block)
         clip, freq = self.residual_clip, self.residual_clip_frequency
         if clip is not None and (freq == 1 or self._step_it % freq == 0):
             lim = (clip * tau).to(res.dtype)
             res = res.clamp(-lim, lim)
         self._ef = res
         if self.targetSparsity is not None:
-            total = sum(t.numel() for t in leaves)
+            total = res.numel()
             frac = _sh._div(sent.to(torch.float32), total).reshape(1)
             frac = _sh._div(_coll.all_reduce(frac, g)[0], g.size)
             target = self.targetSparsity
@@ -430,6 +562,8 @@ class ParallelWrapper:
         """The step hooks of this mode (module docstring)."""
         dense = self.gradient_compression is None
         self._weight = self._mask_weight(lmask) if dense else None  # purity-ok[PUR04]: a device tensor the same step's hooks read while it is captured; a replay reruns the kernels that compute it
+        if self._zero is not None:
+            self._zero.weight = self._weight  # purity-ok[PUR04]: the same step's weight, read by the same step's hook
         return dict(grad_transform=self._exchange_grads,
                     loss_transform=self._loss_mean,
                     state_transform=None if dense else self._state_mean,
@@ -520,7 +654,8 @@ class ParallelWrapper:
             n._train_capture()      # the net's own fits: counted too
             self._captured = aot.CapturedStep(
                 self._body, owner=n, entry="pw_train_step",
-                extra=f"|{self.gradient_compression}|{self.mesh.size}",
+                extra=f"|{self.gradient_compression}|{self.mesh.size}"
+                      f"|{self.weight_update}|{self.compression_group}",
                 prologue=lambda iteration: n._hyper_scalars().write(
                     iteration, n._epoch),
                 snapshot=n._snapshot, restore=n._restore)
@@ -529,7 +664,8 @@ class ParallelWrapper:
                     "capturing the NCCL exchange of a step over "
                     f"{self.mesh.size} rank(s) waits for ROADMAP.md Queue 1 "
                     "item 7; the steps run eagerly")
-            elif self.gradient_compression == "threshold":
+            elif self.gradient_compression in ("threshold",
+                                               "hierarchical"):
                 self._captured.refusal = (
                     "the threshold exchange rebinds its residual and tau "
                     "on the host each step and clips the residual on the "
@@ -652,8 +788,7 @@ class SharedTrainingMaster(ParallelWrapper):
     set the initial tau and targetSparsity; ``residualPostProcessor=
     ResidualClippingPostProcessor(...)`` wires residual clipping;
     unknown objects raise naming the supported set.
-    ``compressionGroupSize`` selects the hierarchical exchange, which
-    waits for item 7."""
+    ``compressionGroupSize`` selects the hierarchical 2-hop exchange."""
 
     def __init__(self, net, mesh=None, thresholdAlgorithm=None,
                  residualPostProcessor=None, compressionGroupSize=None,

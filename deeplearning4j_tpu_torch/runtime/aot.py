@@ -216,10 +216,15 @@ def _conf_identity(conf):
 
 def network_fingerprint(net):
     """Content hash of a MultiLayerNetwork/ComputationGraph's step: its
-    configuration (``_conf_identity``) and the solver choice (reference:
+    configuration (``_conf_identity``: the remat policy and the
+    per-layer ``activationCheckpointing`` flag included), the
+    weight-update hook (a ZeRO update changes the step and its group is
+    not configuration) and the solver choice (reference:
     ``network_fingerprint``)."""
+    impl = getattr(net, "_update_impl", None)
     return _sha("|".join([
         type(net).__name__, _conf_identity(net.conf),
+        "none" if impl is None else impl.describe(),
         "solver" if getattr(net, "_solver", None) is not None else "sgd",
         str(getattr(net, "device", "")),
     ]))
@@ -228,7 +233,8 @@ def network_fingerprint(net):
 def samediff_fingerprint(sd):
     """Structural hash of a SameDiff graph and its TrainingConfig: ops,
     variables (name, type, stored array's shape and dtype), losses and
-    the training configuration (reference: ``samediff_fingerprint``)."""
+    the training configuration, and a ZeRO weight-update hook
+    (reference: ``samediff_fingerprint``)."""
     parts = [f"{o.opName}({','.join(o.inputs)})->"
              f"({','.join(o.outputs)}){sorted(o.kwargs.items())!r}"
              for o in sd._ops]
@@ -248,6 +254,9 @@ def samediff_fingerprint(sd):
         parts.append(f"tc:{type(upd).__name__}:{desc}:{tc.l1}:{tc.l2}:"
                      f"{tc.weightDecay}:{tc.dataSetFeatureMapping}:"
                      f"{tc.dataSetLabelMapping}:{tc.lossVariables}")
+    impl = getattr(sd, "_update_impl", None)
+    if impl is not None:
+        parts.append(impl.describe())
     return _sha("|".join(parts))
 
 

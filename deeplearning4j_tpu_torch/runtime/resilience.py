@@ -28,9 +28,16 @@ the new parameters (a NaN gradient surfaces as a NaN parameter), so the
 guard itself reads nothing back. With ``stepsPerSync=k`` the flags, the
 consecutive-bad count and the ``maxConsecutiveBadSteps`` freeze stay on
 the device until the block's one sync, then the host replays them step
-by step exactly as k = 1 fires them. ``ResilientFit`` over a
-``ParallelWrapper`` waits for the rest of the data-parallel slice
-(ROADMAP.md Queue 1 item 7) and raises naming it.
+by step exactly as k = 1 fires them.
+
+``ResilientFit`` over a ``ParallelWrapper`` runs the wrapper's step on
+this rank's rows under the same guard, which also restores the
+wrapper's residual and tau on a bad step. Every rank gathers the
+checkpointed state (a ZeRO updater state in its canonical layout, every
+rank's residual as the trainer state) and rank 0 writes it; a resume
+re-places the net on the wrapper (re-sharding the updater state) and
+gives each rank its residual, so a mid-epoch resume is bitwise the
+unbroken run.
 """
 
 from __future__ import annotations
@@ -288,17 +295,21 @@ def non_finite_guard(step_fn):
 
 
 class NonFiniteGuard:
-    """A guarded optimizer step over a network's ``_train_step`` (module
-    docstring): ``step(args, iteration, alive=None) -> (loss, ok)`` with
-    both as device tensors; a step that is not ok (or not alive) leaves
-    parameters, updater state and layer states as they were."""
+    """A guarded optimizer step over a network's ``_train_step``, or a
+    ``ParallelWrapper``'s data-parallel step (module docstring):
+    ``step(args, iteration, alive=None) -> (loss, ok)`` with both as
+    device tensors; a step that is not ok (or not alive) leaves
+    parameters, updater state, layer states and the wrapper's residual
+    and tau as they were. The loss a wrapper's step returns is the mean
+    over its ranks and the params are equal on every rank, so every rank
+    takes the same decision."""
 
-    def __init__(self, net):
-        self.net = net
+    def __init__(self, net, wrapper=None):
+        self.net, self.wrapper = net, wrapper
         self._shadow = None
 
     def step(self, args, iteration, alive=None):
-        net = self.net
+        net, w = self.net, self.wrapper
         live = _tensors([net._params, net._upd_states])
         with torch.no_grad():
             if self._shadow is None or len(self._shadow) != len(live) or any(
@@ -306,7 +317,11 @@ class NonFiniteGuard:
                 self._shadow = [torch.empty_like(t) for t in live]
             torch._foreach_copy_(self._shadow, live)
         old_states = net._states
-        loss = net._train_step(*args, iteration=iteration)
+        if w is None:
+            loss = net._train_step(*args, iteration=iteration)
+        else:
+            old_ef, old_tau = w._ef, w._tau    # rebound, not written, a step
+            loss = w._step(*args, iteration=iteration)
         with torch.no_grad():
             norms = torch._foreach_norm(_tensors(net._params))
             ok = torch.isfinite(loss).all()
@@ -316,6 +331,9 @@ class NonFiniteGuard:
             for t, s in zip(live, self._shadow):
                 t.copy_(torch.where(keep, t, s))
             net._states = _select(keep, net._states, old_states)
+            if w is not None and old_ef is not None:
+                w._ef = torch.where(keep, w._ef, old_ef)
+                w._tau = torch.where(keep, w._tau, old_tau)
         return loss, ok
 
 
@@ -346,19 +364,28 @@ class ResilientFit:
         from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
         from deeplearning4j_tpu_torch.parallel.trainer import ParallelWrapper
 
+        from deeplearning4j_tpu_torch.parallel.trainer import \
+            ParameterAveragingTrainingMaster
+
+        if isinstance(net, ParameterAveragingTrainingMaster):
+            raise ValueError(
+                "ResilientFit guards one data-parallel step a batch; a "
+                "ParameterAveragingTrainingMaster takes local per-replica "
+                "steps whose replicas a checkpoint of the averaged net "
+                "does not hold: wrap a ParallelWrapper/"
+                "SharedTrainingMaster instead")
         if isinstance(net, ParallelWrapper):
-            raise NotImplementedError(
-                "ResilientFit over a ParallelWrapper waits for the rest of "
-                "the data-parallel slice (ROADMAP.md Queue 1 item 7)")
-        if not isinstance(net, MultiLayerNetwork):
+            self.wrapper, self.net = net, net.net
+        else:
+            self.wrapper, self.net = None, net
+        if not isinstance(self.net, MultiLayerNetwork):
             raise TypeError(
                 f"ResilientFit wraps MultiLayerNetwork (directly or via "
-                f"ParallelWrapper); got {type(net).__name__}")
-        if net.conf.backpropType == BackpropType.TruncatedBPTT:
+                f"ParallelWrapper); got {type(self.net).__name__}")
+        if self.net.conf.backpropType == BackpropType.TruncatedBPTT:
             raise ValueError(
                 "ResilientFit does not support truncated BPTT yet: a "
                 "mid-sequence skip would desynchronize the carry stream")
-        self.wrapper, self.net = None, net
         self.checkpointDir = None if checkpointDir is None \
             else os.path.abspath(str(checkpointDir))
         self.saveEvery = int(saveEveryNIterations)
@@ -370,7 +397,7 @@ class ResilientFit:
         self.maxBad = int(maxConsecutiveBadSteps)
         self.retryPolicy = retryPolicy or RetryPolicy()
         self.injector = injector
-        self._guard = NonFiniteGuard(net)
+        self._guard = NonFiniteGuard(self.net, self.wrapper)
         self._stager = None
         self._bad = 0
         self.skippedSteps = 0
@@ -381,23 +408,59 @@ class ResilientFit:
 
         fire(self.net, hook, *args)
 
+    def _lead(self):
+        """Whether this process writes the checkpoints (rank 0 of a
+        wrapper's group; the only process without one)."""
+        w = self.wrapper
+        return w is None or w.mesh.pg is None or w.mesh.rank == 0
+
+    def _all_ok(self, ok):
+        """Whether `ok` holds on every rank of the wrapper's group: one
+        MIN all-reduce, which is also a barrier."""
+        w = self.wrapper
+        if w is None or w.mesh.pg is None:
+            return ok
+        import torch.distributed as dist
+
+        flag = torch.tensor([int(ok)], device=w.mesh.device or "cpu")
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=w.mesh.pg)
+        return bool(flag.item())
+
     def _save(self, batch_in_epoch: int):
-        net = self.net
+        net, w = self.net, self.wrapper
         tm = _tm()
         t0 = time.perf_counter()
         path = _ckpt.step_path(self.checkpointDir, net._iteration)
+        # every rank gathers: a ZeRO updater state's blocks, and the
+        # residuals of the trainer state; one rank writes
+        state = _ckpt.net_state(net, self.saveUpdater)
+        trainer = None if w is None else w._trainer_state()
 
         def _write():
             # the chaos seam sits inside the retried call: an injected
             # write fault is retried like any transient I/O failure
             fault_point("checkpoint.write")
-            return _ckpt.ShardedModelSerializer.writeModel(
-                net, path, saveUpdater=self.saveUpdater,
+            return _ckpt.write_state(
+                net, path, state, saveUpdater=self.saveUpdater,
                 extra={"iteration": net._iteration, "epoch": net._epoch,
-                       "batch_in_epoch": int(batch_in_epoch)})
+                       "batch_in_epoch": int(batch_in_epoch)},
+                trainer_state=trainer)
 
-        retry(_write, self.retryPolicy)
-        _ckpt.gc_checkpoints(self.checkpointDir, self.keepLast)
+        err = None
+        if self._lead():
+            try:
+                retry(_write, self.retryPolicy)
+                _ckpt.gc_checkpoints(self.checkpointDir, self.keepLast)
+            except Exception as e:      # raised below, on every rank
+                err = e
+        # no rank reads a checkpoint before its commit, and no rank goes
+        # on (or waits) where the lead's write failed
+        if not self._all_ok(err is None):
+            if err is not None:
+                raise err
+            raise OSError(
+                f"the checkpoint of iteration {net._iteration} failed on "
+                f"the writing rank (rank 0): {path}")
         dt = time.perf_counter() - t0
         tm["ckpt_save_s"].observe(dt)
         tm["reg"].add_span("resilience.checkpoint_save", "resilience", t0,
@@ -435,12 +498,20 @@ class ResilientFit:
                 continue
         if restored is None:
             return 0
-        net = self.net
+        net, w = self.net, self.wrapper
         net._params = restored._params
         net._states = restored._states
         net._upd_states = restored._upd_states
         net._iteration = restored._iteration
         net._epoch = restored._epoch
+        net._rebind()
+        if w is not None:
+            # the restored updater state is canonical: the wrapper
+            # re-shards it (ZeRO) and takes this rank's residual and tau
+            net._update_impl = None
+            w._place_replicated()
+            w._load_trainer_state(_ckpt.restore_trainer_state(
+                path, device=net.device))
         extra = _ckpt.read_manifest(path).get("extra", {})
         dt = time.perf_counter() - t0
         tm["ckpt_restore_s"].observe(dt)
@@ -469,6 +540,8 @@ class ResilientFit:
         net._require_init()
         k = check_steps_per_sync(stepsPerSync)
         replay = self._maybe_resume()
+        if self.wrapper is not None and not self.wrapper._placed:
+            self.wrapper._place_replicated()
         if k > 1 and self._stager is None:
             self._stager = BlockStager(net.device)
         self._bad = 0
@@ -534,6 +607,8 @@ class ResilientFit:
         if self.injector is not None:
             tensors = [self.injector.maybe_poison(iteration, tensors[0])] \
                 + list(tensors[1:])
+        if self.wrapper is not None:
+            return self.wrapper._args(*tensors)   # this rank's rows
         return net._batch_args(tensors)
 
     def _step(self, ds):

@@ -39,7 +39,10 @@ engine, "update" for the optimizer's in-place step. Over those rows:
   and loss tails, flagged under "wide".
 
 On the card, ``residency(net, x_shape)`` sets ``torch.cuda``'s peak
-beside ``static_memory_terms``.
+beside ``static_memory_terms``. ``weight_update_bill(net)`` is the
+data-parallel weight update's bill (``dp_weight_update_bytes``), sharded
+under a ZeRO hook: the reduce-scatter and all-gather a sharded step
+records meet it.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ __all__ = ["train_step_floor", "static_memory_terms",
            "boundary_activation_elems", "record_step", "ledger",
            "attribute_ledger", "audit_activation_dtypes",
            "assert_activation_dtype_clean", "format_attribution",
-           "static_memory_for", "residency"]
+           "static_memory_for", "residency", "weight_update_bill"]
 
 _BOUNDARY_LAYERS = ("ConvolutionLayer", "Convolution2D", "DenseLayer",
                     "SubsamplingLayer", "SeparableConvolution2D",
@@ -204,6 +207,39 @@ def static_memory_for(net, x_shape):
         sum(t.numel() for t in _params_list(net)), opt,
         sum(boundary_activation_elems(net, x_shape)) * cb, cb,
         _itemsize(net._param_dtype), input_bytes=Bx * 4)
+
+
+def weight_update_bill(net, dp=None, sharded=None, compression=None):
+    """``parallel.sharding.dp_weight_update_bytes`` of `net`: G and M its
+    trainable params' bytes, S its updater state's in the canonical
+    layout (sized on meta tensors, so a ZeRO layout bills what the whole
+    state holds). `dp` and `sharded` default to the installed ZeRO
+    hook's (``_update_impl``), else 1 and replicated. Under
+    ``weight_update="sharded"`` ``reduce_scatter_bytes`` plus
+    ``all_gather_bytes`` (``collective_wire_bytes``) is the bill the
+    step's recorded reduce-scatter and all-gather meet
+    (``parallel.collectives``)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import tree_leaves
+    from deeplearning4j_tpu_torch.parallel.sharding import \
+        dp_weight_update_bytes
+
+    z = getattr(net, "_update_impl", None)
+    dp = (z.dp if z is not None else 1) if dp is None else int(dp)
+    sharded = z is not None if sharded is None else bool(sharded)
+    G = S = 0
+    for k in net._unit_keys():
+        params = net._params[k]
+        if not params or getattr(net._unit_layer(k), "frozen", False):
+            continue
+        G += sum(t.numel() * t.element_size() for t in params.values())
+        with torch.device("meta"):
+            st = net._updaters[k].init({n: torch.empty_like(t,
+                                                           device="meta")
+                                        for n, t in params.items()})
+        S += sum(t.numel() * t.element_size() for t in tree_leaves(st)
+                 if isinstance(t, torch.Tensor))
+    return dp_weight_update_bytes(G, dp, master_bytes=G, opt_state_bytes=S,
+                                  sharded=sharded, compression=compression)
 
 
 # ----------------------------------------------------------------------

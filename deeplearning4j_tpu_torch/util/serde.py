@@ -14,10 +14,8 @@ Module names are written as the reference's (``deeplearning4j_tpu.nn.
 conf.layers:ConvolutionLayer``): the port's modules mirror the
 reference's paths, so ``_ref_module`` swaps the package prefix one way
 and ``_port_module`` the other, by exact package match (``_in_pkg``).
-Where a port config class lacks attributes the reference's carries
-(``_ref_defaults``), ``encode`` writes the reference's defaults and
-``decode`` accepts them at those defaults and refuses other values,
-which would configure features the port does not have. Arrays decode to
+Where a port config may lack an attribute the reference's carries
+(``_ref_defaults``), ``encode`` writes the reference's default. Arrays decode to
 CPU tensors (bf16 bit for bit); a network moves them to its device.
 """
 
@@ -49,19 +47,15 @@ def _port_module(mod_name: str) -> str:
     return _PORT + mod_name[len(_PKG):]
 
 
-#: attributes the reference's config classes carry and the port's lack:
-#: (default written by encode, test decode applies to a read value)
-_NET_EXTRA = {"activationCheckpointing": (False, lambda v: not v)}
+#: attributes the reference's network configs carry that a port config
+#: may lack (one decoded from a file the port wrote before it had them):
+#: the default ``encode`` writes
+_NET_EXTRA = {"activationCheckpointing": False}
 
 
-#: what a refused attribute or module waits for
-_WAITS = {
-    "activationCheckpointing": "per-layer activation remat: ROADMAP.md "
-                               "Queue 1 item 13",
-}
 def _waits_for(mod_name):
-    return ("the classes that wait are ROADMAP.md Queue 1 items 7, 11, "
-            "12c and 13")
+    return ("the classes that wait are ROADMAP.md Queue 1 items 7 and "
+            "12c")
 
 
 def _ref_defaults(obj):
@@ -75,7 +69,7 @@ def _ref_defaults(obj):
                         ComputationGraphConfiguration)):
         return _NET_EXTRA
     if isinstance(obj, GlobalPoolingLayer):
-        return {"_mode": (None, lambda v: True)}
+        return {"_mode": None}
     return {}
 
 
@@ -124,7 +118,7 @@ def encode(obj, arrays: list):
         raise TypeError(f"cannot serialize {cls.__module__}.{cls.__name__}: "
                         f"only {_PORT} config objects are supported")
     attrs = {k: encode(v, arrays) for k, v in vars(obj).items()}
-    for k, (default, _) in _ref_defaults(obj).items():
+    for k, default in _ref_defaults(obj).items():
         attrs.setdefault(k, encode(default, arrays))
     return {"__o": f"{_ref_module(cls.__module__)}:{cls.__qualname__}",
             "attrs": attrs}
@@ -164,11 +158,6 @@ def decode(node, arrays):
                 f"{_waits_for(mod_name)})") from None
         obj = object.__new__(target)
         attrs = {k: decode(v, arrays) for k, v in node["attrs"].items()}
-        for k, (_, accepts) in _ref_defaults(obj).items():
-            if k in attrs and not accepts(attrs[k]):
-                raise NotImplementedError(
-                    f"{qual}.{k}={attrs[k]!r}: the port has no such "
-                    f"feature yet ({_WAITS[k]})")
         obj.__dict__.update(attrs)
         return obj
     raise ValueError(f"unknown node {node!r}")

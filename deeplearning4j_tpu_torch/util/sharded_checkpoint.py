@@ -20,6 +20,12 @@ byte is written, so a save killed at any point leaves the previous
 complete checkpoint or none. ``latest_step`` / ``complete_steps`` /
 ``gc_checkpoints`` manage a directory of ``step_<n>`` checkpoints for
 ``runtime.resilience.ResilientFit``'s periodic save and resume.
+
+Trainer state (a data-parallel wrapper's error-feedback residual and
+tau) rides beside the net's in ``trainer.npz`` with its own digest
+(``restore_trainer_state``); a ZeRO updater state is written in the
+canonical full-shape layout, so a checkpoint restores into any mode and
+any number of ranks.
 """
 
 from __future__ import annotations
@@ -37,10 +43,12 @@ from deeplearning4j_tpu_torch.util import serde
 
 __all__ = ["CheckpointDigestError", "state_digest", "step_path",
            "complete_steps", "latest_step", "gc_checkpoints",
-           "read_manifest", "ShardedModelSerializer"]
+           "read_manifest", "net_state", "write_state",
+           "restore_trainer_state", "ShardedModelSerializer"]
 
 _MANIFEST = "manifest.json"
 _STATE = "state.npz"
+_TRAINER = "trainer.npz"
 _STEP_RE = re.compile(r"^step_(\d+)$")
 _TMP_RE = re.compile(r"\.tmp-")
 
@@ -136,9 +144,10 @@ def read_manifest(path) -> dict:
         return json.load(f)
 
 
-def _net_state(net, saveUpdater=True):
+def net_state(net, saveUpdater=True):
     """The checkpointed state in the reference's layouts and containers
-    (reference: ``_net_state``)."""
+    (reference: ``_net_state``); a ZeRO updater state in its canonical
+    layout, gathered from every rank."""
     ref = net.reference_state(saveUpdater)
     state = {"params": ref["params"], "states": ref["states"],
              "counters": {"iteration": np.asarray(net._iteration, np.int64),
@@ -148,6 +157,9 @@ def _net_state(net, saveUpdater=True):
         if "bias_upd_states" in ref:    # the port's biasUpdater state
             state["bias_upd_states"] = ref["bias_upd_states"]
     return state
+
+
+_net_state = net_state   # the reference's name
 
 
 def _fill(template, arrays):
@@ -168,6 +180,78 @@ def _fill(template, arrays):
     return rebuild(template, ())
 
 
+def _digest_arrays(arrays) -> str:
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        a = arrays[k]
+        h.update(k.encode())
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def write_state(net, path, state, saveUpdater=True, extra=None,
+                trainer_state=None):
+    """Write `state` (``net_state(net, saveUpdater)``) of `net` to
+    directory `path`, atomically; `trainer_state` is a flat
+    {name: tensor} the trainer owns (``restore_trainer_state``). Reads
+    nothing from other ranks, so a data-parallel trainer gathers the
+    state on every rank and writes it from one."""
+    path = os.path.abspath(str(path))
+    tmp = path + ".tmp-stage"
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    conf_arrays = []
+    conf_node = serde.encode(net.conf, conf_arrays)
+    leaves = [serde._to_numpy(a) for a in tree_leaves(state)]
+    manifest = {
+        "cls": type(net).__name__,
+        "conf": conf_node,
+        "conf_arrays": [{"dtype": str(a.dtype), "data": a.tolist()}
+                        for a in conf_arrays],
+        "saveUpdater": bool(saveUpdater),
+        "trainerState": trainer_state is not None,
+        "digest": state_digest(state),
+    }
+    if trainer_state is not None:
+        arrays = {k: serde._to_numpy(v) for k, v in trainer_state.items()}
+        manifest["trainerDigest"] = _digest_arrays(arrays)
+        np.savez(os.path.join(tmp, _TRAINER), **arrays)
+    if extra is not None:
+        manifest["extra"] = extra
+    np.savez(os.path.join(tmp, _STATE),
+             **{f"arr_{i}": a for i, a in enumerate(leaves)})
+    with open(os.path.join(tmp, _MANIFEST), "w") as f:
+        json.dump(manifest, f)
+    _commit(tmp, path)
+    return path
+
+
+def restore_trainer_state(path, device=None):
+    """The trainer state a ``writeModel(..., trainer_state=...)`` save
+    carried, as {name: CPU tensor, or on `device`}, or None when the
+    checkpoint has none (reference: ``restore_trainer_state``; the
+    wrapper that reads it checks the layout). Raises
+    ``CheckpointDigestError`` when it fails its digest."""
+    path = os.path.abspath(str(path))
+    p = os.path.join(path, _TRAINER)
+    if not os.path.exists(p):
+        return None
+    z = np.load(p, allow_pickle=False)
+    arrays = {k: z[k] for k in z.files}
+    want = read_manifest(path).get("trainerDigest")
+    if want is not None and _digest_arrays(arrays) != want:
+        raise CheckpointDigestError(
+            f"checkpoint {path}: its trainer state fails digest "
+            "verification")
+    import torch
+
+    return {k: torch.from_numpy(np.array(a)).to(device or "cpu")
+            for k, a in arrays.items()}
+
+
 class ShardedModelSerializer:
     """writeModel/restore over the directory format above (the
     counterpart of the reference's Orbax-backed class, one process)."""
@@ -177,38 +261,14 @@ class ShardedModelSerializer:
                    trainer_state=None):
         """Save to directory `path`, atomically. `extra`: a JSON-able dict
         recorded in the manifest (read back by ``read_manifest``), so
-        resume metadata commits with the state it describes."""
-        if trainer_state is not None:
-            raise NotImplementedError(
-                "trainer state in checkpoints (the threshold residual and "
-                "tau) waits for the rest of the data-parallel slice "
-                "(ROADMAP.md Queue 1 item 7)")
-        path = os.path.abspath(str(path))
-        tmp = path + ".tmp-stage"
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        conf_arrays = []
-        conf_node = serde.encode(net.conf, conf_arrays)
-        state = _net_state(net, saveUpdater)
-        leaves = [serde._to_numpy(a) for a in tree_leaves(state)]
-        manifest = {
-            "cls": type(net).__name__,
-            "conf": conf_node,
-            "conf_arrays": [{"dtype": str(a.dtype), "data": a.tolist()}
-                            for a in conf_arrays],
-            "saveUpdater": bool(saveUpdater),
-            "trainerState": False,
-            "digest": state_digest(state),
-        }
-        if extra is not None:
-            manifest["extra"] = extra
-        np.savez(os.path.join(tmp, _STATE),
-                 **{f"arr_{i}": a for i, a in enumerate(leaves)})
-        with open(os.path.join(tmp, _MANIFEST), "w") as f:
-            json.dump(manifest, f)
-        _commit(tmp, path)
-        return path
+        resume metadata commits with the state it describes.
+        `trainer_state`: a flat {name: tensor} of trainer-owned step
+        state (a ``ParallelWrapper``'s residual and tau), kept apart
+        from the net's, which restores into any mode. A ZeRO updater
+        state is written canonical (every rank of its group must
+        call)."""
+        return write_state(net, path, net_state(net, saveUpdater),
+                           saveUpdater, extra, trainer_state)
 
     @staticmethod
     def restore(path, device=None):
@@ -230,7 +290,7 @@ class ShardedModelSerializer:
         net = build_net(manifest["cls"], conf, device).init()
         z = np.load(os.path.join(path, _STATE), allow_pickle=False)
         arrays = [z[f"arr_{i}"] for i in range(len(z.files))]
-        state = _fill(_net_state(net, manifest["saveUpdater"]), arrays)
+        state = _fill(net_state(net, manifest["saveUpdater"]), arrays)
         want = manifest.get("digest")
         if want is not None:
             got = state_digest(state)

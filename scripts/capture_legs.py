@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run chip_smoke.py's phases alone, from the root of a checkout: the
 capture legs of phase 23 one by one, the phases whose serving paths
-replay captured graphs (4-5, 12, 18), and the static analysis tier's
-legs (24), each with its own pass/fail line.
+replay captured graphs (4-5, 12, 18), the static analysis tier's legs
+(24) and the encoder, data-parallel and remat legs (7, 13, 15f), each
+with its own pass/fail line.
 
     python3 scripts/capture_legs.py            # all of phase 23
     python3 scripts/capture_legs.py 23a 23c 4  # the named legs, in order
@@ -10,8 +11,10 @@ legs (24), each with its own pass/fail line.
 Legs: 23 (the whole phase), 23a-23e (decode graphs, one-shot buckets,
 captured training, autotune, the ledger), 4 (phases 4-5), 12, 18, 24
 (the whole phase), 24a-24e (the zoo, PAR06 against the card, validation
-bitwise, the chaos soak, collectives). TF32 is off, as chip_smoke.py's
-main sets it. Exits 1 if a leg failed, 2 without a CUDA card.
+bitwise, the chaos soak, collectives), 7 (the encoder, its remat leg
+included), 13 (after phase 9(b)'s 20 steps, whose losses it holds dense
+to) and 15f (the remat A/B). TF32 is off, as chip_smoke.py's main sets
+it. Exits 1 if a leg failed, 2 without a CUDA card.
 """
 
 import gc
@@ -51,6 +54,10 @@ def main(which):
         "24c": lambda: cs.analysis_init_bitwise(dev),
         "24d": lambda: cs.analysis_chaos_soak(dev),
         "24e": lambda: cs.analysis_collectives(dev),
+        "7": lambda: cs.train_and_check(dev, cs.BERT_BASE),
+        "13": lambda: cs.data_parallel_phase(
+            dev, cs.RESNET_TIMED, cs.resnet_timed(dev, cs.RESNET_TIMED)[3]),
+        "15f": lambda: cs.remat_ab(dev),
     }
     ok = True
     for name in which or ["23"]:

@@ -19,6 +19,11 @@ prediction.
 
     python3 scripts/conv_workspace.py            # every case
     python3 scripts/conv_workspace.py simplecnn  # the named cases
+    python3 scripts/conv_workspace.py --decides  # SimpleCNN under a cap
+
+``--decides`` asks whether a workspace decides a fit or only raises the
+peak: SimpleCNN b64 (TF32 off, deterministic) runs with the caching
+allocator capped at its tensors' predicted bytes plus 5 %.
 
 Exits 2 without a CUDA card.
 """
@@ -178,6 +183,84 @@ def simplecnn_peak(dev, B=64):
     return peak
 
 
+def workspace_decides(dev, B=64, steps=3):
+    """Does a convolution workspace decide a fit, or only raise the peak?
+    SimpleCNN b`B` f32 at 64², TF32 off, deterministic: PAR06's
+    prediction without the workspace term (TF32 on: no term) and with it;
+    then `steps` fit steps with the caching allocator capped (this
+    process only, ``set_per_process_memory_fraction``) at what it holds
+    now plus the tensor-only prediction plus 5 %: cuDNN must run in the
+    room the tensors leave. Returns the predictions, the cap, whether the
+    steps ran, their peak and median step ms beside an uncapped run."""
+    import numpy as np
+    import torch
+
+    from deeplearning4j_tpu_torch.analysis.partitioning import \
+        step_high_water
+    from deeplearning4j_tpu_torch.zoo import SimpleCNN
+
+    conf = SimpleCNN(numClasses=10, inputShape=(3, 64, 64)).conf()
+    torch.backends.cudnn.allow_tf32 = True
+    p0 = step_high_water(conf, B)["total_bytes"]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    p1 = step_high_water(conf, B)["total_bytes"]
+
+    def run():
+        net = SimpleCNN(numClasses=10, inputShape=(3, 64, 64),
+                        device=dev).init()
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.random((B, 3, 64, 64),
+                                        dtype=np.float32)).to(dev)
+        y = torch.from_numpy(np.eye(10, dtype=np.float32)[
+            rng.integers(0, 10, B)]).to(dev)
+        ms = []
+        for _ in range(steps):
+            t = time.perf_counter()
+            net.fit(x, y)
+            net.score()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(ms))
+
+    out = {"batch": B, "tensor_prediction": p0, "with_workspace": p1}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out["step_ms_free"] = run()
+    out["peak_free"] = torch.cuda.max_memory_allocated(dev) - base
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    cap = torch.cuda.memory_reserved(dev) + int(1.05 * p0)
+    out["cap_bytes_over_held"] = int(1.05 * p0)
+    idx = torch.cuda.current_device()
+    torch.cuda.set_per_process_memory_fraction(cap / total, idx)
+    try:
+        # the control first: TF32 on (small workspaces) under the same cap
+        for name, tf32 in (("control_tf32", True), ("capped", False)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            try:
+                out[f"step_ms_{name}"] = run()
+                out[f"fit_{name}"] = True
+                out[f"peak_{name}"] = \
+                    torch.cuda.max_memory_allocated(dev) - base
+            except torch.OutOfMemoryError as e:
+                out[f"fit_{name}"] = False
+                out[f"error_{name}"] = str(e).splitlines()[0][:300]
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_per_process_memory_fraction(1.0, idx)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def regime(row):
     if row["dtype"] != "float32":
         return row["dtype"]
@@ -203,6 +286,10 @@ def main(which):
     dev = torch.device("cuda")
     torch.backends.cudnn.benchmark = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if which == ["--decides"]:
+        print(json.dumps({"card": card,
+                          "decides": workspace_decides(dev)}))
+        return 0
     gen = torch.Generator(device=dev).manual_seed(0)
     os.makedirs("chiprun_out", exist_ok=True)
     rows, seen = [], set()

@@ -582,3 +582,415 @@ def record_only_rank(rank, world, device):
     verify_program(lambda: master.fit(x, y), group=group)
     return {"before": before, "held": held, "held_iteration": held_it,
             "iteration": it, "unheld": params_vector(net)}
+
+
+# ----------------------------------------------------------------------
+# the rank bodies of tests/test_torch_zero_sharding.py and
+# tests/test_torch_hier_compression.py
+# ----------------------------------------------------------------------
+
+def zero_mlp_conf(seed=42, nin=32, hidden=64, nout=4, updater=None):
+    """tests/test_zero_sharding.py's ``_mlp``."""
+    return (NeuralNetConfiguration.Builder()
+            .seed(seed).updater(updater or Adam(1e-2)).activation("relu")
+            .list()
+            .layer(DenseLayer(nOut=hidden))
+            .layer(OutputLayer(nOut=nout, activation="softmax"))
+            .setInputType(InputType.feedForward(nin)).build())
+
+
+def zero_graph_conf(seed=9):
+    """tests/test_zero_sharding.py's ``TestParityGraph._conf``."""
+    return (NeuralNetConfiguration.Builder().seed(seed)
+            .updater(Adam(1e-2)).activation("relu").graphBuilder()
+            .addInputs("in")
+            .addLayer("d", DenseLayer(nOut=64), "in")
+            .addLayer("out", OutputLayer(nOut=4, activation="softmax",
+                                         lossFunction="mcxent"), "d")
+            .setOutputs("out")
+            .setInputTypes(InputType.feedForward(32)).build())
+
+
+def zero_data(n=64, nin=32, nout=4, seed=0):
+    """tests/test_zero_sharding.py's ``_data``."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, nin).astype("float32")
+    return x, np.eye(nout, dtype="float32")[rng.randint(0, nout, n)]
+
+
+def _np_tree(tree):
+    return [t.detach().cpu().numpy().copy() for t in _ml.tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
+def _sites(rec):
+    return [(s.op, s.axes, s.size, s.payload_bytes, s.wire_bytes, s.lanes)
+            for s in rec.sites]
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def _spy_call(name, sink, at=0):
+    """Wrap ``sharding.<name>`` so that its call number `at` leaves, in
+    `sink`, its gradient leaves and the other tensor arguments (as
+    numpy), its other arguments and its result; returns the undo."""
+    fn = getattr(sh, name)
+    count = [0]
+
+    def spy(leaves, *args):
+        out = fn(leaves, *args)
+        if count[0] == at:
+            def keep(a):
+                if isinstance(a, torch.Tensor):
+                    return _np(a)
+                if isinstance(a, (list, tuple)):
+                    return [keep(t) for t in a]
+                return a
+            sink.update(grads=keep(leaves), args=[
+                keep(a) for a in args if not hasattr(a, "pg")
+                and not hasattr(a, "intra")], out=keep(out))
+        count[0] += 1
+        return out
+
+    setattr(sh, name, spy)
+    return lambda: setattr(sh, name, fn)
+
+
+def _zero_wrap(comp=None, mode="sharded", seed=42, updater=None,
+               min_shard=256):
+    net = MultiLayerNetwork(zero_mlp_conf(seed, updater=updater),
+                            device="cpu").init()
+    return net, ParallelWrapper(net, weight_update=mode,
+                                gradient_compression=comp,
+                                min_shard_size=min_shard)
+
+
+def _samediff(min_shard=None):
+    """tests/test_zero_sharding.py's ``TestParitySameDiff._make``."""
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+
+    rs = np.random.RandomState(7)
+    sd = SameDiff.create(device="cpu")
+    x = sd.placeHolder("x", "float32", 8, 32)
+    y = sd.placeHolder("y", "float32", 8, 4)
+    w = sd.var("w", (rs.randn(32, 64) * 0.1).astype("float32"))
+    b = sd.var("b", np.zeros(64, dtype="float32"))
+    w2 = sd.var("w2", (rs.randn(64, 4) * 0.1).astype("float32"))
+    h = sd.nn.relu(sd.nn.linear(x, w, b, name="h0"), name="h")
+    logits = sd.nn.linear(h, w2, None, name="logits")
+    sd.loss.softmaxCrossEntropy(y, logits, name="loss")
+    sd.setTrainingConfig(
+        TrainingConfig.Builder().updater(Adam(learningRate=1e-2))
+        .dataSetFeatureMapping("x").dataSetLabelMapping("y").build())
+    if min_shard is not None:
+        sd.shardWeightUpdate(min_shard_size=min_shard)
+    return sd
+
+
+def _sd_batches(n):
+    out = []
+    for i in range(n):
+        r = np.random.RandomState(i)
+        out.append(DataSet(r.rand(8, 32).astype("float32"),
+                           np.eye(4, dtype="float32")[r.randint(0, 4, 8)]))
+    return out
+
+
+def _nhwc_cnn():
+    """Zoo SimpleCNN, NHWC: its 3x3 kernels are held channels-last."""
+    from deeplearning4j_tpu_torch.zoo import SimpleCNN
+
+    return SimpleCNN(numClasses=10, inputShape=(3, 16, 16),
+                     dataFormat="NHWC", device="cpu").init()
+
+
+def zero_rank(rank, world, device, tmp):
+    """Every scenario of tests/test_torch_zero_sharding.py on this rank:
+    sharded vs replicated (MLN in three modes, fitDataSet, an Sgd
+    power-of-two run, CG, SameDiff), the layout, the recorded sites of a
+    step, the files and the ResilientFit resume."""
+    import os
+
+    from deeplearning4j_tpu_torch.runtime.resilience import (
+        FaultInjector, Preemption, ResilientFit,
+    )
+    from deeplearning4j_tpu_torch.util.hbm_ledger import weight_update_bill
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import \
+        ShardedModelSerializer
+
+    out = {}
+    x, y = zero_data()
+    for comp in (None, "int8", "block_int8"):
+        for mode in ("replicated", "sharded"):
+            net, pw = _zero_wrap(comp, mode)
+            call = {}
+            undo = _spy_call("quantized_psum_scatter_mean", call)
+            scores = []
+            for _ in range(3):
+                pw.fit(x, y)
+                scores.append(net.score())
+            undo()
+            with coll.recording() as rec:
+                pw.fit(x, y)
+            scores.append(net.score())
+            out[(comp, mode)] = {
+                "params": net.params().tensor().numpy(),
+                "scores": scores, "sites": _sites(rec),
+                "upd": _np_tree(pw.net._canonical_upd_states()),
+                "state_bytes": sh.ZeroShardedUpdate.per_rank_state_bytes(
+                    net._upd_states),
+                "shapes": [tuple(t.shape) for t in
+                           _ml.tree_leaves(net._upd_states)],
+                "bill": weight_update_bill(net, world), "call": call,
+                "sizes": [t.numel() for p in net._params
+                          for t in p.values()]}
+    # fitDataSet(stepsPerSync=2) and the Sgd power-of-two run
+    X, Y = zero_data(4 * 16)
+    for mode in ("replicated", "sharded"):
+        net, pw = _zero_wrap(mode=mode)
+        pw.fitDataSet(DataSetIterator(X, Y, 16), stepsPerSync=2)
+        out[("fds", mode)] = {"params": net.params().tensor().numpy(),
+                              "syncs": pw._fit_dataset_syncs,
+                              "it": net.getIterationCount()}
+    rng = np.random.RandomState(3)
+    xp = (2.0 ** rng.randint(-3, 3, (64, 32))).astype("float32") \
+        * rng.choice([-1.0, 1.0], (64, 32)).astype("float32")
+    yp = np.eye(4, dtype="float32")[rng.randint(0, 4, 64)]
+    for mode in ("replicated", "sharded"):
+        net, pw = _zero_wrap(mode=mode, updater=Sgd(0.5), min_shard=64)
+        for _ in range(3):
+            pw.fit(xp, yp)
+        out[("sgd", mode)] = net.params().tensor().numpy()
+    for mode in ("replicated", "sharded"):
+        g = ComputationGraph(zero_graph_conf(), device="cpu").init()
+        pw = ParallelWrapper(g, weight_update=mode, min_shard_size=256)
+        pw.fitDataSet(DataSetIterator(X, Y, 16), stepsPerSync=2)
+        out[("graph", mode)] = g.params().tensor().numpy()
+    # channels-last kernels (an NHWC CNN): each block written back
+    xc = np.random.RandomState(5).rand(8, 16, 16, 3).astype("float32")
+    yc = np.eye(10, dtype="float32")[np.arange(8) % 10]
+    for mode in ("replicated", "sharded"):
+        net = _nhwc_cnn()
+        pw = ParallelWrapper(net, weight_update=mode, min_shard_size=64)
+        for _ in range(2):
+            pw.fit(xc, yc)
+        out[("nhwc", mode)] = net.params().tensor().numpy()
+    # SameDiff: every rank fits the same batches
+    a, b = _samediff(), _samediff(128)
+    h1, h2 = a.fit(data=_sd_batches(4)), b.fit(data=_sd_batches(4))
+    out["sd"] = {"h": (h1, h2),
+                 "vars": [(a._arrays[n].numpy().copy(),
+                           b._arrays[n].numpy().copy())
+                          for n in ("w", "b", "w2")],
+                 "shapes": [tuple(t.shape) for t in
+                            _ml.tree_leaves(b._train_state)]}
+    p = os.path.join(tmp, f"sd_{rank}.zip")
+    b.save(p, saveUpdaterState=True)
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+
+    c = SameDiff.load(p, loadUpdaterState=True, device="cpu")
+    c.setTrainingConfig(b._tc)
+    c._iteration = b._iteration
+    out["sd_restore"] = (c.fit(data=_sd_batches(1)),
+                         b.fit(data=_sd_batches(1)))
+    # rewrapping replicated uninstalls the hook; files hold canonical
+    net, pw = _zero_wrap()
+    pw.fit(x, y)
+    canon = _np_tree(pw.net._canonical_upd_states())
+    mp = os.path.join(tmp, f"m_{rank}.npz")
+    ModelSerializer.writeModel(net, mp)
+    restored = ModelSerializer.restoreMultiLayerNetwork(mp, device="cpu")
+    cp = os.path.join(tmp, f"ck_{rank}")
+    ShardedModelSerializer.writeModel(net, cp)
+    ck = ShardedModelSerializer.restore(cp, device="cpu")
+    pw2 = ParallelWrapper(net)
+    pw2.fit(x, y)
+    out["files"] = {"canon": canon,
+                    "npz": _np_tree(restored._upd_states),
+                    "ckpt": _np_tree(ck._upd_states),
+                    "uninstalled": net._update_impl is None,
+                    "shapes": [tuple(t.shape) for t in
+                               _ml.tree_leaves(net._upd_states)]}
+    # ResilientFit over the sharded wrapper: preempted and resumed
+    X8, Y8 = zero_data(8 * 16)
+
+    def it():
+        return DataSetIterator(X8, Y8, 16)
+
+    n1, w1 = _zero_wrap()
+    ResilientFit(w1).fit(it(), epochs=2)
+    d = os.path.join(tmp, "resume")
+    n2, w2 = _zero_wrap()
+    try:
+        ResilientFit(w2, d, saveEveryNIterations=3,
+                     injector=FaultInjector().killAfterStep(11)).fit(
+            it(), epochs=2)
+        killed = False
+    except Preemption:
+        killed = True
+    n3, w3 = _zero_wrap()
+    ResilientFit(w3, d, saveEveryNIterations=3).fit(it(), epochs=2)
+    n4, w4 = _zero_wrap()
+    ResilientFit(w4).fit(it(), epochs=1, stepsPerSync=2)
+    n5, w5 = _zero_wrap()
+    ResilientFit(w5).fit(it(), epochs=1)
+    out["resume"] = {"killed": killed,
+                     "unbroken": n1.params().tensor().numpy(),
+                     "resumed": n3.params().tensor().numpy(),
+                     "upd": (_np_tree(n1._canonical_upd_states()),
+                             _np_tree(n3._canonical_upd_states())),
+                     "k2": n4.params().tensor().numpy(),
+                     "k1": n5.params().tensor().numpy()}
+    # a write failing past the retry policy on the writing rank raises
+    # on every rank at that save
+    from deeplearning4j_tpu_torch.runtime import chaos
+    from deeplearning4j_tpu_torch.runtime.resilience import RetryPolicy
+
+    n6, w6 = _zero_wrap()
+    plan = chaos.ChaosPlan().raise_n("checkpoint.write", times=10,
+                                     exc=OSError)
+    if rank == 0:
+        chaos.arm(plan)
+    try:
+        ResilientFit(w6, os.path.join(tmp, "fail"), saveEveryNIterations=2,
+                     retryPolicy=RetryPolicy(maxRetries=2,
+                                             sleep=lambda s: None)).fit(
+            it(), epochs=1)
+        err = None
+    except OSError as e:
+        err = str(e)
+    finally:
+        chaos.disarm()
+    out["write_fault"] = {"err": err, "iteration": n6._iteration,
+                          "fired": plan.fired("checkpoint.write")}
+    return out
+
+
+def hier_mlp_conf(seed=3, nin=32, h1=64, h2=32, nout=8, updater=None,
+                  act="tanh"):
+    """tests/test_hier_compression.py's ``_mlp``."""
+    return (NeuralNetConfiguration.Builder()
+            .seed(seed).updater(updater or Sgd(0.1)).activation(act)
+            .list()
+            .layer(DenseLayer(nOut=h1))
+            .layer(DenseLayer(nOut=h2))
+            .layer(OutputLayer(nOut=nout, activation="softmax"))
+            .setInputType(InputType.feedForward(nin)).build())
+
+
+def hier_data(n=64, nin=32, nout=8, seed=0):
+    """tests/test_hier_compression.py's ``_data``."""
+    rng = np.random.RandomState(seed)
+    yi = rng.randint(0, nout, n)
+    x = (np.eye(nout)[yi] @ rng.randn(nout, nin)
+         + 0.1 * rng.randn(n, nin)).astype("float32")
+    return x, np.eye(nout, dtype="float32")[yi]
+
+
+def _hier_wrap(nout=8, updater=None, **kw):
+    net = MultiLayerNetwork(hier_mlp_conf(nout=nout, updater=updater),
+                            device="cpu").init()
+    kw.setdefault("gradient_compression", "hierarchical")
+    return net, ParallelWrapper(net, **kw)
+
+
+def hier_rank(rank, world, device, tmp):
+    """Every scenario of tests/test_torch_hier_compression.py on this
+    rank (dp 4, node groups of 2)."""
+    import os
+
+    from deeplearning4j_tpu_torch.runtime.resilience import (
+        FaultInjector, Preemption, ResilientFit,
+    )
+
+    out = {}
+    x, y = hier_data(world * 4)
+    for im in ("block_int8", None):
+        losses = {}
+        for mode in (None, "hierarchical"):
+            kw = {} if mode is None else {
+                "threshold": 1e-1, "encodingCapacity": 1.0,
+                "compressionGroupSize": 2, "intraGroupCompression": im}
+            net, pw = _hier_wrap(gradient_compression=mode, **kw)
+            call = {}
+            # the second step's: its residual is the first step's
+            undo = _spy_call("hierarchical_grad_exchange", call, at=1)
+            traj = []
+            for _ in range(9):
+                pw.fit(x, y)
+                traj.append(net.score())
+            undo()
+            with coll.recording() as rec:
+                pw.fit(x, y)
+            traj.append(net.score())
+            losses[mode] = traj
+            if mode is not None:
+                out[("sites", im)] = _sites(rec)
+                out[("sizes", im)] = [t.numel() for p in net._params
+                                      for t in p.values()]
+                out[("params", im)] = net.params().tensor().numpy()
+                out[("call", im)] = call
+        out[("loss", im)] = losses
+    # one group is one virtual replica: every rank fed the same rows
+    xs, ys = np.tile(x[:2], (world, 1)), np.tile(y[:2], (world, 1))
+    virtual = {}
+    for mode, kw in (("threshold", {}),
+                     ("hierarchical", {"compressionGroupSize": 2,
+                                       "intraGroupCompression": None})):
+        net, pw = _hier_wrap(gradient_compression=mode, threshold=5e-2,
+                             encodingCapacity=1.0, **kw)
+        pw.fit(xs, ys)
+        virtual[mode] = net.params().tensor().numpy()
+    out["virtual"] = virtual
+    # the residual's layout, resume, the k-loop, a cross-mode restore
+    X, Y = hier_data(world * 12, nout=4)
+
+    def it():
+        return DataSetIterator(X, Y, world * 2)
+
+    kw = dict(nout=4, updater=Sgd(0.25), threshold=1e-2,
+              compressionGroupSize=2)
+    net, pw = _hier_wrap(**kw)
+    pw.fit(X[:world * 2], Y[:world * 2])
+    ef, tau = pw._residual
+    out["layout"] = {"ef": [tuple(t.shape) for t in _ml.tree_leaves(ef)],
+                     "params": [t.numel() for t in
+                                _ml.tree_leaves(net._params)],
+                     "tau": float(tau)}
+    try:
+        flat = ParallelWrapper(net, gradient_compression="threshold",
+                               threshold=1e-2)
+        flat._place_replicated()
+        flat._load_trainer_state(pw._trainer_state())
+        out["cross_mode"] = None
+    except ValueError as e:
+        out["cross_mode"] = str(e)
+    n1, w1 = _hier_wrap(**kw)
+    ResilientFit(w1).fit(it(), epochs=2)
+    d = os.path.join(tmp, "resume")
+    n2, w2 = _hier_wrap(**kw)
+    try:
+        ResilientFit(w2, d, saveEveryNIterations=3,
+                     injector=FaultInjector().killAfterStep(7)).fit(
+            it(), epochs=2)
+        killed = False
+    except Preemption:
+        killed = True
+    n3, w3 = _hier_wrap(**kw)
+    ResilientFit(w3, d, saveEveryNIterations=3).fit(it(), epochs=2)
+    out["resume"] = {"killed": killed,
+                     "unbroken": n1.params().tensor().numpy(),
+                     "resumed": n3.params().tensor().numpy(),
+                     "ef": (w1._ef.numpy(), w3._ef.numpy()),
+                     "tau": (float(w1._tau), float(w3._tau))}
+    Xk, Yk = hier_data(world * 8)
+    net, pw = _hier_wrap(threshold=5e-2, encodingCapacity=1.0,
+                         compressionGroupSize=2)
+    pw.fitDataSet(DataSetIterator(Xk, Yk, world * 2), stepsPerSync=2,
+                  epochs=2)
+    out["k_loop"] = {"score": net.score(), "syncs": pw._fit_dataset_syncs,
+                     "ef_max": float(pw._ef.abs().max())}
+    return out

@@ -9,8 +9,8 @@
   high-water mark of a small CNN's eager fit step lies within the
   smoke's band (chip_smoke.PAR06_BAND: never more than 10 % under
   ``torch.cuda.max_memory_allocated``) at PyTorch's default cuDNN
-  settings and at the smoke's (deterministic, TF32 off); the second is
-  a known failure (the test's docstring).
+  settings and at the smoke's (deterministic, TF32 off), where PAR06
+  counts the f32 convolutions' cuDNN workspaces.
 - The shape pass allocates nothing on the card.
 
 This file imports neither jax nor the reference package:
@@ -129,18 +129,16 @@ def _small_cnn_fit(card, B):
 @pytest.mark.parametrize("setting", sorted(CUDNN))
 def test_par06_prediction_within_the_band(card, setting):
     """PAR06 counts the tensors of the step (autograd's saved
-    activations, gradients, updater and temporaries), not cuDNN's
-    workspaces nor the process's one-time cuBLAS workspaces (made
-    first). At PyTorch's default cuDNN settings, convolutions on, the
-    workspaces that overlap the step's peak are small and the prediction
-    lies in the band. With TF32 off an f32 convolution may take an FFT
-    engine whose first call holds up to 55x its input and output bytes
-    (scripts/conv_workspace.py): the "deterministic_no_tf32" case is a
-    known failure (0.727 on the H100, ROADMAP Queue 3) until PAR06
-    models that workspace."""
+    activations, gradients, updater and temporaries), not the process's
+    one-time cuBLAS workspaces (made first). At PyTorch's default cuDNN
+    settings the convolution workspaces that overlap the step's peak are
+    small and none is counted. With TF32 off an f32 convolution's
+    workspace is large (scripts/conv_workspace.py), and PAR06 holds one
+    of the measured median size while each such call runs: the
+    prediction reads the cuDNN settings, so it is made under them."""
     B = 64
-    pred = _prediction(B)
     with _cudnn(**CUDNN[setting]):
+        pred = _prediction(B)
         _settle(card)
         base = torch.cuda.memory_allocated(card)
         _small_cnn_fit(card, B)

@@ -17,8 +17,8 @@ the signature its collective choke point records
   recorded ones; a rank that adds one all-reduce is named (COL01) from
   record-only runs, without a hang; a record-only run leaves the
   trainer it ran as it was, so the replicas stay bitwise equal.
-- ``linalg_contract`` and the hierarchical contract name the items that
-  hold them.
+- ``linalg_contract`` names the item that holds it; the hierarchical
+  and sharded contracts are declared.
 """
 
 import textwrap
@@ -149,8 +149,16 @@ def test_contracts_of_each_mode_and_the_waiting_ones():
     assert compression_contract("int8", 8).expects_quantized
     assert compression_contract("threshold", 8, adaptive=True).counts == {
         "all_gather": 1, "all_reduce": 2}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        compression_contract("hierarchical", 8)
+    # ported since the hierarchical slice: one exchange of every leaf
+    assert compression_contract("hierarchical", 8).counts == {
+        "int8_lane_scatter": 1, "all_gather": 2, "all_reduce": 2}
+    assert compression_contract("hierarchical", 8, intra_quantized=False,
+                                adaptive=True).counts == {
+        "reduce_scatter": 1, "all_gather": 2, "all_reduce": 2}
+    assert compression_contract(None, 8, sharded=True).counts == {
+        "reduce_scatter": 1, "all_gather": 1, "all_reduce": 2}
+    with pytest.raises(ValueError):
+        compression_contract("threshold", 8, sharded=True)
     with pytest.raises(ValueError):
         compression_contract("bogus", 8)
     with pytest.raises(NotImplementedError, match="item 12c"):

@@ -71,6 +71,7 @@ from deeplearning4j_tpu_torch.parallel import (
     SharedTrainingMasterBuilder, SparkDl4jMultiLayer, build_mesh,
     hybrid_mesh, launch,
 )
+from deeplearning4j_tpu_torch.nn.multilayer import tree_leaves
 from deeplearning4j_tpu_torch.parallel.dryrun import dryrun_multichip
 
 torch.set_num_threads(1)
@@ -637,21 +638,62 @@ def test_refusals_match_the_reference(cls, kw):
 
 
 @pytest.mark.parametrize("call", [
-    lambda: ParallelWrapper(R.build("mlp"),
-                            gradient_compression="hierarchical"),
-    lambda: ParallelWrapper(R.build("mlp"), weight_update="sharded"),
-    lambda: SharedTrainingMaster(R.build("mlp"), compressionGroupSize=2),
-    lambda: SharedTrainingMasterBuilder().compressionGroupSize(2).build()
-    .bind(R.build("mlp"), None),
     lambda: build_mesh({"data": 1, "model": 2}),
     lambda: hybrid_mesh({"data": 1}, {"model": 1}),
     lambda: dryrun_multichip(2, "cpu", legs=("tp",)),
     lambda: dryrun_multichip(2, "cpu", legs=("sequence", "pipeline")),
-], ids=["hierarchical", "sharded", "group_size", "builder_group_size",
-        "model_axis", "hybrid_mesh", "dryrun_tp", "dryrun_sp_pp"])
+], ids=["model_axis", "hybrid_mesh", "dryrun_tp", "dryrun_sp_pp"])
 def test_deferred_modes_name_item_7(call):
     with pytest.raises(NotImplementedError, match="item 7"):
         call()
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("PW", dict(gradient_compression="hierarchical")),
+    ("STM", dict(compressionGroupSize=2)),
+    ("builder", dict(compressionGroupSize=2)),
+], ids=["hierarchical", "group_size", "builder_group_size"])
+def test_hierarchical_needs_two_groups_of_two(kind, kw):
+    """The 2-hop exchange is ported (tests/test_torch_hier_compression.py);
+    on one rank it has no factorization, refused with the reference's
+    message at the same degree."""
+    jnet = jmlp()
+    if kind == "builder":
+        from deeplearning4j_tpu.parallel import \
+            SharedTrainingMasterBuilder as JSTMB
+
+        with pytest.raises(ValueError) as want:
+            JSTMB().compressionGroupSize(2).build().bind(jnet, jmesh(1))
+        with pytest.raises(ValueError) as got:
+            SharedTrainingMasterBuilder().compressionGroupSize(2).build() \
+                .bind(R.build("mlp"), None)
+    else:
+        jcls, pcls = (JPW, ParallelWrapper) if kind == "PW" \
+            else (JSTM, SharedTrainingMaster)
+        with pytest.raises(ValueError) as want:
+            jcls(jnet, mesh=jmesh(1), **kw)
+        with pytest.raises(ValueError) as got:
+            pcls(R.build("mlp"), **kw)
+    assert str(got.value) == str(want.value)
+
+
+def test_sharded_update_at_one_rank_is_replicated():
+    """weight_update="sharded" over a one-rank group trains bitwise the
+    replicated wrapper (the flat view is a reshape, the update
+    elementwise); the hook is the net's, its state held flat."""
+    x, y, _ = R.data(64)
+    nets = []
+    for mode in ("replicated", "sharded"):
+        net = R.build("mlp")
+        pw = ParallelWrapper(net, weight_update=mode, min_shard_size=64)
+        for _ in range(3):
+            pw.fit(x, y)
+        nets.append((net, pw))
+    (a, _), (b, pw) = nets
+    assert torch.equal(a.params().tensor(), b.params().tensor())
+    assert b._update_impl is pw._zero and a._update_impl is None
+    assert (32 * 3,) in {tuple(t.shape) for t in
+                         tree_leaves(b._upd_states)}
 
 
 def test_fit_dataset_steps_per_sync():

@@ -1,5 +1,6 @@
 """The data-parallel trainers on the card (``cuda`` marker): a real NCCL
 process group at world 1 gives dense training bitwise equal to ``fit``;
+the sharded (ZeRO) update at world 1 is bitwise the replicated one;
 the int8/block_int8 lanes and the threshold exchange computed on the card
 equal the same functions on the CPU for the same gradient (the plain
 arithmetic of one rank: lanes, means and residuals bitwise); two gloo
@@ -77,6 +78,27 @@ def test_nccl_world1_dense_is_bitwise_fit(nccl, name):
         np.testing.assert_array_equal(R.ref_params(b)[k], v, err_msg=k)
     # the gradients' and the loss's NCCL all-reduce; no BN group at world 1
     assert pw.last_step["collectives"] == 2
+
+
+@pytest.mark.parametrize("comp", [None, "int8"], ids=["dense", "int8"])
+def test_nccl_world1_sharded_is_bitwise_replicated(nccl, comp):
+    """weight_update="sharded" over a world-1 NCCL group: the flat view
+    is a reshape and the updaters elementwise, so the trajectory is the
+    replicated wrapper's bit for bit; the state is held flat."""
+    x, y = R.zero_data()
+    nets = []
+    for wu in ("replicated", "sharded"):
+        net = R.MultiLayerNetwork(R.zero_mlp_conf(), device="cuda").init()
+        pw = ParallelWrapper(net, mesh=nccl, weight_update=wu,
+                             gradient_compression=comp, min_shard_size=256)
+        for _ in range(3):
+            pw.fit(x, y)
+        nets.append(net)
+    a, b = nets
+    assert a.score() == b.score()
+    assert torch.equal(a.params().tensor(), b.params().tensor())
+    assert (32 * 64,) in {tuple(t.shape) for p in b._upd_states
+                          for t in p["m"].values()}
 
 
 def _grads(device):

@@ -26,11 +26,9 @@ _REF, _PORT = "deeplearning4j_tpu", "deeplearning4j_tpu_torch"
 #: holds them
 WAITING = {
     "parallel": ({
-        "CHIPS", "ChipSpec", "DataParallelModel", "ManualZeroUpdate",
-        "ZeroShardedUpdate", "all_gather_time",
+        "CHIPS", "ChipSpec", "DataParallelModel", "all_gather_time",
         "all_reduce_time", "compressed_hlo_collective_bytes",
-        "dp_weight_update_bytes", "hierarchical_grad_exchange",
-        "hierarchical_mesh", "ppermute_time",
+        "ppermute_time",
         "reduce_scatter_time", "replicate_params", "resnet50_scaling",
         "ring_attention", "shard_params",
         "ulysses_attention"}, "7"),
@@ -172,7 +170,7 @@ def _distribute():
 
 
 DEFERRED = {
-    "serde": (_serde_refusal, r"items 7, 11, 12c and 13"),
+    "serde": (_serde_refusal, r"items 7 and 12c\)"),
     "distribute": (_distribute, r"item 12c"),
 }
 

@@ -32,7 +32,9 @@ import deeplearning4j_tpu_torch.nn as P
 from deeplearning4j_tpu_torch.data import DataSetIterator
 from deeplearning4j_tpu_torch.data.resilient import RetryingDataSetIterator
 from deeplearning4j_tpu_torch.optimize import ResilienceListener
-from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+from deeplearning4j_tpu_torch.parallel import (
+    ParallelWrapper, ParameterAveragingTrainingMaster,
+)
 from deeplearning4j_tpu_torch.runtime.resilience import (
     FaultInjector, NonFiniteStepError, Preemption, ResilientFit, RetryPolicy,
     retry,
@@ -317,9 +319,39 @@ class TestNanGuard:
                                    np.asarray(jn.params().toNumpy()),
                                    **PARAMS)
 
-    def test_parallel_wrapper_waits_for_item_7(self):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ResilientFit(ParallelWrapper(_net()))
+    def test_parallel_wrapper_waits_for_item_7(self, tmp_path):
+        """ResilientFit over a ParallelWrapper is ported (the
+        multi-rank resumes: tests/test_torch_zero_sharding.py and
+        tests/test_torch_hier_compression.py). On one rank a guarded
+        wrapper skips the poisoned steps as the plain net does, and a
+        preempted run resumes bitwise, its residual and tau included."""
+        plain, wrapped = _net(), _net()
+        ResilientFit(plain, injector=FaultInjector().poisonStep(1, 5),
+                     retryPolicy=_FAST).fit(_iter(), epochs=2)
+        rf = ResilientFit(ParallelWrapper(wrapped),
+                          injector=FaultInjector().poisonStep(1, 5),
+                          retryPolicy=_FAST)
+        rf.fit(_iter(), epochs=2)
+        _equal(plain, wrapped)
+        assert rf.skippedSteps == 2 and wrapped._iteration == 8
+
+        def wrap():
+            return ParallelWrapper(_net(), gradient_compression="threshold",
+                                   threshold=1e-3)
+
+        w1 = wrap()
+        ResilientFit(w1).fit(_iter(), epochs=2)
+        d = tmp_path / "ck"
+        with pytest.raises(Preemption):
+            ResilientFit(wrap(), d, saveEveryNIterations=3,
+                         injector=FaultInjector().killAfterStep(5)).fit(
+                _iter(), epochs=2)
+        w3 = wrap()
+        ResilientFit(w3, d, saveEveryNIterations=3).fit(_iter(), epochs=2)
+        _equal(w1.net, w3.net)
+        assert torch.equal(w1._ef, w3._ef) and torch.equal(w1._tau, w3._tau)
+        with pytest.raises(ValueError, match="ParameterAveraging"):
+            ResilientFit(ParameterAveragingTrainingMaster(_net()))
 
 
 # ----------------------------------------------------------------------
@@ -439,6 +471,24 @@ class TestShardedCheckpoint:
         _equal(g, g2)
 
     def test_trainer_state_waits_for_item_7(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ck.ShardedModelSerializer.writeModel(_net(), tmp_path / "t",
-                                                 trainer_state={"r": 1})
+        """Trainer state rides a checkpoint beside the net's (ported):
+        read back bitwise, absent from a checkpoint written without it,
+        and a corrupted one fails its digest."""
+        state = {"ef": torch.arange(6.0).reshape(1, 6),
+                 "tau": torch.tensor(1e-3)}
+        net = _net()
+        ck.ShardedModelSerializer.writeModel(net, tmp_path / "t",
+                                             trainer_state=state)
+        got = ck.restore_trainer_state(tmp_path / "t")
+        assert set(got) == {"ef", "tau"}
+        for k in state:
+            assert torch.equal(got[k], state[k])
+        assert ck.read_manifest(tmp_path / "t")["trainerState"] is True
+        _equal(net, ck.ShardedModelSerializer.restore(tmp_path / "t",
+                                                      device="cpu"))
+        ck.ShardedModelSerializer.writeModel(net, tmp_path / "u")
+        assert ck.restore_trainer_state(tmp_path / "u") is None
+        np.savez(tmp_path / "t" / "trainer.npz", ef=np.zeros((1, 6)),
+                 tau=np.float32(1e-3))
+        with pytest.raises(ck.CheckpointDigestError):
+            ck.restore_trainer_state(tmp_path / "t")

@@ -41,6 +41,7 @@ from deeplearning4j_tpu_torch.autodiff import (
 )
 from deeplearning4j_tpu_torch.ndarray import INDArray, Nd4j
 from deeplearning4j_tpu_torch.nn import updaters as tupd
+from deeplearning4j_tpu_torch.nn.multilayer import tree_leaves
 from deeplearning4j_tpu_torch.ops import flash_attention as tfa
 
 torch.set_num_threads(2)
@@ -662,6 +663,24 @@ def _ported(fn, want):
     return check
 
 
+def _sharded_is_stock(sd):
+    """shardWeightUpdate over a one-rank group (min_shard_size 64: both
+    weights shard) trains bitwise the stock graph, its updater state
+    held flat, and saves it in the full-shape layout."""
+    X, Y, W1, W2 = mlp_data()
+    stock = build_mlp("p", W1, W2)
+    assert sd.shardWeightUpdate(min_shard_size=64) is sd
+    for _ in range(3):
+        assert sd.fit(features=X, labels=Y) == \
+            stock.fit(features=X, labels=Y)
+    for n in ("w1", "b1", "w2", "b2"):
+        assert torch.equal(sd._arrays[n], stock._arrays[n])
+    shapes = {tuple(t.shape) for t in tree_leaves(sd._train_state)}
+    assert (F * H,) in shapes and (F, H) not in shapes
+    full = [tuple(t.shape) for t in tree_leaves(sd._canonical_train_state())]
+    assert full == [tuple(t.shape) for t in tree_leaves(stock._train_state)]
+
+
 _F = np.float32
 DEFERRED = {
     "ifCond": (_ported(lambda sd, tmp: sd.ifCond(
@@ -696,7 +715,8 @@ DEFERRED = {
     "betainc": (_ported(lambda sd, tmp: sd.math.betainc(
         sd.constant(1.0), sd.constant(2.0), sd.constant(0.5)), 0.75),
         None),
-    "shardWeightUpdate": (lambda sd: sd.shardWeightUpdate(), "item 7"),
+    # ported since the data-parallel ZeRO slice
+    "shardWeightUpdate": (lambda sd, tmp: _sharded_is_stock(sd), None),
     # ported since the training-runtime slice (precompile since the
     # capture slice): the reference's refusals
     "precompile": (lambda sd: (sd.setTrainingConfig(None),

@@ -347,16 +347,40 @@ class TestReviewRegressions:
         monkeypatch.setattr(P.MultiLayerNetwork, "init", boom)
         ModelSerializer.restoreMultiLayerNetwork(p, device=CPU)
 
-    def test_unported_reference_attribute_is_refused(self):
-        """A reference config that sets a feature the port lacks is
-        refused by name, not silently dropped (per-layer activation
-        remat, item 13; biasUpdater, which this case named before, is
-        ported now)."""
+    def test_unported_reference_attribute_is_refused(self, tmp_path):
+        """The attribute this case refused until per-layer activation
+        remat was ported, ``activationCheckpointing``, now loads: a
+        reference config that sets it reads with the flag, a model file
+        of it round-trips and trains bitwise a net built with the flag;
+        a reference class the port lacks is still refused by name."""
         conf = json.loads(_mlp_conf(J).toJson())
         conf["attrs"]["activationCheckpointing"] = True
-        with pytest.raises(NotImplementedError,
-                           match="activationCheckpointing"):
-            P.MultiLayerConfiguration.fromJson(json.dumps(conf))
+        pc = P.MultiLayerConfiguration.fromJson(json.dumps(conf))
+        assert pc.activationCheckpointing is True
+        x, y = _data()
+        net = P.MultiLayerNetwork(pc, device=CPU).init()
+        net.fit(x, y)
+        p = str(tmp_path / "remat.npz")
+        ModelSerializer.writeModel(net, p)
+        back = ModelSerializer.restoreMultiLayerNetwork(p, device=CPU)
+        assert back.conf.activationCheckpointing is True
+        built = (P.NeuralNetConfiguration.Builder().seed(42)
+                 .updater(P.Adam(1e-2)).weightInit(P.WeightInit.XAVIER)
+                 .activation("relu").activationCheckpointing(True).list()
+                 .layer(P.DenseLayer(nOut=16))
+                 .layer(P.BatchNormalization())
+                 .layer(P.OutputLayer(nOut=3, activation="softmax",
+                                      lossFunction="mcxent"))
+                 .setInputType(P.InputType.feedForward(4)).build())
+        twin = P.MultiLayerNetwork(built, device=CPU).init()
+        twin.fit(x, y)
+        for _ in range(2):
+            back.fit(x, y)
+            twin.fit(x, y)
+        assert torch.equal(back.params().tensor(), twin.params().tensor())
+        with pytest.raises(NotImplementedError, match="items 7 and 12c"):
+            serde.decode({"__o": "deeplearning4j_tpu.parallel.overlap:X",
+                          "attrs": {}}, [])
 
 
 # ----------------------------------------------------------------------
