@@ -265,7 +265,7 @@ Phases (any failure exits non-zero before the result line):
    zoo LeNet (f32, Adam(1e-3), batch 64) on MnistDataSetIterator's
    60,000 / 10,000 examples (synthetic and flagged where no idx files
    are on the machine) through NormalizerStandardize:
-   EarlyStoppingTrainer (3 epochs, DataSetLossCalculator on the test
+   EarlyStoppingTrainer (2 epochs, DataSetLossCalculator on the test
    split, LocalFileModelSaver) whose best model restores onto the card
    and scores >= 0.9 accuracy on the test split; ResilientFit
    (saveEveryNIterations 200) with a NaN-poisoned step 100 that is
@@ -346,8 +346,9 @@ Phases (any failure exits non-zero before the result line):
    momentum bitwise equal; ms a step (host wall / 9, 14(a)'s method;
    both readings, and the lesser) beside 14(a)'s, the fitDataSet spans,
    a traced prefetched block's idle share; the ring's kind, slot bytes
-   and host copies a batch. (b) 14(b)'s 60,000 / 10,000 (synthetic,
-   flagged) MNIST digits written as CSVs of 785 integer columns;
+   and host copies a batch. (b) the first 20,000 of 14(b)'s 60,000
+   training digits and its 10,000 test digits (synthetic, flagged),
+   written as CSVs of 785 integer columns;
    CSVRecordReader through the native parser (its matrix equal to the
    rows written; MB/s), a TransformProcess over 785 columns (a
    ConditionFilter on the label, a label conversion there and back; its
@@ -530,8 +531,8 @@ Phases (any failure exits non-zero before the result line):
    512, 6 actions, RMSProp 2.5e-4, b32, gamma 0.99, frame skip 4, TD
    error clipped to 1, double DQN) through QLearningDiscreteConv on a
    seeded 84x84 catch game written here (ALE does not ship), replay
-   5,000, learning from step 500, target sync every 1,000, 2,000 steps
-   (cut from 3,000 to keep the whole smoke near 720 s):
+   5,000, learning from step 500, target sync every 1,000, 1,000 steps
+   (cut from 3,000, then 2,000, to keep the whole smoke near 850 s):
    env steps/s, learn steps/s and the median learn step, kernels a learn
    step and the busy share of a traced block, host->device copies and
    bytes and device->host copies a learn step (from (e)'s trace), peak
@@ -622,20 +623,59 @@ Phases (any failure exits non-zero before the result line):
    bill and the bytes the trainer reports, the record-only step leaving
    the params as they were and equal on both ranks (over NCCL too with
    2 or more cards).
+25. mesh axes — the model, sequence and pipeline axes through
+   deeplearning4j_tpu_torch.parallel, ranks launched on the card under
+   gloo. A probe checks the values gloo's ppermute (batch_isend_irecv)
+   of CUDA tensors returns, on two ranks of their own (its failure may
+   close the connection or abort a rank: an abort counts as a refusal
+   only when the rank's error output shows gloo's transport error);
+   the two ranks of (a), (b) and (d) first check gloo's all-reduce,
+   all-gather and all-to-all of CUDA tensors likewise. Each outcome is
+   logged. A leg whose collective came back wrong, or raised, is named
+   NOT RUN with the probe's words and runs over NCCL with two (four)
+   cards instead; a probe whose ranks die otherwise, or time out,
+   fails the phase; the port never stages a collective through the
+   host itself. (a) zoo ResNet-50 at 224², 1000 classes, bf16 NHWC over
+   f32 masters, Nesterovs(0.1, 0.9), shard_params(min_shard_size=4096)
+   on {data: 1, model: 2}, batch 32 (9(b)'s 128 cut: each rank carries
+   the whole batch's activations plus the gathered blocks), 3 steps,
+   TF32 off, deterministic cuDNN, timed; then the same net at batch 4
+   in f64 and in f32, 3 steps each. Held: the replicated leaves and BN
+   running statistics bitwise equal on the two ranks in every run, the
+   placed net's whole params at the start bitwise one rank's, and in
+   f64, after steps 1 and 3, the sharded and the replicated leaves
+   within MESH_TP_F64_BAND of the update from one rank's same steps;
+   read: the same distances in f32 and in bf16, and a control (one
+   rank's bf16 steps under cuDNN's benchmarked algorithms against its
+   deterministic ones); collectives and bytes a step from recording(),
+   step ms, peak memory a rank, one rank's step ms. (b) phase 7's
+   encoder at BERT-base widths on {model: 2} (min_shard_size 512, so
+   the biases shard too), 3 steps: K1/K2/K3 12 launches a step a rank,
+   each K1 on 6 heads, the losses within MESH_TP_BERT_BAND of 7(b)'s.
+   (c) dryrun_multichip(4, legs=("tp",)) on four ranks on the card.
+   (d) ring_attention (causal and not) and ulysses_attention on
+   {seq: 2} at B 2, H 12, T 8192, D 64 f32, forward and backward, and
+   the ring on {seq: 1} in this process, each against one-rank
+   dot_product_attention at rtol 2e-4, atol 2e-5. (e) PipelineParallel
+   on {pipe: 4}: Dense(1024 -> 4096), 8 x Dense(4096, tanh), a 1000-way
+   softmax head, Sgd(0.05), batch 512 in 8 microbatches, 3 steps, the
+   params within rtol 1e-4, atol 1e-5 of 3 steps of fit on one rank;
+   the bubble as (S - 1) x the median forward tick over the step.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
 launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
-17(e)'s plus phase 23(c)(iii)'s replays, and K1's plus phase
-20(d)(ii)'s; K4's phase 4's plus phase 23(a)'s two bursts, replays
+17(e)'s plus phase 23(c)(iii)'s replays plus both ranks' of phase
+25(b), and K1's plus phase 20(d)(ii)'s; K4's phase 4's plus phase 23(a)'s two bursts, replays
 included, plus phase 24(d)'s soak, and K5's phase 4's plus 24(d)'s;
 phases 8-10, 12, 13, 14(a),
-14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii), 21 and 22 run no
-hand-written kernel: conv, dense and the recurrent products are
-cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN, dropout,
-the shape layers, the word-vector, k-means and t-SNE steps and the
-actor-critic trunks are torch tensor ops, and the data-parallel exchange
-is NCCL's or gloo's collectives).
+14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii), 21, 22 and 25 but
+(b) run no hand-written kernel: conv, dense and the recurrent products
+are cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN,
+dropout, the shape layers, the word-vector, k-means and t-SNE steps,
+the actor-critic trunks and ring and Ulysses attention (the reference's
+are plain XLA too) are torch tensor ops, and the parallel exchanges are
+NCCL's or gloo's collectives).
 """
 
 from __future__ import annotations
@@ -3535,7 +3575,7 @@ def data_parallel_phase(dev, cfg, phase9b):
 #: 14(a): BASELINE config 4 (phase 9(b)'s net) over 9 pre-built batches
 RUNTIME_RESNET = dict(batches=9, k=4, ckpt_after=4, held_out=2)
 #: 14(b): BASELINE config 1, zoo LeNet on (synthetic) MNIST at full size
-RUNTIME_LENET = dict(batch=64, train=60000, test=10000, epochs=3,
+RUNTIME_LENET = dict(batch=64, train=60000, test=10000, epochs=2,
                      save_every=200, poison=100, kill_after=500, k=16,
                      min_accuracy=0.9)
 #: 14(c): phase 7's encoder over 8 batches
@@ -5174,8 +5214,10 @@ def catalogue_phase(dev):
 
 #: 17(a): 14(a)'s 9 batches of config 4 behind the native ring
 PREFETCH = dict(queue=4)
-#: 17(b): config 1 through records: 14(b)'s MNIST as CSV files
-RECORDS = dict(batch=64, train=60000, test=10000, epochs=1,
+#: 17(b): config 1 through records: 14(b)'s MNIST as CSV files, the
+#: first 20,000 of its 60,000 training digits (cut to keep the whole
+#: smoke near 850 s) and its 10,000 test digits
+RECORDS = dict(batch=64, train=20000, test=10000, epochs=1,
                min_accuracy=0.9, queue=4)
 #: 17(c): config 4's batch augmented; 32 one-second 16 kHz clips
 AUGMENT = dict(pad=16, angle=15, reps=10, check_rows=16)
@@ -8533,11 +8575,11 @@ def word_vectors_phase(dev):
 #: output an action (6), RMSProp at 2.5e-4, batch 32, gamma 0.99, frame
 #: skip 4, the TD error clipped to 1, double DQN. Cut: the replay (1 M ->
 #: 5,000 transitions), the start of learning (50,000 -> 500 steps), the
-#: target sync (10,000 -> 1,000 steps), the run (50 M frames -> 2,000
-#: steps) and epsilon's anneal (1 M frames -> 2,000 steps, to 0.1)
+#: target sync (10,000 -> 1,000 steps), the run (50 M frames -> 1,000
+#: steps) and epsilon's anneal (1 M frames -> 1,000 steps, to 0.1)
 NATURE_DQN = dict(image=84, history=4, skip=4, actions=6, batch=32,
                   gamma=0.99, lr=2.5e-4, replay=5000, update_start=500,
-                  target_every=1000, steps=2000, epsilon_steps=2000,
+                  target_every=1000, steps=1000, epsilon_steps=1000,
                   min_epsilon=0.1, balls=5, traced_steps=5,
                   profiled_steps=20, parity_replay=256, parity_steps=3,
                   seed=SEED)
@@ -10424,6 +10466,801 @@ def char_rnn_phase(dev):
     return {"parity": parity, "train": train, "serve": serve}
 
 
+# ----------------------------------------------------------------------
+# phase 25: the model, sequence and pipeline mesh axes
+# ----------------------------------------------------------------------
+
+#: 25(a): zoo ResNet-50 at phase 9(b)'s widths and settings, tensor
+#: parallel over two ranks on the card; batch 32 (9(b) takes 128): each
+#: rank carries the whole batch's activations plus the gathered blocks
+MESH_TP_RESNET = dict(RESNET_TIMED, batch=32, steps=3, min_shard=4096)
+#: 25(a)'s parity runs: the same net at its published widths, 224^2 and
+#: 1000 classes, at batch 4, in f64 and in f32 (TF32 off, deterministic
+#: cuDNN), 3 Nesterovs steps each, every leaf held to the same steps of
+#: one unsharded net on one rank: |tp - one| / |one - start|, over the
+#: sharded and the replicated leaves apart, after steps 1 and 3. f64 is
+#: held to MESH_TP_F64_BAND (an update left out reads 1.0; on the CPU at
+#: 64^2, b4 the reading is 6e-10); f32 and the published bf16 run are
+#: read, not held: this net's update carries each rounding difference
+#: far (one rank's bf16 update lies 1.43x its norm from its f32 one on
+#: the CPU), and a control (one rank's bf16 steps again under cuDNN's
+#: benchmarked algorithms) reads how far a change of convolution
+#: algorithm alone moves it
+MESH_TP_PARITY = dict(MESH_TP_RESNET, batch=4)
+MESH_TP_F64_BAND = 1e-6
+#: 25(b): phase 7's encoder on {model: 2}; biases shard too (768, 3072
+#: >= 512), so every projection and FFN layer runs column-parallel
+MESH_TP_BERT = dict(steps=3, min_shard=512)
+#: 25(b)'s band: the 3 losses relative to phase 7(b)'s first three
+MESH_TP_BERT_BAND = 1e-4
+#: 25(d): T 8192 over {seq: 2} (and {seq: 1}), the reference test's bars
+MESH_SEQ = dict(B=2, H=12, T=8192, D=64, rtol=2e-4, atol=2e-5)
+#: 25(e): a 1024 -> 4096 prologue, 8 x Dense(4096, tanh), a 1000-way
+#: softmax head; 4 stages of 2 layers, 8 microbatches of 64
+MESH_PIPE = dict(nin=1024, width=4096, body=8, classes=1000, batch=512,
+                 micro=8, stages=4, steps=3, lr=0.05, rtol=1e-4, atol=1e-5)
+
+
+def _allclose_excess(got, want, rtol, atol):
+    """max(|got - want| - (atol + rtol |want|)): <= 0 inside the bar."""
+    return float(((got.double() - want.double()).abs()
+                  - (atol + rtol * want.double().abs())).max())
+
+
+def mesh_probe_rank(rank, world, device, ops, err_dir=None):
+    """25's probe: gloo's ppermute (batch_isend_irecv) and all-to-all of
+    CUDA tensors, and the all-gather and all-reduce the tensor-parallel
+    legs need (those of `ops`), each checked by the values it returns.
+    With `err_dir` the rank's error output goes to a file there, so that
+    a rank gloo aborts leaves its words behind."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    from deeplearning4j_tpu_torch.parallel import mesh as M
+
+    if err_dir is not None:
+        sys.stderr.flush()
+        fd = os.open(os.path.join(err_dir, f"rank{rank}.err"),
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+        os.dup2(fd, 2)
+        os.close(fd)
+    g = M.build_mesh({"seq": world}).group("seq")
+    out = {}
+
+    def check(op, fn):
+        try:
+            ok, got = fn()
+            out[op] = "ok" if ok else f"wrong values: {got}"
+        except Exception as e:   # the probe reports any refusal
+            out[op] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+
+    base = torch.arange(6, dtype=torch.float32, device=device) + 100 * rank
+
+    def pp():
+        r = C.ppermute(base, g, 1)
+        want = torch.arange(6., device=device) + 100 * ((rank - 1) % world)
+        return bool(torch.equal(r, want)), r.tolist()
+
+    def a2a():
+        x = base.reshape(1, world, -1)
+        r = C.all_to_all(x, g, 1, 2)
+        want = torch.cat([(torch.arange(6., device=device) + 100 * j)
+                          .reshape(world, -1)[rank] for j in range(world)])
+        return bool(torch.equal(r.reshape(-1), want)), r.tolist()
+
+    def ag():
+        r = C.all_gather(base, g)
+        return bool(all(torch.equal(r[j], torch.arange(6., device=device)
+                                    + 100 * j) for j in range(world))), \
+            r.tolist()
+
+    def ar():
+        r = C.all_reduce(base.clone(), g)
+        want = torch.arange(6., device=device) * world \
+            + 100 * sum(range(world))
+        return bool(torch.equal(r, want)), r.tolist()
+
+    calls = {"all_reduce": ar, "all_gather": ag, "all_to_all": a2a,
+             "ppermute": pp}
+    for op in ops:
+        check(op, calls[op])
+    torch.cuda.synchronize()
+    return out
+
+
+def _tp_replicated_digest(net):
+    """sha256 of the leaves shard_params left whole and of the layer
+    states (BN running statistics)."""
+    import hashlib
+
+    from deeplearning4j_tpu_torch.nn.multilayer import strip_carries
+    from deeplearning4j_tpu_torch.parallel.trainer import _leaves
+
+    h = hashlib.sha256()
+    tp = net._tp
+    for k in net._unit_keys():
+        for n, t in net._params[k].items():
+            if n not in tp.sharded.get(k, {}):
+                h.update(t.detach().float().cpu().numpy().tobytes())
+    for t in _leaves(strip_carries(net._states)):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _whole_leaves(net, keep=True):
+    """Every leaf of `net` whole, on the host (a tensor-parallel net's
+    sharded leaves gathered: every rank of its model group calls this;
+    None where `keep` is False)."""
+    tp = net._tp
+    out = {}
+    for k in net._unit_keys():
+        for n, t in net._params[k].items():
+            w = t.detach() if tp is None else tp.whole(k, n, t.detach())
+            if keep:
+                out[(k, n)] = w.to("cpu", copy=True)
+    return out if keep else None
+
+
+def _over_update(a, b, start, keys):
+    """|a - b| / |b - start| over the leaves `keys` (f64)."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in keys)
+    den = sum(float((b[k].double() - start[k].double()).square().sum())
+              for k in keys)
+    return math.sqrt(num / den)
+
+
+def _steps_with_snaps(net, x, y, steps, snap, first=None):
+    """`steps` fit steps of `net`: losses, host seconds of each (the
+    first under `first`, a context, when given) and `snap(net)` at the
+    start and after steps 1 and `steps` (outside the timed spans)."""
+    import contextlib
+
+    import torch
+
+    snaps = [snap(net)]
+    losses, step_s = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with (first if i == 0 and first is not None
+              else contextlib.nullcontext()):
+            net.fit(x, y)
+        losses.append(float(net.score()))
+        step_s.append(time.perf_counter() - t)
+        if i in (0, steps - 1):
+            snaps.append(snap(net))
+    return losses, step_s, snaps
+
+
+def tp_resnet_leg(rank, world, dev, cfg, pcfg):
+    """25(a) on one rank: the tensor-parallel bf16 steps at `cfg` (the
+    first recorded, all timed), then `pcfg`'s f64 and f32 steps; rank 0
+    then runs the same steps of one unsharded net alone (bf16 twice,
+    the second under cuDNN's benchmarked algorithms, f64, f32) while
+    rank 1 waits, and reads each run's distance from its own."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.nn import Nesterovs
+    from deeplearning4j_tpu_torch.parallel import collectives as C
+    from deeplearning4j_tpu_torch.parallel import build_mesh, shard_params
+
+    mesh = build_mesh({"data": 1, "model": world})
+    keep = rank == 0
+    x, y = resnet_batch(dev, cfg, cfg["batch"])
+    b = pcfg["batch"]
+    feeds = {"BFLOAT16": (cfg, x, y), "DOUBLE": (pcfg, x[:b].double(), y[:b]),
+             "FLOAT": (pcfg, x[:b].float(), y[:b])}
+
+    def build(dtype):
+        return resnet_net(dev, feeds[dtype][0], dtype, dataFormat="NHWC",
+                          updater=Nesterovs(0.1, 0.9))
+
+    runs, out = {}, {}
+    for dtype in ("BFLOAT16", "DOUBLE", "FLOAT"):
+        net = build(dtype)
+        shard_params(net, mesh, min_shard_size=cfg["min_shard"])
+        c, xx, yy = feeds[dtype]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        rec = C.recording()
+        losses, step_s, snaps = _steps_with_snaps(
+            net, xx, yy, cfg["steps"], lambda n: _whole_leaves(n, keep),
+            first=rec if dtype == "BFLOAT16" else None)
+        runs[dtype] = snaps
+        out[dtype] = {"losses": losses, "step_ms": [1e3 * t for t in step_s],
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                      "digest": _tp_replicated_digest(net),
+                      "layer_calls": dict(net._tp.calls)}
+        if dtype == "BFLOAT16":
+            out[dtype].update(
+                collectives_per_step=len(rec.sites),
+                wire_bytes_per_step=sum(t.wire_bytes for t in rec.sites),
+                recorded_ops=sorted({t.op for t in rec.sites}))
+            sharded = [(k, n) for k in net._unit_keys()
+                       for n in net._params[k]
+                       if n in net._tp.sharded.get(k, {})]
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        keys = list(runs["BFLOAT16"][0])
+        groups = {"sharded": sharded,
+                  "replicated": [k for k in keys if k not in set(sharded)],
+                  "all": keys}
+        one = {}
+        for name, dtype, bench in (("bf16", "BFLOAT16", False),
+                                   ("bf16_benchmark", "BFLOAT16", True),
+                                   ("f64", "DOUBLE", False),
+                                   ("f32", "FLOAT", False)):
+            torch.backends.cudnn.benchmark = bench
+            torch.backends.cudnn.deterministic = not bench
+            try:
+                net = build(dtype)
+                _, xx, yy = feeds[dtype]
+                losses, step_s, snaps = _steps_with_snaps(
+                    net, xx, yy, cfg["steps"], _whole_leaves)
+            finally:
+                torch.backends.cudnn.benchmark = False
+                torch.backends.cudnn.deterministic = True
+            one[name] = (losses, step_s, snaps)
+            del net
+            gc.collect()
+            torch.cuda.empty_cache()
+        read = {}
+        for name, dtype in (("bf16", "BFLOAT16"), ("f64", "DOUBLE"),
+                            ("f32", "FLOAT")):
+            tp_s, one_s = runs[dtype], one[name][2]
+            read[name] = {
+                "start_equal": all(torch.equal(tp_s[0][k], one_s[0][k])
+                                   for k in keys),
+                "one_rank_losses": one[name][0]}
+            for i, tag in ((1, "step1"), (2, f"step{cfg['steps']}")):
+                read[name][tag] = {g: _over_update(tp_s[i], one_s[i],
+                                                   one_s[0], ks)
+                                   for g, ks in groups.items()}
+        ctl = one["bf16_benchmark"][2]
+        read["bf16_control"] = {
+            tag: _over_update(ctl[i], one["bf16"][2][i], one["bf16"][2][0],
+                              keys)
+            for i, tag in ((1, "step1"), (2, f"step{cfg['steps']}"))}
+        out["read"] = read
+        out["one_rank_step_ms"] = [1e3 * t for t in one["bf16"][1]]
+    dist.barrier()
+    return out
+
+
+def tp_bert_leg(rank, world, dev, cfg):
+    """25(b) on one rank: phase 7's encoder on {model: 2}, K1-K3 counted
+    and their head count read at each K1 launch."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import flash_attention as tfa
+    from deeplearning4j_tpu_torch.parallel import build_mesh, shard_params
+
+    mesh = build_mesh({"model": world})
+    net = ComputationGraph(bert_encoder_conf(BERT_BASE), device=dev).init()
+    shard_params(net, mesh, min_shard_size=cfg["min_shard"])
+    x, y = encoder_batch(BERT_BASE, dev)
+    heads = []
+    real = tfa.flash_fwd
+
+    def seen(q, *a, **kw):
+        heads.append(int(q.shape[1]))
+        return real(q, *a, **kw)
+
+    seen.launches = 0
+    tfa.reset_launches()
+    tfa.flash_fwd = seen
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, step_s = fit_timed(net, x, y, cfg["steps"])
+    finally:
+        tfa.flash_fwd = real
+    # the wrapper counts its launches under its module name, which was
+    # `seen` while it ran
+    launches = {"K1": seen.launches + real.launches,
+                "K2": tfa.flash_bwd_dq.launches,
+                "K3": tfa.flash_bwd_dkv.launches,
+                "plain": tfa.flash_fwd_plain.launches
+                + tfa.flash_bwd_dq_plain.launches
+                + tfa.flash_bwd_dkv_plain.launches}
+    return {"losses": losses, "step_ms": [1e3 * s for s in step_s],
+            "launches": launches, "heads": sorted(set(heads)),
+            "layer_calls": dict(net._tp.calls),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "digest": _tp_replicated_digest(net)}
+
+
+def seq_leg(rank, world, dev, cfg, run_ring=True, run_ulysses=True):
+    """25(d) on one rank of {seq: world}: ring (causal and not) and
+    Ulysses attention, forward and backward (a seeded cotangent), held to
+    one-rank dot_product_attention on the whole T for this rank's rows."""
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.ops.attention import dot_product_attention
+    from deeplearning4j_tpu_torch.parallel import (
+        build_mesh, ring_attention, ulysses_attention,
+    )
+
+    mesh = build_mesh({"seq": world})
+    B, H, T, D = cfg["B"], cfg["H"], cfg["T"], cfg["D"]
+    rng = np.random.RandomState(SEED)
+    q, k, v, gout = (torch.from_numpy(rng.randn(B, H, T, D).astype(
+        np.float32)).to(dev) for _ in range(4))
+    Tl = T // world
+    sl = slice(rank * Tl, (rank + 1) * Tl)
+    out = {}
+    variants = ([("ring", False), ("ring_causal", True)] if run_ring
+                else []) + ([("ulysses", False)] if run_ulysses else [])
+    for name, causal in variants:
+        # the whole-T answer, one rank at a time (its scores take 6 GB)
+        for turn in range(world):
+            dist.barrier()
+            if turn != rank:
+                continue
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = dot_product_attention(*leaves, causal=causal)
+            o.backward(gout)
+            torch.cuda.synchronize()
+            one_ms = 1e3 * (time.perf_counter() - t0)
+            want = [o.detach()[:, :, sl].clone()] + [
+                t.grad[:, :, sl].clone() for t in leaves]
+            del o, leaves
+            torch.cuda.empty_cache()
+        dist.barrier()
+        loc = [t[:, :, sl].clone().requires_grad_(True) for t in (q, k, v)]
+        fn = ring_attention if name.startswith("ring") else ulysses_attention
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = fn(*loc, mesh, causal=causal)
+        o.backward(gout[:, :, sl])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got = [o.detach()] + [t.grad for t in loc]
+        out[name] = {
+            "excess": max(_allclose_excess(g, w, cfg["rtol"], cfg["atol"])
+                          for g, w in zip(got, want)),
+            "max_abs": max(float((g - w).abs().max())
+                           for g, w in zip(got, want)),
+            "ms_fwd_bwd": ms, "one_rank_ms_fwd_bwd": one_ms}
+        del o, loc, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_pair_rank(rank, world, device, gloo, ppermute_ok,
+                   legs=("a", "b", "d")):
+    """25(a), (b) and (d) on one of two ranks: gloo ranks on the card
+    (`gloo`: first the probe of all-reduce, all-gather and all-to-all,
+    its outcome the same on both ranks, then each leg only when the
+    collectives it needs came back right; the ring only when
+    `ppermute_ok`) or NCCL ranks a card each (no probe)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    ops = ("all_reduce", "all_gather", "all_to_all")
+    if gloo:
+        mine = mesh_probe_rank(rank, world, device, ops)
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        probe = {op: "ok" if all(p[op] == "ok" for p in every) else
+                 "; ".join(f"rank {r}: {p[op]}" for r, p in enumerate(every)
+                           if p[op] != "ok") for op in ops}
+    else:
+        probe = dict.fromkeys(ops, "ok")
+    out = {"probe": probe}
+    if probe["all_gather"] == "ok" and probe["all_reduce"] == "ok":
+        if "a" in legs:
+            out["a"] = tp_resnet_leg(rank, world, device, MESH_TP_RESNET,
+                                     MESH_TP_PARITY)
+            gc.collect()
+            torch.cuda.empty_cache()
+        if "b" in legs:
+            out["b"] = tp_bert_leg(rank, world, device, MESH_TP_BERT)
+            gc.collect()
+            torch.cuda.empty_cache()
+    ring, uly = ppermute_ok, probe["all_to_all"] == "ok"
+    if "d" in legs and (ring or uly):
+        out["d"] = seq_leg(rank, world, device, MESH_SEQ, ring, uly)
+    return out
+
+
+def pipe_conf(cfg):
+    from deeplearning4j_tpu_torch.nn import (
+        DenseLayer, InputType, NeuralNetConfiguration, OutputLayer, Sgd,
+    )
+
+    b = (NeuralNetConfiguration.Builder().seed(SEED).updater(Sgd(cfg["lr"]))
+         .activation("tanh").list().layer(DenseLayer(nOut=cfg["width"])))
+    for _ in range(cfg["body"]):
+        b = b.layer(DenseLayer(nOut=cfg["width"]))
+    return (b.layer(OutputLayer(nOut=cfg["classes"], activation="softmax"))
+            .setInputType(InputType.feedForward(cfg["nin"])).build())
+
+
+def pipe_rank(rank, world, device, cfg):
+    """25(e) on one of four gloo ranks: PipelineParallel on {pipe: 4};
+    rank 0 then runs the same steps of fit on its own and holds the
+    params to them."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        PipelineParallel, build_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(cfg["batch"], cfg["nin"]).astype(
+        np.float32)).to(device)
+    y = torch.from_numpy(np.eye(cfg["classes"], dtype=np.float32)[
+        rng.randint(0, cfg["classes"], cfg["batch"])]).to(device)
+    mesh = build_mesh({"pipe": cfg["stages"]})
+    net = MultiLayerNetwork(pipe_conf(cfg), device=device).init()
+    pp = PipelineParallel(net, mesh, n_microbatches=cfg["micro"])
+    losses, step_ms, tick_ms, wall_ms = [], [], [], []
+    for _ in range(cfg["steps"]):
+        t = time.perf_counter()
+        pp.fit(x, y)
+        losses.append(net.score())
+        wall_ms.append(1e3 * (time.perf_counter() - t))
+        step_ms.append(1e3 * pp.last_step["step_s"])
+        tick_ms.append([1e3 * s for s in pp.last_step["tick_s"]])
+    out = {"losses": losses, "step_ms": step_ms, "tick_ms": tick_ms,
+           "wall_ms_with_sync": wall_ms,
+           "collectives_per_step": pp.last_step["collectives"],
+           "wire_bytes_per_step": pp.last_step["wire_bytes"],
+           "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    if rank == 0:
+        one = MultiLayerNetwork(pipe_conf(cfg), device=device).init()
+        one_ms = []
+        for _ in range(cfg["steps"]):
+            t = time.perf_counter()
+            one.fit(x, y)
+            float(one.score())
+            one_ms.append(1e3 * (time.perf_counter() - t))
+        got = net.params().toNumpy().astype(np.float64)
+        want = one.params().toNumpy().astype(np.float64)
+        out["excess"] = float((np.abs(got - want) - (
+            cfg["atol"] + cfg["rtol"] * np.abs(want))).max())
+        out["max_abs"] = float(np.abs(got - want).max())
+        out["one_rank_losses"] = [float(one.score())]
+        out["one_rank_step_ms"] = one_ms
+    return out
+
+
+def seq_one(dev, cfg):
+    """25(d) on {seq: 1} in this process: the same code with no
+    exchange, against dot_product_attention."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ops.attention import dot_product_attention
+    from deeplearning4j_tpu_torch.parallel import build_mesh, ring_attention
+
+    mesh = build_mesh({"seq": 1})
+    B, H, T, D = cfg["B"], cfg["H"], cfg["T"], cfg["D"]
+    rng = np.random.RandomState(SEED)
+    q, k, v, gout = (torch.from_numpy(rng.randn(B, H, T, D).astype(
+        np.float32)).to(dev) for _ in range(4))
+    out = {}
+    for causal in (False, True):
+        res = []
+        for fn in (lambda a, b, c: ring_attention(a, b, c, mesh,
+                                                  causal=causal),
+                   lambda a, b, c: dot_product_attention(a, b, c,
+                                                         causal=causal)):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*leaves)
+            o.backward(gout)
+            res.append([o.detach()] + [t.grad for t in leaves])
+            del o, leaves
+        out["causal" if causal else "full"] = max(
+            _allclose_excess(g, w, cfg["rtol"], cfg["atol"])
+            for g, w in zip(*res))
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def ppermute_probe(one_card):
+    """25's ppermute probe on two gloo ranks of its own: "ok", or the
+    refusal's words (wrong values, gloo's exception, or gloo's abort of
+    a rank, read from the rank's error output). Any other death of its
+    ranks, or a timeout, fails the phase."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel import launch
+
+    err_dir = tempfile.mkdtemp(prefix="mesh_probe_")
+    try:
+        try:
+            res = launch(mesh_probe_rank, 2, device=one_card,
+                         backend="gloo", timeout=60,
+                         args=(("ppermute",), err_dir))
+        except RuntimeError as e:
+            words = {}
+            for r in range(2):
+                path = os.path.join(err_dir, f"rank{r}.err")
+                text = open(path).read() if os.path.exists(path) else ""
+                lines = [ln for ln in text.splitlines()
+                         if "gloo::IoException" in ln or "what():" in ln]
+                if "gloo::IoException" in text:
+                    words[r] = " ".join(ln.strip() for ln in lines)
+            need(str(e).startswith("rank ") and "exit code -6" in str(e)
+                 and words, "mesh (probe): the ppermute probe's ranks "
+                 f"failed, and not by gloo's refusal: {e}")
+            return "; ".join(f"rank {r} aborted by gloo: {w}"
+                             for r, w in words.items())
+        return "ok" if all(p["ppermute"] == "ok" for p in res) else \
+            "; ".join(f"rank {r}: {p['ppermute']}" for r, p in
+                      enumerate(res) if p["ppermute"] != "ok")
+    finally:
+        shutil.rmtree(err_dir, ignore_errors=True)
+
+
+def _mesh_a(pair, where):
+    """25(a)'s gates over the two ranks' results; its line."""
+    a0, a1 = pair[0]["a"], pair[1]["a"]
+    steps = MESH_TP_RESNET["steps"]
+    for dtype in ("BFLOAT16", "DOUBLE", "FLOAT"):
+        need(a0[dtype]["digest"] == a1[dtype]["digest"], f"mesh (a) "
+             f"{dtype}: the replicated leaves or BN running statistics "
+             "differ between the ranks")
+        need(all(math.isfinite(v) for r in (a0, a1)
+                 for v in r[dtype]["losses"]),
+             f"mesh (a) {dtype}: non-finite loss {a0[dtype]['losses']}")
+        need(a0[dtype]["layer_calls"]["column"] > 0
+             and a0[dtype]["layer_calls"]["gather"] == 0,
+             f"mesh (a) {dtype}: layer paths {a0[dtype]['layer_calls']}")
+    read = a0["read"]
+    for name in ("bf16", "f64", "f32"):
+        need(read[name]["start_equal"], f"mesh (a) {name}: the placed "
+             "net's whole params at the start differ from one rank's")
+    for tag in ("step1", f"step{steps}"):
+        need(all(read["f64"][tag][g] <= MESH_TP_F64_BAND
+                 for g in ("sharded", "replicated")),
+             f"mesh (a) f64 {tag}: the tensor-parallel params lie "
+             f"{read['f64'][tag]} of the update from one rank's (band "
+             f"{MESH_TP_F64_BAND})")
+    bf = a0["BFLOAT16"]
+    res = {"where": where, "losses": bf["losses"], "step_ms": bf["step_ms"],
+           "one_rank_step_ms": a0["one_rank_step_ms"],
+           "one_rank_losses": read["bf16"]["one_rank_losses"],
+           "peak_bytes_per_rank": [a0["BFLOAT16"]["peak_bytes"],
+                                   a1["BFLOAT16"]["peak_bytes"]],
+           "collectives_per_step": bf["collectives_per_step"],
+           "wire_bytes_per_step": bf["wire_bytes_per_step"],
+           "recorded_ops": bf["recorded_ops"],
+           "layer_calls_3_steps": bf["layer_calls"],
+           "parity_batch": MESH_TP_PARITY["batch"],
+           "f64_band": MESH_TP_F64_BAND,
+           "over_update": {n: {t: read[n][t] for t in read[n]
+                               if t.startswith("step")}
+                           for n in ("f64", "f32", "bf16")},
+           "bf16_control_over_update": read["bf16_control"],
+           "parity_losses": {d: a0[d]["losses"] for d in ("DOUBLE",
+                                                          "FLOAT")},
+           "parity_one_rank_losses": {n: read[n]["one_rank_losses"]
+                                      for n in ("f64", "f32")},
+           "parity_step_ms": {d: a0[d]["step_ms"] for d in ("DOUBLE",
+                                                            "FLOAT")},
+           "replicated_bitwise": True}
+    log("mesh (a): tp ResNet-50 at 224^2, 1000 classes, bf16 NHWC over f32 "
+        f"masters, batch {MESH_TP_RESNET['batch']} (9(b): 128), {{data: 1, "
+        f"model: 2}} ({where}); f64/f32 parity at batch "
+        f"{MESH_TP_PARITY['batch']}; distances over one rank's update: "
+        + json.dumps(res))
+    return res
+
+
+def _mesh_b(pair, where, train):
+    """25(b)'s gates over the two ranks' results; its line."""
+    b0, b1 = pair[0]["b"], pair[1]["b"]
+    want = train["losses"][:MESH_TP_BERT["steps"]]
+    rel = max(abs(g - w) / abs(w) for r in (b0, b1)
+              for g, w in zip(r["losses"], want))
+    steps = MESH_TP_BERT["steps"]
+    L = BERT_BASE["layers"]
+    for r in (b0, b1):
+        need(all(r["launches"][k] == L * steps for k in ("K1", "K2", "K3"))
+             and r["launches"]["plain"] == 0,
+             f"mesh (b): kernel launches {r['launches']}, expected "
+             f"{L * steps} each")
+        need(r["heads"] == [BERT_BASE["heads"] // 2],
+             f"mesh (b): K1 ran on {r['heads']} heads a rank")
+    need(b0["digest"] == b1["digest"], "mesh (b): the replicated "
+         "leaves differ between the ranks")
+    need(rel <= MESH_TP_BERT_BAND, f"mesh (b): losses {b0['losses']} "
+         f"vs phase 7(b)'s {want} (rel {rel:.3e}, band "
+         f"{MESH_TP_BERT_BAND})")
+    res = {"where": where, "losses": b0["losses"], "phase7_losses": want,
+           "loss_rel": rel, "band": MESH_TP_BERT_BAND,
+           "step_ms": b0["step_ms"],
+           "launches_per_rank": b0["launches"],
+           "launches_per_step_per_rank": {
+               k: b0["launches"][k] / steps for k in ("K1", "K2", "K3")},
+           "launches_both_ranks": {
+               k: b0["launches"][k] + b1["launches"][k]
+               for k in ("K1", "K2", "K3")},
+           "heads_per_rank": b0["heads"],
+           "layer_calls_3_steps": b0["layer_calls"],
+           "peak_bytes_per_rank": [b0["peak_bytes"], b1["peak_bytes"]],
+           "phase7_step_ms_median": train["step_ms_median_3_to_20"]}
+    log(f"mesh (b): tp encoder at BERT-base widths on {{model: 2}} ({where}): "
+        + json.dumps(res))
+    return res
+
+
+def mesh_axes_phase(dev, train):
+    """Phase 25: the model, sequence and pipeline mesh axes on the card
+    (module docstring); `train` is phase 7's result."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import launch
+    from deeplearning4j_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    one_card = torch.device("cuda", torch.cuda.current_device())
+    cards = torch.cuda.device_count()
+    out, not_run = {}, {}
+    host = ("; the port never stages a collective through the host "
+            "itself")
+    t = time.perf_counter()
+    pp_probe = ppermute_probe(one_card)
+    out["probe_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pair = launch(mesh_pair_rank, 2, device=one_card, backend="gloo",
+                  timeout=600, args=(True, pp_probe == "ok"))
+    out["pair_s"] = time.perf_counter() - t
+    probe = dict(pair[0]["probe"], ppermute=pp_probe)
+    out["probe"] = probe
+    log("mesh (probe): gloo on CUDA tensors, two ranks on the card, each "
+        "op checked by its values: " + json.dumps(probe))
+    tp_ok = probe["all_gather"] == "ok" and probe["all_reduce"] == "ok"
+    refused = "refused by the probe: " + "; ".join(
+        f"{op} ({probe[op]})" for op in ("all_gather", "all_reduce")
+        if probe[op] != "ok")
+    ab, where = pair, "two gloo ranks on the card"
+    if not tp_ok and cards >= 2:
+        ab = launch(mesh_pair_rank, 2, device="cuda", backend="nccl",
+                    timeout=600, args=(False, True, ("a", "b")))
+        where = f"two NCCL ranks on two cards (gloo {refused})"
+    if tp_ok or cards >= 2:
+        out["a"] = _mesh_a(ab, where)
+        out["b"] = _mesh_b(ab, where, train)
+    else:
+        not_run["a"] = not_run["b"] = (
+            f"{refused}; runs under NCCL with two or more cards, {cards} "
+            f"visible{host}")
+
+    t = time.perf_counter()
+    if tp_ok or cards >= 4:
+        c = dryrun_multichip(4, device=one_card if tp_ok else "cuda",
+                             legs=("tp",), backend="gloo" if tp_ok
+                             else "nccl", timeout=600)["tp"]
+        out["c"] = {"loss": c["loss"], "replicated": c["replicated"],
+                    "comm": c["comm"], "seconds": time.perf_counter() - t}
+        log("mesh (c): dryrun_multichip(4, legs=('tp',)) on four "
+            + ("gloo ranks on the card" if tp_ok else "NCCL ranks on four "
+               f"cards (gloo {refused})") + " ({data: 2, model: 2}): "
+            + json.dumps(out["c"]))
+    else:
+        not_run["c"] = (f"{refused}; runs under NCCL with four cards, "
+                        f"{cards} visible{host}")
+
+    if "d" in pair[0]:
+        d = {}
+        for name in pair[0]["d"]:
+            rs = [r["d"][name] for r in pair]
+            ex = max(r["excess"] for r in rs)
+            need(ex <= 0, f"mesh (d) {name}: outside rtol "
+                 f"{MESH_SEQ['rtol']} atol {MESH_SEQ['atol']} by {ex:.3e}")
+            d[name] = {"max_abs": max(r["max_abs"] for r in rs),
+                       "ms_fwd_bwd": rs[0]["ms_fwd_bwd"],
+                       "one_rank_ms_fwd_bwd": rs[0]["one_rank_ms_fwd_bwd"]}
+        out["d"] = d
+    for name, op in (("ring", "ppermute"), ("ulysses", "all_to_all")):
+        if probe[op] != "ok":
+            not_run[f"d {name}"] = (
+                f"{op} of CUDA tensors refused by gloo's probe ({probe[op]});"
+                f" runs under NCCL with two or more cards, {cards} visible"
+                + host)
+    if cards >= 2 and any(k.startswith("d ") for k in not_run):
+        res = launch(seq_rank_nccl, 2, device="cuda", timeout=600)
+        out["d_nccl"] = {name: {"max_abs": max(rr[name]["max_abs"]
+                                               for rr in res),
+                                "ms_fwd_bwd": r["ms_fwd_bwd"],
+                                "one_rank_ms_fwd_bwd":
+                                    r["one_rank_ms_fwd_bwd"]}
+                         for name, r in res[0].items()}
+        for name in res[0]:
+            ex = max(rr[name]["excess"] for rr in res)
+            need(ex <= 0, f"mesh (d) {name} over NCCL: outside the bar by "
+                 f"{ex:.3e}")
+        for k in [k for k in not_run if k.startswith("d ")]:
+            log(f"mesh ({k}): over NCCL on two cards (gloo: {not_run[k]})")
+            del not_run[k]
+    one = seq_one(dev, MESH_SEQ)
+    need(max(one.values()) <= 0, f"mesh (d) seq 1: outside the bar: {one}")
+    out["d_seq1_excess"] = one
+    log(f"mesh (d): sequence parallel at B {MESH_SEQ['B']}, H "
+        f"{MESH_SEQ['H']}, T {MESH_SEQ['T']}, D {MESH_SEQ['D']} f32, fwd "
+        f"and bwd against one-rank dot_product_attention (rtol "
+        f"{MESH_SEQ['rtol']}, atol {MESH_SEQ['atol']}): "
+        + json.dumps({"seq2": out.get("d"), "seq2_nccl": out.get("d_nccl"),
+                      "seq1_excess": one}))
+
+    gloo_pipe = probe["ppermute"] == "ok" and probe["all_gather"] == "ok"
+    if gloo_pipe or cards >= MESH_PIPE["stages"]:
+        t = time.perf_counter()
+        res = launch(pipe_rank, MESH_PIPE["stages"],
+                     device=one_card if gloo_pipe else "cuda",
+                     backend="gloo" if gloo_pipe else "nccl", timeout=600,
+                     args=(MESH_PIPE,))
+        r0 = res[0]
+        need(r0["excess"] <= 0, f"mesh (e): params outside rtol "
+             f"{MESH_PIPE['rtol']} atol {MESH_PIPE['atol']} of fit's by "
+             f"{r0['excess']:.3e} (max abs {r0['max_abs']:.3e})")
+        need(all(math.isfinite(v) for v in r0["losses"]),
+             f"mesh (e): non-finite loss {r0['losses']}")
+        S, M = MESH_PIPE["stages"], MESH_PIPE["micro"]
+        step = float(np.median(r0["step_ms"]))
+        tick = float(np.median([tm for ticks in r0["tick_ms"]
+                                for tm in ticks]))
+        out["e"] = {"losses": r0["losses"],
+                    "one_rank_losses": r0["one_rank_losses"],
+                    "max_abs_vs_fit": r0["max_abs"],
+                    "step_ms": r0["step_ms"],
+                    "wall_ms_with_sync": r0["wall_ms_with_sync"],
+                    "tick_ms_median": tick,
+                    "bubble_share": (S - 1) * tick / step,
+                    "one_rank_step_ms": r0["one_rank_step_ms"],
+                    "collectives_per_step": r0["collectives_per_step"],
+                    "wire_bytes_per_step": r0["wire_bytes_per_step"],
+                    "peak_bytes_per_rank": [r["peak_bytes"] for r in res],
+                    "seconds": time.perf_counter() - t}
+        where = "four gloo ranks on the card" if gloo_pipe \
+            else f"four NCCL ranks on {S} cards"
+        log(f"mesh (e): PipelineParallel on {{pipe: {S}}} ({where}), {M} "
+            "microbatches of "
+            f"{MESH_PIPE['batch'] // M}, {MESH_PIPE['steps']} steps, held "
+            f"to fit at rtol {MESH_PIPE['rtol']} atol {MESH_PIPE['atol']}; "
+            "bubble = (S-1) x the median forward tick over the step: "
+            + json.dumps(out["e"]))
+    else:
+        not_run["e"] = (f"ppermute of CUDA tensors refused by gloo's probe "
+                        f"({probe['ppermute']}); runs under NCCL with "
+                        f"{MESH_PIPE['stages']} cards, {cards} visible; the "
+                        "port never stages a collective through the host "
+                        "itself")
+        log(f"mesh (e): not run: {not_run['e']}")
+    for leg, why in not_run.items():
+        log(f"mesh ({leg}): NOT RUN: {why}")
+    out["not_run"] = not_run
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 25: {out['seconds']:.1f} s")
+    return out
+
+
+def seq_rank_nccl(rank, world, device):
+    """25(d) over NCCL, one rank a card (two or more cards)."""
+    return seq_leg(rank, world, device, MESH_SEQ)
+
+
 def main():
     import torch
 
@@ -10529,6 +11366,10 @@ def main():
     torch.cuda.empty_cache()
     ana = analysis_phase(dev)
     lap("24")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = mesh_axes_phase(dev, train)
+    lap("25")
     launches = dict(result["serve"]["launches"])
     launches["decode"] += sum(cap["decode"][k]["k4_launches"]
                               for k in ("eager", "graphs"))
@@ -10569,7 +11410,8 @@ def main():
             + runtime["encoder"]["launches"][key]
             + fine["graph_transfer"]["launches"][key]
             + det["keras_mha"]["launches"].get(key, 0)
-            + cap["training"]["encoder"]["launches"][key],
+            + cap["training"]["encoder"]["launches"][key]
+            + (mesh["b"]["launches_both_ranks"][key] if "b" in mesh else 0),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

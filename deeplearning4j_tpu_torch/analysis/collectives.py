@@ -7,7 +7,8 @@ The reference traces a program (``jax.make_jaxpr``) and walks its
 jaxpr for collective primitives. Every collective of the port goes
 through ``parallel/collectives.py`` (``all_reduce``, ``all_gather``,
 ``broadcast``, ``reduce_scatter``, ``int8_lane_sum``,
-``int8_lane_scatter``), which records the ordered
+``int8_lane_scatter``, and the mesh axes' ``ppermute`` and
+``all_to_all``), which records the ordered
 **collective signature** of whatever runs under
 ``collectives.recording()``: one ``Site`` a call (op, dtype, element
 count, group axes and size, payload and wire bytes, the int8 lanes it
@@ -37,7 +38,8 @@ record-only recording (nothing communicates) and returns it.
          reference's ``sharding.compressed_wire_bytes`` bills the
          reference's, which the port's int8 lanes exceed by 4/k).
 - COL06  a ring that is not a permutation, or has self-cycles
-         (``check_ring``; the port builds no ring today).
+         (``check_ring``; a ``ppermute`` site carries its pairs: ring
+         attention's and the pipeline's shifts).
 
 ``linalg_contract`` raises: distributed linear algebra waits for
 ROADMAP Queue 1 item 12c.

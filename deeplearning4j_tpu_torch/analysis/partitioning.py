@@ -5,9 +5,11 @@ and codes this copies).
 
 Every statically decidable partitioning mistake becomes a diagnostic in
 a host-only pre-flight, in the collecting style of the shape pass. The
-port executes only the data axis today (``parallel/mesh.py``), but the
-pass accepts ``data``, ``model`` and ``pipe`` meshes as plans, so the
-plans ROADMAP Queue 1 item 7 will execute are checked already.
+pass accepts ``data``, ``model`` and ``pipe`` meshes as plans, the axes
+the port executes (``parallel/mesh.py``, ``sharding.shard_params``,
+``pipeline.PipelineParallel``); ``report.plan["shards"]`` names the
+leaves the plan shards over the model axis, the ones ``shard_params``
+shards.
 
 - PAR01  plan names a mesh axis that does not exist (or an axis twice
          in one spec, or a non-positive axis size)
@@ -60,7 +62,9 @@ peak stay small (SimpleCNN 0.987; ResNet-50 and YOLO2 bf16 0.98-0.99)
 and none is counted; PAR06 warns on f32 convolutions with TF32 off.
 On a model or pipe axis the parameter, gradient and updater terms are
 divided as the plan shards them; the step's activations are not (an
-upper bound until item 7 executes those axes). The budget defaults to
+upper bound: under tensor parallelism each rank holds the whole
+activations after each gather, and its column blocks beside them). The
+budget defaults to
 the card's ``total_memory`` when a card is visible.
 
 Entry point:
@@ -128,8 +132,7 @@ def _mesh_tag(axes):
 
 class ShardingPlan:
     """How arrays map onto the mesh — the static twin of what
-    parallel.trainer/sharding/pipeline do (or, for the model and pipe
-    axes, will do: ROADMAP Queue 1 item 7) at runtime.
+    parallel.trainer/sharding/pipeline do at runtime.
 
     batch_axis/model_axis/pipe_axis name the mesh axes used for data/
     tensor/pipeline parallelism; each is only APPLIED when present in
@@ -1159,5 +1162,23 @@ def validate_plan(model, mesh, plan=None, batchSize=32, hbm_gb=None,
         _check_trainer_paths(report, axes)
 
     report.plan = {"mesh": dict(axes), "balance": balance,
-                   "memory": memory}
+                   "memory": memory,
+                   "shards": _model_shards(rows, plan, axes)}
     return report
+
+
+def _model_shards(rows, plan, axes):
+    """{"layerKey.param": dimension} of the leaves the plan shards over its
+    model axis, an indivisible one left out as the runtime replicates it
+    (``parallel.sharding.shard_plan`` names the same leaves)."""
+    out = {}
+    m = plan.model_axis
+    if m is None or int(axes.get(m, 1)) <= 1:
+        return out
+    for row in rows:
+        for pname, shape in (row.get("param_shapes") or {}).items():
+            spec, _ = plan.spec_for(row["key"], pname, shape)
+            for d, (n, a) in enumerate(zip(shape, spec)):
+                if a == m and n % int(axes[m]) == 0:
+                    out[f"{row['key']}.{pname}"] = d
+    return out

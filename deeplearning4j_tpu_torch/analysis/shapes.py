@@ -384,6 +384,31 @@ def _check_layer(report, where, layer, cur, dataType, batchSize, index=None,
     return out
 
 
+def _multi_input_row(report, layer, key, index, in_types, out, dataType,
+                     batchSize):
+    """The layers row of a multi-input layer (an attention vertex): its
+    params and their shapes from its own initialize on meta tensors, so
+    the partition plan and PAR06 see its leaves (the reference's pass
+    gives such a layer no row)."""
+    abstract = _abstract_init(layer, list(in_types), _param_dtype(dataType))
+    shapes = {}
+    for pname, leaf in ((abstract or ({}, {}))[0] or {}).items():
+        shapes[pname] = tuple(int(d) for d in leaf.shape)
+    out_shape = _internal_shape(out, batchSize)
+    report.layers.append({
+        "index": index, "key": key,
+        "name": getattr(layer, "name", None) or key,
+        "type": type(layer).__name__,
+        "in": ", ".join(_fmt_type(t) for t in in_types),
+        "out": _fmt_type(out), "out_kind": out.kind,
+        "out_shape": None if out_shape is None
+        else tuple(int(d) if d is not None else None for d in out_shape),
+        "params": _param_count(abstract), "param_shapes": shapes,
+        "activation_bytes": int(out.arrayElementsPerExample()
+                                * _dtype_size(dataType) * batchSize),
+    })
+
+
 def _adapt_format(report, where, layer, cur, preprocessor):
     """Apply the explicit or auto-inserted preprocessor; SHP03 when the
     needed adaptation does not exist."""
@@ -653,6 +678,9 @@ def _validate_graph(report, nodes, networkInputs, networkOutputs, inputTypes,
                            + ", ".join(_fmt_type(t) for t in in_types)
                            + f": {e}")
                 resolved[name] = None
+                continue
+            _multi_input_row(report, layer, name, li, in_types,
+                             resolved[name], dataType, batchSize)
             continue
         cur = _adapt_format(report, where, layer, in_types[0],
                             getattr(node, "preprocessor", None))

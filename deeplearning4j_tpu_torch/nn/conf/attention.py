@@ -59,10 +59,25 @@ def _heads(x, B, T, nHeads):
     return x.reshape(B, T, nHeads, -1).transpose(1, 2)
 
 
-def _mha_apply(params, q_btf, kv_btf, nHeads, mask=None, block_size=None):
-    """q [B,Tq,Eq], kv [B,Tk,E] -> [B,Tq,nOut]. mask: [B,Tk] key validity."""
+def _mha_apply(params, q_btf, kv_btf, nHeads, mask=None, block_size=None,
+               group=None, out_proj=None):
+    """q [B,Tq,Eq], kv [B,Tk,E] -> [B,Tq,nOut]. mask: [B,Tk] key validity.
+
+    Under tensor parallelism (`group`, the model axis of m ranks;
+    ``parallel.tensor``) Wq/Wk/Wv and their biases are this rank's
+    column blocks, which hold heads [r·nHeads/m, (r+1)·nHeads/m): the
+    inputs go in behind ``copy_to``, the kernels run on nHeads/m heads
+    and the heads' outputs are gathered before the output projection,
+    ``out_proj(o)`` (default: ``o @ Wo + bo``)."""
     B, Tq, _ = q_btf.shape
     Tk = kv_btf.shape[1]
+    if group is not None:
+        from deeplearning4j_tpu_torch.parallel import collectives as _coll
+
+        same = kv_btf is q_btf
+        q_btf = _coll.copy_to(q_btf, group)
+        kv_btf = q_btf if same else _coll.copy_to(kv_btf, group)
+        nHeads //= group.size
     q = _heads(_project(q_btf, params["Wq"], params.get("bq")), B, Tq, nHeads)
     k = _heads(_project(kv_btf, params["Wk"], params.get("bk")), B, Tk, nHeads)
     v = _heads(_project(kv_btf, params["Wv"], params.get("bv")), B, Tk, nHeads)
@@ -74,6 +89,10 @@ def _mha_apply(params, q_btf, kv_btf, nHeads, mask=None, block_size=None):
     else:
         o = _flash.flash_attention(q, k, v, key_mask=key_mask)
     o = o.transpose(1, 2).reshape(B, Tq, -1)
+    if group is not None:
+        o = _coll.gather_from(o, group, -1)
+    if out_proj is not None:
+        return out_proj(o)
     return _project(o, params["Wo"], params.get("bo"))
 
 

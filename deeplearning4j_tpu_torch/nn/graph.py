@@ -294,7 +294,7 @@ class ComputationGraph(NetworkRuntime):
         if name in self.conf.networkOutputs and isinstance(
                 layer, (L.BaseOutputLayer, L.LossLayer)):
             h = layer._dropout_input(h, l_train, lk)
-            pre = layer.preoutput(p, h)
+            pre = self._layer_preoutput(name, layer, p, h)
             preacts[name] = pre
             acts[name] = out_activation(layer, pre)
             new_states[name] = states[name]
@@ -305,10 +305,12 @@ class ComputationGraph(NetworkRuntime):
             # vertex used as self-attention too (the reference exempts
             # every multi-input layer, so it keeps that vertex's
             # activations); a node with several edges keeps the plain path
-            h, s = checkpointed_forward(layer, l_train)(
+            h, s = checkpointed_forward(
+                layer, l_train, self._layer_runner(name, layer))(
                 p, states[name], h, lk, fmask)
         else:
-            h, s = layer.forward(p, states[name], h, l_train, lk, fmask)
+            h, s = self._layer_forward(name, layer, p, states[name], h,
+                                       l_train, lk, fmask)
         acts[name] = h
         masks[name] = out_mask
         new_states[name] = s
@@ -323,8 +325,10 @@ class ComputationGraph(NetworkRuntime):
         return total
 
     def _regularization(self, params):
-        return regularization([self._unit_layer(n) for n in
-                               self._layer_names],
+        layers = [self._unit_layer(n) for n in self._layer_names]
+        if self._tp is not None:
+            return self._tp.penalty(layers, params, self._layer_names)
+        return regularization(layers,
                               [params[n] for n in self._layer_names])
 
     def _loss_fn(self, params, states, inputs, labels, fmasks, lmasks,
@@ -726,10 +730,6 @@ class ComputationGraph(NetworkRuntime):
         for (n, k, t), g in zip(flat, gs):
             grads[n][k] = torch.zeros_like(t) if g is None else g
         return grads, float(loss.detach())
-
-    def numParams(self) -> int:
-        return sum(t.numel() for p in self._params.values()
-                   for t in p.values())
 
     def getIterationCount(self):
         return self._iteration

@@ -452,6 +452,8 @@ def run_pretrain(net, layer, key, feed, feeds):
             "not defined under a whole-parameter optimizationAlgo "
             f"({net.conf.optimizationAlgo}): pretrain with "
             "STOCHASTIC_GRADIENT_DESCENT, then fine-tune with the solver")
+    if net._tp is not None:
+        net._tp.refuse_blocks(key, "layerwise pretraining")
     params, updater = net._params[key], net._updaters[key]
     names = list(params)
     losses = []
@@ -527,7 +529,7 @@ def remat_segment(fn, *args):
                       preserve_rng_state=False)
 
 
-def checkpointed_forward(layer, l_train):
+def checkpointed_forward(layer, l_train, forward=None):
     """``layer.forward`` under per-layer activation remat (reference:
     ``checkpointed_forward``, ``jax.checkpoint`` there): a function of
     (params, state, h, key, mask) -> (h, state) that keeps only the
@@ -536,12 +538,16 @@ def checkpointed_forward(layer, l_train):
     from the first forward only, the sync-BN group re-entered). Both
     networks use it for every layer but the output head when the conf
     sets ``activationCheckpointing``; within a ``checkpointPolicy``
-    segment the per-layer regions nest inside the segment's."""
+    segment the per-layer regions nest inside the segment's. `forward`
+    (params, state, h, train, key, mask) stands for ``layer.forward``
+    where the network runs the layer through its own rule (a
+    tensor-parallel net's, whose exchanges the recompute runs again in
+    the same order on every rank)."""
+    run = layer.forward if forward is None else forward
 
     def fwd(p, s, h, lk, m):
         return remat_segment(
-            lambda p_, s_, h_, k_, m_: layer.forward(p_, s_, h_, l_train,
-                                                     k_, m_),
+            lambda p_, s_, h_, k_, m_: run(p_, s_, h_, l_train, k_, m_),
             p, s, h, lk, m)
 
     return fwd
@@ -1146,7 +1152,8 @@ class NetworkRuntime:
         keys = self._unit_keys()
         lay = self._unit_layer
         states = strip_carries(self._states)
-        out = {"params": self._pack([uncarry_layer(lay(k), self._params[k])
+        params = self._whole_params()
+        out = {"params": self._pack([uncarry_layer(lay(k), params[k])
                                      for k in keys]),
                "states": self._pack([uncarry_layer(lay(k), states[k])
                                      for k in keys])}
@@ -1155,6 +1162,8 @@ class NetworkRuntime:
             # ``_net_payload``): a restored net starts it fresh; a ZeRO
             # layout is written canonical, so it restores into any mode
             upd_states = self._canonical_upd_states()
+            if self._tp is not None:
+                upd_states = self._tp.whole_upd_states(self, upd_states)
             main, bias = [], []
             for k in keys:
                 us, names = upd_states[k], set(self._params[k])
@@ -1215,6 +1224,44 @@ class NetworkRuntime:
                 self._rebind()
         self._states = new_states
         return loss
+
+    # ----- tensor parallelism (parallel.tensor) -----------------------
+    #: the placement ``parallel.shard_params`` installs; None: every leaf
+    #: whole on this rank
+    _tp = None
+
+    def _whole_params(self):
+        """The params with every sharded leaf gathered whole (the params
+        themselves without tensor parallelism)."""
+        return self._params if self._tp is None \
+            else self._tp.whole_params(self)
+
+    def numParams(self) -> int:
+        """The parameter count of the whole model (a tensor-parallel
+        net's blocks counted whole, with no exchange)."""
+        tp = self._tp
+        return sum(t.numel() * (1 if tp is None
+                                or n not in tp.sharded.get(k, {})
+                                else tp.model.size)
+                   for k in self._unit_keys()
+                   for n, t in self._params[k].items())
+
+    def _layer_forward(self, key, layer, p, state, h, train, lk, fmask):
+        if self._tp is None:
+            return layer.forward(p, state, h, train, lk, fmask)
+        return self._tp.forward(key, layer, p, state, h, train, lk, fmask)
+
+    def _layer_runner(self, key, layer):
+        """Layer `key`'s forward as ``checkpointed_forward`` takes it:
+        None (``layer.forward``) without tensor parallelism."""
+        if self._tp is None:
+            return None
+        return lambda *a: self._tp.forward(key, layer, *a)
+
+    def _layer_preoutput(self, key, layer, p, h):
+        if self._tp is None:
+            return layer.preoutput(p, h)
+        return self._tp.preoutput(key, layer, p, h)
 
     # ----- the update ------------------------------------------------
     #: the weight-update hook a data-parallel trainer installs
@@ -1286,6 +1333,10 @@ class NetworkRuntime:
                 t.copy_(v)
 
     def _capture_refusal(self):
+        if self._tp is not None:
+            return ("capturing a tensor-parallel step's exchanges over "
+                    f"{self._tp.model.size} rank(s) waits for NCCL capture "
+                    "(ROADMAP.md Queue 1 item 7); the steps run eagerly")
         if self._solver is not None:
             return ("a line-search optimizationAlgo reads its step size "
                     "and conditions on the host")
@@ -1318,6 +1369,8 @@ class NetworkRuntime:
         signature, else the eager step (counted as uncaptured once the
         net has been precompiled). Returns the loss tensor."""
         it = self._iteration if iteration is None else iteration
+        if self._tp is not None:
+            return self._tp.train_step(self, args, it)
         cap = self._captured
         if cap is None:
             return self._train_step(*args, iteration=it)
@@ -1412,14 +1465,17 @@ class NetworkRuntime:
     def clone(self):
         """An independent copy: the same configuration, copies of the
         parameters, layer states and updater state, and the training
-        position (reference: ``clone``)."""
+        position (reference: ``clone``); of a tensor-parallel net, a
+        whole unsharded one."""
         def copy(t):
             return t.detach().clone()
 
+        upd = self._upd_states if self._tp is None \
+            else self._tp.whole_upd_states(self, self._upd_states)
         net = type(self)(self.conf, device=self.device).initFrom(
-            map_tree(copy, self._params),
+            map_tree(copy, self._whole_params()),
             map_tree(copy, strip_carries(self._states)),
-            map_tree(copy, self._upd_states))
+            map_tree(copy, upd))
         net._iteration = self._iteration
         net._epoch = self._epoch
         return net
@@ -1429,9 +1485,10 @@ class NetworkRuntime:
         """The params as the reference nests them, in its layouts, on
         the network's device (tensors)."""
         keys = self._unit_keys()
+        params = self._whole_params()
         return self._pack([
             nest_tree({n: self._unit_layer(k).param_to_reference(n, t)
-                       for n, t in self._params[k].items()}) for k in keys])
+                       for n, t in params[k].items()}) for k in keys])
 
     def params(self) -> INDArray:
         """Every parameter flattened into one f32 vector in the
@@ -1456,24 +1513,33 @@ class NetworkRuntime:
                     [t.numel() for _, t in items])):
                 key, name = path[0], ".".join(map(str, path[1:]))
                 dst = self._params[key][name]
-                dst.copy_(self._unit_layer(key).param_from_reference(
-                    name, v.reshape(t.shape)).to(dst.dtype))
+                new = self._unit_layer(key).param_from_reference(
+                    name, v.reshape(t.shape))
+                dst.copy_(self._block(key, name, new).to(dst.dtype))
         return self
+
+    def _block(self, key, name, t):
+        """This rank's block of whole leaf `t` under tensor parallelism
+        (`t` itself otherwise)."""
+        return t if self._tp is None else self._tp.block_of(key, name, t)
 
     def paramTable(self) -> dict:
         """``"<layer>_<param>"`` -> ``INDArray`` in the reference's layout
         (reference: ``paramTable``)."""
+        params = self._whole_params()
         return {f"{k}_{n}": INDArray(
                     self._unit_layer(k).param_to_reference(n, t.detach()))
                 for k in self._unit_keys()
-                for n, t in self._params[k].items()}
+                for n, t in params[k].items()}
 
     def getParam(self, key: str):
         """One parameter by ``"<layer>_<param>"`` key, in the reference's
         layout (reference: ``Model.getParam``)."""
         k, name = self._split_key(key)
-        return INDArray(self._unit_layer(k).param_to_reference(
-            name, self._params[k][name].detach()))
+        t = self._params[k][name].detach()
+        if self._tp is not None:
+            t = self._tp.whole(k, name, t)
+        return INDArray(self._unit_layer(k).param_to_reference(name, t))
 
     def setParamTable(self, table: dict):
         """Assign parameters by ``"<layer>_<param>"`` keys from arrays in
@@ -1484,6 +1550,7 @@ class NetworkRuntime:
                 cur = self._params[k][name]
                 t = self._unit_layer(k).param_from_reference(
                     name, _unwrap(v, self.device))
+                t = self._block(k, name, t)
                 if tuple(t.shape) != tuple(cur.shape):
                     raise ValueError(
                         f"setParamTable: {key} has shape {tuple(t.shape)}, "
@@ -1755,12 +1822,14 @@ class MultiLayerNetwork(NetworkRuntime):
                     # dropout applies to the output layer's input too
                     h = layer._dropout_input(h, l_train, lk)
                     out.append(states[i])
-                    return layer.preoutput(p, h), out
+                    return self._layer_preoutput(i, layer, p, h), out
                 if per_layer:
-                    h, s = checkpointed_forward(layer, l_train)(
+                    h, s = checkpointed_forward(
+                        layer, l_train, self._layer_runner(i, layer))(
                         p, states[i], h, lk, fmask)
                 else:
-                    h, s = layer.forward(p, states[i], h, l_train, lk, fmask)
+                    h, s = self._layer_forward(i, layer, p, states[i], h,
+                                               l_train, lk, fmask)
                 out.append(s)
             return h, out
 
@@ -1781,6 +1850,9 @@ class MultiLayerNetwork(NetworkRuntime):
                              params[-1])
 
     def _regularization(self, params):
+        if self._tp is not None:
+            return self._tp.penalty(self.layers, params,
+                                    range(len(self.layers)))
         return regularization(self.layers, params)
 
     def _loss_fn(self, params, states, x, y, fmask, lmask, train=True,
@@ -1978,8 +2050,8 @@ class MultiLayerNetwork(NetworkRuntime):
             if j < layerIdx:
                 p = cast_params(self._params[j], self._compute_dtype,
                                 self._param_dtype)
-                h, _ = self.layers[j].forward(p, states[j], h, False, None,
-                                              None)
+                h, _ = self._layer_forward(j, self.layers[j], p, states[j],
+                                           h, False, None, None)
         return h
 
     def pretrain(self, iterator, epochs=1):
@@ -2018,6 +2090,8 @@ class MultiLayerNetwork(NetworkRuntime):
             raise ValueError(
                 f"Layer {layerIdx} ({type(layer).__name__}) is not a "
                 "VariationalAutoencoder")
+        if self._tp is not None:
+            self._tp.refuse_blocks(layerIdx, "reconstructionLogProbability")
         with torch.no_grad():
             p = cast_params(self._params[layerIdx], self._compute_dtype,
                             self._param_dtype)
@@ -2061,7 +2135,8 @@ class MultiLayerNetwork(NetworkRuntime):
                     h = pp.preProcess(h, None)
                 p = cast_params(self._params[i], self._compute_dtype,
                                 self._param_dtype)
-                h, _ = layer.forward(p, states[i], h, False, None, None)
+                h, _ = self._layer_forward(i, layer, p, states[i], h,
+                                           False, None, None)
                 acts.append(h)
         return [INDArray(to_api_layout(a, self._api_nhwc)) for a in acts]
 
@@ -2196,9 +2271,6 @@ class MultiLayerNetwork(NetworkRuntime):
             return self._rnn_step(self._params,
                                   strip_carries(self._states), carries,
                                   _unwrap(x, self.device))
-
-    def numParams(self) -> int:
-        return sum(t.numel() for p in self._params for t in p.values())
 
     def getIterationCount(self) -> int:
         return self._iteration

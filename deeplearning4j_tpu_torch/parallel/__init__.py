@@ -1,21 +1,22 @@
-"""Data-parallel training over ``torch.distributed``.
+"""Distributed training over ``torch.distributed``: the data, model,
+sequence and pipeline mesh axes.
 
-The counterpart of ``deeplearning4j_tpu/parallel/``'s data-parallel
-core (reference subsystems: deeplearning4j-parallel-wrapper and the
-dl4j-spark SharedTrainingMaster / parameter averaging): the data group
-(``mesh``), starting ranks (``multihost``), the collectives
-(``collectives``), the compressed exchanges and their bill
-(``sharding``), the trainers (``trainer``), the Spark facades
-(``spark``) and the data-parallel legs of the multi-chip dry run
-(``dryrun``), and ``ParallelInference`` on one device (``inference``).
-The ZeRO weight update (``ZeroShardedUpdate``, ``weight_update=
-"sharded"``) and the hierarchical 2-hop exchange (``hierarchical_mesh``,
-``gradient_compression="hierarchical"``) are in ``sharding``. The
-planning functions the partition-plan analyzer needs are here too:
-``spec_for_param`` (``sharding``) and ``partition_stages``
-(``pipeline``). Executing tensor, sequence and pipeline parallelism
-(``PipelineParallel`` raises), ``ParallelInference``'s replica split
-over cards and the cost model wait for ROADMAP Queue 1 item 7.
+The counterpart of ``deeplearning4j_tpu/parallel/`` (reference
+subsystems: deeplearning4j-parallel-wrapper and the dl4j-spark
+SharedTrainingMaster / parameter averaging): the mesh and its axes'
+groups (``mesh``), starting ranks and ``hybrid_mesh`` (``multihost``),
+the collectives and the axes' autograd exchanges (``collectives``), the
+compressed exchanges and their bill, ``shard_params`` and
+``replicate_params`` (``sharding``), the tensor-parallel layer rule
+(``tensor``), ring and Ulysses attention over the "seq" axis
+(``sequence``), the GPipe ``PipelineParallel`` over the "pipe" axis
+(``pipeline``), the data-parallel trainers (``trainer``), the Spark
+facades (``spark``), the multi-chip dry run's legs (``dryrun``) and
+``ParallelInference`` on one device (``inference``). The ZeRO weight
+update and the hierarchical 2-hop exchange are in ``sharding``.
+``ParallelInference``'s replica split over cards, the overlap planner
+and cost model, ``EarlyStoppingParallelTrainer`` and NCCL capture wait
+for ROADMAP Queue 1 item 7.
 """
 
 from deeplearning4j_tpu_torch.parallel.inference import (
@@ -23,7 +24,8 @@ from deeplearning4j_tpu_torch.parallel.inference import (
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (
     DATA_AXIS, GROUP_AXIS, INTRA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
-    DataGroup, build_mesh, data_parallel_mesh,
+    DataGroup, Mesh, batch_sharded, build_mesh, data_parallel_mesh,
+    replicated,
 )
 from deeplearning4j_tpu_torch.parallel.multihost import (
     hybrid_mesh, initialize as initializeMultiHost, is_coordinator, launch,
@@ -37,7 +39,11 @@ from deeplearning4j_tpu_torch.parallel.sharding import (
     DEFAULT_ENCODING_CAPACITY, ManualZeroUpdate, ZeroShardedUpdate,
     compressed_wire_bytes, default_compression_group,
     dp_weight_update_bytes, hierarchical_grad_exchange, hierarchical_mesh,
-    hierarchical_shard_elems, spec_for_param,
+    hierarchical_shard_elems, replicate_params, shard_params,
+    spec_for_param,
+)
+from deeplearning4j_tpu_torch.parallel.sequence import (
+    ring_attention, ulysses_attention,
 )
 from deeplearning4j_tpu_torch.parallel.spark import (
     ParameterAveragingTrainingMasterBuilder, SharedTrainingMasterBuilder,
@@ -50,7 +56,9 @@ from deeplearning4j_tpu_torch.parallel.trainer import (
 )
 
 __all__ = [
-    "build_mesh", "data_parallel_mesh", "DataGroup", "DATA_AXIS",
+    "build_mesh", "data_parallel_mesh", "DataGroup", "Mesh", "replicated",
+    "batch_sharded", "shard_params", "replicate_params", "ring_attention",
+    "ulysses_attention", "DATA_AXIS",
     "MODEL_AXIS", "SEQ_AXIS", "PIPE_AXIS", "GROUP_AXIS", "INTRA_AXIS",
     "ParallelWrapper", "SharedTrainingMaster",
     "ParameterAveragingTrainingMaster", "FixedThresholdAlgorithm",

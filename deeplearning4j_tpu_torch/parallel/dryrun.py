@@ -1,10 +1,9 @@
-"""The data-parallel legs of the multi-chip dry run.
+"""The multi-chip dry run.
 
 The counterpart of ``__graft_entry__.dryrun_multichip`` (:40), which
 runs one sharded training step of each parallel mode on an n-device
-mesh. The port runs the data-parallel legs on n ranks
-(``multihost.launch``), each a real step through the ranks'
-collectives:
+mesh. The port runs the legs on n ranks (``multihost.launch``), each a
+real step through the ranks' collectives:
 
 * "resnet50_dp": zoo ResNet50 (8 classes, 32x32, Adam) through a dense
   ParallelWrapper at global batch 2n, BN synchronised over the ranks;
@@ -18,11 +17,20 @@ collectives:
   trained on the combined batch on rank 0 alone, and one int8 step held
   to the exact mean of the ranks' own gradients (``sync_bn_leg``).
 
-Each leg checks its losses are finite and the params bitwise equal on
-every rank. ``signature_leg`` (not a default leg) records one step's
-collective signature for the static analyzer's COL checks
-(``analysis.collectives``). The tensor-parallel, sequence-parallel (ring attention) and
-pipeline legs wait for ROADMAP Queue 1 item 7 and raise naming it.
+and the mesh axes' legs, with the reference's shapes (:82-184 there):
+
+* "tp": zoo ResNet50 (8 classes, 32x32, Adam 1e-3) placed by
+  ``shard_params`` (``min_shard_size=4096``) on ``{data: n/2, model:
+  2}`` (model 1 at odd n), one ``fit`` step at global batch 2·dp;
+* "sequence": causal ``ring_attention`` forward and backward on
+  ``{seq: n}`` at B 2, H 4, T 8n, D 16 (the gradient must be finite);
+* "pipeline": ``PipelineParallel`` of ``tiny_mlp(body=min(4, n))`` on
+  ``{data: n/pp, pipe: pp}``, 4 microbatches, one step.
+
+Each leg checks its losses are finite and the params (whole, gathered)
+bitwise equal on every rank. ``signature_leg`` (not a default leg)
+records one step's collective signature for the static analyzer's COL
+checks (``analysis.collectives``).
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ import torch
 from deeplearning4j_tpu_torch.parallel import collectives as _coll
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
 
-__all__ = ["DP_LEGS", "SYNC_BN_F32_ATOL", "dryrun_multichip", "bn_cnn",
+__all__ = ["DP_LEGS", "AXIS_LEGS", "SYNC_BN_F32_ATOL", "tiny_mlp", "dryrun_multichip", "bn_cnn",
            "bn_cnn_batch", "sync_bn_leg", "params_vector", "signature_leg",
            "signature_legs"]
 
@@ -46,7 +54,8 @@ __all__ = ["DP_LEGS", "SYNC_BN_F32_ATOL", "dryrun_multichip", "bn_cnn",
 SYNC_BN_F32_ATOL = 1e-6
 #: the legs dryrun_multichip runs by default
 DP_LEGS = ("resnet50_dp", "int8", "averaging", "threshold", "sync_bn")
-_LATER = ("tp", "sequence", "pipeline")
+#: the mesh axes' legs (not run by default: ``legs=`` names them)
+AXIS_LEGS = ("tp", "sequence", "pipeline")
 
 
 def params_vector(net):
@@ -304,10 +313,107 @@ _LEGS = {"resnet50_dp": _leg_resnet50_dp, "int8": _leg_small("int8"),
          "threshold": _leg_small("threshold")}
 
 
+def tiny_mlp(device, body=4):
+    """The reference dry run's pipeline net: Dense(8->16), `body` x
+    Dense(16), softmax head of 4, Sgd(0.05), tanh, seed 7."""
+    from deeplearning4j_tpu_torch.nn import (
+        DenseLayer, InputType, MultiLayerNetwork, NeuralNetConfiguration,
+        OutputLayer, Sgd,
+    )
+
+    b = (NeuralNetConfiguration.Builder().seed(7).updater(Sgd(0.05))
+         .activation("tanh").list().layer(DenseLayer(nOut=16)))
+    for _ in range(body):
+        b = b.layer(DenseLayer(nOut=16))
+    conf = (b.layer(OutputLayer(nOut=4, activation="softmax"))
+            .setInputType(InputType.feedForward(8)).build())
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def whole_vector(net):
+    """Every parameter (whole: a tensor-parallel net's blocks gathered)
+    and every layer state, flattened into one f64 numpy vector."""
+    from deeplearning4j_tpu_torch.nn.multilayer import _unwrap, strip_carries
+    from deeplearning4j_tpu_torch.parallel.trainer import _leaves
+
+    states = [t.detach().reshape(-1).double().cpu()
+              for t in _leaves(strip_carries(net._states))]
+    return torch.cat([_unwrap(net.params()).detach().double().cpu()]
+                     + states).numpy()
+
+
+def _leg_tp(rank, world, device):
+    from deeplearning4j_tpu_torch.nn import Adam
+    from deeplearning4j_tpu_torch.parallel.sharding import shard_params
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    tp = 2 if world % 2 == 0 else 1
+    dp = world // tp
+    mesh = _mesh.build_mesh({_mesh.DATA_AXIS: dp, _mesh.MODEL_AXIS: tp})
+    net = ResNet50(numClasses=8, inputShape=(3, 32, 32), updater=Adam(1e-3),
+                   device=device).init()
+    shard_params(net, mesh, min_shard_size=4096)
+    rng = np.random.RandomState(0)
+    B = 2 * dp
+    x = rng.rand(B, 3, 32, 32).astype(np.float32)
+    y = np.eye(8, dtype=np.float32)[rng.randint(0, 8, B)]
+    before = _coll.totals()
+    net.fit(x, y)
+    calls, _, wire = (a - b for a, b in zip(_coll.totals(), before))
+    return {"loss": net.score(), "vector": whole_vector(net),
+            "comm": {"collectives": calls, "wire_bytes": wire,
+                     "layers": dict(net._tp.calls), "mesh": mesh.shape}}
+
+
+def _leg_sequence(rank, world, device):
+    from deeplearning4j_tpu_torch.parallel.sequence import ring_attention
+
+    mesh = _mesh.build_mesh({_mesh.SEQ_AXIS: world})
+    g = _mesh.axis_group(mesh, _mesh.SEQ_AXIS)
+    B, H, T, D = 2, 4, 8 * world, 16
+    q = torch.from_numpy(np.random.RandomState(0).randn(B, H, T, D)
+                         .astype(np.float32))
+    Tl = T // world
+    ql = q[:, :, g.rank * Tl:(g.rank + 1) * Tl].to(device) \
+        .requires_grad_(True)
+    loss = (ring_attention(ql, ql, ql, mesh, causal=True) ** 2).sum()
+    loss.backward()
+    total = _coll.all_reduce(loss.detach().reshape(1).clone(), g)
+    finite = bool(torch.isfinite(ql.grad).all())
+    return {"loss": float(total[0]) if finite else math.nan,
+            "vector": np.zeros(1), "comm": {"grad_finite": finite}}
+
+
+def _leg_pipeline(rank, world, device):
+    from deeplearning4j_tpu_torch.parallel.pipeline import PipelineParallel
+
+    pp = min(4, world)
+    dp = world // pp
+    mesh = _mesh.build_mesh({_mesh.DATA_AXIS: dp, _mesh.PIPE_AXIS: pp})
+    net = tiny_mlp(device, body=pp)
+    x = np.random.RandomState(1).randn(8 * dp, 8).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[
+        np.random.RandomState(2).randint(0, 4, 8 * dp)]
+    trainer = PipelineParallel(net, mesh, n_microbatches=4)
+    trainer.fit(x, y)
+    return {"loss": net.score(), "vector": whole_vector(net),
+            "comm": dict(trainer.last_step, mesh=mesh.shape)}
+
+
+_AXIS_LEGS = {"tp": _leg_tp, "sequence": _leg_sequence,
+              "pipeline": _leg_pipeline}
+
+
 def _dryrun_rank(rank, world, device, legs):
     group = _mesh.data_parallel_mesh()
     out = {}
     for name in legs:
+        if name in _AXIS_LEGS:
+            r = _AXIS_LEGS[name](rank, world, device)
+            out[name] = {"loss": r["loss"], "comm": r["comm"],
+                         "replicated": _equal_on_all_ranks(r["vector"],
+                                                           group)}
+            continue
         if name == "sync_bn":
             r = sync_bn_leg(rank, world, device, steps=2)
             out[name] = {"loss": r["dense_losses"][-1],
@@ -325,24 +431,22 @@ def _dryrun_rank(rank, world, device, legs):
     return out
 
 
-def dryrun_multichip(n_devices, device=None, legs=DP_LEGS, timeout=600.0):
-    """Run `legs` on `n_devices` ranks (``multihost.launch``; `device`
-    None means the cards, NCCL). Raises unless every leg's loss is finite
-    and its params are equal on every rank; returns rank 0's results.
-    The "tp", "sequence" and "pipeline" legs raise NotImplementedError
-    (item 7)."""
+def dryrun_multichip(n_devices, device=None, legs=DP_LEGS, timeout=600.0,
+                     backend=None):
+    """Run `legs` (the data-parallel legs by default; "tp", "sequence"
+    and "pipeline" when named) on `n_devices` ranks
+    (``multihost.launch``; `device` None means the cards, NCCL; `backend`
+    as ``launch`` takes it). Raises unless every leg's loss is finite and
+    its params are equal on every rank; returns rank 0's results."""
     from deeplearning4j_tpu_torch.parallel.multihost import launch
 
     legs = tuple(legs)
-    later = [leg for leg in legs if leg in _LATER]
-    if later:
-        raise _mesh.later(f"the {', '.join(later)} dry-run legs")
-    unknown = [leg for leg in legs if leg not in DP_LEGS]
+    unknown = [leg for leg in legs if leg not in DP_LEGS + AXIS_LEGS]
     if unknown:
         raise ValueError(f"unknown dry-run legs {unknown}; pick from "
-                         f"{DP_LEGS + _LATER}")
+                         f"{DP_LEGS + AXIS_LEGS}")
     results = launch(_dryrun_rank, int(n_devices), device=device,
-                     timeout=timeout, args=(legs,))
+                     backend=backend, timeout=timeout, args=(legs,))
     for rank, res in enumerate(results):
         for name, r in res.items():
             if not math.isfinite(r["loss"]):

@@ -20,7 +20,12 @@ by ``torch.distributed``:
   function, in a module that does not import jax) and return something
   picklable (numpy arrays, not tensors).
 
-``hybrid_mesh`` (slices x axes) waits for ROADMAP Queue 1 item 7.
+``hybrid_mesh(dcn_axes, ici_axes)`` (reference :51-90) lays a mesh over
+nodes: the DCN axes outermost over the nodes (the ranks that share a
+host name), the ICI axes innermost over each node's local ranks, so the
+axes that talk every layer stay inside a node. One node degrades to
+``build_mesh({**dcn_axes, **ici_axes})``. ``hybrid_rank_grid`` is the
+layout alone, a pure function of the axes and the nodes' ranks.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
 
 __all__ = ["initialize", "is_coordinator", "num_hosts", "hybrid_mesh",
-           "launch"]
+           "hybrid_rank_grid", "launch"]
 
 
 def _rank_device(device, local_rank):
@@ -92,8 +97,76 @@ def num_hosts() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def hybrid_rank_grid(dcn_axes, ici_axes, nodes):
+    """The global ranks laid over ``dcn_axes`` then ``ici_axes`` (a numpy
+    array of that shape): `nodes` lists each node's ranks, the DCN axes
+    range over the nodes and the ICI axes over a node's ranks, so every
+    ICI group lies inside one node. One node: the ranks row-major, as
+    ``build_mesh``. Raises the reference's errors when the DCN axes ask
+    for more nodes than there are, or the axes do not cover every rank."""
+    import math
+
+    import numpy as np
+
+    dcn_total = math.prod(dcn_axes.values()) if dcn_axes else 1
+    ici_total = math.prod(ici_axes.values()) if ici_axes else 1
+    ranks = [r for node in nodes for r in node]
+    if len(nodes) <= 1:
+        if dcn_total > 1 and len(ranks) < dcn_total * ici_total:
+            raise ValueError(
+                f"dcn axes {dcn_axes} need {dcn_total} slices; "
+                f"found {len(nodes)}")
+        if dcn_total * ici_total != len(ranks):
+            raise ValueError(
+                f"Mesh {({**dcn_axes, **ici_axes})} needs "
+                f"{dcn_total * ici_total} devices, have {len(ranks)}")
+        return np.asarray(sorted(ranks)).reshape(
+            list(dcn_axes.values()) + list(ici_axes.values()))
+    if dcn_total * ici_total != len(ranks) or dcn_total != len(nodes) \
+            or any(len(node) != ici_total for node in nodes):
+        raise ValueError(
+            f"hybrid mesh axes {dcn_axes} x {ici_axes} cover "
+            f"{dcn_total * ici_total} devices but the pod has "
+            f"{len(ranks)}; every in-slice chip must be covered by an ici "
+            "axis (add e.g. a 'model' or inner 'data' axis)")
+    grid = np.asarray([sorted(node) for node in nodes])
+    return grid.reshape(list(dcn_axes.values()) + list(ici_axes.values()))
+
+
+def _nodes():
+    """Each node's global ranks, in node order: the ranks grouped by host
+    name (``LOCAL_WORLD_SIZE`` contiguous ranks a node where the
+    launcher sets it)."""
+    import socket
+
+    world = _mesh._default_group()
+    if world.pg is None:
+        return [[0]]
+    local = os.environ.get("LOCAL_WORLD_SIZE")
+    if local is not None:
+        k = int(local)
+        return [list(range(i, i + k)) for i in range(0, world.size, k)]
+    names = [None] * world.size
+    dist.all_gather_object(names, socket.gethostname())
+    order = []
+    for n in names:
+        if n not in order:
+            order.append(n)
+    return [[r for r, n in enumerate(names) if n == h] for h in order]
+
+
 def hybrid_mesh(dcn_axes, ici_axes, devices=None):
-    raise _mesh.later("hybrid_mesh (axes over slices and within them)")
+    """The mesh of ``dcn_axes`` over nodes and ``ici_axes`` within each
+    (module docstring): a ``parallel.mesh`` mesh (a DataGroup for a pure
+    data axis). `devices` is accepted for the reference's signature;
+    the port's devices are its ranks."""
+    dcn_axes, ici_axes = dict(dcn_axes), dict(ici_axes)
+    nodes = _nodes()
+    grid = hybrid_rank_grid(dcn_axes, ici_axes, nodes)
+    if len(nodes) <= 1:
+        return _mesh.build_mesh({**dcn_axes, **ici_axes})
+    names = list(dcn_axes) + list(ici_axes)
+    return _mesh.mesh_from_grid(grid, names)
 
 
 def _rank_main(fn, rank, world_size, device, backend, store_path, timeout,

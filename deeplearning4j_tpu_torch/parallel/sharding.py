@@ -44,9 +44,16 @@ The counterpart of the data-parallel part of
   that dimension is not sharded; ``()``: replicated). The rule shards a
   weight's output dimension, which is the last in the reference's
   layouts and in the port's dense and recurrent ones, and dimension 0
-  in the port's OIHW convolution kernels. ``shard_params``, which
-  would place parameters by these specs, waits for ROADMAP Queue 1 item
-  7.
+  in the port's OIHW convolution kernels.
+* ``shard_params`` / ``replicate_params`` (reference: :90-128): a
+  network's leaves placed by ``spec_for_param`` over the mesh's model
+  axis. Each sharded leaf becomes this rank's block along the spec's
+  dimension, its updater state (Adam's moments, Nesterovs' velocity)
+  the same block; an indivisible dimension replicates, or raises the
+  reference's PAR03 message under ``on_indivisible="error"``. On a
+  network it installs the tensor-parallel layer rule
+  (``parallel.tensor``), so ``fit``/``output`` run over the model axis;
+  ``replicate_params`` gathers the leaves back and removes it.
 * ``ZeroShardedUpdate`` (and ``ManualZeroUpdate``, its compressed form):
   the ZeRO weight update (reference: :352-580). A leaf of n elements
   with ``n >= min_shard_size and n % dp == 0`` is reduce-scattered as
@@ -76,10 +83,11 @@ import torch
 from deeplearning4j_tpu_torch.ndarray.compression import threshold_cap
 from deeplearning4j_tpu_torch.parallel import collectives as _coll
 from deeplearning4j_tpu_torch.parallel.mesh import (
-    DATA_AXIS, GROUP_AXIS, INTRA_AXIS, MODEL_AXIS,
+    DATA_AXIS, GROUP_AXIS, INTRA_AXIS, MODEL_AXIS, Mesh,
 )
 
-__all__ = ["shard_batch", "spec_for_param", "quantized_psum_mean",
+__all__ = ["shard_batch", "spec_for_param", "shard_params",
+           "replicate_params", "shard_plan", "quantized_psum_mean",
            "threshold_psum_mean", "quantized_psum_scatter_mean",
            "scatter_mean", "mean_all", "own_row", "ZeroShardedUpdate",
            "ManualZeroUpdate", "dp_weight_update_bytes",
@@ -113,7 +121,14 @@ def shard_batch(arr, mesh, batch_axis=DATA_AXIS, dim=0):
                 f"mesh has no axis '{ax}' (axes: "
                 f"{list(mesh.shape)}); build the mesh with a "
                 "data-parallel axis or pass batch_axis=")
-    width = mesh.size
+    if isinstance(mesh, Mesh):
+        # rows over the named axes only: rank order over them, row-major
+        rank, width = 0, 1
+        for ax in axes:
+            g = mesh.group(ax)
+            rank, width = rank * g.size + g.rank, width * g.size
+    else:
+        rank, width = mesh.rank, mesh.size
     if arr.shape[dim] % width != 0:
         raise ValueError(
             f"Global batch {arr.shape[dim]} not divisible by "
@@ -121,7 +136,7 @@ def shard_batch(arr, mesh, batch_axis=DATA_AXIS, dim=0):
             "refusing to silently pad; use a batch size that is a "
             f"multiple of {width} (PAR03)")
     b = arr.shape[dim] // width
-    return arr.narrow(dim, mesh.rank * b, b)
+    return arr.narrow(dim, rank * b, b)
 
 
 def _div(t, v):
@@ -249,6 +264,132 @@ def spec_for_param(name, shape, model_axis=MODEL_AXIS,
     if len(shape) == 1:
         return (model_axis,)
     return ()
+
+
+def _is_network(obj):
+    return hasattr(obj, "_unit_keys") and hasattr(obj, "_params")
+
+
+def _keystr(key, name):
+    return f"[{key!r}][{name!r}]"
+
+
+def shard_plan(params, mesh, model_axis=MODEL_AXIS, min_shard_size=2 ** 16,
+               on_indivisible="replicate"):
+    """{layer key: {leaf name: dimension}} of the leaves ``shard_params``
+    shards, placing nothing (module docstring): `params` a network or a
+    params tree, `mesh` a mesh or an {axis: size} dict."""
+    if on_indivisible not in ("replicate", "error"):
+        raise ValueError("on_indivisible must be 'replicate' or 'error'")
+    if _is_network(params):
+        keys, tree = params._unit_keys(), params._params
+    else:
+        tree = params
+        keys = range(len(params)) if isinstance(params, (list, tuple)) \
+            else list(params)
+    axes = mesh if isinstance(mesh, dict) else mesh.shape
+    width = int(axes.get(model_axis, 1))
+    plan = {}
+    for key in keys:
+        for name, t in tree[key].items():
+            shape = tuple(t.shape)
+            spec = spec_for_param(name, shape, model_axis, min_shard_size)
+            if model_axis not in spec:
+                continue
+            dim = spec.index(model_axis)
+            if shape[dim] % width != 0:
+                if on_indivisible == "error":
+                    raise ValueError(
+                        f"param {_keystr(key, name)} dim {shape[dim]} is "
+                        f"not divisible by mesh axis '{model_axis}' (size "
+                        f"{width}) (PAR03)")
+                continue
+            if width > 1:
+                plan.setdefault(key, {})[name] = dim
+    return plan
+
+
+def shard_params(params, mesh, model_axis=MODEL_AXIS,
+                 min_shard_size=2 ** 16, on_indivisible="replicate",
+                 batch_axis=DATA_AXIS):
+    """Place a network's (or a params tree's) leaves over the mesh's
+    model axis (module docstring). `params` is a network (placed in
+    place and returned, with the tensor-parallel rule installed) or a
+    list/dict of per-layer {name: tensor} dicts (this rank's blocks
+    returned in the same structure). A mesh without `model_axis`, or of
+    model size 1, shards nothing."""
+    from deeplearning4j_tpu_torch.parallel.tensor import TensorParallel
+
+    if not _is_network(params):
+        keys = range(len(params)) if isinstance(params, (list, tuple)) \
+            else list(params)
+        plan = shard_plan(params, mesh, model_axis, min_shard_size,
+                          on_indivisible)
+        tp = TensorParallel(mesh, model_axis, batch_axis, plan)
+        out = [{n: tp.block(t, plan[k][n]).clone()
+                if n in plan.get(k, {}) else t
+                for n, t in params[k].items()} for k in keys]
+        return out if isinstance(params, (list, tuple)) \
+            else dict(zip(keys, out))
+    net = params
+    net._require_init()
+    if getattr(net, "_tp", None) is not None:
+        replicate_params(net, mesh)
+    plan = shard_plan(net, mesh, model_axis, min_shard_size, on_indivisible)
+    mode = getattr(net.conf, "gradientNormalization", None)
+    if plan and mode not in (None, "clip_elementwise"):
+        raise ValueError(
+            f"gradientNormalization={mode} takes norms over whole leaves, "
+            "and under tensor parallelism a rank holds blocks of the "
+            "sharded ones: use ClipElementWiseAbsoluteValue or none")
+    noisy = [k for k in plan
+             if getattr(net._unit_layer(k), "weightNoise", None) is not None]
+    if noisy:
+        raise ValueError(
+            f"layers {noisy} draw weight noise over whole leaves, and "
+            "under tensor parallelism a rank holds blocks of them: raise "
+            "min_shard_size past them or drop the noise")
+    tp = TensorParallel(mesh, model_axis, batch_axis, plan)
+    with torch.no_grad():
+        for k, dims in plan.items():
+            p = net._params[k]
+            for n, dim in dims.items():
+                p[n] = tp.block(p[n].detach(), dim).clone() \
+                    .requires_grad_(True)
+            net._upd_states[k] = tp.block_upd_state(k, net._upd_states[k])
+    net._tp = tp
+    net._captured = None
+    net._rebind()
+    net._reset_solver()
+    return net
+
+
+def replicate_params(params, mesh=None):
+    """The whole leaves on every rank (reference: ``replicate_params``):
+    a network placed by ``shard_params`` gets its leaves and updater
+    state gathered back and the tensor-parallel rule removed (every rank
+    of the model group must call it); a params tree is returned as it
+    is, each rank holding it whole already."""
+    if not _is_network(params):
+        return params
+    net = params
+    tp = getattr(net, "_tp", None)
+    if tp is None:
+        return net
+    keys = net._unit_keys()
+    with torch.no_grad():
+        whole = tp.whole_params(net)
+        upd = tp.whole_upd_states(net, net._upd_states)
+        for k in keys:
+            for n, t in whole[k].items():
+                if n in tp.sharded.get(k, {}):
+                    net._params[k][n] = t.clone().requires_grad_(True)
+            net._upd_states[k] = upd[k]
+    net._tp = None
+    net._captured = None
+    net._rebind()
+    net._reset_solver()
+    return net
 
 
 def default_compression_group(dp):

@@ -13,7 +13,8 @@ captured training, autotune, the ledger), 4 (phases 4-5), 12, 18, 24
 (the whole phase), 24a-24e (the zoo, PAR06 against the card, validation
 bitwise, the chaos soak, collectives), 7 (the encoder, its remat leg
 included), 13 (after phase 9(b)'s 20 steps, whose losses it holds dense
-to) and 15f (the remat A/B). TF32 is off, as chip_smoke.py's main sets
+to), 15f (the remat A/B) and 25 (the mesh axes, after phase 7, whose
+losses 25(b) holds). TF32 is off, as chip_smoke.py's main sets
 it. Exits 1 if a leg failed, 2 without a CUDA card.
 """
 
@@ -58,6 +59,8 @@ def main(which):
         "13": lambda: cs.data_parallel_phase(
             dev, cs.RESNET_TIMED, cs.resnet_timed(dev, cs.RESNET_TIMED)[3]),
         "15f": lambda: cs.remat_ab(dev),
+        "25": lambda: cs.mesh_axes_phase(
+            dev, cs.train_and_check(dev, cs.BERT_BASE)),
     }
     ok = True
     for name in which or ["23"]:

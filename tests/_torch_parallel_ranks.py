@@ -994,3 +994,483 @@ def hier_rank(rank, world, device, tmp):
     out["k_loop"] = {"score": net.score(), "syncs": pw._fit_dataset_syncs,
                      "ef_max": float(pw._ef.abs().max())}
     return out
+
+
+# ----------------------------------------------------------------------
+# the mesh axes (tests/test_torch_{tensor,sequence,pipeline}_parallel.py)
+# ----------------------------------------------------------------------
+
+def tp_mlp_conf(seed=3):
+    """TestTensorParallel.test_sharded_forward_matches_replicated's net."""
+    from deeplearning4j_tpu_torch.nn import Sgd as _Sgd
+
+    return (NeuralNetConfiguration.Builder()
+            .seed(seed).updater(_Sgd(0.1)).activation("relu").list()
+            .layer(DenseLayer(nOut=256))
+            .layer(DenseLayer(nOut=256))
+            .layer(OutputLayer(nOut=4, activation="softmax"))
+            .setInputType(InputType.feedForward(8)).build())
+
+
+def tp_adam_conf(seed=3):
+    """TestTensorParallel.test_sharded_training_step_runs's net."""
+    return (NeuralNetConfiguration.Builder()
+            .seed(seed).updater(Adam(1e-2)).activation("relu").list()
+            .layer(DenseLayer(nOut=128))
+            .layer(OutputLayer(nOut=4, activation="softmax"))
+            .setInputType(InputType.feedForward(8)).build())
+
+
+def tp_attn_conf(heads, seed=4, F=16, T=6, nout=12):
+    """An attention vertex (nHeads `heads`, biases) between two dense
+    layers, pooled to a softmax head."""
+    from deeplearning4j_tpu_torch.nn import (
+        AttentionVertex, FeedForwardToRnnPreProcessor, GlobalPoolingLayer,
+        PreprocessorVertex, RnnToFeedForwardPreProcessor,
+    )
+
+    b = (NeuralNetConfiguration.Builder().seed(seed).updater(Sgd(0.1))
+         .activation("tanh").graphBuilder().addInputs("in"))
+    b.addVertex("ff", PreprocessorVertex(RnnToFeedForwardPreProcessor()),
+                "in")
+    b.addLayer("d1", DenseLayer(nOut=F), "ff")
+    b.addVertex("seq", PreprocessorVertex(FeedForwardToRnnPreProcessor()),
+                "d1")
+    b.addVertex("attn", AttentionVertex(nOut=nout, nHeads=heads,
+                                        hasBias=True), "seq")
+    b.addLayer("gp", GlobalPoolingLayer(poolingType="avg"), "attn")
+    b.addLayer("out", OutputLayer(nOut=3, activation="softmax"), "gp")
+    return (b.setOutputs("out")
+            .setInputTypes(InputType.recurrent(F, T)).build())
+
+
+def tp_lstm_conf(seed=6):
+    """An LSTM (its W and RW column-sharded, its bias replicated) under an
+    RnnOutputLayer."""
+    from deeplearning4j_tpu_torch.nn import LSTM, RnnOutputLayer
+
+    return (NeuralNetConfiguration.Builder().seed(seed).updater(Sgd(0.1))
+            .list()
+            .layer(LSTM(nOut=32, activation="tanh"))
+            .layer(RnnOutputLayer(nOut=4, activation="softmax"))
+            .setInputType(InputType.recurrent(8, 5)).build())
+
+
+TP_NETS = {"tp_mlp": (MultiLayerNetwork, tp_mlp_conf, {}, 1024),
+           "tp_adam": (MultiLayerNetwork, tp_adam_conf, {}, 256),
+           "attn_even": (ComputationGraph, tp_attn_conf, {"heads": 4}, 8),
+           "attn_odd": (ComputationGraph, tp_attn_conf, {"heads": 3}, 8),
+           "lstm": (MultiLayerNetwork, tp_lstm_conf, {}, 256)}
+
+
+def tp_batches(seed=0):
+    """{net: (x, y)} global batches of 16 rows for TP_NETS."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(16, 8).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[rng.randint(0, 4, 16)]
+    xs = rng.randn(16, 16, 6).astype(np.float32)
+    ys = np.eye(3, dtype=np.float32)[rng.randint(0, 3, 16)]
+    xl = rng.randn(16, 8, 5).astype(np.float32)
+    yl = np.eye(4, dtype=np.float32)[rng.randint(0, 4, (16, 5))] \
+        .transpose(0, 2, 1).copy()
+    return {"tp_mlp": (x, y), "tp_adam": (x, y), "attn_even": (xs, ys),
+            "attn_odd": (xs, ys), "lstm": (xl, yl)}
+
+
+def tp_build(name, init=None, device="cpu"):
+    cls, conf, kw, _ = TP_NETS[name]
+    net = cls(conf(**kw), device=device).init()
+    if init is not None and name in init:
+        net.load_reference_params(*init[name])
+    return net
+
+
+def _whole_equal(net, group):
+    """Whether the whole params (gathered) and the layer states are
+    bitwise equal on every rank of `group`."""
+    from deeplearning4j_tpu_torch.parallel.dryrun import whole_vector
+
+    vec = torch.from_numpy(whole_vector(net))
+    allv = coll.all_gather(vec, group)
+    return bool(all(torch.equal(allv[0], v) for v in allv))
+
+
+def tp_rank(rank, world, device, init, tmp, steps=2):
+    """Every tensor-parallel scenario on one rank of {data: 2, model: 2}
+    (world 4) or {model: world}: each of TP_NETS from the reference's
+    weights, placed by shard_params at its min_shard_size, its output,
+    `steps` fit steps (params and scores in ref_params form), the layer
+    paths it took and whether the whole params stayed bitwise equal on
+    every rank; a written and restored model; the strict mode; the
+    signature of a step, checked."""
+    from deeplearning4j_tpu_torch.analysis import collectives as C
+    from deeplearning4j_tpu_torch.parallel import (
+        build_mesh, replicate_params, shard_params,
+    )
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+
+    axes = {"data": 2, "model": 2} if world == 4 else {"model": world}
+    mesh = build_mesh(axes)
+    data = tp_batches()
+    out = {}
+    for name, (_, _, _, min_shard) in TP_NETS.items():
+        net = tp_build(name, init, device)
+        shard_params(net, mesh, min_shard_size=min_shard)
+        x, y = data[name]
+        whole_at_start = np.array_equal(
+            net.params().toNumpy(),
+            tp_build(name, init, device).params().toNumpy())
+        r = {"output": net.output(x).toNumpy(), "scores": [],
+             "sharded": {str(k): dict(v) for k, v in net._tp.sharded.items()}}
+        for _ in range(steps):
+            net.fit(x, y)
+            r["scores"].append(net.score())
+        r["params"] = ref_params_whole(net)
+        r["whole_at_start"] = whole_at_start
+        r["calls"] = dict(net._tp.calls)
+        r["replicated"] = _whole_equal(net, mesh)
+        if name == "tp_adam":
+            path = f"{tmp}/tp_adam_{rank}.zip"
+            ModelSerializer.writeModel(net, path)
+            back = MultiLayerNetwork.load(path, device=device)
+            r["restored_equal"] = bool(np.array_equal(
+                back.params().toNumpy(), net.params().toNumpy()))
+            rep = C.verify_program(net.fit, x, y, group=mesh)
+            r["signature_errors"] = [d.format() for d in rep.errors]
+            r["signature_axes"] = sorted(rep.signature.axes())
+            r["signature_ops"] = rep.signature.counts()
+            with coll.recording() as rec:
+                net.fit(x, y)
+            sig = C.CollectiveSignature(rec.sites)
+            r["executed_errors"] = [d.format() for d in C.check_signature(
+                sig, mesh_axes=axes).errors]
+            r["executed_axes"] = sorted(sig.axes())
+            from deeplearning4j_tpu_torch.runtime import aot
+
+            try:
+                net.precompile(batchSize=16)
+                r["capture"] = None
+            except aot.CaptureRefused as e:
+                r["capture"] = str(e)
+            net.fit(x, y)
+            r["uncaptured"] = net._captured.uncaptured
+            replicate_params(net, mesh)
+            r["after_replicate"] = {str(k): {n: tuple(t.shape)
+                                             for n, t in p.items()}
+                                    for k, p in enumerate(net._params)}
+        out[name] = r
+    out["remat"] = tp_remat(init, mesh, steps, device)
+    out["feed_forward"] = tp_feed_forward(init, mesh, device)
+    out["pretrain_refused"] = tp_pretrain_refused(mesh, device)
+    try:
+        shard_params([{"W": torch.ones(512, 513)}], mesh,
+                     on_indivisible="error")
+        out["strict"] = None
+    except ValueError as e:
+        out["strict"] = str(e)
+    out["lenient"] = tuple(shard_params([{"W": torch.ones(512, 513)}],
+                                        mesh)[0]["W"].shape)
+    out["f64"] = tp_f64(world, device)
+    from deeplearning4j_tpu_torch.nn import GradientNormalization
+
+    conf = tp_adam_conf()
+    conf.gradientNormalization = GradientNormalization.ClipL2PerLayer
+    try:
+        shard_params(MultiLayerNetwork(conf, device=device).init(), mesh,
+                     min_shard_size=256)
+        out["norm_refused"] = None
+    except ValueError as e:
+        out["norm_refused"] = str(e)
+    from deeplearning4j_tpu_torch.nn import DropConnect
+
+    conf = tp_adam_conf()
+    conf.layers[0].weightNoise = DropConnect(0.9)
+    try:
+        shard_params(MultiLayerNetwork(conf, device=device).init(), mesh,
+                     min_shard_size=256)
+        out["noise_refused"] = None
+    except ValueError as e:
+        out["noise_refused"] = str(e)
+    return out
+
+
+def tp_remat(init, mesh, steps, device):
+    """tp_mlp and attn_even under per-layer activation remat, placed as
+    tp_rank places them: their whole params after `steps` fit steps and
+    their layer paths (a recompute runs the rule again)."""
+    from deeplearning4j_tpu_torch.parallel import shard_params
+
+    out = {}
+    for name in ("tp_mlp", "attn_even"):
+        net = tp_build(name, init, device)
+        net.conf.activationCheckpointing = True
+        shard_params(net, mesh, min_shard_size=TP_NETS[name][3])
+        x, y = tp_batches()[name]
+        for _ in range(steps):
+            net.fit(x, y)
+        out[name] = {"params": ref_params_whole(net),
+                     "calls": dict(net._tp.calls)}
+    return out
+
+
+def tp_feed_forward(init, mesh, device):
+    """feedForward of a placed tp_mlp beside the unsharded net's: the
+    largest |difference| over the activations, and the layer paths."""
+    from deeplearning4j_tpu_torch.parallel import shard_params
+
+    net, one = tp_build("tp_mlp", init, device), tp_build("tp_mlp", init,
+                                                          device)
+    shard_params(net, mesh, min_shard_size=TP_NETS["tp_mlp"][3])
+    x, _ = tp_batches()["tp_mlp"]
+    got = [a.toNumpy() for a in net.feedForward(x)]
+    want = [a.toNumpy() for a in one.feedForward(x)]
+    return {"shapes_equal": [g.shape for g in got] == [w.shape
+                                                       for w in want],
+            "max_abs": max(float(np.abs(g - w).max())
+                           for g, w in zip(got, want)),
+            "calls": dict(net._tp.calls)}
+
+
+def tp_pretrain_refused(mesh, device):
+    """pretrainLayer on an AutoEncoder whose W shard_params sharded: the
+    refusal's words."""
+    from deeplearning4j_tpu_torch.nn import AutoEncoder
+    from deeplearning4j_tpu_torch.parallel import shard_params
+
+    net = MultiLayerNetwork(
+        NeuralNetConfiguration.Builder().seed(1).list()
+        .layer(AutoEncoder(nOut=256))
+        .layer(OutputLayer(nOut=4, activation="softmax"))
+        .setInputType(InputType.feedForward(8)).build(), device=device).init()
+    shard_params(net, mesh, min_shard_size=256)
+    try:
+        net.pretrainLayer(0, tp_batches()["tp_mlp"][0])
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def ref_params_whole(net):
+    """ref_params of a (possibly tensor-parallel) net: its whole params in
+    the reference's layout and names."""
+    whole = net._whole_params()
+    if isinstance(net, ComputationGraph):
+        items = _graph.params_to_reference(net.conf, whole).items()
+    else:
+        items = enumerate(_ml.params_to_reference(net.layers, whole))
+    return {f"{k}.{n}": np.asarray(v, np.float64)
+            for k, p in items for n, v in p.items()}
+
+
+def seq_rank(rank, world, device, q, k, v, g):
+    """Ring (causal and not) and Ulysses attention on {seq: world}, and
+    the causal ring on {data: 2, seq: world/2} (batch row d on data rank
+    d), each forward and backward (cotangent `g`): this rank's output and
+    gradient shards as numpy."""
+    from deeplearning4j_tpu_torch.parallel import (
+        build_mesh, ring_attention, ulysses_attention,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import axis_group
+
+    def run(fn, mesh, rows, causal):
+        s = axis_group(mesh, "seq")
+        T = q.shape[2]
+        tl = T // s.size
+        sl = slice(s.rank * tl, (s.rank + 1) * tl)
+        loc = [torch.from_numpy(a[rows, :, sl].copy()).to(device)
+               .requires_grad_(True) for a in (q, k, v)]
+        o = fn(*loc, mesh, causal=causal)
+        o.backward(torch.from_numpy(g[rows, :, sl].copy()).to(device))
+        return [o.detach().cpu().numpy()] + [t.grad.cpu().numpy()
+                                             for t in loc]
+
+    out = {}
+    mesh = build_mesh({"seq": world})
+    out["ring"] = run(ring_attention, mesh, slice(None), False)
+    out["ring_causal"] = run(ring_attention, mesh, slice(None), True)
+    out["ulysses"] = run(ulysses_attention, mesh, slice(None), False)
+    if world % 2 == 0 and world > 2:
+        mesh2 = build_mesh({"data": 2, "seq": world // 2})
+        d = mesh2.coords["data"]
+        out["dp_ring_causal"] = run(ring_attention, mesh2,
+                                    slice(d, d + 1), True)
+    with coll.recording(execute=False) as rec:
+        loc = torch.zeros(1, 1, 4, 2, requires_grad=True)
+        ring_attention(loc, loc, loc, mesh).sum().backward()
+    out["ring_sites"] = [(s.op, s.reduce, s.perm) for s in rec.sites]
+    return out
+
+
+def pp_mlp_conf(seed=5, H=32, constrained=False, lr=0.05):
+    """TestPipelineParallel._deep_mlp (and the constraint test's net)."""
+    from deeplearning4j_tpu_torch.nn import MaxNormConstraint
+    from deeplearning4j_tpu_torch.nn import Sgd as _Sgd
+
+    b = (NeuralNetConfiguration.Builder()
+         .seed(seed).updater(_Sgd(lr)).activation("tanh"))
+    if constrained:
+        b = b.constrainWeights(MaxNormConstraint(0.3))
+    b = b.list().layer(DenseLayer(nOut=H))
+    for _ in range(4):
+        b = b.layer(DenseLayer(nOut=H))
+    return (b.layer(OutputLayer(nOut=3, activation="softmax"))
+            .setInputType(InputType.feedForward(4)).build())
+
+
+def pp_data(n=64, seed=0):
+    """tests/test_parallel.py's _data."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, 4).astype(np.float32)
+    w = rng.randn(4, 3)
+    yi = np.argmax(x @ w, axis=1)
+    return x, np.eye(3, dtype=np.float32)[yi], yi
+
+
+def pp_rank(rank, world, device, init):
+    """The pipeline scenarios on one of four ranks: {pipe: 4} 3 steps
+    and {data: 2, pipe: 2} 2 steps from the reference's weights, 30
+    steps of convergence, the constrained net (5 steps at Sgd 0.5), and
+    the refusals; params in ref_params form."""
+    from deeplearning4j_tpu_torch.nn import BatchNormalization
+    from deeplearning4j_tpu_torch.parallel import (
+        PipelineParallel, build_mesh,
+    )
+
+    def net_of(**kw):
+        n = MultiLayerNetwork(pp_mlp_conf(**kw), device=device).init()
+        if init is not None and not kw:
+            n.load_reference_params(*init["pp_mlp"])
+        return n
+
+    out = {}
+    pipe = build_mesh({"pipe": 4})
+    dp_pp = build_mesh({"data": 2, "pipe": 2})
+    x, y, _ = pp_data(64)
+    for key, mesh, steps in (("pp4", pipe, 3), ("dp2pp2", dp_pp, 2)):
+        net = net_of()
+        pp = PipelineParallel(net, mesh, n_microbatches=4)
+        scores = []
+        for _ in range(steps):
+            pp.fit(x, y)
+            scores.append(net.score())
+        out[key] = {"params": ref_params(net), "scores": scores,
+                    "replicated": _whole_equal(net, mesh),
+                    "comm": {k: v for k, v in pp.last_step.items()
+                             if k != "tick_s"}}
+        if key == "pp4":
+            from deeplearning4j_tpu_torch.analysis import collectives as C
+
+            before = ref_params(net)
+            rep = C.verify_program(pp.fit, x, y, group=mesh)
+            out[key]["signature_errors"] = [d.format() for d in rep.errors]
+            out[key]["signature"] = [(s.op, s.axes, s.perm)
+                                     for s in rep.signature]
+            out[key]["held"] = all(np.array_equal(before[k], v) for k, v
+                                   in ref_params(net).items())
+    xc, yc, _ = pp_data(128, seed=4)
+    net = net_of(seed=5, H=32)
+    pp = PipelineParallel(net, pipe, n_microbatches=4)
+    scores = []
+    for _ in range(30):
+        pp.fit(xc, yc)
+        scores.append(net.score())
+    out["converge"] = scores
+    net = net_of(H=16, constrained=True, lr=0.5)
+    pp = PipelineParallel(net, pipe, n_microbatches=4)
+    for _ in range(5):
+        pp.fit(x, y)
+    out["max_norm"] = max(float(p["W"].detach().norm(dim=0).max())
+                          for p in net._params)
+    errors = {}
+    x30, y30, _ = pp_data(30)
+    for case, call in (
+            ("divisible", lambda: PipelineParallel(
+                net_of(), pipe, n_microbatches=4).fit(x30, y30)),
+            ("microbatches", lambda: PipelineParallel(
+                net_of(), pipe, n_microbatches=0)),
+            ("stateful", lambda: PipelineParallel(
+                MultiLayerNetwork(
+                    NeuralNetConfiguration.Builder().seed(1).list()
+                    .layer(DenseLayer(nOut=8))
+                    .layer(BatchNormalization())
+                    .layer(DenseLayer(nOut=8)).layer(DenseLayer(nOut=8))
+                    .layer(DenseLayer(nOut=8)).layer(DenseLayer(nOut=8))
+                    .layer(OutputLayer(nOut=3, activation="softmax"))
+                    .setInputType(InputType.feedForward(4)).build(),
+                    device=device).init(), pipe,
+                n_microbatches=4).fit(x, y))):
+        try:
+            call()
+            errors[case] = None
+        except ValueError as e:
+            errors[case] = str(e)
+    out["errors"] = errors
+    return out
+
+
+def tp_f64(world, device, steps=3):
+    """parallel.dryrun.bn_cnn in f64 on {model: world} (its convolutions
+    column-parallel) against the same steps unsharded: the largest
+    |difference| of the whole params, the layer paths, and whether the
+    whole params and BN statistics are bitwise equal on every rank."""
+    from deeplearning4j_tpu_torch.parallel import build_mesh, shard_params
+
+    mesh = build_mesh({"model": world})
+    net, one = bn_cnn(device, "DOUBLE"), bn_cnn(device, "DOUBLE")
+    shard_params(net, mesh, min_shard_size=64)
+    x, y = bn_cnn_batch(16)
+    for _ in range(steps):
+        net.fit(x, y)
+        one.fit(x, y)
+    return {"calls": dict(net._tp.calls),
+            "max_abs": float(np.abs(net.params().toNumpy()
+                                    - one.params().toNumpy()).max()),
+            "replicated": _whole_equal(net, mesh)}
+
+
+def tp_digest(net):
+    """sha256 of a tensor-parallel net's replicated leaves and layer
+    states (BN running statistics)."""
+    import hashlib
+
+    tp = net._tp
+    h = hashlib.sha256()
+    for k in net._unit_keys():
+        for n, t in net._params[k].items():
+            if n not in tp.sharded.get(k, {}):
+                h.update(t.detach().float().cpu().numpy().tobytes())
+    for t in _ml.tree_leaves(_ml.strip_carries(net._states)):
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_card_rank(rank, world, device, steps=3):
+    """On the card: zoo ResNet50 (32x32, 8 classes, bf16 NHWC over f32
+    masters, Nesterovs) and bn_cnn (f32) on {model: world}, `steps` fit
+    steps each: the digests of their replicated leaves and BN statistics,
+    and the layer paths."""
+    from deeplearning4j_tpu_torch.nn import DataType, Nesterovs
+    from deeplearning4j_tpu_torch.parallel import build_mesh, shard_params
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = build_mesh({"model": world})
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(8, 32, 32, 3).astype(np.float32)).to(
+        device, torch.bfloat16)
+    y = np.eye(8, dtype=np.float32)[rng.randint(0, 8, 8)]
+    res = ResNet50(numClasses=8, inputShape=(3, 32, 32),
+                   dataType=DataType.BFLOAT16, dataFormat="NHWC",
+                   updater=Nesterovs(0.1, 0.9), device=device).init()
+    shard_params(res, mesh, min_shard_size=4096)
+    cnn = bn_cnn(device)
+    shard_params(cnn, mesh, min_shard_size=64)
+    xc, yc = bn_cnn_batch(16)
+    for _ in range(steps):
+        res.fit(x, y)
+        cnn.fit(xc, yc)
+    return {"resnet": tp_digest(res), "bn_cnn": tp_digest(cnn),
+            "calls": {"resnet": dict(res._tp.calls),
+                      "bn_cnn": dict(cnn._tp.calls)},
+            "scores": [res.score(), cnn.score()]}

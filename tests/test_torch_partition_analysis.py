@@ -195,10 +195,18 @@ def test_partition_stages_is_the_references():
 
 
 def test_pipeline_parallel_waits_for_item_7():
-    from deeplearning4j_tpu_torch.parallel import PipelineParallel
+    """PipelineParallel executes the pipe plans PAR05 checks
+    (tests/test_torch_pipeline_parallel.py); on a mesh with no pipe axis
+    it refuses with the reference's message."""
+    from deeplearning4j_tpu.parallel import PipelineParallel as RefPP
+    from deeplearning4j_tpu.parallel.mesh import build_mesh as ref_mesh
+    from deeplearning4j_tpu_torch.parallel import PipelineParallel, build_mesh
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PipelineParallel(None, None)
+    with pytest.raises(ValueError) as want:
+        RefPP(None, ref_mesh({"data": 8}))
+    with pytest.raises(ValueError) as got:
+        PipelineParallel(None, build_mesh({"data": 1}))
+    assert str(got.value) == str(want.value)
 
 
 def test_balance_numbers_match_the_reference():
