@@ -661,6 +661,34 @@ Phases (any failure exits non-zero before the result line):
    softmax head, Sgd(0.05), batch 512 in 8 microbatches, 3 steps, the
    params within rtol 1e-4, atol 1e-5 of 3 steps of fit on one rank;
    the bubble as (S - 1) x the median forward tick over the step.
+26. distributed linear algebra (deeplearning4j_tpu_torch.linalg), TF32
+   off, f32: (a) at world 1 the reference's CANONICAL_LINALG_PLANS at
+   their widths: gemm_32k (32768^3, 2-D SUMMA on {data: 1, model: 1},
+   the blocks the operands themselves) with 256 sampled rows of C
+   against f64, its event time (median of 2) and TFLOP/s beside the
+   67 TFLOP/s bound; then one 2^23 x 1024 matrix (34.4 GB) from a
+   seeded generator on the card: gram_tall against a chunked f64 Gram,
+   lstsq_tall (b = A x + noise) against the f64 normal-equation solve
+   and converged; its columns scaled in place by powers of two (8, 4, 2,
+   1 for 16 columns each, then 1/16: exact), rsvd_tall (rank 64,
+   oversample 8) and pca on its first 2^21 rows against the top 64 of
+   the f64 Gram's / covariance's eigendecomposition (values and
+   projector). Each routine's measured peak (max_memory_allocated over
+   what was allocated before it, plus the inputs its bill counts) over
+   linalg/plan.py's world-1 bill within LINALG_PEAK_BAND, each bar
+   (LINALG_BARS) stated before the first run. (b) over NCCL, one rank a
+   card: with 4 cards the 2-D SUMMA on {data: 2, model: 2}, with 2 or
+   more the 1-D ring and the tall family (at 2^23 x 1024, each rank
+   generating its rows) on {data: cards}: the same oracles (f64
+   partials all-reduced), each routine run under verify_program
+   (executed: COL01 across the ranks, COL06 on the ring) against its
+   linalg_contract, the recorded wire bytes equal to the plan's, the
+   GEMMs' record-only counts equal to the executed ones; with fewer
+   cards a line names the legs not run and the cards they need. (c) at
+   world 1 sharded k-means (2^18 x 32, k 8), LSH's distributed
+   projection (2^16 x 64, 16 bits x 8 tables) and DeepWalk's mesh Gram
+   and similarity products (1024 vertices, 128 wide), each against its
+   unsharded path. No hand-written kernel runs in phase 26.
 
 The last stdout line is {"ok": true, "device": {...}}; before it come the
 nvidia-smi line and one JSON line {"kernels": [...]} (K1-K5; K1-K3's
@@ -669,8 +697,8 @@ launches are phase 7's plus phase 11's plus phase 14(c)'s plus phase
 25(b), and K1's plus phase 20(d)(ii)'s; K4's phase 4's plus phase 23(a)'s two bursts, replays
 included, plus phase 24(d)'s soak, and K5's phase 4's plus 24(d)'s;
 phases 8-10, 12, 13, 14(a),
-14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii), 21, 22 and 25 but
-(b) run no hand-written kernel: conv, dense and the recurrent products
+14(b), 15, 16, 17 but (e), 18, 19, 20 but (d)(ii), 21, 22, 25 but
+(b) and 26 run no hand-written kernel: conv, dense and the recurrent products
 are cuDNN/cuBLAS calls, as the reference leaves them to XLA, LRN,
 dropout, the shape layers, the word-vector, k-means and t-SNE steps,
 the actor-critic trunks and ring and Ulysses attention (the reference's
@@ -11261,6 +11289,569 @@ def seq_rank_nccl(rank, world, device):
     return seq_leg(rank, world, device, MESH_SEQ)
 
 
+# ----------------------------------------------------------------------
+# phase 26: the distributed linear algebra tier
+# ----------------------------------------------------------------------
+
+#: 26(a): the reference's CANONICAL_LINALG_PLANS at world 1: gemm_32k
+#: (32768^3), and gram_tall / lstsq_tall / rsvd_tall on one 2^23 x 1024
+#: f32 matrix (34.4 GB) built on the card from a seeded generator; pca on
+#: its first 2^21 rows. f64 oracles are computed on the card in row
+#: chunks (an f64 copy of the tall matrix would not fit beside it)
+LINALG_GEMM = dict(n=32768, sample_rows=256, timed=2, seed=26)
+LINALG_TALL = dict(n=2 ** 23, d=1024, rank=64, oversample=8, n_iter=4,
+                   chunk=2 ** 19, pca_rows=2 ** 21, seed=26)
+#: the bars, stated before the first run on the card (f32 with TF32 off
+#: against f64 oracles; the model: a sum of k f32 terms drifts by about
+#: u sqrt(k / 6) relative for zero-mean terms and u sqrt(k) / 3 for
+#: positive ones, u = 2^-24; each bar is that with room to spare):
+#: GEMM rel Frobenius over the sampled rows and max-abs over max |C|;
+#: Gram rel Frobenius; lstsq rel error of x; rsvd and pca the top-64
+#: values' max rel error and the Frobenius distance of the projectors.
+#: The reference's shifted CholeskyQR2 shifts its second round's Gram
+#: (trace about l) by u l trace, which shrinks every singular value by
+#: about u l^2 / 2 = 3.1e-4 relative in f32 at l = 72 (6.2e-4 for the
+#: variances): the port keeps the algorithm, and the rsvd and pca bars
+#: sit above that bias
+LINALG_BARS = {"gemm_rel_fro": 2e-5, "gemm_max_abs_rel": 1e-4,
+               "gram_rel_fro": 3e-4, "lstsq_rel": 1e-3,
+               "rsvd_s_rel": 1e-3, "rsvd_projector": 1e-2,
+               "pca_ev_rel": 2e-3, "pca_projector": 1e-2,
+               "pca_mean_abs": 1e-4}
+#: measured peak memory of one routine over linalg/plan.py's world-1
+#: bill (the routine's own buffers; cuBLAS's workspace is unbilled)
+LINALG_PEAK_BAND = (0.995, 1.01)
+#: H100 SXM data-sheet peaks the bounds use (dense f32, HBM3)
+F32_PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12
+#: 26(b) over NCCL: GEMM at 16384^3 (2-D on {data: 2, model: 2} with 4
+#: cards, 1-D on {data: cards}); the tall family at the canonical
+#: 2^23 x 1024 split over {data: cards}
+LINALG_MULTI = dict(gemm=16384, sample_rows=64, n=2 ** 23, d=1024,
+                    rank=64, chunk=2 ** 19, seed=26)
+#: 26(c): the consumers at world 1 on the card, each against its
+#: unsharded path
+LINALG_CONSUMERS = dict(kmeans_n=2 ** 18, kmeans_d=32, k=8, lsh_n=2 ** 16,
+                        lsh_d=64, hash_length=16, tables=8,
+                        dw_vertices=1024, dw_dim=128)
+
+
+def _f64_gram(x, chunk):
+    """x^T x in f64, x read in row chunks."""
+    import torch
+
+    g = torch.zeros(x.shape[1], x.shape[1], dtype=torch.float64,
+                    device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        c = x[i:i + chunk].double()
+        g.addmm_(c.T, c)
+    return g
+
+
+def _f64_atb(x, b, chunk):
+    """x^T b in f64 (b a vector), x read in row chunks."""
+    import torch
+
+    out = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        out += x[i:i + chunk].double().T @ b[i:i + chunk].double()
+    return out
+
+
+def _f64_colsum(x, chunk):
+    out = 0
+    for i in range(0, x.shape[0], chunk):
+        out = out + x[i:i + chunk].double().sum(0)
+    return out
+
+
+def _measured(fn, input_bytes):
+    """(fn(), seconds to a synchronize, peak bytes): the peak the call
+    reached over what was allocated before it, plus `input_bytes` (the
+    inputs the bill counts)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, torch.cuda.max_memory_allocated() - before \
+        + input_bytes
+
+
+def _top_spectrum(gram64, k):
+    """The top-k eigenvalues (descending) of a symmetric f64 matrix and
+    the projector onto their eigenvectors."""
+    import torch
+
+    evals, evecs = torch.linalg.eigh(gram64)
+    vals, vecs = evals.flip(0)[:k], evecs.flip(1)[:, :k]
+    return vals, vecs @ vecs.T
+
+
+def _peak_row(name, secs, peak, bill):
+    ratio = peak / bill
+    lo, hi = LINALG_PEAK_BAND
+    need(lo <= ratio <= hi,
+         f"linalg (a) {name}: measured peak {peak} B over the bill "
+         f"{bill} B = {ratio:.4f}, outside [{lo}, {hi}]")
+    return {"seconds": secs, "peak_bytes": peak, "bill_bytes": bill,
+            "peak_over_bill": ratio}
+
+
+def _held(name, row, ok):
+    """Log a routine's row as it completes, then hold it to its bars."""
+    log(f"linalg (a) {name}: {row}")
+    need(ok, f"linalg (a) {name}: outside its bars (LINALG_BARS): {row}")
+
+
+def linalg_gemm(dev, cfg):
+    """26(a) gemm_32k: 2-D SUMMA at world 1 ({data: 1, model: 1}), the
+    blocks the operands themselves; 256 sampled rows of C against f64."""
+    import torch
+
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.linalg.plan import matmul_plan
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    n = cfg["n"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"])
+    mesh = build_mesh({"data": 1, "model": 1})
+    A = torch.randn(n, n, generator=g, device=dev)
+    B = torch.randn(n, n, generator=g, device=dev)
+    dA = linalg.DistributedMatrix(A, mesh, "data", "model")
+    dB = linalg.DistributedMatrix(B, mesh, "data", "model")
+    need(dA.tensor().data_ptr() == A.data_ptr(),
+         "linalg (a) gemm: the block must be the operand, not a copy")
+    C, secs, peak = _measured(lambda: linalg.matmul(dA, dB),
+                              2 * A.numel() * 4)
+    out = {"peak": _peak_row("gemm_32k", secs, peak, matmul_plan(
+        n, n, n, mesh.shape)["per_chip_bytes"])}
+    rows = torch.randperm(n, generator=g, device=dev)[:cfg["sample_rows"]]
+    ref = A[rows].double() @ B.double()
+    got = C.tensor()[rows].double()
+    del C
+    out["rel_fro"] = float((got - ref).norm() / ref.norm())
+    out["max_abs_rel"] = float((got - ref).abs().max() / ref.abs().max())
+    del ref, got
+    _held("gemm_32k", out, out["rel_fro"] <= LINALG_BARS["gemm_rel_fro"]
+          and out["max_abs_rel"] <= LINALG_BARS["gemm_max_abs_rel"])
+    times = []
+    for _ in range(cfg["timed"]):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        C = linalg.matmul(dA, dB)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+        del C
+    out["ms"] = float(np.median(times))
+    out["tflops"] = 2 * n ** 3 / (out["ms"] / 1e3) / 1e12
+    out["bound_ms"] = 1e3 * max(2 * n ** 3 / F32_PEAK_FLOPS,
+                                3 * n * n * 4 / HBM_BYTES_PER_S)
+    return out
+
+
+def linalg_tall(dev, cfg):
+    """26(a) gram_tall, lstsq_tall, rsvd_tall (and pca on the first
+    pca_rows rows) on one n x d matrix at world 1. Gram and lstsq run on
+    the Gaussian matrix; its columns are then scaled in place by powers
+    of two (exactly: 8, 4, 2, 1 for 16 columns each, then 1/16), so the
+    rsvd's and pca's top 64 are separated from the rest by a factor of
+    16 and their f64 oracle is D G D of the Gram's."""
+    import torch
+
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.linalg.plan import (gram_plan,
+                                                      lstsq_plan, rsvd_plan)
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    n, d, k, ch = cfg["n"], cfg["d"], cfg["rank"], cfg["chunk"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"])
+    mesh = build_mesh({"data": 1})
+    X = torch.randn(n, d, generator=g, device=dev)
+    xbytes = X.numel() * 4
+    dX = linalg.DistributedMatrix(X, mesh)
+    out = {}
+
+    G, secs, peak = _measured(lambda: linalg.gram(dX), xbytes)
+    out["gram"] = _peak_row("gram_tall", secs, peak,
+                            gram_plan(n, d, mesh.shape)["per_chip_bytes"])
+    G64 = _f64_gram(X, ch)
+    out["gram"]["rel_fro"] = float((G.tensor().double() - G64).norm()
+                                   / G64.norm())
+    out["gram"]["tflops"] = 2 * n * d * d / secs / 1e12
+    _held("gram_tall", out["gram"],
+          out["gram"]["rel_fro"] <= LINALG_BARS["gram_rel_fro"])
+    del G
+
+    x_true = torch.randn(d, generator=g, device=dev)
+    b = X @ x_true + torch.randn(n, generator=g, device=dev)
+    res, secs, peak = _measured(lambda: linalg.lstsq(dX, b),
+                                xbytes + b.numel() * 4)
+    out["lstsq"] = _peak_row("lstsq_tall", secs, peak,
+                             lstsq_plan(n, d, mesh.shape)["per_chip_bytes"])
+    x64 = torch.linalg.solve(G64, _f64_atb(X, b, ch))
+    out["lstsq"].update(
+        rel=float((res.x.double() - x64).norm() / x64.norm()),
+        iterations=res.iterations, converged=res.converged,
+        residual_norm=res.residual_norm)
+    _held("lstsq_tall", out["lstsq"], res.converged
+          and out["lstsq"]["rel"] <= LINALG_BARS["lstsq_rel"])
+    del res, b, x_true, x64
+
+    scale = torch.full((d,), 2.0 ** -4, device=dev)
+    scale[:64] = 2.0 ** (3 - torch.arange(64, device=dev) // 16)
+    X.mul_(scale)                                   # exact in f32
+    s64 = scale.double()
+    (U, s, Vt), secs, peak = _measured(
+        lambda: linalg.rsvd(dX, k, oversample=cfg["oversample"],
+                            n_iter=cfg["n_iter"], seed=cfg["seed"]), xbytes)
+    out["rsvd"] = _peak_row("rsvd_tall", secs, peak, rsvd_plan(
+        n, d, k, mesh.shape, oversample=cfg["oversample"],
+        n_iter=cfg["n_iter"])["per_chip_bytes"])
+    vals, proj = _top_spectrum(G64 * s64[:, None] * s64[None, :], k)
+    top = vals.sqrt()
+    Vt64 = Vt.double()
+    out["rsvd"].update(
+        s_rel=float(((s.double() - top).abs() / top).max()),
+        projector=float((Vt64.T @ Vt64 - proj).norm()),
+        u_orthonormal=float((U.tensor().T @ U.tensor()
+                             - torch.eye(k, device=dev)).abs().max()))
+    _held("rsvd_tall", out["rsvd"],
+          out["rsvd"]["s_rel"] <= LINALG_BARS["rsvd_s_rel"]
+          and out["rsvd"]["projector"] <= LINALG_BARS["rsvd_projector"])
+    del U, s, Vt, G64
+
+    m = cfg["pca_rows"]
+    dS = linalg.DistributedMatrix(X[:m], mesh)
+    need(dS.tensor().data_ptr() == X.data_ptr(),
+         "linalg (a) pca: the block must be a view of the matrix")
+    (comps, ev, mu), secs, peak = _measured(
+        lambda: linalg.pca(dS, k, oversample=cfg["oversample"],
+                           n_iter=cfg["n_iter"], seed=cfg["seed"]),
+        m * d * 4)
+    out["pca"] = _peak_row("pca", secs, peak, rsvd_plan(
+        m, d, k, mesh.shape, oversample=cfg["oversample"],
+        n_iter=cfg["n_iter"], center=True)["per_chip_bytes"])
+    mu64 = _f64_colsum(X[:m], ch) / m
+    cov = (_f64_gram(X[:m], ch) - m * torch.outer(mu64, mu64)) / (m - 1)
+    vals, proj = _top_spectrum(cov, k)
+    c64 = comps.double()
+    out["pca"].update(
+        ev_rel=float(((ev.double() - vals).abs() / vals).max()),
+        projector=float((c64.T @ c64 - proj).norm()),
+        mean_abs=float((mu.double() - mu64).abs().max()))
+    _held("pca", out["pca"],
+          out["pca"]["ev_rel"] <= LINALG_BARS["pca_ev_rel"]
+          and out["pca"]["projector"] <= LINALG_BARS["pca_projector"]
+          and out["pca"]["mean_abs"] <= LINALG_BARS["pca_mean_abs"])
+    return out
+
+
+def _gather_rows_of(t, group):
+    """`t`'s rows from every rank of `group`, concatenated."""
+    from deeplearning4j_tpu_torch.parallel import collectives as coll
+
+    return coll.all_gather(t.contiguous(), group).reshape(-1, t.shape[1])
+
+
+def _gather_cols_of(t, group):
+    from deeplearning4j_tpu_torch.parallel import collectives as coll
+
+    return coll._gather_dim(t.contiguous(), group, 1)
+
+
+def _multi_gemm(mesh, dev, cfg, two_d):
+    """One GEMM leg of 26(b): the contract, the wire bytes against the
+    plan, sampled rows of this rank's C block against f64, and the
+    event time of a second product."""
+    import torch
+
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.analysis import collectives as colan
+    from deeplearning4j_tpu_torch.linalg.plan import matmul_plan
+    from deeplearning4j_tpu_torch.parallel import data_parallel_mesh
+    from deeplearning4j_tpu_torch.parallel.mesh import axis_group
+
+    N = cfg["gemm"]
+    rows_g = axis_group(mesh, "data")
+    cols_g = axis_group(mesh, "model") if two_d else None
+    R, C = rows_g.size, (cols_g.size if two_d else 1)
+    i, j = rows_g.rank, (cols_g.rank if two_d else 0)
+    g = torch.Generator(device=dev)
+
+    def block(which):
+        g.manual_seed(cfg["seed"] * 1000 + 100 * which + 10 * i + j)
+        return torch.randn(N // R, N // C, generator=g, device=dev)
+
+    Ab, Bb = block(0), block(1)
+    col = "model" if two_d else None
+    dA = linalg.DistributedMatrix.from_local(Ab, mesh, "data", col)
+    dB = linalg.DistributedMatrix.from_local(Bb, mesh, "data", col)
+    got = {}
+    ring = C if two_d else R
+    op = "matmul2d" if two_d else "matmul1d"
+    rep = colan.verify_program(
+        lambda: got.__setitem__("C", linalg.matmul(dA, dB)),
+        mesh=mesh.shape, group=data_parallel_mesh(), execute=True,
+        contract=colan.linalg_contract(op, ring=ring), subject=op)
+    need(rep.ok, f"linalg (b) {op}: {rep.format()}")
+    plan = matmul_plan(N, N, N, mesh.shape, col_axis=col)
+    wire = rep.signature.wire_bytes()
+    need(wire == plan["ring_wire_bytes"] + plan["gather_wire_bytes"],
+         f"linalg (b) {op}: wire {wire} B, plan "
+         f"{plan['ring_wire_bytes'] + plan['gather_wire_bytes']} B")
+    counts = linalg.collective_counts(lambda: linalg.matmul(dA, dB))
+    need(counts == rep.signature.counts(),
+         f"linalg (b) {op}: record-only {counts} vs executed "
+         f"{rep.signature.counts()}")
+    sample = torch.arange(0, N // R, (N // R) // cfg["sample_rows"],
+                          device=dev)
+    a_rows = Ab[sample]
+    if two_d:       # this row block's sampled rows, all of k
+        a_rows = _gather_cols_of(a_rows, cols_g)
+        b_cols = _gather_rows_of(Bb, rows_g)           # [k, n / C]
+    else:
+        b_cols = _gather_rows_of(Bb, rows_g)           # [k, n]
+    ref = a_rows.double() @ b_cols.double()
+    mine = got["C"].tensor()[sample].double()
+    rel = float((mine - ref).norm() / ref.norm())
+    need(rel <= LINALG_BARS["gemm_rel_fro"],
+         f"linalg (b) {op}: sampled rows rel {rel:.3e}")
+    del ref, mine, b_cols, got
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    linalg.matmul(dA, dB)
+    e1.record()
+    e1.synchronize()
+    return {"rel_fro": rel, "ms": e0.elapsed_time(e1), "counts": counts,
+            "wire_bytes": wire, "mesh": mesh.shape}
+
+
+def _multi_tall(mesh, dev, cfg):
+    """The tall family of 26(b) on {data: R}: each rank generates its own
+    rows; the f64 oracles are all-reduced from the ranks' chunked
+    partials."""
+    import torch
+
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.analysis import collectives as colan
+    from deeplearning4j_tpu_torch.linalg.plan import (gram_plan,
+                                                      lstsq_plan, rsvd_plan)
+    from deeplearning4j_tpu_torch.parallel import collectives as coll
+
+    n, d, k, ch = cfg["n"], cfg["d"], cfg["rank"], cfg["chunk"]
+    R = mesh.size
+    g = torch.Generator(device=dev)
+    g.manual_seed(cfg["seed"] * 1000 + mesh.rank)
+    Xb = torch.randn(n // R, d, generator=g, device=dev)
+    dX = linalg.DistributedMatrix.from_local(Xb, mesh)
+    out, got = {}, {}
+
+    def run(name, fn, contract):
+        rep = colan.verify_program(
+            lambda: got.__setitem__(name, fn()), mesh=mesh.shape,
+            group=mesh, execute=True, subject=name)
+        pin = contract(got[name])
+        if pin is not None:
+            rep.extend(pin.check(rep.signature))
+        need(rep.ok, f"linalg (b) {name}: {rep.format()}")
+        return rep.signature
+
+    sig = run("gram", lambda: linalg.gram(dX),
+              lambda _: colan.linalg_contract("gram"))
+    G64 = coll.all_reduce(_f64_gram(Xb, ch), mesh)
+    rel = float((got["gram"].tensor().double() - G64).norm() / G64.norm())
+    need(rel <= LINALG_BARS["gram_rel_fro"]
+         and sig.wire_bytes() == gram_plan(n, d, mesh.shape)[
+             "ring_wire_bytes"], f"linalg (b) gram: rel {rel:.3e}, wire "
+         f"{sig.wire_bytes()}")
+    out["gram"] = {"rel_fro": rel, "wire_bytes": sig.wire_bytes()}
+
+    gx = torch.Generator(device=dev)
+    gx.manual_seed(cfg["seed"])
+    x_true = torch.randn(d, generator=gx, device=dev)
+    bb = Xb @ x_true + torch.randn(n // R, generator=g, device=dev)
+    b = _gather_rows_of(bb[:, None], mesh)[:, 0]
+    sig = run("lstsq", lambda: linalg.lstsq(dX, b),
+              lambda r: colan.linalg_contract("lstsq",
+                                              iterations=r.iterations))
+    res = got["lstsq"]
+    x64 = torch.linalg.solve(G64, coll.all_reduce(_f64_atb(Xb, bb, ch),
+                                                  mesh))
+    rel = float((res.x.double() - x64).norm() / x64.norm())
+    plan = lstsq_plan(n, d, mesh.shape)
+    want = plan["setup_wire_bytes"] \
+        + res.iterations * plan["ring_wire_bytes_per_iter"]
+    need(res.converged and rel <= LINALG_BARS["lstsq_rel"]
+         and sig.wire_bytes() == want,
+         f"linalg (b) lstsq: rel {rel:.3e}, {res.iterations} iterations, "
+         f"wire {sig.wire_bytes()} vs {want}")
+    out["lstsq"] = {"rel": rel, "iterations": res.iterations,
+                    "wire_bytes": sig.wire_bytes()}
+    del b, bb, res
+
+    scale = torch.full((d,), 2.0 ** -4, device=dev)
+    scale[:64] = 2.0 ** (3 - torch.arange(64, device=dev) // 16)
+    Xb.mul_(scale)
+    s64 = scale.double()
+    sig = run("rsvd", lambda: linalg.rsvd(dX, k, seed=cfg["seed"]),
+              lambda _: None)
+    U, s, Vt = got["rsvd"]
+    vals, proj = _top_spectrum(G64 * s64[:, None] * s64[None, :], k)
+    s_rel = float(((s.double() - vals.sqrt()).abs() / vals.sqrt()).max())
+    pj = float((Vt.double().T @ Vt.double() - proj).norm())
+    wire = rsvd_plan(n, d, k, mesh.shape)["wire_bytes"]
+    need(s_rel <= LINALG_BARS["rsvd_s_rel"]
+         and pj <= LINALG_BARS["rsvd_projector"]
+         and sig.wire_bytes() == wire,
+         f"linalg (b) rsvd: s rel {s_rel:.3e}, projector {pj:.3e}, wire "
+         f"{sig.wire_bytes()} vs {wire}")
+    out["rsvd"] = {"s_rel": s_rel, "projector": pj,
+                   "wire_bytes": sig.wire_bytes()}
+    return out
+
+
+def linalg_multi_rank(rank, world, device, cfg):
+    """26(b) on one of `world` NCCL ranks (one card each)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    out = {}
+    if world == 4:
+        out["gemm2d"] = _multi_gemm(
+            build_mesh({"data": 2, "model": 2}), dev, cfg, True)
+        torch.cuda.empty_cache()
+    mesh = build_mesh({"data": world})
+    out["gemm1d"] = _multi_gemm(mesh, dev, cfg, False)
+    torch.cuda.empty_cache()
+    out["tall"] = _multi_tall(mesh, dev, cfg)
+    return out
+
+
+def linalg_consumers(dev, cfg):
+    """26(c): sharded k-means, LSH's distributed projection and
+    DeepWalk's mesh products on a one-rank mesh on the card, each against
+    its unsharded path."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering.lsh import RandomProjectionLSH
+    from deeplearning4j_tpu_torch.graph.deepwalk import DeepWalk, Graph
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh()
+    rng = np.random.RandomState(26)
+    out = {}
+    t = time.perf_counter()
+    centres = 20.0 * rng.randn(cfg["k"], cfg["kmeans_d"])
+    X = (centres[rng.randint(0, cfg["k"], cfg["kmeans_n"])]
+         + rng.randn(cfg["kmeans_n"], cfg["kmeans_d"])).astype(np.float32)
+    local = KMeansClustering.setup(cfg["k"], seed=1).applyTo(X, device=dev)
+    shard = KMeansClustering.setup(cfg["k"], seed=1, mesh=mesh).applyTo(
+        X, device=dev)
+    need((local.getAssignments() == shard.getAssignments()).all()
+         and abs(shard.inertia - local.inertia) <= 1e-5 * local.inertia,
+         f"linalg (c) k-means: sharded inertia {shard.inertia} vs "
+         f"{local.inertia}")
+    out["kmeans_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    L = rng.randn(cfg["lsh_n"], cfg["lsh_d"]).astype(np.float32)
+    args = (cfg["hash_length"], cfg["tables"], cfg["lsh_d"])
+    a = RandomProjectionLSH(*args, seed=2).index(L, device=dev)
+    b = RandomProjectionLSH(*args, seed=2, mesh=mesh).index(L, device=dev)
+    need([sorted(x) for x in a._tables] == [sorted(x) for x in b._tables],
+         "linalg (c) LSH: the distributed projection's tables differ")
+    ia, da = a.search(L[7], 10)
+    ib, db = b.search(L[7], 10)
+    need((ia == ib).all() and np.allclose(da, db, rtol=1e-6),
+         "linalg (c) LSH: searches differ")
+    out["lsh_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gr = Graph(cfg["dw_vertices"])
+    for v in range(cfg["dw_vertices"]):
+        gr.addEdge(v, (v + 1) % cfg["dw_vertices"])
+        gr.addEdge(v, int(rng.randint(cfg["dw_vertices"])))
+    dw = DeepWalk.Builder().vectorSize(cfg["dw_dim"]).windowSize(4) \
+        .seed(1).build()
+    dw.fit(gr, walkLength=10, walksPerVertex=2, iterations=1, device=dev)
+    G0, Gm = dw.embeddingGram(), dw.embeddingGram(mesh=mesh)
+    S0, Sm = dw.similarityMatrix(), dw.similarityMatrix(mesh=mesh)
+    out["deepwalk_gram_rel"] = float(np.abs(Gm - G0).max()
+                                     / np.abs(G0).max())
+    out["deepwalk_sim_abs"] = float(np.abs(Sm - S0).max())
+    need(out["deepwalk_gram_rel"] <= 1e-5
+         and out["deepwalk_sim_abs"] <= 1e-5,
+         f"linalg (c) DeepWalk: mesh products off the local: {out}")
+    out["deepwalk_s"] = time.perf_counter() - t
+    return out
+
+
+def linalg_phase(dev):
+    """Phase 26: the distributed linear algebra tier (module docstring)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, laps = {}, {}
+    t = time.perf_counter()
+    out["gemm"] = linalg_gemm(dev, LINALG_GEMM)
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps["a_gemm"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["tall"] = linalg_tall(dev, LINALG_TALL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    laps["a_tall"] = time.perf_counter() - t
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= 4 else (2 if cards >= 2 else 0)
+    not_run = []
+    if world < 4:
+        not_run.append("the 2-D SUMMA on {data: 2, model: 2} and the tall "
+                       "family on {data: 4} (need 4 cards)")
+    if world < 2:
+        not_run.append("the 1-D ring and the tall family on {data: 2} "
+                       "(need 2 cards)")
+    t = time.perf_counter()
+    if world:
+        out["multi"] = launch(linalg_multi_rank, world, device=None,
+                              timeout=600, args=(LINALG_MULTI,))
+    laps["b"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["consumers"] = linalg_consumers(dev, LINALG_CONSUMERS)
+    laps["c"] = time.perf_counter() - t
+    out["seconds"] = time.perf_counter() - t_phase
+    out["laps"] = laps
+    gm = out["gemm"]
+    log(f"linalg (a) gemm_32k: {gm['ms']:.1f} ms ({gm['tflops']:.2f} "
+        f"TFLOP/s f32, bound {gm['bound_ms']:.1f} ms), peak over the bill "
+        f"{gm['peak']['peak_over_bill']:.4f}")
+    if "multi" in out:
+        for leg, r in out["multi"][0].items():
+            log(f"linalg (b) rank 0 over NCCL, world {world}, {leg}: {r}")
+    if not_run:
+        log(f"linalg (b) NOT RUN: {'; '.join(not_run)}; {cards} card(s) "
+            "visible")
+    log(f"linalg (c) consumers: {out['consumers']}")
+    log(f"phase 26 {out['seconds']:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in laps.items()))
+    return out
+
+
 def main():
     import torch
 
@@ -11370,6 +11961,10 @@ def main():
     torch.cuda.empty_cache()
     mesh = mesh_axes_phase(dev, train)
     lap("25")
+    gc.collect()
+    torch.cuda.empty_cache()
+    linalg_phase(dev)
+    lap("26")
     launches = dict(result["serve"]["launches"])
     launches["decode"] += sum(cap["decode"][k]["k4_launches"]
                               for k in ("eager", "graphs"))

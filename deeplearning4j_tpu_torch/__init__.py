@@ -75,7 +75,11 @@ What is ported so far:
   ``ParallelInference``; one captured decode step per slot bucket in the
   schedulers' ``warm()``), ``runtime.autotune`` (the knobs' arbiter),
   ``util.hbm_ledger`` and ``analysis.hbm`` (the memory-traffic ledger),
-  ``analysis.RetraceSentinel`` and ``entry.entry``.
+  ``analysis.RetraceSentinel`` and ``entry.entry``;
+* distributed linear algebra: ``linalg`` (``DistributedMatrix`` over the
+  mesh axes, SUMMA GEMM, Gram/covariance, randomized SVD/PCA, CG least
+  squares, the plan gate), behind ``INDArray.distribute``, sharded
+  k-means, LSH's projection and DeepWalk's products.
 
 The kernels are CUDA C++ for ``sm_90a``, built and bound in
 ``ops/_kernels.py``.

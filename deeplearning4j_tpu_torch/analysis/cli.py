@@ -35,8 +35,12 @@ the linted code, no execution.
 ``util/hbm_ledger.py`` and ``runtime/autotune.py``; they run the step,
 on the card unless ``--device cpu``.
 
-``--linalg`` exits 2: distributed linear algebra (``linalg/*``) waits
-for ROADMAP.md Queue 1 item 12c.
+``--linalg`` validates the canonical distributed-linalg block plans
+(``linalg/plan.py``: SUMMA GEMM, tall Gram, randomized SVD, CG least
+squares) on each ``--mesh`` (default dp4xtp2): PAR01 axes, PAR03
+never-pad divisibility, PAR04 the collective lints over the linalg
+sources, PAR06 the per-rank bill against ``--hbm-gb`` (default: the
+visible card's memory).
 
 Exit status: 0 = clean (warnings allowed), 1 = errors found,
 2 = usage / unreadable input.
@@ -80,7 +84,7 @@ def _build_parser():
                    help="mesh for --parallel/--linalg as axis=size "
                         "pairs, e.g. 'data=4,model=2'; repeatable "
                         "(default: the canonical dp4xtp2 and dp2xpp4 "
-                        "meshes)")
+                        "meshes; --linalg defaults to dp4xtp2 only)")
     p.add_argument("--concurrency", action="store_true",
                    help="run the thread-safety lint (THR01-04) over "
                         "the given source paths (default: the port's "
@@ -93,8 +97,11 @@ def _build_parser():
                         "integrity) over the given source paths "
                         "(default: the port's threaded tier)")
     p.add_argument("--linalg", action="store_true",
-                   help="the distributed-linalg block plans: waits for "
-                        "linalg/* (ROADMAP.md Queue 1 item 12c); exits 2")
+                   help="validate the canonical distributed-linalg block "
+                        "plans (SUMMA GEMM, tall Gram, randomized SVD, CG "
+                        "least squares): PAR01/03 placement, PAR04 the "
+                        "collective lints over the linalg sources, PAR06 "
+                        "per-rank bills vs --hbm-gb (linalg/plan.py)")
     p.add_argument("--hbm-gb", type=float, default=None,
                    help="per-card memory budget in GB (1e9 bytes) for "
                         "the PAR06 fit prediction (default: the visible "
@@ -455,10 +462,37 @@ def main(argv=None):
         return 1 if rec["wide_activation_buffers"] else 0
 
     if args.linalg:
-        print("--linalg: the distributed-linalg block plans wait for "
-              "linalg/* (ROADMAP.md Queue 1 item 12c); nothing was "
-              "checked", file=sys.stderr)
-        return 2
+        from deeplearning4j_tpu_torch.analysis.partitioning import (
+            _mesh_tag, normalize_mesh,
+        )
+        from deeplearning4j_tpu_torch.linalg.plan import (
+            CANONICAL_LINALG_MESH, validate_linalg_plan,
+        )
+
+        try:
+            meshes = ([normalize_mesh(m) for m in args.meshes]
+                      if args.meshes else [dict(CANONICAL_LINALG_MESH)])
+        except (ValueError, TypeError) as e:
+            print(f"bad --mesh: {e}", file=sys.stderr)
+            return 2
+        records = []
+        for axes in meshes:
+            rep = validate_linalg_plan(axes, hbm_gb=args.hbm_gb)
+            rep.subject = f"linalg@{_mesh_tag(axes)}"
+            records.append(rep)
+        had_error = any(not r.ok for r in records)
+        if args.as_json:
+            print(_json.dumps(
+                {"reports": [_report_to_json(r.subject, r)
+                             for r in records], "ok": not had_error},
+                indent=2))
+        else:
+            for rep in records:
+                print(rep.format(verbose=args.verbose))
+            print(f"\n{len(records)} subject(s): "
+                  f"{sum(len(r.errors) for r in records)} error(s), "
+                  f"{sum(len(r.warnings) for r in records)} warning(s)")
+        return 1 if had_error else 0
 
     if not args.zoo and not args.paths:
         _build_parser().print_usage()

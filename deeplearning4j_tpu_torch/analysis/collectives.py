@@ -41,8 +41,10 @@ record-only recording (nothing communicates) and returns it.
          (``check_ring``; a ``ppermute`` site carries its pairs: ring
          attention's and the pipeline's shifts).
 
-``linalg_contract`` raises: distributed linear algebra waits for
-ROADMAP Queue 1 item 12c.
+``linalg_contract(routine)`` declares the distributed-linalg routines'
+shapes (``linalg/``), counted as the port records them: calls, not the
+reference's jaxpr sites, so a ring's hops and CG's iterations each count
+(``ring=`` and ``iterations=`` pin them; unpinned they are bounds).
 
 Limits: the signature is this process's calls while the recording is
 active; a collective made on another thread in that window is recorded
@@ -601,12 +603,46 @@ def compression_contract(mode, n_leaves=None, axis="data",
         "(None, 'int8', 'block_int8', 'threshold', 'hierarchical')")
 
 
-def linalg_contract(routine):
-    """The distributed-linalg routines' contracts (reference:
-    ``linalg_contract``) wait for ROADMAP Queue 1 item 12c."""
-    raise NotImplementedError(
-        f"linalg_contract({routine!r}): distributed linear algebra "
-        "(linalg/*) waits for ROADMAP.md Queue 1 item 12c")
+#: the linalg routines' collective calls on a mesh whose axes each have
+#: more than one rank (a one-rank group makes none). "hops": a ring of n
+#: ranks makes n - 1 ppermutes (the reference's n-th, which returns each
+#: panel home, is not made); "iters": lstsq makes one all-reduce a CG
+#: iteration after its two setup ones (A^T b, the initial residual).
+#: lstsq may gather a column-sharded A (the reference declares no
+#: all-gather there; its col-sharded solve would drift from it)
+_LINALG_CONTRACTS = {
+    "matmul2d": {"all_gather": 1, "ppermute": "hops"},
+    "matmul1d": {"ppermute": "hops"},
+    "matmul_ta": {"all_reduce": 1, "all_gather": (0, 2)},
+    "matmul_tb": {"all_gather": 1},
+    "gram": {"all_reduce": 1, "all_gather": (0, 1)},
+    "covariance": {"all_reduce": 2, "all_gather": (0, 1)},
+    "pairwise_sq_dists": {},
+    "lstsq": {"all_reduce": "iters", "all_gather": (0, 1)},
+}
+
+
+def linalg_contract(routine, ring=None, iterations=None):
+    """CollectiveContract of one distributed-linalg routine (reference:
+    ``linalg_contract``): `ring` (the ring's ranks) pins a SUMMA's
+    ppermute count to ring - 1, `iterations` lstsq's all-reduces to 2 +
+    iterations; unpinned they are at least 1 and 3."""
+    try:
+        counts = dict(_LINALG_CONTRACTS[routine])
+    except KeyError:
+        raise ValueError(
+            f"unknown linalg routine {routine!r}; declared: "
+            f"{sorted(_LINALG_CONTRACTS)}") from None
+    for op, want in counts.items():
+        if want == "hops":
+            counts[op] = (1, None) if ring is None else int(ring) - 1
+        elif want == "iters":
+            counts[op] = (3, None) if iterations is None \
+                else 2 + int(iterations)
+    return CollectiveContract(
+        f"linalg.{routine}", counts,
+        description="linalg tier communication shape (linalg/); update "
+                    "only with the routine")
 
 
 # ----------------------------------------------------------------------
@@ -774,7 +810,8 @@ def lint_collective_source(source, path="<string>"):
 
 def lint_collective_paths(paths=None):
     """COL01's source twin over files/directories (default: the port's
-    ``parallel`` package and ``ops/norm.py``) -> merged Report."""
+    ``parallel`` and ``linalg`` packages and ``ops/norm.py``) -> merged
+    Report."""
     import os
 
     from deeplearning4j_tpu_torch.analysis.purity import iter_py_files
@@ -784,6 +821,7 @@ def lint_collective_paths(paths=None):
 
         base = os.path.dirname(os.path.abspath(pkg.__file__))
         paths = [os.path.join(base, "parallel"),
+                 os.path.join(base, "linalg"),
                  os.path.join(base, "ops", "norm.py")]
     report = Report(subject="collectives")
     for path in iter_py_files(paths):

@@ -13,6 +13,15 @@ convergence test reads one flag on the host an iteration
 The first centre comes from a ``util.draws.Draws`` (``applyTo(draws=)``)
 so a test can hand in the reference's ``jax.random.randint``.
 
+With a `mesh`, seeding and Lloyd run row-sharded over its data axis
+(the linalg tier, reference ``_lloyd_sharded``): each rank holds its block
+of the centred points (``linalg.DistributedMatrix``, never padded), the
+first centre comes from its owner by an all-reduce, each farthest point is
+the global argmax of the local candidates all-gathered (the single-device
+path's first-occurrence tie-break), centre sums, counts and the changed
+flag are all-reduced, and empty clusters re-seed to the global farthest
+points. Every rank returns the whole result (assignments all-gathered).
+
 NearestNeighbors is exact brute force: one quadratic-form distance
 matrix and a top-k on the device.
 """
@@ -23,17 +32,10 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.linalg.distributed import sq_dists
 from deeplearning4j_tpu_torch.util.draws import Draws
 
 __all__ = ["ClusterSet", "KMeansClustering", "NearestNeighbors", "sq_dists"]
-
-
-def sq_dists(a, b):
-    """[n,d]x[m,d] -> [n,m] squared euclidean distances by the quadratic
-    form (a copy of the reference's linalg ``sq_dists``); callers
-    mean-centre their data first."""
-    return torch.clamp((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :]
-                       - 2.0 * (a @ b.T), min=0.0)
 
 
 def _points(points):
@@ -75,10 +77,8 @@ class KMeansClustering:
         self.k = int(clusterCount)
         if self.k < 1:
             raise ValueError(f"clusterCount must be >= 1, got {clusterCount}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded k-means waits for the distributed linear "
-                "algebra tier (ROADMAP.md Queue 1 item 12c)")
+        #: mesh-sharded Lloyd (module docstring)
+        self.mesh = mesh
         self.maxIter = int(maxIterationCount)
         self.seed = int(seed)
         self.iterations = 0
@@ -92,15 +92,18 @@ class KMeansClustering:
                                 distanceFunction, seed, mesh=mesh)
 
     def applyTo(self, points, device=None, draws=None) -> ClusterSet:
-        """Cluster `points` [n, d] on `device` (None: the card). `draws`
-        gives the first centre (default: a generator on the device
-        seeded by `seed`)."""
-        dev = resolve_device(device)
+        """Cluster `points` [n, d] on `device` (None: the card, or the
+        mesh's under NCCL). `draws` gives the first centre (default: a
+        generator on the device seeded by `seed`). With a mesh every rank
+        passes the same points."""
         Xh = _points(points)
         n, d = Xh.shape
         if n < self.k:
             raise ValueError(f"{n} points cannot form {self.k} clusters")
         mean = Xh.mean(0, keepdims=True)
+        if self.mesh is not None:
+            return self._apply_sharded(Xh - mean, mean, device, draws)
+        dev = resolve_device(device)
         with torch.no_grad():
             X = torch.from_numpy(Xh - mean).to(dev)
             if self._C0 is not None:
@@ -151,6 +154,85 @@ class KMeansClustering:
         self.iterations, self.hostFlagReads = it, reads
         D = sq_dists(X, C)
         return C, torch.argmin(D, 1), D.min(1).values.sum()
+
+    def _apply_sharded(self, Xc, mean, device, draws):
+        from deeplearning4j_tpu_torch.linalg import (DistributedMatrix,
+                                                     ROW_AXIS)
+        from deeplearning4j_tpu_torch.linalg.distributed import (
+            _gather_rows, _group, _sum,
+        )
+        from deeplearning4j_tpu_torch.parallel import collectives as _coll
+
+        dX = DistributedMatrix(Xc, self.mesh, row_axis=ROW_AXIS,
+                               device=device)     # never-pad (PAR03)
+        rows = _group(self.mesh, ROW_AXIS)
+        xl, k = dX.tensor(), self.k
+        nl = xl.shape[0]
+        if nl < k:
+            raise ValueError(
+                f"{dX.shape[0]} points over mesh axis '{ROW_AXIS}' (size "
+                f"{rows.size}) leave {nl} rows per chip — fewer than "
+                f"k={k}; the distributed farthest-point re-seed needs k "
+                "candidates per shard")
+
+        def gather(t):
+            if rows.pg is None:
+                return t.unsqueeze(0)
+            return _coll.all_gather(t.contiguous(), rows)
+
+        def seed_centres(first):
+            """The first centre from its owner, then the global farthest
+            points (local candidates gathered, re-argmaxed)."""
+            mine = first // nl == rows.rank
+            pt = _sum(xl[first % nl].clone() if mine
+                      else xl.new_zeros(xl.shape[1]), rows)
+            C = xl.new_zeros(k, xl.shape[1])
+            C[0] = pt
+            dmin = sq_dists(xl, pt[None, :])[:, 0]
+            for i in range(1, k):
+                li = torch.argmax(dmin)
+                pt = gather(xl[li])[torch.argmax(gather(dmin[li]))]
+                C[i] = pt
+                dmin = torch.minimum(dmin, sq_dists(xl, pt[None, :])[:, 0])
+            return C
+
+        with torch.no_grad():
+            if self._C0 is not None:
+                C = torch.from_numpy(self._C0 - mean).to(xl.device)
+                self._C0 = None
+            else:
+                draws = draws if draws is not None \
+                    else Draws(self.seed, xl.device)
+                C = seed_centres(draws.randint("kmeans.first", dX.shape[0]))
+
+            def step(C):
+                D = sq_dists(xl, C)
+                a = torch.argmin(D, 1)
+                counts = _sum(torch.bincount(a, minlength=k).to(xl.dtype),
+                              rows)
+                sums = _sum(torch.zeros_like(C).index_add_(0, a, xl), rows)
+                newC = sums / torch.clamp(counts, min=1.0)[:, None]
+                lv, li = torch.topk(D.min(1).values, k)
+                far = gather(xl[li]).reshape(-1, xl.shape[1])[
+                    torch.topk(gather(lv).reshape(-1), k).indices]
+                return torch.where((counts > 0)[:, None], newC, far), a
+
+            C, a = step(C)
+            it, reads = 1, 0
+            while it < self.maxIter:
+                C2, a2 = step(C)
+                it += 1
+                changed = _sum((a != a2).any().to(torch.int32), rows)
+                reads += 1
+                C, a = C2, a2
+                if not bool(changed > 0):
+                    break
+            D = sq_dists(xl, C)
+            a = _gather_rows(torch.argmin(D, 1)[:, None], rows)[:, 0]
+            inertia = _sum(D.min(1).values.sum(), rows)
+        self.iterations, self.hostFlagReads = it, reads
+        return ClusterSet(C.cpu().numpy() + mean, a.cpu().numpy(),
+                          float(inertia))
 
     def load_reference_params(self, centers):
         """Start the next applyTo from these centres (numpy [k, d], in

@@ -9,6 +9,11 @@ host keeps the buckets (code -> row ids); candidates are re-ranked
 exactly by the quadratic distance form on the device. R is drawn from a
 ``util.draws.Draws`` at index() unless ``load_reference_params(R)``
 gave it.
+
+With a `mesh`, index() hashes the corpus through the distributed
+projection (``linalg.matmul``: corpus rows sharded over the data axis,
+never padded, R replicated); the sign codes come back gathered, so every
+rank builds the whole index. Queries stay local single-row products.
 """
 
 from __future__ import annotations
@@ -16,9 +21,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.clustering.kmeans import sq_dists
 from deeplearning4j_tpu_torch.clustering.trees import _as_matrix, _as_vector
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.linalg.distributed import sq_dists
 from deeplearning4j_tpu_torch.util.draws import Draws
 
 __all__ = ["RandomProjectionLSH"]
@@ -37,10 +42,7 @@ class RandomProjectionLSH:
             raise ValueError("hashLength, numTables, inDimension must be >= 1")
         if self.hashLength > 62:
             raise ValueError("hashLength > 62 overflows the packed int64 code")
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-sharded LSH projection waits for the distributed "
-                "linear algebra tier (ROADMAP.md Queue 1 item 12c)")
+        self.mesh = mesh
         self.seed = int(seed)
         self._R = None
         self._tables = None
@@ -57,22 +59,39 @@ class RandomProjectionLSH:
         self._R = torch.from_numpy(R.copy())
         return self
 
-    def _codes(self, X):
+    def _project(self, X, distributed=False):
+        """[n, d] @ [d, T*L]: through linalg's sharded GEMM when
+        `distributed` (the corpus-sized call), else one local product."""
+        if not distributed:
+            return X @ self._R
+        from deeplearning4j_tpu_torch.linalg import (DistributedMatrix,
+                                                     ROW_AXIS, matmul)
+
+        dX = DistributedMatrix(X, self.mesh, row_axis=ROW_AXIS,
+                               device=X.device)   # never-pad (PAR03)
+        return matmul(dX, self._R)._global()
+
+    def _codes(self, X, distributed=False):
         """[n, d] tensor -> int64 [n, T] packed sign codes (bits packed
         on the host in int64)."""
-        bits = ((X @ self._R) >= 0).cpu().numpy()
+        bits = (self._project(X, distributed) >= 0).cpu().numpy()
         bits = bits.reshape(-1, self.numTables, self.hashLength)
         weights = 2 ** np.arange(self.hashLength, dtype=np.int64)
         return (bits.astype(np.int64) * weights).sum(-1)
 
-    def index(self, data, device=None, distributed=False, draws=None):
-        """Hash the corpus [n, inDimension] on `device` (None: the card).
-        `draws` gives R when none was loaded (default: a generator on the
-        device seeded by `seed`)."""
-        if distributed:
-            raise NotImplementedError(
-                "a distributed LSH index waits for the distributed linear "
-                "algebra tier (ROADMAP.md Queue 1 item 12c)")
+    def index(self, data, device=None, distributed=None, draws=None):
+        """Hash the corpus [n, inDimension] on `device` (None: the card, or
+        the mesh's under NCCL), through the distributed projection when
+        `distributed` (default: when a mesh is set). `draws` gives R when
+        none was loaded (default: a generator on the device seeded by
+        `seed`)."""
+        if distributed is None:
+            distributed = self.mesh is not None
+        if distributed and self.mesh is None:
+            raise ValueError("a distributed index needs a mesh: "
+                             "RandomProjectionLSH(..., mesh=build_mesh())")
+        if device is None and distributed:
+            device = self.mesh.device
         dev = resolve_device(device)
         Xh = _as_matrix(data).astype(np.float32)
         if Xh.shape[1] != self.inDimension:
@@ -86,7 +105,7 @@ class RandomProjectionLSH:
                               self.numTables * self.hashLength))
             self._R = self._R.to(dev)
             X = torch.from_numpy(Xh).to(dev)
-            codes = self._codes(X)
+            codes = self._codes(X, distributed)
         self._tables = []
         for t in range(self.numTables):
             col = codes[:, t]

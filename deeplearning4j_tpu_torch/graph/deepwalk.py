@@ -22,13 +22,6 @@ from deeplearning4j_tpu_torch.nlp.word2vec import (Word2Vec,
 __all__ = ["Graph", "GraphLoader", "DeepWalk"]
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh-sharded product waits for the distributed linear "
-            "algebra tier (ROADMAP.md Queue 1 item 12c)")
-
-
 class Graph:
     """Undirected-by-default adjacency graph, optionally edge-weighted
     (reference: org.deeplearning4j.graph.graph.Graph; weighted walks:
@@ -279,18 +272,40 @@ class DeepWalk:
         W = self._w2v._matrix()
         return W[[self._w2v.vocab[str(v)] for v in range(self._n)]]
 
+    def _rows(self, E, mesh):
+        """E row-sharded over `mesh`'s data axis (never padded: the vertex
+        count must divide it), on the mesh's card under NCCL, else the
+        fit's device."""
+        from deeplearning4j_tpu_torch.linalg import (DistributedMatrix,
+                                                     ROW_AXIS)
+
+        dev = mesh.device if mesh.device is not None \
+            else self._w2v._device(None)
+        return DistributedMatrix(E, mesh, row_axis=ROW_AXIS, device=dev)
+
     def embeddingGram(self, mesh=None) -> np.ndarray:
-        """E^T E [vectorSize, vectorSize] of the vertex embeddings (a
-        `mesh` waits for item 12c)."""
-        _no_mesh(mesh)
+        """E^T E [vectorSize, vectorSize] of the vertex embeddings. With a
+        `mesh` the reduction runs over row-sharded embeddings
+        (``linalg.gram``: one all-reduce over the data axis); without, a
+        local product."""
         E = self.embeddings()
-        return E.T @ E
+        if mesh is None:
+            return E.T @ E
+        from deeplearning4j_tpu_torch import linalg
+
+        return linalg.gram(self._rows(E, mesh)).toNumpy()
 
     def similarityMatrix(self, mesh=None) -> np.ndarray:
-        """All-pairs cosine similarity [n, n] of the vertex embeddings (a
-        `mesh` waits for item 12c)."""
-        _no_mesh(mesh)
+        """All-pairs cosine similarity [n, n] of the vertex embeddings.
+        With a `mesh`: ``linalg.matmul(transpose_b=True)`` (rows sharded,
+        one all-gather of the normalised embeddings), gathered to the
+        host."""
         E = self.embeddings()
         En = E / np.maximum(np.linalg.norm(E, axis=1, keepdims=True),
                             1e-12)
-        return En @ En.T
+        if mesh is None:
+            return En @ En.T
+        from deeplearning4j_tpu_torch import linalg
+
+        dE = self._rows(En, mesh)
+        return linalg.matmul(dE, dE, transpose_b=True).toNumpy()

@@ -258,10 +258,13 @@ class INDArray:
         return self._t
 
     def distribute(self, mesh, row_axis="data", col_axis=None):
-        raise NotImplementedError(
-            "distribute (linalg.DistributedMatrix, the distributed matrix "
-            "tier over a device mesh) waits for the linalg slice "
-            "(ROADMAP.md Queue 1 item 12c)")
+        """-> ``linalg.DistributedMatrix`` of this 2-D array over `mesh`:
+        this rank's block of it, on this array's device (rows over
+        `row_axis`, columns over `col_axis`; never padded)."""
+        from deeplearning4j_tpu_torch.linalg import DistributedMatrix
+
+        return DistributedMatrix(self._t, mesh, row_axis=row_axis,
+                                 col_axis=col_axis)
 
     def castTo(self, dtype) -> "INDArray":
         return INDArray(self._t.to(resolve(dtype)))

@@ -12,8 +12,8 @@ lists of tensors (``network_step`` flattens a network's).
 - ``CONJUGATE_GRADIENT`` is truncated Newton-CG (``_NewtonCG``): solve
   (H + damping I) d = -g by linear CG with Hessian-vector products from
   a double backward, then Armijo-backtrack from the Newton step. The
-  linear CG is the port's copy of the reference's ``linalg/solvers.py``
-  ``cg`` core (``_vdot``, ``_axpy``, ``cg``). Unlike the reference's, the
+  linear CG is ``linalg.cg``, as the reference's routes through its
+  ``linalg/solvers.py``. Unlike the reference's, the
   inner solve stops at a direction of negative curvature (the
   truncated-Newton rule): on the reference test's two-layer regression,
   whose Hessian is indefinite, the reference's step stalls near loss 1.9
@@ -36,8 +36,6 @@ never move (``network_step`` keeps them as they were).
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -66,7 +64,7 @@ class OptimizationAlgorithm:
 
 
 # ----------------------------------------------------------------------
-# the linear CG core (the reference's linalg/solvers.py cg, on lists)
+# flat parameter lists
 # ----------------------------------------------------------------------
 
 def _vdot(a, b):
@@ -76,62 +74,6 @@ def _vdot(a, b):
         v = torch.vdot(x.reshape(-1), y.reshape(-1))
         out = v if out is None else out + v
     return out if out is not None else torch.zeros(())
-
-
-def _axpy(alpha, x, y):
-    """y + alpha * x, leafwise, keeping y's dtypes."""
-    return [(yi + alpha * xi).to(yi.dtype) for xi, yi in zip(x, y)]
-
-
-class CGResult:
-    """Solution and convergence diagnostics of one CG solve."""
-
-    def __init__(self, x, iterations, residual_norm, converged):
-        self.x = x
-        self.iterations = iterations
-        self.residual_norm = residual_norm
-        self.converged = converged
-
-
-def cg(matvec, b, x0=None, *, tol=1e-5, atol=0.0, maxiter=None, M=None):
-    """Conjugate gradients for S x = b, S symmetric positive
-    (semi-)definite, given only the matvec; b and x are lists of
-    tensors, `M` an optional preconditioner matvec. Stops when ||r|| <=
-    max(tol * ||b||, atol) or at maxiter (the reference's loop, its
-    test read on the host each iteration), and, keeping the iterate so
-    far, at a direction p with p'Sp <= 0, which a positive definite S
-    never gives (for an indefinite S: the truncated-Newton rule)."""
-    if maxiter is None:
-        maxiter = sum(t.numel() for t in b) or 1
-    maxiter = int(maxiter)
-    if maxiter < 1:
-        raise ValueError(f"maxiter must be >= 1, got {maxiter}")
-    precond = (lambda v: v) if M is None else M
-    x = [torch.zeros_like(t) for t in b] if x0 is None else x0
-    b_norm = torch.sqrt(_vdot(b, b))
-    thresh2 = float(torch.clamp(tol * b_norm, min=atol) ** 2)
-    r = [bi - mi for bi, mi in zip(b, matvec(x))]
-    z = precond(r)
-    p = z
-    gamma = _vdot(r, z)
-    rr = float(_vdot(r, r))
-    k = 0
-    while rr > thresh2 and k < maxiter:
-        mp = matvec(p)
-        curv = _vdot(p, mp)
-        if float(curv) <= 0:
-            break
-        alpha = gamma / curv
-        x = _axpy(alpha, p, x)
-        r = _axpy(-alpha, mp, r)
-        z = precond(r)
-        gamma_new = _vdot(r, z)
-        beta = gamma_new / gamma
-        p = [(zi + beta * pi).to(pi.dtype) for zi, pi in zip(z, p)]
-        gamma = gamma_new
-        rr = float(_vdot(r, r))
-        k += 1
-    return CGResult(x, k, math.sqrt(rr), rr <= thresh2)
 
 
 def _grad(value, leaves, create_graph=False):
@@ -215,6 +157,10 @@ class _NewtonCG:
                 h = torch.zeros_like(p) if h is None else h.detach()
                 out.append((h + lam * vi).to(vi.dtype))
             return out
+
+        # lazy: nn imports this module for the OptimizationAlgorithm
+        # constants, which must not pull the linalg package in
+        from deeplearning4j_tpu_torch.linalg.solvers import cg
 
         g = [gi.detach() for gi in grads]
         d = cg(hvp, [-gi for gi in g], tol=1e-4,

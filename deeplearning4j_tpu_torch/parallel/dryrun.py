@@ -27,6 +27,16 @@ and the mesh axes' legs, with the reference's shapes (:82-184 there):
 * "pipeline": ``PipelineParallel`` of ``tiny_mlp(body=min(4, n))`` on
   ``{data: n/pp, pipe: pp}``, 4 microbatches, one step.
 
+and the linalg leg (:437-475 there):
+
+* "linalg": SUMMA GEMM and the Gram of a [8dp, 8dp·tp] x [8dp·tp, 4tp]
+  pair block-sharded on ``{data: dp, model: tp}`` (tp 2 at an even world
+  of 4 or more, else 1), and CG least squares of a tall [32dp, 8] matrix
+  row-sharded over the data axis, each against numpy at the reference's
+  bars and each run under ``analysis.collectives.verify_program``
+  (executed: COL01 across the ranks, COL06 on the ring) against its
+  ``linalg_contract``.
+
 Each leg checks its losses are finite and the params (whole, gathered)
 bitwise equal on every rank. ``signature_leg`` (not a default leg)
 records one step's collective signature for the static analyzer's COL
@@ -43,7 +53,7 @@ import torch
 from deeplearning4j_tpu_torch.parallel import collectives as _coll
 from deeplearning4j_tpu_torch.parallel import mesh as _mesh
 
-__all__ = ["DP_LEGS", "AXIS_LEGS", "SYNC_BN_F32_ATOL", "tiny_mlp", "dryrun_multichip", "bn_cnn",
+__all__ = ["DP_LEGS", "AXIS_LEGS", "LINALG_LEGS", "SYNC_BN_F32_ATOL", "tiny_mlp", "dryrun_multichip", "bn_cnn",
            "bn_cnn_batch", "sync_bn_leg", "params_vector", "signature_leg",
            "signature_legs"]
 
@@ -56,6 +66,11 @@ SYNC_BN_F32_ATOL = 1e-6
 DP_LEGS = ("resnet50_dp", "int8", "averaging", "threshold", "sync_bn")
 #: the mesh axes' legs (not run by default: ``legs=`` names them)
 AXIS_LEGS = ("tp", "sequence", "pipeline")
+#: the distributed linear algebra leg (not run by default either)
+LINALG_LEGS = ("linalg",)
+#: the reference dry run's bars against numpy: (rtol, atol)
+LINALG_BARS = {"gemm": (2e-4, 1e-4), "gram": (2e-4, 2e-3),
+               "lstsq": (5e-3, 5e-3)}
 
 
 def params_vector(net):
@@ -400,8 +415,64 @@ def _leg_pipeline(rank, world, device):
             "comm": dict(trainer.last_step, mesh=mesh.shape)}
 
 
+def _leg_linalg(rank, world, device):
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.analysis import collectives as _colan
+
+    tp = 2 if world % 2 == 0 and world >= 4 else 1
+    dp = world // tp
+    mesh = _mesh.build_mesh({_mesh.DATA_AXIS: dp, _mesh.MODEL_AXIS: tp})
+    group = _mesh.data_parallel_mesh()
+    rng = np.random.RandomState(9)
+    A = rng.randn(8 * dp, 8 * dp * tp).astype(np.float32)
+    B = rng.randn(8 * dp * tp, 4 * tp).astype(np.float32)
+    At = rng.randn(32 * dp, 8).astype(np.float32)
+    bt = rng.randn(32 * dp).astype(np.float32)
+    dA, dB = (linalg.DistributedMatrix(m, mesh, _mesh.DATA_AXIS,
+                                       _mesh.MODEL_AXIS, device=device)
+              for m in (A, B))
+    dA1 = linalg.DistributedMatrix(At, mesh, _mesh.DATA_AXIS,
+                                   device=device)
+    got, comm = {}, {}
+    runs = (("gemm", lambda: linalg.matmul(dA, dB),
+             _colan.linalg_contract("matmul2d", ring=tp)),
+            ("gram", lambda: linalg.gram(dA),
+             _colan.linalg_contract("gram")),
+            ("lstsq", lambda: linalg.lstsq(dA1, bt, tol=1e-7), None))
+    for name, fn, contract in runs:
+        rep = _colan.verify_program(
+            lambda: got.__setitem__(name, fn()), mesh=mesh.shape,
+            group=group if world > 1 else None, contract=contract,
+            execute=True, subject=f"linalg.{name}")
+        if name == "lstsq":
+            rep.extend(_colan.linalg_contract(
+                "lstsq", iterations=got[name].iterations).check(
+                    rep.signature))
+        if world > 1 and not rep.ok:
+            raise AssertionError(rep.format())
+        comm[name] = rep.signature.counts()
+    res = got["lstsq"]
+    if not res.converged:
+        raise AssertionError(f"lstsq CG did not converge (residual "
+                             f"{res.residual_norm})")
+    C, G = got["gemm"].toNumpy(), got["gram"].toNumpy()
+    x = res.x.cpu().numpy()
+    for name, have, want in (("gemm", C, A @ B), ("gram", G, A.T @ A),
+                             ("lstsq", x,
+                              np.linalg.lstsq(At, bt, rcond=None)[0])):
+        rtol, atol = LINALG_BARS[name]
+        np.testing.assert_allclose(have, want, rtol=rtol, atol=atol,
+                                   err_msg=f"sharded {name} diverged "
+                                           "from numpy")
+    comm.update(mesh=mesh.shape, cg_iterations=res.iterations)
+    return {"loss": res.residual_norm,
+            "vector": np.concatenate([C.ravel(), G.ravel(),
+                                      x.ravel()]).astype(np.float64),
+            "comm": comm}
+
+
 _AXIS_LEGS = {"tp": _leg_tp, "sequence": _leg_sequence,
-              "pipeline": _leg_pipeline}
+              "pipeline": _leg_pipeline, "linalg": _leg_linalg}
 
 
 def _dryrun_rank(rank, world, device, legs):
@@ -433,18 +504,19 @@ def _dryrun_rank(rank, world, device, legs):
 
 def dryrun_multichip(n_devices, device=None, legs=DP_LEGS, timeout=600.0,
                      backend=None):
-    """Run `legs` (the data-parallel legs by default; "tp", "sequence"
-    and "pipeline" when named) on `n_devices` ranks
+    """Run `legs` (the data-parallel legs by default; "tp", "sequence",
+    "pipeline" and "linalg" when named) on `n_devices` ranks
     (``multihost.launch``; `device` None means the cards, NCCL; `backend`
     as ``launch`` takes it). Raises unless every leg's loss is finite and
     its params are equal on every rank; returns rank 0's results."""
     from deeplearning4j_tpu_torch.parallel.multihost import launch
 
     legs = tuple(legs)
-    unknown = [leg for leg in legs if leg not in DP_LEGS + AXIS_LEGS]
+    known = DP_LEGS + AXIS_LEGS + LINALG_LEGS
+    unknown = [leg for leg in legs if leg not in known]
     if unknown:
         raise ValueError(f"unknown dry-run legs {unknown}; pick from "
-                         f"{DP_LEGS + AXIS_LEGS}")
+                         f"{known}")
     results = launch(_dryrun_rank, int(n_devices), device=device,
                      backend=backend, timeout=timeout, args=(legs,))
     for rank, res in enumerate(results):

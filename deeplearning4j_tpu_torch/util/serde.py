@@ -54,8 +54,7 @@ _NET_EXTRA = {"activationCheckpointing": False}
 
 
 def _waits_for(mod_name):
-    return ("the classes that wait are ROADMAP.md Queue 1 items 7 and "
-            "12c")
+    return "the classes that wait are ROADMAP.md Queue 1 item 7's"
 
 
 def _ref_defaults(obj):

@@ -714,7 +714,7 @@ class YOLO2(ZooModel):
             return name
 
         # Darknet19 backbone (convs 1-18); conv13 output is the
-        # passthrough tap (512ch at 2x the head's grid)
+        # passthrough tap (512 channels at 2x the head's grid)
         x = pool(conv_bn("input", 32, 3))
         x = pool(conv_bn(x, 64, 3))
         x = conv_bn(conv_bn(conv_bn(x, 128, 3), 64, 1), 128, 3)

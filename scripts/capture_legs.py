@@ -13,8 +13,10 @@ captured training, autotune, the ledger), 4 (phases 4-5), 12, 18, 24
 (the whole phase), 24a-24e (the zoo, PAR06 against the card, validation
 bitwise, the chaos soak, collectives), 7 (the encoder, its remat leg
 included), 13 (after phase 9(b)'s 20 steps, whose losses it holds dense
-to), 15f (the remat A/B) and 25 (the mesh axes, after phase 7, whose
-losses 25(b) holds). TF32 is off, as chip_smoke.py's main sets
+to), 15f (the remat A/B), 25 (the mesh axes, after phase 7, whose
+losses 25(b) holds) and 26 (distributed linear algebra; 26a its world-1
+canonical plans, 26c its consumers, 26b its NCCL legs alone on 4 cards
+then on 2, as many as are visible; 26 runs (b) over the cards it sees). TF32 is off, as chip_smoke.py's main sets
 it. Exits 1 if a leg failed, 2 without a CUDA card.
 """
 
@@ -39,6 +41,18 @@ def main(which):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     _kernels.library()
+
+    def linalg_nccl():
+        """26(b) alone over NCCL: on 4 cards, then on 2 (as many as are
+        visible)."""
+        from deeplearning4j_tpu_torch.parallel import launch
+
+        for w in (4, 2):
+            if torch.cuda.device_count() >= w:
+                res = launch(cs.linalg_multi_rank, w, timeout=600,
+                             args=(cs.LINALG_MULTI,))
+                print(f"26(b) world {w}: {res[0]}", flush=True)
+
     legs = {
         "23": lambda: cs.capture_phase(dev),
         "23a": lambda: cs.capture_decode(dev, cs.CAPTURE_DECODE),
@@ -61,6 +75,11 @@ def main(which):
         "15f": lambda: cs.remat_ab(dev),
         "25": lambda: cs.mesh_axes_phase(
             dev, cs.train_and_check(dev, cs.BERT_BASE)),
+        "26": lambda: cs.linalg_phase(dev),
+        "26a": lambda: (cs.linalg_gemm(dev, cs.LINALG_GEMM),
+                        cs.linalg_tall(dev, cs.LINALG_TALL)),
+        "26c": lambda: cs.linalg_consumers(dev, cs.LINALG_CONSUMERS),
+        "26b": linalg_nccl,
     }
     ok = True
     for name in which or ["23"]:

@@ -1474,3 +1474,210 @@ def tp_card_rank(rank, world, device, steps=3):
             "calls": {"resnet": dict(res._tp.calls),
                       "bn_cnn": dict(cnn._tp.calls)},
             "scores": [res.score(), cnn.score()]}
+
+
+# ----------------------------------------------------------------------
+# distributed linear algebra (tests/test_torch_linalg.py)
+# ----------------------------------------------------------------------
+
+class FixedDraws:
+    """A ``util.draws.Draws`` stand-in answering the two draws the linalg
+    consumers take with given values: rsvd's sketch Omega and k-means'
+    first centre."""
+
+    def __init__(self, omega=None, first=None):
+        self.omega, self.first = omega, first
+
+    def normal(self, what, shape, *index):
+        assert what == "linalg.rsvd.omega"
+        assert tuple(shape) == self.omega.shape, (shape, self.omega.shape)
+        return torch.from_numpy(self.omega)
+
+    def randint(self, what, high, *index):
+        assert what == "kmeans.first"
+        return int(self.first)
+
+
+def _linalg_values(g, data, tag, mesh22, mesh4, dm):
+    """Every routine on {data: 2, model: 2} and {data: 4} at one dtype:
+    the results gathered to numpy."""
+    from deeplearning4j_tpu_torch import linalg
+
+    D, M = "data", "model"
+    res = {}
+    C = linalg.matmul(dm(g["A1"], mesh22, D, M), dm(g["B1"], mesh22, D, M))
+    res["summa2d"], res["summa2d_spec"] = C.toNumpy(), C.spec
+    res["summa1d"] = linalg.matmul(dm(g["A1"], mesh4),
+                                   dm(g["B1"], mesh4)).toNumpy()
+    res["replb1d"] = linalg.matmul(dm(g["A1"], mesh4), g["B1"]).toNumpy()
+    res["replb2d"] = linalg.matmul(dm(g["A1"], mesh22, D, M),
+                                   g["B1"]).toNumpy()
+    dA, dB = dm(g["A2"], mesh4), dm(g["B2"], mesh4)
+    ta = linalg.matmul(dA, dB, transpose_a=True)
+    tb = linalg.matmul(dA, dA, transpose_b=True)
+    res["ta"], res["ta_replicated"] = ta.toNumpy(), ta.is_replicated()
+    res["tb"], res["tb_row_axis"] = tb.toNumpy(), tb.row_axis
+    C = linalg.matmul(dm(g["A3"], mesh4), dm(g["B3"], mesh4, None))
+    res["repl_dm"], res["repl_dm_row_axis"] = C.toNumpy(), C.row_axis
+    res["gram1d"] = linalg.gram(dm(g["A4"], mesh4)).toNumpy()
+    res["gram2d"] = linalg.gram(dm(g["A4"], mesh22, D, M)).toNumpy()
+    res["cov"] = linalg.covariance(dm(g["A5"], mesh4)).toNumpy()
+    res["pairwise"] = linalg.pairwise_sq_dists(dm(g["A6"], mesh4),
+                                               g["B6"]).toNumpy()
+    for name, a, b, kw in (("lstsq", dm(g["A7"], mesh4), g["b7"], {}),
+                           ("ridge", dm(g["A7"], mesh4), g["b7"],
+                            {"l2": 0.5}),
+                           ("multi", dm(g["A8"], mesh22, D, M), g["B8"],
+                            {})):
+        r = linalg.lstsq(a, b, tol=1e-7, **kw)
+        res[name] = (r.x.numpy(), r.iterations, r.converged)
+    U, s, Vt = linalg.rsvd(dm(g["A9"], mesh4), 5, n_iter=4,
+                           draws=FixedDraws(data["omega9"][tag]))
+    res["rsvd"] = (U.toNumpy(), s.numpy(), Vt.numpy())
+    comps, ev, mu = linalg.pca(dm(g["A10"], mesh4), 3,
+                               draws=FixedDraws(data["omega10"][tag]))
+    res["pca"] = (comps.numpy(), ev.numpy(), mu.numpy())
+    return res
+
+
+def _linalg_contracts(g, mesh22, mesh4, dm):
+    """Each routine's executed signature against its linalg_contract
+    (COL01 across the ranks, COL04, COL06), its wire bytes beside the
+    plan's, and the record-only counts of the SUMMA and Gram programs."""
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.analysis import collectives as colan
+    from deeplearning4j_tpu_torch.parallel import data_parallel_mesh
+
+    D, M = "data", "model"
+    world = data_parallel_mesh()
+    dA22, dB22 = dm(g["A1"], mesh22, D, M), dm(g["B1"], mesh22, D, M)
+    dA4, dB4 = dm(g["A1"], mesh4), dm(g["B1"], mesh4)
+    dT = dm(g["A7"], mesh4)
+    got, out = {}, {}
+    runs = (("matmul2d", lambda: linalg.matmul(dA22, dB22), {"ring": 2},
+             mesh22),
+            ("matmul1d", lambda: linalg.matmul(dA4, dB4), {"ring": 4},
+             mesh4),
+            ("matmul_ta", lambda: linalg.matmul(dA4, dA4, transpose_a=True),
+             {}, mesh4),
+            ("matmul_tb", lambda: linalg.matmul(dA4, dA4, transpose_b=True),
+             {}, mesh4),
+            ("gram", lambda: linalg.gram(dA22), {}, mesh22),
+            ("covariance", lambda: linalg.covariance(dA4), {}, mesh4),
+            ("pairwise_sq_dists",
+             lambda: linalg.pairwise_sq_dists(dA4, g["A1"][:3]), {}, mesh4),
+            ("lstsq", lambda: linalg.lstsq(dT, g["b7"], tol=1e-7), None,
+             mesh4),
+            ("rsvd", lambda: linalg.rsvd(dm(g["A9"], mesh4), 5, n_iter=4),
+             None, mesh4))
+    for name, fn, pin, mesh in runs:
+        rep = colan.verify_program(
+            lambda: got.__setitem__(name, fn()), mesh=mesh.shape,
+            group=world, execute=True, subject=name)
+        if name == "lstsq":
+            pin = {"iterations": got[name].iterations}
+        if pin is not None:
+            rep.extend(colan.linalg_contract(name, **pin).check(
+                rep.signature))
+        out[name] = {"codes": rep.codes(), "ok": rep.ok,
+                     "counts": rep.signature.counts(),
+                     "wire": rep.signature.wire_bytes(),
+                     "ranks_agree": len(set(map(tuple,
+                                                rep.rank_signatures))) == 1}
+    out["lstsq"]["iterations"] = got["lstsq"].iterations
+    out["record_only"] = {
+        "summa2d": linalg.collective_counts(
+            lambda: linalg.matmul(dA22, dB22)),
+        "gram2d": linalg.collective_counts(lambda: linalg.gram(dA22)),
+        "gram_rows": linalg.collective_counts(
+            lambda: linalg.gram(dm(g["A1"], mesh22, D)))}
+    return out
+
+
+def _linalg_placement(g, mesh22, mesh4, dm, device):
+    """Blocks, metadata, replicate, INDArray.distribute, and the capture
+    refusals of multi-rank entries."""
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.linalg import distributed as LD
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+
+    dA = dm(g["A1"], mesh22, "data", "model")
+    out = {"coords": dict(mesh22.coords), "block": dA.tensor().numpy(),
+           "block_shape": dA.block_shape(),
+           "per_chip_bytes": dA.per_chip_bytes(),
+           "whole": dA.toNumpy()}
+    r = dm(g["A2"], mesh4).replicate()
+    out["replicated"], out["replicate"] = r.is_replicated(), r.toNumpy()
+    G = linalg.gram(Nd4j.create(g["A4"], device=device).distribute(mesh4))
+    out["distribute_gram"] = G.toINDArray().toNumpy()
+    out["precompile"] = linalg.precompile(mesh4, 16, 8, 4, device=device)
+    step = LD._entry("matmul1d", mesh4, ("data",), None)
+    before = step.uncaptured
+    linalg.matmul(dm(g["A1"], mesh4), dm(g["B1"], mesh4))
+    out["refused_dispatches"] = step.uncaptured - before
+    out["refusal"] = step.refusal
+    return out
+
+
+def _linalg_consumers(data, mesh4, device):
+    """Sharded k-means, LSH's distributed projection and DeepWalk's mesh
+    products on {data: 4}, beside the same routines unsharded."""
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering.lsh import RandomProjectionLSH
+    from deeplearning4j_tpu_torch.graph.deepwalk import DeepWalk, Graph
+
+    X = data["kmeans_X"]
+    out = {}
+    local = KMeansClustering.setup(3, seed=1).applyTo(X, device=device)
+    shard = KMeansClustering.setup(3, seed=1, mesh=mesh4).applyTo(
+        X, device=device)
+    ref_first = KMeansClustering.setup(3, seed=1, mesh=mesh4).applyTo(
+        X, device=device, draws=FixedDraws(first=data["kmeans_first"]))
+    out["kmeans"] = {n: (c.getAssignments(), c.inertia, c.getCenters())
+                     for n, c in (("local", local), ("shard", shard),
+                                  ("ref_first", ref_first))}
+    try:
+        KMeansClustering.setup(3, seed=1, mesh=mesh4).applyTo(
+            X[:90], device=device)
+        out["kmeans_pad"] = "no error"
+    except ValueError as e:
+        out["kmeans_pad"] = str(e)
+    L = data["lsh_X"]
+    lsh = RandomProjectionLSH(10, 3, 6, seed=2, mesh=mesh4) \
+        .load_reference_params(data["lsh_R"]).index(L, device=device)
+    out["lsh"] = ([sorted(t) for t in lsh._tables], lsh.search(L[7], 5))
+    g = Graph(8)
+    for a in range(8):
+        g.addEdge(a, (a + 1) % 8)
+    dw = DeepWalk.Builder().vectorSize(8).windowSize(2).seed(1).build()
+    dw.fit(g, walkLength=6, walksPerVertex=2, iterations=1, device=device)
+    E = dw.embeddings()
+    out["deepwalk"] = (E, dw.embeddingGram(mesh=mesh4),
+                       dw.similarityMatrix(mesh=mesh4),
+                       dw.similarityMatrix())
+    return out
+
+
+def linalg_rank(rank, world, device, data):
+    """The linalg tier on {data: 2, model: 2} and {data: 4}: every
+    routine in f64 and f32 (``data["inputs"]``), the contracts, the
+    placement, and the consumers."""
+    from deeplearning4j_tpu_torch import linalg
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    torch.set_num_threads(1)
+    mesh22 = build_mesh({"data": 2, "model": 2})
+    mesh4 = build_mesh({"data": 4})
+
+    def dm(a, mesh, r="data", c=None):
+        return linalg.DistributedMatrix(a, mesh, r, c, device=device)
+
+    out = {}
+    for tag, dt in (("f64", np.float64), ("f32", np.float32)):
+        g = {k: v.astype(dt) for k, v in data["inputs"].items()}
+        out[tag] = _linalg_values(g, data, tag, mesh22, mesh4, dm)
+    g32 = {k: v.astype(np.float32) for k, v in data["inputs"].items()}
+    out["contracts"] = _linalg_contracts(g32, mesh22, mesh4, dm)
+    out["placement"] = _linalg_placement(g32, mesh22, mesh4, dm, device)
+    out["consumers"] = _linalg_consumers(data, mesh4, device)
+    return out

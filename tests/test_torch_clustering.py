@@ -68,8 +68,14 @@ def test_kmeans_reference_centres_and_refusals():
                                   want.getAssignments())
     # a fixed point: the second step sees no assignment change
     assert km.iterations == 2 and km.hostFlagReads == 1
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        P.KMeansClustering(3, mesh=object())
+    # the mesh-sharded Lloyd on a one-rank mesh: the same fixed point
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    sharded = P.KMeansClustering.setup(5, 60, mesh=build_mesh()) \
+        .load_reference_params(want.getCenters()).applyTo(X, device="cpu")
+    np.testing.assert_array_equal(sharded.getAssignments(),
+                                  want.getAssignments())
+    assert sharded.inertia == pytest.approx(got.inertia, rel=1e-5)
     with pytest.raises(ValueError, match="cannot form"):
         P.KMeansClustering(500).applyTo(X, device="cpu")
     with pytest.raises(ValueError, match="unsupported"):
@@ -142,11 +148,15 @@ def test_lsh_reference_projection_and_refusals():
     assert [sorted(t) for t in p._tables] == [sorted(t) for t in j._tables]
     with pytest.raises(ValueError, match="shape"):
         P.RandomProjectionLSH(6, 3, 8).load_reference_params(np.zeros((2, 2)))
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    # the distributed projection on a one-rank mesh: the same tables
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    d = P.RandomProjectionLSH(6, 3, 8, mesh=build_mesh()) \
+        .load_reference_params(np.asarray(j._R)).index(X, device="cpu")
+    assert [sorted(t) for t in d._tables] == [sorted(t) for t in j._tables]
+    with pytest.raises(ValueError, match="needs a mesh"):
         P.RandomProjectionLSH(6, 3, 8).index(X, device="cpu",
                                              distributed=True)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        P.RandomProjectionLSH(6, 3, 8, mesh=object())
     with pytest.raises(ValueError, match="62"):
         P.RandomProjectionLSH(63, 1, 8)
     with pytest.raises(ValueError, match="before index"):

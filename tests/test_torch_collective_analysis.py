@@ -17,8 +17,8 @@ the signature its collective choke point records
   recorded ones; a rank that adds one all-reduce is named (COL01) from
   record-only runs, without a hang; a record-only run leaves the
   trainer it ran as it was, so the replicas stay bitwise equal.
-- ``linalg_contract`` names the item that holds it; the hierarchical
-  and sharded contracts are declared.
+- ``linalg_contract`` declares the linalg routines' call counts; the
+  hierarchical and sharded contracts are declared.
 """
 
 import textwrap
@@ -161,8 +161,13 @@ def test_contracts_of_each_mode_and_the_waiting_ones():
         compression_contract("threshold", 8, sharded=True)
     with pytest.raises(ValueError):
         compression_contract("bogus", 8)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        linalg_contract("matmul2d")
+    assert linalg_contract("matmul2d", ring=4).counts == {
+        "all_gather": 1, "ppermute": 3}
+    assert linalg_contract("lstsq", iterations=5).counts == {
+        "all_reduce": 7, "all_gather": (0, 1)}
+    assert linalg_contract("matmul1d").counts == {"ppermute": (1, None)}
+    with pytest.raises(ValueError, match="unknown linalg routine"):
+        linalg_contract("bogus")
 
 
 _RANK_BRANCH = textwrap.dedent('''

@@ -67,10 +67,13 @@ def test_deepwalk_matches_the_reference():
                                rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(dp.similarityMatrix(), dj.similarityMatrix(),
                                atol=1e-4)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        dp.embeddingGram(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        dp.similarityMatrix(mesh=object())
+    # the linalg products on a one-rank mesh: the local products
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    np.testing.assert_allclose(dp.embeddingGram(mesh=build_mesh()),
+                               dp.embeddingGram(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(dp.similarityMatrix(mesh=build_mesh()),
+                               dp.similarityMatrix(), atol=1e-6)
     with pytest.raises(ValueError, match="outside"):
         dp.getVertexVector(99)
 

@@ -653,8 +653,11 @@ def test_executioner_surface(capsys):
         ex.enableProfiling(False)
     assert "[TorchExecutioner]" in capsys.readouterr().out
     ex.commit()
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        P.Nd4j.zeros(2, 2, device=CPU).distribute(None)
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+
+    dm = P.Nd4j.ones(4, 2, device=CPU).distribute(build_mesh())
+    assert dm.shape == (4, 2) and dm.row_axis == "data"
+    np.testing.assert_array_equal(dm.toNumpy(), np.ones((4, 2), np.float32))
 
 
 class TestRandom:

@@ -8,8 +8,9 @@ same path must offer each of them (in its ``__all__``, its top level or
 as a submodule), unless the name is listed below with the ROADMAP.md
 Queue 1 item it waits for; every name the port exports must import.
 ``zoo`` and ``modelimport`` export exactly the reference's ``__all__``.
-The deferred features' messages name the item that now holds them, and
-no message in the port names item 12 but for its parts 12b and 12c.
+The deferred features' messages name the item that now holds them, no
+message in the port names item 12 but for its part 12b, and none names
+12c, which is ported.
 """
 
 import ast
@@ -32,7 +33,7 @@ WAITING = {
         "reduce_scatter_time", "resnet50_scaling"}, "7"),
 }
 #: reference packages with no counterpart yet, with their item
-WAITING_PACKAGES = {"linalg": "12c"}
+WAITING_PACKAGES = {}
 
 
 def _public(path):
@@ -157,19 +158,12 @@ def test_sampled_onehot_feedback_is_the_references():
 def _serde_refusal():
     from deeplearning4j_tpu_torch.util import serde
 
-    serde.decode({"__o": "deeplearning4j_tpu.linalg.distributed:"
-                         "DistributedMatrix", "attrs": {}}, [])
-
-
-def _distribute():
-    from deeplearning4j_tpu_torch.ndarray import Nd4j
-
-    Nd4j.zeros(2, 2, device="cpu").distribute(None)
+    serde.decode({"__o": "deeplearning4j_tpu.parallel.costmodel:"
+                         "ChipSpec", "attrs": {}}, [])
 
 
 DEFERRED = {
-    "serde": (_serde_refusal, r"items 7 and 12c\)"),
-    "distribute": (_distribute, r"item 12c"),
+    "serde": (_serde_refusal, r"item 7's\)"),
 }
 
 
@@ -178,6 +172,37 @@ def test_deferred_features_name_their_item(what):
     call, item = DEFERRED[what]
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+def test_distribute_runs():
+    """``INDArray.distribute`` (item 12c, ported) places the array over a
+    mesh: a one-rank mesh's block is the whole array, and a decoded
+    reference ``DistributedMatrix`` names the port's class."""
+    from deeplearning4j_tpu_torch.linalg import DistributedMatrix, gram
+    from deeplearning4j_tpu_torch.ndarray import Nd4j
+    from deeplearning4j_tpu_torch.parallel import build_mesh
+    from deeplearning4j_tpu_torch.util import serde
+
+    import numpy as np
+
+    a = np.arange(12, dtype=np.float32).reshape(6, 2)
+    dm = Nd4j.create(a, device="cpu").distribute(build_mesh())
+    assert isinstance(dm, DistributedMatrix) and dm.spec == ("data", None)
+    np.testing.assert_array_equal(gram(dm).toNumpy(), a.T @ a)
+    obj = serde.decode({"__o": "deeplearning4j_tpu.linalg.distributed:"
+                               "DistributedMatrix", "attrs": {}}, [])
+    assert type(obj) is DistributedMatrix
+
+
+def test_no_message_in_the_port_names_item_12c():
+    """Item 12c (``linalg/``) is ported: no file of the port names it."""
+    bad = []
+    for path in sorted((_ROOT / _PORT).rglob("*.py")):
+        text = path.read_text()
+        for m in re.finditer(r"12c", text):
+            bad.append(f"{path.relative_to(_ROOT)}:"
+                       f"{text.count(chr(10), 0, m.start()) + 1}")
+    assert not bad, bad
 
 
 def test_docstrings_name_the_items_that_hold_them():
@@ -194,8 +219,8 @@ def test_docstrings_name_the_items_that_hold_them():
 
 
 def test_no_message_in_the_port_names_item_12_for_a_ported_feature():
-    """Item 12a is ported; the port names item 12 only as 12b or 12c,
-    and the importers' stub ``_item12`` is gone."""
+    """Item 12a is ported; the port names item 12 only as 12b, and the
+    importers' stub ``_item12`` is gone."""
     bad = []
     for path in sorted((_ROOT / _PORT).rglob("*.py")):
         text = path.read_text()

@@ -378,7 +378,7 @@ class TestReviewRegressions:
             back.fit(x, y)
             twin.fit(x, y)
         assert torch.equal(back.params().tensor(), twin.params().tensor())
-        with pytest.raises(NotImplementedError, match="items 7 and 12c"):
+        with pytest.raises(NotImplementedError, match="item 7's"):
             serde.decode({"__o": "deeplearning4j_tpu.parallel.overlap:X",
                           "attrs": {}}, [])
 

@@ -624,8 +624,8 @@ def test_cli_exit_codes(tmp_path, capsys):
     assert main([str(bad)]) == 1
     assert main([]) == 2
     assert main(["--codes"]) == 0
-    assert main(["--linalg"]) == 2
-    assert "item 12c" in capsys.readouterr().err
+    assert main(["--linalg", "--hbm-gb", "16"]) == 0
+    assert "linalg@data4xmodel2" in capsys.readouterr().out
     conf = _conf_ok(P)
     p = tmp_path / "model.json"
     p.write_text(conf.toJson())
